@@ -1,0 +1,43 @@
+"""Architecture registry, PyTorch port of ``src/repro/configs/base.py``.
+
+Each entry carries the FULL config and a reduced SMOKE config of the same
+family. Only gpt2 is ported so far.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Dict
+
+from repro_torch.models.config import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    config: ModelConfig
+    smoke: ModelConfig
+
+
+_REGISTRY: Dict[str, ArchSpec] = {}
+_ARCH_MODULES = ["gpt2"]
+
+
+def register(name: str, spec: ArchSpec):
+    _REGISTRY[name] = spec
+
+
+def _load():
+    for m in _ARCH_MODULES:
+        importlib.import_module(f"repro_torch.configs.{m}")
+
+
+def get(name: str) -> ArchSpec:
+    _load()
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; ported: {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def list_archs():
+    _load()
+    return sorted(_REGISTRY)

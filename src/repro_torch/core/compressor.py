@@ -1,0 +1,308 @@
+"""Error-feedback 1-bit compression building blocks (paper Eq. 4,
+Algorithm 2), PyTorch port of ``src/repro/core/compressor.py``.
+
+A leaf's *comm view* is
+
+    natural leaf (.., A, ..)  --pad/move/reshape-->  view (n, A_pad/n, *rest)
+
+where ``n`` is the worker count and the leading axis enumerates the chunks
+of the chunked AllReduce (worker j serves chunk j). The layout is chosen
+per leaf from its tensor-parallel spec (:func:`make_layout`), so views,
+EF state and wire bytes match the reference leaf for leaf.
+
+Tensors here carry any number of leading worker dims before the view
+(a simulated run stacks its n workers on dim 0); layout metadata is plain
+numpy. Only ``scale_mode="tensor"`` (the paper's Eq. 4) and unsharded
+leaves are ported so far.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+ScaleMode = str
+SCALE_MODES = ("tensor",)
+
+
+def validate_scale_mode(mode: ScaleMode) -> ScaleMode:
+    if mode not in SCALE_MODES:
+        raise NotImplementedError(
+            f"scale_mode {mode!r} is not ported yet (only {SCALE_MODES}); "
+            f"chunk and row scales come with a later slice of the port")
+    return mode
+
+
+# ---------------------------------------------------------------------------
+# Leaf layouts (static metadata, identical to the reference)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LeafLayout:
+    shape: Tuple[int, ...]        # natural (unpadded) leaf shape
+    n: int                        # worker count (number of chunks)
+    flatten: bool                 # True -> leaf treated as 1-D
+    split_axis: int               # axis chunked across workers
+    padded: int                   # split axis size after padding
+    view_shape: Tuple[int, ...]   # (n, padded//n, *rest)
+    rest_factor: int = 1
+    n_inner: int = 1
+
+    @property
+    def pad(self) -> int:
+        base = (int(np.prod(self.shape)) if self.flatten
+                else self.shape[self.split_axis])
+        return self.padded - base
+
+    @property
+    def chunk_shape(self) -> Tuple[int, ...]:
+        return self.view_shape[1:]
+
+    @property
+    def pack_count(self) -> int:
+        return self.view_shape[-1]
+
+    @property
+    def n_outer(self) -> int:
+        return self.n // self.n_inner
+
+    @property
+    def slice_shape(self) -> Tuple[int, ...]:
+        return (self.n_outer,) + self.chunk_shape
+
+    @property
+    def ef_worker_shape(self) -> Tuple[int, ...]:
+        return self.slice_shape
+
+
+def _is_sharded(spec, axis: int) -> bool:
+    if spec is None:
+        return False
+    entries = tuple(spec)
+    return axis < len(entries) and entries[axis] is not None
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def make_layout(shape: Sequence[int], spec, n: int) -> LeafLayout:
+    """Comm view of a leaf whose tensor-parallel spec is ``spec`` (a tuple
+    of per-axis entries, None entries replicated, or None).
+
+    Replicated leaves flatten and pad to an ``n*128`` quantum; a leaf with
+    a sharded axis splits along its largest unsharded axis. With no tensor
+    parallelism running the spec still decides the view, exactly as in
+    the reference, so layouts compare leaf for leaf."""
+    shape = tuple(int(s) for s in shape)
+    replicated = spec is None or all(e is None for e in tuple(spec))
+    if len(shape) == 0:
+        padded = _round_up(1, n * 128)
+        return LeafLayout(shape=(), n=n, flatten=True, split_axis=0,
+                          padded=padded, view_shape=(n, padded // n))
+    if replicated:
+        padded = _round_up(int(np.prod(shape)), n * 128)
+        return LeafLayout(shape=shape, n=n, flatten=True, split_axis=0,
+                          padded=padded, view_shape=(n, padded // n))
+    candidates = [a for a in range(len(shape)) if not _is_sharded(spec, a)]
+    if not candidates:
+        raise ValueError(
+            f"leaf {shape} with spec {spec} has no replicated axis to chunk "
+            f"over")
+    split_axis = max(candidates, key=lambda a: shape[a])
+    rest = [shape[a] for a in range(len(shape)) if a != split_axis]
+    if rest:
+        if rest[-1] % 8 != 0:
+            raise ValueError(
+                f"leaf {shape} spec {spec}: last view dim {rest[-1]} not a "
+                f"multiple of 8; cannot bit-pack")
+        padded = _round_up(shape[split_axis], n)
+    else:
+        padded = _round_up(shape[split_axis], n * 8)
+    return LeafLayout(shape=shape, n=n, flatten=False, split_axis=split_axis,
+                      padded=padded, view_shape=(n, padded // n, *rest))
+
+
+def to_view(x: torch.Tensor, layout: LeafLayout) -> torch.Tensor:
+    """Natural leaf (with any leading worker dims) -> comm view."""
+    lead = tuple(x.shape[:x.dim() - len(layout.shape)])
+    if layout.flatten:
+        flat = x.reshape(lead + (-1,))
+        if layout.pad:
+            flat = torch.nn.functional.pad(flat, (0, layout.pad))
+        return flat.reshape(lead + layout.view_shape)
+    ax = len(lead) + layout.split_axis
+    if layout.pad:
+        pads = [0, 0] * (x.dim() - ax - 1) + [0, layout.pad]
+        x = torch.nn.functional.pad(x, pads)
+    x = torch.movedim(x, ax, len(lead))
+    return x.reshape(lead + layout.view_shape)
+
+
+def from_view(v: torch.Tensor, layout: LeafLayout) -> torch.Tensor:
+    """Comm view (with any leading worker dims) -> natural leaf."""
+    lead = tuple(v.shape[:v.dim() - len(layout.view_shape)])
+    if layout.flatten:
+        total = int(np.prod(layout.shape)) if layout.shape else 1
+        return v.reshape(lead + (-1,))[..., :total].reshape(
+            lead + layout.shape)
+    rest = [layout.shape[a] for a in range(len(layout.shape))
+            if a != layout.split_axis]
+    x = v.reshape(lead + (layout.padded, *rest))
+    x = torch.movedim(x, len(lead), len(lead) + layout.split_axis)
+    if layout.pad:
+        x = x.narrow(len(lead) + layout.split_axis, 0,
+                     layout.shape[layout.split_axis])
+    return x
+
+
+def pad_mask(layout: LeafLayout, device=None,
+             dtype=torch.float32) -> Optional[torch.Tensor]:
+    """0 at padded view positions, broadcastable against the view:
+    shape (n, padded//n, 1, ...); None when the leaf has no pad."""
+    if layout.pad == 0:
+        return None
+    a = np.arange(layout.padded).reshape(layout.view_shape[:2])
+    base = (int(np.prod(layout.shape)) if layout.flatten
+            else layout.shape[layout.split_axis])
+    m = (a < base).astype(np.float32)
+    m = m.reshape(m.shape + (1,) * (len(layout.view_shape) - 2))
+    return torch.as_tensor(m, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# View <-> 2-D kernel frame
+# ---------------------------------------------------------------------------
+
+# Widest frame handed to the kernels. The reference folds wider flatten
+# views (a TPU VMEM bound); the port keeps the same fold so frames, row
+# counts and scales line up with it row for row.
+FRAME_MAX_COLS = 8192
+
+
+def view_rows_cols(layout: LeafLayout) -> Tuple[int, int]:
+    """(rows, cols) of one worker's 2-D frame of a comm view; flatten
+    views wider than FRAME_MAX_COLS fold each chunk row into k rows."""
+    vs = layout.view_shape
+    rows, cols = int(np.prod(vs[:-1])), int(vs[-1])
+    if layout.flatten and cols > FRAME_MAX_COLS:
+        assert cols % 128 == 0, layout
+        m = cols // 128
+        k = -(-m // (FRAME_MAX_COLS // 128))
+        while m % k:
+            k += 1
+        rows, cols = rows * k, 128 * (m // k)
+    return rows, cols
+
+
+def view_row_counts(layout: LeafLayout) -> np.ndarray:
+    """True (unpadded) element count per frame row, int32 (rows,)."""
+    rows, cols = view_rows_cols(layout)
+    if layout.flatten:
+        base = int(np.prod(layout.shape)) if layout.shape else 1
+        starts = np.arange(rows, dtype=np.int64) * cols
+        cnt = np.clip(base - starts, 0, cols)
+    else:
+        base = layout.shape[layout.split_axis]
+        vs = layout.view_shape
+        group = int(np.prod(vs[2:-1], dtype=np.int64)) if len(vs) > 3 else 1
+        pos = np.arange(layout.n * vs[1], dtype=np.int64)
+        cnt = np.repeat((pos < base).astype(np.int64), group) * cols
+    return cnt.astype(np.int32)
+
+
+def chunk_row_counts(layout: LeafLayout) -> np.ndarray:
+    """Row counts of the server chunk each worker owns, int32 (n, rows//n)."""
+    rows, _ = view_rows_cols(layout)
+    return view_row_counts(layout).reshape(layout.n, rows // layout.n)
+
+
+def true_counts(layout: LeafLayout) -> Tuple[float, np.ndarray]:
+    """(#real elements of the leaf, #real elements per chunk (n,)).
+
+    Closed form over the n chunks: the step calls this on every sync, and
+    a mask over the padded split axis would cost tens of milliseconds of
+    host time on gpt2's 25M-element position table."""
+    vs = layout.view_shape
+    rest = int(np.prod(vs[2:])) if len(vs) > 2 else 1
+    base = (int(np.prod(layout.shape)) if layout.flatten
+            else layout.shape[layout.split_axis])
+    split = np.clip(base - np.arange(vs[0], dtype=np.int64) * vs[1], 0,
+                    vs[1])
+    per_chunk = split.astype(np.float64) * rest
+    return float(per_chunk.sum()), per_chunk
+
+
+# ---------------------------------------------------------------------------
+# Sign packing (big-endian: element 0 in the MSB, like jnp.packbits)
+# ---------------------------------------------------------------------------
+
+_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
+
+
+def pack_signs(v: torch.Tensor) -> torch.Tensor:
+    """Sign bits (v >= 0, so +0 and -0 pack as 1) along the last axis,
+    8 per byte; the last dim must be a multiple of 8."""
+    w = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=v.device)
+    b8 = (v >= 0).to(torch.uint8).reshape(
+        v.shape[:-1] + (v.shape[-1] // 8, 8))
+    return (b8 * w).sum(-1, dtype=torch.uint8)
+
+
+def unpack_signs(p: torch.Tensor, count: int,
+                 dtype=torch.float32) -> torch.Tensor:
+    """Packed bytes -> +-1 values of last-axis length ``count``."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=p.device)
+    bits = ((p[..., None] >> shifts) & 1).reshape(
+        p.shape[:-1] + (p.shape[-1] * 8,))[..., :count]
+    return bits.to(dtype) * 2.0 - 1.0
+
+
+# ---------------------------------------------------------------------------
+# 1-bit compression with error feedback, whole-view formulation
+# ---------------------------------------------------------------------------
+
+def _view_dims(z: torch.Tensor, layout: LeafLayout) -> Tuple[int, ...]:
+    return tuple(range(z.dim() - len(layout.view_shape), z.dim()))
+
+
+def _scales(z, layout: LeafLayout, mode: ScaleMode, mask) -> torch.Tensor:
+    """Tensor-mode L1-mean magnitude per worker (pad-exact), shaped
+    (*lead, 1, ..., 1) against the view."""
+    validate_scale_mode(mode)
+    az = z.abs()
+    if mask is not None:
+        az = az * mask
+    total, _ = true_counts(layout)
+    dims = _view_dims(z, layout)
+    s = az.sum(dim=dims, keepdim=True) / (total * layout.rest_factor)
+    return s
+
+
+def ef_compress(z, layout: LeafLayout, mode: ScaleMode, mask):
+    """One EF compression pass over a comm view that already includes the
+    incoming error. Returns (packed uint8, scales, residual error)."""
+    scales = _scales(z, layout, mode, mask)
+    packed = pack_signs(z)
+    signs = torch.where(z >= 0, 1.0, -1.0).to(z.dtype)
+    err = z - signs * scales
+    if mask is not None:
+        err = err * mask
+    return packed, scales, err
+
+
+def decompress(packed, scales, count: int, dtype=torch.float32):
+    """Inverse of the quantizer: scale * sign."""
+    return unpack_signs(packed, count, dtype) * scales.to(dtype)
+
+
+def compressed_bytes(layout: LeafLayout, mode: ScaleMode, codec=None) -> int:
+    """Bytes one worker SENDS on one flat sync of this leaf: the scatter
+    keeps its own chunk and the gather sends this worker's chunk to the
+    n-1 others, each chunk as the codec's payload (default sign1bit)."""
+    from repro_torch.core.codecs import make_codec   # codecs imports us
+    wb = make_codec("sign1bit" if codec is None else codec).wire_bytes(
+        layout, mode)
+    return (layout.n - 1) * (wb["scatter"] + wb["gather"])

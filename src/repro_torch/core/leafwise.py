@@ -1,0 +1,80 @@
+"""Per-leaf comm planning, PyTorch port of ``src/repro/core/leafwise.py``.
+
+Parameter trees are nested dicts. Leaves are visited in sorted-key order,
+the order ``jax.tree.flatten`` uses for dicts, so leaf ``i`` of the port
+is leaf ``i`` of the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Tuple
+
+from repro_torch.core import compressor as C
+from repro_torch.core import onebit_allreduce as AR
+
+
+def flatten_tree(tree) -> Tuple[List[Tuple[str, ...]], List[Any]]:
+    """Nested dict -> (key paths, leaves) in sorted-key order."""
+    paths, leaves = [], []
+
+    def visit(node, prefix):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                visit(node[k], prefix + (k,))
+        else:
+            paths.append(prefix)
+            leaves.append(node)
+
+    visit(tree, ())
+    return paths, leaves
+
+
+def unflatten_tree(paths, leaves) -> Dict:
+    out: Dict = {}
+    for path, leaf in zip(paths, leaves):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafPlan:
+    """Static per-leaf communication plan for one parameter tree."""
+
+    n: int
+    paths: List[Tuple[str, ...]]
+    shapes: List[Tuple[int, ...]]
+    specs: List[Any]
+    dp_mask: List[bool]
+    layouts: List[C.LeafLayout]
+
+    def flat(self, tree) -> List[Any]:
+        paths, leaves = flatten_tree(tree)
+        if paths != self.paths:
+            raise ValueError(f"tree leaves {paths} do not match the plan's "
+                             f"{self.paths}")
+        return leaves
+
+
+def make_plan(param_shapes, specs, dp_mask, n_workers: int) -> LeafPlan:
+    """``param_shapes``: nested dict of shape tuples; ``specs`` and
+    ``dp_mask`` the same structure (None: replicated / all DP)."""
+    paths, shapes = flatten_tree(param_shapes)
+    specs_f = ([None] * len(paths) if specs is None
+               else flatten_tree(specs)[1])
+    dp_f = ([True] * len(paths) if dp_mask is None
+            else flatten_tree(dp_mask)[1])
+    layouts = [C.make_layout(s, sp, n_workers)
+               for s, sp in zip(shapes, specs_f)]
+    return LeafPlan(n=n_workers, paths=paths,
+                    shapes=[tuple(s) for s in shapes], specs=specs_f,
+                    dp_mask=list(dp_f), layouts=layouts)
+
+
+def make_ar_cfg(plan: LeafPlan, *, scale_mode, codec) -> AR.OneBitConfig:
+    """Algorithm-2 exchange config bound to a plan (the flat topology is
+    the only one ported, so the plan adds nothing yet)."""
+    del plan
+    return AR.OneBitConfig(scale_mode=scale_mode, codec=codec)

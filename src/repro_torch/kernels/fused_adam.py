@@ -1,0 +1,75 @@
+"""Fused 0/1 Adam local half-step: CUDA kernel, plain version, wrapper.
+
+    m' = fma(b1, m, (1-b1)*g)
+    u' = fma(lr, m', u)
+    d  = (lr*m') / sqrt(v + eps)
+
+The kernel (``csrc/fused_adam.cu``) replaces the Pallas kernel
+``src/repro/kernels/fused_adam.py::fused_local_step``. The reference's XLA
+build contracts both updates into single-rounding FMAs; the kernel writes
+those two FMAs out and the plain version reproduces them exactly (see
+:func:`fma_f32`), so m' and u' agree bit for bit. The divide and square
+root are IEEE-rounded on both sides; ``d`` is held to 2 ulp against the
+reference.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import build
+
+KERNEL = "fused_local_step"
+
+
+def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """``a*b + c`` in f32 with one rounding, like a hardware FMA.
+
+    The product of two f32 is exact in f64; the f64 sum is made
+    round-to-odd with the TwoSum error term, and round-to-odd at 53 bits
+    followed by round-to-nearest at 24 bits is the correctly rounded
+    result (no double-rounding error)."""
+    p = a.double() * (b.double() if isinstance(b, torch.Tensor) else b)
+    c64 = c.double()
+    s = p + c64
+    bv = s - p
+    av = s - bv
+    e = (p - av) + (c64 - bv)
+    bits = s.view(torch.int64)
+    step = torch.where((e > 0) == (s > 0), 1, -1)
+    odd = torch.where((e != 0) & ((bits & 1) == 0), bits + step, bits)
+    return odd.view(torch.float64).float()
+
+
+def _scalars(lr, beta1, eps):
+    """The f32 scalars the kernel receives: 1-b1 is folded in f64 and
+    rounded once, as the reference folds it on the host."""
+    return (float(np.float32(lr)), float(np.float32(beta1)),
+            float(np.float32(1.0 - beta1)), float(np.float32(eps)))
+
+
+def fused_local_step_plain(g, m, u, v, lr, beta1, eps=1e-8):
+    """Plain PyTorch version of the kernel (the CPU path)."""
+    lr32, b1, omb1, eps32 = _scalars(lr, beta1, eps)
+    mh = fma_f32(m, b1, g * omb1)
+    u_new = fma_f32(mh, lr32, u)
+    delta = (mh * lr32) / torch.sqrt(v + eps32)
+    return mh, u_new, delta
+
+
+def fused_local_step(g, m, u, v, lr, beta1, eps=1e-8):
+    """One fused local step over (R, C) f32 frames; returns (m', u', d).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    dev, shape = g.device, g.shape
+    for name, t in (("g", g), ("m", m), ("u", u), ("v", v)):
+        build.check_operand(KERNEL, name, t, torch.float32, shape, dev)
+    if not build.on_card(KERNEL, g):
+        return fused_local_step_plain(g, m, u, v, lr, beta1, eps)
+    m_out, u_out, d_out = (torch.empty_like(g) for _ in range(3))
+    if g.numel():
+        lr32, b1, omb1, eps32 = _scalars(lr, beta1, eps)
+        build.launch(KERNEL, "fused_local_step_f32", dev, g.data_ptr(), m.data_ptr(), u.data_ptr(),
+                     v.data_ptr(), m_out.data_ptr(), u_out.data_ptr(), d_out.data_ptr(), g.numel(), lr32, b1,
+                     omb1, eps32)
+    return m_out, u_out, d_out

@@ -1,0 +1,128 @@
+"""Parameter templates and elementary layers, PyTorch port of
+``src/repro/models/layers.py``.
+
+A module builds a *template*: a nested dict whose leaves are :class:`PD`
+descriptors. Parameters, tensor-parallel specs and the DP mask all derive
+from it, so they agree by construction. The specs matter even without
+tensor parallelism: ``core.compressor.make_layout`` chooses each leaf's
+comm view from them, exactly as the reference does.
+"""
+from __future__ import annotations
+
+import dataclasses
+import zlib
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+@dataclasses.dataclass(frozen=True)
+class PD:
+    """Param descriptor: shape, init, tensor-parallel spec, DP membership."""
+
+    shape: Tuple[int, ...]
+    init: str = "normal"          # normal | zeros | ones
+    scale: float = 0.02
+    spec: Optional[tuple] = None  # per-axis 'model' entries, or None
+    dp: bool = True
+
+
+def _map(tmpl, fn, prefix=()):
+    if isinstance(tmpl, dict):
+        return {k: _map(v, fn, prefix + (k,)) for k, v in tmpl.items()}
+    return fn(prefix, tmpl)
+
+
+def init_params(template, seed: int, device=None, dtype=torch.float32):
+    """Materialize a template. Each leaf draws from its own CPU generator
+    seeded from ``seed`` and its path, so the values do not depend on the
+    device or on the order of leaves. (The reference draws from jax's
+    threefry; its values come across through ``repro_torch.interop``.)"""
+    def make(path, pd: PD):
+        if pd.init == "zeros":
+            x = torch.zeros(pd.shape)
+        elif pd.init == "ones":
+            x = torch.ones(pd.shape)
+        else:
+            g = torch.Generator().manual_seed(
+                (seed * 1_000_003 + zlib.crc32("/".join(path).encode()))
+                & 0x7FFFFFFFFFFF)
+            x = torch.randn(pd.shape, generator=g) * pd.scale
+        return x.to(device=device, dtype=dtype)
+    return _map(template, make)
+
+
+def param_shapes(template):
+    return _map(template, lambda _, pd: tuple(pd.shape))
+
+
+def param_specs(template):
+    return _map(template, lambda _, pd: pd.spec)
+
+
+def dp_mask(template):
+    return _map(template, lambda _, pd: pd.dp)
+
+
+def stack_template(tmpl, n: int):
+    """Prepend a layer-stacking axis to every PD of a template."""
+    def f(_, pd: PD) -> PD:
+        spec = pd.spec if pd.spec is not None else (None,) * len(pd.shape)
+        return dataclasses.replace(pd, shape=(n, *pd.shape),
+                                   spec=(None, *spec))
+    return _map(tmpl, f)
+
+
+def model_dim_spec(dim: int, mesh_axis: str = "model"):
+    """Shard ``dim`` over 'model' iff the production TP degree (16)
+    divides it — the rule the reference's templates use."""
+    return mesh_axis if dim % 16 == 0 else None
+
+
+# ---------------------------------------------------------------------------
+# Elementary ops
+# ---------------------------------------------------------------------------
+
+def layer_norm(x, scale, bias, eps=1e-5):
+    x32 = x.to(torch.float32)
+    mu = x32.mean(-1, keepdim=True)
+    var = (x32 - mu).square().mean(-1, keepdim=True)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return (out * scale.to(torch.float32)
+            + bias.to(torch.float32)).to(x.dtype)
+
+
+def norm_template(cfg_norm: str, d: int):
+    if cfg_norm != "layernorm":
+        raise NotImplementedError(f"norm {cfg_norm!r} is not ported yet")
+    return {"scale": PD((d,), "ones"), "bias": PD((d,), "zeros")}
+
+
+def apply_norm(p, x, cfg_norm: str):
+    return layer_norm(x, p["scale"], p["bias"])
+
+
+def mlp_template(d: int, ff: int, kind: str,
+                 layers_axis: Optional[int] = None):
+    """GELU MLP params, optionally stacked over a layers axis."""
+    if kind != "gelu":
+        raise NotImplementedError(f"mlp {kind!r} is not ported yet")
+
+    def st(shape, spec):
+        if layers_axis is None:
+            return shape, spec
+        return (layers_axis, *shape), (None, *spec)
+    ffs = model_dim_spec(ff)
+    s1, p1 = st((d, ff), (None, ffs))
+    s2, p2 = st((ff, d), (ffs, None))
+    sb1, pb1 = st((ff,), (ffs,))
+    sb2, pb2 = st((d,), (None,))
+    return {"w_in": PD(s1, spec=p1), "b_in": PD(sb1, "zeros", spec=pb1),
+            "w_out": PD(s2, spec=p2), "b_out": PD(sb2, "zeros", spec=pb2)}
+
+
+def apply_mlp(p, x, kind: str):
+    # jax.nn.gelu defaults to the tanh approximation
+    h = F.gelu(x @ p["w_in"] + p["b_in"], approximate="tanh")
+    return h @ p["w_out"] + p["b_out"]

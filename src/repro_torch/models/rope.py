@@ -1,0 +1,33 @@
+"""Token positions and rotary embedding, PyTorch port of the standard
+(non-M-RoPE) path of ``src/repro/models/rope.py``.
+
+The reference's attention rotates q and k whenever ``cfg.rope != "none"``,
+so GPT-2 (``rope="learned"``) gets the rotary embedding on top of its
+learned position table; the port does the same.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _freqs(dim: int, theta: float):
+    # dim = number of rotated pairs
+    return 1.0 / (theta ** (torch.arange(0, dim, dtype=torch.float32) / dim))
+
+
+def apply_rope(x, positions, theta=10000.0):
+    """Rotate all of x (B, S, H, D), D even, by positions (B, S); the two
+    halves of the head dim form the pairs, as in the reference."""
+    half = x.shape[-1] // 2
+    inv = _freqs(half, theta).to(x.device)
+    ang = positions.to(torch.float32)[..., None] * inv[None, None, :]
+    cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def text_positions(batch: int, seq: int, offset: int = 0, device=None):
+    """(batch, seq) int32 positions ``offset .. offset + seq - 1``."""
+    pos = torch.arange(seq, dtype=torch.int32, device=device) + offset
+    return pos[None, :].expand(batch, seq)

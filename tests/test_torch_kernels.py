@@ -1,0 +1,152 @@
+"""Port kernels (plain versions on the CPU) vs the reference Pallas
+kernels in interpret mode (``repro.kernels.ops``), on the same numpy
+inputs.
+
+Tolerances:
+* packed bytes, ``ef_quantize``'s err_out, ``decompress``'s output and the
+  fused step's m' and u' are compared bit for bit: each is one add, a
+  compare and one subtract per element, or a single-rounding FMA, on both
+  sides;
+* ``abs_rowsum`` to 1e-6 relative: an f32 sum of up to 4104 nonnegative
+  terms taken in another order (the sum's own rounding, ~log2(n) ulp);
+* the fused step's delta to 2 ulp: XLA rewrites (lr*m')/sqrt(v+eps) in a
+  way no plain f32 formula reproduces (measured: ~40% of elements 1 ulp
+  off, none beyond 2).
+
+The CUDA kernels themselves are checked against these plain versions in
+tests/test_torch_gpu.py, on the card.
+"""
+import fractions
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops
+from repro_torch.kernels import build, fused_adam, onebit
+
+# The suite runs under pytest-xdist with several workers per machine;
+# torch's default of one intra-op thread per core in each of them would
+# oversubscribe the cores. These inputs are small: one thread suffices.
+torch.set_num_threads(1)
+
+WIDTHS = [8, 256, 4104]
+
+
+def _frame(rows, cols, seed):
+    rng = np.random.default_rng(seed)
+    z = rng.standard_normal((rows, cols)).astype(np.float32)
+    e = (rng.standard_normal((rows, cols)) * 0.3).astype(np.float32)
+    # ragged tails, whole pad rows, full rows, and a one-element row
+    cnt = np.array([cols, cols // 2 + 1, 0, 1] * (rows // 4), np.int32)
+    return z, e, cnt
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _ulps(a, b):
+    a = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    b = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
+    return np.abs(a - b)
+
+
+@pytest.mark.parametrize("cols", WIDTHS)
+def test_abs_rowsum_matches_reference(cols):
+    z, e, cnt = _frame(16, cols, cols)
+    want = np.asarray(ops.abs_rowsum(jnp.asarray(z), jnp.asarray(e),
+                                     jnp.asarray(cnt), block_rows=8))
+    got = onebit.abs_rowsum(_t(z), _t(e), _t(cnt)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    assert (got[cnt == 0] == 0).all()
+
+
+@pytest.mark.parametrize("cols", WIDTHS)
+def test_ef_quantize_matches_reference(cols):
+    z, e, cnt = _frame(16, cols, cols + 1)
+    z[0, :4] = [0.0, -0.0, 1.0, -1.0]
+    e[0, :4] = [0.0, 0.0, -1.0, 1.0]          # zw = 0, -0, 0, 0 -> 1 bits
+    s = (np.abs(z + e).sum(1) / np.maximum(cnt, 1)).astype(np.float32)
+    p_ref, e_ref = ops.ef_quantize(jnp.asarray(z), jnp.asarray(e),
+                                   jnp.asarray(s), jnp.asarray(cnt),
+                                   block_rows=8)
+    p, eo = onebit.ef_quantize(_t(z), _t(e), _t(s), _t(cnt))
+    np.testing.assert_array_equal(p.numpy(), np.asarray(p_ref))
+    np.testing.assert_array_equal(eo.numpy(), np.asarray(e_ref))
+    assert p.numpy()[0, 0] >> 4 == 0b1111     # +0 and -0 pack as 1
+    assert (eo.numpy()[cnt == 0] == 0).all()
+
+
+@pytest.mark.parametrize("cols", WIDTHS)
+def test_decompress_matches_reference(cols):
+    rng = np.random.default_rng(cols)
+    packed = rng.integers(0, 256, (16, cols // 8), dtype=np.uint8)
+    s = np.abs(rng.standard_normal(16)).astype(np.float32)
+    s[3] = 0.0
+    want = np.asarray(ops.decompress(jnp.asarray(packed), jnp.asarray(s),
+                                     block_rows=8))
+    got = onebit.decompress(_t(packed), _t(s)).numpy()
+    np.testing.assert_array_equal(got, want)
+    msb = (packed[:, 0] >> 7) == 1            # element 0 is the MSB
+    assert ((got[:, 0] > 0) == msb)[s > 0].all()
+
+
+@pytest.mark.parametrize("shape", [(8, 256), (64, 1024), (16, 4104)])
+def test_fused_local_step_matches_reference(shape):
+    rng = np.random.default_rng(shape[1])
+    g, m, u = (rng.standard_normal(shape).astype(np.float32)
+               for _ in range(3))
+    v = (np.abs(rng.standard_normal(shape)) * 1e-3).astype(np.float32)
+    lr = np.float32(1e-3)
+    block = (8, 8 if shape[1] % 1024 else 1024)
+    want = ops.fused_local_step(*map(jnp.asarray, (g, m, u, v)), lr, 0.9,
+                                1e-8, block=block)
+    got = fused_adam.fused_local_step(*map(_t, (g, m, u, v)), lr, 0.9, 1e-8)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    assert _ulps(got[2].numpy(), want[2]).max() <= 2
+
+
+def test_fma_f32_rounds_once():
+    """Cases where rounding a*b+c in f64 and then to f32 (two roundings)
+    differs from the single rounding of an FMA; the exact value comes from
+    rational arithmetic."""
+    a = np.array([1 + 2.0 ** -12, 1 + 2.0 ** -12, 3.0, 0.1], np.float32)
+    b = np.array([1 + 2.0 ** -12, 1 - 2.0 ** -12, 1 / 3, 0.9], np.float32)
+    c = np.array([2.0 ** -70, -(2.0 ** -70), 1e-30, -0.09], np.float32)
+    got = fused_adam.fma_f32(_t(a), _t(b), _t(c)).numpy()
+    for i in range(len(a)):
+        exact = (fractions.Fraction(float(a[i])) * fractions.Fraction(
+            float(b[i])) + fractions.Fraction(float(c[i])))
+        lo = np.float32(float(exact))
+        cands = [lo, np.nextafter(lo, np.float32(np.inf)),
+                 np.nextafter(lo, np.float32(-np.inf))]
+        best = min(cands, key=lambda x: (abs(fractions.Fraction(float(x))
+                                             - exact),
+                                         int(np.array(x).view(np.int32))
+                                         & 1))
+        assert got[i] == best, (i, got[i], best)
+
+
+def test_wrappers_check_operands_and_count_no_cpu_launch():
+    z = torch.zeros(8, 16)
+    cnt = torch.full((8,), 16, dtype=torch.int32)
+    before = dict(build.launch_counts)
+    with pytest.raises(TypeError):
+        onebit.abs_rowsum(z.double(), z.double(), cnt)
+    with pytest.raises(ValueError):
+        onebit.abs_rowsum(z, torch.zeros(8, 8), cnt)
+    with pytest.raises(TypeError):
+        onebit.ef_quantize(z, z, torch.zeros(8, dtype=torch.float64), cnt)
+    with pytest.raises(ValueError):
+        onebit.ef_quantize(torch.zeros(8, 12), torch.zeros(8, 12),
+                           torch.zeros(8), cnt)
+    with pytest.raises(TypeError):
+        onebit.decompress(torch.zeros(8, 2, dtype=torch.int32),
+                          torch.zeros(8))
+    with pytest.raises(ValueError):
+        fused_adam.fused_local_step(z, z, z, torch.zeros(8, 8), 1e-3, 0.9)
+    onebit.abs_rowsum(z, z, cnt)            # CPU: the plain version
+    assert dict(build.launch_counts) == before
