@@ -5,18 +5,27 @@
 1. Prints the card (nvidia-smi name and power limit) and torch/CUDA.
 2. Builds the port's CUDA kernels from src/repro_torch/kernels/csrc with
    nvcc for sm_90a.
-3. Checks every kernel against its plain PyTorch version on the card, on
-   the frames one step of gpt2 FULL with 4 simulated workers gives it (all
-   19 leaves, worker and server frames), and times both, with the byte
-   bound and, where one PyTorch call computes the same function, that
-   call's time.
-4. Drives the main path: full-width, full-depth gpt2 trained with
-   zero_one_adam by 4 simulated data-parallel workers, global batch 16,
-   seq 1024, 8 steps (syncs at 0-4 and 6, variance at 0, 1, 3, local-only
-   steps 5 and 7), and checks that all four kernels launched there. Then
-   repeats step 6 (a sync step) under torch.profiler.
-5. Checks the card against the CPU on a small input: the gpt2-smoke
-   trainer from the same start on both devices.
+3. Checks every kernel against its plain PyTorch version on the card and
+   times both, with the byte bound and, where one PyTorch call computes
+   the same function, that call's time: the four kernels of the gpt2 path
+   on the frames one step of gpt2 FULL with 4 simulated workers gives them
+   (all 19 leaves, worker and server frames); ef_compress on the six 3-D
+   frames of BERT-Base FULL (plus a frame with pad rows, checked only) and
+   fused_local_step_sgd on all 20 BERT-Base frames.
+4. Drives the three main paths, each through the trainer and CLI config a
+   user would call, 4 simulated data-parallel workers, 8 steps (syncs at
+   0-4 and 6; variance at 0, 1, 3 where the base has one; local-only
+   steps 5 and 7), the launch counts set to 0 just before each and read
+   just after:
+   a. gpt2 FULL, zero_one_adam, tensor scales, global batch 16, seq 1024
+      (then step 6, a sync step, again under torch.profiler);
+   b. bert-base FULL (12 layers, d=768), masked-LM data at 15%, global
+      batch 32, seq 512, zero_one_adam with row scales;
+   c. the same model and data with zero_one_sgd, tensor scales.
+   Each run checks its losses, its step kinds and its launch counts.
+5. Checks the card against the CPU on small inputs: the gpt2-smoke
+   trainer, and the bert-smoke trainer under both BERT configurations,
+   from the same start on both devices.
 6. Prints the kernels line, the card line and the result line.
 
 Any failure raises; there is no CPU fallback. Exits non-zero without a
@@ -24,6 +33,7 @@ result when there is no CUDA device or the repository's src/ is missing.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -41,7 +51,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # and f32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
-N_WORKERS, BATCH, SEQ, STEPS = 4, 16, 1024, 8
+N_WORKERS, STEPS = 4, 8
+BATCH, SEQ = 16, 1024               # gpt2 run
+BERT_BATCH, BERT_SEQ = 32, 512      # bert runs
 REPS, PLAIN_REPS = 20, 5
 PROFILED_STEP = 6          # a sync step without a variance refresh
 # abs_rowsum: both sides sum up to 50,432 terms in different orders (the
@@ -62,7 +74,22 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                     "src/repro/kernels/onebit.py:155"),
     "decompress": ("src/repro_torch/kernels/csrc/onebit.cu",
                    "src/repro/kernels/onebit.py:197"),
+    "ef_compress": ("src/repro_torch/kernels/csrc/onebit.cu",
+                    "src/repro/kernels/onebit.py:81"),
+    "fused_local_step_sgd": ("src/repro_torch/kernels/csrc/fused_adam.cu",
+                             "src/repro/kernels/fused_adam.py:100"),
 }
+# the round each kernel's "ms" sums over, on its own path
+PER = {"fused_local_step": "step (gpt2)", "abs_rowsum": "sync (gpt2)",
+       "ef_quantize": "sync (gpt2)", "decompress": "sync (gpt2)",
+       "ef_compress": "sync (bert-base, row scales)",
+       "fused_local_step_sgd": "step (bert-base)"}
+# (label, arch, extra CLI flags, batch, seq, data kind)
+RUNS = [("gpt2", "gpt2", [], BATCH, SEQ, "lm"),
+        ("bert_row", "bert-base", ["--scale-mode", "row"], BERT_BATCH,
+         BERT_SEQ, "mlm"),
+        ("bert_sgd", "bert-base", ["--optimizer", "zero_one_sgd"],
+         BERT_BATCH, BERT_SEQ, "mlm")]
 
 
 def card_line() -> str:
@@ -118,19 +145,25 @@ class Tally:
             r["library_ms"] = (r["library_ms"] or 0.0) + times * library_ms
 
 
-def check_kernels(dev, tally):
-    """Phase 3: every kernel vs its plain version at gpt2-FULL frames."""
+def full_plan(arch):
     from repro_torch.configs.base import get
-    from repro_torch.core import compressor as C
     from repro_torch.core.leafwise import make_plan
-    from repro_torch.kernels import fused_adam as FA
-    from repro_torch.kernels import onebit as OB
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
 
-    tmpl = T.model_template(get("gpt2").config)
-    plan = make_plan(L.param_shapes(tmpl), L.param_specs(tmpl),
+    tmpl = T.model_template(get(arch).config)
+    return make_plan(L.param_shapes(tmpl), L.param_specs(tmpl),
                      L.dp_mask(tmpl), N_WORKERS)
+
+
+def check_kernels(dev, tally):
+    """Phase 3a: the gpt2 path's kernels vs their plain versions at
+    gpt2-FULL frames."""
+    from repro_torch.core import compressor as C
+    from repro_torch.kernels import fused_adam as FA
+    from repro_torch.kernels import onebit as OB
+
+    plan = full_plan("gpt2")
     gen = torch.Generator(device=dev).manual_seed(0)
     lr, b1 = np.float32(1.5e-4), 0.9
     for lo in plan.layouts:
@@ -221,8 +254,107 @@ def check_kernels(dev, tally):
         print(f"  leaf {lo.shape}: frame ({R}, {cols}) ok", flush=True)
 
 
-def run_main_path(dev):
-    """Phase 4: gpt2 FULL, 4 simulated workers, 8 steps."""
+def check_bert_kernels(dev, tally):
+    """Phase 3b: ef_compress at the 3-D frames of BERT-Base FULL (where
+    row scales take the single pass) plus a frame with pad rows, and
+    fused_local_step_sgd at all 20 BERT-Base frames, 4 workers stacked."""
+    from repro_torch.core import compressor as C
+    from repro_torch.kernels import fused_adam as FA
+    from repro_torch.kernels import onebit as OB
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    lr, b1 = np.float32(1.5e-4), 0.9
+
+    def compress_frame(z, e, cnt):
+        pk, sk, ek = OB.ef_compress(z, e, cnt)
+        pp, sp, _ = OB.ef_compress_plain(z, e, cnt)
+        torch.cuda.synchronize()
+        assert torch.equal(pk, pp), (tuple(z.shape), "packed bytes differ")
+        assert ulps(sk, sp) <= ROWSUM_ULPS, (tuple(z.shape), "scales")
+        # same scales, same residual: err_out against the plain quantizer
+        # given the kernel's own scales
+        assert torch.equal(ek, OB.ef_quantize_plain(z, e, sk, cnt)[1]), (
+            tuple(z.shape), "err_out differs")
+        return float((sk - sp).abs().max())
+
+    # a frame with whole pad rows, ragged tails and one-element rows: only
+    # checked (no BERT-Base frame has pad rows)
+    cols = 3072
+    cnt = torch.tensor([cols, cols // 2 + 1, 0, 1] * 16, dtype=torch.int32,
+                       device=dev)
+    z = torch.randn(64, cols, device=dev, generator=gen)
+    compress_frame(z, z.flip(0) * 0.3, cnt)
+    print(f"  ef_compress pad-row frame (64, {cols}) ok", flush=True)
+
+    for lo in full_plan("bert-base").layouts:
+        rows, cols = C.view_rows_cols(lo)
+        R, n = N_WORKERS * rows, N_WORKERS * rows * cols
+        cnt = torch.as_tensor(np.tile(C.view_row_counts(lo), N_WORKERS),
+                              device=dev)
+        mask = torch.arange(cols, device=dev)[None, :] < cnt[:, None]
+
+        def rnd(scale=1.0):
+            return (torch.randn(R, cols, device=dev, generator=gen)
+                    * scale * mask)
+
+        # --- fused SGD local step (once per leaf per step) ------------
+        g, m, u = rnd(), rnd(), rnd(1e-3)
+        fk = FA.fused_local_step_sgd(g, m, u, lr, b1)
+        fp = FA.fused_local_step_sgd_plain(g, m, u, lr, b1)
+        torch.cuda.synchronize()
+        for what, a, b in zip(("m'", "u'", "delta"), fk, fp):
+            assert torch.equal(a, b), (lo.shape, what + " differs")
+        tally.add("fused_local_step_sgd",
+                  time_ms(lambda: FA.fused_local_step_sgd(g, m, u, lr, b1),
+                          REPS),
+                  time_ms(lambda: FA.fused_local_step_sgd_plain(g, m, u, lr,
+                                                                b1),
+                          PLAIN_REPS),
+                  24.0 * n, 6.0 * n, 0.0)
+        del g, m, u, fk, fp
+
+        # --- single-pass worker compress (once per 3-D leaf per sync) --
+        if len(lo.view_shape) == 3:
+            z, e = rnd(), rnd(0.3)
+            err = compress_frame(z, e, cnt)
+            tally.add("ef_compress",
+                      time_ms(lambda: OB.ef_compress(z, e, cnt), REPS),
+                      time_ms(lambda: OB.ef_compress_plain(z, e, cnt),
+                              PLAIN_REPS),
+                      12.125 * n + 8.0 * R, 3.0 * n, err)
+            del z, e
+        torch.cuda.empty_cache()
+        print(f"  leaf {lo.shape}: frame ({R}, {cols}) ok", flush=True)
+
+
+def expected_launches(label, layouts):
+    """Launches each kernel makes in one run of RUNS[label], from the
+    reference's routing: 8 steps, 6 syncs, every leaf one launch per
+    phase (the stacked workers share it)."""
+    n_syncs = 6
+    nd = [len(lo.view_shape) for lo in layouts]
+    leaves, flat = len(nd), nd.count(2)
+    if label == "bert_row":
+        single = nd.count(3)            # worker side, row scales on 3-D
+        two_pass = (leaves - single) + (leaves - flat)   # worker + server
+        return {"fused_local_step": STEPS * leaves,
+                "ef_compress": n_syncs * single,
+                "abs_rowsum": n_syncs * two_pass,
+                "ef_quantize": n_syncs * two_pass,
+                # all_to_all decode of every leaf; gather decode except
+                # the per-element scales of 2-D views (plain torch ops)
+                "decompress": n_syncs * (2 * leaves - flat)}
+    step = ("fused_local_step_sgd" if label == "bert_sgd"
+            else "fused_local_step")
+    return {step: STEPS * leaves, "abs_rowsum": n_syncs * 2 * leaves,
+            "ef_quantize": n_syncs * 2 * leaves,
+            "decompress": n_syncs * 2 * leaves}
+
+
+def run_main_path(dev, label, arch, extra, batch, seq, kind):
+    """Phase 4: one main path, 4 simulated workers, 8 steps. Returns the
+    per-step records, the launch counts, the peak memory and, for gpt2,
+    the profile of step 6."""
     from repro_torch.configs.base import get
     from repro_torch.data.synthetic import DataConfig, SyntheticLM
     from repro_torch.kernels import build
@@ -230,16 +362,17 @@ def run_main_path(dev):
     from repro_torch.train.step import Trainer
 
     args = launch.parse_args([
-        "--arch", "gpt2", "--workers", str(N_WORKERS), "--steps",
-        str(STEPS), "--batch", str(BATCH), "--seq", str(SEQ),
-        "--sync-warmup", "2", "--double-every", "2", "--kappa", "1"])
-    cfg = get("gpt2").config
+        "--arch", arch, "--workers", str(N_WORKERS), "--steps",
+        str(STEPS), "--batch", str(batch), "--seq", str(seq),
+        "--sync-warmup", "2", "--double-every", "2", "--kappa", "1"]
+        + extra)
+    cfg = get(arch).config
     tr = Trainer(cfg, launch.build_opt_cfg(args), n_workers=N_WORKERS,
                  device=dev)
     params, state = tr.sim_init(args.seed)
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=SEQ,
-                                  global_batch=BATCH, seed=args.seed),
-                       device=dev)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  global_batch=batch, seed=args.seed,
+                                  kind=kind), device=dev)
     batches = [data.batch(t) for t in range(STEPS)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -250,7 +383,7 @@ def run_main_path(dev):
         losses, grads = tr.grads(params, batches[t])
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        if t == PROFILED_STEP:
+        if t == PROFILED_STEP and label == "gpt2":
             kept = (params, grads, state, batches[t])
         params, state, met = tr.opt.step(tr.comm, params, grads, state)
         torch.cuda.synchronize()
@@ -268,23 +401,24 @@ def run_main_path(dev):
               f"{1e3 * (t2 - t1):.1f})", flush=True)
     counts = dict(build.launch_counts)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"  launches {json.dumps(counts)}; peak memory {peak_gb:.1f} GB")
+    print(f"  launches {json.dumps(counts)}; peak memory {peak_gb:.1f} GB",
+          flush=True)
 
     losses = [s["loss"] for s in steps]
     assert all(np.isfinite(losses)), losses
     # random init at scale 0.02: near-uniform logits over the padded vocab
     assert abs(losses[0] - np.log(cfg.padded_vocab)) < 0.5, losses[0]
     assert [s["sync"] for s in steps] == [1, 1, 1, 1, 1, 0, 1, 0]
-    assert [s["var"] for s in steps] == [1, 1, 0, 1, 0, 0, 0, 0]
-    n_syncs, n_leaves = 6, len(tr.opt.layouts)
-    expect = {"fused_local_step": STEPS * n_leaves,
-              "abs_rowsum": n_syncs * 2 * n_leaves,
-              "ef_quantize": n_syncs * 2 * n_leaves,
-              "decompress": n_syncs * 2 * n_leaves}
-    assert counts == expect, (counts, expect)
-    del params, state
-    profile = profile_step(tr, *kept)
-    return steps, counts, peak_gb, profile
+    has_var = tr.opt.base.has_variance
+    assert [s["var"] for s in steps] == (
+        [1, 1, 0, 1, 0, 0, 0, 0] if has_var else [0] * STEPS)
+    expect = expected_launches(label, tr.opt.layouts)
+    assert counts == expect, (label, counts, expect)
+    del params, state, batches
+    profile = profile_step(tr, *kept) if kept is not None else None
+    del kept, tr
+    return {"steps": steps, "launches": counts, "peak_memory_gb": peak_gb,
+            "profile": profile}
 
 
 def _device_us(evt) -> float:
@@ -293,9 +427,10 @@ def _device_us(evt) -> float:
 
 
 def profile_step(tr, params, grads, state, batch):
-    """Phase 4b: repeat the forward/backward and the optimizer step of one
-    sync step under torch.profiler; per part, the wall time, the summed
-    device time of its kernels and the kernels that take the most."""
+    """Phase 4, gpt2: repeat the forward/backward and the optimizer step
+    of one sync step under torch.profiler; per part, the wall time, the
+    summed device time of its kernels and the kernels that take the
+    most."""
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
@@ -326,9 +461,9 @@ def profile_step(tr, params, grads, state, batch):
     return out
 
 
-def check_small_input(dev):
-    """Phase 5: the gpt2-smoke trainer on the card (kernels) against the
-    same trainer on the CPU (plain versions), same start and batches.
+def check_small_input(dev, arch, extra, kind):
+    """Phase 5: a smoke trainer on the card (kernels) against the same
+    trainer on the CPU (plain versions), same start and batches.
     Losses within 1e-4 and parameters 99% within 1e-4, all within 0.05:
     the bars the CPU tests hold the CPU path to against the JAX reference,
     for the same reasons (sum order; near-zero sign flips)."""
@@ -339,17 +474,18 @@ def check_small_input(dev):
     from repro_torch.train.step import Trainer
 
     args = launch.parse_args([
-        "--arch", "gpt2", "--smoke", "--steps", "8", "--batch", "8",
+        "--arch", arch, "--smoke", "--steps", "8", "--batch", "8",
         "--seq", "32", "--sync-warmup", "2", "--double-every", "2",
-        "--kappa", "1"])
-    cfg = get("gpt2").smoke
+        "--kappa", "1"] + extra)
+    cfg = get(arch).smoke
     runs = {}
     for d in (dev, torch.device("cpu")):
         tr = Trainer(cfg, launch.build_opt_cfg(args), n_workers=N_WORKERS,
                      device=d)
         params, state = tr.sim_init(0)
         data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32,
-                                      global_batch=8, seed=0), device=d)
+                                      global_batch=8, seed=0, kind=kind),
+                           device=d)
         losses = []
         for t in range(8):
             params, state, met = tr.sim_step(params, state, data.batch(t))
@@ -360,10 +496,13 @@ def check_small_input(dev):
     diff = torch.cat([(a.cpu() - b).abs().reshape(-1)
                       for a, b in zip(pk, pc)])
     frac = float((diff <= 1e-4).double().mean())
-    print(f"  smoke losses card {[round(x, 5) for x in lk]}")
+    print(f"  {cfg.name} {' '.join(extra)}: losses card "
+          f"{[round(x, 5) for x in lk]}")
     print(f"  max loss gap card-cpu {gap:.2e}; params within 1e-4: "
-          f"{frac:.5f}; max param gap {float(diff.max()):.2e}")
+          f"{frac:.5f}; max param gap {float(diff.max()):.2e}", flush=True)
     assert gap < 1e-4 and frac >= 0.99 and float(diff.max()) <= 0.05
+    return {"max_loss_gap": gap, "params_within_1e-4": frac,
+            "max_param_gap": float(diff.max())}
 
 
 def main():
@@ -389,35 +528,58 @@ def main():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"  {name}.cu ptxas: {regs}")
 
-    print("phase 3: kernels vs plain versions at gpt2 FULL frames, "
-          f"{N_WORKERS} stacked workers", flush=True)
+    print("phase 3: kernels vs plain versions at FULL frames, "
+          f"{N_WORKERS} stacked workers; 3a: gpt2", flush=True)
     tally = Tally()
     check_kernels(dev, tally)
+    print("phase 3b: bert-base", flush=True)
+    check_bert_kernels(dev, tally)
 
-    print(f"phase 4: gpt2 FULL, {N_WORKERS} simulated workers, batch "
-          f"{BATCH}, seq {SEQ}, {STEPS} steps", flush=True)
-    steps, counts, peak_gb, profile = run_main_path(dev)
+    runs = {}
+    for label, arch, extra, batch, seq, kind in RUNS:
+        print(f"phase 4 ({label}): {arch} FULL {' '.join(extra)}, "
+              f"{N_WORKERS} simulated workers, batch {batch}, seq {seq}, "
+              f"{kind} data, {STEPS} steps", flush=True)
+        runs[label] = run_main_path(dev, label, arch, extra, batch, seq,
+                                    kind)
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    print("phase 5: gpt2-smoke on the card vs on the CPU", flush=True)
-    check_small_input(dev)
+    print("phase 5: smoke trainers on the card vs on the CPU", flush=True)
+    # bert at a peak lr of 3e-4: at the CLI's default 3e-3 the row-scale
+    # run is unstable on bert-smoke (loss 6.31 -> 6.87 at step 6), and a
+    # near-zero element whose sign differs between the card's and the
+    # CPU's gradients moves its whole row's scale and grew to a 1.75e-4
+    # loss gap there (H100, see PERF.md); tests/test_torch_slice.py
+    # holds the CPU path to the reference in the same regime
+    slow = ["--lr", "3e-4"]
+    small = {"gpt2": check_small_input(dev, "gpt2", [], "lm"),
+             "bert_row": check_small_input(
+                 dev, "bert-base", ["--scale-mode", "row"] + slow, "mlm"),
+             "bert_sgd": check_small_input(
+                 dev, "bert-base", ["--optimizer", "zero_one_sgd"] + slow,
+                 "mlm")}
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = tally.rows[name]
         t_bytes = r["bytes"] / PEAK_BYTES_PER_S * 1e3
         t_ops = r["ops"] / PEAK_F32_PER_S * 1e3
+        by_run = {label: run["launches"].get(name, 0)
+                  for label, run in runs.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counts.get(name, 0),
+            "replaces": replaces, "launches": sum(by_run.values()),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": r["library_ms"],
-            "per": "step" if name == "fused_local_step" else "sync",
-            "launches_per_round": r["launches_per_round"]})
-    summary = {
-        "steps": steps, "peak_memory_gb": peak_gb, "profile": profile,
-        "wall_s": time.time() - t_start}
+            "library_ms": r["library_ms"], "per": PER[name],
+            "launches_per_round": r["launches_per_round"],
+            "launches_by_run": by_run})
+    missing = [k["name"] for k in kernels if k["launches"] == 0]
+    assert not missing, f"kernels never launched on a main path: {missing}"
+    summary = {"runs": runs, "small_inputs": small,
+               "wall_s": time.time() - t_start}
     print("summary " + json.dumps(summary))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,7 +1,7 @@
 """Architecture registry, PyTorch port of ``src/repro/configs/base.py``.
 
 Each entry carries the FULL config and a reduced SMOKE config of the same
-family. Only gpt2 is ported so far.
+family. Ported so far: gpt2, bert-base and bert-large.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ class ArchSpec:
 
 
 _REGISTRY: Dict[str, ArchSpec] = {}
-_ARCH_MODULES = ["gpt2"]
+_ARCH_MODULES = ["bert_base", "bert_large", "gpt2"]
 
 
 def register(name: str, spec: ArchSpec):

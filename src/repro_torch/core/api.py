@@ -1,8 +1,9 @@
 """Optimizer config and registry, PyTorch port of ``src/repro/core/api.py``.
 
-Only ``zero_one_adam`` (``compressed_dp(adam_base(), style="accumulate")``,
-the paper's recipe) is ported; every other registry name of the
-reference raises ``NotImplementedError`` until its slice lands.
+Ported: the 0/1 local-step pipelines over the Adam base (``zero_one_adam``,
+the paper's recipe) and the momentum-SGD base (``zero_one_sgd``), both
+``compressed_dp(base, style="accumulate")``. Every other registry name of
+the reference raises ``NotImplementedError`` until its slice lands.
 """
 from __future__ import annotations
 
@@ -13,12 +14,16 @@ import torch
 
 from repro_torch.core import compressor as C
 from repro_torch.core import schedules as S
-from repro_torch.core.base_steps import adam_base
+from repro_torch.core.base_steps import adam_base, momentum_sgd_base
 from repro_torch.core.compressed import CompressedDP, compressed_dp
 
-REGISTRY_NAMES = ("zero_one_adam",)
+_BASES = {
+    "zero_one_adam": lambda c: adam_base(c.beta1, c.beta2, c.eps),
+    "zero_one_sgd": lambda c: momentum_sgd_base(c.beta1),
+}
+REGISTRY_NAMES = tuple(sorted(_BASES))
 _LATER = ("adam", "lamb", "momentum_sgd", "one_bit_adam", "one_bit_lamb",
-          "zero_one_lamb", "zero_one_sgd")
+          "zero_one_lamb")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +53,7 @@ class OptimizerConfig:
 
 def transform_from_config(cfg: OptimizerConfig) -> CompressedDP:
     return compressed_dp(
-        adam_base(cfg.beta1, cfg.beta2, cfg.eps), style="accumulate",
+        _BASES[cfg.name](cfg), style="accumulate",
         lr=cfg.lr, sync_policy=cfg.sync_policy, var_policy=cfg.var_policy,
         scale_mode=cfg.scale_mode, codec=cfg.codec,
         comm_dtype=cfg.comm_dtype)

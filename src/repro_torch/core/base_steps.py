@@ -1,5 +1,5 @@
 """Base optimizer steps, PyTorch port of ``src/repro/core/base_steps.py``
-(the Adam base).
+(the Adam and momentum-SGD bases).
 
 A base owns the local, per-leaf half of an optimizer: the momentum
 update, a preconditioner *linear in its buffer* while its slots stay
@@ -46,6 +46,35 @@ class AdamBase:
         return {}
 
 
+@dataclasses.dataclass(frozen=True)
+class MomentumSgdBase:
+    """Momentum SGD, the 1-bit-SGD family's base step. No second moment:
+    composed with ``compressed_dp`` it skips T_v entirely."""
+
+    beta1: float = 0.9
+
+    kind: ClassVar[str] = "sgd"
+    has_variance: ClassVar[bool] = False
+    sync_slot_names: ClassVar[Tuple[str, ...]] = ()
+
+    def slot_specs(self) -> Dict[str, Tuple[str, float]]:
+        return {"m": ("view", 0.0)}
+
+    def precond_raw(self, buf, slots):
+        return buf
+
+    def precond(self, buf, slots):
+        return buf
+
+    def refresh_sync_slots(self, slots, anchor_nat, ubar_view, gamma_total,
+                           layout) -> Dict[str, torch.Tensor]:
+        return {}
+
+
 def adam_base(beta1: float = 0.9, beta2: float = 0.999,
               eps: float = 1e-8) -> AdamBase:
     return AdamBase(beta1=beta1, beta2=beta2, eps=eps)
+
+
+def momentum_sgd_base(beta1: float = 0.9) -> MomentumSgdBase:
+    return MomentumSgdBase(beta1=beta1)

@@ -11,8 +11,10 @@ Every per-worker tensor carries the stack of workers on dim 0. Local
 linearized half-steps accumulate ``u``; on T_u steps ``u`` goes through
 the Algorithm-2 exchange and parameters re-anchor at the stored anchor,
 ``x = anchor - precond(u_bar)`` (the reference's ``store_anchor=True``); on T_v steps the variance is refreshed
-from a full-precision gradient mean. The policies run on the host, so the
-sync and variance branches are plain Python ``if``s.
+from a full-precision gradient mean, for bases that carry one (a base
+without a variance, momentum SGD, has no ``"v"`` slot and no T_v round).
+The policies run on the host, so the sync and variance branches are plain
+Python ``if``s.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ class CompressedDPState:
     gamma_acc: np.float32         # sum of gamma since the last sync
     sync_pstate: tuple            # T_u policy state (host ints)
     var_pstate: tuple             # T_v policy state (host ints)
-    slots: Dict[str, List[torch.Tensor]]   # "m", "v": stacked views
+    slots: Dict[str, List[torch.Tensor]]   # "m" (+ "v"): stacked views
     u: List[torch.Tensor]         # accumulated update views
     err_w: List[torch.Tensor]     # worker EF (stack, *view_shape)
     err_s: List[torch.Tensor]     # server EF (stack, *chunk_shape)
@@ -110,7 +112,8 @@ class ComposedOptimizer:
         return CompressedDPState(
             step=0, gamma_acc=np.float32(0.0),
             sync_pstate=self.cfg.sync_policy.init(),
-            var_pstate=self.cfg.var_policy.init(),
+            var_pstate=(self.cfg.var_policy.init()
+                        if self.base.has_variance else ()),
             slots=slots,
             u=[torch.zeros((stack,) + lo.view_shape, device=x.device)
                for x, lo in zip(xs, los)],
@@ -126,7 +129,11 @@ class ComposedOptimizer:
         lr = np.float32(cfg.lr(t))
         do_sync, sync_ps, interval = cfg.sync_policy.step(state.sync_pstate,
                                                           t)
-        do_var, var_ps = cfg.var_policy.step(state.var_pstate, t, interval)
+        if base.has_variance:
+            do_var, var_ps = cfg.var_policy.step(state.var_pstate, t,
+                                                 interval)
+        else:
+            do_var, var_ps = False, state.var_pstate
         gamma_total = np.float32(state.gamma_acc + lr)
 
         xs, gs = self.plan.flat(params), self.plan.flat(grads)
@@ -134,19 +141,20 @@ class ComposedOptimizer:
         # device (CUDA turns a divide by a host scalar into a multiply by
         # its reciprocal); made once per step
         gamma_t = torch.tensor(gamma_total, device=xs[0].device)
-        new_x, new_m, new_v, new_u = [], [], [], []
+        new_x, new_m, new_u = [], [], []
+        new_v = list(state.slots["v"]) if base.has_variance else None
         new_ew, new_es = list(state.err_w), list(state.err_s)
         new_anchor = list(state.anchor)
         for i, (x, g, lo) in enumerate(zip(xs, gs, self.layouts)):
             gv = C.to_view(g.to(torch.float32), lo)
-            m, v = state.slots["m"][i], state.slots["v"][i]
+            slots = {name: state.slots[name][i] for name in state.slots}
             mh, u_new, delta = K.fused_local_step_view(
-                gv, m, state.u[i], v, lr, base.beta1, base.eps, lo)
+                gv, slots["m"], state.u[i], slots.get("v"), lr, base.beta1,
+                getattr(base, "eps", 0.0), lo, kind=base.kind)
             if do_sync:
                 ubar, ef = AR.onebit_allreduce_view(
                     comm, u_new, AR.EFState(state.err_w[i], state.err_s[i]),
                     lo, self.ar_cfg)
-                slots = {"m": m, "v": v}
                 slots.update(base.refresh_sync_slots(
                     slots, state.anchor[i], ubar, gamma_total, lo))
                 nx = (state.anchor[i]
@@ -164,15 +172,16 @@ class ComposedOptimizer:
                 new_u.append(u_new)
             if do_var:
                 gbar = AR.fullprec_allreduce_view(comm, gv, cfg.comm_dtype)
-                v = base.update_variance(v, gbar)
-            new_v.append(v)
+                new_v[i] = base.update_variance(slots["v"], gbar)
 
+        new_slots = {"m": new_m}
+        if new_v is not None:
+            new_slots["v"] = new_v
         new_state = CompressedDPState(
             step=t + 1,
             gamma_acc=np.float32(0.0) if do_sync else gamma_total,
-            sync_pstate=sync_ps, var_pstate=var_ps,
-            slots={"m": new_m, "v": new_v}, u=new_u,
-            err_w=new_ew, err_s=new_es, anchor=new_anchor)
+            sync_pstate=sync_ps, var_pstate=var_ps, slots=new_slots,
+            u=new_u, err_w=new_ew, err_s=new_es, anchor=new_anchor)
         metrics = {"lr": lr, "synced": do_sync, "var_round": do_var,
                    "interval": interval}
         return (leafwise.unflatten_tree(self.plan.paths, new_x), new_state,
@@ -181,8 +190,9 @@ class ComposedOptimizer:
 
 def comm_accounting(opt: ComposedOptimizer) -> Dict[str, float]:
     """Static bytes per round of one worker: the compressed sync (per-leaf
-    sign1bit exchange) and the bf16 full-precision round, in the
-    reference's (n-1)/n ring convention."""
+    exchange at the codec's wire format and the configured scale mode) and
+    the bf16 full-precision round, in the reference's (n-1)/n ring
+    convention."""
     params = sum(int(np.prod(lo.shape)) for lo in opt.layouts)
     comp = sum(C.compressed_bytes(lo, opt.cfg.scale_mode, opt.codec)
                for lo in opt.layouts)

@@ -12,8 +12,9 @@ EF state and wire bytes match the reference leaf for leaf.
 
 Tensors here carry any number of leading worker dims before the view
 (a simulated run stacks its n workers on dim 0); layout metadata is plain
-numpy. Only ``scale_mode="tensor"`` (the paper's Eq. 4) and unsharded
-leaves are ported so far.
+numpy. All three scale granularities are ported (``"tensor"``, the
+paper's Eq. 4, plus ``"chunk"`` and ``"row"``); tensor-parallel sharded
+leaves are not yet.
 """
 from __future__ import annotations
 
@@ -23,15 +24,15 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-ScaleMode = str
-SCALE_MODES = ("tensor",)
+ScaleMode = str  # "tensor" | "chunk" | "row"
+SCALE_MODES = ("tensor", "chunk", "row")
 
 
 def validate_scale_mode(mode: ScaleMode) -> ScaleMode:
+    """Fail fast on a bad scale mode, at config-build time."""
     if mode not in SCALE_MODES:
-        raise NotImplementedError(
-            f"scale_mode {mode!r} is not ported yet (only {SCALE_MODES}); "
-            f"chunk and row scales come with a later slice of the port")
+        raise ValueError(
+            f"unknown scale_mode {mode!r}; choose from {list(SCALE_MODES)}")
     return mode
 
 
@@ -269,16 +270,31 @@ def _view_dims(z: torch.Tensor, layout: LeafLayout) -> Tuple[int, ...]:
 
 
 def _scales(z, layout: LeafLayout, mode: ScaleMode, mask) -> torch.Tensor:
-    """Tensor-mode L1-mean magnitude per worker (pad-exact), shaped
-    (*lead, 1, ..., 1) against the view."""
+    """L1-mean magnitudes at the requested granularity (pad-exact), shaped
+    against the view: tensor (*lead, 1, ..., 1), chunk (*lead, n, 1, ...),
+    row (*lead, n, A/n, 1, ...). Row scales on a 2-D (flatten) view would
+    be per element; the worker side falls back to chunk scales there, as
+    the reference does."""
     validate_scale_mode(mode)
     az = z.abs()
     if mask is not None:
         az = az * mask
-    total, _ = true_counts(layout)
+    total, per_chunk = true_counts(layout)
+    rf = layout.rest_factor
     dims = _view_dims(z, layout)
-    s = az.sum(dim=dims, keepdim=True) / (total * layout.rest_factor)
-    return s
+    if mode == "row" and len(dims) == 2:
+        mode = "chunk"
+    if mode == "tensor":
+        denom = torch.tensor(total * rf, dtype=z.dtype, device=z.device)
+        return az.sum(dim=dims, keepdim=True) / denom
+    if mode == "chunk":
+        cnt = np.maximum(per_chunk * rf, 1.0).reshape(
+            (-1,) + (1,) * (len(dims) - 1))
+        return (az.sum(dim=dims[1:], keepdim=True)
+                / torch.as_tensor(cnt, dtype=z.dtype, device=z.device))
+    rest = int(np.prod(layout.view_shape[2:])) * rf
+    return (az.sum(dim=dims[2:], keepdim=True)
+            / torch.tensor(float(rest), dtype=z.dtype, device=z.device))
 
 
 def ef_compress(z, layout: LeafLayout, mode: ScaleMode, mask):

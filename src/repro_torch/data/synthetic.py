@@ -3,9 +3,12 @@
 
 A latent bigram process: each token moves to one of 4 fixed successors
 (the same numpy ``_bigram_table`` as the reference), with 10% uniform
-noise. Draws come from a ``torch.Generator`` seeded by (seed, step), so
-the stream is a pure function of both, but its bits differ from the
-reference's threefry draws; parity tests feed the reference's batches.
+noise. ``kind="lm"`` gives next-token batches; ``kind="mlm"`` masked-LM
+batches: labels are the input tokens, a ``mlm_mask_frac`` share of them
+is replaced by 0 ([MASK]) and ``loss_mask`` marks those positions. Draws
+come from a ``torch.Generator`` seeded by (seed, step), so the stream is a
+pure function of both, but its bits differ from the reference's threefry
+draws; parity tests feed the reference's batches.
 """
 from __future__ import annotations
 
@@ -22,6 +25,13 @@ class DataConfig:
     seq_len: int
     global_batch: int
     seed: int = 1234
+    kind: str = "lm"             # lm | mlm
+    mlm_mask_frac: float = 0.15
+
+    def __post_init__(self):
+        if self.kind not in ("lm", "mlm"):
+            raise NotImplementedError(f"data kind {self.kind!r} is not "
+                                      f"ported yet (lm, mlm)")
 
 
 def _bigram_table(vocab: int, seed: int) -> np.ndarray:
@@ -54,5 +64,9 @@ class SyntheticLM:
                               self.table[tok, choice[:, s]])
             toks[:, s] = tok
         tokens = torch.cat([first[:, None], toks[:, :-1]], dim=1)
-        return {"tokens": tokens.to(self.device),
-                "labels": toks.to(self.device)}
+        out = {"tokens": tokens, "labels": toks}
+        if cfg.kind == "mlm":
+            mask = torch.rand((B, S), generator=g) < cfg.mlm_mask_frac
+            out = {"tokens": torch.where(mask, 0, tokens), "labels": tokens,
+                   "loss_mask": mask.to(torch.float32)}
+        return {k: v.to(self.device) for k, v in out.items()}

@@ -46,9 +46,11 @@ def state_from_reference(state, opt: ComposedOptimizer,
         step=int(first(state.step)),
         gamma_acc=np.float32(first(state.gamma_acc)),
         sync_pstate=tuple(int(first(x)) for x in state.sync_pstate),
-        var_pstate=(int(first(state.var_pstate[0])),
-                    int(first(state.var_pstate[1])),
-                    bool(first(state.var_pstate[2]))),
-        slots={name: leaves(state.slots[name]) for name in ("m", "v")},
+        var_pstate=(() if not state.var_pstate else
+                    (int(first(state.var_pstate[0])),
+                     int(first(state.var_pstate[1])),
+                     bool(first(state.var_pstate[2])))),
+        slots={name: leaves(state.slots[name])
+               for name in opt.base.slot_specs()},
         u=leaves(state.u), err_w=leaves(state.err_w),
         err_s=leaves(state.err_s), anchor=leaves(state.anchor))

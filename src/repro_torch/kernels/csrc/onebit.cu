@@ -1,7 +1,8 @@
 // Error-feedback 1-bit compression kernels for Hopper (sm_90a): the
-// two-pass sign compressor of the 0/1 Adam exchange and its decoder.
+// two-pass and the single-pass sign compressors of the 0/1 Adam exchange
+// and their decoder.
 //
-// All three work on a 2-D (rows, cols) f32 frame of a comm view, with
+// All four work on a 2-D (rows, cols) f32 frame of a comm view, with
 // cols a multiple of 8. counts[r] is the number of true (unpadded)
 // elements of row r; the mask is rebuilt as `col < counts[r]`.
 //
@@ -10,11 +11,15 @@
 // ef_quantize  replaces src/repro/kernels/onebit.py::ef_quantize
 //              packed bit (z + err >= 0), 8 per byte, element 0 in the
 //              MSB; err_out = mask * (zw - (bit ? s : -s)), s = scales[r]
+// ef_compress  replaces src/repro/kernels/onebit.py::ef_compress
+//              single pass with per-row scales: s[r] = abs_rowsum[r] /
+//              max(counts[r], 1), then ef_quantize's bits and err_out
 // decompress   replaces src/repro/kernels/onebit.py::decompress
 //              out = (bit ? s : -s), s = scales[r]
 //
 // Bound: bytes, for every kernel. abs_rowsum reads 8 bytes per true
 // element; ef_quantize reads 8 and writes 4.125 bytes per element;
+// ef_compress the same as ef_quantize plus 4 bytes of scale per row;
 // decompress reads 0.125 and writes 4 bytes per element. The arithmetic
 // is an add, a compare and a subtract per element.
 //
@@ -29,8 +34,15 @@
 //   byte and two float4 stores. The bit order is written out per element
 //   (bit 7 - k for element k), so no ballot and no bit reversal is needed.
 //   A grid-stride loop covers the frame.
+// * ef_compress needs a row's sum before it can quantize the row, and a
+//   row reaches 30,720 f32 (120 KB). One block per row sweeps its row
+//   twice: abs_rowsum's loop and reduction, the scale through shared
+//   memory, then ef_quantize's per-byte loop over the same row (the second
+//   read of a row that fits in L2 is mostly a hit). Keeping the row in
+//   shared memory instead is left for a later change.
 // * Compiled with -fmad=false; the arithmetic is a single add or subtract
-//   per element, so kernel and plain version round identically.
+//   per element and one IEEE divide per row, so kernel and plain version
+//   round identically given the same row sum.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,17 +61,11 @@ int blocks_for(int64_t work) {
   return (int)(b < 1 ? 1 : b);
 }
 
-__global__ void abs_rowsum_kernel(const float* __restrict__ z,
-                                  const float* __restrict__ err,
-                                  const int* __restrict__ counts,
-                                  float* __restrict__ out, int64_t cols,
-                                  bool vec) {
-  const int64_t r = blockIdx.x;
-  int64_t cnt = counts[r];
-  if (cnt < 0) cnt = 0;
-  if (cnt > cols) cnt = cols;
-  const float* zr = z + r * cols;
-  const float* er = err + r * cols;
+// Masked L1 sum of one row, reduced over the block; the total is valid
+// in thread 0 only.
+__device__ float row_abs_sum(const float* __restrict__ zr,
+                             const float* __restrict__ er, int64_t cnt,
+                             bool vec) {
   float acc = 0.f;
   int64_t start = 0;
   if (vec) {
@@ -90,8 +96,27 @@ __global__ void abs_rowsum_kernel(const float* __restrict__ z,
     for (int off = 16; off > 0; off >>= 1) {
       acc = __fadd_rn(acc, __shfl_down_sync(0xffffffffu, acc, off));
     }
-    if (lane == 0) out[r] = acc;
   }
+  return acc;
+}
+
+__device__ __forceinline__ int64_t row_count(const int* counts, int64_t r,
+                                             int64_t cols) {
+  int64_t cnt = counts[r];
+  if (cnt < 0) cnt = 0;
+  if (cnt > cols) cnt = cols;
+  return cnt;
+}
+
+__global__ void abs_rowsum_kernel(const float* __restrict__ z,
+                                  const float* __restrict__ err,
+                                  const int* __restrict__ counts,
+                                  float* __restrict__ out, int64_t cols,
+                                  bool vec) {
+  const int64_t r = blockIdx.x;
+  const float acc = row_abs_sum(z + r * cols, err + r * cols,
+                                row_count(counts, r, cols), vec);
+  if (threadIdx.x == 0) out[r] = acc;
 }
 
 __device__ __forceinline__ void load8(const float* p, bool vec, float* v) {
@@ -116,6 +141,27 @@ __device__ __forceinline__ void store8(float* p, bool vec, const float* v) {
   }
 }
 
+// Signs and error feedback of the 8 elements [c0, c0 + 8) of one row.
+__device__ __forceinline__ void quantize8(const float* __restrict__ zp,
+                                          const float* __restrict__ ep,
+                                          float s, int64_t c0, int64_t cnt,
+                                          bool vec, uint8_t* __restrict__ pb,
+                                          float* __restrict__ op) {
+  float zv[8], ev[8], eo[8];
+  load8(zp, vec, zv);
+  load8(ep, vec, ev);
+  unsigned byte = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float zw = __fadd_rn(zv[k], ev[k]);
+    const bool bit = zw >= 0.f;
+    byte |= (unsigned)bit << (7 - k);
+    eo[k] = (c0 + k < cnt) ? __fsub_rn(zw, bit ? s : -s) : 0.f;
+  }
+  *pb = (uint8_t)byte;
+  store8(op, vec, eo);
+}
+
 __global__ void ef_quantize_kernel(const float* __restrict__ z,
                                    const float* __restrict__ err,
                                    const float* __restrict__ scales,
@@ -131,21 +177,35 @@ __global__ void ef_quantize_kernel(const float* __restrict__ z,
     const int64_t r = i / cb;
     const int64_t c0 = (i - r * cb) * 8;
     const int64_t off = r * cols + c0;
-    float zv[8], ev[8], eo[8];
-    load8(z + off, vec, zv);
-    load8(err + off, vec, ev);
-    const float s = scales[r];
-    const int64_t cnt = counts[r];
-    unsigned byte = 0;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const float zw = __fadd_rn(zv[k], ev[k]);
-      const bool bit = zw >= 0.f;
-      byte |= (unsigned)bit << (7 - k);
-      eo[k] = (c0 + k < cnt) ? __fsub_rn(zw, bit ? s : -s) : 0.f;
-    }
-    packed[i] = (uint8_t)byte;
-    store8(err_out + off, vec, eo);
+    quantize8(z + off, err + off, scales[r], c0, counts[r], vec, packed + i,
+              err_out + off);
+  }
+}
+
+__global__ void ef_compress_kernel(const float* __restrict__ z,
+                                   const float* __restrict__ err,
+                                   const int* __restrict__ counts,
+                                   uint8_t* __restrict__ packed,
+                                   float* __restrict__ scales,
+                                   float* __restrict__ err_out,
+                                   int64_t cols, bool vec) {
+  const int64_t r = blockIdx.x;
+  const int64_t cnt = row_count(counts, r, cols);
+  const float* zr = z + r * cols;
+  const float* er = err + r * cols;
+  __shared__ float row_scale;
+  const float sum = row_abs_sum(zr, er, cnt, vec);
+  if (threadIdx.x == 0) {
+    const float s = __fdiv_rn(sum, (float)(cnt > 1 ? cnt : 1));
+    scales[r] = s;
+    row_scale = s;
+  }
+  __syncthreads();
+  const float s = row_scale;
+  const int64_t cb = cols / 8;
+  for (int64_t b = threadIdx.x; b < cb; b += blockDim.x) {
+    quantize8(zr + b * 8, er + b * 8, s, b * 8, cnt, vec,
+              packed + r * cb + b, err_out + r * cols + b * 8);
   }
 }
 
@@ -196,6 +256,21 @@ extern "C" int ef_quantize_f32(const void* z, const void* err,
       static_cast<const float*>(scales), static_cast<const int*>(counts),
       static_cast<uint8_t*>(packed), static_cast<float*>(err_out), rows,
       cols, vec);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ef_compress_f32(const void* z, const void* err,
+                               const void* counts, void* packed,
+                               void* scales, void* err_out, long long rows,
+                               long long cols, void* stream) {
+  if (rows <= 0 || cols <= 0) return 0;
+  if (cols % 8) return (int)cudaErrorInvalidValue;
+  const bool vec = aligned16(z) && aligned16(err) && aligned16(err_out);
+  ef_compress_kernel<<<(unsigned)rows, kThreads, 0,
+                       reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(z), static_cast<const float*>(err),
+      static_cast<const int*>(counts), static_cast<uint8_t*>(packed),
+      static_cast<float*>(scales), static_cast<float*>(err_out), cols, vec);
   return (int)cudaGetLastError();
 }
 

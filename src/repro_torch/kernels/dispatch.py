@@ -5,13 +5,15 @@ kernels. PyTorch port of the unsharded part of
     ef_compress_view      <->  compressor.ef_compress (z + err fused in)
     server_compress_view  <->  codecs._server_compress
     decompress_view       <->  compressor.decompress
-    fused_local_step_view <->  the local half-step of the 0/1 Adam base
+    fused_local_step_view <->  the local half-step of the base (adam, sgd)
 
 Every tensor carries a leading dim of stacked workers. Their frames stack
 along rows, so each phase of each leaf is one launch however many workers
 the process simulates. Padding travels as per-row true counts
 (``compressor.view_row_counts``), so scales and error feedback are
-pad-exact. Only the two-pass branch with tensor scales is ported.
+pad-exact. Scales of every granularity come from the two-pass kernels
+(``abs_rowsum``, a small combine in torch, ``ef_quantize``), except per-row
+scales on 3-D views, which the single-pass ``ef_compress`` computes itself.
 """
 from __future__ import annotations
 
@@ -64,27 +66,73 @@ def _scales_to_rows(scales, lead_shape, rows, layout=None):
     return s.contiguous()
 
 
+@functools.lru_cache(maxsize=None)
+def _const(values: tuple, shape: tuple, device: str) -> torch.Tensor:
+    """f32 constant on ``device``, made once: a scale divides by a tensor,
+    never by a Python number, because CUDA turns a divide by a host scalar
+    into a multiply by its reciprocal (not the reference's f32 divide)."""
+    return torch.tensor(values, dtype=torch.float32,
+                        device=torch.device(device)).reshape(shape)
+
+
+def _row_group_scales(rowsum, shape, rest_factor, stack: int):
+    """Row-granularity scales of ``stack`` stacked buffers of shape
+    (lead, chunk, *rest): one scale per (lead, chunk-row) pair, i.e. per
+    group of prod(rest[:-1]) frame rows, divided by the full rest extent
+    (padding is whole rows, already zero in the masked row sums). Serves
+    the worker view (lead = n) and the server chunk (lead = 1)."""
+    ndim = len(shape)
+    group = int(np.prod(shape[2:-1])) if ndim > 3 else 1
+    rest = max(int(np.prod(shape[2:])) * rest_factor, 1)
+    rs = rowsum.view(stack * shape[0], shape[1], group).sum(-1)
+    s = rs / _const((float(rest),), (), str(rowsum.device))
+    return s.view((stack,) + tuple(shape[:2]) + (1,) * (ndim - 2))
+
+
 def _combine_scales(rowsum, layout: C.LeafLayout, mode: C.ScaleMode,
                     stack: int):
     """Masked per-row L1 sums of stacked frames -> per-worker scales
-    shaped like ``compressor._scales``: (stack, 1, ..., 1)."""
+    shaped like ``compressor._scales``: (stack, 1, ..., 1) for tensor,
+    (stack, n, 1, ...) for chunk, (stack, n, A/n, 1, ...) for row."""
     C.validate_scale_mode(mode)
-    total, _ = C.true_counts(layout)
-    s = rowsum.view(stack, -1).sum(1) / (total * layout.rest_factor)
-    return s.view((stack,) + (1,) * len(layout.view_shape))
+    vs = layout.view_shape
+    ndim = len(vs)
+    rf = layout.rest_factor
+    dev = str(rowsum.device)
+    total, per_chunk = C.true_counts(layout)
+    if mode == "tensor":
+        s = rowsum.view(stack, -1).sum(1) / _const((total * rf,), (), dev)
+        return s.view((stack,) + (1,) * ndim)
+    if mode == "chunk":
+        cnt = _const(tuple(np.maximum(per_chunk * rf, 1.0).tolist()),
+                     (1, vs[0]), dev)
+        s = rowsum.view(stack, vs[0], -1).sum(-1) / cnt
+        return s.view((stack, vs[0]) + (1,) * (ndim - 1))
+    return _row_group_scales(rowsum, vs, rf, stack)
 
 
 def ef_compress_view(z, err, layout: C.LeafLayout, mode: C.ScaleMode):
     """Worker-side EF compress of stacked views (stack, *view_shape):
-    ``z + err`` is fused into the kernels. Returns (packed, scales, err)."""
+    ``z + err`` is fused into the kernels. Returns (packed, scales, err).
+
+    Row scales on a 2-D view fall back to chunk scales, as in
+    ``compressor._scales``; on a 3-D view they are one scale per frame row,
+    and the single-pass kernel computes them."""
     rows, cols = C.view_rows_cols(layout)
     stack, vs = z.shape[0], layout.view_shape
+    ndim = len(vs)
+    eff = "chunk" if (mode == "row" and ndim == 2) else mode
     z2, e2 = _frame(z, stack * rows, cols), _frame(err, stack * rows, cols)
     cnts = _worker_counts(layout, stack, str(z.device))
-    rowsum = onebit.abs_rowsum(z2, e2, cnts)
-    scales = _combine_scales(rowsum, layout, mode, stack)
-    srow = _scales_to_rows(scales, (stack,) + vs[:-1], stack * rows, layout)
-    packed2, err2 = onebit.ef_quantize(z2, e2, srow, cnts)
+    if eff == "row" and ndim == 3 and layout.rest_factor == 1:
+        packed2, srow, err2 = onebit.ef_compress(z2, e2, cnts)
+        scales = srow.view((stack,) + vs[:2] + (1,))
+    else:
+        rowsum = onebit.abs_rowsum(z2, e2, cnts)
+        scales = _combine_scales(rowsum, layout, eff, stack)
+        srow = _scales_to_rows(scales, (stack,) + vs[:-1], stack * rows,
+                               layout)
+        packed2, err2 = onebit.ef_quantize(z2, e2, srow, cnts)
     return (packed2.view((stack,) + vs[:-1] + (-1,)), scales,
             err2.view(z.shape))
 
@@ -93,18 +141,26 @@ def server_compress_view(avg, err, layout: C.LeafLayout, mode: C.ScaleMode,
                          worker_index):
     """Server-side EF compress of the chunk each stacked worker serves:
     ``avg`` and ``err`` are (stack, 1, *chunk_shape), worker w serving
-    chunk ``worker_index[w]``. Returns (packed, scales, err)."""
+    chunk ``worker_index[w]``. Returns (packed, scales, err). Row scales on
+    a 2-D view are per element, which no kernel takes (the caller keeps
+    ``codecs._server_compress`` for them, as the reference does)."""
     C.validate_scale_mode(mode)
     ys = tuple(avg.shape)
     stack = ys[0]
+    if mode == "row" and len(ys) == 3:
+        raise ValueError("row scales on a 2-D view are per element on the "
+                         "server side; use codecs._server_compress")
     rows_all, cols = C.view_rows_cols(layout)
     rows = stack * (rows_all // layout.n)
     cnts, denom = _server_counts(layout, tuple(int(w) for w in worker_index),
                                  str(avg.device))
     z2, e2 = _frame(avg, rows, cols), _frame(err, rows, cols)
     rowsum = onebit.abs_rowsum(z2, e2, cnts)
-    s = rowsum.view(stack, -1).sum(1) / denom
-    scales = s.view((stack,) + (1,) * (len(ys) - 1))
+    if mode == "row":
+        scales = _row_group_scales(rowsum, ys[1:], layout.rest_factor, stack)
+    else:
+        s = rowsum.view(stack, -1).sum(1) / denom
+        scales = s.view((stack,) + (1,) * (len(ys) - 1))
     srow = _scales_to_rows(scales, ys[:-1], rows, layout)
     packed2, err2 = onebit.ef_quantize(z2, e2, srow, cnts)
     return (packed2.view(ys[:-1] + (ys[-1] // 8,)), scales, err2.view(ys))
@@ -122,11 +178,20 @@ def decompress_view(packed, scales, layout: C.LeafLayout):
     return out2.view(tuple(packed.shape[:-1]) + (layout.pack_count,))
 
 
-def fused_local_step_view(g, m, u, v, lr, beta1, eps, layout: C.LeafLayout):
-    """Fused 0/1 Adam local half-step over stacked comm views; returns
-    (m', u', delta) in view shape."""
+def fused_local_step_view(g, m, u, v, lr, beta1, eps, layout: C.LeafLayout,
+                          kind: str = "adam"):
+    """Fused local half-step over stacked comm views, keyed on the base
+    kind: "adam" (needs ``v``) or "sgd" (no variance, ``v`` ignored).
+    Returns (m', u', delta) in view shape."""
     rows, cols = C.view_rows_cols(layout)
     rows *= g.shape[0]
-    f = [_frame(a, rows, cols) for a in (g, m, u, v)]
-    outs = fused_adam.fused_local_step(*f, lr, beta1, eps)
+    if kind == "sgd":
+        f = [_frame(a, rows, cols) for a in (g, m, u)]
+        outs = fused_adam.fused_local_step_sgd(*f, lr, beta1)
+    elif kind == "adam":
+        f = [_frame(a, rows, cols) for a in (g, m, u, v)]
+        outs = fused_adam.fused_local_step(*f, lr, beta1, eps)
+    else:
+        raise ValueError(f"unknown base kind {kind!r} for the fused local "
+                         f"step")
     return tuple(o.view(g.shape) for o in outs)

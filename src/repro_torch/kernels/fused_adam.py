@@ -1,16 +1,27 @@
-"""Fused 0/1 Adam local half-step: CUDA kernel, plain version, wrapper.
+"""Fused local half-steps of the 0/1 optimizers, one per base kind: CUDA
+kernels, plain versions, wrappers.
 
-    m' = fma(b1, m, (1-b1)*g)
-    u' = fma(lr, m', u)
-    d  = (lr*m') / sqrt(v + eps)
+* :func:`fused_local_step` (Adam base) replaces the Pallas kernel
+  ``src/repro/kernels/fused_adam.py::fused_local_step``:
 
-The kernel (``csrc/fused_adam.cu``) replaces the Pallas kernel
-``src/repro/kernels/fused_adam.py::fused_local_step``. The reference's XLA
-build contracts both updates into single-rounding FMAs; the kernel writes
-those two FMAs out and the plain version reproduces them exactly (see
-:func:`fma_f32`), so m' and u' agree bit for bit. The divide and square
-root are IEEE-rounded on both sides; ``d`` is held to 2 ulp against the
-reference.
+      m' = fma(b1, m, (1-b1)*g)
+      u' = fma(lr, m', u)
+      d  = (lr*m') / sqrt(v + eps)
+
+* :func:`fused_local_step_sgd` (momentum-SGD base) replaces
+  ``src/repro/kernels/fused_adam.py::fused_local_step_sgd``:
+
+      m' = fma(b1, m, (1-b1)*g)
+      u' = fma(lr, m', u)
+      d  = lr*m'
+
+The kernels are in ``csrc/fused_adam.cu``. The reference's XLA build
+contracts both updates into single-rounding FMAs (for SGD too, although
+``d = lr*m'`` is written out there and ``u' = u + d`` in the source); the
+kernels write those two FMAs out and the plain versions reproduce them
+exactly (see :func:`fma_f32`), so m' and u' agree bit for bit, and so does
+the SGD step's ``d``. Adam's divide and square root are IEEE-rounded on
+both sides; its ``d`` is held to 2 ulp against the reference.
 """
 from __future__ import annotations
 
@@ -20,6 +31,7 @@ import torch
 from repro_torch.kernels import build
 
 KERNEL = "fused_local_step"
+KERNEL_SGD = "fused_local_step_sgd"
 
 
 def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
@@ -72,4 +84,31 @@ def fused_local_step(g, m, u, v, lr, beta1, eps=1e-8):
         build.launch(KERNEL, "fused_local_step_f32", dev, g.data_ptr(), m.data_ptr(), u.data_ptr(),
                      v.data_ptr(), m_out.data_ptr(), u_out.data_ptr(), d_out.data_ptr(), g.numel(), lr32, b1,
                      omb1, eps32)
+    return m_out, u_out, d_out
+
+
+def fused_local_step_sgd_plain(g, m, u, lr, beta1):
+    """Plain PyTorch version of the SGD kernel (the CPU path)."""
+    lr32, b1, omb1, _ = _scalars(lr, beta1, 0.0)
+    mh = fma_f32(m, b1, g * omb1)
+    return mh, fma_f32(mh, lr32, u), mh * lr32
+
+
+def fused_local_step_sgd(g, m, u, lr, beta1):
+    """One fused momentum-SGD local step over (R, C) f32 frames; returns
+    (m', u', d).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    dev, shape = g.device, g.shape
+    for name, t in (("g", g), ("m", m), ("u", u)):
+        build.check_operand(KERNEL_SGD, name, t, torch.float32, shape, dev)
+    if not build.on_card(KERNEL_SGD, g):
+        return fused_local_step_sgd_plain(g, m, u, lr, beta1)
+    m_out, u_out, d_out = (torch.empty_like(g) for _ in range(3))
+    if g.numel():
+        lr32, b1, omb1, _ = _scalars(lr, beta1, 0.0)
+        build.launch(KERNEL_SGD, "fused_local_step_sgd_f32", dev,
+                     g.data_ptr(), m.data_ptr(), u.data_ptr(),
+                     m_out.data_ptr(), u_out.data_ptr(), d_out.data_ptr(),
+                     g.numel(), lr32, b1, omb1)
     return m_out, u_out, d_out

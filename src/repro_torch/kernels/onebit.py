@@ -1,5 +1,5 @@
-"""Two-pass error-feedback 1-bit compression: CUDA kernels, plain
-versions, wrappers.
+"""Error-feedback 1-bit compression, two-pass and single-pass: CUDA
+kernels, plain versions, wrappers.
 
 Frames are 2-D (rows, cols) f32 with cols a multiple of 8; ``counts`` is
 the int32 per-row count of true elements (padding is a row tail or a
@@ -10,6 +10,9 @@ whole row, see ``core.compressor.view_row_counts``).
 * :func:`ef_quantize` — pass 2, big-endian packed signs of ``z + err``
   and the error-feedback residual against per-row scales; replaces
   ``src/repro/kernels/onebit.py::ef_quantize``.
+* :func:`ef_compress` — single pass with per-row scales: the masked L1
+  mean of each row, then :func:`ef_quantize`'s bits and residual against
+  it; replaces ``src/repro/kernels/onebit.py::ef_compress``.
 * :func:`decompress`  — packed signs times per-row scales; replaces
   ``src/repro/kernels/onebit.py::decompress``.
 
@@ -48,6 +51,13 @@ def ef_quantize_plain(z, err, scales, counts):
     err_out = torch.where(_mask(counts, rows, cols), zw - zhat,
                           torch.zeros((), dtype=zw.dtype, device=zw.device))
     return pack_signs(zw), err_out
+
+
+def ef_compress_plain(z, err, counts):
+    s = (abs_rowsum_plain(z, err, counts)
+         / counts.clamp_min(1).to(torch.float32))
+    packed, err_out = ef_quantize_plain(z, err, s, counts)
+    return packed, s, err_out
 
 
 def decompress_plain(packed, scales):
@@ -96,6 +106,25 @@ def ef_quantize(z, err, scales, counts):
         build.launch("ef_quantize", "ef_quantize_f32", dev, z.data_ptr(), err.data_ptr(),
                      scales.data_ptr(), counts.data_ptr(), packed.data_ptr(), err_out.data_ptr(), rows, cols)
     return packed, err_out
+
+
+def ef_compress(z, err, counts):
+    """(packed u8 (rows, cols//8), scales f32 (rows,), err_out f32 (rows,
+    cols)) with ``scales[r] = sum_{c<counts[r]} |z+err| / max(counts[r], 1)``.
+    """
+    rows, cols, dev = _check_zerr("ef_compress", z, err, counts)
+    if cols % 8:
+        raise ValueError(f"ef_compress: cols={cols} is not a multiple of 8")
+    if not build.on_card("ef_compress", z):
+        return ef_compress_plain(z, err, counts)
+    packed = torch.empty((rows, cols // 8), dtype=torch.uint8, device=dev)
+    scales = torch.empty(rows, dtype=torch.float32, device=dev)
+    err_out = torch.empty_like(z)
+    if z.numel():
+        build.launch("ef_compress", "ef_compress_f32", dev, z.data_ptr(),
+                     err.data_ptr(), counts.data_ptr(), packed.data_ptr(),
+                     scales.data_ptr(), err_out.data_ptr(), rows, cols)
+    return packed, scales, err_out
 
 
 def decompress(packed, scales):

@@ -1,15 +1,19 @@
 """Training CLI, PyTorch port of the sim mode of
 ``src/repro/launch/train.py``: N simulated paper-workers on one GPU.
 
-Example:
+Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2 --smoke \\
       --steps 8 --batch 8 --seq 32 --workers 4 --sync-warmup 2 \\
       --double-every 2 --kappa 1 --log-every 1 [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch bert-base \\
+      --smoke --optimizer zero_one_sgd --scale-mode row [...as above]
 """
 from __future__ import annotations
 
 import argparse
 import time
+
+import torch
 
 from repro_torch.configs.base import get
 from repro_torch.core import schedules as S
@@ -50,7 +54,8 @@ def parse_args(argv=None):
     ap.add_argument("--sync-warmup", type=int, default=20)
     ap.add_argument("--double-every", type=int, default=50)
     ap.add_argument("--max-interval", type=int, default=16)
-    ap.add_argument("--scale-mode", default="tensor", choices=["tensor"])
+    ap.add_argument("--scale-mode", default="tensor",
+                    choices=["tensor", "chunk", "row"])
     ap.add_argument("--codec", default="sign1bit",
                     choices=["sign1bit", "identity"])
     ap.add_argument("--seed", type=int, default=0)
@@ -80,7 +85,13 @@ def main(argv=None):
     t0 = time.time()
     comp_bytes, rounds = 0.0, 0
     for step in range(args.steps):
-        params, state, met = tr.sim_step(params, state, data.batch(step))
+        batch = data.batch(step)
+        if not cfg.causal:
+            # as the reference's CLI: next-token batches with every
+            # position in the loss
+            batch["loss_mask"] = torch.ones((args.batch, args.seq),
+                                            device=tr.device)
+        params, state, met = tr.sim_step(params, state, batch)
         if met["synced"]:
             comp_bytes += acct["compressed_bytes_per_sync"]
             rounds += 1

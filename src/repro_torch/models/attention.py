@@ -18,6 +18,7 @@ from repro_torch.models import rope as R
 from repro_torch.models.layers import PD, model_dim_spec
 
 NEG_INF = -1e30
+_PAD_SENTINEL = 2 ** 29  # key positions >= this are padding
 
 
 def gqa_template(d, n_heads, n_kv, head_dim, bias=False, stack=None):
@@ -40,10 +41,16 @@ def gqa_template(d, n_heads, n_kv, head_dim, bias=False, stack=None):
     return t
 
 
-def _mask_bias(q_pos, k_pos):
-    """Causal additive f32 mask (Sq, Sk): 0 where the key is not after
-    the query, NEG_INF elsewhere (the reference's ``kind="causal"``)."""
-    ok = (q_pos[:, None] - k_pos[None, :]) >= 0
+def _mask_bias(q_pos, k_pos, kind: str):
+    """Additive f32 mask (Sq, Sk): 0 where the query may attend to the
+    key, NEG_INF elsewhere. ``kind="causal"``: valid keys not after the
+    query; ``kind="bidir"``: every valid key (the reference's kinds of
+    the same names)."""
+    if kind not in ("causal", "bidir"):
+        raise NotImplementedError(f"mask kind {kind!r} is not ported yet")
+    ok = (k_pos < _PAD_SENTINEL)[None, :].expand(q_pos.shape[0], -1)
+    if kind == "causal":
+        ok = ok & ((q_pos[:, None] - k_pos[None, :]) >= 0)
     zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
     return torch.where(ok, zero, NEG_INF)
 
@@ -61,8 +68,8 @@ def dot_attn(q, k, v, bias):
 
 
 def gqa_forward(p, cfg, x, positions):
-    """Training-path causal GQA attention over (B, S, D); returns
-    (out, None)."""
+    """Training-path GQA attention over (B, S, D), causal or bidirectional
+    as ``cfg.causal`` says; returns (out, None)."""
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv, cfg.hd
     q = x @ p["wq"]
@@ -78,5 +85,6 @@ def gqa_forward(p, cfg, x, positions):
         q = R.apply_rope(q, positions)
         k = R.apply_rope(k, positions)
     pos = positions[0]
-    o = dot_attn(q, k, v, _mask_bias(pos, pos))
+    kind = "causal" if cfg.causal else "bidir"
+    o = dot_attn(q, k, v, _mask_bias(pos, pos, kind))
     return o.reshape(B, S, H * hd) @ p["wo"], None

@@ -1,8 +1,8 @@
 """Model configuration, PyTorch port of ``src/repro/models/config.py``.
 
-Only the fields the dense decoder family reads are ported; the MoE, SSM,
-MLA, encoder-decoder and vision options of the reference arrive with the
-slices that port those families.
+Only the fields the dense family (gpt2 decoders, bert encoders) reads are
+ported; the MoE, SSM, MLA, encoder-decoder and vision options of the
+reference arrive with the slices that port those families.
 """
 from __future__ import annotations
 
@@ -25,10 +25,10 @@ class ModelConfig:
     head_dim: Optional[int] = None
     attn_bias: bool = False
     rope: str = "learned"        # only "learned" positions are ported
-    causal: bool = True
+    causal: bool = True          # False = bidirectional (bert)
     mlp_type: str = "gelu"       # only the gelu MLP is ported
     norm_type: str = "layernorm"  # only layernorm is ported
-    tie_embeddings: bool = True
+    tie_embeddings: bool = False  # False: a separate lm_head leaf
     max_seq: int = 8192
     vocab_pad_multiple: int = 256
     param_dtype: torch.dtype = torch.float32

@@ -1,12 +1,13 @@
-"""Dense decoder assembly, PyTorch port of the training path of
-``src/repro/models/transformer.py``.
+"""Dense transformer assembly (gpt2 decoders, bert encoders), PyTorch port
+of the training path of ``src/repro/models/transformer.py``.
 
     model_template(cfg)          -> PD tree (the single source of params)
     forward(params, cfg, batch)  -> (logits over the padded vocab, aux)
-    lm_loss(params, cfg, batch)  -> (mean next-token NLL, metrics)
+    lm_loss(params, cfg, batch)  -> (mean NLL over the loss mask, metrics)
 
 Layer weights stay stacked on a leading layers axis, as in the reference:
-that keeps the 19 gpt2 leaves and their comm layouts identical. The layer
+that keeps the leaves (19 for gpt2, 20 for bert with its untied
+``lm_head``) and their comm layouts identical. The layer
 loop unbinds the stack; autograd stacks the layers' gradients back.
 """
 from __future__ import annotations
@@ -35,17 +36,21 @@ def _block_template(cfg: ModelConfig, n_layers: int):
 
 
 def model_template(cfg: ModelConfig):
-    if cfg.family != "dense" or not cfg.causal:
+    if cfg.family != "dense":
         raise NotImplementedError(
-            f"only causal dense decoders are ported yet ({cfg.name})")
-    if not cfg.tie_embeddings or cfg.rope != "learned":
-        raise NotImplementedError("only tied embeddings with learned "
-                                  "positions (gpt2) are ported yet")
+            f"only the dense family is ported yet ({cfg.name})")
+    if cfg.rope != "learned":
+        raise NotImplementedError("only learned positions (gpt2, bert) are "
+                                  "ported yet")
     d, V = cfg.d_model, cfg.padded_vocab
-    return {"embed": PD((V, d), spec=(model_dim_spec(V), None), scale=0.02),
-            "final_norm": norm_template(cfg.norm_type, d),
-            "pos_embed": PD((cfg.max_seq, d), scale=0.02),
-            "blocks": _block_template(cfg, cfg.n_layers)}
+    vs = model_dim_spec(V)
+    t = {"embed": PD((V, d), spec=(vs, None), scale=0.02),
+         "final_norm": norm_template(cfg.norm_type, d)}
+    if not cfg.tie_embeddings:
+        t["lm_head"] = PD((d, V), spec=(None, vs))
+    t["pos_embed"] = PD((cfg.max_seq, d), scale=0.02)
+    t["blocks"] = _block_template(cfg, cfg.n_layers)
+    return t
 
 
 def _embed(params, cfg: ModelConfig, tokens):
@@ -55,7 +60,9 @@ def _embed(params, cfg: ModelConfig, tokens):
 
 def _logits(params, cfg: ModelConfig, h):
     h = apply_norm(params["final_norm"], h, cfg.norm_type)
-    return h @ params["embed"].T.to(h.dtype)
+    if cfg.tie_embeddings:
+        return h @ params["embed"].T.to(h.dtype)
+    return h @ params["lm_head"].to(h.dtype)
 
 
 def _layers(blocks, n: int):
@@ -90,11 +97,19 @@ def forward(params, cfg: ModelConfig, batch):
 
 
 def lm_loss(params, cfg: ModelConfig, batch):
-    """Mean next-token cross-entropy. ``logsumexp`` runs over the padded
-    vocab, pad columns included, exactly as in the reference."""
+    """Cross-entropy of the labels: the mean over every position, or with
+    a ``loss_mask`` in the batch (masked LM) ``sum(nll * mask) /
+    max(sum(mask), 1)``. ``logsumexp`` runs over the padded vocab, pad
+    columns included, exactly as in the reference."""
     logits, aux = forward(params, cfg, batch)
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, batch["labels"][..., None].long())[..., 0]
-    loss = (logz - gold).mean()
+    nll = logz - gold
+    mask = batch.get("loss_mask")
+    if mask is None:
+        loss = nll.mean()
+    else:
+        mask = mask.to(torch.float32)
+        loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)
     return loss, {"nll": loss, "aux": aux}

@@ -4,8 +4,8 @@ reference, live in one process on the same numpy inputs.
 Tolerances:
 * layouts, frame row counts, true counts, pad masks, views, packed bytes
   and wire-byte accounting: exact (static metadata and sign bits);
-* scales: 1e-6 relative — an f32 L1 sum over the view taken in another
-  order than XLA's (a few ulp);
+* scales: 1e-6 relative — an f32 L1 sum over the view, a chunk or a row
+  taken in another order than XLA's (a few ulp);
 * EF errors and exchange outputs: 1e-5 relative / 1e-6 absolute — each is
   ``zw -/+ scale`` or a mean of +-scales, so it inherits the scales' few
   ulp (the reference's own Pallas-vs-jnp parity tests use the same bar).
@@ -24,6 +24,7 @@ from repro.core import compressor as RC
 from repro.core import leafwise as RLW
 from repro.core import onebit_allreduce as RAR
 from repro.core.comm import sim_comm
+from repro.kernels import dispatch as RK
 from repro.models import layers as RL
 from repro.models import transformer as RT
 
@@ -46,12 +47,14 @@ torch.set_num_threads(1)
 
 N = 4
 # (shape, tensor-parallel spec entries): flatten padded / exact / scalar /
-# folded wider than FRAME_MAX_COLS; structured padded / exact / trailing
+# folded wider than FRAME_MAX_COLS; structured padded / exact / 4-D; a
+# 3-D view whose split axis is not a multiple of n (two whole pad rows)
 CASES = [((37,), None), ((64,), None), ((), None), ((100003,), None),
          ((13, 40), (None, "model")), ((16, 40), (None, "model")),
-         ((6, 4, 24), (None, None, "model"))]
+         ((6, 4, 24), (None, None, "model")), ((10, 24), (None, "model"))]
 IDS = ["flat37", "flat64", "scalar", "fold100003", "rows13x40",
-       "rows16x40", "rows6x4x24"]
+       "rows16x40", "rows6x4x24", "rows10x24"]
+MODES = ["tensor", "chunk", "row"]
 
 
 def _layouts(shape, spec):
@@ -253,9 +256,163 @@ def test_fullprec_allreduce_matches_reference():
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError):
-        TAR.OneBitConfig(scale_mode="row")
+    # all three scale modes are ported; a typo is refused
+    for mode in ("tensor", "chunk", "row"):
+        TAR.OneBitConfig(scale_mode=mode)
+    with pytest.raises(ValueError):
+        TAR.OneBitConfig(scale_mode="rows")
     with pytest.raises(NotImplementedError):
         TCD.make_codec("qint8")
     with pytest.raises(ValueError):
         TCD.make_codec("nope")
+
+
+# --- bert layouts, chunk and row scales ---------------------------------
+
+@pytest.mark.parametrize("which", ["smoke", "full"])
+@pytest.mark.parametrize("arch", ["bert-base", "bert-large"])
+def test_bert_layouts_match_reference_field_for_field(arch, which):
+    attr = "smoke" if which == "smoke" else "config"
+    ref = _ref_plan(getattr(ref_get(arch), attr))
+    port = _port_plan(getattr(port_get(arch), attr))
+    assert len(port.layouts) == len(ref.layouts) == 20
+    for lr, lt in zip(ref.layouts, port.layouts):
+        assert dataclasses.astuple(lt) == dataclasses.astuple(lr)
+        assert TC.view_rows_cols(lt) == RC.view_rows_cols(lr)
+        np.testing.assert_array_equal(TC.view_row_counts(lt),
+                                      RC.view_row_counts(lr))
+    if (arch, which) == ("bert-base", "full"):
+        true = sum(int(np.prod(lo.shape)) for lo in port.layouts)
+        assert true == 135_378_432
+        by_path = {"/".join(p): (lo.view_shape, TC.view_rows_cols(lo))
+                   for p, lo in zip(port.paths, port.layouts)}
+        assert by_path["embed"] == ((4, 192, 30720), (768, 30720))
+        assert by_path["lm_head"] == ((4, 192, 30720), (768, 30720))
+        assert by_path["blocks/attn/bq"] == ((4, 3, 768), (12, 768))
+        assert by_path["blocks/mlp/b_in"] == ((4, 3, 3072), (12, 3072))
+        assert by_path["blocks/attn/wq"] == ((4, 192, 12, 768), (9216, 768))
+        assert by_path["blocks/mlp/w_out"] == ((4, 192, 12, 3072),
+                                               (9216, 3072))
+        assert by_path["pos_embed"] == ((4, 786432), (384, 8192))
+        assert by_path["blocks/mlp/b_out"] == ((4, 2304), (4, 2304))
+        assert by_path["final_norm/scale"] == ((4, 256), (4, 256))
+        ndims = sorted(len(lo.view_shape) for lo in port.layouts)
+        assert ndims == [2] * 8 + [3] * 6 + [4] * 6
+
+
+@pytest.mark.parametrize("mode", ["chunk", "row"])
+@pytest.mark.parametrize("shape,spec", CASES, ids=IDS)
+def test_chunk_row_ef_compress_matches_reference(shape, spec, mode):
+    """Worker side in chunk and row mode: the whole-view compressor and
+    the kernel-frame dispatch (single-pass ef_compress for row scales on
+    3-D views, two-pass otherwise; row on a 2-D view falls back to chunk)
+    against both the reference's jnp compressor and its kernel dispatch."""
+    lo_r, lo_t = _layouts(shape, spec)
+    z, e = _masked_pair(lo_r, seed=7 + len(shape))
+    m_r, m_t = RC.pad_mask(lo_r), TC.pad_mask(lo_t)
+    want = jax.vmap(lambda a: RC.ef_compress(a, lo_r, mode, m_r))(
+        jnp.asarray(z + e))
+    want_k = jax.vmap(lambda a, b: RK.ef_compress_view(a, b, lo_r, mode))(
+        jnp.asarray(z), jnp.asarray(e))
+    s_ref = jax.vmap(lambda a: RC._scales(a, lo_r, mode, m_r))(
+        jnp.asarray(z + e))
+    np.testing.assert_allclose(
+        TC._scales(_t(z) + _t(e), lo_t, mode, m_t).numpy(),
+        np.asarray(s_ref), rtol=1e-6)
+    got_whole = TC.ef_compress(_t(z) + _t(e), lo_t, mode, m_t)
+    got_k = K.ef_compress_view(_t(z), _t(e), lo_t, mode)
+    for got in (got_whole, got_k):
+        _check_compress(got, want)
+        _check_compress(got, want_k)
+    ndim = len(lo_t.view_shape)
+    s = got_k[1]
+    if mode == "chunk" or ndim == 2:
+        assert s.shape == (N, N) + (1,) * (ndim - 1)
+    else:
+        assert s.shape == (N,) + lo_t.view_shape[:2] + (1,) * (ndim - 2)
+    # decode of the worker payload (scales with a trailing 1: the kernel)
+    v_ref = jax.vmap(lambda a, b: RC.decompress(a, b, lo_r.pack_count))(
+        want[0], want[1])
+    np.testing.assert_array_equal(
+        K.decompress_view(_t(np.asarray(want[0])), _t(np.asarray(want[1])),
+                          lo_t).numpy(), np.asarray(v_ref))
+
+
+@pytest.mark.parametrize("shape,spec", CASES, ids=IDS)
+def test_row_server_compress_matches_reference(shape, spec):
+    """Server side in row mode: per element on 2-D views (the plain path
+    on both sides), row-group scales through the kernels on 3-D and 4-D
+    views, against the reference's jnp path and its dispatch."""
+    lo_r, lo_t = _layouts(shape, spec)
+    rng = np.random.default_rng(5)
+    y = rng.standard_normal((N,) + lo_r.chunk_shape).astype(np.float32)
+    e = (rng.standard_normal(y.shape) * 0.3).astype(np.float32)
+    m_r = RC.pad_mask(lo_r)
+    if m_r is not None:
+        y, e = y * np.asarray(m_r), e * np.asarray(m_r)
+    want = jax.vmap(lambda a, w: RCD._server_compress(
+        a[None], lo_r, "row", None if m_r is None else m_r[w][None]))(
+            jnp.asarray(y + e), jnp.arange(N))
+    m_t = TC.pad_mask(lo_t)
+    s_mask = None if m_t is None else m_t[:, None]
+    _check_compress(TCD._server_compress((_t(y) + _t(e))[:, None], lo_t,
+                                         "row", s_mask), want)
+    codec = TCD.make_codec("sign1bit")
+    payload, err_s = codec.encode_server(_t(y), _t(e), lo_t, "row",
+                                         np.arange(N))
+    _check_compress((payload["packed"], payload["scales"], err_s[:, None]),
+                    want)
+    if len(lo_t.view_shape) == 2:
+        # per-element scales: the server residual is exactly zero
+        assert payload["scales"].shape == (N, 1, lo_t.view_shape[1])
+        assert (err_s == 0).all()
+        with pytest.raises(ValueError):
+            K.server_compress_view(_t(y)[:, None], _t(e)[:, None], lo_t,
+                                   "row", np.arange(N))
+    else:
+        want_k = jax.vmap(lambda a, b, w: RK.server_compress_view(
+            a[None], b[None], lo_r, "row", w))(
+                jnp.asarray(y), jnp.asarray(e), jnp.arange(N))
+        _check_compress(K.server_compress_view(
+            _t(y)[:, None], _t(e)[:, None], lo_t, "row", np.arange(N)),
+            want_k)
+
+
+@pytest.mark.parametrize("ref_pallas", [False, True],
+                         ids=["ref_xla", "ref_pallas"])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("shape,spec", CASES, ids=IDS)
+def test_onebit_allreduce_scale_modes_match_reference(shape, spec, mode,
+                                                      ref_pallas):
+    """Flat Algorithm 2, n=4, sign1bit, every scale mode, against the
+    reference's jnp path and its kernel path: the mean estimate and both
+    new EF errors, one round from random EF state (see
+    test_onebit_allreduce_matches_reference for why one round)."""
+    lo_r, lo_t = _layouts(shape, spec)
+    z, ew = _masked_pair(lo_r, seed=21)
+    es, _ = _masked_pair(lo_r, seed=22)
+    es = es[np.arange(N), np.arange(N)] * 0.3
+    cfg_r = RAR.OneBitConfig(scale_mode=mode, use_pallas=ref_pallas)
+    comm = sim_comm("w")
+    out_r, ef_r = jax.vmap(lambda a, b, c: RAR.onebit_allreduce_view(
+        comm, a, RAR.EFState(b, c), lo_r, cfg_r), axis_name="w")(
+            jnp.asarray(z), jnp.asarray(ew), jnp.asarray(es))
+    out_t, ef_t = TAR.onebit_allreduce_view(
+        SimComm(N), _t(z), TAR.EFState(_t(ew), _t(es)), lo_t,
+        TAR.OneBitConfig(scale_mode=mode))
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_r),
+                               rtol=1e-5, atol=1e-6)
+    for got, want in zip(ef_t, ef_r):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-6)
+    assert (out_t == out_t[:1]).all()
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("shape,spec", CASES, ids=IDS)
+def test_wire_bytes_match_reference(shape, spec, mode):
+    lo_r, lo_t = _layouts(shape, spec)
+    assert (TCD.make_codec("sign1bit").wire_bytes(lo_t, mode)
+            == RCD.make_codec("sign1bit").wire_bytes(lo_r, mode))
+    assert TC.compressed_bytes(lo_t, mode) == RC.compressed_bytes(lo_r,
+                                                                   mode)

@@ -4,10 +4,12 @@ card. Imports no JAX, so it runs where only the port is installed:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Skips where there is no CUDA device. Tolerances: packed bytes, err_out,
-decompressed values and the fused step's m' and u' bit for bit (one add,
-compare or subtract per element, or a single-rounding FMA, on both
-sides); abs_rowsum to 1.5e-5 relative (~128 ulp: the same sum in another
-order); the fused step's delta to 2 ulp.
+decompressed values, the fused steps' m' and u' and the SGD step's delta
+bit for bit (one add, compare, subtract or multiply per element, or a
+single-rounding FMA, on both sides); abs_rowsum and ef_compress's scales
+to 1.5e-5 relative (~128 ulp: the same sum in another order, then one
+IEEE divide); ef_compress's err_out bit for bit against the plain
+quantizer given the kernel's own scales; the Adam step's delta to 2 ulp.
 """
 import numpy as np
 import pytest
@@ -71,3 +73,23 @@ def test_cuda_wrappers_refuse_bad_operands():
     with pytest.raises(TypeError):
         onebit.decompress(torch.zeros(8, 2, device=dev), torch.zeros(
             8, device=dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,cols", [(64, 8), (3072, 30720), (48, 3072)])
+def test_cuda_single_pass_and_sgd_match_plain_versions(rows, cols):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    dev = torch.device("cuda")
+    z, e, cnt = _frame(rows, cols, 11, dev)
+    pk, sk, ek = onebit.ef_compress(z, e, cnt)
+    pp, sp, ep = onebit.ef_compress_plain(z, e, cnt)
+    assert torch.equal(pk, pp)
+    torch.testing.assert_close(sk, sp, rtol=1.5e-5, atol=0)
+    assert (sk[cnt == 0] == 0).all()
+    assert torch.equal(ek, onebit.ef_quantize_plain(z, e, sk, cnt)[1])
+    lr = np.float32(3e-3)
+    fk = fused_adam.fused_local_step_sgd(z, e, z * 1e-3, lr, 0.9)
+    fp = fused_adam.fused_local_step_sgd_plain(z, e, z * 1e-3, lr, 0.9)
+    for a, b in zip(fk, fp):
+        assert torch.equal(a, b)

@@ -3,13 +3,17 @@ kernels in interpret mode (``repro.kernels.ops``), on the same numpy
 inputs.
 
 Tolerances:
-* packed bytes, ``ef_quantize``'s err_out, ``decompress``'s output and the
-  fused step's m' and u' are compared bit for bit: each is one add, a
-  compare and one subtract per element, or a single-rounding FMA, on both
-  sides;
+* packed bytes, ``ef_quantize``'s err_out, ``decompress``'s output, the
+  fused steps' m' and u' and the SGD step's delta are compared bit for
+  bit: each is one add, a compare and one subtract per element, a single
+  multiply, or a single-rounding FMA, on both sides;
 * ``abs_rowsum`` to 1e-6 relative: an f32 sum of up to 4104 nonnegative
   terms taken in another order (the sum's own rounding, ~log2(n) ulp);
-* the fused step's delta to 2 ulp: XLA rewrites (lr*m')/sqrt(v+eps) in a
+* ``ef_compress``'s per-row scales to 2e-6 relative: the same row sum over
+  up to 30,720 terms, divided by the row's count; its err_out bit for bit
+  on the rows whose scales agree bitwise, and elsewhere within the scale
+  gap (err_out = z + err -/+ scale);
+* the Adam step's delta to 2 ulp: XLA rewrites (lr*m')/sqrt(v+eps) in a
   way no plain f32 formula reproduces (measured: ~40% of elements 1 ulp
   off, none beyond 2).
 
@@ -32,6 +36,8 @@ from repro_torch.kernels import build, fused_adam, onebit
 torch.set_num_threads(1)
 
 WIDTHS = [8, 256, 4104]
+# ef_compress also runs at the widest BERT-Base frame (embed, lm_head)
+ONE_PASS_WIDTHS = WIDTHS + [30720]
 
 
 def _frame(rows, cols, seed):
@@ -109,6 +115,58 @@ def test_fused_local_step_matches_reference(shape):
     assert _ulps(got[2].numpy(), want[2]).max() <= 2
 
 
+@pytest.mark.parametrize("cols", ONE_PASS_WIDTHS)
+def test_ef_compress_matches_reference(cols):
+    z, e, cnt = _frame(16, cols, cols + 2)
+    z[0, :4] = [0.0, -0.0, 1.0, -1.0]
+    e[0, :4] = [0.0, 0.0, -1.0, 1.0]          # zw = 0, -0, 0, 0 -> 1 bits
+    p_ref, s_ref, e_ref = (np.asarray(a) for a in ops.ef_compress(
+        jnp.asarray(z), jnp.asarray(e), jnp.asarray(cnt), block_rows=8))
+    p, s, eo = (a.numpy() for a in onebit.ef_compress(_t(z), _t(e),
+                                                      _t(cnt)))
+    np.testing.assert_array_equal(p, p_ref)
+    np.testing.assert_allclose(s, s_ref, rtol=2e-6, atol=0)
+    same = s == s_ref
+    np.testing.assert_array_equal(eo[same], e_ref[same])
+    gap = float(np.abs(s - s_ref).max())
+    np.testing.assert_allclose(eo, e_ref, rtol=0,
+                               atol=gap + 4 * np.spacing(np.float32(8)))
+    assert (s[cnt == 0] == 0).all() and (eo[cnt == 0] == 0).all()
+    assert p[0, 0] >> 4 == 0b1111             # +0 and -0 pack as 1
+    # the single pass is the two-pass compress with per-row scales
+    s2 = onebit.abs_rowsum(_t(z), _t(e), _t(cnt)) / _t(
+        np.maximum(cnt, 1).astype(np.float32))
+    p2, e2 = onebit.ef_quantize(_t(z), _t(e), s2, _t(cnt))
+    np.testing.assert_array_equal(s, s2.numpy())
+    np.testing.assert_array_equal(p, p2.numpy())
+    np.testing.assert_array_equal(eo, e2.numpy())
+
+
+def _block_cols(cols):
+    return max(d for d in range(1, min(cols, 1024) + 1) if cols % d == 0)
+
+
+@pytest.mark.parametrize("shape", [(8, 256), (64, 1024), (16, 4104),
+                                   (8, 30720)])
+def test_fused_local_step_sgd_matches_reference(shape):
+    """m', u' and delta bit for bit: XLA contracts m' = b1*m + (1-b1)*g
+    and u' = u + lr*m' into FMAs (u' from m', even though delta = lr*m' is
+    written out); the plain version emulates both FMAs."""
+    rng = np.random.default_rng(shape[1] + 1)
+    g, m, u = (rng.standard_normal(shape).astype(np.float32)
+               for _ in range(3))
+    lr = np.float32(3e-3)
+    want = ops.fused_local_step_sgd(*map(jnp.asarray, (g, m, u)), lr, 0.9,
+                                    block=(8, _block_cols(shape[1])))
+    got = fused_adam.fused_local_step_sgd(*map(_t, (g, m, u)), lr, 0.9)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    # the FMAs matter: single-rounding differs from plain f32 somewhere
+    mh32 = np.float32(0.9) * m + np.float32(1 - 0.9) * g
+    assert (mh32 != got[0].numpy()).any()
+    np.testing.assert_array_equal(got[2].numpy(), got[0].numpy() * lr)
+
+
 def test_fma_f32_rounds_once():
     """Cases where rounding a*b+c in f64 and then to f32 (two roundings)
     differs from the single rounding of an FMA; the exact value comes from
@@ -148,5 +206,16 @@ def test_wrappers_check_operands_and_count_no_cpu_launch():
                           torch.zeros(8))
     with pytest.raises(ValueError):
         fused_adam.fused_local_step(z, z, z, torch.zeros(8, 8), 1e-3, 0.9)
+    with pytest.raises(ValueError):
+        onebit.ef_compress(torch.zeros(8, 12), torch.zeros(8, 12), cnt)
+    with pytest.raises(TypeError):
+        onebit.ef_compress(z, z, cnt.long())
+    with pytest.raises(ValueError):
+        fused_adam.fused_local_step_sgd(z, z, torch.zeros(8, 8), 1e-3, 0.9)
+    with pytest.raises(ValueError):
+        fused_adam.fused_local_step_sgd(z, torch.zeros(16, 8).t(), z, 1e-3,
+                                        0.9)
     onebit.abs_rowsum(z, z, cnt)            # CPU: the plain version
+    onebit.ef_compress(z, z, cnt)
+    fused_adam.fused_local_step_sgd(z, z, z, 1e-3, 0.9)
     assert dict(build.launch_counts) == before

@@ -1,9 +1,10 @@
-"""Port ``zero_one_adam`` vs the reference, live in one process: the same
-numpy gradients fed to both for 8 steps, and the T_u / T_v policies and
-lr schedule step for step.
+"""Port ``zero_one_adam`` (every scale mode) and ``zero_one_sgd`` vs the
+reference, live in one process: the same numpy gradients fed to both for
+8 steps, and the T_u / T_v policies and lr schedule step for step.
 
 Schedule (sync_warmup=2, double_every=2, kappa=1): syncs at steps 0-4
-and 6, variance refreshes at 0, 1 and 3, local-only steps at 5 and 7.
+and 6, variance refreshes at 0, 1 and 3 (none for zero_one_sgd, whose
+base has no variance), local-only steps at 5 and 7.
 
 Tolerances: every tensor to 1e-5 relative plus 1e-6 of its own largest
 magnitude. The scales are f32 sums in another order than XLA's (a few
@@ -114,6 +115,72 @@ def test_zero_one_adam_trajectory_matches_reference(ref_pallas, codec):
                 _close(a, b, f"step {t} {name} leaf {i}")
         assert ts.step == int(rs.step[0])
         assert ts.gamma_acc == np.asarray(rs.gamma_acc)[0]
+
+
+def _run_both(name, scale_mode, ref_pallas, expect_var):
+    """8 steps of ``name`` on both packages; every step compares params,
+    the slots the base carries, u, both EF errors and the step metrics."""
+    params, grads = _inputs()
+    ref_cfg = RefOptimizerConfig(
+        name=name, lr=RS.ConstantLr(1e-2),
+        var_policy=RS.AdaptiveFreezePolicy(kappa=1),
+        sync_policy=RS.LrProportionalSyncPolicy(2, 2),
+        use_pallas=ref_pallas, scale_mode=scale_mode)
+    port_cfg = TA.OptimizerConfig(
+        name=name, lr=TS.ConstantLr(1e-2),
+        var_policy=TS.AdaptiveFreezePolicy(kappa=1),
+        sync_policy=TS.LrProportionalSyncPolicy(2, 2), scale_mode=scale_mode)
+    ref_opt = ref_build(ref_cfg, _map(jnp.asarray, params),
+                        specs=REF_SPECS, n_workers=N)
+    port_opt = TA.build_optimizer(port_cfg, SHAPES, specs=PORT_SPECS,
+                                  n_workers=N)
+    comm = sim_comm("w")
+    rx = _map(lambda a: jnp.broadcast_to(jnp.asarray(a), (N,) + a.shape)
+              + 0, params)
+    rs = jax.vmap(lambda _: ref_opt.init(_map(jnp.asarray, params)))(
+        jnp.arange(N))
+    ref_step = jax.jit(lambda xs, gs, st: jax.vmap(
+        lambda x, g, s: ref_opt.step(comm, x, g, s), axis_name="w")(
+            xs, gs, st))
+    tx = _map(lambda a: torch.from_numpy(
+        np.broadcast_to(a, (N,) + a.shape).copy()), params)
+    ts = port_opt.init(tx)
+    assert sorted(ts.slots) == sorted(rs.slots)
+    for t in range(STEPS):
+        rx, rs, rm = ref_step(rx, _map(jnp.asarray, grads[t]), rs)
+        tx, ts, tm = port_opt.step(SimComm(N), tx,
+                                   _map(torch.from_numpy, grads[t]), ts)
+        assert tm["synced"] == bool(rm["synced"][0]) == EXPECT_SYNC[t]
+        assert tm["var_round"] == bool(rm["var_round"][0]) == expect_var[t]
+        assert tm["lr"] == np.asarray(rm["lr"])[0]
+        for i, (a, b) in enumerate(zip(flatten_tree(tx)[1],
+                                       jax.tree.leaves(rx))):
+            _close(a, b, f"step {t} params leaf {i}")
+        pairs = [(f"slot {k}", ts.slots[k], rs.slots[k]) for k in ts.slots]
+        for name_, got, want in pairs + [
+                ("u", ts.u, rs.u), ("err_w", ts.err_w, rs.err_w),
+                ("err_s", ts.err_s, rs.err_s)]:
+            for i, (a, b) in enumerate(zip(got, want)):
+                _close(a, b, f"step {t} {name_} leaf {i}")
+        assert ts.step == int(rs.step[0])
+        assert ts.gamma_acc == np.asarray(rs.gamma_acc)[0]
+    return ts
+
+
+@pytest.mark.parametrize("ref_pallas", [False, True],
+                         ids=["ref_xla", "ref_pallas"])
+def test_zero_one_sgd_trajectory_matches_reference(ref_pallas):
+    ts = _run_both("zero_one_sgd", "tensor", ref_pallas, [False] * STEPS)
+    assert sorted(ts.slots) == ["m"]
+
+
+@pytest.mark.parametrize("ref_pallas", [False, True],
+                         ids=["ref_xla", "ref_pallas"])
+@pytest.mark.parametrize("mode", ["chunk", "row"])
+def test_zero_one_adam_scale_modes_trajectory_matches_reference(mode,
+                                                                ref_pallas):
+    ts = _run_both("zero_one_adam", mode, ref_pallas, EXPECT_VAR)
+    assert sorted(ts.slots) == ["m", "v"]
 
 
 def test_policies_match_reference_over_40k_steps():
