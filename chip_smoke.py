@@ -7,11 +7,15 @@
    nvcc for sm_90a.
 3. Checks every kernel against its plain PyTorch version on the card and
    times both, with the byte bound and, where one PyTorch call computes
-   the same function, that call's time: the four kernels of the gpt2 path
+   the same function, that call's time (a kernel's "ms" is one wrapper
+   call per event pair, host overhead included; its "batched_ms" 20
+   calls back to back, which reads the device's time on the large
+   frames): the four kernels of the gpt2 path
    on the frames one step of gpt2 FULL with 4 simulated workers gives them
    (all 19 leaves, worker and server frames); ef_compress on the six 3-D
-   frames of BERT-Base FULL (plus a frame with pad rows, checked only) and
-   fused_local_step_sgd on all 20 BERT-Base frames.
+   frames of BERT-Base FULL (plus a frame with pad rows, checked only),
+   fused_local_step_sgd on all 20 BERT-Base frames and decompress (both
+   decodes of a sync) on the same 20 frames.
 4. Drives the three main paths, each through the trainer and CLI config a
    user would call, 4 simulated data-parallel workers, 8 steps (syncs at
    0-4 and 6; variance at 0, 1, 3 where the base has one; local-only
@@ -55,6 +59,7 @@ N_WORKERS, STEPS = 4, 8
 BATCH, SEQ = 16, 1024               # gpt2 run
 BERT_BATCH, BERT_SEQ = 32, 512      # bert runs
 REPS, PLAIN_REPS = 20, 5
+TIME_BATCH, TIME_BATCH_REPS = 20, 5   # batched kernel time: 5 x 20 launches
 PROFILED_STEP = 6          # a sync step without a variance refresh
 # abs_rowsum: both sides sum up to 50,432 terms in different orders (the
 # kernel: <= ~60 sequential adds per thread, then an 8-level tree; torch's
@@ -79,6 +84,9 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "fused_local_step_sgd": ("src/repro_torch/kernels/csrc/fused_adam.cu",
                              "src/repro/kernels/fused_adam.py:100"),
 }
+# decompress at the BERT-Base frames: a second tally row, reported in the
+# decompress entry under "bert_sync"
+BERT_DECOMPRESS = "decompress (bert-base)"
 # the round each kernel's "ms" sums over, on its own path
 PER = {"fused_local_step": "step (gpt2)", "abs_rowsum": "sync (gpt2)",
        "ef_quantize": "sync (gpt2)", "decompress": "sync (gpt2)",
@@ -100,9 +108,13 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
-def time_ms(fn, reps: int) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs, after one
-    warm-up run."""
+def time_ms(fn, reps: int, batch: int = 1) -> float:
+    """Median CUDA-event time of one run of ``fn``, after one warm-up
+    run: over ``reps`` event pairs, each around ``batch`` runs back to
+    back. With batch 1 the time includes the host's call and launch
+    overhead whenever the card is faster than the host; a batch lets the
+    host enqueue while the card runs, so it reads the device's own time
+    wherever the kernel is the slower of the two."""
     fn()
     torch.cuda.synchronize()
     ts = []
@@ -110,10 +122,11 @@ def time_ms(fn, reps: int) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         b.synchronize()
-        ts.append(a.elapsed_time(b))
+        ts.append(a.elapsed_time(b) / batch)
     return statistics.median(ts)
 
 
@@ -127,22 +140,28 @@ class Tally:
     """Per-kernel totals over the launches of one step (or one sync)."""
 
     def __init__(self):
-        self.rows = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0,
-                         "ops": 0.0, "library_ms": None, "max_abs_err": 0.0,
-                         "launches_per_round": 0}
-                     for k in KERNELS}
+        self.rows = {k: {"ms": 0.0, "batched_ms": 0.0, "plain_ms": 0.0,
+                         "bytes": 0.0, "ops": 0.0, "library_ms": None,
+                         "max_abs_err": 0.0, "launches_per_round": 0}
+                     for k in [*KERNELS, BERT_DECOMPRESS]}
 
-    def add(self, name, ms, plain_ms, nbytes, ops, err, library_ms=None,
+    def add(self, name, fn, plain_fn, nbytes, ops, err, library=None,
             times=1):
+        """Time the wrapper ``fn`` (one call per event pair, and in
+        batches), its plain version and, where one PyTorch call computes
+        the same function, that call ``library``; add ``times`` launches
+        of this frame to the round."""
         r = self.rows[name]
-        r["ms"] += times * ms
-        r["plain_ms"] += times * plain_ms
+        r["ms"] += times * time_ms(fn, REPS)
+        r["batched_ms"] += times * time_ms(fn, TIME_BATCH_REPS, TIME_BATCH)
+        r["plain_ms"] += times * time_ms(plain_fn, PLAIN_REPS)
         r["bytes"] += times * nbytes
         r["ops"] += times * ops
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["launches_per_round"] += times
-        if library_ms is not None:
-            r["library_ms"] = (r["library_ms"] or 0.0) + times * library_ms
+        if library is not None:
+            r["library_ms"] = ((r["library_ms"] or 0.0)
+                               + times * time_ms(library, REPS))
 
 
 def full_plan(arch):
@@ -189,11 +208,8 @@ def check_kernels(dev, tally):
         err = max(float((a - b).abs().max()) for a, b in zip(fk, fp))
         n = R * cols
         tally.add("fused_local_step",
-                  time_ms(lambda: FA.fused_local_step(g, m, u, v, lr, b1),
-                          REPS),
-                  time_ms(lambda: FA.fused_local_step_plain(g, m, u, v, lr,
-                                                            b1),
-                          PLAIN_REPS),
+                  lambda: FA.fused_local_step(g, m, u, v, lr, b1),
+                  lambda: FA.fused_local_step_plain(g, m, u, v, lr, b1),
                   28.0 * n, 7.0 * n, err)
         del g, m, u, v, fk, fp
 
@@ -213,14 +229,11 @@ def check_kernels(dev, tally):
             torch.cuda.synchronize()
             assert ulps(rk, rp) <= ROWSUM_ULPS, (lo.shape, "abs_rowsum")
             true_elems = float(counts.sum())
-            tally.add("abs_rowsum",
-                      time_ms(lambda: OB.abs_rowsum(z, e, counts), REPS),
-                      time_ms(lambda: OB.abs_rowsum_plain(z, e, counts),
-                              PLAIN_REPS),
+            tally.add("abs_rowsum", lambda: OB.abs_rowsum(z, e, counts),
+                      lambda: OB.abs_rowsum_plain(z, e, counts),
                       8.0 * true_elems + 8.0 * frame_rows, 3.0 * true_elems,
                       float((rk - rp).abs().max()),
-                      library_ms=time_ms(lambda: (z + e).abs().sum(1),
-                                         REPS))
+                      library=lambda: (z + e).abs().sum(1))
             # tensor-mode scales of each stacked worker, spread over rows
             s = (rp.view(N_WORKERS, -1).sum(1) / total).repeat_interleave(
                 frame_rows // N_WORKERS).contiguous()
@@ -231,9 +244,8 @@ def check_kernels(dev, tally):
             assert torch.equal(ek, ep), (lo.shape, "err_out differs")
             n = frame_rows * cols
             tally.add("ef_quantize",
-                      time_ms(lambda: OB.ef_quantize(z, e, s, counts), REPS),
-                      time_ms(lambda: OB.ef_quantize_plain(z, e, s, counts),
-                              PLAIN_REPS),
+                      lambda: OB.ef_quantize(z, e, s, counts),
+                      lambda: OB.ef_quantize_plain(z, e, s, counts),
                       12.125 * n + 8.0 * frame_rows, 3.0 * n, 0.0)
             if frame_rows == R:
                 # both decodes of a sync (the all_to_all receive and the
@@ -242,10 +254,8 @@ def check_kernels(dev, tally):
                 dp = OB.decompress_plain(pk, s)
                 torch.cuda.synchronize()
                 assert torch.equal(dk, dp), (lo.shape, "decompress")
-                tally.add("decompress",
-                          time_ms(lambda: OB.decompress(pk, s), REPS),
-                          time_ms(lambda: OB.decompress_plain(pk, s),
-                                  PLAIN_REPS),
+                tally.add("decompress", lambda: OB.decompress(pk, s),
+                          lambda: OB.decompress_plain(pk, s),
                           4.125 * n + 4.0 * frame_rows, 1.0 * n, 0.0,
                           times=2)
                 del dk, dp
@@ -257,7 +267,8 @@ def check_kernels(dev, tally):
 def check_bert_kernels(dev, tally):
     """Phase 3b: ef_compress at the 3-D frames of BERT-Base FULL (where
     row scales take the single pass) plus a frame with pad rows, and
-    fused_local_step_sgd at all 20 BERT-Base frames, 4 workers stacked."""
+    fused_local_step_sgd and decompress at all 20 BERT-Base frames, 4
+    workers stacked."""
     from repro_torch.core import compressor as C
     from repro_torch.kernels import fused_adam as FA
     from repro_torch.kernels import onebit as OB
@@ -305,22 +316,31 @@ def check_bert_kernels(dev, tally):
         for what, a, b in zip(("m'", "u'", "delta"), fk, fp):
             assert torch.equal(a, b), (lo.shape, what + " differs")
         tally.add("fused_local_step_sgd",
-                  time_ms(lambda: FA.fused_local_step_sgd(g, m, u, lr, b1),
-                          REPS),
-                  time_ms(lambda: FA.fused_local_step_sgd_plain(g, m, u, lr,
-                                                                b1),
-                          PLAIN_REPS),
+                  lambda: FA.fused_local_step_sgd(g, m, u, lr, b1),
+                  lambda: FA.fused_local_step_sgd_plain(g, m, u, lr, b1),
                   24.0 * n, 6.0 * n, 0.0)
         del g, m, u, fk, fp
+
+        # --- both decodes of a sync (run (b): every leaf; run (a) leaves
+        # the gathered results of the 8 flatten leaves to torch ops) ----
+        pk = torch.randint(0, 256, (R, cols // 8), dtype=torch.uint8,
+                           device=dev, generator=gen)
+        s = torch.rand(R, device=dev, generator=gen)
+        dk = OB.decompress(pk, s)
+        torch.cuda.synchronize()
+        assert torch.equal(dk, OB.decompress_plain(pk, s)), (lo.shape,
+                                                            "decompress")
+        tally.add(BERT_DECOMPRESS, lambda: OB.decompress(pk, s),
+                  lambda: OB.decompress_plain(pk, s),
+                  4.125 * n + 4.0 * R, 1.0 * n, 0.0, times=2)
+        del pk, s, dk
 
         # --- single-pass worker compress (once per 3-D leaf per sync) --
         if len(lo.view_shape) == 3:
             z, e = rnd(), rnd(0.3)
             err = compress_frame(z, e, cnt)
-            tally.add("ef_compress",
-                      time_ms(lambda: OB.ef_compress(z, e, cnt), REPS),
-                      time_ms(lambda: OB.ef_compress_plain(z, e, cnt),
-                              PLAIN_REPS),
+            tally.add("ef_compress", lambda: OB.ef_compress(z, e, cnt),
+                      lambda: OB.ef_compress_plain(z, e, cnt),
                       12.125 * n + 8.0 * R, 3.0 * n, err)
             del z, e
         torch.cuda.empty_cache()
@@ -560,22 +580,34 @@ def main():
                  dev, "bert-base", ["--optimizer", "zero_one_sgd"] + slow,
                  "mlm")}
 
+    def bound(r):
+        t_bytes = r["bytes"] / PEAK_BYTES_PER_S * 1e3
+        t_ops = r["ops"] / PEAK_F32_PER_S * 1e3
+        return (max(t_bytes, t_ops),
+                "bytes" if t_bytes >= t_ops else "operations")
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = tally.rows[name]
-        t_bytes = r["bytes"] / PEAK_BYTES_PER_S * 1e3
-        t_ops = r["ops"] / PEAK_F32_PER_S * 1e3
+        bound_ms, bound_by = bound(r)
         by_run = {label: run["launches"].get(name, 0)
                   for label, run in runs.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_run.values()),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": r["library_ms"], "per": PER[name],
-            "launches_per_round": r["launches_per_round"],
+            "batched_ms": r["batched_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": r["library_ms"],
+            "per": PER[name], "launches_per_round": r["launches_per_round"],
             "launches_by_run": by_run})
+        if name == "decompress":
+            rb = tally.rows[BERT_DECOMPRESS]
+            kernels[-1]["bert_sync"] = {
+                "per": "sync (bert-base, zero_one_sgd)", "ms": rb["ms"],
+                "batched_ms": rb["batched_ms"],
+                "plain_ms": rb["plain_ms"], "bound_ms": bound(rb)[0],
+                "launches_per_round": rb["launches_per_round"]}
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     assert not missing, f"kernels never launched on a main path: {missing}"
     summary = {"runs": runs, "small_inputs": small,

@@ -43,8 +43,8 @@ _ENTRY_POINTS = {
                                  [_P] * 6 + [_I64] + [_F32] * 3 + [_P]),
     "abs_rowsum_f32": ("onebit", [_P] * 4 + [_I64, _I64, _P]),
     "ef_quantize_f32": ("onebit", [_P] * 6 + [_I64, _I64, _P]),
-    "ef_compress_f32": ("onebit", [_P] * 6 + [_I64, _I64, _P]),
-    "decompress_f32": ("onebit", [_P] * 3 + [_I64, _I64, _P]),
+    "ef_compress_f32": ("onebit", [_P] * 6 + [_I64] * 5 + [_P]),
+    "decompress_f32": ("onebit", [_P] * 3 + [_I64] * 4 + [_P]),
 }
 
 # kernel name -> number of launches; chip_smoke.py clears it before the

@@ -32,6 +32,45 @@ def _mask(counts, rows, cols):
     return col[None, :] < counts.reshape(rows, 1)
 
 
+# --- launch geometry (host side, checked by the CPU tests) -------------
+
+# ef_compress: a row goes to a thread-block cluster of at most 8 blocks
+# (the portable maximum), each keeping at most EF_KEPT_COLS columns of
+# z + err in shared memory: 30 KB, so that seven 256-thread blocks fit in
+# an SM's 227 KB. A wider slice re-reads the rest. (On an H100, BERT's
+# 30,720-column rows ran fastest in 4 blocks of 7,680 columns of the
+# cluster sizes 1-8 that chip_sweep.py times; see PERF.md.)
+EF_MAX_CLUSTER = 8
+EF_KEPT_COLS = 7680
+
+
+def ef_compress_geometry(cols: int):
+    """(cluster, slice_cols, kept_cols) of ``ef_compress`` at ``cols``
+    columns: the fewest blocks per row whose slices fit in EF_KEPT_COLS
+    (at most 8), slices a multiple of 8 columns wide so that no packed
+    byte straddles two blocks (block k owns columns [k * slice_cols,
+    min(cols, (k + 1) * slice_cols))), and the columns of a slice that its
+    block keeps in shared memory (kept_cols * 4 bytes)."""
+    cluster = min(EF_MAX_CLUSTER, max(1, -(-cols // EF_KEPT_COLS)))
+    slice_cols = -(-cols // (8 * cluster)) * 8
+    return cluster, slice_cols, min(slice_cols, EF_KEPT_COLS)
+
+
+# decompress: byte indices are 32-bit, the row of a byte a multiply-shift
+DECOMPRESS_MAX_BYTES = 1 << 31
+
+
+def decompress_divisor(cb: int):
+    """(mul, shift) with ``b // cb == (b * mul) >> shift`` for every
+    0 <= b < 2**31: the row of packed byte b in a frame ``cb`` bytes wide,
+    without a divide (mul < 2**32; round-up reciprocal, since
+    ``mul * cb - 2**shift < cb`` and b < 2**31)."""
+    if cb == 1:
+        return 1, 0
+    shift = 31 + (cb - 1).bit_length()
+    return -(-(1 << shift) // cb), shift
+
+
 # --- plain versions ----------------------------------------------------
 
 def abs_rowsum_plain(z, err, counts):
@@ -123,7 +162,8 @@ def ef_compress(z, err, counts):
     if z.numel():
         build.launch("ef_compress", "ef_compress_f32", dev, z.data_ptr(),
                      err.data_ptr(), counts.data_ptr(), packed.data_ptr(),
-                     scales.data_ptr(), err_out.data_ptr(), rows, cols)
+                     scales.data_ptr(), err_out.data_ptr(), rows, cols,
+                     *ef_compress_geometry(cols))
     return packed, scales, err_out
 
 
@@ -140,8 +180,12 @@ def decompress(packed, scales):
                         (rows,), dev)
     if not build.on_card("decompress", packed):
         return decompress_plain(packed, scales)
+    if packed.numel() >= DECOMPRESS_MAX_BYTES:
+        raise ValueError(f"decompress: {packed.numel()} packed bytes; the "
+                         f"kernel takes fewer than 2**31")
     out = torch.empty((rows, cb * 8), dtype=torch.float32, device=dev)
     if packed.numel():
         build.launch("decompress", "decompress_f32", dev, packed.data_ptr(),
-                     scales.data_ptr(), out.data_ptr(), rows, cb * 8)
+                     scales.data_ptr(), out.data_ptr(), rows, cb * 8,
+                     *decompress_divisor(cb))
     return out

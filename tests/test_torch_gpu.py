@@ -10,12 +10,17 @@ single-rounding FMA, on both sides); abs_rowsum and ef_compress's scales
 to 1.5e-5 relative (~128 ulp: the same sum in another order, then one
 IEEE divide); ef_compress's err_out bit for bit against the plain
 quantizer given the kernel's own scales; the Adam step's delta to 2 ulp.
+The redesigned decompress and ef_compress are also held at their edge
+shapes (more than 65,535 rows, ragged packed rows and slices, unaligned
+operands) to the plain versions: decompress bit for bit, ef_compress's
+bytes bit for bit, its scales within 64 ulp (as chip_smoke.py) and equal
+from one launch to the next.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import fused_adam, onebit
+from repro_torch.kernels import build, fused_adam, onebit
 
 
 def _frame(rows, cols, seed, dev):
@@ -92,4 +97,90 @@ def test_cuda_single_pass_and_sgd_match_plain_versions(rows, cols):
     fk = fused_adam.fused_local_step_sgd(z, e, z * 1e-3, lr, 0.9)
     fp = fused_adam.fused_local_step_sgd_plain(z, e, z * 1e-3, lr, 0.9)
     for a, b in zip(fk, fp):
+        assert torch.equal(a, b)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    return torch.device("cuda")
+
+
+def _scales(rows, gen, dev):
+    s = torch.rand(rows, device=dev, generator=gen)
+    s[::5] = 0.0
+    return s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,cols", [(70000, 8), (37, 8), (64, 24),
+                                       (48, 776), (16, 50432),
+                                       (3072, 50432)])
+def test_cuda_decompress_bitwise(rows, cols):
+    """Frames over 65,535 rows, packed rows of 1, 3 and 97 bytes (chunks
+    that straddle rows, a ragged last chunk) and gpt2's widest frame."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(rows + cols)
+    packed = torch.randint(0, 256, (rows, cols // 8), dtype=torch.uint8,
+                           device=dev, generator=gen)
+    s = _scales(rows, gen, dev)
+    assert torch.equal(onebit.decompress(packed, s),
+                       onebit.decompress_plain(packed, s))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed_off,out_off", [(1, 0), (0, 1), (3, 2)])
+def test_cuda_decompress_unaligned_operands(packed_off, out_off):
+    """Packed bytes off a 4-byte boundary (byte loads) and an output off a
+    16-byte boundary (scalar stores): the entry point is called on offset
+    pointers, which the wrapper's own allocation never gives."""
+    dev = _card()
+    rows, cols = 48, 776
+    cb = cols // 8
+    gen = torch.Generator(device=dev).manual_seed(packed_off + 7 * out_off)
+    pbuf = torch.randint(0, 256, (rows * cb + 4,), dtype=torch.uint8,
+                         device=dev, generator=gen)
+    packed = pbuf[packed_off:packed_off + rows * cb].view(rows, cb)
+    s = _scales(rows, gen, dev)
+    obuf = torch.full((rows * cols + 4,), 7.0, device=dev)
+    build.launch("decompress", "decompress_f32", dev, packed.data_ptr(),
+                 s.data_ptr(), obuf.data_ptr() + 4 * out_off, rows, cols,
+                 *onebit.decompress_divisor(cb))
+    torch.cuda.synchronize()
+    got = obuf[out_off:out_off + rows * cols].view(rows, cols)
+    assert torch.equal(got, onebit.decompress_plain(packed, s))
+    # nothing written outside the output
+    rest = torch.cat([obuf[:out_off], obuf[out_off + rows * cols:]])
+    assert (rest == 7.0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,cols,offset", [
+    (64, 8, 0), (48, 776, 0), (64, 3072, 0), (64, 30720, 0),
+    (16, 50432, 0), (8, 70000, 0), (70000, 8, 0), (48, 776, 1),
+    (16, 50432, 1)])
+def test_cuda_ef_compress_clusters(rows, cols, offset):
+    """One block per row (8, 776, 3072 columns), clusters of 4 and 7
+    (30,720 and 50,432), of 8 whose slices exceed the kept columns
+    (70,000), more than 65,535 rows, and operands off a 16-byte boundary
+    (scalar loads). Counts full, ragged, 0, 1, random, 8 and cols - 8."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(cols + offset)
+    n = rows * cols
+    z = torch.randn(n + offset, device=dev, generator=gen)[offset:]
+    e = torch.randn(n + offset, device=dev, generator=gen)[offset:] * 0.3
+    z, e = z.view(rows, cols), e.view(rows, cols)
+    pattern = torch.tensor([cols, cols // 2 + 1, 0, 1, 0, 0, 8, cols - 8],
+                           dtype=torch.int32)
+    pattern[4:6] = torch.randint(0, cols + 1, (2,),
+                                 generator=torch.Generator().manual_seed(cols))
+    cnt = pattern.repeat(rows // 8).to(dev)
+    pk, sk, ek = onebit.ef_compress(z, e, cnt)
+    pp, sp, _ = onebit.ef_compress_plain(z, e, cnt)
+    assert torch.equal(pk, pp)
+    assert _ulps(sk, sp) <= 64
+    assert (sk[cnt == 0] == 0).all()
+    assert torch.equal(ek, onebit.ef_quantize_plain(z, e, sk, cnt)[1])
+    again = onebit.ef_compress(z, e, cnt)
+    for a, b in zip((pk, sk, ek), again):
         assert torch.equal(a, b)

@@ -28,7 +28,12 @@ import pytest
 import torch
 
 from repro.kernels import ops
+from repro_torch.configs.base import get as port_get
+from repro_torch.core import compressor as TC
+from repro_torch.core.leafwise import make_plan
 from repro_torch.kernels import build, fused_adam, onebit
+from repro_torch.models import layers as TL
+from repro_torch.models import transformer as TT
 
 # The suite runs under pytest-xdist with several workers per machine;
 # torch's default of one intra-op thread per core in each of them would
@@ -219,3 +224,86 @@ def test_wrappers_check_operands_and_count_no_cpu_launch():
     onebit.ef_compress(z, z, cnt)
     fused_adam.fused_local_step_sgd(z, z, z, 1e-3, 0.9)
     assert dict(build.launch_counts) == before
+
+
+# --- launch geometry of the redesigned kernels -------------------------
+
+def _full_frames(arch, n_workers=4):
+    """Every (rows, cols) kernel frame of ``arch``'s FULL plan: each leaf's
+    worker frame (``n_workers`` stacked) and one worker's own rows."""
+    tmpl = TT.model_template(port_get(arch).config)
+    plan = make_plan(TL.param_shapes(tmpl), TL.param_specs(tmpl),
+                     TL.dp_mask(tmpl), n_workers)
+    frames = set()
+    for lo in plan.layouts:
+        rows, cols = TC.view_rows_cols(lo)
+        frames |= {(n_workers * rows, cols), (rows, cols)}
+    return sorted(frames)
+
+
+# widths named by the kernels' design: one column group, a ragged packed
+# row, the BERT and gpt2 vocabularies (more than one block per row, and
+# a slice beyond the shared-memory budget), and more than 65,535 rows
+EDGE_FRAMES = [(70000, 8), (64, 24), (48, 776), (64, 3072), (64, 30720),
+               (16, 50432), (8, 70000)]
+GEOMETRY_CASES = (["gpt2", "bert-base", "bert-large"]
+                  + [f"{r}x{c}" for r, c in EDGE_FRAMES])
+
+
+def _geometry_frames(case):
+    if "x" in case:
+        return [tuple(int(v) for v in case.split("x"))]
+    return _full_frames(case)
+
+
+@pytest.mark.parametrize("case", GEOMETRY_CASES)
+def test_launch_geometry_covers_every_frame(case):
+    """ef_compress: slices a multiple of 8 columns that cover each column
+    exactly once, 1-8 blocks per row, shared memory within a block's
+    227 KB and every slice kept whole up to 8 x EF_KEPT_COLS columns.
+    decompress: the multiply-shift gives the row of every packed byte at
+    each row boundary and at the top of the 32-bit index range."""
+    for rows, cols in _geometry_frames(case):
+        cluster, width, kept = onebit.ef_compress_geometry(cols)
+        assert 1 <= cluster <= onebit.EF_MAX_CLUSTER, (cols, cluster)
+        assert width % 8 == 0 and 0 < width <= cols, (cols, width)
+        spans = [np.arange(k * width, min(cols, (k + 1) * width))
+                 for k in range(cluster)]
+        assert all(len(sp) for sp in spans), (cols, cluster, width)
+        np.testing.assert_array_equal(np.concatenate(spans),
+                                      np.arange(cols))
+        assert kept % 4 == 0 and 4 <= kept <= width
+        assert kept * 4 <= 227 * 1024
+        assert (kept == width) == (cols <= 8 * onebit.EF_KEPT_COLS)
+
+        cb = cols // 8
+        assert rows * cb < onebit.DECOMPRESS_MAX_BYTES
+        mul, shift = onebit.decompress_divisor(cb)
+        assert 0 < mul < 2 ** 32 and 0 <= shift <= 62
+        k = np.arange(1, rows + 1, dtype=np.uint64) * np.uint64(cb)
+        top = (2 ** 31 - 1) // cb * cb
+        b = np.concatenate([k - np.uint64(1), k, np.array(
+            [0, top - 1, top, 2 ** 31 - 1], np.uint64)])
+        np.testing.assert_array_equal((b * np.uint64(mul)) >> np.uint64(
+            shift), b // np.uint64(cb))
+
+
+def test_launch_geometry_at_the_design_widths():
+    """The shapes the kernel notes name: BERT's 30,720-column rows take 4
+    blocks of 7,680 columns, gpt2's 50,432 take 7 blocks of 7,208, all
+    kept; 70,000 take 8 blocks of 8,752, each re-reading 1,072 columns;
+    narrow rows take one block."""
+    assert onebit.ef_compress_geometry(30720) == (4, 7680, 7680)
+    assert onebit.ef_compress_geometry(50432) == (7, 7208, 7208)
+    assert onebit.ef_compress_geometry(70000) == (8, 8752, 7680)
+    assert onebit.ef_compress_geometry(3072) == (1, 3072, 3072)
+    assert onebit.ef_compress_geometry(768) == (1, 768, 768)
+    assert onebit.ef_compress_geometry(8) == (1, 8, 8)
+    assert onebit.decompress_divisor(1) == (1, 0)
+    assert onebit.decompress_divisor(2) == (2 ** 31, 32)
+    # exhaustive over every byte of small frames
+    for cb in (1, 3, 7, 96, 97, 6304):
+        mul, shift = onebit.decompress_divisor(cb)
+        b = np.arange(1 << 16, dtype=np.uint64)
+        np.testing.assert_array_equal(
+            (b * np.uint64(mul)) >> np.uint64(shift), b // np.uint64(cb))
