@@ -2,6 +2,9 @@
 
     python3 chip_smoke.py
 
+Needs one card; on a machine with up to four, phase 6b puts one rank on
+each.
+
 1. Prints the card (nvidia-smi name and power limit) and torch/CUDA.
 2. Builds the port's CUDA kernels from src/repro_torch/kernels/csrc with
    nvcc for sm_90a.
@@ -30,7 +33,23 @@
 5. Checks the card against the CPU on small inputs: the gpt2-smoke
    trainer, and the bert-smoke trainer under both BERT configurations,
    from the same start on both devices.
-6. Prints the kernels line, the card line and the result line.
+6. Data parallel in processes (``--mode dist``, one paper-worker per
+   process, spawned): first the exchange collectives of DistComm against
+   SimComm's, bit for bit, over gloo with CUDA tensors and over NCCL;
+   then gpt2 FULL with phase 4a's flags, the launch counts of every rank
+   read after its run:
+   a. four ranks on this one card over gloo (asked for explicitly; the
+      exchange goes through host memory), micro-batches 2, against a sim
+      run of the same settings in this process;
+   b. NCCL, one rank per card, on min(device count, 4) cards: on one
+      card a world of one at batch 4 x 1024 against ``--mode single``,
+      on four the 4-rank run without micro-batches against a sim run.
+   Each rank's losses and params are held to its simulated worker's by
+   phase 5's bars (bitwise equality is printed, not required) and its
+   launch counts must equal that worker's. Every step is timed as phase
+   4's are (``launch.train``), and each rank's exchange collectives by
+   CUDA events around them (``DistComm.exchange_ms``).
+7. Prints the kernels line, the card line and the result line.
 
 Any failure raises; there is no CPU fallback. Exits non-zero without a
 result when there is no CUDA device or the repository's src/ is missing.
@@ -43,13 +62,14 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "src"))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bandwidth
 # and f32 rate outside the tensor cores
@@ -93,6 +113,12 @@ PER = {"fused_local_step": "step (gpt2)", "abs_rowsum": "sync (gpt2)",
        "ef_compress": "sync (bert-base, row scales)",
        "fused_local_step_sgd": "step (bert-base)"}
 # (label, arch, extra CLI flags, batch, seq, data kind)
+# phase 6: spawned ranks that have not finished by then are killed
+DIST_TIMEOUT_S = 600
+# step kinds of the 8-step schedule (syncs at 0-4 and 6, variance at 0,
+# 1 and 3); step 0 is the first call of every path
+STEP_KINDS = {"first (0)": [0], "sync + variance (1, 3)": [1, 3],
+              "sync (2, 4, 6)": [2, 4, 6], "local only (5, 7)": [5, 7]}
 RUNS = [("gpt2", "gpt2", [], BATCH, SEQ, "lm"),
         ("bert_row", "bert-base", ["--scale-mode", "row"], BERT_BATCH,
          BERT_SEQ, "mlm"),
@@ -372,69 +398,42 @@ def expected_launches(label, layouts):
 
 
 def run_main_path(dev, label, arch, extra, batch, seq, kind):
-    """Phase 4: one main path, 4 simulated workers, 8 steps. Returns the
-    per-step records, the launch counts, the peak memory and, for gpt2,
-    the profile of step 6."""
-    from repro_torch.configs.base import get
-    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    """Phase 4: one main path, 4 simulated workers, 8 steps, through
+    ``launch.train``. Returns the per-step records, the launch counts,
+    the peak memory and, for gpt2, the profile of step 6."""
     from repro_torch.kernels import build
     from repro_torch.launch import train as launch
-    from repro_torch.train.step import Trainer
 
     args = launch.parse_args([
         "--arch", arch, "--workers", str(N_WORKERS), "--steps",
         str(STEPS), "--batch", str(batch), "--seq", str(seq),
-        "--sync-warmup", "2", "--double-every", "2", "--kappa", "1"]
-        + extra)
-    cfg = get(arch).config
-    tr = Trainer(cfg, launch.build_opt_cfg(args), n_workers=N_WORKERS,
-                 device=dev)
-    params, state = tr.sim_init(args.seed)
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
-                                  global_batch=batch, seed=args.seed,
-                                  kind=kind), device=dev)
-    batches = [data.batch(t) for t in range(STEPS)]
+        "--sync-warmup", "2", "--double-every", "2", "--kappa", "1",
+        "--log-every", "1"] + extra)
+    tr = launch.make_trainer(args, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     build.launch_counts.clear()
-    steps, kept = [], None
-    for t in range(STEPS):
-        t0 = time.perf_counter()
-        losses, grads = tr.grads(params, batches[t])
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        if t == PROFILED_STEP and label == "gpt2":
-            kept = (params, grads, state, batches[t])
-        params, state, met = tr.opt.step(tr.comm, params, grads, state)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        del grads
-        loss = float(losses.mean())
-        steps.append({"step": t, "loss": loss, "sync": met["synced"],
-                      "var": met["var_round"],
-                      "step_ms": 1e3 * (t2 - t0),
-                      "fwd_bwd_ms": 1e3 * (t1 - t0),
-                      "optimizer_ms": 1e3 * (t2 - t1)})
-        print(f"  step {t}: loss {loss:.4f} sync={met['synced']} "
-              f"var={met['var_round']} step {1e3 * (t2 - t0):.1f} ms "
-              f"(fwd/bwd {1e3 * (t1 - t0):.1f}, optimizer "
-              f"{1e3 * (t2 - t1):.1f})", flush=True)
+    res = launch.train(args, tr, kind=kind,
+                       keep_step=PROFILED_STEP if label == "gpt2" else None)
     counts = dict(build.launch_counts)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"  launches {json.dumps(counts)}; peak memory {peak_gb:.1f} GB",
           flush=True)
 
-    losses = [s["loss"] for s in steps]
+    steps = res["records"]
+    losses = [float(np.mean(s["losses"])) for s in steps]
     assert all(np.isfinite(losses)), losses
     # random init at scale 0.02: near-uniform logits over the padded vocab
-    assert abs(losses[0] - np.log(cfg.padded_vocab)) < 0.5, losses[0]
+    assert abs(losses[0] - np.log(tr.model_cfg.padded_vocab)) < 0.5, (
+        losses[0])
     assert [s["sync"] for s in steps] == [1, 1, 1, 1, 1, 0, 1, 0]
     has_var = tr.opt.base.has_variance
     assert [s["var"] for s in steps] == (
         [1, 1, 0, 1, 0, 0, 0, 0] if has_var else [0] * STEPS)
     expect = expected_launches(label, tr.opt.layouts)
     assert counts == expect, (label, counts, expect)
-    del params, state, batches
+    kept = res["kept"]
+    del res
     profile = profile_step(tr, *kept) if kept is not None else None
     del kept, tr
     return {"steps": steps, "launches": counts, "peak_memory_gb": peak_gb,
@@ -446,17 +445,18 @@ def _device_us(evt) -> float:
     return float(t if t is not None else evt.self_cuda_time_total)
 
 
-def profile_step(tr, params, grads, state, batch):
+def profile_step(tr, params, state, batch):
     """Phase 4, gpt2: repeat the forward/backward and the optimizer step
     of one sync step under torch.profiler; per part, the wall time, the
     summed device time of its kernels and the kernels that take the
     most."""
     from torch.profiler import ProfilerActivity, profile
 
-    out = {}
-    for part, fn in (("fwd_bwd", lambda: tr.grads(params, batch)),
+    out, grads = {}, []
+    for part, fn in (("fwd_bwd", lambda: grads.append(
+                          tr.grads(params, batch)[1])),
                      ("optimizer_sync", lambda: tr.opt.step(
-                         tr.comm, params, grads, state))):
+                         tr.comm, params, grads[0], state))):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -488,6 +488,7 @@ def check_small_input(dev, arch, extra, kind):
     the bars the CPU tests hold the CPU path to against the JAX reference,
     for the same reasons (sum order; near-zero sign flips)."""
     from repro_torch.configs.base import get
+    from repro_torch.core.comm import SimComm
     from repro_torch.core.leafwise import flatten_tree
     from repro_torch.data.synthetic import DataConfig, SyntheticLM
     from repro_torch.launch import train as launch
@@ -500,15 +501,15 @@ def check_small_input(dev, arch, extra, kind):
     cfg = get(arch).smoke
     runs = {}
     for d in (dev, torch.device("cpu")):
-        tr = Trainer(cfg, launch.build_opt_cfg(args), n_workers=N_WORKERS,
-                     device=d)
-        params, state = tr.sim_init(0)
+        tr = Trainer(cfg, launch.build_opt_cfg(args),
+                     comm=SimComm(N_WORKERS), device=d)
+        params, state = tr.init(0)
         data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32,
                                       global_batch=8, seed=0, kind=kind),
                            device=d)
         losses = []
         for t in range(8):
-            params, state, met = tr.sim_step(params, state, data.batch(t))
+            params, state, met = tr.step(params, state, data.batch(t))
             losses.append(float(met["loss"]))
         runs[d.type] = (losses, flatten_tree(params)[1])
     (lk, pk), (lc, pc) = runs["cuda"], runs["cpu"]
@@ -523,6 +524,206 @@ def check_small_input(dev, arch, extra, kind):
     assert gap < 1e-4 and frac >= 0.99 and float(diff.max()) <= 0.05
     return {"max_loss_gap": gap, "params_within_1e-4": frac,
             "max_param_gap": float(diff.max())}
+
+
+def gpt2_argv(batch, extra):
+    """The CLI flags of phase 4a's gpt2 run at global batch ``batch``."""
+    return ["--arch", "gpt2", "--steps", str(STEPS), "--batch", str(batch),
+            "--seq", str(SEQ), "--sync-warmup", "2", "--double-every", "2",
+            "--kappa", "1", "--log-every", str(STEPS)] + extra
+
+
+def scratch_dir():
+    """A directory for the ranks' rendezvous and results, inside the
+    checkout (git-ignored), removed after use."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    return tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"))
+
+
+def probe_exchange(backend, device, n):
+    """Phase 6: DistComm's all_to_all and all_gather in ``n`` spawned
+    ranks against SimComm's, bit for bit, in f32, bf16 and uint8, from
+    contiguous and strided views."""
+    from repro_torch.launch import mesh
+
+    with scratch_dir() as tmp:
+        mesh.spawn(mesh.check_exchange, n,
+                   (n, mesh.file_rendezvous(tmp), backend, device, tmp),
+                   timeout_s=DIST_TIMEOUT_S)
+        want = mesh.exchange_reference(mesh.exchange_payloads(n, "cpu"))
+        cases = {}
+        for r in range(n):
+            got = torch.load(os.path.join(tmp, f"exchange{r}.pt"))
+            for name, ops in got.items():
+                for op, t in ops.items():
+                    ok = (t.dtype == want[name][op].dtype
+                          and torch.equal(t[0], want[name][op][r]))
+                    cases[f"{name} {op}"] = cases.get(f"{name} {op}",
+                                                      True) and ok
+    print(f"  {backend} on {device}, {n} rank(s): {json.dumps(cases)}",
+          flush=True)
+    assert all(cases.values()), (backend, device, cases)
+    return cases
+
+
+def times_by_kind(records):
+    """Median per step kind of each time of the step records (the
+    exchange's only where the comm timed one)."""
+    keys = ["step_ms", "fwd_bwd_ms", "optimizer_ms"]
+    if records[0]["exchange_ms"] is not None:
+        keys.append("exchange_ms")
+    return {kind: {k: statistics.median(records[t][k] for t in steps)
+                   for k in keys}
+            for kind, steps in STEP_KINDS.items()}
+
+
+def run_in_process(argv):
+    """Phase 6: the sim or single run the ranks are held to, in this
+    process, its launch counts set to 0 just before it."""
+    from repro_torch.core.leafwise import flatten_tree
+    from repro_torch.kernels import build
+    from repro_torch.launch import train as launch
+
+    args = launch.parse_args(argv)
+    tr = launch.make_trainer(args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.launch_counts.clear()
+    res = launch.train(args, tr)
+    out = {"records": res["records"], "launches": dict(build.launch_counts),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "params": [x.cpu() for x in flatten_tree(res["params"])[1]]}
+    del res, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_ranks(argv, n):
+    """Phase 6: ``--mode dist`` in ``n`` spawned ranks; each rank's
+    results (params on the CPU) and the wall time of the spawn."""
+    from repro_torch.launch import mesh
+    from repro_torch.launch import train as launch
+
+    with scratch_dir() as tmp:
+        t0 = time.time()
+        mesh.spawn(launch.rank_main, n,
+                   (argv, n, mesh.file_rendezvous(tmp), tmp),
+                   timeout_s=DIST_TIMEOUT_S)
+        wall = time.time() - t0
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                for r in range(n)], wall
+
+
+def dist_runs(label, transport, ref, argv, n, expect):
+    """Phase 6: ``argv`` in ``n`` ranks, held to ``ref`` by
+    :func:`compare_ranks`."""
+    assert ref["launches"] == expect, (label, ref["launches"], expect)
+    print(f"  {label} reference run: peak {ref['peak_memory_gb']:.2f} GB",
+          flush=True)
+    ref_times = times_by_kind(ref["records"])
+    for kind, t in ref_times.items():
+        print(f"    {kind}: step {t['step_ms']:.1f} ms (fwd/bwd "
+              f"{t['fwd_bwd_ms']:.1f}, optimizer {t['optimizer_ms']:.1f}; "
+              f"exchange in-process)")
+    ranks, wall = run_ranks(argv, n)
+    out = {"transport": transport, "ranks_wall_s": wall,
+           "reference": {"peak_memory_gb": ref["peak_memory_gb"],
+                         "launches": ref["launches"], "times": ref_times},
+           "ranks": compare_ranks(label, transport, ref, ranks)}
+    del ranks
+    gc.collect()
+    return out
+
+
+def compare_ranks(label, transport, ref, ranks):
+    """Phase 6: every rank against the worker of its index in ``ref``:
+    losses within 1e-4, params 99% within 1e-4 and all within 0.05 (phase
+    5's bars), bitwise equality reported, launch counts equal."""
+    from repro_torch.core.leafwise import flatten_tree
+
+    rows = []
+    for r, res in enumerate(ranks):
+        got = [rec["losses"][0] for rec in res["records"]]
+        want = [rec["losses"][r] for rec in ref["records"]]
+        assert [(a["sync"], a["var"]) for a in res["records"]] == [
+            (b["sync"], b["var"]) for b in ref["records"]], (label, r)
+        n = n_eq = n_close = 0
+        max_gap = 0.0
+        for a, b in zip(flatten_tree(res["params"])[1], ref["params"]):
+            d = (a[0] - b[r]).abs()
+            n += d.numel()
+            n_eq += int((a[0] == b[r]).sum())
+            n_close += int((d <= 1e-4).sum())
+            max_gap = max(max_gap, float(d.max()))
+        row = {"rank": r, "device": res["device"],
+               "backend": res["backend"],
+               "losses_bitwise": got == want,
+               "max_loss_gap": max(abs(x - y) for x, y in zip(got, want)),
+               "params_bitwise": n_eq == n, "params_equal_share": n_eq / n,
+               "params_within_1e-4": n_close / n, "max_param_gap": max_gap,
+               "peak_memory_gb": res["peak_memory_bytes"] / 1e9,
+               "launches": res["launches"],
+               "times": times_by_kind(res["records"])}
+        print(f"  {label} rank {r} on {res['device']} ({res['backend']}): "
+              f"losses bitwise {row['losses_bitwise']} (gap "
+              f"{row['max_loss_gap']:.2e}); params bitwise "
+              f"{row['params_bitwise']}, equal share "
+              f"{row['params_equal_share']:.6f}, within 1e-4 "
+              f"{row['params_within_1e-4']:.6f}, max gap {max_gap:.2e}; "
+              f"peak {row['peak_memory_gb']:.2f} GB; launches "
+              f"{json.dumps(res['launches'])}", flush=True)
+        for kind, t in row["times"].items():
+            print(f"    {kind}: step {t['step_ms']:.1f} ms (fwd/bwd "
+                  f"{t['fwd_bwd_ms']:.1f}, optimizer {t['optimizer_ms']:.1f}"
+                  f", exchange {t['exchange_ms']:.1f} over {transport})")
+        assert row["max_loss_gap"] < 1e-4, (label, r, got, want)
+        assert n_close / n >= 0.99 and max_gap <= 0.05, (label, r, row)
+        assert res["launches"] == ref["launches"], (label, r)
+        rows.append(row)
+    return rows
+
+
+def run_dist_phase():
+    """Phase 6 (see the module docstring). Returns its summary."""
+    t0 = time.time()
+    cards = min(torch.cuda.device_count(), N_WORKERS)
+    expect = expected_launches("gpt2", full_plan("gpt2").layouts)
+    out = {"probe": {"nccl": probe_exchange("nccl", "cuda", cards),
+                     "gloo cuda:0": probe_exchange("gloo", "cuda:0",
+                                                   N_WORKERS)},
+           "6a": run_6a(expect), "6b": run_6b(cards, expect)}
+    out["wall_s"] = time.time() - t0
+    print(f"phase 6: {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def run_6a(expect):
+    print(f"phase 6a: gpt2 FULL, {N_WORKERS} ranks on cuda:0 over gloo, "
+          f"batch {BATCH}, seq {SEQ}, micro-batches 2, vs sim", flush=True)
+    flags = gpt2_argv(BATCH, ["--micro-batches", "2"])
+    sim = run_in_process(flags + ["--mode", "sim", "--workers",
+                                  str(N_WORKERS), "--device", "cuda:0"])
+    out = dist_runs(
+        "6a", f"gloo via host memory, {N_WORKERS} ranks on one card", sim,
+        flags + ["--mode", "dist", "--backend", "gloo", "--device",
+                 "cuda:0"], N_WORKERS, expect)
+    del sim
+    gc.collect()
+    return out
+
+
+def run_6b(cards, expect):
+    batch = BATCH // N_WORKERS * cards
+    ref_mode = (["--mode", "single"] if cards == 1 else
+                ["--mode", "sim", "--workers", str(cards)])
+    print(f"phase 6b: gpt2 FULL, {cards} rank(s) over NCCL (one card each)"
+          f", batch {batch}, seq {SEQ}, vs {ref_mode[1]}", flush=True)
+    ref = run_in_process(gpt2_argv(batch, ref_mode))
+    return dist_runs(
+        "6b", f"NCCL, {cards} card(s)", ref,
+        gpt2_argv(batch, ["--mode", "dist", "--backend", "nccl", "--device",
+                          "cuda"]), cards, expect)
 
 
 def main():
@@ -547,7 +748,6 @@ def main():
     for name, log in build.build_logs.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"  {name}.cu ptxas: {regs}")
-
     print("phase 3: kernels vs plain versions at FULL frames, "
           f"{N_WORKERS} stacked workers; 3a: gpt2", flush=True)
     tally = Tally()
@@ -580,6 +780,9 @@ def main():
                  dev, "bert-base", ["--optimizer", "zero_one_sgd"] + slow,
                  "mlm")}
 
+    print("phase 6: data parallel in processes", flush=True)
+    dist_phase = run_dist_phase()
+
     def bound(r):
         t_bytes = r["bytes"] / PEAK_BYTES_PER_S * 1e3
         t_ops = r["ops"] / PEAK_F32_PER_S * 1e3
@@ -592,6 +795,13 @@ def main():
         bound_ms, bound_by = bound(r)
         by_run = {label: run["launches"].get(name, 0)
                   for label, run in runs.items()}
+        for part in ("6a", "6b"):
+            d = dist_phase[part]
+            by_run[f"{part}_{'sim' if part == '6a' else 'reference'}"] = (
+                d["reference"]["launches"].get(name, 0))
+            for row in d["ranks"]:
+                by_run[f"{part}_rank{row['rank']}"] = (
+                    row["launches"].get(name, 0))
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_run.values()),
@@ -611,7 +821,7 @@ def main():
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     assert not missing, f"kernels never launched on a main path: {missing}"
     summary = {"runs": runs, "small_inputs": small,
-               "wall_s": time.time() - t_start}
+               "data_parallel": dist_phase, "wall_s": time.time() - t_start}
     print("summary " + json.dumps(summary))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -16,6 +16,12 @@ kernels on one GPU.
    the wrapper, the C entry point called directly (no wrapper), and
    Tensor.fill_ of the same output (write-only, 4 of the kernel's 4.125
    bytes per element), each with its byte bound.
+3. The two reductions of a sync that see the worker stack, over a stack
+   of four and over each worker alone, at every gpt2-FULL view: the
+   tensor-scale sum of the row sums (``_combine_scales``) and the mean
+   over senders of the decoded receive. Where they give other bits, a
+   rank of the multi-process regime (a stack of one) is not bitwise its
+   simulated worker (chip_smoke.py phase 6).
 
 Every time is the median of 5 CUDA-event pairs around 20 calls back to
 back. Prints one JSON line per frame, then the card line. Exits non-zero
@@ -114,6 +120,33 @@ def decompress_frames(dev, gen):
         torch.cuda.empty_cache()
 
 
+def stacked_reductions(dev, gen):
+    from repro_torch.core import compressor as C
+    from repro_torch.kernels import dispatch as K
+
+    n = CS.N_WORKERS
+    unequal = {"tensor_scales": [], "sender_means": []}
+    layouts = CS.full_plan("gpt2").layouts
+    for lo in layouts:
+        rows, _ = C.view_rows_cols(lo)
+        rs = torch.rand(n * rows, device=dev, generator=gen)
+        s4 = K._combine_scales(rs, lo, "tensor", n)
+        s1 = torch.cat([K._combine_scales(rs[w * rows:(w + 1) * rows]
+                                          .clone(), lo, "tensor", 1)
+                        for w in range(n)])
+        d = torch.randn((n,) + tuple(lo.view_shape), device=dev,
+                        generator=gen)
+        m1 = torch.cat([d[w:w + 1].clone().mean(dim=1) for w in range(n)])
+        if not torch.equal(s4, s1):
+            unequal["tensor_scales"].append(list(lo.shape))
+        if not torch.equal(d.mean(dim=1), m1):
+            unequal["sender_means"].append(list(lo.shape))
+        del d, m1
+    print(json.dumps({"stacked_reductions": f"stack of {n} vs stacks of 1",
+                      "leaves": len(layouts), "unequal": unequal}),
+          flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_sweep: no CUDA device")
@@ -121,6 +154,7 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(0)
     decompress_frames(dev, gen)
     sweep_ef_compress(dev, gen)
+    stacked_reductions(dev, gen)
     print(CS.card_line())
 
 

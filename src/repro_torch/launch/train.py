@@ -1,5 +1,12 @@
-"""Training CLI, PyTorch port of the sim mode of
-``src/repro/launch/train.py``: N simulated paper-workers on one GPU.
+"""Training CLI, PyTorch port of ``src/repro/launch/train.py``.
+
+Modes: ``sim`` (the default) runs ``--workers`` simulated paper-workers
+stacked on one device; ``single`` one worker; ``dist`` one worker per
+process, joined by ``torch.distributed`` (``repro_torch.launch.mesh``):
+NCCL between cards (one card per rank), gloo on the CPU, and gloo with
+every rank on one card only when asked for (``--backend gloo --device
+cuda:0``). Under torchrun the launcher's ranks are used; without it the
+CLI spawns ``--workers`` ranks itself. Only rank 0 prints.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2 --smoke \\
@@ -7,20 +14,31 @@ Examples:
       --double-every 2 --kappa 1 --log-every 1 [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.train --arch bert-base \\
       --smoke --optimizer zero_one_sgd --scale-mode row [...as above]
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch gpt2 --smoke --mode dist --device cpu [...as above]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2 --smoke \\
+      --mode dist --workers 4 --micro-batches 2 --device cpu [...]
 """
 from __future__ import annotations
 
 import argparse
+import os
+import sys
+import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import get
 from repro_torch.core import schedules as S
 from repro_torch.core.api import REGISTRY_NAMES, OptimizerConfig
+from repro_torch.core.comm import NullComm, SimComm
 from repro_torch.core.compressed import comm_accounting
 from repro_torch.data.synthetic import DataConfig, SyntheticLM
-from repro_torch.train.step import Trainer
+from repro_torch.kernels import build
+from repro_torch.launch import mesh
+from repro_torch.train.step import Trainer, TrainerConfig
 
 
 def build_opt_cfg(args) -> OptimizerConfig:
@@ -43,8 +61,15 @@ def parse_args(argv=None):
                     help="use the reduced smoke config")
     ap.add_argument("--optimizer", default="zero_one_adam",
                     choices=list(REGISTRY_NAMES))
-    ap.add_argument("--mode", default="sim", choices=["sim"])
-    ap.add_argument("--workers", type=int, default=4)
+    ap.add_argument("--mode", default="sim",
+                    choices=["single", "sim", "dist"])
+    ap.add_argument("--workers", type=int, default=4,
+                    help="sim: simulated workers; dist: ranks the CLI "
+                         "spawns when no launcher started it")
+    ap.add_argument("--backend", default=None, choices=list(mesh.BACKENDS),
+                    help="dist only: nccl (the default on cuda) or gloo "
+                         "(the default on cpu)")
+    ap.add_argument("--micro-batches", type=int, default=1)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
@@ -62,36 +87,71 @@ def parse_args(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain versions of the "
-                         "kernels)")
-    return ap.parse_args(argv)
+                         "kernels); dist mode with gloo may name one card "
+                         "(cuda:0) for all ranks")
+    args = ap.parse_args(argv)
+    if args.backend is not None and args.mode != "dist":
+        ap.error("--backend applies to --mode dist only")
+    return args
 
 
-def main(argv=None):
-    args = parse_args(argv)
+def make_trainer(args, device=None) -> Trainer:
+    """The trainer of ``args.mode`` on ``device`` (default
+    ``args.device``); in dist mode the process group must be up."""
     spec = get(args.arch)
     cfg = spec.smoke if args.smoke else spec.config
-    n = args.workers
-    tr = Trainer(cfg, build_opt_cfg(args), n_workers=n, device=args.device)
-    acct = comm_accounting(tr.opt)
-    print(f"arch={cfg.name} params(dp)={acct['dp_params']/1e6:.2f}M "
-          f"codec={acct['codec']} "
-          f"bits/param/sync={acct['bits_per_param_sync']:.3f} "
-          f"workers={n} optimizer={args.optimizer} device={tr.device}")
+    if args.mode == "sim":
+        comm = SimComm(args.workers)
+    elif args.mode == "single":
+        comm = NullComm()
+    else:
+        comm = mesh.worker_comm()
+    return Trainer(cfg, build_opt_cfg(args), comm=comm,
+                   trainer_cfg=TrainerConfig(args.micro_batches),
+                   device=args.device if device is None else device)
 
-    params, state = tr.sim_init(args.seed)
+
+def train(args, tr: Trainer, kind: str = "lm", keep_step: int = None) -> dict:
+    """Run ``args.steps`` steps of ``tr`` from ``args.seed`` on the
+    synthetic stream of ``kind`` (``lm`` next-token; ``mlm`` masked-LM).
+    Prints on rank 0 (every process outside dist mode). Returns the final
+    params and state, one record per step (this process's workers'
+    losses, the step kind, and the times of :meth:`Trainer.step`, the
+    step's being their sum) and, with ``keep_step``, the params, state
+    and batch that step started from (``kept``)."""
+    cfg, dev = tr.model_cfg, tr.device
+    is_main = int(tr.comm.index()[0]) == 0
+    acct = comm_accounting(tr.opt)
+    if is_main:
+        print(f"arch={cfg.name} params(dp)={acct['dp_params']/1e6:.2f}M "
+              f"codec={acct['codec']} "
+              f"bits/param/sync={acct['bits_per_param_sync']:.3f} "
+              f"workers={tr.n_workers} mode={args.mode} "
+              f"micro_batches={args.micro_batches} "
+              f"optimizer={args.optimizer} device={dev}", flush=True)
+
+    params, state = tr.init(args.seed)
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
-                                  global_batch=args.batch, seed=args.seed),
-                       device=tr.device)
-    t0 = time.time()
-    comp_bytes, rounds = 0.0, 0
+                                  global_batch=args.batch, seed=args.seed,
+                                  kind=kind), device=dev)
+    t_start = time.time()
+    comp_bytes, rounds, records, kept = 0.0, 0, [], None
     for step in range(args.steps):
         batch = data.batch(step)
-        if not cfg.causal:
+        if not cfg.causal and "loss_mask" not in batch:
             # as the reference's CLI: next-token batches with every
             # position in the loss
             batch["loss_mask"] = torch.ones((args.batch, args.seq),
-                                            device=tr.device)
-        params, state, met = tr.sim_step(params, state, batch)
+                                            device=dev)
+        if step == keep_step:
+            kept = (params, state, batch)
+        params, state, met = tr.step(params, state, batch)
+        rec = {"step": step, "losses": met["losses"].tolist(),
+               "sync": met["synced"], "var": met["var_round"],
+               "step_ms": met["fwd_bwd_ms"] + met["optimizer_ms"]}
+        rec.update({k: met[k] for k in ("fwd_bwd_ms", "optimizer_ms",
+                                        "exchange_ms")})
+        records.append(rec)
         if met["synced"]:
             comp_bytes += acct["compressed_bytes_per_sync"]
             rounds += 1
@@ -99,12 +159,88 @@ def main(argv=None):
             comp_bytes += acct["fullprec_bytes_per_round"]
             rounds += 1
         if step % args.log_every == 0 or step == args.steps - 1:
-            print(f"step {step:5d} loss {float(met['loss']):.4f} "
-                  f"lr {float(met['lr']):.2e} sync={met['synced']} "
-                  f"var={met['var_round']} [{time.time()-t0:.1f}s]")
+            loss = tr.mean_loss(met)
+            if is_main:
+                ex = ("" if rec["exchange_ms"] is None else
+                      f", exchange {rec['exchange_ms']:.1f}")
+                print(f"step {step:5d} loss {loss:.4f} "
+                      f"lr {float(met['lr']):.2e} sync={met['synced']} "
+                      f"var={met['var_round']} step {rec['step_ms']:.1f} ms "
+                      f"(fwd/bwd {rec['fwd_bwd_ms']:.1f}, optimizer "
+                      f"{rec['optimizer_ms']:.1f}{ex}) "
+                      f"[{time.time()-t_start:.1f}s]", flush=True)
     bits_pp = 8 * comp_bytes / max(acct["dp_params"], 1) / max(args.steps, 1)
-    print(f"DONE: {args.steps} steps, {rounds} comm rounds, "
-          f"avg {bits_pp:.3f} bits/param/step ({time.time()-t0:.1f}s)")
+    if is_main:
+        print(f"DONE: {args.steps} steps, {rounds} comm rounds, "
+              f"avg {bits_pp:.3f} bits/param/step "
+              f"({time.time()-t_start:.1f}s)", flush=True)
+    return {"params": params, "state": state, "records": records,
+            "kept": kept}
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree.cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+def rank_main(rank: int, argv, world_size: int, init_method: str,
+              out_dir: str = None, with_state: bool = False) -> None:
+    """Entry of one spawned rank of ``--mode dist``: join the group, train,
+    and with ``out_dir`` save this rank's results there as
+    ``rank{rank}.pt``: the step records, the final params on the CPU (and
+    the optimizer state with ``with_state``), the kernel launches of the
+    run and the peak device memory."""
+    args = parse_args(argv)
+    dev = mesh.init_workers(args.backend, args.device, rank=rank,
+                            world_size=world_size, local_rank=rank,
+                            init_method=init_method)
+    try:
+        tr = make_trainer(args, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        build.launch_counts.clear()
+        res = train(args, tr)
+        launches = dict(build.launch_counts)
+        if out_dir is None:
+            return
+        out = {"rank": rank, "device": str(dev),
+               "backend": dist.get_backend(), "records": res["records"],
+               "params": _to_cpu(res["params"]), "launches": launches,
+               "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
+                                     if dev.type == "cuda" else None)}
+        if with_state:
+            st = res["state"]
+            out["state"] = {"slots": _to_cpu(st.slots), "u": _to_cpu(st.u),
+                            "err_w": _to_cpu(st.err_w),
+                            "err_s": _to_cpu(st.err_s)}
+        del res
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parse_args(argv)
+    if args.mode != "dist":
+        train(args, make_trainer(args))
+    elif mesh.launched():
+        dev = mesh.init_workers(args.backend, args.device)
+        try:
+            train(args, make_trainer(args, device=dev))
+        finally:
+            dist.destroy_process_group()
+    else:
+        # no launcher: spawn the ranks here, checked before any starts
+        mesh.check_backend(
+            args.backend or mesh.default_backend(args.device), args.device,
+            args.workers)
+        with tempfile.TemporaryDirectory() as tmp:
+            mesh.spawn(rank_main, args.workers,
+                       (argv, args.workers, mesh.file_rendezvous(tmp)))
 
 
 if __name__ == "__main__":

@@ -1,21 +1,35 @@
-"""Trainer, PyTorch port of the sim mode of ``src/repro/train/step.py``.
+"""Trainer, PyTorch port of ``src/repro/train/step.py`` (the sim and
+single modes, and the multi-process regime that stands in for the
+reference's mesh mode).
 
-``n`` simulated data-parallel workers live on one device. Every parameter
-and optimizer-state tensor carries the worker stack on dim 0; the forward
-and backward passes run one worker at a time on its slice of the global
-batch, then the optimizer steps all workers at once through the
-simulated collectives (``core.comm.SimComm``), so each exchange phase of
-each leaf is one kernel launch for the whole stack. Gradients are not
-accumulated over micro-batches yet (the reference's ``micro_batches=1``).
+Every parameter and optimizer-state tensor carries the stack of workers
+this process runs on dim 0. The :class:`~repro_torch.core.comm.Comm` the
+trainer is given decides the regime, where the reference has a pair of
+init/step functions per mode:
+
+* ``SimComm(n)``: ``n`` simulated workers on one device.
+  The forward and backward passes run one worker at a time on its slice
+  of the global batch, then the optimizer steps all workers at once, so
+  each exchange phase of each leaf is one kernel launch for the stack;
+* ``NullComm()``: one worker, every collective the identity (the
+  reference's ``single`` mode);
+* ``DistComm()``: one worker per process, a stack of one, collectives
+  through ``torch.distributed`` (``repro_torch.launch.mesh``).
+
+Worker ``i`` takes rows ``[i*B/n, (i+1)*B/n)`` of the global batch in
+every regime, and with ``micro_batches > 1`` accumulates its gradient
+over equal splits of them (:func:`accumulate_grads`).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import dataclasses
+import time
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
 from repro_torch.core import api as opt_api
-from repro_torch.core.comm import SimComm
+from repro_torch.core.comm import Comm
 from repro_torch.core.leafwise import flatten_tree, unflatten_tree
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -40,37 +54,96 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-class Trainer:
-    """Static plan (template, layouts, optimizer) plus the sim step."""
+@dataclasses.dataclass(frozen=True)
+class TrainerConfig:
+    """``micro_batches``: splits of each worker's share of the batch whose
+    gradients are summed in order, then divided by their number. (The
+    reference's ``peel_last_microbatch`` reorders no arithmetic; it exists
+    for XLA's scheduler, and the eager loop here has nothing to peel.)"""
 
-    def __init__(self, model_cfg: ModelConfig, opt_cfg, *, n_workers: int,
+    micro_batches: int = 1
+
+    def __post_init__(self):
+        if self.micro_batches < 1:
+            raise ValueError(f"micro_batches must be >= 1, got "
+                             f"{self.micro_batches!r}")
+
+
+def accumulate_grads(loss_fn: Callable, params, batch: Dict[str, torch.Tensor],
+                     micro_batches: int):
+    """Mean loss and gradients over ``micro_batches`` equal splits of
+    ``batch`` (leading dim), as the reference's ``accumulate_grads``: for
+    more than one split, zeros + g_1 + ... + g_mb in split order, then one
+    f32 divide by mb, and the loss likewise. ``loss_fn(params, batch) ->
+    (loss, aux)``; ``params`` is a tree of leaves without a worker dim.
+    Returns (loss, gradient tree), both detached."""
+    mb = micro_batches
+    paths, xs = flatten_tree(params)
+    leaves = [x.detach().requires_grad_(True) for x in xs]
+    tree = unflatten_tree(paths, leaves)
+    if mb <= 1:
+        loss, _ = loss_fn(tree, batch)
+        gs = torch.autograd.grad(loss, leaves)
+        return loss.detach(), unflatten_tree(
+            paths, [g.to(torch.float32) for g in gs])
+    for k, v in batch.items():
+        if v.shape[0] % mb:
+            raise ValueError(
+                f"per-worker batch leaf {k!r} has {v.shape[0]} rows, which "
+                f"is not divisible by micro_batches={mb}; choose a global "
+                f"batch size divisible by n_workers * micro_batches")
+    per = next(iter(batch.values())).shape[0] // mb
+    dev = xs[0].device
+    gsum = [torch.zeros(x.shape, dtype=torch.float32, device=dev)
+            for x in xs]
+    lsum = torch.zeros((), dtype=torch.float32, device=dev)
+    for j in range(mb):
+        loss, _ = loss_fn(tree, {k: v[j * per:(j + 1) * per]
+                                 for k, v in batch.items()})
+        gs = torch.autograd.grad(loss, leaves)
+        for acc, g in zip(gsum, gs):
+            acc.add_(g)
+        lsum = lsum + loss.detach()
+    # a device tensor: CUDA turns a divide by a host scalar into a
+    # multiply by its reciprocal, which is not the reference's divide
+    d = torch.tensor(float(mb), dtype=torch.float32, device=dev)
+    return lsum / d, unflatten_tree(paths, [acc.div_(d) for acc in gsum])
+
+
+class Trainer:
+    """Static plan (template, layouts, optimizer) plus the step of the
+    workers this process runs."""
+
+    def __init__(self, model_cfg: ModelConfig, opt_cfg, *, comm: Comm,
+                 trainer_cfg: TrainerConfig = TrainerConfig(),
                  device="cuda"):
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
-        self.n_workers = n_workers
-        self.comm = SimComm(n_workers)
+        self.trainer_cfg = trainer_cfg
+        self.comm = comm
+        self.n_workers = comm.size()
         self.template = T.model_template(model_cfg)
         self.opt = opt_api.build_optimizer(
             opt_cfg, param_shapes(self.template),
             specs=param_specs(self.template),
-            dp_mask=dp_mask(self.template), n_workers=n_workers)
+            dp_mask=dp_mask(self.template), n_workers=self.n_workers)
 
-    def sim_init(self, seed: int):
-        """Stacked params (every worker starts from the same draw) and
-        the optimizer state."""
+    def init(self, seed: int):
+        """Stacked params (every worker starts from the same draw, in
+        every process) and the optimizer state."""
         params = init_params(self.template, seed, device=self.device,
                              dtype=self.model_cfg.param_dtype)
         paths, leaves = flatten_tree(params)
-        n = self.n_workers
-        stacked = [x[None].expand((n,) + tuple(x.shape)).clone()
+        stack = len(self.comm.index())
+        stacked = [x[None].expand((stack,) + tuple(x.shape)).clone()
                    for x in leaves]
         params = unflatten_tree(paths, stacked)
         return params, self.opt.init(params)
 
     def grads(self, params, batch) -> Tuple[torch.Tensor, Dict]:
-        """Per-worker loss and gradients: worker w takes rows
-        [w*B/n, (w+1)*B/n) of the global batch. Returns (losses (n,),
-        stacked grads tree)."""
+        """Per-worker loss and gradients of the stacked workers: worker i
+        takes rows [i*B/n, (i+1)*B/n) of the global batch. Returns
+        (losses (stack,), stacked grads tree)."""
         n = self.n_workers
         paths, xs = flatten_tree(params)
         B = batch["tokens"].shape[0]
@@ -78,22 +151,51 @@ class Trainer:
             raise ValueError(f"global batch {B} is not divisible by "
                              f"{n} workers")
         per = B // n
+        widx = self.comm.index()
         gbuf: List[torch.Tensor] = [torch.empty_like(x) for x in xs]
-        losses = torch.empty(n, dtype=torch.float32, device=self.device)
-        for w in range(n):
-            leaves = [x[w].detach().requires_grad_(True) for x in xs]
-            b = {k: v[w * per:(w + 1) * per] for k, v in batch.items()}
-            loss, _ = T.lm_loss(unflatten_tree(paths, leaves),
-                                self.model_cfg, b)
-            gs = torch.autograd.grad(loss, leaves)
-            for buf, g in zip(gbuf, gs):
+        losses = torch.empty(len(widx), dtype=torch.float32,
+                             device=self.device)
+        for w, i in enumerate(widx):
+            b = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+            loss, gs = accumulate_grads(
+                lambda p, b_: T.lm_loss(p, self.model_cfg, b_),
+                unflatten_tree(paths, [x[w] for x in xs]), b,
+                self.trainer_cfg.micro_batches)
+            for buf, g in zip(gbuf, flatten_tree(gs)[1]):
                 buf[w].copy_(g)
-            losses[w] = loss.detach()
+            losses[w] = loss
         return losses, unflatten_tree(paths, gbuf)
 
-    def sim_step(self, params, state, batch):
-        """One training step of all workers: (params, state, metrics)."""
+    def step(self, params, state, batch):
+        """One training step of the stacked workers: (params, state,
+        metrics). ``metrics["losses"]`` holds each stacked worker's loss,
+        ``metrics["loss"]`` their mean (the fleet's in sim and single
+        mode; see :meth:`mean_loss` for a process of a larger fleet).
+        The device is synchronized before the step and after each of its
+        parts, whose times the metrics give in ms: ``fwd_bwd_ms``,
+        ``optimizer_ms`` and ``exchange_ms`` (the part of the optimizer
+        spent in the comm's collectives, None in process)."""
+        self._sync()
+        t0 = time.perf_counter()
         losses, grads = self.grads(params, batch)
+        self._sync()
+        t1 = time.perf_counter()
         params, state, met = self.opt.step(self.comm, params, grads, state)
+        self._sync()
+        t2 = time.perf_counter()
+        met["losses"] = losses
         met["loss"] = losses.mean()
+        met["fwd_bwd_ms"] = 1e3 * (t1 - t0)
+        met["optimizer_ms"] = 1e3 * (t2 - t1)
+        met["exchange_ms"] = self.comm.exchange_ms()
         return params, state, met
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def mean_loss(self, met) -> float:
+        """The loss averaged over every worker of the fleet; in the
+        multi-process regime one all_reduce, so call it only on steps
+        that are logged."""
+        return float(self.comm.pmean(met["losses"])[0])

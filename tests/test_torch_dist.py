@@ -1,0 +1,288 @@
+"""The port's multi-process regime on the CPU: gloo, one worker per
+process, against the port's own simulated workers and against the JAX
+reference, live.
+
+The ranks run ``repro_torch.launch.train.rank_main`` (or
+``repro_torch.launch.mesh.check_exchange``), spawned fresh, so they never
+import JAX; they write their results under ``tmp_path`` and meet through
+a file there (no port to collide on under pytest-xdist). Every spawn has
+a join timeout. One intra-op thread in the ranks and here, so that the
+bitwise comparisons compare the same arithmetic.
+
+Tolerances, with their reasons:
+* against the port's sim run of the same settings: bit for bit (losses,
+  params, m, v, u and both EF errors). The exchange collectives move data
+  and reduce nothing, and every kernel or torch op a rank runs is the one
+  the stacked sim runs on that worker's rows;
+* against the reference (gpt2-smoke from the port's own draw, on the
+  port's batches): step losses within 1e-4 and at least 99% of params
+  within 1e-4, all within 0.05, the bars of ``test_torch_slice.py`` for
+  the same reasons (f32 sums in another order; near-zero sign flips).
+  At a peak lr of 3e-4 (lr 1.5e-5 to 1.2e-4 over the 8 warm-up steps):
+  the measured worst loss gap is 1.4e-5 (single mode) and at least
+  99.995% of params are within 1e-4. At the CLI's default peak of 3e-3 a
+  sign flip at a sync grows instead: worst gaps 2.5e-5 (tensor scales),
+  2.8e-4 (chunk), 6.7e-4 (row, 90.8% of params within 1e-4, since a flip
+  moves its whole row's server scale) and 7.3e-4 (single mode, where no
+  mean over workers damps a flip), with the port's sim and dist runs
+  bitwise equal throughout, so the difference lies between the packages'
+  forward and backward passes (~5e-7 on the logits), not in the regime.
+"""
+import ast
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get as ref_get
+from repro.core import OptimizerConfig as RefOptimizerConfig
+from repro.core import schedules as RS
+from repro.train import Trainer as RefTrainer
+from repro.train import TrainerConfig as RefTrainerConfig
+
+from repro_torch.core.leafwise import flatten_tree
+from repro_torch.data import synthetic as TD
+from repro_torch.launch import mesh
+from repro_torch.launch import train as TLAUNCH
+
+# bitwise comparisons need the same arithmetic on both sides: one thread
+# here, and in the ranks through OMP_NUM_THREADS (see the env fixture)
+torch.set_num_threads(1)
+
+N, STEPS, B, S = 4, 8, 8, 32
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+ARGV = ["--arch", "gpt2", "--smoke", "--steps", str(STEPS), "--batch",
+        str(B), "--seq", str(S), "--sync-warmup", "2", "--double-every",
+        "2", "--kappa", "1", "--lr", "3e-4", "--log-every", str(STEPS),
+        "--device", "cpu"]
+CASES = {"tensor": [], "chunk": ["--scale-mode", "chunk"],
+         "row": ["--scale-mode", "row"],
+         "sgd": ["--optimizer", "zero_one_sgd"]}
+SPAWN_TIMEOUT_S = 120.0
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread_ranks():
+    mp = pytest.MonkeyPatch()
+    mp.setenv("OMP_NUM_THREADS", "1")
+    yield
+    mp.undo()
+
+
+def _spawn_ranks(tmp, argv, n=N):
+    """``--mode dist`` in ``n`` gloo ranks; each rank's saved results."""
+    argv = argv + ["--mode", "dist"]
+    mesh.spawn(TLAUNCH.rank_main, n,
+               (argv, n, mesh.file_rendezvous(tmp), str(tmp), True),
+               timeout_s=SPAWN_TIMEOUT_S)
+    return [torch.load(pathlib.Path(tmp) / f"rank{r}.pt") for r in range(n)]
+
+
+def _port_run(argv):
+    args = TLAUNCH.parse_args(argv)
+    return TLAUNCH.train(args, TLAUNCH.make_trainer(args))
+
+
+def _ref_run(argv, params_stacked, mb=1, single=False):
+    """The reference's trajectory (sim mode, or single mode), started
+    from the port's draw and fed the port's batches: the per-step loss
+    (the mean over workers, as the reference reports it) and the final
+    params (n, ...) as numpy."""
+    a = TLAUNCH.parse_args(argv)
+    cfg = RefOptimizerConfig(
+        name=a.optimizer,
+        lr=RS.LinearWarmupExpDecay(peak_lr=a.lr, warmup_steps=a.lr_warmup,
+                                   decay=0.99,
+                                   decay_period=max(a.steps // 20, 1)),
+        var_policy=RS.AdaptiveFreezePolicy(kappa=a.kappa),
+        sync_policy=RS.LrProportionalSyncPolicy(
+            warmup_steps=a.sync_warmup, double_every=a.double_every,
+            max_interval=a.max_interval),
+        scale_mode=a.scale_mode)
+    n = 1 if single else a.workers
+    rt = RefTrainer(ref_get("gpt2").smoke, cfg, n_workers=n,
+                    trainer_cfg=RefTrainerConfig(micro_batches=mb))
+    rp = jax.tree.map(lambda x: jnp.asarray(x.numpy()), params_stacked)
+    if single:
+        rs = rt.opt.init(jax.tree.map(lambda x: x[0], rp))
+        step = rt.single_step_fn()
+    else:
+        rs = jax.vmap(lambda i: rt.opt.init(
+            jax.tree.map(lambda x: x[i], rp)))(jnp.arange(n))
+        step = rt.sim_step_fn()
+    data = TD.SyntheticLM(TD.DataConfig(vocab=512, seq_len=a.seq,
+                                        global_batch=a.batch, seed=a.seed))
+    losses = []
+    for t in range(a.steps):
+        b = {k: jnp.asarray(v.numpy().astype(np.int32))
+             for k, v in data.batch(t).items()}
+        rp, rs, rm = step(rp, rs, b)
+        losses.append(float(np.asarray(rm["loss"]).reshape(-1)[0]))
+    return np.array(losses), [np.asarray(x) for x in jax.tree.leaves(rp)]
+
+
+def _init_params(argv):
+    args = TLAUNCH.parse_args(argv)
+    return TLAUNCH.make_trainer(args).init(args.seed)[0]
+
+
+def _assert_near_reference(ranks, ref_losses, ref_params):
+    got = np.mean([[rec["losses"][0] for rec in res["records"]]
+                   for res in ranks], axis=0)
+    np.testing.assert_allclose(got, ref_losses, rtol=0, atol=1e-4)
+    diff = np.concatenate([
+        np.abs(np.stack([flatten_tree(res["params"])[1][i][0].numpy()
+                         for res in ranks]) - want).ravel()
+        for i, want in enumerate(ref_params)])
+    assert diff.size == N * 346_880
+    assert (diff <= 1e-4).mean() >= 0.99
+    assert diff.max() <= 0.05
+
+
+def _assert_ranks_equal_sim(ranks, sim):
+    """Every rank bit for bit the simulated worker of its index."""
+    state = sim["state"]
+    for r, res in enumerate(ranks):
+        assert [rec["losses"][0] for rec in res["records"]] == [
+            rec["losses"][r] for rec in sim["records"]], r
+        assert [(rec["sync"], rec["var"]) for rec in res["records"]] == [
+            (rec["sync"], rec["var"]) for rec in sim["records"]]
+        for a, b in zip(flatten_tree(res["params"])[1],
+                        flatten_tree(sim["params"])[1]):
+            assert torch.equal(a[0], b[r]), r
+        pairs = [(res["state"]["slots"][k], state.slots[k])
+                 for k in state.slots]
+        pairs += [(res["state"][k], getattr(state, k))
+                  for k in ("u", "err_w", "err_s")]
+        for got, want in pairs:
+            for a, b in zip(got, want):
+                assert torch.equal(a[0], b[r]), r
+
+
+# --- (a) the collectives ------------------------------------------------
+
+@pytest.fixture(scope="module")
+def exchange_results(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("exchange")
+    mesh.spawn(mesh.check_exchange, N,
+               (N, mesh.file_rendezvous(tmp), "gloo", "cpu", str(tmp)),
+               timeout_s=SPAWN_TIMEOUT_S)
+    return [torch.load(tmp / f"exchange{r}.pt") for r in range(N)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "uint8"])
+def test_dist_comm_matches_sim_comm(exchange_results, dtype):
+    """all_to_all and all_gather of every rank, bit for bit what SimComm
+    gives the worker of that index, from contiguous and strided views."""
+    want = mesh.exchange_reference(mesh.exchange_payloads(N, "cpu"))
+    for name in (dtype, dtype + "_strided"):
+        for r, got in enumerate(exchange_results):
+            for op in ("all_to_all", "all_gather"):
+                a, b = got[name][op], want[name][op]
+                assert a.shape == (1,) + tuple(b.shape[1:]), (name, op)
+                assert a.dtype == b.dtype and torch.equal(a[0], b[r]), (
+                    name, op, r)
+
+
+# --- (b), (c) gpt2-smoke in four ranks -----------------------------------
+
+@pytest.fixture(scope="module", params=list(CASES))
+def case_runs(request, tmp_path_factory):
+    argv = ARGV + CASES[request.param]
+    ranks = _spawn_ranks(tmp_path_factory.mktemp(request.param), argv)
+    return argv, ranks
+
+
+def test_dist_matches_port_sim_bitwise(case_runs):
+    argv, ranks = case_runs
+    sim = _port_run(argv + ["--mode", "sim", "--workers", str(N)])
+    _assert_ranks_equal_sim(ranks, sim)
+    assert [r["records"][0]["sync"] for r in ranks] == [True] * N
+    # the ranks time their collectives: some time on every sync step,
+    # none where nothing is exchanged; the sim's exchange is in process
+    for res in ranks:
+        for rec in res["records"]:
+            assert (rec["exchange_ms"] > 0) == bool(rec["sync"]), rec
+    assert all(rec["exchange_ms"] is None for rec in sim["records"])
+
+
+def test_dist_matches_reference(case_runs):
+    argv, ranks = case_runs
+    ref_losses, ref_params = _ref_run(argv, _init_params(argv))
+    _assert_near_reference(ranks, ref_losses, ref_params)
+    assert [rec["sync"] for rec in ranks[0]["records"]] == [
+        1, 1, 1, 1, 1, 0, 1, 0]
+
+
+# --- (d) micro-batches, (e) single mode ----------------------------------
+
+def test_dist_micro_batches_match_sim_and_reference(tmp_path):
+    argv = ARGV + ["--micro-batches", "2"]
+    ranks = _spawn_ranks(tmp_path, argv)
+    _assert_ranks_equal_sim(ranks, _port_run(argv + ["--mode", "sim"]))
+    ref_losses, ref_params = _ref_run(argv, _init_params(argv), mb=2)
+    _assert_near_reference(ranks, ref_losses, ref_params)
+
+
+def test_single_mode_matches_reference():
+    argv = ARGV + ["--mode", "single", "--batch", "2"]
+    port = _port_run(argv)
+    params = _init_params(argv)
+    assert flatten_tree(params)[1][0].shape[0] == 1
+    ref_losses, ref_params = _ref_run(argv, params, single=True)
+    got = np.array([rec["losses"][0] for rec in port["records"]])
+    np.testing.assert_allclose(got, ref_losses, rtol=0, atol=1e-4)
+    diff = np.concatenate([
+        np.abs(a.numpy() - b).ravel()
+        for a, b in zip(flatten_tree(port["params"])[1], ref_params)])
+    assert diff.size == 346_880
+    assert (diff <= 1e-4).mean() >= 0.99 and diff.max() <= 0.05
+
+
+# --- no fallback ----------------------------------------------------------
+
+@pytest.mark.parametrize("backend,device,ranks,match", [
+    ("nccl", "cuda", 2, "CUDA card"),
+    ("nccl", "cpu", 2, "CUDA devices"),
+    ("nccl", "cuda:0", 2, "two ranks on one card"),
+    ("gloo", "cuda:0", 4, "CUDA card")])
+def test_backend_refuses_what_it_cannot_run(backend, device, ranks, match,
+                                            monkeypatch):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises((RuntimeError, ValueError), match=match):
+        mesh.check_backend(backend, device, ranks)
+
+
+def test_cli_dist_on_cuda_without_cards_raises_before_spawning(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    monkeypatch.setattr(mesh, "spawn", lambda *a, **k: pytest.fail(
+        "spawned ranks that cannot run"))
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        TLAUNCH.main(ARGV[:-2] + ["--mode", "dist"])
+    assert ARGV[-2:] == ["--device", "cpu"]
+
+
+def test_failing_rank_fails_the_launcher(tmp_path):
+    # a global batch of 6 does not split over 4 ranks: every rank raises
+    with pytest.raises(Exception, match="not divisible"):
+        _spawn_ranks(tmp_path, ARGV + ["--batch", "6", "--steps", "1"])
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files += [ROOT / "chip_smoke.py", ROOT / "chip_sweep.py"]
+    assert len(files) > 30
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "repro"), (f, name)

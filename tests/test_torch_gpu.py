@@ -14,13 +14,16 @@ The redesigned decompress and ef_compress are also held at their edge
 shapes (more than 65,535 rows, ragged packed rows and slices, unaligned
 operands) to the plain versions: decompress bit for bit, ef_compress's
 bytes bit for bit, its scales within 64 ulp (as chip_smoke.py) and equal
-from one launch to the next.
+from one launch to the next. DistComm over a one-rank NCCL communicator
+gives bit for bit what NullComm gives.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.comm import DistComm, NullComm
 from repro_torch.kernels import build, fused_adam, onebit
+from repro_torch.launch import mesh
 
 
 def _frame(rows, cols, seed, dev):
@@ -184,3 +187,26 @@ def test_cuda_ef_compress_clusters(rows, cols, offset):
     again = onebit.ef_compress(z, e, cnt)
     for a, b in zip((pk, sk, ek), again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_nccl_world_of_one_matches_null_comm(tmp_path):
+    """DistComm over a real NCCL communicator of one rank: the exchange
+    collectives give bit for bit what NullComm gives, for f32, bf16 and
+    uint8 payloads, contiguous and strided, and their events are read
+    once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: NCCL runs only there")
+    dev = mesh.init_workers("nccl", "cuda", rank=0, world_size=1,
+                            local_rank=0, local_world=1,
+                            init_method=mesh.file_rendezvous(tmp_path))
+    try:
+        comm, ref = DistComm(), NullComm()
+        for name, x in mesh.exchange_payloads(1, dev).items():
+            for op in ("all_to_all", "all_gather"):
+                got = getattr(comm, op)(x)
+                assert got.device == dev, (name, op)
+                assert torch.equal(got, getattr(ref, op)(x)), (name, op)
+        assert comm.exchange_ms() > 0 and comm.exchange_ms() == 0
+    finally:
+        torch.distributed.destroy_process_group()

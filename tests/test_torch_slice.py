@@ -31,11 +31,13 @@ from repro.data.synthetic import _bigram_table as ref_bigram_table
 from repro.models import layers as RL
 from repro.models import transformer as RT
 from repro.train import Trainer as RefTrainer
+from repro.train.step import accumulate_grads as ref_accumulate_grads
 
 from repro_torch import interop
 from repro_torch.configs.base import get as port_get
 from repro_torch.core import api as TA
 from repro_torch.core import schedules as TS
+from repro_torch.core.comm import SimComm
 from repro_torch.core.leafwise import flatten_tree, unflatten_tree
 from repro_torch.data import synthetic as TD
 from repro_torch.launch import train as TLAUNCH
@@ -78,7 +80,7 @@ def test_gpt2_smoke_trainer_matches_reference(ref_trainer):
     rt = ref_trainer
     rp, rs = rt.sim_init(jax.random.PRNGKey(0))
     ref_step = rt.sim_step_fn()
-    pt = TSTEP.Trainer(port_get("gpt2").smoke, port_cfg, n_workers=N,
+    pt = TSTEP.Trainer(port_get("gpt2").smoke, port_cfg, comm=SimComm(N),
                        device="cpu")
     tp = interop.params_from_reference(jax.device_get(rp))
     ts = interop.state_from_reference(jax.device_get(rs), pt.opt)
@@ -88,7 +90,7 @@ def test_gpt2_smoke_trainer_matches_reference(ref_trainer):
     for t in range(STEPS):
         b = data.batch(t)
         rp, rs, rm = ref_step(rp, rs, b)
-        tp, ts, tm = pt.sim_step(tp, ts, _port_batch(b))
+        tp, ts, tm = pt.step(tp, ts, _port_batch(b))
         flags.append((tm["synced"], tm["var_round"]))
         assert abs(float(tm["loss"]) - float(rm["loss"][0])) < 1e-4, t
     diff = np.concatenate([
@@ -104,7 +106,7 @@ def test_gpt2_smoke_trainer_matches_reference(ref_trainer):
 def test_state_from_reference_equals_port_init(ref_trainer):
     _, port_cfg = _configs()
     rp, rs = ref_trainer.sim_init(jax.random.PRNGKey(1))
-    pt = TSTEP.Trainer(port_get("gpt2").smoke, port_cfg, n_workers=N,
+    pt = TSTEP.Trainer(port_get("gpt2").smoke, port_cfg, comm=SimComm(N),
                        device="cpu")
     tp = interop.params_from_reference(jax.device_get(rp))
     got = interop.state_from_reference(jax.device_get(rs), pt.opt)
@@ -137,7 +139,7 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, port_cfg = _configs()
     with pytest.raises(RuntimeError, match="CUDA"):
-        TSTEP.Trainer(port_get("gpt2").smoke, port_cfg, n_workers=N)
+        TSTEP.Trainer(port_get("gpt2").smoke, port_cfg, comm=SimComm(N))
     with pytest.raises(RuntimeError, match="CUDA"):
         TLAUNCH.main(["--arch", "gpt2", "--smoke", "--steps", "1"])
 
@@ -173,8 +175,8 @@ def test_bert_smoke_mlm_trainer_matches_reference(name, scale_mode):
     rt = RefTrainer(ref_get("bert-base").smoke, ref_cfg, n_workers=N)
     rp, rs = rt.sim_init(jax.random.PRNGKey(0))
     ref_step = rt.sim_step_fn()
-    pt = TSTEP.Trainer(port_get("bert-base").smoke, port_cfg, n_workers=N,
-                       device="cpu")
+    pt = TSTEP.Trainer(port_get("bert-base").smoke, port_cfg,
+                       comm=SimComm(N), device="cpu")
     assert len(pt.opt.layouts) == 20
     tp = interop.params_from_reference(jax.device_get(rp))
     ts = interop.state_from_reference(jax.device_get(rs), pt.opt)
@@ -184,7 +186,7 @@ def test_bert_smoke_mlm_trainer_matches_reference(name, scale_mode):
     for t in range(STEPS):
         b = data.batch(t)
         rp, rs, rm = ref_step(rp, rs, b)
-        tp, ts, tm = pt.sim_step(tp, ts, _port_batch(b))
+        tp, ts, tm = pt.step(tp, ts, _port_batch(b))
         flags.append((tm["synced"], tm["var_round"]))
         losses.append(float(tm["loss"]))
         assert abs(float(tm["loss"]) - float(rm["loss"][0])) < 1e-4, t
@@ -249,6 +251,59 @@ def test_cli_runs_bert_on_cpu(capsys, extra):
                   "1", "--log-every", "1", "--device", "cpu"] + extra)
     out = capsys.readouterr().out
     assert "arch=bert-smoke" in out and "DONE: 3 steps" in out
+    losses = [float(line.split()[3]) for line in out.splitlines()
+              if line.startswith("step")]
+    assert len(losses) == 3 and all(np.isfinite(losses))
+
+
+@pytest.mark.parametrize("peel", [True, False])
+@pytest.mark.parametrize("mb", [2, 3])
+def test_accumulate_grads_matches_reference(mb, peel):
+    """Gradient accumulation over ``mb`` micro-batches of gpt2-smoke: the
+    mean loss to 1e-6 and every gradient leaf to 1e-4 of its own largest
+    magnitude, as the single forward/backward above (the reference's
+    peeled and scanned forms are the same sum in the same order)."""
+    rcfg, tcfg = ref_get("gpt2").smoke, port_get("gpt2").smoke
+    rp = RL.init_params(RT.model_template(rcfg), jax.random.PRNGKey(4))
+    b = RefSyntheticLM(RefDataConfig(vocab=512, seq_len=S, global_batch=6,
+                                     seed=2)).batch(0)
+    rl, rg = ref_accumulate_grads(lambda p, b_: RT.lm_loss(p, rcfg, b_),
+                                  rp, b, mb, peel=peel)
+    tl, tg = TSTEP.accumulate_grads(
+        lambda p, b_: TT.lm_loss(p, tcfg, b_),
+        interop.params_from_reference(jax.device_get(rp)), _port_batch(b),
+        mb)
+    assert abs(float(tl) - float(rl)) < 1e-6
+    for a, g in zip(jax.tree.leaves(rg), flatten_tree(tg)[1]):
+        a = np.asarray(a)
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), a, rtol=0,
+                                   atol=1e-4 * np.abs(a).max() + 1e-12)
+
+
+def test_cli_runs_single_mode_on_cpu(capsys):
+    TLAUNCH.main(["--arch", "gpt2", "--smoke", "--mode", "single", "--steps",
+                  "3", "--batch", "2", "--seq", "16", "--sync-warmup", "1",
+                  "--double-every", "1", "--kappa", "1", "--log-every", "1",
+                  "--micro-batches", "2", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "workers=1 mode=single micro_batches=2" in out
+    losses = [float(line.split()[3]) for line in out.splitlines()
+              if line.startswith("step")]
+    assert len(losses) == 3 and all(np.isfinite(losses))
+
+
+def test_cli_spawns_dist_ranks_on_cpu(capfd, monkeypatch):
+    """``--mode dist`` without a launcher spawns ``--workers`` gloo ranks
+    itself; only rank 0 prints."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    TLAUNCH.main(["--arch", "gpt2", "--smoke", "--mode", "dist",
+                  "--workers", "2", "--steps", "3", "--batch", "4", "--seq",
+                  "16", "--sync-warmup", "1", "--double-every", "1",
+                  "--kappa", "1", "--log-every", "1", "--device", "cpu"])
+    out = capfd.readouterr().out
+    assert out.count("workers=2 mode=dist") == 1
+    assert out.count("DONE: 3 steps") == 1
     losses = [float(line.split()[3]) for line in out.splitlines()
               if line.startswith("step")]
     assert len(losses) == 3 and all(np.isfinite(losses))
