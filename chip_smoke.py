@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Needs one card; on a machine with up to four, phase 6b puts one rank on
-each.
+each, and on four phase 6c runs its 2 pods x 2 ranks over NCCL.
 
 1. Prints the card (nvidia-smi name and power limit) and torch/CUDA.
 2. Builds the port's CUDA kernels from src/repro_torch/kernels/csrc with
@@ -18,8 +18,13 @@ each.
    (all 19 leaves, worker and server frames); ef_compress on the six 3-D
    frames of BERT-Base FULL (plus a frame with pad rows, checked only),
    fused_local_step_sgd on all 20 BERT-Base frames and decompress (both
-   decodes of a sync) on the same 20 frames.
-4. Drives the three main paths, each through the trainer and CLI config a
+   decodes of a sync) on the same 20 frames; then (3c) the frames of the
+   two-level exchange at 2 pods x 2 workers, stacked workers owning
+   different inner slices: abs_rowsum and ef_quantize (tensor scales) on
+   every gpt2-FULL worker-side slice frame and server chunk frame,
+   decompress on the inter-pod receive and gather frames, ef_compress on
+   the six 3-D BERT-Base slice frames (row scales).
+4. Drives the main paths, each through the trainer and CLI config a
    user would call, 4 simulated data-parallel workers, 8 steps (syncs at
    0-4 and 6; variance at 0, 1, 3 where the base has one; local-only
    steps 5 and 7), the launch counts set to 0 just before each and read
@@ -28,11 +33,14 @@ each.
       (then step 6, a sync step, again under torch.profiler);
    b. bert-base FULL (12 layers, d=768), masked-LM data at 15%, global
       batch 32, seq 512, zero_one_adam with row scales;
-   c. the same model and data with zero_one_sgd, tensor scales.
+   c. the same model and data with zero_one_sgd, tensor scales;
+   d. run (a) with the two-level exchange, ``--hierarchy 2`` (2 pods x 2
+      workers: bf16 reduce-scatter and all_gather inside a pod, 1-bit
+      Algorithm 2 across pods on the owned slice).
    Each run checks its losses, its step kinds and its launch counts.
 5. Checks the card against the CPU on small inputs: the gpt2-smoke
-   trainer, and the bert-smoke trainer under both BERT configurations,
-   from the same start on both devices.
+   trainer (flat, and with ``--hierarchy 2``), and the bert-smoke trainer
+   under both BERT configurations, from the same start on both devices.
 6. Data parallel in processes (``--mode dist``, one paper-worker per
    process, spawned): first the exchange collectives of DistComm against
    SimComm's, bit for bit, over gloo with CUDA tensors and over NCCL;
@@ -43,7 +51,12 @@ each.
       run of the same settings in this process;
    b. NCCL, one rank per card, on min(device count, 4) cards: on one
       card a world of one at batch 4 x 1024 against ``--mode single``,
-      on four the 4-rank run without micro-batches against a sim run.
+      on four the 4-rank run without micro-batches against a sim run;
+   c. run 4d in processes, 2 pods x 2 ranks over process subgroups,
+      against a sim run of the same flags: NCCL with one rank per card
+      on a machine with four cards, else four ranks on this card over
+      gloo with micro-batches 2; each rank's exchange split into its
+      intra-pod and inter-pod parts.
    Each rank's losses and params are held to its simulated worker's by
    phase 5's bars (bitwise equality is printed, not required) and its
    launch counts must equal that worker's. Every step is timed as phase
@@ -107,6 +120,12 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
 # decompress at the BERT-Base frames: a second tally row, reported in the
 # decompress entry under "bert_sync"
 BERT_DECOMPRESS = "decompress (bert-base)"
+KERNEL_ROWS = {k: k for k in KERNELS}
+# the frames of a gpt2 sync at 2 pods x 2 workers (phase 3c), and the
+# BERT-Base slice frames of ef_compress: further tally rows, reported in
+# each kernel's entry under "hier_sync"
+HIER = {k: f"{k} (2 pods x 2)" for k in ("abs_rowsum", "ef_quantize",
+                                         "decompress", "ef_compress")}
 # the round each kernel's "ms" sums over, on its own path
 PER = {"fused_local_step": "step (gpt2)", "abs_rowsum": "sync (gpt2)",
        "ef_quantize": "sync (gpt2)", "decompress": "sync (gpt2)",
@@ -119,11 +138,15 @@ DIST_TIMEOUT_S = 600
 # 1 and 3); step 0 is the first call of every path
 STEP_KINDS = {"first (0)": [0], "sync + variance (1, 3)": [1, 3],
               "sync (2, 4, 6)": [2, 4, 6], "local only (5, 7)": [5, 7]}
+# the two-level exchange of runs 4d, 6c and phase 3c: pods of 2 workers
+INNER = 2
 RUNS = [("gpt2", "gpt2", [], BATCH, SEQ, "lm"),
         ("bert_row", "bert-base", ["--scale-mode", "row"], BERT_BATCH,
          BERT_SEQ, "mlm"),
         ("bert_sgd", "bert-base", ["--optimizer", "zero_one_sgd"],
-         BERT_BATCH, BERT_SEQ, "mlm")]
+         BERT_BATCH, BERT_SEQ, "mlm"),
+        ("gpt2_hier", "gpt2", ["--hierarchy", str(INNER)], BATCH, SEQ,
+         "lm")]
 
 
 def card_line() -> str:
@@ -169,7 +192,7 @@ class Tally:
         self.rows = {k: {"ms": 0.0, "batched_ms": 0.0, "plain_ms": 0.0,
                          "bytes": 0.0, "ops": 0.0, "library_ms": None,
                          "max_abs_err": 0.0, "launches_per_round": 0}
-                     for k in [*KERNELS, BERT_DECOMPRESS]}
+                     for k in [*KERNELS, BERT_DECOMPRESS, *HIER.values()]}
 
     def add(self, name, fn, plain_fn, nbytes, ops, err, library=None,
             times=1):
@@ -190,15 +213,17 @@ class Tally:
                                + times * time_ms(library, REPS))
 
 
-def full_plan(arch):
+def full_plan(arch, inner=None):
     from repro_torch.configs.base import get
+    from repro_torch.core.comm import Hierarchy
     from repro_torch.core.leafwise import make_plan
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
 
     tmpl = T.model_template(get(arch).config)
     return make_plan(L.param_shapes(tmpl), L.param_specs(tmpl),
-                     L.dp_mask(tmpl), N_WORKERS)
+                     L.dp_mask(tmpl), N_WORKERS,
+                     Hierarchy(inner) if inner else None)
 
 
 def check_kernels(dev, tally):
@@ -206,7 +231,6 @@ def check_kernels(dev, tally):
     gpt2-FULL frames."""
     from repro_torch.core import compressor as C
     from repro_torch.kernels import fused_adam as FA
-    from repro_torch.kernels import onebit as OB
 
     plan = full_plan("gpt2")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -240,54 +264,82 @@ def check_kernels(dev, tally):
         del g, m, u, v, fk, fp
 
         # --- worker and server compress (once each per leaf per sync) --
-        scnt = torch.as_tensor(C.chunk_row_counts(lo).reshape(-1),
-                               device=dev)
         total, _ = C.true_counts(lo)
-        for frame_rows, counts in ((R, cnt), (rows, scnt)):
-            fmask = (torch.arange(cols, device=dev)[None, :]
-                     < counts[:, None])
-            z = torch.randn(frame_rows, cols, device=dev,
-                            generator=gen) * fmask
-            e = torch.randn(frame_rows, cols, device=dev,
-                            generator=gen) * 0.3 * fmask
-            rk = OB.abs_rowsum(z, e, counts)
-            rp = OB.abs_rowsum_plain(z, e, counts)
-            torch.cuda.synchronize()
-            assert ulps(rk, rp) <= ROWSUM_ULPS, (lo.shape, "abs_rowsum")
-            true_elems = float(counts.sum())
-            tally.add("abs_rowsum", lambda: OB.abs_rowsum(z, e, counts),
-                      lambda: OB.abs_rowsum_plain(z, e, counts),
-                      8.0 * true_elems + 8.0 * frame_rows, 3.0 * true_elems,
-                      float((rk - rp).abs().max()),
-                      library=lambda: (z + e).abs().sum(1))
-            # tensor-mode scales of each stacked worker, spread over rows
-            s = (rp.view(N_WORKERS, -1).sum(1) / total).repeat_interleave(
-                frame_rows // N_WORKERS).contiguous()
-            pk, ek = OB.ef_quantize(z, e, s, counts)
-            pp, ep = OB.ef_quantize_plain(z, e, s, counts)
-            torch.cuda.synchronize()
-            assert torch.equal(pk, pp), (lo.shape, "packed bytes differ")
-            assert torch.equal(ek, ep), (lo.shape, "err_out differs")
-            n = frame_rows * cols
-            tally.add("ef_quantize",
-                      lambda: OB.ef_quantize(z, e, s, counts),
-                      lambda: OB.ef_quantize_plain(z, e, s, counts),
-                      12.125 * n + 8.0 * frame_rows, 3.0 * n, 0.0)
-            if frame_rows == R:
-                # both decodes of a sync (the all_to_all receive and the
-                # gathered results) are frames of this shape
-                dk = OB.decompress(pk, s)
-                dp = OB.decompress_plain(pk, s)
-                torch.cuda.synchronize()
-                assert torch.equal(dk, dp), (lo.shape, "decompress")
-                tally.add("decompress", lambda: OB.decompress(pk, s),
-                          lambda: OB.decompress_plain(pk, s),
-                          4.125 * n + 4.0 * frame_rows, 1.0 * n, 0.0,
-                          times=2)
-                del dk, dp
-            del z, e, rk, rp, pk, pp, ek, ep
+        check_compress_frames(dev, gen, tally, KERNEL_ROWS, lo, cols, [
+            (R, np.tile(C.view_row_counts(lo), N_WORKERS),
+             np.full(N_WORKERS, total), True),
+            (rows, C.chunk_row_counts(lo).reshape(-1),
+             np.full(N_WORKERS, total), False)])
         torch.cuda.empty_cache()
         print(f"  leaf {lo.shape}: frame ({R}, {cols}) ok", flush=True)
+
+
+def check_compress_frames(dev, gen, tally, names, lo, cols, frames):
+    """The two-pass compress of one sync's frames of leaf ``lo``, each
+    kernel against its plain version, tallied under ``names[kernel]``:
+    abs_rowsum, then ef_quantize against tensor-mode scales of each of
+    the N_WORKERS stacked workers (its row sums over ``denom[w]``), and
+    where ``decode`` is set both decodes of a sync on that frame's shape.
+    ``frames``: (rows, row counts, denom per worker, decode)."""
+    from repro_torch.kernels import onebit as OB
+
+    for frame_rows, cnt_np, denom, decode in frames:
+        counts = torch.as_tensor(cnt_np, device=dev)
+        fmask = torch.arange(cols, device=dev)[None, :] < counts[:, None]
+        z = torch.randn(frame_rows, cols, device=dev, generator=gen) * fmask
+        e = torch.randn(frame_rows, cols, device=dev,
+                        generator=gen) * 0.3 * fmask
+        rk = OB.abs_rowsum(z, e, counts)
+        rp = OB.abs_rowsum_plain(z, e, counts)
+        torch.cuda.synchronize()
+        assert ulps(rk, rp) <= ROWSUM_ULPS, (lo.shape, "abs_rowsum")
+        true_elems = float(counts.sum())
+        tally.add(names["abs_rowsum"], lambda: OB.abs_rowsum(z, e, counts),
+                  lambda: OB.abs_rowsum_plain(z, e, counts),
+                  8.0 * true_elems + 8.0 * frame_rows, 3.0 * true_elems,
+                  float((rk - rp).abs().max()),
+                  library=lambda: (z + e).abs().sum(1))
+        s = (rp.view(N_WORKERS, -1).sum(1)
+             / torch.as_tensor(denom, dtype=torch.float32, device=dev)
+             ).repeat_interleave(frame_rows // N_WORKERS).contiguous()
+        pk, ek = OB.ef_quantize(z, e, s, counts)
+        pp, ep = OB.ef_quantize_plain(z, e, s, counts)
+        torch.cuda.synchronize()
+        assert torch.equal(pk, pp), (lo.shape, "packed bytes differ")
+        assert torch.equal(ek, ep), (lo.shape, "err_out differs")
+        n = frame_rows * cols
+        tally.add(names["ef_quantize"],
+                  lambda: OB.ef_quantize(z, e, s, counts),
+                  lambda: OB.ef_quantize_plain(z, e, s, counts),
+                  12.125 * n + 8.0 * frame_rows, 3.0 * n, 0.0)
+        if decode:
+            # the all_to_all receive and the gathered results
+            dk = OB.decompress(pk, s)
+            dp = OB.decompress_plain(pk, s)
+            torch.cuda.synchronize()
+            assert torch.equal(dk, dp), (lo.shape, "decompress")
+            tally.add(names["decompress"], lambda: OB.decompress(pk, s),
+                      lambda: OB.decompress_plain(pk, s),
+                      4.125 * n + 4.0 * frame_rows, 1.0 * n, 0.0, times=2)
+            del dk, dp
+        del z, e, rk, rp, pk, pp, ek, ep
+
+
+def check_ef_compress_frame(z, e, cnt):
+    """ef_compress against its plain version on one frame; returns the
+    largest scale difference."""
+    from repro_torch.kernels import onebit as OB
+
+    pk, sk, ek = OB.ef_compress(z, e, cnt)
+    pp, sp, _ = OB.ef_compress_plain(z, e, cnt)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pp), (tuple(z.shape), "packed bytes differ")
+    assert ulps(sk, sp) <= ROWSUM_ULPS, (tuple(z.shape), "scales")
+    # same scales, same residual: err_out against the plain quantizer
+    # given the kernel's own scales
+    assert torch.equal(ek, OB.ef_quantize_plain(z, e, sk, cnt)[1]), (
+        tuple(z.shape), "err_out differs")
+    return float((sk - sp).abs().max())
 
 
 def check_bert_kernels(dev, tally):
@@ -301,18 +353,7 @@ def check_bert_kernels(dev, tally):
 
     gen = torch.Generator(device=dev).manual_seed(1)
     lr, b1 = np.float32(1.5e-4), 0.9
-
-    def compress_frame(z, e, cnt):
-        pk, sk, ek = OB.ef_compress(z, e, cnt)
-        pp, sp, _ = OB.ef_compress_plain(z, e, cnt)
-        torch.cuda.synchronize()
-        assert torch.equal(pk, pp), (tuple(z.shape), "packed bytes differ")
-        assert ulps(sk, sp) <= ROWSUM_ULPS, (tuple(z.shape), "scales")
-        # same scales, same residual: err_out against the plain quantizer
-        # given the kernel's own scales
-        assert torch.equal(ek, OB.ef_quantize_plain(z, e, sk, cnt)[1]), (
-            tuple(z.shape), "err_out differs")
-        return float((sk - sp).abs().max())
+    compress_frame = check_ef_compress_frame
 
     # a frame with whole pad rows, ragged tails and one-element rows: only
     # checked (no BERT-Base frame has pad rows)
@@ -373,10 +414,67 @@ def check_bert_kernels(dev, tally):
         print(f"  leaf {lo.shape}: frame ({R}, {cols}) ok", flush=True)
 
 
+def check_hier_kernels(dev, tally):
+    """Phase 3c: the kernels at the frames of the two-level exchange,
+    4 workers in pods of INNER, stacked workers w = k * INNER + j owning
+    inner slice j (their row counts differ: the last slice holds the pad).
+    gpt2 FULL, tensor scales: abs_rowsum and ef_quantize on each leaf's
+    worker-side slice frame and on the server chunk frame (worker w
+    serves chunk j * n_outer + k), decompress on the inter-pod receive
+    and gather frames (both the slice frame's shape); BERT-Base FULL, row
+    scales: ef_compress on the six 3-D slice frames."""
+    from repro_torch.core import compressor as C
+    from repro_torch.kernels import onebit as OB
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    j = np.arange(N_WORKERS) % INNER
+    no = N_WORKERS // INNER
+    widx = j * no + np.arange(N_WORKERS) // INNER
+
+    for lo in full_plan("gpt2", INNER).layouts:
+        rows, cols = C.view_rows_cols(lo)
+        totals, _ = C.slice_true_counts(lo)
+        chunks = C.chunk_row_counts(lo)[widx]
+        check_compress_frames(dev, gen, tally, HIER, lo, cols, [
+            (N_WORKERS * rows // INNER,
+             C.slice_row_counts(lo)[j].reshape(-1),
+             np.maximum(totals[j], 1.0), True),
+            (rows, chunks.reshape(-1), np.maximum(chunks.sum(1), 1.0),
+             False)])
+        torch.cuda.empty_cache()
+        print(f"  leaf {lo.shape}: slice frame "
+              f"({N_WORKERS * rows // INNER}, {cols}), chunk frame "
+              f"({rows}, {cols}) ok", flush=True)
+
+    for lo in full_plan("bert-base", INNER).layouts:
+        if len(lo.view_shape) != 3:
+            continue
+        rows, cols = C.view_rows_cols(lo)
+        R = N_WORKERS * rows // INNER
+        counts = torch.as_tensor(C.slice_row_counts(lo)[j].reshape(-1),
+                                 device=dev)
+        m = torch.arange(cols, device=dev)[None, :] < counts[:, None]
+        z = torch.randn(R, cols, device=dev, generator=gen) * m
+        e = torch.randn(R, cols, device=dev, generator=gen) * 0.3 * m
+        err = check_ef_compress_frame(z, e, counts)
+        n = R * cols
+        tally.add(HIER["ef_compress"], lambda: OB.ef_compress(z, e, counts),
+                  lambda: OB.ef_compress_plain(z, e, counts),
+                  12.125 * n + 8.0 * R, 3.0 * n, err)
+        del z, e
+        torch.cuda.empty_cache()
+        print(f"  bert-base leaf {lo.shape}: slice frame ({R}, {cols}) ok",
+              flush=True)
+
+
 def expected_launches(label, layouts):
     """Launches each kernel makes in one run of RUNS[label], from the
     reference's routing: 8 steps, 6 syncs, every leaf one launch per
-    phase (the stacked workers share it)."""
+    phase (the stacked workers share it). The two-level exchange
+    (gpt2_hier) makes as many: its worker side compresses the owned slice
+    where the flat one compresses the view, its server side one chunk
+    each, its two decodes are inter-pod, and its intra-pod phases and
+    full-precision rounds launch no kernel."""
     n_syncs = 6
     nd = [len(lo.view_shape) for lo in layouts]
     leaves, flat = len(nd), nd.count(2)
@@ -540,17 +638,20 @@ def scratch_dir():
     return tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"))
 
 
-def probe_exchange(backend, device, n):
+def probe_exchange(backend, device, n, inner=None):
     """Phase 6: DistComm's all_to_all and all_gather in ``n`` spawned
     ranks against SimComm's, bit for bit, in f32, bf16 and uint8, from
-    contiguous and strided views."""
+    contiguous and strided views; with ``inner`` also those of both comms
+    of its split into pods of ``inner`` (process subgroups)."""
     from repro_torch.launch import mesh
 
     with scratch_dir() as tmp:
         mesh.spawn(mesh.check_exchange, n,
-                   (n, mesh.file_rendezvous(tmp), backend, device, tmp),
+                   (n, mesh.file_rendezvous(tmp), backend, device, tmp,
+                    inner),
                    timeout_s=DIST_TIMEOUT_S)
-        want = mesh.exchange_reference(mesh.exchange_payloads(n, "cpu"))
+        want = mesh.exchange_reference(mesh.exchange_payloads(n, "cpu"),
+                                       inner)
         cases = {}
         for r in range(n):
             got = torch.load(os.path.join(tmp, f"exchange{r}.pt"))
@@ -560,7 +661,8 @@ def probe_exchange(backend, device, n):
                           and torch.equal(t[0], want[name][op][r]))
                     cases[f"{name} {op}"] = cases.get(f"{name} {op}",
                                                       True) and ok
-    print(f"  {backend} on {device}, {n} rank(s): {json.dumps(cases)}",
+    print(f"  {backend} on {device}, {n} rank(s)"
+          f"{f', pods of {inner}' if inner else ''}: {json.dumps(cases)}",
           flush=True)
     assert all(cases.values()), (backend, device, cases)
     return cases
@@ -570,8 +672,9 @@ def times_by_kind(records):
     """Median per step kind of each time of the step records (the
     exchange's only where the comm timed one)."""
     keys = ["step_ms", "fwd_bwd_ms", "optimizer_ms"]
-    if records[0]["exchange_ms"] is not None:
-        keys.append("exchange_ms")
+    keys += [k for k in ("exchange_ms", "exchange_ms_intra",
+                         "exchange_ms_inter")
+             if records[0].get(k) is not None]
     return {kind: {k: statistics.median(records[t][k] for t in steps)
                    for k in keys}
             for kind, steps in STEP_KINDS.items()}
@@ -674,9 +777,13 @@ def compare_ranks(label, transport, ref, ranks):
               f"peak {row['peak_memory_gb']:.2f} GB; launches "
               f"{json.dumps(res['launches'])}", flush=True)
         for kind, t in row["times"].items():
+            levels = ("" if "exchange_ms_intra" not in t else
+                      f": intra-pod {t['exchange_ms_intra']:.1f}, "
+                      f"inter-pod {t['exchange_ms_inter']:.1f}")
             print(f"    {kind}: step {t['step_ms']:.1f} ms (fwd/bwd "
                   f"{t['fwd_bwd_ms']:.1f}, optimizer {t['optimizer_ms']:.1f}"
-                  f", exchange {t['exchange_ms']:.1f} over {transport})")
+                  f", exchange {t['exchange_ms']:.1f}{levels} over "
+                  f"{transport})")
         assert row["max_loss_gap"] < 1e-4, (label, r, got, want)
         assert n_close / n >= 0.99 and max_gap <= 0.05, (label, r, row)
         assert res["launches"] == ref["launches"], (label, r)
@@ -689,10 +796,13 @@ def run_dist_phase():
     t0 = time.time()
     cards = min(torch.cuda.device_count(), N_WORKERS)
     expect = expected_launches("gpt2", full_plan("gpt2").layouts)
-    out = {"probe": {"nccl": probe_exchange("nccl", "cuda", cards),
+    out = {"probe": {"nccl": probe_exchange(
+                         "nccl", "cuda", cards,
+                         INNER if cards == N_WORKERS else None),
                      "gloo cuda:0": probe_exchange("gloo", "cuda:0",
-                                                   N_WORKERS)},
-           "6a": run_6a(expect), "6b": run_6b(cards, expect)}
+                                                   N_WORKERS, INNER)},
+           "6a": run_6a(expect), "6b": run_6b(cards, expect),
+           "6c": run_6c(expect)}
     out["wall_s"] = time.time() - t0
     print(f"phase 6: {out['wall_s']:.1f} s", flush=True)
     return out
@@ -726,6 +836,32 @@ def run_6b(cards, expect):
                           "cuda"]), cards, expect)
 
 
+def run_6c(expect):
+    """Phase 6c: run 4d in processes, 2 pods x 2 ranks over process
+    subgroups, against a sim run of the same flags in this process: NCCL
+    with one rank per card where there are four cards, else four ranks
+    on cuda:0 over gloo (asked for) with micro-batches 2."""
+    four = torch.cuda.device_count() >= N_WORKERS
+    extra = ["--hierarchy", str(INNER)] + (
+        [] if four else ["--micro-batches", "2"])
+    dist_flags = (["--backend", "nccl", "--device", "cuda"] if four else
+                  ["--backend", "gloo", "--device", "cuda:0"])
+    transport = (f"NCCL, {N_WORKERS} cards" if four else
+                 f"gloo via host memory, {N_WORKERS} ranks on one card")
+    print(f"phase 6c: gpt2 FULL, {N_WORKERS // INNER} pods x {INNER} ranks "
+          f"over {transport}, batch {BATCH}, seq {SEQ}, "
+          f"{' '.join(extra)}, vs sim", flush=True)
+    flags = gpt2_argv(BATCH, extra)
+    sim = run_in_process(flags + ["--mode", "sim", "--workers",
+                                  str(N_WORKERS), "--device", "cuda:0"])
+    out = dist_runs("6c", transport, sim,
+                    flags + ["--mode", "dist"] + dist_flags, N_WORKERS,
+                    expect)
+    del sim
+    gc.collect()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; the port's smoke run needs a "
@@ -754,6 +890,9 @@ def main():
     check_kernels(dev, tally)
     print("phase 3b: bert-base", flush=True)
     check_bert_kernels(dev, tally)
+    print(f"phase 3c: the two-level exchange's frames, "
+          f"{N_WORKERS // INNER} pods x {INNER}", flush=True)
+    check_hier_kernels(dev, tally)
 
     runs = {}
     for label, arch, extra, batch, seq, kind in RUNS:
@@ -774,6 +913,8 @@ def main():
     # holds the CPU path to the reference in the same regime
     slow = ["--lr", "3e-4"]
     small = {"gpt2": check_small_input(dev, "gpt2", [], "lm"),
+             "gpt2_hier": check_small_input(
+                 dev, "gpt2", ["--hierarchy", str(INNER)], "lm"),
              "bert_row": check_small_input(
                  dev, "bert-base", ["--scale-mode", "row"] + slow, "mlm"),
              "bert_sgd": check_small_input(
@@ -795,9 +936,9 @@ def main():
         bound_ms, bound_by = bound(r)
         by_run = {label: run["launches"].get(name, 0)
                   for label, run in runs.items()}
-        for part in ("6a", "6b"):
+        for part in ("6a", "6b", "6c"):
             d = dist_phase[part]
-            by_run[f"{part}_{'sim' if part == '6a' else 'reference'}"] = (
+            by_run[f"{part}_{'reference' if part == '6b' else 'sim'}"] = (
                 d["reference"]["launches"].get(name, 0))
             for row in d["ranks"]:
                 by_run[f"{part}_rank{row['rank']}"] = (
@@ -811,6 +952,15 @@ def main():
             "bound_by": bound_by, "library_ms": r["library_ms"],
             "per": PER[name], "launches_per_round": r["launches_per_round"],
             "launches_by_run": by_run})
+        if name in HIER:
+            rh = tally.rows[HIER[name]]
+            kernels[-1]["hier_sync"] = {
+                "per": ("sync (gpt2, 2 pods x 2)" if name != "ef_compress"
+                        else "bert-base slice frames (row scales)"),
+                "ms": rh["ms"], "batched_ms": rh["batched_ms"],
+                "plain_ms": rh["plain_ms"], "bound_ms": bound(rh)[0],
+                "library_ms": rh["library_ms"],
+                "launches_per_round": rh["launches_per_round"]}
         if name == "decompress":
             rb = tally.rows[BERT_DECOMPRESS]
             kernels[-1]["bert_sync"] = {

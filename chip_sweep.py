@@ -127,13 +127,17 @@ def stacked_reductions(dev, gen):
     n = CS.N_WORKERS
     unequal = {"tensor_scales": [], "sender_means": []}
     layouts = CS.full_plan("gpt2").layouts
+    def tensor_scales(lo, rs, stack):
+        _, *denoms = K._worker_counts(lo, stack, None, str(dev))
+        return K._combine_scales(rs, lo.view_shape, "tensor",
+                                 lo.rest_factor, denoms, stack)
+
     for lo in layouts:
         rows, _ = C.view_rows_cols(lo)
         rs = torch.rand(n * rows, device=dev, generator=gen)
-        s4 = K._combine_scales(rs, lo, "tensor", n)
-        s1 = torch.cat([K._combine_scales(rs[w * rows:(w + 1) * rows]
-                                          .clone(), lo, "tensor", 1)
-                        for w in range(n)])
+        s4 = tensor_scales(lo, rs, n)
+        s1 = torch.cat([tensor_scales(lo, rs[w * rows:(w + 1) * rows].clone(),
+                                      1) for w in range(n)])
         d = torch.randn((n,) + tuple(lo.view_shape), device=dev,
                         generator=gen)
         m1 = torch.cat([d[w:w + 1].clone().mean(dim=1) for w in range(n)])

@@ -8,13 +8,14 @@ the reference raises ``NotImplementedError`` until its slice lands.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch.core import compressor as C
 from repro_torch.core import schedules as S
 from repro_torch.core.base_steps import adam_base, momentum_sgd_base
+from repro_torch.core.comm import Hierarchy
 from repro_torch.core.compressed import CompressedDP, compressed_dp
 
 _BASES = {
@@ -39,6 +40,8 @@ class OptimizerConfig:
     scale_mode: C.ScaleMode = "tensor"
     codec: Any = "sign1bit"
     comm_dtype: Any = torch.bfloat16
+    hierarchy: Optional[Hierarchy] = None   # two-level (intra-pod x
+                                            # inter-pod) exchange
 
     def __post_init__(self):
         if self.name in _LATER:
@@ -56,7 +59,7 @@ def transform_from_config(cfg: OptimizerConfig) -> CompressedDP:
         _BASES[cfg.name](cfg), style="accumulate",
         lr=cfg.lr, sync_policy=cfg.sync_policy, var_policy=cfg.var_policy,
         scale_mode=cfg.scale_mode, codec=cfg.codec,
-        comm_dtype=cfg.comm_dtype)
+        comm_dtype=cfg.comm_dtype, hierarchy=cfg.hierarchy)
 
 
 def build_optimizer(cfg, param_shapes, *, specs=None, dp_mask=None,

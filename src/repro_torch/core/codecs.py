@@ -1,9 +1,10 @@
 """Wire formats of the error-feedback exchange, PyTorch port of
 ``src/repro/core/codecs.py`` (sign1bit and identity).
 
-* ``encode_worker(z, err, layout, mode, mask) -> (payload, err')`` — one
-  EF pass over each stacked worker's full comm view;
-* ``encode_server(avg, err, layout, mode, mask, widx) -> (payload, err')``
+* ``encode_worker(z, err, layout, mode, inner_index) -> (payload,
+  err')`` — one EF pass over each stacked worker's full comm view, or,
+  with ``inner_index``, over the inner reduce-scatter slice it owns;
+* ``encode_server(avg, err, layout, mode, widx) -> (payload, err')``
   — the pass over the chunk each worker serves (payload leaves carry a
   chunk dim of 1 for the all_gather);
 * ``decode(payload, layout) -> dense f32`` — the chunk dim is kept;
@@ -42,7 +43,7 @@ class Codec:
     name: str = "?"
     needs_ef: bool = True      # False -> exact codec, EF state untouched
 
-    def encode_worker(self, z, err, layout, mode):
+    def encode_worker(self, z, err, layout, mode, inner_index=None):
         raise NotImplementedError
 
     def encode_server(self, avg, err, layout, mode, worker_index):
@@ -64,12 +65,13 @@ class Sign1BitCodec(Codec):
 
     name = "sign1bit"
 
-    def encode_worker(self, z, err, layout, mode):
+    def encode_worker(self, z, err, layout, mode, inner_index=None):
         from repro_torch.kernels import dispatch as K
-        packed, scales, err_w = K.ef_compress_view(z, err, layout, mode)
+        packed, scales, err_w = K.ef_compress_view(z, err, layout, mode,
+                                                   inner_index)
+        # one scale row per chunk (n of them, or n_outer of a slice)
         bscales = scales.expand(
-            (z.shape[0], layout.n) + tuple(scales.shape[2:])).to(
-                torch.float32)
+            tuple(z.shape[:2]) + tuple(scales.shape[2:])).to(torch.float32)
         return {"packed": packed, "scales": bscales}, err_w
 
     def encode_server(self, avg, err, layout, mode, worker_index):
@@ -162,7 +164,7 @@ class IdentityCodec(Codec):
     name = "identity"
     needs_ef = False
 
-    def encode_worker(self, z, err, layout, mode):
+    def encode_worker(self, z, err, layout, mode, inner_index=None):
         return {"values": z}, None
 
     def encode_server(self, avg, err, layout, mode, worker_index):

@@ -9,14 +9,50 @@ reference's ``vmap`` regime materializes its worker axis. A process that
 runs one worker of a real fleet holds a stack of one (:class:`DistComm`,
 the counterpart of the reference's ``mesh_comm``): its collectives go
 through ``torch.distributed``, NCCL between cards and gloo on the CPU.
+
+A two-level topology (:class:`Hierarchy`: pods of ``inner`` workers)
+splits a comm into an outer and an inner comm (:meth:`Comm.split`). The
+flat worker index is outer-major, ``w = k * n_inner + j``: the inner comm
+of worker ``w`` is its pod, the contiguous block of workers with the same
+``k``, and its outer comm the workers with the same ``j``.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+
+@dataclasses.dataclass(frozen=True)
+class Hierarchy:
+    """Two-level worker topology: pods of ``inner`` workers on fast links,
+    the pods joined by slow ones. The hierarchical exchange reduces
+    uncompressed inside each pod and runs Algorithm 2's 1-bit exchange
+    only across pods. (The reference's axis names have no counterpart
+    here: the port's comms carry none.)"""
+
+    inner: int                                  # workers per pod
+
+    def __post_init__(self):
+        if self.inner < 1:
+            raise ValueError(f"hierarchy.inner must be >= 1, got "
+                             f"{self.inner}")
+
+
+def norm_hierarchy(h: Optional[Hierarchy], n_workers: int):
+    """Validate a hierarchy against the worker count; None where it cannot
+    apply (one worker), so that callers take the flat path. ``inner=1`` is
+    kept: its two-level path is bit for bit the flat one."""
+    if h is None or n_workers <= 1:
+        return None
+    if n_workers % h.inner:
+        raise ValueError(
+            f"hierarchy.inner={h.inner} must divide n_workers={n_workers}")
+    return h
 
 
 class Comm:
@@ -49,6 +85,11 @@ class Comm:
         """Time the exchange collectives took since the last call, in ms;
         None where they run in process and move nothing."""
         return None
+
+    def split(self, inner: int):
+        """(outer comm, inner comm) of the two-level topology with pods of
+        ``inner`` workers, over the same stack of workers."""
+        raise NotImplementedError
 
 
 class SimComm(Comm):
@@ -90,6 +131,67 @@ class SimComm(Comm):
                              f"got {x.shape[1]}")
         return x.transpose(0, 1)
 
+    def split(self, inner: int):
+        if inner < 1 or self.n % inner:
+            raise ValueError(f"cannot split {self.n} workers into pods of "
+                             f"{inner}")
+        no = self.n // inner
+        return SimLevelComm(no, inner, 0), SimLevelComm(no, inner, 1)
+
+
+class SimLevelComm(SimComm):
+    """One level of a split :class:`SimComm`: the ``n`` stacked workers
+    seen as (n_outer, n_inner), outer-major; the group of a worker is the
+    other workers along dim ``axis`` of that grid (0: the outer comm, the
+    workers with the same inner index; 1: the inner comm, its pod)."""
+
+    def __init__(self, n_outer: int, n_inner: int, axis: int):
+        super().__init__(n_outer * n_inner)
+        self.grid, self.axis = (n_outer, n_inner), axis
+        self.group = self.grid[axis]
+
+    def size(self) -> int:
+        return self.group
+
+    def index(self) -> np.ndarray:
+        w = np.arange(self.n)
+        return w % self.grid[1] if self.axis else w // self.grid[1]
+
+    def _groups(self, x):
+        """``x`` (n, ...) as (other, group, ...): dim 1 enumerates each
+        worker's group."""
+        self._check(x)
+        return x.reshape(self.grid + tuple(x.shape[1:])).movedim(
+            self.axis, 1)
+
+    def _ungroup(self, g):
+        g = g.movedim(1, self.axis)
+        return g.reshape((self.n,) + tuple(g.shape[2:]))
+
+    def psum(self, x):
+        g = self._groups(x)
+        return self._ungroup(g.sum(1, keepdim=True).expand_as(g))
+
+    def pmean(self, x):
+        g = self._groups(x)
+        return self._ungroup(g.mean(1, keepdim=True).expand_as(g))
+
+    def all_gather(self, x):
+        g = self._groups(x)
+        cat = g.reshape((g.shape[0], 1, -1) + tuple(g.shape[3:]))
+        return self._ungroup(cat.expand(
+            (g.shape[0], self.group) + tuple(cat.shape[2:])))
+
+    def all_to_all(self, x):
+        if x.shape[1] != self.group:
+            raise ValueError(f"all_to_all needs {self.group} blocks on dim "
+                             f"1, got {x.shape[1]}")
+        return self._ungroup(self._groups(x).transpose(1, 2))
+
+    def split(self, inner: int):
+        raise NotImplementedError("a level of a split comm does not split "
+                                  "again")
+
 
 class NullComm(SimComm):
     """One worker: every collective is the identity."""
@@ -97,27 +199,36 @@ class NullComm(SimComm):
     def __init__(self):
         super().__init__(1)
 
+    def split(self, inner: int):
+        return NullComm(), NullComm()
+
 
 class DistComm(Comm):
-    """One worker per process over the default ``torch.distributed``
-    process group: a stack of one, ``size()`` the world size, ``index()``
-    the rank. The exchange collectives move data and reduce nothing, so a
-    rank receives bit for bit what :class:`SimComm` gives the simulated
-    worker of the same index.
+    """One worker per process over a ``torch.distributed`` process group
+    (the default group, or ``group`` of a :meth:`split`): a stack of one,
+    ``size()`` the group's size, ``index()`` this rank within it. The
+    exchange collectives move data and reduce nothing, so a rank receives
+    bit for bit what :class:`SimComm` gives the simulated worker of the
+    same index.
 
     Each exchange collective on CUDA tensors is bracketed by two CUDA
     events on the current stream (no synchronize); :meth:`exchange_ms`
     reads them. On the CPU, where gloo runs the collective before it
-    returns, the host clock times it."""
+    returns, the host clock times it. The comms of a split keep their
+    events in the world comm's list, so that its :meth:`exchange_ms` is
+    every level's time, and each keeps its own sum besides."""
 
-    def __init__(self):
+    def __init__(self, group=None, _root=None):
         if not dist.is_initialized():
             raise RuntimeError("DistComm needs an initialized process group "
                                "(repro_torch.launch.mesh.init_workers)")
-        self.n = dist.get_world_size()
-        self.rank = dist.get_rank()
-        self._events = []
-        self._host_s = 0.0
+        self.group = group
+        self.n = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        self._root = self if _root is None else _root
+        self._pending = []    # (event pair, owning comm), on the root only
+        self._ms = 0.0
+        self._levels = {}
 
     def size(self) -> int:
         return self.n
@@ -130,37 +241,72 @@ class DistComm(Comm):
             raise ValueError(f"a process holds a stack of one worker, got "
                              f"leading dim {x.shape[0]}")
 
+    def _add(self, ms: float):
+        self._ms += ms
+        if self._root is not self:
+            self._root._ms += ms
+
     def _run(self, collective, out, x):
         if x.is_cuda:
             stream = torch.cuda.current_stream(x.device)
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record(stream)
-            collective(out, x)
+            collective(out, x, group=self.group)
             ev[1].record(stream)
-            self._events.append(ev)
+            self._root._pending.append((ev, self))
         else:
             t0 = time.perf_counter()
-            collective(out, x)
-            self._host_s += time.perf_counter() - t0
+            collective(out, x, group=self.group)
+            self._add(1e3 * (time.perf_counter() - t0))
         return out[None]
 
     def exchange_ms(self) -> float:
-        """Summed time of the exchange collectives since the last call:
-        each CUDA one from the start to the end event around it on the
-        device's clock (waits for the last end event), each CPU one on
-        the host's."""
-        if self._events:
-            self._events[-1][1].synchronize()
-        ms = 1e3 * self._host_s + sum(a.elapsed_time(b)
-                                      for a, b in self._events)
-        self._events, self._host_s = [], 0.0
+        """Summed time of this comm's exchange collectives since the last
+        call (the world comm's: of every level): each CUDA one from the
+        start to the end event around it on the device's clock (waits for
+        the last end event), each CPU one on the host's."""
+        root = self._root
+        if root._pending:
+            root._pending[-1][0][1].synchronize()
+            for (a, b), owner in root._pending:
+                owner._add(a.elapsed_time(b))
+            root._pending = []
+        ms, self._ms = self._ms, 0.0
         return ms
+
+    def split(self, inner: int):
+        """(outer, inner) comms over ``torch.distributed`` subgroups: the
+        pods ``[k*inner + j for j]`` and the outer groups ``[k*inner + j
+        for k]``. Both families are made on the first call, on every rank
+        in the same order (every rank must call it), and kept."""
+        if inner not in self._levels:
+            if self._root is not self:
+                raise NotImplementedError("a level of a split comm does "
+                                          "not split again")
+            if inner < 1 or self.n % inner:
+                raise ValueError(f"cannot split {self.n} ranks into pods "
+                                 f"of {inner}")
+            no = self.n // inner
+            if inner == 1:
+                # pods of one: the outer comm is the world, the inner one
+                # moves nothing
+                self._levels[inner] = (self, NullComm())
+            else:
+                pod, _ = dist.new_subgroups_by_enumeration(
+                    [[k * inner + j for j in range(inner)]
+                     for k in range(no)])
+                across, _ = dist.new_subgroups_by_enumeration(
+                    [[k * inner + j for k in range(no)]
+                     for j in range(inner)])
+                self._levels[inner] = (DistComm(across, _root=self),
+                                       DistComm(pod, _root=self))
+        return self._levels[inner]
 
     def psum(self, x):
         self._check(x)
         out = x.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=self.group)
         return out
 
     def pmean(self, x):

@@ -19,7 +19,7 @@ Python ``if``s.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -29,7 +29,7 @@ from repro_torch.core import compressor as C
 from repro_torch.core import leafwise
 from repro_torch.core import onebit_allreduce as AR
 from repro_torch.core import schedules as S
-from repro_torch.core.comm import Comm
+from repro_torch.core.comm import Comm, Hierarchy
 from repro_torch.kernels import dispatch as K
 
 
@@ -41,7 +41,7 @@ class CompressedDPState:
     var_pstate: tuple             # T_v policy state (host ints)
     slots: Dict[str, List[torch.Tensor]]   # "m" (+ "v"): stacked views
     u: List[torch.Tensor]         # accumulated update views
-    err_w: List[torch.Tensor]     # worker EF (stack, *view_shape)
+    err_w: List[torch.Tensor]     # worker EF (stack, *ef_worker_shape)
     err_s: List[torch.Tensor]     # server EF (stack, *chunk_shape)
     anchor: List[torch.Tensor]    # x_{t'} copies, natural shape
 
@@ -59,6 +59,7 @@ class CompressedDP:
     scale_mode: C.ScaleMode = "tensor"
     codec: Any = "sign1bit"
     comm_dtype: Any = torch.bfloat16
+    hierarchy: Optional[Hierarchy] = None   # two-level exchange (pods)
 
     def __post_init__(self):
         if self.style != "accumulate":
@@ -86,15 +87,17 @@ class ComposedOptimizer:
         self.cfg = cfg
         self.base = cfg.base
         self.plan = leafwise.make_plan(param_shapes, specs, dp_mask,
-                                       n_workers)
+                                       n_workers, cfg.hierarchy)
         if not all(self.plan.dp_mask):
             raise NotImplementedError(
                 "leaves outside data parallelism (expert-parallel MoE) are "
                 "not ported yet")
         self.n = n_workers
+        self.hierarchy = self.plan.hierarchy
         self.layouts = self.plan.layouts
         self.ar_cfg = leafwise.make_ar_cfg(
-            self.plan, scale_mode=cfg.scale_mode, codec=cfg.codec)
+            self.plan, scale_mode=cfg.scale_mode, codec=cfg.codec,
+            comm_dtype=cfg.comm_dtype)
         self.codec = self.ar_cfg.codec
 
     # ------------------------------------------------------------------ #
@@ -171,7 +174,8 @@ class ComposedOptimizer:
                 new_m.append(mh)
                 new_u.append(u_new)
             if do_var:
-                gbar = AR.fullprec_allreduce_view(comm, gv, cfg.comm_dtype)
+                gbar = AR.fullprec_allreduce_view(
+                    comm, gv, cfg.comm_dtype, self.hierarchy, lo)
                 new_v[i] = base.update_variance(slots["v"], gbar)
 
         new_slots = {"m": new_m}
@@ -189,18 +193,38 @@ class ComposedOptimizer:
 
 
 def comm_accounting(opt: ComposedOptimizer) -> Dict[str, float]:
-    """Static bytes per round of one worker: the compressed sync (per-leaf
-    exchange at the codec's wire format and the configured scale mode) and
-    the bf16 full-precision round, in the reference's (n-1)/n ring
-    convention."""
+    """Static bytes per round of one worker, split into the topology's
+    levels: ``*_inner`` the uncompressed intra-pod traffic (0 when flat),
+    ``*_outer`` what crosses between pods (the codec's payloads for a
+    sync, the owned slice for a full-precision round). The full-precision
+    headline keeps the reference's (n-1)/n ring convention over the true
+    parameters when flat and is the sum of the levels (padded views) with
+    a hierarchy. ``collectives_per_sync`` counts exchange phases: 2 per
+    leaf flat, 4 hierarchical."""
     params = sum(int(np.prod(lo.shape)) for lo in opt.layouts)
-    comp = sum(C.compressed_bytes(lo, opt.cfg.scale_mode, opt.codec)
-               for lo in opt.layouts)
     wire = torch.tensor([], dtype=opt.cfg.comm_dtype).element_size()
-    full = 2.0 * (opt.n - 1) / max(opt.n, 1) * params * wire
+    comp = {"inner": 0, "outer": 0}
+    full = {"inner": 0, "outer": 0}
+    for lo in opt.layouts:
+        lc = C.compressed_bytes_levels(lo, opt.cfg.scale_mode, wire,
+                                       opt.codec)
+        lf = C.fullprec_bytes_levels(lo, wire)
+        for k in ("inner", "outer"):
+            comp[k] += lc[k]
+            full[k] += lf[k]
+    n_inner = opt.hierarchy.inner if opt.hierarchy else 1
+    full_total = (full["inner"] + full["outer"] if n_inner > 1 else
+                  2.0 * (opt.n - 1) / max(opt.n, 1) * params * wire)
+    total = comp["inner"] + comp["outer"]
     return {"dp_params": float(params), "codec": opt.codec.name,
-            "compressed_bytes_per_sync": float(comp),
-            "fullprec_bytes_per_round": float(full),
-            "bits_per_param_sync": 8.0 * comp / max(params, 1),
-            "dp_leaves": float(len(opt.layouts))}
-
+            "compressed_bytes_per_sync": float(total),
+            "compressed_bytes_per_sync_inner": float(comp["inner"]),
+            "compressed_bytes_per_sync_outer": float(comp["outer"]),
+            "fullprec_bytes_per_round": float(full_total),
+            "fullprec_bytes_per_round_inner": float(full["inner"]),
+            "fullprec_bytes_per_round_outer": float(full["outer"]),
+            "bits_per_param_sync": 8.0 * total / max(params, 1),
+            "n_inner": float(n_inner), "n_outer": float(opt.n // n_inner),
+            "dp_leaves": float(len(opt.layouts)),
+            "collectives_per_sync": float(
+                len(opt.layouts) * (4 if n_inner > 1 else 2))}

@@ -89,24 +89,33 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def make_layout(shape: Sequence[int], spec, n: int) -> LeafLayout:
+def make_layout(shape: Sequence[int], spec, n: int,
+                n_inner: int = 1) -> LeafLayout:
     """Comm view of a leaf whose tensor-parallel spec is ``spec`` (a tuple
     of per-axis entries, None entries replicated, or None).
 
     Replicated leaves flatten and pad to an ``n*128`` quantum; a leaf with
     a sharded axis splits along its largest unsharded axis. With no tensor
     parallelism running the spec still decides the view, exactly as in
-    the reference, so layouts compare leaf for leaf."""
+    the reference, so layouts compare leaf for leaf.
+
+    ``n_inner`` (pods of ``n_inner`` workers) leaves the view as it is and
+    records how its ``n`` chunks group into ``n_inner`` reduce-scatter
+    slices of ``n // n_inner`` outer chunks each."""
     shape = tuple(int(s) for s in shape)
+    if n_inner < 1 or n % n_inner:
+        raise ValueError(f"n_inner={n_inner} must divide n={n}")
     replicated = spec is None or all(e is None for e in tuple(spec))
     if len(shape) == 0:
         padded = _round_up(1, n * 128)
         return LeafLayout(shape=(), n=n, flatten=True, split_axis=0,
-                          padded=padded, view_shape=(n, padded // n))
+                          padded=padded, view_shape=(n, padded // n),
+                          n_inner=n_inner)
     if replicated:
         padded = _round_up(int(np.prod(shape)), n * 128)
         return LeafLayout(shape=shape, n=n, flatten=True, split_axis=0,
-                          padded=padded, view_shape=(n, padded // n))
+                          padded=padded, view_shape=(n, padded // n),
+                          n_inner=n_inner)
     candidates = [a for a in range(len(shape)) if not _is_sharded(spec, a)]
     if not candidates:
         raise ValueError(
@@ -123,7 +132,8 @@ def make_layout(shape: Sequence[int], spec, n: int) -> LeafLayout:
     else:
         padded = _round_up(shape[split_axis], n * 8)
     return LeafLayout(shape=shape, n=n, flatten=False, split_axis=split_axis,
-                      padded=padded, view_shape=(n, padded // n, *rest))
+                      padded=padded, view_shape=(n, padded // n, *rest),
+                      n_inner=n_inner)
 
 
 def to_view(x: torch.Tensor, layout: LeafLayout) -> torch.Tensor:
@@ -220,6 +230,25 @@ def chunk_row_counts(layout: LeafLayout) -> np.ndarray:
     return view_row_counts(layout).reshape(layout.n, rows // layout.n)
 
 
+def slice_row_counts(layout: LeafLayout) -> np.ndarray:
+    """Row counts of the reduce-scatter slice each intra-pod worker owns,
+    int32 (n_inner, rows // n_inner): the slices are contiguous equal
+    blocks of frame rows (:func:`chunk_row_counts` one level up)."""
+    rows, _ = view_rows_cols(layout)
+    return view_row_counts(layout).reshape(layout.n_inner,
+                                           rows // layout.n_inner)
+
+
+def slice_true_counts(layout: LeafLayout) -> Tuple[np.ndarray, np.ndarray]:
+    """(#real elements of each inner slice (n_inner,), #real elements of
+    each outer chunk within it (n_inner, n_outer)), float64. A flat layout
+    gives :func:`true_counts` with a leading axis of one, which is what
+    makes the ``n_inner == 1`` two-level path bitwise the flat one."""
+    _, per_chunk = true_counts(layout)
+    grouped = per_chunk.reshape(layout.n_inner, layout.n_outer)
+    return grouped.sum(axis=1), grouped
+
+
 def true_counts(layout: LeafLayout) -> Tuple[float, np.ndarray]:
     """(#real elements of the leaf, #real elements per chunk (n,)).
 
@@ -309,16 +338,92 @@ def ef_compress(z, layout: LeafLayout, mode: ScaleMode, mask):
     return packed, scales, err
 
 
+def _slice_scales(z, layout: LeafLayout, mode: ScaleMode, mask,
+                  inner_index) -> torch.Tensor:
+    """:func:`_scales` of stacked inner slices (*lead, n_outer, A/n,
+    *rest), worker ``w`` owning slice ``inner_index[w]`` (one index per
+    leading element): the denominators are that slice's true counts,
+    clamped to 1 because a whole slice of a tiny leaf can be padding."""
+    validate_scale_mode(mode)
+    az = z.abs()
+    if mask is not None:
+        az = az * mask
+    totals, per_chunk = slice_true_counts(layout)
+    rf = layout.rest_factor
+    dims = _view_dims(z, layout)
+    lead = tuple(z.shape[:dims[0]])
+    j = np.asarray(inner_index).reshape(lead)
+    if mode == "row" and len(dims) == 2:
+        mode = "chunk"
+    if mode == "tensor":
+        denom = np.maximum(totals * rf, 1.0)[j].reshape(
+            lead + (1,) * len(dims))
+        return (az.sum(dim=dims, keepdim=True)
+                / torch.as_tensor(denom, dtype=z.dtype, device=z.device))
+    if mode == "chunk":
+        cnt = np.maximum(per_chunk * rf, 1.0)[j].reshape(
+            lead + (-1,) + (1,) * (len(dims) - 1))
+        return (az.sum(dim=dims[1:], keepdim=True)
+                / torch.as_tensor(cnt, dtype=z.dtype, device=z.device))
+    rest = int(np.prod(layout.view_shape[2:])) * rf
+    return (az.sum(dim=dims[2:], keepdim=True)
+            / torch.tensor(float(rest), dtype=z.dtype, device=z.device))
+
+
+def ef_compress_slice(z, layout: LeafLayout, mode: ScaleMode, mask,
+                      inner_index):
+    """Worker-side EF compression of stacked inner slices
+    (``layout.slice_shape`` after the leading dims), the incoming error
+    already added; ``mask`` is the slices' pad mask or None. Same contract
+    as :func:`ef_compress`, with per-slice denominators."""
+    scales = _slice_scales(z, layout, mode, mask, inner_index)
+    packed = pack_signs(z)
+    signs = torch.where(z >= 0, 1.0, -1.0).to(z.dtype)
+    err = z - signs * scales
+    if mask is not None:
+        err = err * mask
+    return packed, scales, err
+
+
 def decompress(packed, scales, count: int, dtype=torch.float32):
     """Inverse of the quantizer: scale * sign."""
     return unpack_signs(packed, count, dtype) * scales.to(dtype)
 
 
-def compressed_bytes(layout: LeafLayout, mode: ScaleMode, codec=None) -> int:
-    """Bytes one worker SENDS on one flat sync of this leaf: the scatter
-    keeps its own chunk and the gather sends this worker's chunk to the
-    n-1 others, each chunk as the codec's payload (default sign1bit)."""
+def compressed_bytes_levels(layout: LeafLayout, mode: ScaleMode,
+                            inner_itemsize: int = 2, codec=None) -> dict:
+    """Bytes one worker SENDS on one sync, per level. ``inner``: the
+    uncompressed intra-pod phases at the wire dtype (``inner_itemsize``),
+    the reduce-scatter sending n_inner - 1 of the n_inner slices and the
+    all_gather the decoded own slice to the n_inner - 1 pod-mates.
+    ``outer``: Algorithm 2 across pods over the owned slice, (n_outer - 1)
+    chunks of the codec's payload each way. A flat layout has ``inner``
+    0 and ``outer`` the flat exchange's bytes."""
     from repro_torch.core.codecs import make_codec   # codecs imports us
     wb = make_codec("sign1bit" if codec is None else codec).wire_bytes(
         layout, mode)
-    return (layout.n - 1) * (wb["scatter"] + wb["gather"])
+    chunk_elems = int(np.prod(layout.chunk_shape))
+    ni, no = layout.n_inner, layout.n_outer
+    return {"inner": 2 * (ni - 1) * no * chunk_elems * inner_itemsize,
+            "outer": (no - 1) * (wb["scatter"] + wb["gather"])}
+
+
+def compressed_bytes(layout: LeafLayout, mode: ScaleMode,
+                     inner_itemsize: int = 2, codec=None) -> int:
+    """Bytes one worker SENDS on one sync of this leaf, both levels (the
+    flat exchange: the scatter keeps its own chunk and the gather sends
+    this worker's chunk to the n-1 others, each chunk as the codec's
+    payload, default sign1bit)."""
+    lv = compressed_bytes_levels(layout, mode, inner_itemsize, codec)
+    return lv["inner"] + lv["outer"]
+
+
+def fullprec_bytes_levels(layout: LeafLayout, itemsize: int) -> dict:
+    """Bytes one worker sends on a full-precision round, per level: the
+    intra-pod reduce-scatter and all_gather move 2 (n_inner-1)/n_inner of
+    the view, the inter-pod exchange 2 (n_outer-1)/n_outer of the owned
+    slice (1/n_inner of the view)."""
+    ni, no = layout.n_inner, layout.n_outer
+    elems = int(np.prod(layout.view_shape))
+    return {"inner": 2 * (ni - 1) * (elems // ni) * itemsize,
+            "outer": 2 * (no - 1) * (elems // ni // no) * itemsize}

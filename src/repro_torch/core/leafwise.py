@@ -7,10 +7,11 @@ is leaf ``i`` of the reference.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from repro_torch.core import compressor as C
 from repro_torch.core import onebit_allreduce as AR
+from repro_torch.core.comm import Hierarchy, norm_hierarchy
 
 
 def flatten_tree(tree) -> Tuple[List[Tuple[str, ...]], List[Any]]:
@@ -44,6 +45,7 @@ class LeafPlan:
     """Static per-leaf communication plan for one parameter tree."""
 
     n: int
+    hierarchy: Optional[Hierarchy]   # normalized (None: flat or n == 1)
     paths: List[Tuple[str, ...]]
     shapes: List[Tuple[int, ...]]
     specs: List[Any]
@@ -58,23 +60,28 @@ class LeafPlan:
         return leaves
 
 
-def make_plan(param_shapes, specs, dp_mask, n_workers: int) -> LeafPlan:
+def make_plan(param_shapes, specs, dp_mask, n_workers: int,
+              hierarchy: Optional[Hierarchy] = None) -> LeafPlan:
     """``param_shapes``: nested dict of shape tuples; ``specs`` and
-    ``dp_mask`` the same structure (None: replicated / all DP)."""
+    ``dp_mask`` the same structure (None: replicated / all DP). The
+    hierarchy is normalized here and nowhere else on the optimizer side:
+    every consumer reads ``plan.hierarchy``."""
+    hierarchy = norm_hierarchy(hierarchy, n_workers)
     paths, shapes = flatten_tree(param_shapes)
     specs_f = ([None] * len(paths) if specs is None
                else flatten_tree(specs)[1])
     dp_f = ([True] * len(paths) if dp_mask is None
             else flatten_tree(dp_mask)[1])
-    layouts = [C.make_layout(s, sp, n_workers)
+    layouts = [C.make_layout(s, sp, n_workers,
+                             n_inner=hierarchy.inner if hierarchy else 1)
                for s, sp in zip(shapes, specs_f)]
-    return LeafPlan(n=n_workers, paths=paths,
+    return LeafPlan(n=n_workers, hierarchy=hierarchy, paths=paths,
                     shapes=[tuple(s) for s in shapes], specs=specs_f,
                     dp_mask=list(dp_f), layouts=layouts)
 
 
-def make_ar_cfg(plan: LeafPlan, *, scale_mode, codec) -> AR.OneBitConfig:
-    """Algorithm-2 exchange config bound to a plan (the flat topology is
-    the only one ported, so the plan adds nothing yet)."""
-    del plan
-    return AR.OneBitConfig(scale_mode=scale_mode, codec=codec)
+def make_ar_cfg(plan: LeafPlan, *, scale_mode, codec,
+                comm_dtype) -> AR.OneBitConfig:
+    """Algorithm-2 exchange config bound to a plan's topology."""
+    return AR.OneBitConfig(scale_mode=scale_mode, codec=codec,
+                           hierarchy=plan.hierarchy, comm_dtype=comm_dtype)

@@ -1,5 +1,5 @@
 """Error-feedback compressed AllReduce (paper Algorithm 2), PyTorch port
-of the flat path of ``src/repro/core/onebit_allreduce.py``.
+of ``src/repro/core/onebit_allreduce.py``, flat and hierarchical.
 
   worker side   z = u + d_w ;  (payload, d_w') = codec.encode_worker(z)
   scatter       all_to_all of payload leaves: worker j receives every
@@ -8,24 +8,34 @@ of the flat path of ``src/repro/core/onebit_allreduce.py``.
                 (payload', d_s') = codec.encode_server(y)
   gather        all_gather of the compressed chunk results
 
+With a :class:`~repro_torch.core.comm.Hierarchy` the same estimate runs
+in two levels: an uncompressed reduce-scatter inside each pod (at the
+wire dtype, bf16), the exchange above across pods on the slice each
+worker owns, and an all_gather inside the pod.
+
 Tensors carry the stack of workers on dim 0 (see ``core.comm``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import codecs as CODECS
 from repro_torch.core import compressor as C
-from repro_torch.core.comm import Comm
+from repro_torch.core.comm import Comm, Hierarchy
 
 
 class EFState(NamedTuple):
-    """Per-leaf error feedback of the stacked workers."""
+    """Per-leaf error feedback of the stacked workers, at the level that
+    quantizes: the worker error covers the buffer a worker compresses
+    (its full view when flat, its owned inner slice with a hierarchy),
+    the server error the chunk it serves. The intra-pod phases carry no
+    error feedback."""
 
-    err_worker: torch.Tensor   # (stack, *view_shape)
+    err_worker: torch.Tensor   # (stack, *ef_worker_shape)
     err_server: torch.Tensor   # (stack, *chunk_shape)
 
 
@@ -42,6 +52,9 @@ def init_ef_state(layout: C.LeafLayout, stack: int, device=None,
 class OneBitConfig:
     scale_mode: C.ScaleMode = "tensor"
     codec: Any = "sign1bit"
+    hierarchy: Optional[Hierarchy] = None   # two levels: reduce in pods,
+                                            # compress only across them
+    comm_dtype: Any = torch.bfloat16        # wire of the intra-pod phases
 
     def __post_init__(self):
         C.validate_scale_mode(self.scale_mode)
@@ -53,7 +66,15 @@ def onebit_allreduce_view(comm: Comm, z_view: torch.Tensor, ef: EFState,
     """Algorithm 2 over one leaf's stacked comm views (stack, *view_shape).
 
     Returns ``(mean estimate of z over workers, new EFState)``; every
-    worker receives the same estimate. Exact codecs leave ``ef`` as is."""
+    worker receives the same estimate. Exact codecs leave ``ef`` as is.
+    With ``cfg.hierarchy`` the two-level schedule runs
+    (:func:`_hier_allreduce_view`); the flat code below is its bitwise
+    ``n_inner == 1`` case."""
+    if cfg.hierarchy is not None:
+        if layout.n_inner != cfg.hierarchy.inner:
+            raise ValueError(f"layout has n_inner={layout.n_inner}, the "
+                             f"hierarchy {cfg.hierarchy}")
+        return _hier_allreduce_view(comm, z_view, ef, layout, cfg)
     codec, mode = cfg.codec, cfg.scale_mode
     payload, err_w = codec.encode_worker(
         z_view, ef.err_worker if codec.needs_ef else None, layout, mode)
@@ -72,11 +93,76 @@ def onebit_allreduce_view(comm: Comm, z_view: torch.Tensor, ef: EFState,
     return out.to(torch.float32), ef
 
 
+def _hier_allreduce_view(comm: Comm, z_view: torch.Tensor, ef: EFState,
+                         layout: C.LeafLayout, cfg: OneBitConfig):
+    """Two-level Algorithm 2; worker ``w = k * n_inner + j`` (pod k):
+
+      1. intra-pod reduce-scatter at ``comm_dtype``: all_to_all over the
+         pod of the view as (n_inner, n_outer, A/n, *rest); the f32 mean
+         over the senders leaves worker j owning the pod mean of slice j;
+      2. Algorithm 2 across pods on the owned slice (worker error of the
+         slice's size); worker j of pod k serves full-view chunk
+         ``j * n_outer + k``;
+      3. intra-pod all_gather of the decoded slice at ``comm_dtype``.
+
+    With ``n_inner == 1`` steps 1 and 3 are skipped and step 2 is the
+    flat path, bit for bit."""
+    codec, mode = cfg.codec, cfg.scale_mode
+    ni, no = layout.n_inner, layout.n_outer
+    stack = z_view.shape[0]
+    outer, inner = comm.split(ni)
+    zr = z_view.reshape((stack, ni, no) + layout.chunk_shape)
+    if ni > 1:
+        recv = inner.all_to_all(zr.to(cfg.comm_dtype))
+        own = recv.to(torch.float32).mean(dim=1)
+        j = inner.index()
+    else:
+        own = zr[:, 0]
+        j = np.zeros(stack, dtype=np.int64)
+
+    payload, err_w = codec.encode_worker(
+        own, ef.err_worker if codec.needs_ef else None, layout, mode,
+        inner_index=j)
+    recv = {name: outer.all_to_all(p) for name, p in payload.items()}
+    widx = j * no + outer.index()
+    avg = codec.decode(recv, layout).mean(dim=1)
+    payload_s, err_s = codec.encode_server(
+        avg, ef.err_server if codec.needs_ef else None, layout, mode, widx)
+    gathered = {name: outer.all_gather(p) for name, p in payload_s.items()}
+    out_slice = codec.decode(gathered, layout)
+    if codec.needs_ef:
+        ef = EFState(err_worker=err_w.to(ef.err_worker.dtype),
+                     err_server=err_s.to(ef.err_server.dtype))
+    if ni > 1:
+        out = inner.all_gather(out_slice.to(cfg.comm_dtype))
+    else:
+        out = out_slice
+    return out.reshape(z_view.shape).to(torch.float32), ef
+
+
 def fullprec_allreduce_view(comm: Comm, z_view: torch.Tensor,
-                            comm_dtype=torch.bfloat16) -> torch.Tensor:
+                            comm_dtype=torch.bfloat16,
+                            hierarchy: Optional[Hierarchy] = None,
+                            layout: Optional[C.LeafLayout] = None
+                            ) -> torch.Tensor:
     """Full-precision mean over workers on the T_v steps, at the wire
     dtype: a chunked scatter-mean / all_gather whose wire values round to
-    ``comm_dtype`` (bf16) on both phases, as in the reference."""
+    ``comm_dtype`` (bf16) on both phases, as in the reference. With a
+    ``hierarchy`` (and its ``layout``, ``n_inner > 1``) the same mean runs
+    in four collectives: the intra-pod reduce-scatter, the inter-pod
+    scatter-mean and all_gather of the owned slice, the intra-pod
+    all_gather."""
+    if hierarchy is not None and layout is not None and layout.n_inner > 1:
+        ni, no = layout.n_inner, layout.n_outer
+        outer, inner = comm.split(ni)
+        zr = z_view.to(comm_dtype).reshape(
+            (z_view.shape[0], ni, no) + layout.chunk_shape)
+        recv = inner.all_to_all(zr)
+        own = recv.to(torch.float32).mean(dim=1).to(comm_dtype)
+        recv2 = outer.all_to_all(own)
+        avg = recv2.to(torch.float32).mean(dim=1).to(comm_dtype)
+        out = inner.all_gather(outer.all_gather(avg[:, None]))
+        return out.reshape(z_view.shape).to(z_view.dtype)
     recv = comm.all_to_all(z_view.to(comm_dtype))
     avg = recv.to(torch.float32).mean(dim=1).to(comm_dtype)
     return comm.all_gather(avg[:, None]).to(z_view.dtype)

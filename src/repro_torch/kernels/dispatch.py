@@ -27,10 +27,31 @@ from repro_torch.kernels import fused_adam, onebit
 
 
 @functools.lru_cache(maxsize=None)
-def _worker_counts(layout: C.LeafLayout, stack: int, device: str):
-    """Row counts of ``stack`` stacked worker frames, int32 on device."""
-    cnt = np.tile(C.view_row_counts(layout), stack)
-    return torch.as_tensor(cnt, device=torch.device(device))
+def _worker_counts(layout: C.LeafLayout, stack: int, inner_index,
+                   device: str):
+    """Row counts of ``stack`` stacked worker frames and each worker's
+    f32 scale denominators, on device (cached: no per-call copy): the
+    tensor-mode one (stack,) and the chunk-mode ones (stack, chunks). A
+    worker's frame is its full view for ``inner_index`` None, else the
+    reduce-scatter slice ``inner_index[w]`` (the last slice holds the pad,
+    and a slice of a tiny leaf can be all pad: its denominators clamp to
+    1, as the reference's)."""
+    rf = layout.rest_factor
+    if inner_index is None:
+        total, per_chunk = C.true_counts(layout)
+        cnt = np.tile(C.view_row_counts(layout), stack)
+        totals = np.full(stack, total)
+        per_chunk = np.tile(per_chunk, (stack, 1))
+    else:
+        j = np.asarray(inner_index)
+        cnt = C.slice_row_counts(layout)[j].reshape(-1)
+        totals, per_chunk = (a[j] for a in C.slice_true_counts(layout))
+    dev = torch.device(device)
+    return (torch.as_tensor(cnt, device=dev),
+            torch.as_tensor(np.maximum(totals * rf, 1.0), dtype=torch.float32,
+                            device=dev),
+            torch.as_tensor(np.maximum(per_chunk * rf, 1.0),
+                            dtype=torch.float32, device=dev))
 
 
 @functools.lru_cache(maxsize=None)
@@ -89,31 +110,33 @@ def _row_group_scales(rowsum, shape, rest_factor, stack: int):
     return s.view((stack,) + tuple(shape[:2]) + (1,) * (ndim - 2))
 
 
-def _combine_scales(rowsum, layout: C.LeafLayout, mode: C.ScaleMode,
-                    stack: int):
-    """Masked per-row L1 sums of stacked frames -> per-worker scales
-    shaped like ``compressor._scales``: (stack, 1, ..., 1) for tensor,
-    (stack, n, 1, ...) for chunk, (stack, n, A/n, 1, ...) for row."""
+def _combine_scales(rowsum, shape, mode: C.ScaleMode, rest_factor: int,
+                    denoms, stack: int):
+    """Masked per-row L1 sums of ``stack`` stacked frames of buffers of
+    ``shape`` (the view, or an inner slice) -> per-worker scales shaped
+    like ``compressor._scales``: (stack, 1, ..., 1) for tensor, (stack,
+    chunks, 1, ...) for chunk, (stack, chunks, A/n, 1, ...) for row;
+    ``denoms`` are the tensor- and chunk-mode denominators of
+    :func:`_worker_counts`."""
     C.validate_scale_mode(mode)
-    vs = layout.view_shape
-    ndim = len(vs)
-    rf = layout.rest_factor
-    dev = str(rowsum.device)
-    total, per_chunk = C.true_counts(layout)
+    ndim = len(shape)
     if mode == "tensor":
-        s = rowsum.view(stack, -1).sum(1) / _const((total * rf,), (), dev)
+        s = rowsum.view(stack, -1).sum(1) / denoms[0]
         return s.view((stack,) + (1,) * ndim)
     if mode == "chunk":
-        cnt = _const(tuple(np.maximum(per_chunk * rf, 1.0).tolist()),
-                     (1, vs[0]), dev)
-        s = rowsum.view(stack, vs[0], -1).sum(-1) / cnt
-        return s.view((stack, vs[0]) + (1,) * (ndim - 1))
-    return _row_group_scales(rowsum, vs, rf, stack)
+        s = rowsum.view(stack, shape[0], -1).sum(-1) / denoms[1]
+        return s.view((stack, shape[0]) + (1,) * (ndim - 1))
+    return _row_group_scales(rowsum, shape, rest_factor, stack)
 
 
-def ef_compress_view(z, err, layout: C.LeafLayout, mode: C.ScaleMode):
-    """Worker-side EF compress of stacked views (stack, *view_shape):
-    ``z + err`` is fused into the kernels. Returns (packed, scales, err).
+def ef_compress_view(z, err, layout: C.LeafLayout, mode: C.ScaleMode,
+                     inner_index=None):
+    """Worker-side EF compress of stacked views (stack, *view_shape), or
+    with ``inner_index`` (one per stacked worker) of the inner
+    reduce-scatter slices they own (stack, *slice_shape): the frame
+    shrinks to the slice's rows // n_inner rows and the row counts and
+    denominators are those of each worker's own slice. ``z + err`` is
+    fused into the kernels. Returns (packed, scales, err).
 
     Row scales on a 2-D view fall back to chunk scales, as in
     ``compressor._scales``; on a 3-D view they are one scale per frame row,
@@ -121,19 +144,29 @@ def ef_compress_view(z, err, layout: C.LeafLayout, mode: C.ScaleMode):
     rows, cols = C.view_rows_cols(layout)
     stack, vs = z.shape[0], layout.view_shape
     ndim = len(vs)
+    if inner_index is None:
+        bshape = vs
+    else:
+        bshape, rows = layout.slice_shape, rows // layout.n_inner
+        inner_index = tuple(int(j) for j in inner_index)
+        if len(inner_index) != stack:
+            raise ValueError(f"{len(inner_index)} inner indices for a "
+                             f"stack of {stack} workers")
     eff = "chunk" if (mode == "row" and ndim == 2) else mode
     z2, e2 = _frame(z, stack * rows, cols), _frame(err, stack * rows, cols)
-    cnts = _worker_counts(layout, stack, str(z.device))
+    cnts, *denoms = _worker_counts(layout, stack, inner_index,
+                                   str(z.device))
     if eff == "row" and ndim == 3 and layout.rest_factor == 1:
         packed2, srow, err2 = onebit.ef_compress(z2, e2, cnts)
-        scales = srow.view((stack,) + vs[:2] + (1,))
+        scales = srow.view((stack,) + bshape[:2] + (1,))
     else:
         rowsum = onebit.abs_rowsum(z2, e2, cnts)
-        scales = _combine_scales(rowsum, layout, eff, stack)
-        srow = _scales_to_rows(scales, (stack,) + vs[:-1], stack * rows,
+        scales = _combine_scales(rowsum, bshape, eff, layout.rest_factor,
+                                 denoms, stack)
+        srow = _scales_to_rows(scales, (stack,) + bshape[:-1], stack * rows,
                                layout)
         packed2, err2 = onebit.ef_quantize(z2, e2, srow, cnts)
-    return (packed2.view((stack,) + vs[:-1] + (-1,)), scales,
+    return (packed2.view((stack,) + bshape[:-1] + (-1,)), scales,
             err2.view(z.shape))
 
 

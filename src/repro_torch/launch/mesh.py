@@ -159,31 +159,50 @@ def exchange_payloads(n: int, device) -> dict:
     return out
 
 
-def exchange_reference(payloads: dict) -> dict:
-    """What SimComm gives each stacked worker for every payload."""
+def _level_ops(levels, x) -> dict:
+    """The collectives of the two comms of a split over payload ``x``:
+    each level's all_to_all of the first ``size()`` blocks, and its
+    all_gather."""
+    out = {}
+    for level, comm in zip(("outer", "inner"), levels):
+        out[f"{level} all_to_all"] = comm.all_to_all(x[:, :comm.size()])
+        out[f"{level} all_gather"] = comm.all_gather(x)
+    return out
+
+
+def exchange_reference(payloads: dict, inner: int = None) -> dict:
+    """What SimComm gives each stacked worker for every payload (and,
+    with ``inner``, what its split into pods of ``inner`` gives)."""
     out = {}
     for name, x in payloads.items():
         comm = SimComm(x.shape[0])
         out[name] = {"all_to_all": comm.all_to_all(x),
                      "all_gather": comm.all_gather(x)}
+        if inner:
+            out[name].update(_level_ops(comm.split(inner), x))
     return out
 
 
 def check_exchange(rank: int, world_size: int, init_method: str, backend,
-                   device, out_dir: str) -> None:
+                   device, out_dir: str, inner: int = None) -> None:
     """Rank entry of the exchange check: DistComm's all_to_all and
-    all_gather of this rank's row of every :func:`exchange_payloads`,
-    saved (on the CPU) as ``out_dir/exchange{rank}.pt`` for the caller to
-    hold against :func:`exchange_reference`."""
+    all_gather of this rank's row of every :func:`exchange_payloads` (and
+    with ``inner`` those of its split into pods of ``inner``, over process
+    subgroups), saved (on the CPU) as ``out_dir/exchange{rank}.pt`` for
+    the caller to hold against :func:`exchange_reference`."""
     dev = init_workers(backend, device, rank=rank, world_size=world_size,
                        local_rank=rank, init_method=init_method)
     try:
         comm = worker_comm()
+        levels = comm.split(inner) if inner else None
         out = {}
         for name, x in exchange_payloads(world_size, dev).items():
             mine = x[rank:rank + 1]
-            out[name] = {"all_to_all": comm.all_to_all(mine).cpu(),
-                         "all_gather": comm.all_gather(mine).cpu()}
+            ops = {"all_to_all": comm.all_to_all(mine),
+                   "all_gather": comm.all_gather(mine)}
+            if levels is not None:
+                ops.update(_level_ops(levels, mine))
+            out[name] = {op: t.cpu() for op, t in ops.items()}
         torch.save(out, os.path.join(out_dir, f"exchange{rank}.pt"))
     finally:
         dist.destroy_process_group()

@@ -7,6 +7,9 @@ NCCL between cards (one card per rank), gloo on the CPU, and gloo with
 every rank on one card only when asked for (``--backend gloo --device
 cuda:0``). Under torchrun the launcher's ranks are used; without it the
 CLI spawns ``--workers`` ranks itself. Only rank 0 prints.
+``--hierarchy INNER`` (every mode) runs the two-level exchange over pods
+of INNER workers: bf16 inside a pod, 1-bit only across pods (0: flat;
+single mode has one worker and no pods).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2 --smoke \\
@@ -18,6 +21,8 @@ Examples:
       --arch gpt2 --smoke --mode dist --device cpu [...as above]
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2 --smoke \\
       --mode dist --workers 4 --micro-batches 2 --device cpu [...]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2 --smoke \\
+      --workers 4 --hierarchy 2 --device cpu [...]  # 2 pods x 2 workers
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ import torch.distributed as dist
 from repro_torch.configs.base import get
 from repro_torch.core import schedules as S
 from repro_torch.core.api import REGISTRY_NAMES, OptimizerConfig
-from repro_torch.core.comm import NullComm, SimComm
+from repro_torch.core.comm import Hierarchy, NullComm, SimComm, norm_hierarchy
 from repro_torch.core.compressed import comm_accounting
 from repro_torch.data.synthetic import DataConfig, SyntheticLM
 from repro_torch.kernels import build
@@ -51,7 +56,8 @@ def build_opt_cfg(args) -> OptimizerConfig:
         sync_policy=S.LrProportionalSyncPolicy(
             warmup_steps=args.sync_warmup, double_every=args.double_every,
             max_interval=args.max_interval),
-        scale_mode=args.scale_mode, codec=args.codec)
+        scale_mode=args.scale_mode, codec=args.codec,
+        hierarchy=Hierarchy(args.hierarchy) if args.hierarchy else None)
 
 
 def parse_args(argv=None):
@@ -83,6 +89,10 @@ def parse_args(argv=None):
                     choices=["tensor", "chunk", "row"])
     ap.add_argument("--codec", default="sign1bit",
                     choices=["sign1bit", "identity"])
+    ap.add_argument("--hierarchy", type=int, default=0, metavar="INNER",
+                    help="workers per pod for the two-level exchange: "
+                         "reduce uncompressed (bf16) inside pods, 1-bit "
+                         "only across pods; 0 = flat")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
@@ -92,6 +102,8 @@ def parse_args(argv=None):
     args = ap.parse_args(argv)
     if args.backend is not None and args.mode != "dist":
         ap.error("--backend applies to --mode dist only")
+    if args.hierarchy < 0:
+        ap.error("--hierarchy must be >= 0")
     return args
 
 
@@ -129,6 +141,13 @@ def train(args, tr: Trainer, kind: str = "lm", keep_step: int = None) -> dict:
               f"workers={tr.n_workers} mode={args.mode} "
               f"micro_batches={args.micro_batches} "
               f"optimizer={args.optimizer} device={dev}", flush=True)
+        if acct["n_inner"] > 1:
+            print(f"hierarchy: {int(acct['n_outer'])} pods x "
+                  f"{int(acct['n_inner'])} workers/pod; sync bytes/worker "
+                  f"intra={acct['compressed_bytes_per_sync_inner']/2**20:.2f}"
+                  f"MiB inter="
+                  f"{acct['compressed_bytes_per_sync_outer']/2**20:.2f}MiB",
+                  flush=True)
 
     params, state = tr.init(args.seed)
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
@@ -150,7 +169,8 @@ def train(args, tr: Trainer, kind: str = "lm", keep_step: int = None) -> dict:
                "sync": met["synced"], "var": met["var_round"],
                "step_ms": met["fwd_bwd_ms"] + met["optimizer_ms"]}
         rec.update({k: met[k] for k in ("fwd_bwd_ms", "optimizer_ms",
-                                        "exchange_ms")})
+                                        "exchange_ms", "exchange_ms_intra",
+                                        "exchange_ms_inter") if k in met})
         records.append(rec)
         if met["synced"]:
             comp_bytes += acct["compressed_bytes_per_sync"]
@@ -238,6 +258,8 @@ def main(argv=None):
         mesh.check_backend(
             args.backend or mesh.default_backend(args.device), args.device,
             args.workers)
+        if args.hierarchy:
+            norm_hierarchy(Hierarchy(args.hierarchy), args.workers)
         with tempfile.TemporaryDirectory() as tmp:
             mesh.spawn(rank_main, args.workers,
                        (argv, args.workers, mesh.file_rendezvous(tmp)))

@@ -16,6 +16,11 @@ init/step functions per mode:
 * ``DistComm()``: one worker per process, a stack of one, collectives
   through ``torch.distributed`` (``repro_torch.launch.mesh``).
 
+With a hierarchy in the optimizer config (pods of ``inner`` workers) the
+trainer splits its comm into the outer and inner comm once, before the
+first step (over process subgroups in the multi-process regime); one
+worker normalizes the hierarchy away.
+
 Worker ``i`` takes rows ``[i*B/n, (i+1)*B/n)`` of the global batch in
 every regime, and with ``micro_batches > 1`` accumulates its gradient
 over equal splits of them (:func:`accumulate_grads`).
@@ -29,7 +34,7 @@ from typing import Callable, Dict, List, Tuple
 import torch
 
 from repro_torch.core import api as opt_api
-from repro_torch.core.comm import Comm
+from repro_torch.core.comm import Comm, norm_hierarchy
 from repro_torch.core.leafwise import flatten_tree, unflatten_tree
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -122,6 +127,11 @@ class Trainer:
         self.trainer_cfg = trainer_cfg
         self.comm = comm
         self.n_workers = comm.size()
+        self.hierarchy = norm_hierarchy(opt_cfg.hierarchy, self.n_workers)
+        # (outer, inner) comms, made here so that every rank creates its
+        # subgroups before the first step, in the same order
+        self.levels = (comm.split(self.hierarchy.inner)
+                       if self.hierarchy is not None else None)
         self.template = T.model_template(model_cfg)
         self.opt = opt_api.build_optimizer(
             opt_cfg, param_shapes(self.template),
@@ -174,7 +184,9 @@ class Trainer:
         The device is synchronized before the step and after each of its
         parts, whose times the metrics give in ms: ``fwd_bwd_ms``,
         ``optimizer_ms`` and ``exchange_ms`` (the part of the optimizer
-        spent in the comm's collectives, None in process)."""
+        spent in the comm's collectives, None in process); with pods of
+        more than one worker also ``exchange_ms_intra`` and
+        ``exchange_ms_inter``, its intra-pod and inter-pod parts."""
         self._sync()
         t0 = time.perf_counter()
         losses, grads = self.grads(params, batch)
@@ -188,6 +200,10 @@ class Trainer:
         met["fwd_bwd_ms"] = 1e3 * (t1 - t0)
         met["optimizer_ms"] = 1e3 * (t2 - t1)
         met["exchange_ms"] = self.comm.exchange_ms()
+        if self.hierarchy is not None and self.hierarchy.inner > 1:
+            outer, inner = self.levels
+            met["exchange_ms_intra"] = inner.exchange_ms()
+            met["exchange_ms_inter"] = outer.exchange_ms()
         return params, state, met
 
     def _sync(self):

@@ -40,6 +40,7 @@ import torch
 from repro.configs import get as ref_get
 from repro.core import OptimizerConfig as RefOptimizerConfig
 from repro.core import schedules as RS
+from repro.core.comm import Hierarchy as RefHierarchy
 from repro.train import Trainer as RefTrainer
 from repro.train import TrainerConfig as RefTrainerConfig
 
@@ -60,7 +61,8 @@ ARGV = ["--arch", "gpt2", "--smoke", "--steps", str(STEPS), "--batch",
         "--device", "cpu"]
 CASES = {"tensor": [], "chunk": ["--scale-mode", "chunk"],
          "row": ["--scale-mode", "row"],
-         "sgd": ["--optimizer", "zero_one_sgd"]}
+         "sgd": ["--optimizer", "zero_one_sgd"],
+         "hier": ["--hierarchy", "2"]}      # 2 pods x 2 ranks
 SPAWN_TIMEOUT_S = 120.0
 
 
@@ -101,7 +103,8 @@ def _ref_run(argv, params_stacked, mb=1, single=False):
         sync_policy=RS.LrProportionalSyncPolicy(
             warmup_steps=a.sync_warmup, double_every=a.double_every,
             max_interval=a.max_interval),
-        scale_mode=a.scale_mode)
+        scale_mode=a.scale_mode,
+        hierarchy=RefHierarchy(inner=a.hierarchy) if a.hierarchy else None)
     n = 1 if single else a.workers
     rt = RefTrainer(ref_get("gpt2").smoke, cfg, n_workers=n,
                     trainer_cfg=RefTrainerConfig(micro_batches=mb))
@@ -168,7 +171,7 @@ def _assert_ranks_equal_sim(ranks, sim):
 def exchange_results(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("exchange")
     mesh.spawn(mesh.check_exchange, N,
-               (N, mesh.file_rendezvous(tmp), "gloo", "cpu", str(tmp)),
+               (N, mesh.file_rendezvous(tmp), "gloo", "cpu", str(tmp), 2),
                timeout_s=SPAWN_TIMEOUT_S)
     return [torch.load(tmp / f"exchange{r}.pt") for r in range(N)]
 
@@ -181,6 +184,22 @@ def test_dist_comm_matches_sim_comm(exchange_results, dtype):
     for name in (dtype, dtype + "_strided"):
         for r, got in enumerate(exchange_results):
             for op in ("all_to_all", "all_gather"):
+                a, b = got[name][op], want[name][op]
+                assert a.shape == (1,) + tuple(b.shape[1:]), (name, op)
+                assert a.dtype == b.dtype and torch.equal(a[0], b[r]), (
+                    name, op, r)
+
+
+def test_dist_split_matches_sim_split(exchange_results):
+    """DistComm.split(2) over gloo subgroups (2 pods x 2 ranks): each
+    level's all_to_all and all_gather, bit for bit what SimComm.split
+    gives the worker of that index."""
+    want = mesh.exchange_reference(mesh.exchange_payloads(N, "cpu"), 2)
+    ops = [f"{lv} {op}" for lv in ("outer", "inner")
+           for op in ("all_to_all", "all_gather")]
+    for name in want:
+        for r, got in enumerate(exchange_results):
+            for op in ops:
                 a, b = got[name][op], want[name][op]
                 assert a.shape == (1,) + tuple(b.shape[1:]), (name, op)
                 assert a.dtype == b.dtype and torch.equal(a[0], b[r]), (
@@ -206,6 +225,11 @@ def test_dist_matches_port_sim_bitwise(case_runs):
     for res in ranks:
         for rec in res["records"]:
             assert (rec["exchange_ms"] > 0) == bool(rec["sync"]), rec
+            if "--hierarchy" in argv:
+                # every collective is intra-pod or inter-pod
+                parts = rec["exchange_ms_intra"] + rec["exchange_ms_inter"]
+                assert parts == pytest.approx(rec["exchange_ms"]), rec
+                assert (rec["exchange_ms_inter"] > 0) == bool(rec["sync"])
     assert all(rec["exchange_ms"] is None for rec in sim["records"])
 
 

@@ -16,12 +16,20 @@ operands) to the plain versions: decompress bit for bit, ef_compress's
 bytes bit for bit, its scales within 64 ulp (as chip_smoke.py) and equal
 from one launch to the next. DistComm over a one-rank NCCL communicator
 gives bit for bit what NullComm gives.
+
+The frames of the two-level exchange (stacked workers owning different
+inner slices, so different row counts, one slice all pad) are held to the
+plain versions by the same bars; the whole two-level exchange on the card
+to the CPU's within one bf16 ulp or 1e-6 (its output is rounded to bf16,
+after scales that may differ by a few ulp), at least 99% bit for bit.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.comm import DistComm, NullComm
+from repro_torch.core import compressor as C
+from repro_torch.core import onebit_allreduce as AR
+from repro_torch.core.comm import DistComm, Hierarchy, NullComm, SimComm
 from repro_torch.kernels import build, fused_adam, onebit
 from repro_torch.launch import mesh
 
@@ -210,3 +218,91 @@ def test_nccl_world_of_one_matches_null_comm(tmp_path):
         assert comm.exchange_ms() > 0 and comm.exchange_ms() == 0
     finally:
         torch.distributed.destroy_process_group()
+
+
+# (shape, spec, n, n_inner): the last of 4 slices all pad; a folded
+# flatten leaf with the pad in its last slice; a 3-D view (the single-pass
+# ef_compress) and a 4-D view, both padded
+SLICE_CASES = [((768,), None, 8, 4), ((100003,), None, 4, 2),
+               ((13, 40), (None, "model"), 4, 2),
+               ((6, 4, 24), (None, None, "model"), 8, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,spec,n,ni", SLICE_CASES)
+def test_cuda_kernels_at_stacked_slice_frames(shape, spec, n, ni):
+    """Every stacked worker owns inner slice w % n_inner: one frame whose
+    workers have different row counts (and whole rows of zero count)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    dev = torch.device("cuda")
+    lo = C.make_layout(shape, spec, n, n_inner=ni)
+    rows, cols = C.view_rows_cols(lo)
+    j = np.arange(n) % ni
+    cnt = torch.as_tensor(C.slice_row_counts(lo)[j].reshape(-1), device=dev)
+    R = n * rows // ni
+    g = torch.Generator(device=dev).manual_seed(5)
+    m = torch.arange(cols, device=dev)[None, :] < cnt[:, None]
+    z = torch.randn(R, cols, device=dev, generator=g) * m
+    e = torch.randn(R, cols, device=dev, generator=g) * 0.3 * m
+    if shape == (768,):
+        assert not cnt.view(n, -1)[ni - 1].any()   # an all-pad slice
+    rk = onebit.abs_rowsum(z, e, cnt)
+    rp = onebit.abs_rowsum_plain(z, e, cnt)
+    torch.testing.assert_close(rk, rp, rtol=1.5e-5, atol=0)
+    assert (rk[cnt == 0] == 0).all()
+    s = (rp.view(n, -1).sum(1) / torch.as_tensor(
+        np.maximum(C.slice_true_counts(lo)[0][j], 1.0), dtype=torch.float32,
+        device=dev)).repeat_interleave(R // n).contiguous()
+    pk, ek = onebit.ef_quantize(z, e, s, cnt)
+    pp, ep = onebit.ef_quantize_plain(z, e, s, cnt)
+    assert torch.equal(pk, pp) and torch.equal(ek, ep)
+    assert torch.equal(onebit.decompress(pk, s),
+                       onebit.decompress_plain(pk, s))
+    if len(lo.view_shape) == 3:
+        pk, sk, ek = onebit.ef_compress(z, e, cnt)
+        pp, sp, _ = onebit.ef_compress_plain(z, e, cnt)
+        assert torch.equal(pk, pp)
+        assert _ulps(sk, sp) <= 64
+        assert torch.equal(ek, onebit.ef_quantize_plain(z, e, sk, cnt)[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["tensor", "chunk", "row"])
+@pytest.mark.parametrize("shape,spec,n,ni", SLICE_CASES)
+def test_cuda_hier_exchange_matches_cpu(shape, spec, n, ni, mode):
+    """The two-level exchange (SimComm split into pods of n_inner) on the
+    card against the same on the CPU, two rounds, the second from the
+    CPU's round-one EF state on both: worker-side slice compress through
+    the kernels, server compress, both inter-pod decodes; one launch per
+    phase for the whole stack."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    dev = torch.device("cuda")
+    lo = C.make_layout(shape, spec, n, n_inner=ni)
+    cfg = AR.OneBitConfig(scale_mode=mode, hierarchy=Hierarchy(ni))
+    mask = C.pad_mask(lo)
+    mask = 1.0 if mask is None else mask
+    g = torch.Generator().manual_seed(6)
+    efs = {d: AR.init_ef_state(lo, n, d) for d in ("cpu", "cuda")}
+    for _ in range(2):
+        z = torch.randn((n,) + lo.view_shape, generator=g) * mask
+        build.launch_counts.clear()
+        got, efs["cuda"] = AR.onebit_allreduce_view(
+            SimComm(n), z.to(dev), efs["cuda"], lo, cfg)
+        kernels = dict(build.launch_counts)
+        want, efs["cpu"] = AR.onebit_allreduce_view(
+            SimComm(n), z, efs["cpu"], lo, cfg)
+        got = got.cpu()
+        torch.testing.assert_close(got, want, rtol=2 ** -7, atol=1e-6)
+        assert float((got == want).double().mean()) >= 0.99
+        assert (got == got[:1]).all()
+        for a, b in zip(efs["cuda"], efs["cpu"]):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-6)
+        single = mode == "row" and len(lo.view_shape) == 3
+        flat_row = mode == "row" and len(lo.view_shape) == 2
+        assert kernels.get("ef_compress", 0) == int(single)
+        assert kernels["abs_rowsum"] == 2 - single - flat_row
+        assert kernels["decompress"] == 2 - flat_row
+        efs["cpu"] = AR.EFState(*(t.clone() for t in efs["cpu"]))
+        efs["cuda"] = AR.EFState(*(t.to(dev) for t in efs["cpu"]))
