@@ -13,10 +13,12 @@ each, and on four phase 6c runs its 2 pods x 2 ranks over NCCL.
    the same function, that call's time (a kernel's "ms" is one wrapper
    call per event pair, host overhead included; its "batched_ms" 20
    calls back to back, which reads the device's time on the large
-   frames): the four kernels of the gpt2 path
-   on the frames one step of gpt2 FULL with 4 simulated workers gives them
-   (all 19 leaves, worker and server frames); ef_compress on the six 3-D
-   frames of BERT-Base FULL (plus a frame with pad rows, checked only),
+   frames): the four kernels of the gpt2 path on the frames one step of
+   gpt2 FULL with 4 simulated workers gives them (all 19 leaves, worker
+   and server frames; abs_rowsum with the scale of each stacked worker,
+   which must be the same bits from that worker's rows alone, and
+   ef_quantize against those scales); ef_compress on the six 3-D frames
+   of BERT-Base FULL (plus a frame with pad rows, checked only),
    fused_local_step_sgd on all 20 BERT-Base frames and decompress (both
    decodes of a sync) on the same 20 frames; then (3c) the frames of the
    two-level exchange at 2 pods x 2 workers, stacked workers owning
@@ -57,9 +59,10 @@ each, and on four phase 6c runs its 2 pods x 2 ranks over NCCL.
       on a machine with four cards, else four ranks on this card over
       gloo with micro-batches 2; each rank's exchange split into its
       intra-pod and inter-pod parts.
-   Each rank's losses and params are held to its simulated worker's by
-   phase 5's bars (bitwise equality is printed, not required) and its
-   launch counts must equal that worker's. Every step is timed as phase
+   Each rank's losses and params must be bit for bit its simulated
+   worker's in 6a and, on one card, 6c; elsewhere they are held to phase
+   5's bars, and bitwise equality is printed with the first step and
+   leaf that differ. Each rank's launch counts must equal that worker's. Every step is timed as phase
    4's are (``launch.train``), and each rank's exchange collectives by
    CUDA events around them (``DistComm.exchange_ms``).
 7. Prints the kernels line, the card line and the result line.
@@ -276,11 +279,15 @@ def check_kernels(dev, tally):
 
 def check_compress_frames(dev, gen, tally, names, lo, cols, frames):
     """The two-pass compress of one sync's frames of leaf ``lo``, each
-    kernel against its plain version, tallied under ``names[kernel]``:
-    abs_rowsum, then ef_quantize against tensor-mode scales of each of
-    the N_WORKERS stacked workers (its row sums over ``denom[w]``), and
+    kernel against its plain version, tallied under ``names[kernel]``
+    (``names`` None: checked only): abs_rowsum with its scale groups (G
+    groups of equal consecutive rows, group g's row sums over
+    ``denoms[g]``), then ef_quantize against those compact scales, and
     where ``decode`` is set both decodes of a sync on that frame's shape.
-    ``frames``: (rows, row counts, denom per worker, decode)."""
+    Each stacked worker's scales (its G / N_WORKERS groups) must also be
+    the same bits from its own rows alone as from the stack (what makes a
+    rank of the multi-process regime bitwise its simulated worker).
+    ``frames``: (rows, row counts, denoms, decode)."""
     from repro_torch.kernels import onebit as OB
 
     for frame_rows, cnt_np, denom, decode in frames:
@@ -289,31 +296,47 @@ def check_compress_frames(dev, gen, tally, names, lo, cols, frames):
         z = torch.randn(frame_rows, cols, device=dev, generator=gen) * fmask
         e = torch.randn(frame_rows, cols, device=dev,
                         generator=gen) * 0.3 * fmask
-        rk = OB.abs_rowsum(z, e, counts)
-        rp = OB.abs_rowsum_plain(z, e, counts)
+        d = torch.as_tensor(denom, dtype=torch.float32, device=dev)
+        groups = d.numel()
+        gr, gw = frame_rows // groups, groups // N_WORKERS
+        rk, sk = OB.abs_rowsum_scales(z, e, counts, gr, d)
+        rp, sp = OB.abs_rowsum_scales_plain(z, e, counts, gr, d)
         torch.cuda.synchronize()
-        assert ulps(rk, rp) <= ROWSUM_ULPS, (lo.shape, "abs_rowsum")
-        true_elems = float(counts.sum())
-        tally.add(names["abs_rowsum"], lambda: OB.abs_rowsum(z, e, counts),
-                  lambda: OB.abs_rowsum_plain(z, e, counts),
-                  8.0 * true_elems + 8.0 * frame_rows, 3.0 * true_elems,
-                  float((rk - rp).abs().max()),
-                  library=lambda: (z + e).abs().sum(1))
-        s = (rp.view(N_WORKERS, -1).sum(1)
-             / torch.as_tensor(denom, dtype=torch.float32, device=dev)
-             ).repeat_interleave(frame_rows // N_WORKERS).contiguous()
-        pk, ek = OB.ef_quantize(z, e, s, counts)
-        pp, ep = OB.ef_quantize_plain(z, e, s, counts)
+        assert ulps(rk, rp) <= ROWSUM_ULPS, (lo.shape, "abs_rowsum rows")
+        assert ulps(sk, sp) <= ROWSUM_ULPS, (lo.shape, "abs_rowsum scales")
+        for w in range(N_WORKERS):
+            own = slice(w * gw * gr, (w + 1) * gw * gr)
+            _, sw = OB.abs_rowsum_scales(z[own].clone(), e[own].clone(),
+                                         counts[own].clone(), gr,
+                                         d[w * gw:(w + 1) * gw].clone())
+            assert torch.equal(sw, sk[w * gw:(w + 1) * gw]), (
+                lo.shape, frame_rows, w, "a worker's scale depends on the "
+                "stack")
+        pk, ek = OB.ef_quantize(z, e, sk, counts, gr)
+        pp, ep = OB.ef_quantize_plain(z, e, sk, counts, gr)
         torch.cuda.synchronize()
         assert torch.equal(pk, pp), (lo.shape, "packed bytes differ")
         assert torch.equal(ek, ep), (lo.shape, "err_out differs")
+        if names is None:
+            del z, e, rk, rp, sk, sp, pk, pp, ek, ep
+            continue
+        true_elems = float(counts.sum())
+        tally.add(names["abs_rowsum"],
+                  lambda: OB.abs_rowsum_scales(z, e, counts, gr, d),
+                  lambda: OB.abs_rowsum_scales_plain(z, e, counts, gr, d),
+                  8.0 * true_elems + 8.0 * (frame_rows + groups),
+                  3.0 * true_elems,
+                  max(float((rk - rp).abs().max()),
+                      float((sk - sp).abs().max())),
+                  library=lambda: (z + e).abs().sum(1))
         n = frame_rows * cols
         tally.add(names["ef_quantize"],
-                  lambda: OB.ef_quantize(z, e, s, counts),
-                  lambda: OB.ef_quantize_plain(z, e, s, counts),
-                  12.125 * n + 8.0 * frame_rows, 3.0 * n, 0.0)
+                  lambda: OB.ef_quantize(z, e, sk, counts, gr),
+                  lambda: OB.ef_quantize_plain(z, e, sk, counts, gr),
+                  12.125 * n + 4.0 * (frame_rows + groups), 3.0 * n, 0.0)
         if decode:
             # the all_to_all receive and the gathered results
+            s = sk.repeat_interleave(gr)
             dk = OB.decompress(pk, s)
             dp = OB.decompress_plain(pk, s)
             torch.cuda.synchronize()
@@ -321,8 +344,35 @@ def check_compress_frames(dev, gen, tally, names, lo, cols, frames):
             tally.add(names["decompress"], lambda: OB.decompress(pk, s),
                       lambda: OB.decompress_plain(pk, s),
                       4.125 * n + 4.0 * frame_rows, 1.0 * n, 0.0, times=2)
-            del dk, dp
-        del z, e, rk, rp, pk, pp, ek, ep
+            del dk, dp, s
+        del z, e, rk, rp, sk, sp, pk, pp, ek, ep
+
+
+def row_scale_frames(lo, dev):
+    """(rows, row counts, group denominators, decode False) of the
+    two-pass frames of leaf ``lo`` in a row-scale sync of N_WORKERS
+    stacked workers (run bert_row), as kernels/dispatch.py builds them:
+    the worker side wherever the single pass does not take the view (chunk
+    scales on a 2-D view, one group per (chunk, chunk row) on a 4-D one),
+    and the server chunks of views of 3 or more dims (row groups; a 2-D
+    view's server side is per element, plain torch)."""
+    from repro_torch.core import compressor as C
+    from repro_torch.kernels import dispatch as K
+
+    rows, _ = C.view_rows_cols(lo)
+    vs, rf, d = lo.view_shape, lo.rest_factor, str(dev)
+    out = []
+    if not (len(vs) == 3 and rf == 1):
+        cnts, *denoms = K._worker_counts(lo, N_WORKERS, None, d)
+        g, _ = K._scale_groups(vs, "chunk" if len(vs) == 2 else "row", rf,
+                               denoms, N_WORKERS, d)
+        out.append((N_WORKERS * rows, cnts, g, False))
+    if len(vs) >= 3:
+        cnts, _ = K._server_counts(lo, tuple(range(N_WORKERS)), d)
+        g, _ = K._scale_groups((1,) + tuple(lo.chunk_shape), "row", rf, None,
+                               N_WORKERS, d)
+        out.append((N_WORKERS * (rows // lo.n), cnts, g, False))
+    return out
 
 
 def check_ef_compress_frame(z, e, cnt):
@@ -344,9 +394,10 @@ def check_ef_compress_frame(z, e, cnt):
 
 def check_bert_kernels(dev, tally):
     """Phase 3b: ef_compress at the 3-D frames of BERT-Base FULL (where
-    row scales take the single pass) plus a frame with pad rows, and
-    fused_local_step_sgd and decompress at all 20 BERT-Base frames, 4
-    workers stacked."""
+    row scales take the single pass) plus a frame with pad rows,
+    fused_local_step_sgd and decompress at all 20 BERT-Base frames, and
+    abs_rowsum and ef_quantize at the row-scale run's two-pass worker and
+    server frames (:func:`row_scale_frames`), 4 workers stacked."""
     from repro_torch.core import compressor as C
     from repro_torch.kernels import fused_adam as FA
     from repro_torch.kernels import onebit as OB
@@ -401,6 +452,10 @@ def check_bert_kernels(dev, tally):
                   lambda: OB.decompress_plain(pk, s),
                   4.125 * n + 4.0 * R, 1.0 * n, 0.0, times=2)
         del pk, s, dk
+
+        # --- the two-pass frames of the row-scale run (checked only) ----
+        check_compress_frames(dev, gen, None, None, lo, cols,
+                              row_scale_frames(lo, dev))
 
         # --- single-pass worker compress (once per 3-D leaf per sync) --
         if len(lo.view_shape) == 3:
@@ -503,8 +558,8 @@ def run_main_path(dev, label, arch, extra, batch, seq, kind):
     from repro_torch.launch import train as launch
 
     args = launch.parse_args([
-        "--arch", arch, "--workers", str(N_WORKERS), "--steps",
-        str(STEPS), "--batch", str(batch), "--seq", str(seq),
+        "--arch", arch, "--mode", "sim", "--workers", str(N_WORKERS),
+        "--steps", str(STEPS), "--batch", str(batch), "--seq", str(seq),
         "--sync-warmup", "2", "--double-every", "2", "--kappa", "1",
         "--log-every", "1"] + extra)
     tr = launch.make_trainer(args, device=dev)
@@ -593,9 +648,9 @@ def check_small_input(dev, arch, extra, kind):
     from repro_torch.train.step import Trainer
 
     args = launch.parse_args([
-        "--arch", arch, "--smoke", "--steps", "8", "--batch", "8",
-        "--seq", "32", "--sync-warmup", "2", "--double-every", "2",
-        "--kappa", "1"] + extra)
+        "--arch", arch, "--smoke", "--mode", "sim", "--workers",
+        str(N_WORKERS), "--steps", "8", "--batch", "8", "--seq", "32",
+        "--sync-warmup", "2", "--double-every", "2", "--kappa", "1"] + extra)
     cfg = get(arch).smoke
     runs = {}
     for d in (dev, torch.device("cpu")):
@@ -625,7 +680,8 @@ def check_small_input(dev, arch, extra, kind):
 
 
 def gpt2_argv(batch, extra):
-    """The CLI flags of phase 4a's gpt2 run at global batch ``batch``."""
+    """The CLI flags of phase 4a's gpt2 run at global batch ``batch``;
+    ``extra`` names the mode (the CLI's default is single)."""
     return ["--arch", "gpt2", "--steps", str(STEPS), "--batch", str(batch),
             "--seq", str(SEQ), "--sync-warmup", "2", "--double-every", "2",
             "--kappa", "1", "--log-every", str(STEPS)] + extra
@@ -718,9 +774,9 @@ def run_ranks(argv, n):
                 for r in range(n)], wall
 
 
-def dist_runs(label, transport, ref, argv, n, expect):
+def dist_runs(label, transport, ref, argv, n, expect, bitwise=False):
     """Phase 6: ``argv`` in ``n`` ranks, held to ``ref`` by
-    :func:`compare_ranks`."""
+    :func:`compare_ranks` (bit for bit where ``bitwise``)."""
     assert ref["launches"] == expect, (label, ref["launches"], expect)
     print(f"  {label} reference run: peak {ref['peak_memory_gb']:.2f} GB",
           flush=True)
@@ -733,16 +789,18 @@ def dist_runs(label, transport, ref, argv, n, expect):
     out = {"transport": transport, "ranks_wall_s": wall,
            "reference": {"peak_memory_gb": ref["peak_memory_gb"],
                          "launches": ref["launches"], "times": ref_times},
-           "ranks": compare_ranks(label, transport, ref, ranks)}
+           "ranks": compare_ranks(label, transport, ref, ranks, bitwise)}
     del ranks
     gc.collect()
     return out
 
 
-def compare_ranks(label, transport, ref, ranks):
+def compare_ranks(label, transport, ref, ranks, bitwise=False):
     """Phase 6: every rank against the worker of its index in ``ref``:
-    losses within 1e-4, params 99% within 1e-4 and all within 0.05 (phase
-    5's bars), bitwise equality reported, launch counts equal."""
+    with ``bitwise`` losses and params bit for bit, else losses within
+    1e-4, params 99% within 1e-4 and all within 0.05 (phase 5's bars),
+    bitwise equality reported with the first step whose loss and the
+    first leaf whose params differ; launch counts equal."""
     from repro_torch.core.leafwise import flatten_tree
 
     rows = []
@@ -753,15 +811,24 @@ def compare_ranks(label, transport, ref, ranks):
             (b["sync"], b["var"]) for b in ref["records"]], (label, r)
         n = n_eq = n_close = 0
         max_gap = 0.0
-        for a, b in zip(flatten_tree(res["params"])[1], ref["params"]):
+        first_leaf = None
+        paths, leaves = flatten_tree(res["params"])
+        for path, a, b in zip(paths, leaves, ref["params"]):
             d = (a[0] - b[r]).abs()
             n += d.numel()
-            n_eq += int((a[0] == b[r]).sum())
+            eq = int((a[0] == b[r]).sum())
+            if eq < d.numel() and first_leaf is None:
+                first_leaf = "/".join(str(k) for k in path)
+            n_eq += eq
             n_close += int((d <= 1e-4).sum())
             max_gap = max(max_gap, float(d.max()))
+        first_step = next((t for t, (x, y) in enumerate(zip(got, want))
+                           if x != y), None)
         row = {"rank": r, "device": res["device"],
                "backend": res["backend"],
                "losses_bitwise": got == want,
+               "first_unequal_loss_step": first_step,
+               "first_unequal_leaf": first_leaf,
                "max_loss_gap": max(abs(x - y) for x, y in zip(got, want)),
                "params_bitwise": n_eq == n, "params_equal_share": n_eq / n,
                "params_within_1e-4": n_close / n, "max_param_gap": max_gap,
@@ -773,7 +840,9 @@ def compare_ranks(label, transport, ref, ranks):
               f"{row['max_loss_gap']:.2e}); params bitwise "
               f"{row['params_bitwise']}, equal share "
               f"{row['params_equal_share']:.6f}, within 1e-4 "
-              f"{row['params_within_1e-4']:.6f}, max gap {max_gap:.2e}; "
+              f"{row['params_within_1e-4']:.6f}, max gap {max_gap:.2e}"
+              f" (first unequal: loss step {first_step}, leaf "
+              f"{first_leaf}); "
               f"peak {row['peak_memory_gb']:.2f} GB; launches "
               f"{json.dumps(res['launches'])}", flush=True)
         for kind, t in row["times"].items():
@@ -784,6 +853,9 @@ def compare_ranks(label, transport, ref, ranks):
                   f"{t['fwd_bwd_ms']:.1f}, optimizer {t['optimizer_ms']:.1f}"
                   f", exchange {t['exchange_ms']:.1f}{levels} over "
                   f"{transport})")
+        if bitwise:
+            assert row["losses_bitwise"] and row["params_bitwise"], (
+                label, r, "not bit for bit its simulated worker", row)
         assert row["max_loss_gap"] < 1e-4, (label, r, got, want)
         assert n_close / n >= 0.99 and max_gap <= 0.05, (label, r, row)
         assert res["launches"] == ref["launches"], (label, r)
@@ -817,7 +889,7 @@ def run_6a(expect):
     out = dist_runs(
         "6a", f"gloo via host memory, {N_WORKERS} ranks on one card", sim,
         flags + ["--mode", "dist", "--backend", "gloo", "--device",
-                 "cuda:0"], N_WORKERS, expect)
+                 "cuda:0"], N_WORKERS, expect, bitwise=True)
     del sim
     gc.collect()
     return out
@@ -856,7 +928,7 @@ def run_6c(expect):
                                   str(N_WORKERS), "--device", "cuda:0"])
     out = dist_runs("6c", transport, sim,
                     flags + ["--mode", "dist"] + dist_flags, N_WORKERS,
-                    expect)
+                    expect, bitwise=not four)
     del sim
     gc.collect()
     return out

@@ -41,8 +41,8 @@ _ENTRY_POINTS = {
                              [_P] * 7 + [_I64] + [_F32] * 4 + [_P]),
     "fused_local_step_sgd_f32": ("fused_adam",
                                  [_P] * 6 + [_I64] + [_F32] * 3 + [_P]),
-    "abs_rowsum_f32": ("onebit", [_P] * 4 + [_I64, _I64, _P]),
-    "ef_quantize_f32": ("onebit", [_P] * 6 + [_I64, _I64, _P]),
+    "abs_rowsum_f32": ("onebit", [_P] * 6 + [_I64] * 5 + [_P]),
+    "ef_quantize_f32": ("onebit", [_P] * 6 + [_I64] * 6 + [_P]),
     "ef_compress_f32": ("onebit", [_P] * 6 + [_I64] * 5 + [_P]),
     "decompress_f32": ("onebit", [_P] * 3 + [_I64] * 4 + [_P]),
 }
@@ -111,13 +111,29 @@ def _library(source: str) -> ctypes.CDLL:
     return _libs[source]
 
 
+def current_raw_stream(card: int) -> int:
+    """The current stream of ``card`` as a raw pointer. torch's private
+    getter skips the Stream object that torch.cuda.current_stream() builds
+    (several microseconds of host time a launch, PERF.md); where a torch
+    lacks it, the public call gives the same stream."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(card).cuda_stream
+    return raw(card)
+
+
 def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
     """Call C entry point ``entry`` on ``device``'s current stream; raise
     if the launch was refused, else count it under ``kernel``."""
-    lib = _library(_ENTRY_POINTS[entry][0])
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, entry)(*args, stream)
+    fn = getattr(_library(_ENTRY_POINTS[entry][0]), entry)
+    current = torch.cuda.current_device()
+    card = current if device.index is None else device.index
+    stream = current_raw_stream(card)
+    if card == current:          # the launch goes to the current card
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(card):
+            rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {rc} "
                            f"(cudaGetLastError)")

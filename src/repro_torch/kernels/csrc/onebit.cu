@@ -6,11 +6,16 @@
 // cols a multiple of 8. counts[r] is the number of true (unpadded)
 // elements of row r; the mask is rebuilt as `col < counts[r]`.
 //
-// abs_rowsum   replaces src/repro/kernels/onebit.py::abs_rowsum
-//              out[r] = sum_{c < counts[r]} |z + err|
+// abs_rowsum   replaces src/repro/kernels/onebit.py::abs_rowsum and the
+//              reference's combine of its row sums into scales
+//              (src/repro/kernels/dispatch.py::_combine_scales)
+//              out[r] = sum_{c < counts[r]} |z + err|; with groups,
+//              scales[g] = (sum of out over rows [g*gr, (g+1)*gr)) /
+//              denoms[g]
 // ef_quantize  replaces src/repro/kernels/onebit.py::ef_quantize
 //              packed bit (z + err >= 0), 8 per byte, element 0 in the
-//              MSB; err_out = mask * (zw - (bit ? s : -s)), s = scales[r]
+//              MSB; err_out = mask * (zw - (bit ? s : -s)),
+//              s = scales[r / gr]
 // ef_compress  replaces src/repro/kernels/onebit.py::ef_compress
 //              single pass with per-row scales: s[r] = abs_rowsum[r] /
 //              max(counts[r], 1), then ef_quantize's bits and err_out
@@ -18,22 +23,54 @@
 //              out = (bit ? s : -s), s = scales[r]
 //
 // Bound: bytes, for every kernel. abs_rowsum reads 8 bytes per true
-// element; ef_quantize reads 8 and writes 4.125 bytes per element;
-// ef_compress the same as ef_quantize plus 4 bytes of scale per row;
-// decompress reads 0.125 and writes 4 bytes per element. The arithmetic
-// is an add, a compare and a subtract per element.
+// element (and writes 4 per row and per group); ef_quantize reads 8 and
+// writes 4.125 bytes per element; ef_compress the same as ef_quantize
+// plus 4 bytes of scale per row; decompress reads 0.125 and writes 4
+// bytes per element. The arithmetic is an add, a compare and a subtract
+// per element.
 //
 // Design:
-// * abs_rowsum gives each row one block of 256 threads that loops over
-//   the row (frames reach 50,432 columns, far more than a block holds),
-//   16 bytes per thread per load, stopping at counts[r]: a pad row
-//   (counts[r] == 0) reads nothing and writes 0. The block reduces with
-//   warp shuffles and one shared-memory pass.
-// * ef_quantize gives each thread one packed byte, i.e. 8 consecutive
-//   elements of one row: two float4 loads per operand, one byte and two
-//   float4 stores. The bit order is written out per element (bit 7 - k
-//   for element k), so no ballot and no bit reversal is needed. A
-//   grid-stride loop covers the frame.
+// * abs_rowsum gives each row 1, 2, 4 or 8 warps, a number chosen from
+//   the row's width alone (kernels/onebit.py::abs_rowsum_geometry: one
+//   warp up to 8,192 columns, eight at gpt2's 50,432), so several rows
+//   share a 256-thread block. Warp k of a row owns float4 columns
+//   [k * slice4, (k + 1) * slice4); lane l reads float4 j*32 + l of the
+//   slice (every warp load is 512 contiguous bytes), four of each operand
+//   in flight, and stops at counts[r]: a pad row reads nothing and its
+//   sum is 0. Summation order of a row, fixed by the width alone: each
+//   lane adds its elements in column order (x, y, z, w of float4 l, then
+//   l + 32, ...), the lanes fold by __shfl_down (16, 8, 4, 2, 1), and the
+//   row's warps' sums are added in rank order. A row's sum is therefore
+//   the same bits in any frame, stacked or alone.
+//   With groups (gr consecutive rows each) the row sums become scales
+//   in the same call. A group of at most 8 / wpr rows lies in one block
+//   (a block then takes 8 / wpr / gr whole groups), which adds its row
+//   sums in order and divides by denoms[g]: one launch. A larger group
+//   is added up by a second kernel from the same entry point: one warp
+//   per group up to 256 rows, else a 1,024-thread block; thread t adds
+//   rows t, t + T, ... of its group in order (T its threads), then the
+//   shuffle fold, then the warps' sums folded again by warp 0, and one
+//   IEEE divide. Each of these orders depends on the group's row count
+//   and the row width alone, never on the number of groups or the
+//   frame, so a worker's scale from a stack of workers' frames is the
+//   same bits as from its own frame: this is what makes a process-per-
+//   worker rank bitwise its simulated worker. (On an H100 this measured
+//   faster than one launch whose last block per group, found by an
+//   atomic ticket, adds up the group: PERF.md.)
+// * ef_quantize walks the frame as one flat run of float4s (cols % 8 == 0,
+//   so a float4 never crosses a row and a packed byte is two neighbouring
+//   float4s). A warp takes a chunk of 256 float4s (1,024 elements, 128
+//   packed bytes), lane l float4 k*32 + l of it (k = 0..7), all 16 loads
+//   of z and err in flight before any arithmetic: every warp load and
+//   every err_out store (__stcs) is one contiguous 512-byte run. Each
+//   float4 gives a nibble; lane pairs join two nibbles into a byte with
+//   one __shfl_xor, and the even lanes store 16 contiguous bytes. The row
+//   of a float4 and the group of a row are 32-bit multiply-shifts by
+//   reciprocals from the host (kernels/onebit.py::ef_quantize_divisors,
+//   exact below 2^31 float4s, which the wrapper enforces): no divide.
+//   One warp per chunk and plain loads: on an H100 they beat grid-stride
+//   loops of 4-16 blocks per SM and streaming (__ldcs) loads at every
+//   gpt2 frame that was not host-bound (PERF.md).
 // * decompress is 97% stores (4 of its 4.125 bytes per element), so its
 //   design is about the stores. The frame is decoded as one flat run of
 //   packed bytes: a warp takes a chunk of 128 bytes (1,024 outputs), each
@@ -72,8 +109,8 @@
 //   rank order. The plain version sums in torch's order, so the scales
 //   agree to a few ulp, not bit for bit.
 // * Compiled with -fmad=false; the arithmetic is a single add or subtract
-//   per element and one IEEE divide per row, so kernel and plain version
-//   round identically given the same row sum.
+//   per element and one IEEE divide per row or group, so kernel and plain
+//   version round identically given the same sum.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,21 +120,23 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int64_t kMaxBlocks = 132 * 8;
 constexpr int kMaxRowsGrid = 65535;     // gridDim.y limit
 // ef_compress: float4 loads of each operand in flight per thread
 constexpr int kUnroll = 4;
 // decompress: packed bytes one warp decodes at a time (1,024 outputs)
 constexpr uint32_t kChunk = 128;
+constexpr int kWarps = kThreads / 32;
+// abs_rowsum: loads of each operand in flight
+constexpr int kRowUnroll = 4;
+// group scales over several abs_rowsum blocks: a warp per group up to
+// this many rows, else 1,024 threads
+constexpr int64_t kGroupWarpRows = 256;
+// ef_quantize: float4s per lane of a warp's chunk, and the chunk
+constexpr int kQuantUnroll = 8;
+constexpr uint32_t kQuantChunk = 32 * kQuantUnroll;
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-}
-
-int blocks_for(int64_t work) {
-  int64_t b = (work + kThreads - 1) / kThreads;
-  if (b > kMaxBlocks) b = kMaxBlocks;
-  return (int)(b < 1 ? 1 : b);
 }
 
 // Sum of acc over the block: warp shuffles, then the warps' sums the same
@@ -119,113 +158,12 @@ __device__ float block_sum(float acc, float* warp_sums) {
   return acc;
 }
 
-// Masked L1 sum of one row, reduced over the block; the total is valid
-// in thread 0 only.
-__device__ float row_abs_sum(const float* __restrict__ zr,
-                             const float* __restrict__ er, int64_t cnt,
-                             bool vec) {
-  float acc = 0.f;
-  int64_t start = 0;
-  if (vec) {
-    const int64_t n4 = cnt / 4;
-    const float4* z4 = reinterpret_cast<const float4*>(zr);
-    const float4* e4 = reinterpret_cast<const float4*>(er);
-    for (int64_t i = threadIdx.x; i < n4; i += blockDim.x) {
-      const float4 a = z4[i], b = e4[i];
-      acc = __fadd_rn(acc, fabsf(__fadd_rn(a.x, b.x)));
-      acc = __fadd_rn(acc, fabsf(__fadd_rn(a.y, b.y)));
-      acc = __fadd_rn(acc, fabsf(__fadd_rn(a.z, b.z)));
-      acc = __fadd_rn(acc, fabsf(__fadd_rn(a.w, b.w)));
-    }
-    start = n4 * 4;
-  }
-  for (int64_t c = start + threadIdx.x; c < cnt; c += blockDim.x) {
-    acc = __fadd_rn(acc, fabsf(__fadd_rn(zr[c], er[c])));
-  }
-  __shared__ float warp_sums[kThreads / 32];
-  return block_sum(acc, warp_sums);
-}
-
 __device__ __forceinline__ int64_t row_count(const int* counts, int64_t r,
                                              int64_t cols) {
   int64_t cnt = counts[r];
   if (cnt < 0) cnt = 0;
   if (cnt > cols) cnt = cols;
   return cnt;
-}
-
-__global__ void abs_rowsum_kernel(const float* __restrict__ z,
-                                  const float* __restrict__ err,
-                                  const int* __restrict__ counts,
-                                  float* __restrict__ out, int64_t cols,
-                                  bool vec) {
-  const int64_t r = blockIdx.x;
-  const float acc = row_abs_sum(z + r * cols, err + r * cols,
-                                row_count(counts, r, cols), vec);
-  if (threadIdx.x == 0) out[r] = acc;
-}
-
-__device__ __forceinline__ void load8(const float* p, bool vec, float* v) {
-  if (vec) {
-    const float4 a = reinterpret_cast<const float4*>(p)[0];
-    const float4 b = reinterpret_cast<const float4*>(p)[1];
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-  } else {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) v[k] = p[k];
-  }
-}
-
-__device__ __forceinline__ void store8(float* p, bool vec, const float* v) {
-  if (vec) {
-    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-  } else {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) p[k] = v[k];
-  }
-}
-
-// Signs and error feedback of the 8 elements [c0, c0 + 8) of one row.
-__device__ __forceinline__ void quantize8(const float* __restrict__ zp,
-                                          const float* __restrict__ ep,
-                                          float s, int64_t c0, int64_t cnt,
-                                          bool vec, uint8_t* __restrict__ pb,
-                                          float* __restrict__ op) {
-  float zv[8], ev[8], eo[8];
-  load8(zp, vec, zv);
-  load8(ep, vec, ev);
-  unsigned byte = 0;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const float zw = __fadd_rn(zv[k], ev[k]);
-    const bool bit = zw >= 0.f;
-    byte |= (unsigned)bit << (7 - k);
-    eo[k] = (c0 + k < cnt) ? __fsub_rn(zw, bit ? s : -s) : 0.f;
-  }
-  *pb = (uint8_t)byte;
-  store8(op, vec, eo);
-}
-
-__global__ void ef_quantize_kernel(const float* __restrict__ z,
-                                   const float* __restrict__ err,
-                                   const float* __restrict__ scales,
-                                   const int* __restrict__ counts,
-                                   uint8_t* __restrict__ packed,
-                                   float* __restrict__ err_out,
-                                   int64_t rows, int64_t cols, bool vec) {
-  const int64_t cb = cols / 8;
-  const int64_t nbytes = rows * cb;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       i < nbytes; i += stride) {
-    const int64_t r = i / cb;
-    const int64_t c0 = (i - r * cb) * 8;
-    const int64_t off = r * cols + c0;
-    quantize8(z + off, err + off, scales[r], c0, counts[r], vec, packed + i,
-              err_out + off);
-  }
 }
 
 template <bool VEC>
@@ -273,6 +211,185 @@ __device__ __forceinline__ unsigned quantize4(float4 zw, float s, int c,
                     ef1(zw.z, s, c + 2 < cnt), ef1(zw.w, s, c + 3 < cnt));
   return ((unsigned)(zw.x >= 0.f) << 3) | ((unsigned)(zw.y >= 0.f) << 2) |
          ((unsigned)(zw.z >= 0.f) << 1) | (unsigned)(zw.w >= 0.f);
+}
+
+// Four elements [c, c + n) of a row, n >= 1, the rest read as 0 (they lie
+// at or past counts[r] and are masked anyway): the whole float4 when
+// vectorized (cols % 4 == 0), else only the elements inside the row.
+template <bool VEC>
+__device__ __forceinline__ float4 load4_upto(const float* p, int n) {
+  if (VEC) return *reinterpret_cast<const float4*>(p);
+  return make_float4(p[0], n > 1 ? p[1] : 0.f, n > 2 ? p[2] : 0.f,
+                     n > 3 ? p[3] : 0.f);
+}
+
+// Pass 1. A block holds gpb groups of gr rows (gpb * gr <= 8 / wpr),
+// each row wpr warps (warp k of a row sums float4 columns [k * slice4,
+// (k + 1) * slice4)); with scales, the block adds each of its groups' row
+// sums in order and writes the group's scale. (Groups of more rows than a
+// block holds come here as single rows, gr = 1, without scales; the
+// second kernel below adds them up.)
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+abs_rowsum_kernel(const float* __restrict__ z,
+                  const float* __restrict__ err,
+                  const int* __restrict__ counts, float* __restrict__ out,
+                  const float* __restrict__ denoms,
+                  float* __restrict__ scales, int64_t rows, int cols,
+                  int wpr, int slice4, int gr, int gpb) {
+  __shared__ float parts[kWarps];      // each warp's sum
+  __shared__ float row_sums[kWarps];   // each row's sum
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int i = w / wpr, part = w % wpr;   // row of the block, its warp
+  const int64_t r0 = (int64_t)blockIdx.x * gpb * gr;
+  const int nrows = (int)min((int64_t)gpb * gr, rows - r0);
+  const int64_t r = r0 + i;
+  float acc = 0.f;
+  if (i < nrows) {
+    const int cnt = (int)row_count(counts, r, cols);
+    const int lo = part * slice4;
+    const int hi = min((cnt + 3) / 4, lo + slice4);   // float4s to read
+    const float* zr = z + r * cols;
+    const float* er = err + r * cols;
+    for (int j0 = lo; j0 < hi; j0 += 32 * kRowUnroll) {
+      float4 a[kRowUnroll], b[kRowUnroll];
+#pragma unroll
+      for (int u = 0; u < kRowUnroll; ++u) {
+        const int j = j0 + u * 32 + lane;
+        if (j < hi) {
+          a[u] = load4_upto<VEC>(zr + 4 * j, cnt - 4 * j);
+          b[u] = load4_upto<VEC>(er + 4 * j, cnt - 4 * j);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kRowUnroll; ++u) {
+        const int j = j0 + u * 32 + lane;
+        if (j < hi) acc = add_abs4(acc, add4(a[u], b[u]), 4 * j, cnt);
+      }
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    acc = __fadd_rn(acc, __shfl_down_sync(0xffffffffu, acc, off));
+  }
+  if (wpr > 1) {                          // the same in every thread
+    if (lane == 0) parts[w] = acc;
+    __syncthreads();
+    if (part == 0 && lane == 0) {
+      for (int q = 1; q < wpr; ++q) acc = __fadd_rn(acc, parts[w + q]);
+    }
+  }
+  if (part == 0 && lane == 0 && i < nrows) {
+    out[r] = acc;
+    row_sums[i] = acc;
+  }
+  if (scales == nullptr) return;          // the same in every thread
+  __syncthreads();
+  if ((int)threadIdx.x < nrows / gr) {    // thread t: the block's group t
+    const int j0 = (int)threadIdx.x * gr;
+    float sum = row_sums[j0];
+    for (int j = 1; j < gr; ++j) sum = __fadd_rn(sum, row_sums[j0 + j]);
+    const int64_t g = (int64_t)blockIdx.x * gpb + threadIdx.x;
+    scales[g] = __fdiv_rn(sum, denoms[g]);
+  }
+}
+
+// scales[g] = (sum of rowsum over the gr rows of group g) / denoms[g], for
+// groups of more rows than one abs_rowsum block holds. T threads per
+// group (32: eight groups a block; 1024: one), chosen from gr alone;
+// thread t adds rows t, t + T, ... of its group in order.
+template <int T>
+__global__ void __launch_bounds__(T == 32 ? kThreads : 1024)
+group_scales_kernel(const float* __restrict__ rowsum,
+                    const float* __restrict__ denoms,
+                    float* __restrict__ scales, int64_t groups, int64_t gr) {
+  __shared__ float warp_sums[32];
+  const int lane = threadIdx.x & 31;
+  const int64_t g = T == 32 ? (int64_t)blockIdx.x * (kThreads / 32) +
+                                  (threadIdx.x >> 5)
+                            : (int64_t)blockIdx.x;
+  const int t = T == 32 ? lane : (int)threadIdx.x;
+  float acc = 0.f;
+  if (g < groups) {
+    const float* rs = rowsum + g * gr;
+    for (int64_t i0 = t; i0 < gr; i0 += (int64_t)T * kRowUnroll) {
+      float v[kRowUnroll];
+#pragma unroll
+      for (int u = 0; u < kRowUnroll; ++u) {
+        const int64_t i = i0 + (int64_t)u * T;
+        v[u] = i < gr ? rs[i] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kRowUnroll; ++u) {
+        if (i0 + (int64_t)u * T < gr) acc = __fadd_rn(acc, v[u]);
+      }
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    acc = __fadd_rn(acc, __shfl_down_sync(0xffffffffu, acc, off));
+  }
+  if (T > 32) {
+    if (lane == 0) warp_sums[threadIdx.x >> 5] = acc;
+    __syncthreads();
+    if (threadIdx.x >= 32) return;
+    acc = warp_sums[lane];
+    for (int off = 16; off > 0; off >>= 1) {
+      acc = __fadd_rn(acc, __shfl_down_sync(0xffffffffu, acc, off));
+    }
+  }
+  if (lane == 0 && g < groups) scales[g] = __fdiv_rn(acc, denoms[g]);
+}
+
+__device__ __forceinline__ uint32_t mulshift(uint32_t b, uint32_t mul,
+                                             uint32_t shift) {
+  return (uint32_t)(((uint64_t)b * mul) >> shift);
+}
+
+// Chunks of kQuantChunk float4s, one warp each. Row of float4 f:
+// mulshift(f, row_mul, row_shift) == f / c4; group of row r:
+// mulshift(r, grp_mul, grp_shift) == r / gr.
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+ef_quantize_kernel(const float* __restrict__ z,
+                   const float* __restrict__ err,
+                   const float* __restrict__ scales,
+                   const int* __restrict__ counts,
+                   uint8_t* __restrict__ packed,
+                   float* __restrict__ err_out, uint32_t n4, uint32_t c4,
+                   uint32_t row_mul, uint32_t row_shift, uint32_t grp_mul,
+                   uint32_t grp_shift) {
+  const uint32_t lane = threadIdx.x & 31;
+  const uint32_t ch = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  // whole warps leave or stay: the shuffles below need all 32 lanes
+  if (ch < (n4 + kQuantChunk - 1) / kQuantChunk) {
+    const uint32_t base = ch * kQuantChunk;
+    float4 a[kQuantUnroll], b[kQuantUnroll];
+#pragma unroll
+    for (int k = 0; k < kQuantUnroll; ++k) {
+      const uint32_t f = base + 32 * k + lane;
+      if (f < n4) {
+        a[k] = load4<VEC>(z + 4 * (size_t)f);
+        b[k] = load4<VEC>(err + 4 * (size_t)f);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kQuantUnroll; ++k) {
+      // n4 is even and base + 32k too: lanes 2i and 2i+1 hold the two
+      // halves of one packed byte, or neither
+      const uint32_t f = base + 32 * k + lane;
+      unsigned nib = 0;
+      if (f < n4) {
+        const uint32_t r = mulshift(f, row_mul, row_shift);
+        const int c = (int)(4 * (f - r * c4));
+        const int cnt = (int)row_count(counts, r, 4 * (int64_t)c4);
+        const float s = scales[mulshift(r, grp_mul, grp_shift)];
+        float4 eo;
+        nib = quantize4(add4(a[k], b[k]), s, c, cnt, &eo);
+        store4<VEC>(err_out + 4 * (size_t)f, eo);
+      }
+      const unsigned low = __shfl_xor_sync(0xffffffffu, nib, 1);
+      if (f < n4 && !(lane & 1)) packed[f >> 1] = (uint8_t)((nib << 4) | low);
+    }
+  }
 }
 
 // One cluster of gridDim.x blocks per row (grid-strided over rows along
@@ -407,31 +524,85 @@ decompress_kernel(const uint8_t* __restrict__ packed,
 
 // Each entry point returns cudaGetLastError() after its launch (0 = ok).
 
+// wpr and slice4 come from kernels/onebit.py::abs_rowsum_geometry; with
+// gr > 0 the scales of rows / gr groups of gr rows follow (denoms and
+// scales hold one per group): from the same kernel where a group fits in
+// a block, else from a second kernel on the same stream.
 extern "C" int abs_rowsum_f32(const void* z, const void* err,
-                              const void* counts, void* out, long long rows,
-                              long long cols, void* stream) {
-  if (rows <= 0) return 0;
-  const bool vec = cols % 4 == 0 && aligned16(z) && aligned16(err);
-  abs_rowsum_kernel<<<(unsigned)rows, kThreads, 0,
-                      reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(z), static_cast<const float*>(err),
-      static_cast<const int*>(counts), static_cast<float*>(out), cols, vec);
+                              const void* counts, void* out,
+                              const void* denoms, void* scales,
+                              long long rows, long long cols, long long wpr,
+                              long long slice4, long long gr,
+                              void* stream) {
+  if (rows <= 0 || cols <= 0) return 0;
+  if (cols >= (1LL << 30) || !(wpr == 1 || wpr == 2 || wpr == 4 ||
+                               wpr == 8) ||
+      slice4 <= 0 || wpr * slice4 < (cols + 3) / 4 || gr < 0 ||
+      (gr > 0 && (rows % gr || denoms == nullptr || scales == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int64_t rpb = kWarps / wpr;
+  const bool in_block = gr > 0 && gr <= rpb;
+  const int64_t g1 = in_block ? gr : 1;
+  const int64_t gpb = rpb / g1;
+  const unsigned blocks = (unsigned)((rows + gpb * g1 - 1) / (gpb * g1));
+  const float* zp = static_cast<const float*>(z);
+  const float* ep = static_cast<const float*>(err);
+  const int* cp = static_cast<const int*>(counts);
+  float* op = static_cast<float*>(out);
+  const float* dp = static_cast<const float*>(denoms);
+  float* sp = static_cast<float*>(scales);
+  auto kernel = cols % 4 == 0 && aligned16(z) && aligned16(err)
+                    ? abs_rowsum_kernel<true>
+                    : abs_rowsum_kernel<false>;
+  kernel<<<blocks, kThreads, 0, st>>>(zp, ep, cp, op, dp,
+                                      in_block ? sp : nullptr, rows,
+                                      (int)cols, (int)wpr, (int)slice4,
+                                      (int)g1, (int)gpb);
+  if (gr > 0 && !in_block) {
+    const cudaError_t rc = cudaGetLastError();
+    if (rc != cudaSuccess) return (int)rc;
+    const int64_t groups = rows / gr;
+    if (gr <= kGroupWarpRows) {
+      group_scales_kernel<32><<<(unsigned)((groups + kWarps - 1) / kWarps),
+                                kThreads, 0, st>>>(op, dp, sp, groups, gr);
+    } else {
+      group_scales_kernel<1024><<<(unsigned)groups, 1024, 0, st>>>(
+          op, dp, sp, groups, gr);
+    }
+  }
   return (int)cudaGetLastError();
 }
 
+// The divisors come from kernels/onebit.py::ef_quantize_divisors; one
+// warp per chunk of kQuantChunk float4s.
 extern "C" int ef_quantize_f32(const void* z, const void* err,
                                const void* scales, const void* counts,
                                void* packed, void* err_out, long long rows,
-                               long long cols, void* stream) {
+                               long long cols, long long row_mul,
+                               long long row_shift, long long grp_mul,
+                               long long grp_shift, void* stream) {
   if (rows <= 0 || cols <= 0) return 0;
-  if (cols % 8) return (int)cudaErrorInvalidValue;
-  const bool vec = aligned16(z) && aligned16(err) && aligned16(err_out);
-  ef_quantize_kernel<<<blocks_for(rows * (cols / 8)), kThreads, 0,
-                       reinterpret_cast<cudaStream_t>(stream)>>>(
+  const long long n4 = rows * (cols / 4);
+  if (cols % 8 || n4 >= (1LL << 31) || row_mul <= 0 ||
+      row_mul >= (1LL << 32) || row_shift < 0 || row_shift > 62 ||
+      grp_mul <= 0 || grp_mul >= (1LL << 32) || grp_shift < 0 ||
+      grp_shift > 62) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long chunks = (n4 + kQuantChunk - 1) / kQuantChunk;
+  const unsigned grid = (unsigned)((chunks + kWarps - 1) / kWarps);
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  auto kernel = aligned16(z) && aligned16(err) && aligned16(err_out)
+                    ? ef_quantize_kernel<true>
+                    : ef_quantize_kernel<false>;
+  kernel<<<grid, kThreads, 0, st>>>(
       static_cast<const float*>(z), static_cast<const float*>(err),
       static_cast<const float*>(scales), static_cast<const int*>(counts),
-      static_cast<uint8_t*>(packed), static_cast<float*>(err_out), rows,
-      cols, vec);
+      static_cast<uint8_t*>(packed), static_cast<float*>(err_out),
+      (uint32_t)n4, (uint32_t)(cols / 4), (uint32_t)row_mul,
+      (uint32_t)row_shift, (uint32_t)grp_mul, (uint32_t)grp_shift);
   return (int)cudaGetLastError();
 }
 
@@ -492,7 +663,7 @@ extern "C" int ef_compress_f32(const void* z, const void* err,
   return (int)cudaGetLastError();
 }
 
-// mul and shift come from kernels/onebit.py::decompress_divisor.
+// mul and shift come from kernels/onebit.py::divisor.
 extern "C" int decompress_f32(const void* packed, const void* scales,
                               void* out, long long rows, long long cols,
                               long long mul, long long shift, void* stream) {

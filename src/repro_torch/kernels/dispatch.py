@@ -12,8 +12,12 @@ along rows, so each phase of each leaf is one launch however many workers
 the process simulates. Padding travels as per-row true counts
 (``compressor.view_row_counts``), so scales and error feedback are
 pad-exact. Scales of every granularity come from the two-pass kernels
-(``abs_rowsum``, a small combine in torch, ``ef_quantize``), except per-row
-scales on 3-D views, which the single-pass ``ef_compress`` computes itself.
+(``abs_rowsum_scales``: row sums and the scale of each group of
+consecutive frame rows, over its denominator; ``ef_quantize`` against one
+scale per group), except per-row scales on 3-D views, which the
+single-pass ``ef_compress`` computes itself. A scale group is a stacked
+worker (tensor), one of its chunks (chunk) or one (chunk, chunk-row) pair
+(row), so each worker's scales are summed as if its frame stood alone.
 """
 from __future__ import annotations
 
@@ -88,45 +92,45 @@ def _scales_to_rows(scales, lead_shape, rows, layout=None):
 
 
 @functools.lru_cache(maxsize=None)
-def _const(values: tuple, shape: tuple, device: str) -> torch.Tensor:
-    """f32 constant on ``device``, made once: a scale divides by a tensor,
-    never by a Python number, because CUDA turns a divide by a host scalar
-    into a multiply by its reciprocal (not the reference's f32 divide)."""
-    return torch.tensor(values, dtype=torch.float32,
-                        device=torch.device(device)).reshape(shape)
+def _filled(value: float, n: int, device: str) -> torch.Tensor:
+    """(n,) f32 of ``value`` on ``device``, made once: a scale divides by
+    a tensor, never by a Python number, because CUDA turns a divide by a
+    host scalar into a multiply by its reciprocal (not the reference's f32
+    divide)."""
+    return torch.full((n,), value, dtype=torch.float32,
+                      device=torch.device(device))
 
 
-def _row_group_scales(rowsum, shape, rest_factor, stack: int):
-    """Row-granularity scales of ``stack`` stacked buffers of shape
-    (lead, chunk, *rest): one scale per (lead, chunk-row) pair, i.e. per
-    group of prod(rest[:-1]) frame rows, divided by the full rest extent
-    (padding is whole rows, already zero in the masked row sums). Serves
-    the worker view (lead = n) and the server chunk (lead = 1)."""
-    ndim = len(shape)
-    group = int(np.prod(shape[2:-1])) if ndim > 3 else 1
-    rest = max(int(np.prod(shape[2:])) * rest_factor, 1)
-    rs = rowsum.view(stack * shape[0], shape[1], group).sum(-1)
-    s = rs / _const((float(rest),), (), str(rowsum.device))
-    return s.view((stack,) + tuple(shape[:2]) + (1,) * (ndim - 2))
-
-
-def _combine_scales(rowsum, shape, mode: C.ScaleMode, rest_factor: int,
-                    denoms, stack: int):
-    """Masked per-row L1 sums of ``stack`` stacked frames of buffers of
-    ``shape`` (the view, or an inner slice) -> per-worker scales shaped
-    like ``compressor._scales``: (stack, 1, ..., 1) for tensor, (stack,
-    chunks, 1, ...) for chunk, (stack, chunks, A/n, 1, ...) for row;
-    ``denoms`` are the tensor- and chunk-mode denominators of
-    :func:`_worker_counts`."""
+def _scale_groups(shape, mode: C.ScaleMode, rest_factor: int, denoms,
+                  stack: int, device: str):
+    """The scale groups of ``stack`` stacked frames of buffers of
+    ``shape`` (the view, an inner slice, or a server chunk with its lead
+    of 1): (each group's f32 denominator (G,), the scales' shape, that of
+    ``compressor._scales``: (stack, 1, ..., 1) for tensor, (stack, chunks,
+    1, ...) for chunk, (stack, chunks, A/n, 1, ...) for row). Group g is
+    rows [g * R/G, (g + 1) * R/G) of the R-row frame. ``denoms`` are the
+    tensor- and chunk-mode denominators of :func:`_worker_counts`; a row
+    scale is divided by the full rest extent (padding is whole rows, zero
+    in the masked row sums)."""
     C.validate_scale_mode(mode)
     ndim = len(shape)
     if mode == "tensor":
-        s = rowsum.view(stack, -1).sum(1) / denoms[0]
-        return s.view((stack,) + (1,) * ndim)
+        return denoms[0], (stack,) + (1,) * ndim
     if mode == "chunk":
-        s = rowsum.view(stack, shape[0], -1).sum(-1) / denoms[1]
-        return s.view((stack, shape[0]) + (1,) * (ndim - 1))
-    return _row_group_scales(rowsum, shape, rest_factor, stack)
+        return denoms[1].reshape(-1), (stack, shape[0]) + (1,) * (ndim - 1)
+    out = (stack,) + tuple(shape[:2]) + (1,) * (ndim - 2)
+    rest = max(int(np.prod(shape[2:])) * rest_factor, 1)
+    return _filled(float(rest), int(np.prod(out)), device), out
+
+
+def _two_pass(z2, e2, cnts, denoms, scale_shape):
+    """The two-pass compress of a frame whose rows fall into
+    ``denoms.numel()`` equal groups: (packed, scales in ``scale_shape``,
+    err)."""
+    group_rows = z2.shape[0] // denoms.numel()
+    _, scales = onebit.abs_rowsum_scales(z2, e2, cnts, group_rows, denoms)
+    packed2, err2 = onebit.ef_quantize(z2, e2, scales, cnts, group_rows)
+    return packed2, scales.view(scale_shape), err2
 
 
 def ef_compress_view(z, err, layout: C.LeafLayout, mode: C.ScaleMode,
@@ -160,12 +164,8 @@ def ef_compress_view(z, err, layout: C.LeafLayout, mode: C.ScaleMode,
         packed2, srow, err2 = onebit.ef_compress(z2, e2, cnts)
         scales = srow.view((stack,) + bshape[:2] + (1,))
     else:
-        rowsum = onebit.abs_rowsum(z2, e2, cnts)
-        scales = _combine_scales(rowsum, bshape, eff, layout.rest_factor,
-                                 denoms, stack)
-        srow = _scales_to_rows(scales, (stack,) + bshape[:-1], stack * rows,
-                               layout)
-        packed2, err2 = onebit.ef_quantize(z2, e2, srow, cnts)
+        packed2, scales, err2 = _two_pass(z2, e2, cnts, *_scale_groups(
+            bshape, eff, layout.rest_factor, denoms, stack, str(z.device)))
     return (packed2.view((stack,) + bshape[:-1] + (-1,)), scales,
             err2.view(z.shape))
 
@@ -188,14 +188,12 @@ def server_compress_view(avg, err, layout: C.LeafLayout, mode: C.ScaleMode,
     cnts, denom = _server_counts(layout, tuple(int(w) for w in worker_index),
                                  str(avg.device))
     z2, e2 = _frame(avg, rows, cols), _frame(err, rows, cols)
-    rowsum = onebit.abs_rowsum(z2, e2, cnts)
     if mode == "row":
-        scales = _row_group_scales(rowsum, ys[1:], layout.rest_factor, stack)
+        groups = _scale_groups(ys[1:], mode, layout.rest_factor, None, stack,
+                               str(avg.device))
     else:
-        s = rowsum.view(stack, -1).sum(1) / denom
-        scales = s.view((stack,) + (1,) * (len(ys) - 1))
-    srow = _scales_to_rows(scales, ys[:-1], rows, layout)
-    packed2, err2 = onebit.ef_quantize(z2, e2, srow, cnts)
+        groups = denom, (stack,) + (1,) * (len(ys) - 1)
+    packed2, scales, err2 = _two_pass(z2, e2, cnts, *groups)
     return (packed2.view(ys[:-1] + (ys[-1] // 8,)), scales, err2.view(ys))
 
 

@@ -5,11 +5,15 @@ Frames are 2-D (rows, cols) f32 with cols a multiple of 8; ``counts`` is
 the int32 per-row count of true elements (padding is a row tail or a
 whole row, see ``core.compressor.view_row_counts``).
 
-* :func:`abs_rowsum`  — pass 1, masked per-row L1 sums of ``z + err``;
-  replaces ``src/repro/kernels/onebit.py::abs_rowsum``.
+* :func:`abs_rowsum_scales` — pass 1, masked per-row L1 sums of
+  ``z + err`` and, in the same call, the scale of each group of
+  consecutive rows (their sums over a denominator); replaces
+  ``src/repro/kernels/onebit.py::abs_rowsum`` and the reference's combine
+  (``src/repro/kernels/dispatch.py::_combine_scales``). :func:`abs_rowsum`
+  is the same kernel without the groups.
 * :func:`ef_quantize` — pass 2, big-endian packed signs of ``z + err``
-  and the error-feedback residual against per-row scales; replaces
-  ``src/repro/kernels/onebit.py::ef_quantize``.
+  and the error-feedback residual against one scale per group of rows;
+  replaces ``src/repro/kernels/onebit.py::ef_quantize``.
 * :func:`ef_compress` — single pass with per-row scales: the masked L1
   mean of each row, then :func:`ef_quantize`'s bits and residual against
   it; replaces ``src/repro/kernels/onebit.py::ef_compress``.
@@ -20,6 +24,8 @@ The kernels are in ``csrc/onebit.cu``. CPU tensors take the plain
 versions below; CUDA tensors launch the kernels.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -56,19 +62,51 @@ def ef_compress_geometry(cols: int):
     return cluster, slice_cols, min(slice_cols, EF_KEPT_COLS)
 
 
-# decompress: byte indices are 32-bit, the row of a byte a multiply-shift
+# abs_rowsum: the warps a row gets come from its width alone, never from
+# the frame's row count, so a row's sum (and a group's) is the same in a
+# stack of workers' frames as in one worker's frame. A warp takes up to
+# ROWSUM_WARP_COLS columns; wider rows get 2, 4 or 8 of a block's 8 warps.
+ROWSUM_WARP_COLS = 8192
+ROWSUM_BLOCK_WARPS = 8
+
+
+@functools.lru_cache(maxsize=None)
+def abs_rowsum_geometry(cols: int):
+    """(warps_per_row, slice4) of ``abs_rowsum`` at ``cols`` columns: warp
+    k of a row sums float4 columns [k * slice4, (k + 1) * slice4); with
+    more than one warp a slice is a multiple of 32 float4 (512 bytes), so
+    that every warp load is one contiguous run."""
+    c4 = -(-cols // 4)
+    warps = 1
+    while warps < ROWSUM_BLOCK_WARPS and warps * ROWSUM_WARP_COLS < cols:
+        warps *= 2
+    return warps, (c4 if warps == 1 else -(-c4 // (32 * warps)) * 32)
+
+
+# decompress and ef_quantize: element indices are 32-bit, the row of a
+# byte, of a float4 and the group of a row a multiply-shift
 DECOMPRESS_MAX_BYTES = 1 << 31
+EF_QUANTIZE_MAX_FLOAT4 = 1 << 31
 
 
-def decompress_divisor(cb: int):
-    """(mul, shift) with ``b // cb == (b * mul) >> shift`` for every
-    0 <= b < 2**31: the row of packed byte b in a frame ``cb`` bytes wide,
-    without a divide (mul < 2**32; round-up reciprocal, since
-    ``mul * cb - 2**shift < cb`` and b < 2**31)."""
-    if cb == 1:
+def divisor(d: int):
+    """(mul, shift) with ``b // d == (b * mul) >> shift`` for every
+    0 <= b < 2**31, so a kernel finds the row of packed byte b of rows
+    ``d`` bytes wide (or of float4 b, or the group of row b) without a
+    divide (mul < 2**32; round-up reciprocal, since ``mul * d - 2**shift
+    < d`` and b < 2**31)."""
+    if d == 1:
         return 1, 0
-    shift = 31 + (cb - 1).bit_length()
-    return -(-(1 << shift) // cb), shift
+    shift = 31 + (d - 1).bit_length()
+    return -(-(1 << shift) // d), shift
+
+
+@functools.lru_cache(maxsize=None)
+def ef_quantize_divisors(cols: int, group_rows: int):
+    """(row_mul, row_shift, group_mul, group_shift): the row of float4 f
+    of a ``cols``-wide frame and the scale group of row r, each by
+    :func:`divisor`."""
+    return (*divisor(cols // 4), *divisor(group_rows))
 
 
 # --- plain versions ----------------------------------------------------
@@ -81,11 +119,24 @@ def abs_rowsum_plain(z, err, counts):
                                    device=zw.device)).sum(1)
 
 
-def ef_quantize_plain(z, err, scales, counts):
+def group_scales_plain(rowsum, group_rows, denoms):
+    """Scale of each group of ``group_rows`` consecutive rows: the sum of
+    its row sums over ``denoms[g]``, one torch sum over each row of the
+    (groups, group_rows) view, whether the frame holds one worker's
+    groups or a stack of them."""
+    return rowsum.view(-1, group_rows).sum(1) / denoms
+
+
+def abs_rowsum_scales_plain(z, err, counts, group_rows, denoms):
+    rowsum = abs_rowsum_plain(z, err, counts)
+    return rowsum, group_scales_plain(rowsum, group_rows, denoms)
+
+
+def ef_quantize_plain(z, err, scales, counts, group_rows=1):
     rows, cols = z.shape
     zw = z + err
     bits = zw >= 0
-    s = scales.reshape(rows, 1)
+    s = scales.reshape(-1, 1).expand(-1, group_rows).reshape(rows, 1)
     zhat = torch.where(bits, s, -s)
     err_out = torch.where(_mask(counts, rows, cols), zw - zhat,
                           torch.zeros((), dtype=zw.dtype, device=zw.device))
@@ -118,6 +169,22 @@ def _check_zerr(kernel, z, err, counts):
     return rows, cols, dev
 
 
+def _groups(kernel, rows, group_rows):
+    if group_rows < 1 or rows % group_rows:
+        raise ValueError(f"{kernel}: {rows} rows do not split into groups "
+                         f"of {group_rows}")
+    return rows // group_rows
+
+
+def _launch_abs_rowsum(z, err, counts, out, denoms, scales, group_rows):
+    rows, cols = z.shape
+    build.launch("abs_rowsum", "abs_rowsum_f32", z.device, z.data_ptr(),
+                 err.data_ptr(), counts.data_ptr(), out.data_ptr(),
+                 denoms.data_ptr() if group_rows else None,
+                 scales.data_ptr() if group_rows else None, rows, cols,
+                 *abs_rowsum_geometry(cols), group_rows)
+
+
 def abs_rowsum(z, err, counts):
     """f32 (rows,) masked L1 sums of ``z + err``."""
     rows, cols, dev = _check_zerr("abs_rowsum", z, err, counts)
@@ -125,25 +192,51 @@ def abs_rowsum(z, err, counts):
         return abs_rowsum_plain(z, err, counts)
     out = torch.empty(rows, dtype=torch.float32, device=dev)
     if rows:
-        build.launch("abs_rowsum", "abs_rowsum_f32", dev, z.data_ptr(), err.data_ptr(),
-                     counts.data_ptr(), out.data_ptr(), rows, cols)
+        _launch_abs_rowsum(z, err, counts, out, None, None, 0)
     return out
 
 
-def ef_quantize(z, err, scales, counts):
-    """(packed u8 (rows, cols//8), err_out f32 (rows, cols))."""
+def abs_rowsum_scales(z, err, counts, group_rows, denoms):
+    """(rowsum f32 (rows,), scales f32 (rows // group_rows,)): the masked
+    L1 sums of ``z + err`` and, for each group g of ``group_rows``
+    consecutive rows, ``scales[g]`` = the sum of its row sums over
+    ``denoms[g]``. On the card a group's rows are added in an order fixed
+    by ``group_rows`` and ``cols`` alone, so a worker's scale is the same
+    bits in a stack of workers' frames as in its own frame."""
+    rows, cols, dev = _check_zerr("abs_rowsum", z, err, counts)
+    groups = _groups("abs_rowsum", rows, group_rows)
+    build.check_operand("abs_rowsum", "denoms", denoms, torch.float32,
+                        (groups,), dev)
+    if not build.on_card("abs_rowsum", z):
+        return abs_rowsum_scales_plain(z, err, counts, group_rows, denoms)
+    out = torch.empty(rows, dtype=torch.float32, device=dev)
+    scales = torch.empty(groups, dtype=torch.float32, device=dev)
+    if rows:
+        _launch_abs_rowsum(z, err, counts, out, denoms, scales, group_rows)
+    return out, scales
+
+
+def ef_quantize(z, err, scales, counts, group_rows=1):
+    """(packed u8 (rows, cols//8), err_out f32 (rows, cols)) against the
+    scale ``scales[r // group_rows]`` of row r."""
     rows, cols, dev = _check_zerr("ef_quantize", z, err, counts)
     if cols % 8:
         raise ValueError(f"ef_quantize: cols={cols} is not a multiple of 8")
+    groups = _groups("ef_quantize", rows, group_rows)
     build.check_operand("ef_quantize", "scales", scales, torch.float32,
-                        (rows,), dev)
+                        (groups,), dev)
     if not build.on_card("ef_quantize", z):
-        return ef_quantize_plain(z, err, scales, counts)
+        return ef_quantize_plain(z, err, scales, counts, group_rows)
+    if z.numel() // 4 >= EF_QUANTIZE_MAX_FLOAT4:
+        raise ValueError(f"ef_quantize: {z.numel()} elements; the kernel "
+                         f"takes fewer than 2**33")
     packed = torch.empty((rows, cols // 8), dtype=torch.uint8, device=dev)
     err_out = torch.empty_like(z)
     if z.numel():
-        build.launch("ef_quantize", "ef_quantize_f32", dev, z.data_ptr(), err.data_ptr(),
-                     scales.data_ptr(), counts.data_ptr(), packed.data_ptr(), err_out.data_ptr(), rows, cols)
+        build.launch("ef_quantize", "ef_quantize_f32", dev, z.data_ptr(),
+                     err.data_ptr(), scales.data_ptr(), counts.data_ptr(),
+                     packed.data_ptr(), err_out.data_ptr(), rows, cols,
+                     *ef_quantize_divisors(cols, group_rows))
     return packed, err_out
 
 
@@ -187,5 +280,5 @@ def decompress(packed, scales):
     if packed.numel():
         build.launch("decompress", "decompress_f32", dev, packed.data_ptr(),
                      scales.data_ptr(), out.data_ptr(), rows, cb * 8,
-                     *decompress_divisor(cb))
+                     *divisor(cb))
     return out

@@ -1,9 +1,9 @@
 """Training CLI, PyTorch port of ``src/repro/launch/train.py``.
 
-Modes: ``sim`` (the default) runs ``--workers`` simulated paper-workers
-stacked on one device; ``single`` one worker; ``dist`` one worker per
-process, joined by ``torch.distributed`` (``repro_torch.launch.mesh``):
-NCCL between cards (one card per rank), gloo on the CPU, and gloo with
+Modes: ``single`` (the default, as in the reference) runs one worker;
+``sim`` ``--workers`` simulated paper-workers stacked on one device;
+``dist`` one worker per process, joined by ``torch.distributed``
+(``repro_torch.launch.mesh``): NCCL between cards (one card per rank), gloo on the CPU, and gloo with
 every rank on one card only when asked for (``--backend gloo --device
 cuda:0``). Under torchrun the launcher's ranks are used; without it the
 CLI spawns ``--workers`` ranks itself. Only rank 0 prints.
@@ -13,8 +13,9 @@ single mode has one worker and no pods).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2 --smoke \\
-      --steps 8 --batch 8 --seq 32 --workers 4 --sync-warmup 2 \\
-      --double-every 2 --kappa 1 --log-every 1 [--device cpu]
+      --steps 8 --batch 8 --seq 32 --mode sim --workers 4 \\
+      --sync-warmup 2 --double-every 2 --kappa 1 --log-every 1 \\
+      [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.train --arch bert-base \\
       --smoke --optimizer zero_one_sgd --scale-mode row [...as above]
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
@@ -22,7 +23,7 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2 --smoke \\
       --mode dist --workers 4 --micro-batches 2 --device cpu [...]
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2 --smoke \\
-      --workers 4 --hierarchy 2 --device cpu [...]  # 2 pods x 2 workers
+      --mode sim --workers 4 --hierarchy 2 --device cpu [...]  # 2 pods x 2
 """
 from __future__ import annotations
 
@@ -67,7 +68,7 @@ def parse_args(argv=None):
                     help="use the reduced smoke config")
     ap.add_argument("--optimizer", default="zero_one_adam",
                     choices=list(REGISTRY_NAMES))
-    ap.add_argument("--mode", default="sim",
+    ap.add_argument("--mode", default="single",
                     choices=["single", "sim", "dist"])
     ap.add_argument("--workers", type=int, default=4,
                     help="sim: simulated workers; dist: ranks the CLI "

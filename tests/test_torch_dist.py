@@ -235,7 +235,8 @@ def test_dist_matches_port_sim_bitwise(case_runs):
 
 def test_dist_matches_reference(case_runs):
     argv, ranks = case_runs
-    ref_losses, ref_params = _ref_run(argv, _init_params(argv))
+    ref_losses, ref_params = _ref_run(argv, _init_params(
+        argv + ["--mode", "sim"]))
     _assert_near_reference(ranks, ref_losses, ref_params)
     assert [rec["sync"] for rec in ranks[0]["records"]] == [
         1, 1, 1, 1, 1, 0, 1, 0]
@@ -247,7 +248,8 @@ def test_dist_micro_batches_match_sim_and_reference(tmp_path):
     argv = ARGV + ["--micro-batches", "2"]
     ranks = _spawn_ranks(tmp_path, argv)
     _assert_ranks_equal_sim(ranks, _port_run(argv + ["--mode", "sim"]))
-    ref_losses, ref_params = _ref_run(argv, _init_params(argv), mb=2)
+    ref_losses, ref_params = _ref_run(argv, _init_params(
+        argv + ["--mode", "sim"]), mb=2)
     _assert_near_reference(ranks, ref_losses, ref_params)
 
 

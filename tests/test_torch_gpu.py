@@ -17,6 +17,18 @@ bytes bit for bit, its scales within 64 ulp (as chip_smoke.py) and equal
 from one launch to the next. DistComm over a one-rank NCCL communicator
 gives bit for bit what NullComm gives.
 
+The redesigned two-pass compress (abs_rowsum with its scale groups,
+ef_quantize against one scale per group) is held at its edge shapes
+(all-pad groups, groups within one block and over many, 256- and
+50,432-column rows, more than 65,535 rows, unaligned operands): row sums
+and scales within 64 ulp of the plain versions, bits and err_out bit for
+bit given the kernel's scales, the same bits from launch to launch and
+for each group computed alone. At every gpt2-FULL frame, flat and at 2
+pods x 2, in every scale mode, each worker's compress (worker and server
+side) from a stack of four is bit for bit that worker's compress alone:
+what makes a rank of the multi-process regime bitwise its simulated
+worker.
+
 The frames of the two-level exchange (stacked workers owning different
 inner slices, so different row counts, one slice all pad) are held to the
 plain versions by the same bars; the whole two-level exchange on the card
@@ -27,11 +39,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.base import get
 from repro_torch.core import compressor as C
 from repro_torch.core import onebit_allreduce as AR
 from repro_torch.core.comm import DistComm, Hierarchy, NullComm, SimComm
-from repro_torch.kernels import build, fused_adam, onebit
+from repro_torch.core.leafwise import make_plan
+from repro_torch.kernels import build, dispatch, fused_adam, onebit
 from repro_torch.launch import mesh
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 
 
 def _frame(rows, cols, seed, dev):
@@ -156,7 +172,7 @@ def test_cuda_decompress_unaligned_operands(packed_off, out_off):
     obuf = torch.full((rows * cols + 4,), 7.0, device=dev)
     build.launch("decompress", "decompress_f32", dev, packed.data_ptr(),
                  s.data_ptr(), obuf.data_ptr() + 4 * out_off, rows, cols,
-                 *onebit.decompress_divisor(cb))
+                 *onebit.divisor(cb))
     torch.cuda.synchronize()
     got = obuf[out_off:out_off + rows * cols].view(rows, cols)
     assert torch.equal(got, onebit.decompress_plain(packed, s))
@@ -306,3 +322,110 @@ def test_cuda_hier_exchange_matches_cpu(shape, spec, n, ni, mode):
         assert kernels["decompress"] == 2 - flat_row
         efs["cpu"] = AR.EFState(*(t.clone() for t in efs["cpu"]))
         efs["cuda"] = AR.EFState(*(t.to(dev) for t in efs["cpu"]))
+
+
+# (rows, cols, group_rows, operand offset in floats): groups that fit in
+# one pass-1 block (one-row groups, two 3-row groups a block) and larger
+# ones, added by the second kernel (a warp per group up to 256 rows, 7,000
+# groups of 10; 1,024 threads past that, up to 70,000 rows), 256- and
+# 50,432-column rows (8 and 1 rows a block), more than 65,535 rows, ragged
+# packed rows, operands off a 16-byte boundary (scalar loads)
+TWO_PASS_EDGES = [(64, 256, 1, 0), (48, 776, 3, 0), (64, 256, 16, 0),
+                  (4096, 768, 1024, 0), (16, 50432, 4, 0), (16, 50432, 8, 1),
+                  (70000, 8, 70000, 0), (70000, 8, 10, 0), (48, 776, 12, 1),
+                  (8, 70000, 2, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,cols,group_rows,offset", TWO_PASS_EDGES)
+def test_cuda_two_pass_edge_shapes(rows, cols, group_rows, offset):
+    """Counts full, ragged, 0 and 1 per row, and the whole second group
+    pad (its scale exactly 0 over a denominator clamped to 1)."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(rows + cols + offset)
+    n = rows * cols
+    z = torch.randn(n + offset, device=dev, generator=gen)[offset:]
+    e = torch.randn(n + offset, device=dev, generator=gen)[offset:] * 0.3
+    z, e = z.view(rows, cols), e.view(rows, cols)
+    cnt = torch.tensor([cols, cols // 2 + 1, 0, 1], dtype=torch.int32,
+                       device=dev).repeat(-(-rows // 4))[:rows].contiguous()
+    groups = rows // group_rows
+    if groups > 1:
+        cnt[group_rows:2 * group_rows] = 0
+    denoms = cnt.view(groups, group_rows).sum(1).clamp_min(1).float()
+    rk, sk = onebit.abs_rowsum_scales(z, e, cnt, group_rows, denoms)
+    rp, sp = onebit.abs_rowsum_scales_plain(z, e, cnt, group_rows, denoms)
+    assert _ulps(rk, rp) <= 64 and _ulps(sk, sp) <= 64
+    assert (rk[cnt == 0] == 0).all()
+    if groups > 1:
+        assert sk[1] == 0
+    assert torch.equal(onebit.abs_rowsum(z, e, cnt), rk)
+    pk, ek = onebit.ef_quantize(z, e, sk, cnt, group_rows)
+    pp, ep = onebit.ef_quantize_plain(z, e, sk, cnt, group_rows)
+    assert torch.equal(pk, pp) and torch.equal(ek, ep)
+    again = onebit.abs_rowsum_scales(z, e, cnt, group_rows, denoms)
+    assert torch.equal(again[0], rk) and torch.equal(again[1], sk)
+    for g in range(min(groups, 4)):
+        own = slice(g * group_rows, (g + 1) * group_rows)
+        _, sg = onebit.abs_rowsum_scales(z[own], e[own], cnt[own].clone(),
+                                         group_rows, denoms[g:g + 1].clone())
+        assert torch.equal(sg, sk[g:g + 1]), g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,cols", [(37, 6), (9, 50431), (64, 4100)])
+def test_cuda_abs_rowsum_odd_widths(rows, cols):
+    """Widths that are no multiple of 4 or 8 (scalar loads that stop at
+    the row's end)."""
+    dev = _card()
+    z, e, cnt = _frame(rows - rows % 4, cols, 3, dev)
+    rk, rp = onebit.abs_rowsum(z, e, cnt), onebit.abs_rowsum_plain(z, e, cnt)
+    assert _ulps(rk, rp) <= 64 and (rk[cnt == 0] == 0).all()
+
+
+def _gpt2_full_layouts(inner):
+    tmpl = T.model_template(get("gpt2").config)
+    return make_plan(L.param_shapes(tmpl), L.param_specs(tmpl),
+                     L.dp_mask(tmpl), 4,
+                     Hierarchy(inner) if inner else None).layouts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["tensor", "chunk", "row"])
+@pytest.mark.parametrize("inner", [None, 2], ids=["flat", "2x2"])
+def test_cuda_compress_is_stack_independent(inner, mode):
+    """Every gpt2-FULL leaf: each worker's packed bytes, scales and EF
+    error from a stack of four workers (worker side on its view or owned
+    slice, server side on the chunk it serves) equal that worker's alone,
+    bit for bit."""
+    dev = _card()
+    n, ni = 4, inner or 1
+    g = torch.Generator(device=dev).manual_seed(9)
+    for lo in _gpt2_full_layouts(inner):
+        idx = None if inner is None else tuple(w % ni for w in range(n))
+        shape = lo.view_shape if inner is None else lo.slice_shape
+        z = torch.randn((n,) + shape, device=dev, generator=g)
+        e = torch.randn((n,) + shape, device=dev, generator=g) * 0.3
+        whole = dispatch.ef_compress_view(z, e, lo, mode, idx)
+        for w in range(n):
+            alone = dispatch.ef_compress_view(
+                z[w:w + 1].clone(), e[w:w + 1].clone(), lo, mode,
+                None if idx is None else idx[w:w + 1])
+            for a, b in zip(whole, alone):
+                assert torch.equal(a[w:w + 1], b), (lo.shape, w, "worker")
+        if mode == "row" and len(lo.view_shape) == 2:
+            continue
+        no = lo.n_outer
+        widx = tuple((w % ni) * no + w // ni for w in range(n))
+        ys = (n, 1) + lo.chunk_shape
+        avg = torch.randn(ys, device=dev, generator=g)
+        es = torch.randn(ys, device=dev, generator=g) * 0.1
+        whole = dispatch.server_compress_view(avg, es, lo, mode, widx)
+        for w in range(n):
+            alone = dispatch.server_compress_view(
+                avg[w:w + 1].clone(), es[w:w + 1].clone(), lo, mode,
+                widx[w:w + 1])
+            for a, b in zip(whole, alone):
+                assert torch.equal(a[w:w + 1], b), (lo.shape, w, "server")
+        del z, e, avg, es, whole, alone
+        torch.cuda.empty_cache()

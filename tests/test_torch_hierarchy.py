@@ -19,20 +19,21 @@ Tolerances, with their reasons:
   reference's round-one EF state, so that a few-ulp EF difference cannot
   flip the sign bit of a near-zero element (see
   ``test_torch_compressor.py``); the port's own round-one state is held
-  to the same bar. Its outputs: 1 bf16 ulp (2^-8 to 2^-7 of the value)
-  or the flat bar's 1e-6 absolute (a server mean of two near-equal
-  scales cancels), at least 99% bit for bit. The intra-pod all_gather
-  rounds the decoded slice to bf16, and two f32 values within the flat
-  bar round to neighbouring bf16 values where a rounding boundary lies
-  between them (measured: row scales on the folded flatten leaf, whose
-  server scales are per element);
+  to the same bar. Its outputs: bit for bit, except under row scales on
+  the folded flatten leaf, whose server scales are per element: there
+  the intra-pod all_gather rounds to bf16 two f32 values within the flat
+  bar to neighbouring bf16 values where a rounding boundary lies between
+  them, so 1 bf16 ulp (2^-8 to 2^-7 of the value) or the flat bar's 1e-6
+  absolute, at least 99% bit for bit;
 * ``Hierarchy(inner=1)`` against the port's flat path: bit for bit;
 * the identity codec: bit for bit the bf16-wire mean (the intra-pod
   phases round to bf16, the pod means of 2 or 4 values are exact in f32),
   and within 2^-8 of max |z| of the exact mean (an input and the output
   each round to bf16 once);
-* the full-precision round: 1 bf16 ulp (2^-8 relative), at least 99% bit
-  for bit, the bar of the flat round;
+* the full-precision round: bit for bit, as the flat round (bf16 on the
+  wire; an f32 sum of 2 to 4 bf16 values is exact in any order unless
+  they span more than 2^14 in magnitude, and each mean rounds to bf16
+  again);
 * gpt2-smoke trainers, 8 steps at a peak lr of 3e-4 from the port's draw
   and batches: step losses within 1e-4 (``tests/test_torch_dist.py``).
 """
@@ -320,9 +321,17 @@ def test_hier_onebit_allreduce_matches_reference(shape, spec, mode,
     n, ni = (8, 4) if shape == (100003,) else (4, 2)
     for out_t, ef_t, out_r, ef_r in _hier_rounds(shape, spec, n, ni, mode,
                                                  ref_pallas):
-        np.testing.assert_allclose(out_t.numpy(), np.asarray(out_r),
-                                   rtol=2 ** -7, atol=1e-6)
-        assert (out_t.numpy() == np.asarray(out_r)).mean() >= 0.99
+        if mode == "row" and shape == (100003,):
+            # row scales on the folded flatten leaf: its worker scales are
+            # summed in another order than XLA's (EF errors a few ulp off
+            # on 25-54% of elements), and the per-element server scales
+            # carry that into the bf16 all_gather (measured: 0.016-0.018%
+            # of outputs in round 1, none in round 2)
+            np.testing.assert_allclose(out_t.numpy(), np.asarray(out_r),
+                                       rtol=2 ** -7, atol=1e-6)
+            assert (out_t.numpy() == np.asarray(out_r)).mean() >= 0.99
+        else:
+            np.testing.assert_array_equal(out_t.numpy(), np.asarray(out_r))
         for got, want in zip(ef_t, ef_r):
             assert got.shape == want.shape
             np.testing.assert_allclose(got.numpy(), np.asarray(want),
@@ -391,9 +400,7 @@ def test_hier_fullprec_matches_reference(shape, spec, n, ni):
         axis_name="pod"))(fold(jnp.asarray(z))).reshape(z.shape)
     got = TAR.fullprec_allreduce_view(SimComm(n), _t(z), torch.bfloat16,
                                       Hierarchy(ni), lo_t)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2 ** -8,
-                               atol=0)
-    assert (got.numpy() == np.asarray(want)).mean() > 0.99
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert (got == got[:1]).all()
 
 
@@ -437,7 +444,8 @@ def _ref_losses(argv, params_stacked):
 
 @pytest.mark.parametrize("n,ni", [(4, 2), (8, 4)])
 def test_gpt2_smoke_trainer_matches_reference(n, ni, capsys):
-    argv = ARGV + ["--workers", str(n), "--hierarchy", str(ni)]
+    argv = ARGV + ["--mode", "sim", "--workers", str(n), "--hierarchy",
+                   str(ni)]
     args = TLAUNCH.parse_args(argv)
     tr = TLAUNCH.make_trainer(args)
     assert tr.opt.hierarchy == Hierarchy(ni)
@@ -464,7 +472,7 @@ def test_cli_checks_the_hierarchy(monkeypatch):
                              "--hierarchy", "3"])
     with pytest.raises(ValueError, match="must divide"):
         TLAUNCH.make_trainer(TLAUNCH.parse_args(
-            ARGV + ["--workers", "4", "--hierarchy", "3"]))
+            ARGV + ["--mode", "sim", "--workers", "4", "--hierarchy", "3"]))
     # one worker has no pods: single mode normalizes the hierarchy away
     tr = TLAUNCH.make_trainer(TLAUNCH.parse_args(
         ARGV + ["--mode", "single", "--hierarchy", "2"]))

@@ -9,6 +9,9 @@ Tolerances:
   multiply, or a single-rounding FMA, on both sides;
 * ``abs_rowsum`` to 1e-6 relative: an f32 sum of up to 4104 nonnegative
   terms taken in another order (the sum's own rounding, ~log2(n) ulp);
+  the scales of ``abs_rowsum_scales`` (a group's row sums over its
+  denominator) likewise, against the reference's row sums combined in
+  jnp;
 * ``ef_compress``'s per-row scales to 2e-6 relative: the same row sum over
   up to 30,720 terms, divided by the row's count; its err_out bit for bit
   on the rows whose scales agree bitwise, and elsewhere within the scale
@@ -30,8 +33,9 @@ import torch
 from repro.kernels import ops
 from repro_torch.configs.base import get as port_get
 from repro_torch.core import compressor as TC
+from repro_torch.core.comm import Hierarchy
 from repro_torch.core.leafwise import make_plan
-from repro_torch.kernels import build, fused_adam, onebit
+from repro_torch.kernels import build, dispatch, fused_adam, onebit
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
 
@@ -88,6 +92,40 @@ def test_ef_quantize_matches_reference(cols):
     np.testing.assert_array_equal(eo.numpy(), np.asarray(e_ref))
     assert p.numpy()[0, 0] >> 4 == 0b1111     # +0 and -0 pack as 1
     assert (eo.numpy()[cnt == 0] == 0).all()
+
+
+@pytest.mark.parametrize("group_rows", [1, 4, 16])
+@pytest.mark.parametrize("cols", WIDTHS)
+def test_two_pass_with_group_scales_matches_reference(cols, group_rows):
+    """Pass 1 with its scale groups and pass 2 against compact scales,
+    against the reference's abs_rowsum, the combine in jnp (each group's
+    row sums over its denominator, as ``_combine_scales``) and
+    ef_quantize on the scales repeated over each group's rows."""
+    z, e, cnt = _frame(16, cols, cols + 3)
+    groups = 16 // group_rows
+    denoms = np.maximum(cnt.reshape(groups, group_rows).sum(1), 1).astype(
+        np.float32)
+    rs_ref = ops.abs_rowsum(jnp.asarray(z), jnp.asarray(e), jnp.asarray(cnt),
+                            block_rows=8)
+    s_ref = np.asarray(rs_ref.reshape(groups, group_rows).sum(1)
+                       / jnp.asarray(denoms))
+    rowsum, scales = onebit.abs_rowsum_scales(_t(z), _t(e), _t(cnt),
+                                              group_rows, _t(denoms))
+    np.testing.assert_allclose(rowsum.numpy(), np.asarray(rs_ref), rtol=1e-6,
+                               atol=0)
+    np.testing.assert_allclose(scales.numpy(), s_ref, rtol=1e-6, atol=0)
+    assert scales.shape == (groups,)
+    p, eo = onebit.ef_quantize(_t(z), _t(e), scales, _t(cnt), group_rows)
+    # the reference quantizer given the port's scales, per row
+    srow = np.repeat(scales.numpy(), group_rows)
+    p_ref, e_ref = ops.ef_quantize(jnp.asarray(z), jnp.asarray(e),
+                                   jnp.asarray(srow), jnp.asarray(cnt),
+                                   block_rows=8)
+    np.testing.assert_array_equal(p.numpy(), np.asarray(p_ref))
+    np.testing.assert_array_equal(eo.numpy(), np.asarray(e_ref))
+    # compact scales are the per-row ones repeated over each group
+    p1, e1 = onebit.ef_quantize(_t(z), _t(e), _t(srow), _t(cnt))
+    assert torch.equal(p, p1) and torch.equal(eo, e1)
 
 
 @pytest.mark.parametrize("cols", WIDTHS)
@@ -206,6 +244,14 @@ def test_wrappers_check_operands_and_count_no_cpu_launch():
     with pytest.raises(ValueError):
         onebit.ef_quantize(torch.zeros(8, 12), torch.zeros(8, 12),
                            torch.zeros(8), cnt)
+    with pytest.raises(ValueError):             # 8 rows in groups of 3
+        onebit.ef_quantize(z, z, torch.zeros(2), cnt, 3)
+    with pytest.raises(ValueError):             # 2 groups of 4, 4 scales
+        onebit.ef_quantize(z, z, torch.zeros(4), cnt, 4)
+    with pytest.raises(ValueError):
+        onebit.abs_rowsum_scales(z, z, cnt, 4, torch.ones(4))
+    with pytest.raises(TypeError):
+        onebit.abs_rowsum_scales(z, z, cnt, 4, torch.ones(2).double())
     with pytest.raises(TypeError):
         onebit.decompress(torch.zeros(8, 2, dtype=torch.int32),
                           torch.zeros(8))
@@ -221,9 +267,34 @@ def test_wrappers_check_operands_and_count_no_cpu_launch():
         fused_adam.fused_local_step_sgd(z, torch.zeros(16, 8).t(), z, 1e-3,
                                         0.9)
     onebit.abs_rowsum(z, z, cnt)            # CPU: the plain version
+    onebit.abs_rowsum_scales(z, z, cnt, 4, torch.ones(2))
+    onebit.ef_quantize(z, z, torch.ones(2), cnt, 4)
     onebit.ef_compress(z, z, cnt)
     fused_adam.fused_local_step_sgd(z, z, z, 1e-3, 0.9)
     assert dict(build.launch_counts) == before
+
+
+@pytest.mark.parametrize("private", [True, False])
+def test_launch_stream_with_and_without_the_private_getter(monkeypatch,
+                                                           private):
+    # launches take the current stream from torch's private raw getter
+    # where this torch has it, else from the public Stream object
+    class _Stream:
+        cuda_stream = 0xBEEF
+
+    asked = []
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda card: asked.append(("public", card))
+                        or _Stream())
+    if private:
+        monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                            lambda card: asked.append(("raw", card))
+                            or 0xCAFE, raising=False)
+    else:
+        monkeypatch.delattr(torch._C, "_cuda_getCurrentRawStream",
+                            raising=False)
+    assert build.current_raw_stream(3) == (0xCAFE if private else 0xBEEF)
+    assert asked == [("raw" if private else "public", 3)]
 
 
 # --- launch geometry of the redesigned kernels -------------------------
@@ -278,7 +349,7 @@ def test_launch_geometry_covers_every_frame(case):
 
         cb = cols // 8
         assert rows * cb < onebit.DECOMPRESS_MAX_BYTES
-        mul, shift = onebit.decompress_divisor(cb)
+        mul, shift = onebit.divisor(cb)
         assert 0 < mul < 2 ** 32 and 0 <= shift <= 62
         k = np.arange(1, rows + 1, dtype=np.uint64) * np.uint64(cb)
         top = (2 ** 31 - 1) // cb * cb
@@ -299,11 +370,120 @@ def test_launch_geometry_at_the_design_widths():
     assert onebit.ef_compress_geometry(3072) == (1, 3072, 3072)
     assert onebit.ef_compress_geometry(768) == (1, 768, 768)
     assert onebit.ef_compress_geometry(8) == (1, 8, 8)
-    assert onebit.decompress_divisor(1) == (1, 0)
-    assert onebit.decompress_divisor(2) == (2 ** 31, 32)
+    assert onebit.divisor(1) == (1, 0)
+    assert onebit.divisor(2) == (2 ** 31, 32)
     # exhaustive over every byte of small frames
     for cb in (1, 3, 7, 96, 97, 6304):
-        mul, shift = onebit.decompress_divisor(cb)
+        mul, shift = onebit.divisor(cb)
         b = np.arange(1 << 16, dtype=np.uint64)
         np.testing.assert_array_equal(
             (b * np.uint64(mul)) >> np.uint64(shift), b // np.uint64(cb))
+
+
+# --- the redesigned two-pass compress: geometry and scale groups --------
+
+def _two_pass_frames(arch, n_workers=4, inner=2):
+    """Every (rows, cols, group_rows) that the two-pass compress of
+    ``arch``'s FULL plan gives its kernels, flat and at ``n_workers //
+    inner`` pods x ``inner``, worker and server side, every scale mode,
+    ``n_workers`` stacked workers and one alone (the dispatch's own scale
+    groups)."""
+    tmpl = TT.model_template(port_get(arch).config)
+    shapes, specs, dp = (TL.param_shapes(tmpl), TL.param_specs(tmpl),
+                         TL.dp_mask(tmpl))
+    frames = set()
+    for hier in (None, Hierarchy(inner)):
+        ni = 1 if hier is None else inner
+        for lo in make_plan(shapes, specs, dp, n_workers, hier).layouts:
+            rows, cols = TC.view_rows_cols(lo)
+            ndim = len(lo.view_shape)
+            for stack in (n_workers, 1):
+                idx = (None if hier is None
+                       else tuple(w % ni for w in range(stack)))
+                bshape = lo.view_shape if hier is None else lo.slice_shape
+                _, *denoms = dispatch._worker_counts(lo, stack, idx, "cpu")
+                widx = tuple(range(stack))
+                _, sdenom = dispatch._server_counts(lo, widx, "cpu")
+                chunk = (stack, 1) + lo.chunk_shape
+                for mode in TC.SCALE_MODES:
+                    eff = "chunk" if (mode == "row" and ndim == 2) else mode
+                    if not (eff == "row" and ndim == 3):   # single pass
+                        d, _ = dispatch._scale_groups(
+                            bshape, eff, lo.rest_factor, denoms, stack, "cpu")
+                        r = stack * rows // ni
+                        frames.add((r, cols, r // d.numel()))
+                    if mode == "row" and ndim == 2:
+                        continue          # per-element scales: no kernel
+                    d = (dispatch._scale_groups(chunk[1:], mode,
+                                                lo.rest_factor, None, stack,
+                                                "cpu")[0]
+                         if mode == "row" else sdenom)
+                    r = stack * (rows // lo.n)
+                    frames.add((r, cols, r // d.numel()))
+    return sorted(frames)
+
+
+def _exact_below_2_31(d, top_rows):
+    """The multiply-shift of :func:`onebit.divisor` at every multiple of d
+    up to ``top_rows`` rows, either side of it, and at the top of the
+    32-bit index range."""
+    mul, shift = onebit.divisor(d)
+    assert 0 < mul < 2 ** 32 and 0 <= shift <= 62
+    k = np.arange(1, top_rows + 1, dtype=np.uint64) * np.uint64(d)
+    top = (2 ** 31 - 1) // d * d
+    b = np.concatenate([k - np.uint64(1), k, np.array(
+        [0, top - 1, top, 2 ** 31 - 1], np.uint64)])
+    np.testing.assert_array_equal((b * np.uint64(mul)) >> np.uint64(shift),
+                                  b // np.uint64(d))
+
+
+@pytest.mark.parametrize("arch", ["gpt2", "bert-base"])
+def test_two_pass_geometry_and_divisors_at_full_frames(arch):
+    """abs_rowsum's warps and slices cover each float4 column of a row
+    exactly once, 512-byte slices when a row has several warps, one warp
+    up to 8,192 columns, and its blocks cover every row; ef_quantize's row divisor (float4 f -> row) and
+    group divisor (row -> scale group) exact at every row and group
+    boundary of the frame and up to the top of the index range, which the
+    largest frame stays below."""
+    frames = _two_pass_frames(arch)
+    assert len({c for _, c, _ in frames}) >= 4
+    for rows, cols, group_rows in frames:
+        warps, slice4 = onebit.abs_rowsum_geometry(cols)
+        c4 = -(-cols // 4)
+        assert warps in (1, 2, 4, 8)
+        assert (warps == 1) == (cols <= onebit.ROWSUM_WARP_COLS), cols
+        if warps > 1:
+            assert slice4 % 32 == 0
+        spans = [np.arange(k * slice4, min(c4, (k + 1) * slice4))
+                 for k in range(warps)]
+        assert all(len(sp) for sp in spans), (cols, warps, slice4)
+        np.testing.assert_array_equal(np.concatenate(spans), np.arange(c4))
+        assert rows % group_rows == 0
+        # pass 1's blocks: whole groups a block where a group fits in a
+        # block's 8 // warps rows, else single rows; the grid stays below
+        # 2**31
+        per_block = onebit.ROWSUM_BLOCK_WARPS // warps
+        rows_a_block = (per_block // group_rows * group_rows
+                        if group_rows <= per_block else per_block)
+        assert 0 < -(-rows // rows_a_block) < 2 ** 31
+        assert rows * cols // 4 < onebit.EF_QUANTIZE_MAX_FLOAT4
+        _exact_below_2_31(cols // 4, rows)
+        _exact_below_2_31(group_rows, rows // group_rows)
+        assert onebit.ef_quantize_divisors(cols, group_rows) == (
+            *onebit.divisor(cols // 4), *onebit.divisor(group_rows))
+
+
+def test_abs_rowsum_geometry_depends_on_the_width_alone():
+    """The geometry takes the row width and nothing else, so a worker's
+    frame alone and a stack of them sum each row (and each group) in the
+    same order; the widths the kernel notes name."""
+    import inspect
+    assert list(inspect.signature(onebit.abs_rowsum_geometry).parameters) \
+        == ["cols"]
+    assert onebit.abs_rowsum_geometry(768) == (1, 192)
+    assert onebit.abs_rowsum_geometry(8192) == (1, 2048)
+    assert onebit.abs_rowsum_geometry(8200) == (2, 1056)
+    assert onebit.abs_rowsum_geometry(30720) == (4, 1920)
+    assert onebit.abs_rowsum_geometry(50432) == (8, 1600)
+    assert onebit.abs_rowsum_geometry(70000) == (8, 2208)
+    assert onebit.abs_rowsum_geometry(6) == (1, 2)

@@ -146,9 +146,9 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
 
 def test_cli_runs_on_cpu(capsys):
     TLAUNCH.main(["--arch", "gpt2", "--smoke", "--steps", "3", "--batch",
-                  "4", "--seq", "16", "--workers", "4", "--sync-warmup", "1",
-                  "--double-every", "1", "--kappa", "1", "--log-every", "1",
-                  "--device", "cpu"])
+                  "4", "--seq", "16", "--mode", "sim", "--workers", "4",
+                  "--sync-warmup", "1", "--double-every", "1", "--kappa",
+                  "1", "--log-every", "1", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "arch=gpt2-smoke" in out and "DONE: 3 steps" in out
     losses = [float(line.split()[3]) for line in out.splitlines()
@@ -246,9 +246,10 @@ def test_synthetic_mlm_batches():
                                    ["--optimizer", "zero_one_sgd"]])
 def test_cli_runs_bert_on_cpu(capsys, extra):
     TLAUNCH.main(["--arch", "bert-base", "--smoke", "--steps", "3",
-                  "--batch", "4", "--seq", "16", "--workers", "4",
-                  "--sync-warmup", "1", "--double-every", "1", "--kappa",
-                  "1", "--log-every", "1", "--device", "cpu"] + extra)
+                  "--batch", "4", "--seq", "16", "--mode", "sim",
+                  "--workers", "4", "--sync-warmup", "1", "--double-every",
+                  "1", "--kappa", "1", "--log-every", "1", "--device",
+                  "cpu"] + extra)
     out = capsys.readouterr().out
     assert "arch=bert-smoke" in out and "DONE: 3 steps" in out
     losses = [float(line.split()[3]) for line in out.splitlines()
@@ -279,6 +280,45 @@ def test_accumulate_grads_matches_reference(mb, peel):
         assert g.dtype == torch.float32
         np.testing.assert_allclose(g.numpy(), a, rtol=0,
                                    atol=1e-4 * np.abs(a).max() + 1e-12)
+
+
+def _parser_of(run, monkeypatch):
+    """The ArgumentParser that ``run()`` parses its command line with."""
+    import argparse
+
+    class Parsed(Exception):
+        pass
+
+    seen = []
+
+    def parse_args(self, args=None, namespace=None):
+        seen.append(self)
+        raise Parsed
+
+    with monkeypatch.context() as mp:
+        mp.setattr(argparse.ArgumentParser, "parse_args", parse_args)
+        with pytest.raises(Parsed):
+            run()
+    return seen[0]
+
+
+def test_cli_defaults_match_reference(monkeypatch):
+    """Every flag the two training CLIs share has the same default,
+    ``--mode`` (single) included, so the same command line runs the same
+    number of workers in both packages."""
+    from repro.launch import train as ref_launch
+    defaults = [{a.dest: a.default for a in p._actions if a.dest != "help"}
+                for p in (_parser_of(ref_launch.main, monkeypatch),
+                          _parser_of(lambda: TLAUNCH.parse_args([]),
+                                     monkeypatch))]
+    shared = sorted(set(defaults[0]) & set(defaults[1]))
+    assert {"mode", "workers", "optimizer", "scale_mode", "hierarchy",
+            "micro_batches", "lr", "steps"} <= set(shared)
+    assert {k: defaults[1][k] for k in shared} == {
+        k: defaults[0][k] for k in shared}
+    assert defaults[1]["mode"] == "single"
+    args = TLAUNCH.parse_args(["--arch", "gpt2"])
+    assert args.mode == "single" and args.device == "cuda"
 
 
 def test_cli_runs_single_mode_on_cpu(capsys):
