@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Needs one card; on a machine with up to four, phase 6b puts one rank on
-each, and on four phase 6c runs its 2 pods x 2 ranks over NCCL.
+each, and on four phase 6c runs its 2 pods x 2 ranks over NCCL and phase
+6d trains bert-large FULL in four ranks.
 
 1. Prints the card (nvidia-smi name and power limit) and torch/CUDA.
 2. Builds the port's CUDA kernels from src/repro_torch/kernels/csrc with
@@ -25,11 +26,14 @@ each, and on four phase 6c runs its 2 pods x 2 ranks over NCCL.
    different inner slices: abs_rowsum and ef_quantize (tensor scales) on
    every gpt2-FULL worker-side slice frame and server chunk frame,
    decompress on the inter-pod receive and gather frames, ef_compress on
-   the six 3-D BERT-Base slice frames (row scales).
+   the six 3-D BERT-Base slice frames (row scales). At every gpt2-FULL
+   frame (3a) the plain step of the baselines' single-rounding
+   multiply-adds (``fused_adam.fma``) is held to the exact emulation.
 4. Drives the main paths, each through the trainer and CLI config a
-   user would call, 4 simulated data-parallel workers, 8 steps (syncs at
-   0-4 and 6; variance at 0, 1, 3 where the base has one; local-only
-   steps 5 and 7), the launch counts set to 0 just before each and read
+   user would call, 4 simulated data-parallel workers, 8 steps (0/1
+   Adam and 0/1-SGD: syncs at 0-4 and 6; variance at 0, 1, 3 where the
+   base has one; local-only steps 5 and 7; the baselines exchange on
+   every step), the launch counts set to 0 just before each and read
    just after:
    a. gpt2 FULL, zero_one_adam, tensor scales, global batch 16, seq 1024
       (then step 6, a sync step, again under torch.profiler);
@@ -38,11 +42,19 @@ each, and on four phase 6c runs its 2 pods x 2 ranks over NCCL.
    c. the same model and data with zero_one_sgd, tensor scales;
    d. run (a) with the two-level exchange, ``--hierarchy 2`` (2 pods x 2
       workers: bf16 reduce-scatter and all_gather inside a pod, 1-bit
-      Algorithm 2 across pods on the owned slice).
-   Each run checks its losses, its step kinds and its launch counts.
+      Algorithm 2 across pods on the owned slice);
+   e. run (a) under the baseline ``adam``: a bf16 gradient mean and a
+      variance update every step, no kernel of the port;
+   f. run (a) under the baseline ``one_bit_adam --onebit-warmup 2``: that
+      for steps 0-1, then the 1-bit exchange of the gradient (kernels
+      2-4) with the variance frozen;
+   (e) and (f) profile their step 6 as (a) does.
+   Each run checks its losses, its step kinds and its launch counts, and
+   prints its step and optimizer ms per step kind.
 5. Checks the card against the CPU on small inputs: the gpt2-smoke
-   trainer (flat, and with ``--hierarchy 2``), and the bert-smoke trainer
-   under both BERT configurations, from the same start on both devices.
+   trainer (flat, with ``--hierarchy 2``, and under ``adam`` and
+   ``one_bit_adam``), and the bert-smoke trainer under both BERT
+   configurations, from the same start on both devices.
 6. Data parallel in processes (``--mode dist``, one paper-worker per
    process, spawned): first the exchange collectives of DistComm against
    SimComm's, bit for bit, over gloo with CUDA tensors and over NCCL;
@@ -50,15 +62,23 @@ each, and on four phase 6c runs its 2 pods x 2 ranks over NCCL.
    read after its run:
    a. four ranks on this one card over gloo (asked for explicitly; the
       exchange goes through host memory), micro-batches 2, against a sim
-      run of the same settings in this process;
+      run of the same settings in this process; then the same under
+      ``one_bit_adam``;
    b. NCCL, one rank per card, on min(device count, 4) cards: on one
       card a world of one at batch 4 x 1024 against ``--mode single``,
       on four the 4-rank run without micro-batches against a sim run;
+      under zero_one_adam, ``adam`` and ``one_bit_adam``;
    c. run 4d in processes, 2 pods x 2 ranks over process subgroups,
       against a sim run of the same flags: NCCL with one rank per card
       on a machine with four cards, else four ranks on this card over
       gloo with micro-batches 2; each rank's exchange split into its
-      intra-pod and inter-pod parts.
+      intra-pod and inter-pod parts;
+   d. on four cards only: bert-large FULL (24 layers, d=1024), masked-LM
+      data at 15%, zero_one_adam, tensor scales, global batch 32 x 512,
+      one rank per card over NCCL; finite losses, a first loss near
+      log(padded vocab), each rank's launch counts, peak memory and
+      exchange ms. No run in one process holds it: four simulated
+      workers of bert-large do not fit on one card.
    Each rank's losses and params must be bit for bit its simulated
    worker's in 6a and, on one card, 6c; elsewhere they are held to phase
    5's bars, and bitwise equality is printed with the first step and
@@ -96,7 +116,8 @@ BATCH, SEQ = 16, 1024               # gpt2 run
 BERT_BATCH, BERT_SEQ = 32, 512      # bert runs
 REPS, PLAIN_REPS = 20, 5
 TIME_BATCH, TIME_BATCH_REPS = 20, 5   # batched kernel time: 5 x 20 launches
-PROFILED_STEP = 6          # a sync step without a variance refresh
+PROFILED_STEP = 6          # a sync step without a variance refresh (the
+                           # baselines: a bf16 step, a 1-bit step)
 # abs_rowsum: both sides sum up to 50,432 terms in different orders (the
 # kernel: <= ~60 sequential adds per thread, then an 8-level tree; torch's
 # reduction has a similar depth); rounding errors of random sign add like
@@ -137,10 +158,20 @@ PER = {"fused_local_step": "step (gpt2)", "abs_rowsum": "sync (gpt2)",
 # (label, arch, extra CLI flags, batch, seq, data kind)
 # phase 6: spawned ranks that have not finished by then are killed
 DIST_TIMEOUT_S = 600
-# step kinds of the 8-step schedule (syncs at 0-4 and 6, variance at 0,
-# 1 and 3); step 0 is the first call of every path
+# step kinds of each optimizer's 8 steps under phase 4a's flags; step 0
+# is the first call of every path (it carries one-time costs) and its
+# own kind. 0/1 Adam: syncs at 0-4 and 6, variance at 0, 1 and 3 (none
+# for 0/1-SGD). adam: a bf16 mean and a variance update every step.
+# one_bit_adam (--onebit-warmup 2): full precision and variance at 0-1,
+# then a 1-bit exchange every step.
 STEP_KINDS = {"first (0)": [0], "sync + variance (1, 3)": [1, 3],
               "sync (2, 4, 6)": [2, 4, 6], "local only (5, 7)": [5, 7]}
+BASELINE_KINDS = {
+    "adam": {"first (0)": [0], "bf16 mean + variance (1-7)": [1, 2, 3, 4,
+                                                               5, 6, 7]},
+    "one_bit_adam": {"first (0)": [0], "full precision + variance (1)": [1],
+                     "1-bit (2-7)": [2, 3, 4, 5, 6, 7]}}
+ONEBIT = ["--optimizer", "one_bit_adam", "--onebit-warmup", "2"]
 # the two-level exchange of runs 4d, 6c and phase 3c: pods of 2 workers
 INNER = 2
 RUNS = [("gpt2", "gpt2", [], BATCH, SEQ, "lm"),
@@ -149,7 +180,44 @@ RUNS = [("gpt2", "gpt2", [], BATCH, SEQ, "lm"),
         ("bert_sgd", "bert-base", ["--optimizer", "zero_one_sgd"],
          BERT_BATCH, BERT_SEQ, "mlm"),
         ("gpt2_hier", "gpt2", ["--hierarchy", str(INNER)], BATCH, SEQ,
-         "lm")]
+         "lm"),
+        ("gpt2_adam", "gpt2", ["--optimizer", "adam"], BATCH, SEQ, "lm"),
+        ("gpt2_onebit", "gpt2", ONEBIT, BATCH, SEQ, "lm")]
+
+
+def optimizer_of(argv) -> str:
+    return (argv[argv.index("--optimizer") + 1] if "--optimizer" in argv
+            else "zero_one_adam")
+
+
+def step_kinds(argv):
+    return BASELINE_KINDS.get(optimizer_of(argv), STEP_KINDS)
+
+
+def schedule(optimizer, has_variance):
+    """(sync, variance) flags of the 8 steps under phase 4a's flags."""
+    if optimizer == "adam":
+        return [1] * STEPS, [1] * STEPS
+    if optimizer == "one_bit_adam":
+        return [1] * STEPS, [1, 1] + [0] * (STEPS - 2)
+    return ([1, 1, 1, 1, 1, 0, 1, 0],
+            [1, 1, 0, 1, 0, 0, 0, 0] if has_variance else [0] * STEPS)
+
+
+def step_bytes(opt, records):
+    """Bytes one worker sends in each step (static, from
+    ``comm_accounting``): the codec's payloads on each 1-bit round (a T_u
+    step of the accumulate style, a step of the gradient style past its
+    full-precision stage) and one full-precision round (bf16, the
+    reference's ring convention) on each variance round and each step
+    of the mean style."""
+    from repro_torch.core.compressed import comm_accounting
+
+    acct, style = comm_accounting(opt), opt.cfg.style
+    return [bool(r["sync"]) * (style == "accumulate" or not r["var"])
+            * (style != "mean") * acct["compressed_bytes_per_sync"]
+            + bool(r["var"] or style == "mean")
+            * acct["fullprec_bytes_per_round"] for r in records]
 
 
 def card_line() -> str:
@@ -259,6 +327,13 @@ def check_kernels(dev, tally):
         assert torch.equal(fk[1], fp[1]), (lo.shape, "u' differs")
         assert ulps(fk[2], fp[2]) <= DELTA_ULPS, (lo.shape, "delta")
         err = max(float((a - b).abs().max()) for a, b in zip(fk, fp))
+        # the baselines' plain step: its multiply-adds on the card are
+        # single-rounding, bit for bit the exact emulation (at f32
+        # scalars, as the step passes them)
+        for a_, b_, c_ in ((m, float(np.float32(b1)), g * 0.1),
+                           (g * 1e-3, g, v * 0.999), (fk[2], -1.0, m)):
+            assert torch.equal(FA.fma(a_, b_, c_), FA.fma_f32(a_, b_, c_)), (
+                lo.shape, "fma")
         n = R * cols
         tally.add("fused_local_step",
                   lambda: FA.fused_local_step(g, m, u, v, lr, b1),
@@ -524,15 +599,23 @@ def check_hier_kernels(dev, tally):
 
 def expected_launches(label, layouts):
     """Launches each kernel makes in one run of RUNS[label], from the
-    reference's routing: 8 steps, 6 syncs, every leaf one launch per
-    phase (the stacked workers share it). The two-level exchange
-    (gpt2_hier) makes as many: its worker side compresses the owned slice
-    where the flat one compresses the view, its server side one chunk
-    each, its two decodes are inter-pod, and its intra-pod phases and
-    full-precision rounds launch no kernel."""
+    reference's routing: 8 steps, 6 syncs (one_bit_adam: 6 1-bit
+    rounds), every leaf one launch per phase (the stacked workers share
+    it). The two-level exchange (gpt2_hier) makes as many: its worker
+    side compresses the owned slice where the flat one compresses the
+    view, its server side one chunk each, its two decodes are inter-pod,
+    and its intra-pod phases and full-precision rounds launch no
+    kernel."""
     n_syncs = 6
     nd = [len(lo.view_shape) for lo in layouts]
     leaves, flat = len(nd), nd.count(2)
+    if label == "gpt2_adam":
+        return {}       # bf16 means and a plain step: no kernel
+    if label == "gpt2_onebit":
+        # six 1-bit rounds of the gradient (steps 2-7); the plain step
+        # never reaches the fused local step
+        return {k: n_syncs * 2 * leaves
+                for k in ("abs_rowsum", "ef_quantize", "decompress")}
     if label == "bert_row":
         single = nd.count(3)            # worker side, row scales on 3-D
         two_pass = (leaves - single) + (leaves - flat)   # worker + server
@@ -553,7 +636,8 @@ def expected_launches(label, layouts):
 def run_main_path(dev, label, arch, extra, batch, seq, kind):
     """Phase 4: one main path, 4 simulated workers, 8 steps, through
     ``launch.train``. Returns the per-step records, the launch counts,
-    the peak memory and, for gpt2, the profile of step 6."""
+    the peak memory and, for the gpt2 runs 4a, 4e and 4f, the profile of
+    step 6."""
     from repro_torch.kernels import build
     from repro_torch.launch import train as launch
 
@@ -566,8 +650,9 @@ def run_main_path(dev, label, arch, extra, batch, seq, kind):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     build.launch_counts.clear()
-    res = launch.train(args, tr, kind=kind,
-                       keep_step=PROFILED_STEP if label == "gpt2" else None)
+    res = launch.train(args, tr, kind=kind, keep_step=(
+        PROFILED_STEP if label in ("gpt2", "gpt2_adam", "gpt2_onebit")
+        else None))
     counts = dict(build.launch_counts)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"  launches {json.dumps(counts)}; peak memory {peak_gb:.1f} GB",
@@ -579,18 +664,25 @@ def run_main_path(dev, label, arch, extra, batch, seq, kind):
     # random init at scale 0.02: near-uniform logits over the padded vocab
     assert abs(losses[0] - np.log(tr.model_cfg.padded_vocab)) < 0.5, (
         losses[0])
-    assert [s["sync"] for s in steps] == [1, 1, 1, 1, 1, 0, 1, 0]
-    has_var = tr.opt.base.has_variance
-    assert [s["var"] for s in steps] == (
-        [1, 1, 0, 1, 0, 0, 0, 0] if has_var else [0] * STEPS)
+    syncs, vars_ = schedule(args.optimizer, tr.opt.base.has_variance)
+    assert [s["sync"] for s in steps] == syncs
+    assert [s["var"] for s in steps] == vars_
     expect = expected_launches(label, tr.opt.layouts)
     assert counts == expect, (label, counts, expect)
+    for kind, t in times_by_kind(steps, step_kinds(extra)).items():
+        print(f"    {kind}: step {t['step_ms']:.1f} ms (fwd/bwd "
+              f"{t['fwd_bwd_ms']:.1f}, optimizer {t['optimizer_ms']:.1f})",
+              flush=True)
+    wire = step_bytes(tr.opt, steps)
+    print(f"  wire MiB per worker and step "
+          f"{[round(b / 2**20, 2) for b in wire]}; total {sum(wire) / 2**20:.2f} MiB in "
+          f"{sum(1 for b in wire if b)} steps that exchange", flush=True)
     kept = res["kept"]
     del res
     profile = profile_step(tr, *kept) if kept is not None else None
     del kept, tr
     return {"steps": steps, "launches": counts, "peak_memory_gb": peak_gb,
-            "profile": profile}
+            "wire_bytes": wire, "profile": profile}
 
 
 def _device_us(evt) -> float:
@@ -599,8 +691,8 @@ def _device_us(evt) -> float:
 
 
 def profile_step(tr, params, state, batch):
-    """Phase 4, gpt2: repeat the forward/backward and the optimizer step
-    of one sync step under torch.profiler; per part, the wall time, the
+    """Phase 4, gpt2 (4a, 4e, 4f): repeat the forward/backward and the
+    optimizer step of step 6 under torch.profiler; per part, the wall time, the
     summed device time of its kernels and the kernels that take the
     most."""
     from torch.profiler import ProfilerActivity, profile
@@ -724,16 +816,16 @@ def probe_exchange(backend, device, n, inner=None):
     return cases
 
 
-def times_by_kind(records):
-    """Median per step kind of each time of the step records (the
-    exchange's only where the comm timed one)."""
+def times_by_kind(records, kinds=STEP_KINDS):
+    """Median per step kind (``kinds``: name -> steps) of each time of the
+    step records (the exchange's only where the comm timed one)."""
     keys = ["step_ms", "fwd_bwd_ms", "optimizer_ms"]
     keys += [k for k in ("exchange_ms", "exchange_ms_intra",
                          "exchange_ms_inter")
              if records[0].get(k) is not None]
     return {kind: {k: statistics.median(records[t][k] for t in steps)
                    for k in keys}
-            for kind, steps in STEP_KINDS.items()}
+            for kind, steps in kinds.items()}
 
 
 def run_in_process(argv):
@@ -758,16 +850,17 @@ def run_in_process(argv):
     return out
 
 
-def run_ranks(argv, n):
-    """Phase 6: ``--mode dist`` in ``n`` spawned ranks; each rank's
-    results (params on the CPU) and the wall time of the spawn."""
+def run_ranks(argv, n, kind="lm"):
+    """Phase 6: ``--mode dist`` in ``n`` spawned ranks on the synthetic
+    stream of ``kind``; each rank's results (params on the CPU) and the
+    wall time of the spawn."""
     from repro_torch.launch import mesh
     from repro_torch.launch import train as launch
 
     with scratch_dir() as tmp:
         t0 = time.time()
         mesh.spawn(launch.rank_main, n,
-                   (argv, n, mesh.file_rendezvous(tmp), tmp),
+                   (argv, n, mesh.file_rendezvous(tmp), tmp, False, kind),
                    timeout_s=DIST_TIMEOUT_S)
         wall = time.time() - t0
         return [torch.load(os.path.join(tmp, f"rank{r}.pt"))
@@ -780,7 +873,8 @@ def dist_runs(label, transport, ref, argv, n, expect, bitwise=False):
     assert ref["launches"] == expect, (label, ref["launches"], expect)
     print(f"  {label} reference run: peak {ref['peak_memory_gb']:.2f} GB",
           flush=True)
-    ref_times = times_by_kind(ref["records"])
+    kinds = step_kinds(argv)
+    ref_times = times_by_kind(ref["records"], kinds)
     for kind, t in ref_times.items():
         print(f"    {kind}: step {t['step_ms']:.1f} ms (fwd/bwd "
               f"{t['fwd_bwd_ms']:.1f}, optimizer {t['optimizer_ms']:.1f}; "
@@ -789,13 +883,26 @@ def dist_runs(label, transport, ref, argv, n, expect, bitwise=False):
     out = {"transport": transport, "ranks_wall_s": wall,
            "reference": {"peak_memory_gb": ref["peak_memory_gb"],
                          "launches": ref["launches"], "times": ref_times},
-           "ranks": compare_ranks(label, transport, ref, ranks, bitwise)}
+           "ranks": compare_ranks(label, transport, ref, ranks, bitwise,
+                                  kinds)}
     del ranks
     gc.collect()
     return out
 
 
-def compare_ranks(label, transport, ref, ranks, bitwise=False):
+def print_rank_times(times, transport):
+    for kind, t in times.items():
+        levels = ("" if "exchange_ms_intra" not in t else
+                  f": intra-pod {t['exchange_ms_intra']:.1f}, "
+                  f"inter-pod {t['exchange_ms_inter']:.1f}")
+        print(f"    {kind}: step {t['step_ms']:.1f} ms (fwd/bwd "
+              f"{t['fwd_bwd_ms']:.1f}, optimizer {t['optimizer_ms']:.1f}"
+              f", exchange {t['exchange_ms']:.1f}{levels} over "
+              f"{transport})", flush=True)
+
+
+def compare_ranks(label, transport, ref, ranks, bitwise=False,
+                  kinds=STEP_KINDS):
     """Phase 6: every rank against the worker of its index in ``ref``:
     with ``bitwise`` losses and params bit for bit, else losses within
     1e-4, params 99% within 1e-4 and all within 0.05 (phase 5's bars),
@@ -834,7 +941,7 @@ def compare_ranks(label, transport, ref, ranks, bitwise=False):
                "params_within_1e-4": n_close / n, "max_param_gap": max_gap,
                "peak_memory_gb": res["peak_memory_bytes"] / 1e9,
                "launches": res["launches"],
-               "times": times_by_kind(res["records"])}
+               "times": times_by_kind(res["records"], kinds)}
         print(f"  {label} rank {r} on {res['device']} ({res['backend']}): "
               f"losses bitwise {row['losses_bitwise']} (gap "
               f"{row['max_loss_gap']:.2e}); params bitwise "
@@ -845,14 +952,7 @@ def compare_ranks(label, transport, ref, ranks, bitwise=False):
               f"{first_leaf}); "
               f"peak {row['peak_memory_gb']:.2f} GB; launches "
               f"{json.dumps(res['launches'])}", flush=True)
-        for kind, t in row["times"].items():
-            levels = ("" if "exchange_ms_intra" not in t else
-                      f": intra-pod {t['exchange_ms_intra']:.1f}, "
-                      f"inter-pod {t['exchange_ms_inter']:.1f}")
-            print(f"    {kind}: step {t['step_ms']:.1f} ms (fwd/bwd "
-                  f"{t['fwd_bwd_ms']:.1f}, optimizer {t['optimizer_ms']:.1f}"
-                  f", exchange {t['exchange_ms']:.1f}{levels} over "
-                  f"{transport})")
+        print_rank_times(row["times"], transport)
         if bitwise:
             assert row["losses_bitwise"] and row["params_bitwise"], (
                 label, r, "not bit for bit its simulated worker", row)
@@ -867,27 +967,34 @@ def run_dist_phase():
     """Phase 6 (see the module docstring). Returns its summary."""
     t0 = time.time()
     cards = min(torch.cuda.device_count(), N_WORKERS)
-    expect = expected_launches("gpt2", full_plan("gpt2").layouts)
+    layouts = full_plan("gpt2").layouts
+    expect = expected_launches("gpt2", layouts)
+    onebit = expected_launches("gpt2_onebit", layouts)
     out = {"probe": {"nccl": probe_exchange(
                          "nccl", "cuda", cards,
                          INNER if cards == N_WORKERS else None),
                      "gloo cuda:0": probe_exchange("gloo", "cuda:0",
                                                    N_WORKERS, INNER)},
-           "6a": run_6a(expect), "6b": run_6b(cards, expect),
-           "6c": run_6c(expect)}
+           "6a": run_6a(expect), "6a_onebit": run_6a(onebit, ONEBIT),
+           "6b": run_6b(cards, expect),
+           "6b_adam": run_6b(cards, {}, ["--optimizer", "adam"]),
+           "6b_onebit": run_6b(cards, onebit, ONEBIT),
+           "6c": run_6c(expect), "6d": run_6d()}
     out["wall_s"] = time.time() - t0
     print(f"phase 6: {out['wall_s']:.1f} s", flush=True)
     return out
 
 
-def run_6a(expect):
-    print(f"phase 6a: gpt2 FULL, {N_WORKERS} ranks on cuda:0 over gloo, "
-          f"batch {BATCH}, seq {SEQ}, micro-batches 2, vs sim", flush=True)
-    flags = gpt2_argv(BATCH, ["--micro-batches", "2"])
+def run_6a(expect, extra=()):
+    label = f"6a {optimizer_of(list(extra))}"
+    print(f"phase {label}: gpt2 FULL, {N_WORKERS} ranks on cuda:0 over "
+          f"gloo, batch {BATCH}, seq {SEQ}, micro-batches 2, vs sim",
+          flush=True)
+    flags = gpt2_argv(BATCH, ["--micro-batches", "2", *extra])
     sim = run_in_process(flags + ["--mode", "sim", "--workers",
                                   str(N_WORKERS), "--device", "cuda:0"])
     out = dist_runs(
-        "6a", f"gloo via host memory, {N_WORKERS} ranks on one card", sim,
+        label, f"gloo via host memory, {N_WORKERS} ranks on one card", sim,
         flags + ["--mode", "dist", "--backend", "gloo", "--device",
                  "cuda:0"], N_WORKERS, expect, bitwise=True)
     del sim
@@ -895,17 +1002,18 @@ def run_6a(expect):
     return out
 
 
-def run_6b(cards, expect):
+def run_6b(cards, expect, extra=()):
     batch = BATCH // N_WORKERS * cards
     ref_mode = (["--mode", "single"] if cards == 1 else
                 ["--mode", "sim", "--workers", str(cards)])
-    print(f"phase 6b: gpt2 FULL, {cards} rank(s) over NCCL (one card each)"
-          f", batch {batch}, seq {SEQ}, vs {ref_mode[1]}", flush=True)
-    ref = run_in_process(gpt2_argv(batch, ref_mode))
+    label = f"6b {optimizer_of(list(extra))}"
+    print(f"phase {label}: gpt2 FULL, {cards} rank(s) over NCCL (one card "
+          f"each), batch {batch}, seq {SEQ}, vs {ref_mode[1]}", flush=True)
+    ref = run_in_process(gpt2_argv(batch, ref_mode + list(extra)))
     return dist_runs(
-        "6b", f"NCCL, {cards} card(s)", ref,
+        label, f"NCCL, {cards} card(s)", ref,
         gpt2_argv(batch, ["--mode", "dist", "--backend", "nccl", "--device",
-                          "cuda"]), cards, expect)
+                          "cuda", *extra]), cards, expect)
 
 
 def run_6c(expect):
@@ -932,6 +1040,56 @@ def run_6c(expect):
     del sim
     gc.collect()
     return out
+
+
+def run_6d():
+    """Phase 6d, on four cards only: bert-large FULL in four NCCL ranks,
+    one per card, masked-LM data, zero_one_adam with tensor scales, phase
+    4a's flags, global batch 32 x 512. No run in this process holds it
+    (four simulated workers of bert-large need ~43 GB of optimizer state
+    before activations): each rank's losses are finite and start near
+    log(padded vocab), its step kinds and launch counts are 4a's."""
+    from repro_torch.configs.base import get
+
+    if torch.cuda.device_count() < N_WORKERS:
+        why = (f"needs {N_WORKERS} cards, one rank each; this machine has "
+               f"{torch.cuda.device_count()}")
+        print(f"phase 6d: bert-large FULL in processes not run: {why}",
+              flush=True)
+        return {"ran": False, "why": why}
+    argv = ["--arch", "bert-large", "--steps", str(STEPS), "--batch",
+            str(BERT_BATCH), "--seq", str(BERT_SEQ), "--sync-warmup", "2",
+            "--double-every", "2", "--kappa", "1", "--log-every",
+            str(STEPS), "--mode", "dist", "--backend", "nccl", "--device",
+            "cuda"]
+    transport = f"NCCL, {N_WORKERS} cards"
+    print(f"phase 6d: bert-large FULL, {N_WORKERS} ranks over {transport},"
+          f" mlm data, batch {BERT_BATCH}, seq {BERT_SEQ}; no in-process "
+          f"run to compare with (it does not fit on one card)", flush=True)
+    ranks, wall = run_ranks(argv, N_WORKERS, kind="mlm")
+    expect = expected_launches("bert_large", full_plan("bert-large").layouts)
+    log_vocab = float(np.log(get("bert-large").config.padded_vocab))
+    syncs, vars_ = schedule("zero_one_adam", True)
+    rows = []
+    for r, res in enumerate(ranks):
+        losses = [rec["losses"][0] for rec in res["records"]]
+        row = {"rank": r, "device": res["device"], "losses": losses,
+               "peak_memory_gb": res["peak_memory_bytes"] / 1e9,
+               "launches": res["launches"],
+               "times": times_by_kind(res["records"])}
+        print(f"  6d rank {r} on {res['device']}: losses "
+              f"{[round(x, 4) for x in losses]}; peak "
+              f"{row['peak_memory_gb']:.2f} GB; launches "
+              f"{json.dumps(res['launches'])}", flush=True)
+        print_rank_times(row["times"], transport)
+        assert all(np.isfinite(losses)), (r, losses)
+        assert abs(losses[0] - log_vocab) < 0.5, (r, losses[0], log_vocab)
+        assert [rec["sync"] for rec in res["records"]] == syncs, r
+        assert [rec["var"] for rec in res["records"]] == vars_, r
+        assert res["launches"] == expect, (r, res["launches"], expect)
+        rows.append(row)
+    return {"ran": True, "transport": transport, "ranks_wall_s": wall,
+            "ranks": rows}
 
 
 def main():
@@ -987,6 +1145,9 @@ def main():
     small = {"gpt2": check_small_input(dev, "gpt2", [], "lm"),
              "gpt2_hier": check_small_input(
                  dev, "gpt2", ["--hierarchy", str(INNER)], "lm"),
+             "gpt2_adam": check_small_input(
+                 dev, "gpt2", ["--optimizer", "adam"], "lm"),
+             "gpt2_onebit": check_small_input(dev, "gpt2", ONEBIT, "lm"),
              "bert_row": check_small_input(
                  dev, "bert-base", ["--scale-mode", "row"] + slow, "mlm"),
              "bert_sgd": check_small_input(
@@ -1008,10 +1169,13 @@ def main():
         bound_ms, bound_by = bound(r)
         by_run = {label: run["launches"].get(name, 0)
                   for label, run in runs.items()}
-        for part in ("6a", "6b", "6c"):
-            d = dist_phase[part]
-            by_run[f"{part}_{'reference' if part == '6b' else 'sim'}"] = (
-                d["reference"]["launches"].get(name, 0))
+        for part, d in dist_phase.items():
+            if not isinstance(d, dict) or "ranks" not in d:
+                continue            # the probes, the wall time; 6d on
+                                    # fewer cards
+            if "reference" in d:
+                by_run[f"{part}_reference"] = (
+                    d["reference"]["launches"].get(name, 0))
             for row in d["ranks"]:
                 by_run[f"{part}_rank{row['rank']}"] = (
                     row["launches"].get(name, 0))
@@ -1044,6 +1208,8 @@ def main():
     assert not missing, f"kernels never launched on a main path: {missing}"
     summary = {"runs": runs, "small_inputs": small,
                "data_parallel": dist_phase, "wall_s": time.time() - t_start}
+    print(f"chip_smoke: all phases passed in {summary['wall_s']:.1f} s",
+          flush=True)
     print("summary " + json.dumps(summary))
     print(json.dumps({"kernels": kernels}))
     print(card)

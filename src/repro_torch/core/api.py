@@ -1,14 +1,17 @@
 """Optimizer config and registry, PyTorch port of ``src/repro/core/api.py``.
 
-Ported: the 0/1 local-step pipelines over the Adam base (``zero_one_adam``,
-the paper's recipe) and the momentum-SGD base (``zero_one_sgd``), both
-``compressed_dp(base, style="accumulate")``. Every other registry name of
-the reference raises ``NotImplementedError`` until its slice lands.
+Ported, over the Adam base and the momentum-SGD base: the 0/1 local-step
+pipelines ``zero_one_adam`` (the paper's recipe) and ``zero_one_sgd``
+(``style="accumulate"``), the uncompressed baselines ``adam`` and
+``momentum_sgd`` (``style="mean"``), and 1-bit Adam, ``one_bit_adam``
+(``style="gradient"`` with a full-precision stage of ``onebit_warmup``
+steps). The LAMB names raise ``NotImplementedError`` until their slice
+lands.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -18,13 +21,7 @@ from repro_torch.core.base_steps import adam_base, momentum_sgd_base
 from repro_torch.core.comm import Hierarchy
 from repro_torch.core.compressed import CompressedDP, compressed_dp
 
-_BASES = {
-    "zero_one_adam": lambda c: adam_base(c.beta1, c.beta2, c.eps),
-    "zero_one_sgd": lambda c: momentum_sgd_base(c.beta1),
-}
-REGISTRY_NAMES = tuple(sorted(_BASES))
-_LATER = ("adam", "lamb", "momentum_sgd", "one_bit_adam", "one_bit_lamb",
-          "zero_one_lamb")
+_LATER = ("lamb", "one_bit_lamb", "zero_one_lamb")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,9 +31,12 @@ class OptimizerConfig:
     beta1: float = 0.9
     beta2: float = 0.999
     eps: float = 1e-8
+    weight_decay: float = 0.0
     var_policy: Any = S.AdaptiveFreezePolicy(kappa=16)
     sync_policy: Any = S.LrProportionalSyncPolicy(
         warmup_steps=12500, double_every=32768, max_interval=16)
+    onebit_warmup: int = 16000              # 1-bit Adam's full-precision
+                                            # stage, in steps
     scale_mode: C.ScaleMode = "tensor"
     codec: Any = "sign1bit"
     comm_dtype: Any = torch.bfloat16
@@ -54,12 +54,61 @@ class OptimizerConfig:
         C.validate_scale_mode(self.scale_mode)
 
 
+def _shared_kwargs(cfg: OptimizerConfig) -> Dict[str, Any]:
+    return dict(lr=cfg.lr, weight_decay=cfg.weight_decay,
+                scale_mode=cfg.scale_mode, codec=cfg.codec,
+                comm_dtype=cfg.comm_dtype, hierarchy=cfg.hierarchy)
+
+
+def _adam(cfg):
+    return adam_base(cfg.beta1, cfg.beta2, cfg.eps)
+
+
+def _sgd(cfg):
+    return momentum_sgd_base(cfg.beta1)
+
+
+def _zero_one(base_fn):
+    def build(cfg):
+        return compressed_dp(base_fn(cfg), style="accumulate",
+                             sync_policy=cfg.sync_policy,
+                             var_policy=cfg.var_policy,
+                             **_shared_kwargs(cfg))
+    return build
+
+
+def _one_bit(base_fn):
+    def build(cfg):
+        return compressed_dp(base_fn(cfg), style="gradient",
+                             var_policy=S.FixedWarmupPolicy(
+                                 cfg.onebit_warmup),
+                             **_shared_kwargs(cfg))
+    return build
+
+
+def _mean(base_fn):
+    def build(cfg):
+        return compressed_dp(base_fn(cfg), style="mean",
+                             **_shared_kwargs(cfg))
+    return build
+
+
+_BUILDERS: Dict[str, Callable[[OptimizerConfig], CompressedDP]] = {
+    # uncompressed DP baselines (full-precision mean every step)
+    "adam": _mean(_adam),
+    "momentum_sgd": _mean(_sgd),
+    # 1-bit two-stage (full-precision warmup, then EF-compressed gradients)
+    "one_bit_adam": _one_bit(_adam),
+    # 0/1 local-step pipelines (paper Algorithm 1 over each base)
+    "zero_one_adam": _zero_one(_adam),
+    "zero_one_sgd": _zero_one(_sgd),
+}
+REGISTRY_NAMES = tuple(sorted(_BUILDERS))
+
+
 def transform_from_config(cfg: OptimizerConfig) -> CompressedDP:
-    return compressed_dp(
-        _BASES[cfg.name](cfg), style="accumulate",
-        lr=cfg.lr, sync_policy=cfg.sync_policy, var_policy=cfg.var_policy,
-        scale_mode=cfg.scale_mode, codec=cfg.codec,
-        comm_dtype=cfg.comm_dtype, hierarchy=cfg.hierarchy)
+    """Resolve a registry name to its unbound composed transform."""
+    return _BUILDERS[cfg.name](cfg)
 
 
 def build_optimizer(cfg, param_shapes, *, specs=None, dp_mask=None,

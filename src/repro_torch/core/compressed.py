@@ -1,20 +1,31 @@
 """``compressed_dp``: compressed data-parallel sync as a transform over a
-base step, PyTorch port of ``src/repro/core/compressed.py`` (the
-``"accumulate"`` style, i.e. paper Algorithm 1, with per-leaf exchange).
+base step, PyTorch port of ``src/repro/core/compressed.py`` (per-leaf
+exchange).
 
     opt = compressed_dp(adam_base(), lr=..., sync_policy=...,
                         var_policy=...)(param_shapes, specs=..., n_workers=n)
     state = opt.init(params)
     params, state, metrics = opt.step(comm, params, grads, state)
 
-Every per-worker tensor carries the stack of workers on dim 0. Local
-linearized half-steps accumulate ``u``; on T_u steps ``u`` goes through
-the Algorithm-2 exchange and parameters re-anchor at the stored anchor,
-``x = anchor - precond(u_bar)`` (the reference's ``store_anchor=True``); on T_v steps the variance is refreshed
-from a full-precision gradient mean, for bases that carry one (a base
-without a variance, momentum SGD, has no ``"v"`` slot and no T_v round).
-The policies run on the host, so the sync and variance branches are plain
-Python ``if``s.
+Every per-worker tensor carries the stack of workers on dim 0. Three sync
+styles:
+
+* ``"accumulate"`` (paper Algorithm 1): local linearized half-steps
+  accumulate ``u``; on T_u steps ``u`` goes through the Algorithm-2
+  exchange and parameters re-anchor at the stored anchor,
+  ``x = anchor - precond(u_bar)`` (the reference's ``store_anchor=True``);
+  on T_v steps the variance is refreshed from a full-precision gradient
+  mean, for bases that carry one (a base without a variance, momentum
+  SGD, has no ``"v"`` slot and no T_v round).
+* ``"gradient"`` (1-bit Adam's two stages): a full-precision gradient
+  mean while ``var_policy`` fires, then the Algorithm-2 exchange of the
+  gradient itself with the variance frozen.
+* ``"mean"`` (the uncompressed baseline): a full-precision gradient mean
+  and a variance update every step.
+
+The gradient and mean styles then take the base's step on the mean
+gradient (:meth:`ComposedOptimizer._step_sync`). The policies run on the
+host, so the sync and variance branches are plain Python ``if``s.
 """
 from __future__ import annotations
 
@@ -31,19 +42,24 @@ from repro_torch.core import onebit_allreduce as AR
 from repro_torch.core import schedules as S
 from repro_torch.core.comm import Comm, Hierarchy
 from repro_torch.kernels import dispatch as K
+from repro_torch.kernels.fused_adam import fma, rsqrt
+
+STYLES = ("accumulate", "gradient", "mean")
 
 
 @dataclasses.dataclass
 class CompressedDPState:
     step: int
     gamma_acc: np.float32         # sum of gamma since the last sync
-    sync_pstate: tuple            # T_u policy state (host ints)
+    sync_pstate: tuple            # T_u policy state (host ints; accumulate)
     var_pstate: tuple             # T_v policy state (host ints)
     slots: Dict[str, List[torch.Tensor]]   # "m" (+ "v"): stacked views
-    u: List[torch.Tensor]         # accumulated update views
-    err_w: List[torch.Tensor]     # worker EF (stack, *ef_worker_shape)
-    err_s: List[torch.Tensor]     # server EF (stack, *chunk_shape)
-    anchor: List[torch.Tensor]    # x_{t'} copies, natural shape
+    # per leaf, None where the style keeps none (as the reference):
+    u: List[Optional[torch.Tensor]]        # accumulated updates (accumulate)
+    err_w: List[Optional[torch.Tensor]]    # worker EF (stack,
+                                           # *ef_worker_shape; not in mean)
+    err_s: List[Optional[torch.Tensor]]    # server EF (stack, *chunk_shape)
+    anchor: List[Optional[torch.Tensor]]   # x_{t'} copies (accumulate)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,18 +72,25 @@ class CompressedDP:
     sync_policy: Any = S.LrProportionalSyncPolicy(
         warmup_steps=12500, double_every=32768, max_interval=16)
     var_policy: Any = S.AdaptiveFreezePolicy(kappa=16)
+    weight_decay: float = 0.0
     scale_mode: C.ScaleMode = "tensor"
     codec: Any = "sign1bit"
     comm_dtype: Any = torch.bfloat16
     hierarchy: Optional[Hierarchy] = None   # two-level exchange (pods)
 
     def __post_init__(self):
-        if self.style != "accumulate":
-            raise NotImplementedError(
-                f"style={self.style!r} is not ported yet; the gradient and "
-                f"mean styles come with a later slice of the port")
+        if self.style not in STYLES:
+            raise ValueError(f"style={self.style!r}; choose from {STYLES}")
         C.validate_scale_mode(self.scale_mode)
         object.__setattr__(self, "codec", CODECS.make_codec(self.codec))
+        if self.style == "accumulate" and self.weight_decay:
+            raise ValueError(
+                "weight_decay is not supported in the accumulate style: a "
+                "decay term makes the local step affine in x, breaking the "
+                "u-linearization that lets syncs exchange the accumulated "
+                "buffer (x_{t+1/2} = x_{t'} - precond(u) no longer holds). "
+                "Use decoupled decay outside the optimizer, or the "
+                "gradient/mean styles.")
 
     def __call__(self, param_shapes, *, specs=None, dp_mask=None,
                  n_workers: int):
@@ -99,6 +122,12 @@ class ComposedOptimizer:
             self.plan, scale_mode=cfg.scale_mode, codec=cfg.codec,
             comm_dtype=cfg.comm_dtype)
         self.codec = self.ar_cfg.codec
+        self._use_sync_policy = cfg.style == "accumulate"
+        self._use_var_policy = (cfg.style in ("accumulate", "gradient")
+                                and self.base.has_variance)
+        self._has_u = cfg.style == "accumulate"
+        self._has_ef = cfg.style in ("accumulate", "gradient")
+        self._has_anchor = self._has_u
 
     # ------------------------------------------------------------------ #
     def init(self, params) -> CompressedDPState:
@@ -110,23 +139,31 @@ class ComposedOptimizer:
                                    dtype=torch.float32, device=x.device)
                         for x, lo in zip(xs, los)]
                  for name, (_, init) in self.base.slot_specs().items()}
-        efs = [AR.init_ef_state(lo, stack, x.device)
-               for x, lo in zip(xs, los)]
+        efs = [AR.init_ef_state(lo, stack, x.device) if self._has_ef
+               else AR.EFState(None, None) for x, lo in zip(xs, los)]
         return CompressedDPState(
             step=0, gamma_acc=np.float32(0.0),
-            sync_pstate=self.cfg.sync_policy.init(),
+            sync_pstate=(self.cfg.sync_policy.init()
+                         if self._use_sync_policy else ()),
             var_pstate=(self.cfg.var_policy.init()
-                        if self.base.has_variance else ()),
+                        if self._use_var_policy else ()),
             slots=slots,
             u=[torch.zeros((stack,) + lo.view_shape, device=x.device)
-               for x, lo in zip(xs, los)],
+               if self._has_u else None for x, lo in zip(xs, los)],
             err_w=[ef.err_worker for ef in efs],
             err_s=[ef.err_server for ef in efs],
-            anchor=[x.detach().clone() for x in xs])
+            anchor=[x.detach().clone() if self._has_anchor else None
+                    for x in xs])
 
     def step(self, comm: Comm, params, grads, state: CompressedDPState):
-        """One accumulate-style step of every stacked worker. Returns
-        (new params, new state, metrics); the inputs are not modified."""
+        """One step of every stacked worker in the configured style.
+        Returns (new params, new state, metrics); the inputs are not
+        modified."""
+        if self.cfg.style == "accumulate":
+            return self._step_accumulate(comm, params, grads, state)
+        return self._step_sync(comm, params, grads, state)
+
+    def _step_accumulate(self, comm, params, grads, state):
         cfg, base = self.cfg, self.base
         t = state.step
         lr = np.float32(cfg.lr(t))
@@ -188,6 +225,87 @@ class ComposedOptimizer:
             u=new_u, err_w=new_ew, err_s=new_es, anchor=new_anchor)
         metrics = {"lr": lr, "synced": do_sync, "var_round": do_var,
                    "interval": interval}
+        return (leafwise.unflatten_tree(self.plan.paths, new_x), new_state,
+                metrics)
+
+    def _step_sync(self, comm, params, grads, state):
+        """The gradient and mean styles: exchange the gradient itself,
+        then take the base's step on the mean. The step is the
+        reference's plain arithmetic, never the fused local step (which
+        would write a ``u'`` these styles do not have); its
+        multiply-adds are single-rounding, as XLA contracts them."""
+        cfg, base = self.cfg, self.base
+        t = state.step
+        lr = np.float32(cfg.lr(t))
+        xs, gs = self.plan.flat(params), self.plan.flat(grads)
+        gv = [C.to_view(g.to(torch.float32), lo)
+              for g, lo in zip(gs, self.layouts)]
+        new_ew, new_es = list(state.err_w), list(state.err_s)
+        if cfg.style == "gradient":
+            if self._use_var_policy:
+                do_var, var_ps = cfg.var_policy.step(state.var_pstate, t, 1)
+            else:
+                do_var, var_ps = False, state.var_pstate
+            gbar = []
+            for i, (g, lo) in enumerate(zip(gv, self.layouts)):
+                if do_var:   # the full-precision stage: EF state kept
+                    gbar.append(AR.fullprec_allreduce_view(
+                        comm, g, cfg.comm_dtype, self.hierarchy, lo))
+                    continue
+                o, ef = AR.onebit_allreduce_view(
+                    comm, g, AR.EFState(state.err_w[i], state.err_s[i]), lo,
+                    self.ar_cfg)
+                gbar.append(o)
+                new_ew[i], new_es[i] = ef.err_worker, ef.err_server
+        else:   # mean: the uncompressed baseline, no EF state at all
+            do_var, var_ps = base.has_variance, state.var_pstate
+            gbar = [AR.fullprec_allreduce_view(comm, g, cfg.comm_dtype,
+                                               self.hierarchy, lo)
+                    for g, lo in zip(gv, self.layouts)]
+
+        # The base step as XLA compiles the reference's (measured on
+        # jax 0.9.0's CPU backend): m' = fma(b1, m, (1-b1)*g) and
+        # v' = fma(b2, v, ((1-b2)*g)*g); the divide by sqrt(v + eps)
+        # becomes a multiply by rsqrt(v + eps) with the variance from
+        # before this step's update; the parameter update is one more
+        # FMA: x' = fma(-(lr*m'), r, x) (momentum SGD: fma(m', -lr, x)),
+        # or with decay x' = x - fma(x, lr*wd, (lr*m')*r).
+        def f32(a):   # a host scalar as the f32 the reference folds
+            return float(np.float32(a))
+
+        lr_wd = f32(lr * np.float32(cfg.weight_decay))
+        b1, omb1 = f32(base.beta1), f32(1.0 - base.beta1)
+        if base.has_variance:
+            b2, omb2, eps = (f32(base.beta2), f32(1.0 - base.beta2),
+                             f32(base.eps))
+        new_x, new_m = [], []
+        new_v = list(state.slots["v"]) if base.has_variance else None
+        for i, (x, g, lo) in enumerate(zip(xs, gbar, self.layouts)):
+            nm = fma(state.slots["m"][i], b1, g * omb1)
+            x32 = x.to(torch.float32)
+            if base.has_variance:
+                v = state.slots["v"][i]
+                if do_var:
+                    new_v[i] = fma(v, b2, (g * omb2) * g)
+                step = C.from_view(nm * float(lr), lo)
+                r = C.from_view(rsqrt(v + eps), lo)
+                nx = (x32 - fma(x32, lr_wd, step * r) if lr_wd
+                      else fma(-step, r, x32))
+            else:
+                step = C.from_view(nm, lo)
+                nx = (x32 - fma(x32, lr_wd, step * float(lr)) if lr_wd
+                      else fma(step, -float(lr), x32))
+            new_x.append(nx.to(x.dtype))
+            new_m.append(nm)
+
+        new_slots = {"m": new_m}
+        if new_v is not None:
+            new_slots["v"] = new_v
+        new_state = dataclasses.replace(
+            state, step=t + 1, var_pstate=var_ps, slots=new_slots,
+            err_w=new_ew, err_s=new_es)
+        metrics = {"lr": lr, "synced": True, "var_round": bool(do_var),
+                   "interval": 1}
         return (leafwise.unflatten_tree(self.plan.paths, new_x), new_state,
                 metrics)
 

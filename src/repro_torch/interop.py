@@ -29,13 +29,19 @@ def state_from_reference(state, opt: ComposedOptimizer,
                          device="cpu") -> CompressedDPState:
     """The reference's sim-mode ``CompressedDPState`` (every leaf stacked
     over workers, as ``Trainer.sim_init`` returns it) -> the port's state
-    for ``opt``. Scalars and policy states are identical on all workers
-    and come from worker 0."""
+    for ``opt``, in any style. Scalars and policy states are identical on
+    all workers and come from worker 0; a leaf the style keeps as
+    ``None`` stays ``None``."""
     def first(x):
         return np.asarray(x).reshape(-1)[0]
 
+    def scalar(x):
+        v = first(x)
+        return bool(v) if v.dtype == np.bool_ else int(v)
+
     def leaves(xs):
-        return [_tensor(x, device).to(torch.float32) for x in xs]
+        return [None if x is None else _tensor(x, device).to(torch.float32)
+                for x in xs]
 
     n_leaves = len(opt.layouts)
     for name in ("u", "err_w", "err_s", "anchor"):
@@ -45,11 +51,8 @@ def state_from_reference(state, opt: ComposedOptimizer,
     return CompressedDPState(
         step=int(first(state.step)),
         gamma_acc=np.float32(first(state.gamma_acc)),
-        sync_pstate=tuple(int(first(x)) for x in state.sync_pstate),
-        var_pstate=(() if not state.var_pstate else
-                    (int(first(state.var_pstate[0])),
-                     int(first(state.var_pstate[1])),
-                     bool(first(state.var_pstate[2])))),
+        sync_pstate=tuple(scalar(x) for x in state.sync_pstate),
+        var_pstate=tuple(scalar(x) for x in state.var_pstate),
         slots={name: leaves(state.slots[name])
                for name in opt.base.slot_specs()},
         u=leaves(state.u), err_w=leaves(state.err_w),

@@ -53,6 +53,36 @@ def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
     return odd.view(torch.float64).float()
 
 
+def fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """``a*b + c`` with one rounding, for f32 tensors ``a``, ``c`` and a
+    scalar (taken at f32) or f32 tensor ``b``: the plain steps of the
+    gradient and mean styles, whose multiply-adds XLA contracts. On the CPU the exact
+    :func:`fma_f32`; on the card ``torch.add(c, a, alpha=b)`` or
+    ``torch.addcmul(c, a, b)``, whose CUDA kernels compute one hardware
+    FMA on contiguous operands (not on strided ones; held to
+    :func:`fma_f32` bit for bit by ``chip_smoke.py`` and
+    ``tests/test_torch_gpu.py``)."""
+    if not isinstance(b, torch.Tensor):
+        b = float(np.float32(b))    # the card rounds a scalar to f32
+    if not a.is_cuda:
+        return fma_f32(a, b, c)
+    a, c = a.contiguous(), c.contiguous()
+    if isinstance(b, torch.Tensor):
+        return torch.addcmul(c, a, b.contiguous())
+    return torch.add(c, a, alpha=b)
+
+
+def rsqrt(x: torch.Tensor) -> torch.Tensor:
+    """``1/sqrt(x)`` in f32, as XLA lowers the reference's ``buf /
+    sqrt(v + eps)`` (a multiply by ``rsqrt``). XLA's CPU ``rsqrt`` is an
+    approximation within 1 ulp of the correctly rounded value, which the
+    CPU path computes (through f64); the card's ``torch.rsqrt`` is within
+    2 ulp."""
+    if x.is_cuda:
+        return torch.rsqrt(x)
+    return torch.rsqrt(x.double()).float()
+
+
 def _scalars(lr, beta1, eps):
     """The f32 scalars the kernel receives: 1-b1 is folded in f64 and
     rounded once, as the reference folds it on the host."""

@@ -18,6 +18,9 @@ Examples:
       [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.train --arch bert-base \\
       --smoke --optimizer zero_one_sgd --scale-mode row [...as above]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2 --smoke \\
+      --mode sim --optimizer one_bit_adam --onebit-warmup 2 [...]
+      # the baselines: adam (bf16 mean every step), one_bit_adam
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --arch gpt2 --smoke --mode dist --device cpu [...as above]
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2 --smoke \\
@@ -57,6 +60,7 @@ def build_opt_cfg(args) -> OptimizerConfig:
         sync_policy=S.LrProportionalSyncPolicy(
             warmup_steps=args.sync_warmup, double_every=args.double_every,
             max_interval=args.max_interval),
+        onebit_warmup=args.onebit_warmup,
         scale_mode=args.scale_mode, codec=args.codec,
         hierarchy=Hierarchy(args.hierarchy) if args.hierarchy else None)
 
@@ -86,6 +90,9 @@ def parse_args(argv=None):
     ap.add_argument("--sync-warmup", type=int, default=20)
     ap.add_argument("--double-every", type=int, default=50)
     ap.add_argument("--max-interval", type=int, default=16)
+    ap.add_argument("--onebit-warmup", type=int, default=20,
+                    help="one_bit_adam: steps of full-precision gradient "
+                         "means before the 1-bit stage")
     ap.add_argument("--scale-mode", default="tensor",
                     choices=["tensor", "chunk", "row"])
     ap.add_argument("--codec", default="sign1bit",
@@ -208,12 +215,14 @@ def _to_cpu(tree):
 
 
 def rank_main(rank: int, argv, world_size: int, init_method: str,
-              out_dir: str = None, with_state: bool = False) -> None:
-    """Entry of one spawned rank of ``--mode dist``: join the group, train,
-    and with ``out_dir`` save this rank's results there as
-    ``rank{rank}.pt``: the step records, the final params on the CPU (and
-    the optimizer state with ``with_state``), the kernel launches of the
-    run and the peak device memory."""
+              out_dir: str = None, with_state: bool = False,
+              kind: str = "lm") -> None:
+    """Entry of one spawned rank of ``--mode dist``: join the group, train
+    on the synthetic stream of ``kind`` (see :func:`train`), and with
+    ``out_dir`` save this rank's results there as ``rank{rank}.pt``: the
+    step records, the final params on the CPU (and the optimizer state
+    with ``with_state``), the kernel launches of the run and the peak
+    device memory."""
     args = parse_args(argv)
     dev = mesh.init_workers(args.backend, args.device, rank=rank,
                             world_size=world_size, local_rank=rank,
@@ -223,7 +232,7 @@ def rank_main(rank: int, argv, world_size: int, init_method: str,
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         build.launch_counts.clear()
-        res = train(args, tr)
+        res = train(args, tr, kind=kind)
         launches = dict(build.launch_counts)
         if out_dir is None:
             return

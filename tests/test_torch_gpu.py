@@ -34,6 +34,12 @@ inner slices, so different row counts, one slice all pad) are held to the
 plain versions by the same bars; the whole two-level exchange on the card
 to the CPU's within one bf16 ulp or 1e-6 (its output is rounded to bf16,
 after scales that may differ by a few ulp), at least 99% bit for bit.
+
+The baselines' plain step (the gradient and mean styles): its
+single-rounding multiply-adds on the card bit for bit the exact
+emulation; one step of ``adam`` and of ``one_bit_adam`` (1-bit stage) on
+gpt2-smoke on the card against the same step on the CPU, no launch of
+the fused local step.
 """
 import numpy as np
 import pytest
@@ -429,3 +435,106 @@ def test_cuda_compress_is_stack_independent(inner, mode):
                 assert torch.equal(a[w:w + 1], b), (lo.shape, w, "server")
         del z, e, avg, es, whole, alone
         torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [7, 4096 * 33 + 5])
+def test_cuda_fma_is_single_rounding(n):
+    """The baselines' plain step: ``fused_adam.fma`` on the card (a
+    scalar or a tensor factor, and strided operands, which it makes
+    contiguous) bit for bit the exact emulation of one rounding."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(n)
+    a, b, c = (torch.randn(n, device=dev, generator=g) for _ in range(3))
+    b1 = float(np.float32(0.9))    # scalars are taken at f32
+    for b_ in (b1, float(np.float32(1e-3)), b):
+        assert torch.equal(fused_adam.fma(a, b_, c),
+                           fused_adam.fma_f32(a, b_, c))
+    assert torch.equal(fused_adam.fma(a, 0.9, c), fused_adam.fma(a, b1, c))
+    a2 = torch.randn(64, 40, device=dev, generator=g)[:, 3:]
+    c2 = torch.randn(64, 40, device=dev, generator=g)[:, :37]
+    assert torch.equal(fused_adam.fma(a2, b1, c2),
+                       fused_adam.fma_f32(a2, b1, c2))
+
+
+def _baseline_step(name, dev, onebit_warmup):
+    """One step of ``name`` over gpt2-smoke's leaves, 4 stacked workers,
+    from zero state and the same seeded params and gradients on every
+    device; returns (params, state, launches by kernel, the gradient
+    leaves, the optimizer)."""
+    from repro_torch.core import api as TA
+    from repro_torch.core import schedules as TS
+    from repro_torch.core.leafwise import flatten_tree, unflatten_tree
+
+    tmpl = T.model_template(get("gpt2").smoke)
+    shapes = L.param_shapes(tmpl)
+    opt = TA.build_optimizer(
+        TA.OptimizerConfig(name=name, lr=TS.ConstantLr(1e-3),
+                           onebit_warmup=onebit_warmup),
+        shapes, specs=L.param_specs(tmpl), dp_mask=L.dp_mask(tmpl),
+        n_workers=4)
+    rng = np.random.default_rng(5)
+    paths, leaves = flatten_tree(shapes)
+
+    def tree(scale):
+        return unflatten_tree(paths, [torch.from_numpy(
+            (rng.standard_normal((4,) + tuple(s)) * scale).astype(
+                np.float32)).to(dev) for s in leaves])
+
+    params, grads = tree(0.02), tree(1.0)
+    state = opt.init(params)
+    build.launch_counts.clear()
+    params, state, met = opt.step(SimComm(4), params, grads, state)
+    assert met["synced"]
+    return (params, state, dict(build.launch_counts),
+            flatten_tree(grads)[1], opt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["adam", "one_bit_adam"])
+def test_cuda_baseline_step_matches_cpu(name):
+    """One step of a baseline on gpt2-smoke (one_bit_adam in its 1-bit
+    stage: the exchange of the gradient, kernels 2-4) on the card and on
+    the CPU from the same inputs: the worker side's packed bits bit for
+    bit (same input, sign bits). The full-precision mean and the FMAs
+    are the same arithmetic on both (adam's m and v bit for bit); the
+    card's rsqrt is within 2 ulp of the CPU's and its scales within a few
+    ulp (another sum order), so params and the EF state are held to
+    1e-5 relative plus 1e-6 of the tensor's largest magnitude. The fused
+    local step never runs (these styles have no u)."""
+    from repro_torch.core.leafwise import flatten_tree
+
+    dev = _card()
+    xk, sk, launches, gk, opt = _baseline_step(name, dev, 0)
+    xc, sc, _, gc, _ = _baseline_step(name, torch.device("cpu"), 0)
+    n_leaves = len(flatten_tree(xk)[1])
+    want = ({} if name == "adam" else
+            {k: 2 * n_leaves for k in ("abs_rowsum", "ef_quantize",
+                                       "decompress")})
+    assert launches == want and "fused_local_step" not in launches
+
+    def close(a, b):
+        b = b.to(a.device)
+        torch.testing.assert_close(
+            a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max()) + 1e-30)
+
+    for a, b in zip(flatten_tree(xk)[1], flatten_tree(xc)[1]):
+        close(a, b)
+    for k in sc.slots:
+        for a, b in zip(sk.slots[k], sc.slots[k]):
+            if name == "adam":
+                assert torch.equal(a.cpu(), b), k
+            close(a, b)
+    if name == "one_bit_adam":
+        for a, b in zip(sk.err_w + sk.err_s, sc.err_w + sc.err_s):
+            close(a, b)
+        for ga, gb, lo in zip(gk, gc, opt.layouts):
+            pa = dispatch.ef_compress_view(
+                C.to_view(ga, lo), torch.zeros((4,) + lo.view_shape,
+                                               device=dev), lo, "tensor")[0]
+            pb = dispatch.ef_compress_view(
+                C.to_view(gb, lo), torch.zeros((4,) + lo.view_shape), lo,
+                "tensor")[0]
+            assert torch.equal(pa.cpu(), pb), lo.shape
+    else:
+        assert all(e is None for e in sk.err_w + sk.err_s)
