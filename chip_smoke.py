@@ -29,6 +29,11 @@ each, and on four phase 6c runs its 2 pods x 2 ranks over NCCL and phase
    the six 3-D BERT-Base slice frames (row scales). At every gpt2-FULL
    frame (3a) the plain step of the baselines' single-rounding
    multiply-adds (``fused_adam.fma``) is held to the exact emulation.
+   3d: the frames of the bucketed exchange, gpt2 FULL at ``--bucket-mb
+   25``: the three fused buckets of more than one leaf (views (4, 4608),
+   (4, 4608) and (4, 384); the other 13 units are leaves 3a checks),
+   flat and at 2 pods x 2, worker and server frames, checked and timed
+   as 3a and 3c.
 4. Drives the main paths, each through the trainer and CLI config a
    user would call, 4 simulated data-parallel workers, 8 steps (0/1
    Adam and 0/1-SGD: syncs at 0-4 and 6; variance at 0, 1, 3 where the
@@ -48,12 +53,25 @@ each, and on four phase 6c runs its 2 pods x 2 ranks over NCCL and phase
    f. run (a) under the baseline ``one_bit_adam --onebit-warmup 2``: that
       for steps 0-1, then the 1-bit exchange of the gradient (kernels
       2-4) with the variance frozen;
+   g. run (a) with the bucketed exchange, ``--bucket-mb 25``: 16
+      exchange units (three fused buckets), 32 launches of each of
+      kernels 2-4 a sync;
+   h. run (a) with one leaf per bucket (``--bucket-mb 1e-6``): its
+      final losses and params must be bit for bit (a)'s (a SHA-256 of
+      the params, printed for (a));
    (e) and (f) profile their step 6 as (a) does.
    Each run checks its losses, its step kinds and its launch counts, and
    prints its step and optimizer ms per step kind.
+   i. A checkpoint round trip, gpt2 FULL in ``--mode single`` at batch
+      4 x 1024 with (a)'s flags, per leaf and at ``--bucket-mb 25``: 4
+      steps and ``--save`` into a temporary directory, ``Trainer.restore``
+      into a fresh trainer, steps 4-7; the params and losses must be bit
+      for bit those of 8 uninterrupted steps. Prints the file's size and
+      the save and restore seconds, and deletes the file.
 5. Checks the card against the CPU on small inputs: the gpt2-smoke
-   trainer (flat, with ``--hierarchy 2``, and under ``adam`` and
-   ``one_bit_adam``), and the bert-smoke trainer under both BERT
+   trainer (flat, with ``--hierarchy 2``, under ``adam`` and
+   ``one_bit_adam``, and with ``--bucket-mb 4`` flat and with
+   ``--hierarchy 2``), and the bert-smoke trainer under both BERT
    configurations, from the same start on both devices.
 6. Data parallel in processes (``--mode dist``, one paper-worker per
    process, spawned): first the exchange collectives of DistComm against
@@ -63,11 +81,12 @@ each, and on four phase 6c runs its 2 pods x 2 ranks over NCCL and phase
    a. four ranks on this one card over gloo (asked for explicitly; the
       exchange goes through host memory), micro-batches 2, against a sim
       run of the same settings in this process; then the same under
-      ``one_bit_adam``;
+      ``one_bit_adam``, and with ``--bucket-mb 25``;
    b. NCCL, one rank per card, on min(device count, 4) cards: on one
       card a world of one at batch 4 x 1024 against ``--mode single``,
       on four the 4-rank run without micro-batches against a sim run;
-      under zero_one_adam, ``adam`` and ``one_bit_adam``;
+      under zero_one_adam, ``adam`` and ``one_bit_adam``, and
+      zero_one_adam with ``--bucket-mb 25``;
    c. run 4d in processes, 2 pods x 2 ranks over process subgroups,
       against a sim run of the same flags: NCCL with one rank per card
       on a machine with four cards, else four ranks on this card over
@@ -150,6 +169,11 @@ KERNEL_ROWS = {k: k for k in KERNELS}
 # each kernel's entry under "hier_sync"
 HIER = {k: f"{k} (2 pods x 2)" for k in ("abs_rowsum", "ef_quantize",
                                          "decompress", "ef_compress")}
+# the fused-bucket frames of phase 3d, flat and at 2 pods x 2: reported
+# in each kernel's entry under "bucket_frames" and "bucket_frames_hier"
+BUCKET = {k: f"{k} (buckets)" for k in ("abs_rowsum", "ef_quantize",
+                                        "decompress")}
+BUCKET_HIER = {k: f"{k} (buckets, 2 pods x 2)" for k in BUCKET}
 # the round each kernel's "ms" sums over, on its own path
 PER = {"fused_local_step": "step (gpt2)", "abs_rowsum": "sync (gpt2)",
        "ef_quantize": "sync (gpt2)", "decompress": "sync (gpt2)",
@@ -172,8 +196,14 @@ BASELINE_KINDS = {
     "one_bit_adam": {"first (0)": [0], "full precision + variance (1)": [1],
                      "1-bit (2-7)": [2, 3, 4, 5, 6, 7]}}
 ONEBIT = ["--optimizer", "one_bit_adam", "--onebit-warmup", "2"]
+# the phase-4 runs whose final params are digested (4h against 4a)
+GPT2_DIGESTS = ("gpt2", "gpt2_bucketed", "gpt2_one_leaf")
 # the two-level exchange of runs 4d, 6c and phase 3c: pods of 2 workers
 INNER = 2
+# the bucketed exchange of runs 4g, 4i, 6a, 6b and phase 3d: 25 MiB
+# buckets (gpt2 FULL: 16 exchange units at any budget from 0.25 to 25)
+BUCKET_MB = 25
+BUCKETED = ["--bucket-mb", str(BUCKET_MB)]
 RUNS = [("gpt2", "gpt2", [], BATCH, SEQ, "lm"),
         ("bert_row", "bert-base", ["--scale-mode", "row"], BERT_BATCH,
          BERT_SEQ, "mlm"),
@@ -182,7 +212,10 @@ RUNS = [("gpt2", "gpt2", [], BATCH, SEQ, "lm"),
         ("gpt2_hier", "gpt2", ["--hierarchy", str(INNER)], BATCH, SEQ,
          "lm"),
         ("gpt2_adam", "gpt2", ["--optimizer", "adam"], BATCH, SEQ, "lm"),
-        ("gpt2_onebit", "gpt2", ONEBIT, BATCH, SEQ, "lm")]
+        ("gpt2_onebit", "gpt2", ONEBIT, BATCH, SEQ, "lm"),
+        ("gpt2_bucketed", "gpt2", BUCKETED, BATCH, SEQ, "lm"),
+        ("gpt2_one_leaf", "gpt2", ["--bucket-mb", "1e-6"], BATCH, SEQ,
+         "lm")]
 
 
 def optimizer_of(argv) -> str:
@@ -263,7 +296,8 @@ class Tally:
         self.rows = {k: {"ms": 0.0, "batched_ms": 0.0, "plain_ms": 0.0,
                          "bytes": 0.0, "ops": 0.0, "library_ms": None,
                          "max_abs_err": 0.0, "launches_per_round": 0}
-                     for k in [*KERNELS, BERT_DECOMPRESS, *HIER.values()]}
+                     for k in [*KERNELS, BERT_DECOMPRESS, *HIER.values(),
+                               *BUCKET.values(), *BUCKET_HIER.values()]}
 
     def add(self, name, fn, plain_fn, nbytes, ops, err, library=None,
             times=1):
@@ -295,6 +329,54 @@ def full_plan(arch, inner=None):
     return make_plan(L.param_shapes(tmpl), L.param_specs(tmpl),
                      L.dp_mask(tmpl), N_WORKERS,
                      Hierarchy(inner) if inner else None)
+
+
+def bucket_layouts(inner=None):
+    """The layouts of gpt2 FULL's fused buckets of more than one leaf at
+    BUCKET_MB (the frames the bucketed exchange adds)."""
+    from repro_torch.core import bucketing as BK
+
+    bp = BK.make_bucket_plan(full_plan("gpt2", inner), BUCKET_MB)
+    return [b.layout for b in bp.buckets if len(b.members) > 1]
+
+
+def n_units(arch="gpt2", bucket_mb=BUCKET_MB):
+    """Exchange units of ``arch`` FULL at ``bucket_mb`` (4 workers)."""
+    from repro_torch.core import bucketing as BK
+
+    return len(BK.make_bucket_plan(full_plan(arch), bucket_mb).buckets)
+
+
+def flat_frames(lo):
+    """(rows, row counts, denominators, decode) of a flat tensor-scale
+    sync's two frames of ``lo``, N_WORKERS stacked: the worker side on
+    the views, the server side on the chunks."""
+    from repro_torch.core import compressor as C
+
+    rows, _ = C.view_rows_cols(lo)
+    total, _ = C.true_counts(lo)
+    return [(N_WORKERS * rows, np.tile(C.view_row_counts(lo), N_WORKERS),
+             np.full(N_WORKERS, total), True),
+            (rows, C.chunk_row_counts(lo).reshape(-1),
+             np.full(N_WORKERS, total), False)]
+
+
+def hier_frames(lo):
+    """The same at pods of INNER: stacked workers w = k * INNER + j own
+    inner slice j (the worker side), worker w serves chunk j * n_outer +
+    k (the server side)."""
+    from repro_torch.core import compressor as C
+
+    rows, _ = C.view_rows_cols(lo)
+    j = np.arange(N_WORKERS) % INNER
+    widx = j * (N_WORKERS // INNER) + np.arange(N_WORKERS) // INNER
+    totals, _ = C.slice_true_counts(lo)
+    chunks = C.chunk_row_counts(lo)[widx]
+    return [(N_WORKERS * rows // INNER,
+             C.slice_row_counts(lo)[j].reshape(-1),
+             np.maximum(totals[j], 1.0), True),
+            (rows, chunks.reshape(-1), np.maximum(chunks.sum(1), 1.0),
+             False)]
 
 
 def check_kernels(dev, tally):
@@ -342,12 +424,8 @@ def check_kernels(dev, tally):
         del g, m, u, v, fk, fp
 
         # --- worker and server compress (once each per leaf per sync) --
-        total, _ = C.true_counts(lo)
-        check_compress_frames(dev, gen, tally, KERNEL_ROWS, lo, cols, [
-            (R, np.tile(C.view_row_counts(lo), N_WORKERS),
-             np.full(N_WORKERS, total), True),
-            (rows, C.chunk_row_counts(lo).reshape(-1),
-             np.full(N_WORKERS, total), False)])
+        check_compress_frames(dev, gen, tally, KERNEL_ROWS, lo, cols,
+                              flat_frames(lo))
         torch.cuda.empty_cache()
         print(f"  leaf {lo.shape}: frame ({R}, {cols}) ok", flush=True)
 
@@ -558,19 +636,11 @@ def check_hier_kernels(dev, tally):
 
     gen = torch.Generator(device=dev).manual_seed(2)
     j = np.arange(N_WORKERS) % INNER
-    no = N_WORKERS // INNER
-    widx = j * no + np.arange(N_WORKERS) // INNER
 
     for lo in full_plan("gpt2", INNER).layouts:
         rows, cols = C.view_rows_cols(lo)
-        totals, _ = C.slice_true_counts(lo)
-        chunks = C.chunk_row_counts(lo)[widx]
-        check_compress_frames(dev, gen, tally, HIER, lo, cols, [
-            (N_WORKERS * rows // INNER,
-             C.slice_row_counts(lo)[j].reshape(-1),
-             np.maximum(totals[j], 1.0), True),
-            (rows, chunks.reshape(-1), np.maximum(chunks.sum(1), 1.0),
-             False)])
+        check_compress_frames(dev, gen, tally, HIER, lo, cols,
+                              hier_frames(lo))
         torch.cuda.empty_cache()
         print(f"  leaf {lo.shape}: slice frame "
               f"({N_WORKERS * rows // INNER}, {cols}), chunk frame "
@@ -597,7 +667,26 @@ def check_hier_kernels(dev, tally):
               flush=True)
 
 
-def expected_launches(label, layouts):
+def check_bucket_kernels(dev, tally):
+    """Phase 3d: abs_rowsum, ef_quantize and decompress at the frames of
+    gpt2 FULL's fused buckets (BUCKET_MB), worker and server side, flat
+    and at 2 pods x 2, each against its plain version and timed as 3a
+    and 3c (with each stacked worker's scales from its rows alone)."""
+    from repro_torch.core import compressor as C
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for inner, names, frames in ((None, BUCKET, flat_frames),
+                                 (INNER, BUCKET_HIER, hier_frames)):
+        for lo in bucket_layouts(inner):
+            _, cols = C.view_rows_cols(lo)
+            fr = frames(lo)
+            check_compress_frames(dev, gen, tally, names, lo, cols, fr)
+            print(f"  bucket {lo.view_shape}"
+                  f"{' at 2 pods x 2' if inner else ''}: frames "
+                  f"{[(r, cols) for r, *_ in fr]} ok", flush=True)
+
+
+def expected_launches(label, layouts, units=None):
     """Launches each kernel makes in one run of RUNS[label], from the
     reference's routing: 8 steps, 6 syncs (one_bit_adam: 6 1-bit
     rounds), every leaf one launch per phase (the stacked workers share
@@ -605,10 +694,13 @@ def expected_launches(label, layouts):
     side compresses the owned slice where the flat one compresses the
     view, its server side one chunk each, its two decodes are inter-pod,
     and its intra-pod phases and full-precision rounds launch no
-    kernel."""
+    kernel. With a bucketed exchange (``units``: its exchange units) the
+    local step still launches per leaf and the exchange per unit
+    (tensor scales)."""
     n_syncs = 6
     nd = [len(lo.view_shape) for lo in layouts]
     leaves, flat = len(nd), nd.count(2)
+    units = leaves if units is None else units
     if label == "gpt2_adam":
         return {}       # bf16 means and a plain step: no kernel
     if label == "gpt2_onebit":
@@ -628,9 +720,9 @@ def expected_launches(label, layouts):
                 "decompress": n_syncs * (2 * leaves - flat)}
     step = ("fused_local_step_sgd" if label == "bert_sgd"
             else "fused_local_step")
-    return {step: STEPS * leaves, "abs_rowsum": n_syncs * 2 * leaves,
-            "ef_quantize": n_syncs * 2 * leaves,
-            "decompress": n_syncs * 2 * leaves}
+    return {step: STEPS * leaves, "abs_rowsum": n_syncs * 2 * units,
+            "ef_quantize": n_syncs * 2 * units,
+            "decompress": n_syncs * 2 * units}
 
 
 def run_main_path(dev, label, arch, extra, batch, seq, kind):
@@ -667,8 +759,21 @@ def run_main_path(dev, label, arch, extra, batch, seq, kind):
     syncs, vars_ = schedule(args.optimizer, tr.opt.base.has_variance)
     assert [s["sync"] for s in steps] == syncs
     assert [s["var"] for s in steps] == vars_
-    expect = expected_launches(label, tr.opt.layouts)
+    expect = expected_launches(label, tr.opt.layouts, len(tr.opt.units))
     assert counts == expect, (label, counts, expect)
+    if label == "gpt2_bucketed":
+        from repro_torch.core.compressed import comm_accounting
+
+        acct = comm_accounting(tr.opt)
+        print(f"  exchange units {acct['exchange_units']:.0f} over "
+              f"{acct['dp_leaves']:.0f} leaves; "
+              f"{acct['collectives_per_sync']:.0f} collective phases a "
+              f"sync", flush=True)
+        assert acct["exchange_units"] == 16, acct
+    digest = (params_sha256(res["params"]) if label in GPT2_DIGESTS
+              else None)
+    if digest:
+        print(f"  final params sha256 {digest}", flush=True)
     for kind, t in times_by_kind(steps, step_kinds(extra)).items():
         print(f"    {kind}: step {t['step_ms']:.1f} ms (fwd/bwd "
               f"{t['fwd_bwd_ms']:.1f}, optimizer {t['optimizer_ms']:.1f})",
@@ -682,7 +787,73 @@ def run_main_path(dev, label, arch, extra, batch, seq, kind):
     profile = profile_step(tr, *kept) if kept is not None else None
     del kept, tr
     return {"steps": steps, "launches": counts, "peak_memory_gb": peak_gb,
-            "wire_bytes": wire, "profile": profile}
+            "wire_bytes": wire, "profile": profile,
+            "params_sha256": digest}
+
+
+def params_sha256(params) -> str:
+    """SHA-256 over the bytes of every parameter leaf, in flatten order:
+    equal digests are bit-for-bit equal params."""
+    import hashlib
+
+    from repro_torch.core.leafwise import flatten_tree
+
+    h = hashlib.sha256()
+    for x in flatten_tree(params)[1]:
+        h.update(x.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def run_checkpoint(extra):
+    """Phase 4i: gpt2 FULL in single mode at batch 4 x SEQ with 4a's
+    flags (``extra``: the exchange's): 8 uninterrupted steps, then 4
+    steps with ``--save`` into a temporary directory in the checkout,
+    ``Trainer.restore`` into a fresh trainer and steps 4-7 from it. The
+    resumed run's losses and final params must be bit for bit the
+    uninterrupted run's. Returns the file's size and the save and
+    restore seconds; the file is deleted."""
+    from repro_torch.launch import train as launch
+
+    flags = ["--arch", "gpt2", "--mode", "single", "--batch", "4",
+             "--seq", str(SEQ), "--sync-warmup", "2", "--double-every", "2",
+             "--kappa", "1", "--log-every", str(STEPS)] + extra
+    whole = launch.parse_args(flags + ["--steps", str(STEPS)])
+    ref = launch.train(whole, launch.make_trainer(whole))
+    want = ([r["losses"] for r in ref["records"]],
+            params_sha256(ref["params"]))
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    with scratch_dir() as tmp:
+        path = os.path.join(tmp, "ck.npz")
+        first = launch.parse_args(flags + ["--steps", "4", "--save", path])
+        head = launch.train(first, launch.make_trainer(first))
+        save_s, size = head["save_s"], os.path.getsize(path)
+        losses = [r["losses"] for r in head["records"]]
+        del head
+        gc.collect()
+        torch.cuda.empty_cache()
+        tr = launch.make_trainer(whole)
+        t0 = time.perf_counter()
+        params, state, step, meta = tr.restore(path)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        assert step == 4 and meta == {"arch": tr.model_cfg.name,
+                                      "n_workers": 1}, (step, meta)
+        tail = launch.train(whole, tr, start=(params, state, step))
+    got = (losses + [r["losses"] for r in tail["records"]],
+           params_sha256(tail["params"]))
+    del tail, tr, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  checkpoint {' '.join(extra) or 'per leaf'}: {size / 1e9:.3f} "
+          f"GB, save {save_s:.2f} s, restore {restore_s:.2f} s; resumed "
+          f"losses bitwise {got[0] == want[0]}, params bitwise "
+          f"{got[1] == want[1]} (sha256 {got[1]})", flush=True)
+    assert got == want, ("the resumed run is not the uninterrupted one",
+                         extra, got, want)
+    return {"file_bytes": size, "save_s": save_s, "restore_s": restore_s,
+            "params_sha256": got[1]}
 
 
 def _device_us(evt) -> float:
@@ -970,13 +1141,16 @@ def run_dist_phase():
     layouts = full_plan("gpt2").layouts
     expect = expected_launches("gpt2", layouts)
     onebit = expected_launches("gpt2_onebit", layouts)
+    bucketed = expected_launches("gpt2", layouts, n_units())
     out = {"probe": {"nccl": probe_exchange(
                          "nccl", "cuda", cards,
                          INNER if cards == N_WORKERS else None),
                      "gloo cuda:0": probe_exchange("gloo", "cuda:0",
                                                    N_WORKERS, INNER)},
            "6a": run_6a(expect), "6a_onebit": run_6a(onebit, ONEBIT),
+           "6a_bucketed": run_6a(bucketed, BUCKETED),
            "6b": run_6b(cards, expect),
+           "6b_bucketed": run_6b(cards, bucketed, BUCKETED),
            "6b_adam": run_6b(cards, {}, ["--optimizer", "adam"]),
            "6b_onebit": run_6b(cards, onebit, ONEBIT),
            "6c": run_6c(expect), "6d": run_6d()}
@@ -985,8 +1159,15 @@ def run_dist_phase():
     return out
 
 
+def run_label(part, extra):
+    """``part`` and the optimizer of ``extra``, and "bucketed" where it
+    fuses the exchange."""
+    return (f"{part} {optimizer_of(list(extra))}"
+            f"{' bucketed' if '--bucket-mb' in extra else ''}")
+
+
 def run_6a(expect, extra=()):
-    label = f"6a {optimizer_of(list(extra))}"
+    label = run_label("6a", extra)
     print(f"phase {label}: gpt2 FULL, {N_WORKERS} ranks on cuda:0 over "
           f"gloo, batch {BATCH}, seq {SEQ}, micro-batches 2, vs sim",
           flush=True)
@@ -1006,7 +1187,7 @@ def run_6b(cards, expect, extra=()):
     batch = BATCH // N_WORKERS * cards
     ref_mode = (["--mode", "single"] if cards == 1 else
                 ["--mode", "sim", "--workers", str(cards)])
-    label = f"6b {optimizer_of(list(extra))}"
+    label = run_label("6b", extra)
     print(f"phase {label}: gpt2 FULL, {cards} rank(s) over NCCL (one card "
           f"each), batch {batch}, seq {SEQ}, vs {ref_mode[1]}", flush=True)
     ref = run_in_process(gpt2_argv(batch, ref_mode + list(extra)))
@@ -1123,6 +1304,10 @@ def main():
     print(f"phase 3c: the two-level exchange's frames, "
           f"{N_WORKERS // INNER} pods x {INNER}", flush=True)
     check_hier_kernels(dev, tally)
+    print(f"phase 3d: the bucketed exchange's fused-bucket frames at "
+          f"{BUCKET_MB} MiB, flat and {N_WORKERS // INNER} pods x {INNER}",
+          flush=True)
+    check_bucket_kernels(dev, tally)
 
     runs = {}
     for label, arch, extra, batch, seq, kind in RUNS:
@@ -1133,6 +1318,17 @@ def main():
                                     kind)
         gc.collect()
         torch.cuda.empty_cache()
+    a, h = runs["gpt2"], runs["gpt2_one_leaf"]
+    same = (a["params_sha256"] == h["params_sha256"]
+            and [r["losses"] for r in a["steps"]]
+            == [r["losses"] for r in h["steps"]])
+    print(f"phase 4h: one leaf per bucket bit for bit 4a: {same}",
+          flush=True)
+    assert same, "4h: the per-unit loop is not the per-leaf path"
+    print(f"phase 4i: checkpoint round trips, gpt2 FULL single mode, "
+          f"batch 4, seq {SEQ}", flush=True)
+    checkpoints = {"per_leaf": run_checkpoint([]),
+                   "bucketed": run_checkpoint(BUCKETED)}
 
     print("phase 5: smoke trainers on the card vs on the CPU", flush=True)
     # bert at a peak lr of 3e-4: at the CLI's default 3e-3 the row-scale
@@ -1148,6 +1344,11 @@ def main():
              "gpt2_adam": check_small_input(
                  dev, "gpt2", ["--optimizer", "adam"], "lm"),
              "gpt2_onebit": check_small_input(dev, "gpt2", ONEBIT, "lm"),
+             "gpt2_bucketed": check_small_input(
+                 dev, "gpt2", ["--bucket-mb", "4"], "lm"),
+             "gpt2_bucketed_hier": check_small_input(
+                 dev, "gpt2", ["--bucket-mb", "4", "--hierarchy",
+                               str(INNER)], "lm"),
              "bert_row": check_small_input(
                  dev, "bert-base", ["--scale-mode", "row"] + slow, "mlm"),
              "bert_sgd": check_small_input(
@@ -1197,6 +1398,19 @@ def main():
                 "plain_ms": rh["plain_ms"], "bound_ms": bound(rh)[0],
                 "library_ms": rh["library_ms"],
                 "launches_per_round": rh["launches_per_round"]}
+        for key, names in (("bucket_frames", BUCKET),
+                           ("bucket_frames_hier", BUCKET_HIER)):
+            if name in names:
+                rb = tally.rows[names[name]]
+                kernels[-1][key] = {
+                    "per": (f"the three fused buckets' frames of a gpt2 "
+                            f"sync at --bucket-mb {BUCKET_MB}"
+                            f"{', 2 pods x 2' if 'hier' in key else ''}"),
+                    "ms": rb["ms"], "batched_ms": rb["batched_ms"],
+                    "plain_ms": rb["plain_ms"], "bound_ms": bound(rb)[0],
+                    "library_ms": rb["library_ms"],
+                    "max_abs_err": rb["max_abs_err"],
+                    "launches_per_round": rb["launches_per_round"]}
         if name == "decompress":
             rb = tally.rows[BERT_DECOMPRESS]
             kernels[-1]["bert_sync"] = {
@@ -1206,7 +1420,8 @@ def main():
                 "launches_per_round": rb["launches_per_round"]}
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     assert not missing, f"kernels never launched on a main path: {missing}"
-    summary = {"runs": runs, "small_inputs": small,
+    summary = {"runs": runs, "checkpoints": checkpoints,
+               "small_inputs": small,
                "data_parallel": dist_phase, "wall_s": time.time() - t_start}
     print(f"chip_smoke: all phases passed in {summary['wall_s']:.1f} s",
           flush=True)

@@ -40,6 +40,11 @@ Sections (all by default, in this order):
   times per round as chip_smoke.py reports them; with ``--tree DIR`` those
   of another checkout (its chip_smoke.py and src/), so that two commits
   run in turns on one card compare without phases 4-6.
+* ``run4a``: chip_smoke.py's run 4a (gpt2 FULL, 4 simulated workers, 8
+  steps) through the imported checkout's ``launch.train``, and a SHA-256
+  of its final params (the bytes of every leaf in flatten order) with
+  its step losses: run in two checkouts, equal digests show that their
+  4a is the same bit for bit.
 
 Every time is the median of 5 CUDA-event pairs around 20 calls back to
 back. Prints one JSON line per frame, then the card line. Exits non-zero
@@ -307,9 +312,31 @@ def phase3(dev, gen):
     print(json.dumps(out), flush=True)
 
 
+def run4a(dev, gen):
+    """Run 4a of the imported checkout; its params' SHA-256 and losses."""
+    import hashlib
+
+    from repro_torch.core.leafwise import flatten_tree
+    from repro_torch.launch import train as launch
+
+    args = launch.parse_args([
+        "--arch", "gpt2", "--mode", "sim", "--workers", str(CS.N_WORKERS),
+        "--steps", str(CS.STEPS), "--batch", str(CS.BATCH), "--seq",
+        str(CS.SEQ), "--sync-warmup", "2", "--double-every", "2", "--kappa",
+        "1", "--log-every", str(CS.STEPS)])
+    res = launch.train(args, launch.make_trainer(args, device=dev))
+    h = hashlib.sha256()
+    for x in flatten_tree(res["params"])[1]:
+        h.update(x.detach().cpu().numpy().tobytes())
+    print(json.dumps({"run4a": os.path.relpath(TREE),
+                      "params_sha256": h.hexdigest(),
+                      "losses": [r["losses"] for r in res["records"]]}),
+          flush=True)
+
+
 SECTIONS = {"abs_rowsum": sweep_abs_rowsum, "ef_quantize": sweep_ef_quantize,
             "decompress": decompress_frames, "ef_compress": sweep_ef_compress,
-            "stacked": stacked_reductions, "phase3": phase3}
+            "stacked": stacked_reductions, "phase3": phase3, "run4a": run4a}
 
 
 def main(names):

@@ -18,6 +18,7 @@ import torch
 from repro_torch.core import compressor as C
 from repro_torch.core import schedules as S
 from repro_torch.core.base_steps import adam_base, momentum_sgd_base
+from repro_torch.core.bucketing import PACK_ORDERS
 from repro_torch.core.comm import Hierarchy
 from repro_torch.core.compressed import CompressedDP, compressed_dp
 
@@ -42,8 +43,23 @@ class OptimizerConfig:
     comm_dtype: Any = torch.bfloat16
     hierarchy: Optional[Hierarchy] = None   # two-level (intra-pod x
                                             # inter-pod) exchange
+    bucket_mb: Optional[float] = None       # fuse the per-leaf exchange
+                                            # into buckets of this many
+                                            # MiB of f32 elements
+                                            # (core.bucketing); None: per
+                                            # leaf
+    pack_order: str = "flat"                # exchange-unit packing/issue
+                                            # order (bucketing.PACK_ORDERS)
 
     def __post_init__(self):
+        if self.bucket_mb is not None and self.bucket_mb <= 0:
+            raise ValueError(
+                f"bucket_mb must be positive (MiB per fused bucket), got "
+                f"{self.bucket_mb!r}")
+        if self.pack_order not in PACK_ORDERS:
+            raise ValueError(
+                f"pack_order must be one of {PACK_ORDERS}, got "
+                f"{self.pack_order!r}")
         if self.name in _LATER:
             raise NotImplementedError(
                 f"optimizer {self.name!r} is not ported yet; only "
@@ -57,7 +73,8 @@ class OptimizerConfig:
 def _shared_kwargs(cfg: OptimizerConfig) -> Dict[str, Any]:
     return dict(lr=cfg.lr, weight_decay=cfg.weight_decay,
                 scale_mode=cfg.scale_mode, codec=cfg.codec,
-                comm_dtype=cfg.comm_dtype, hierarchy=cfg.hierarchy)
+                comm_dtype=cfg.comm_dtype, hierarchy=cfg.hierarchy,
+                bucket_mb=cfg.bucket_mb, pack_order=cfg.pack_order)
 
 
 def _adam(cfg):

@@ -1,6 +1,5 @@
 """``compressed_dp``: compressed data-parallel sync as a transform over a
-base step, PyTorch port of ``src/repro/core/compressed.py`` (per-leaf
-exchange).
+base step, PyTorch port of ``src/repro/core/compressed.py``.
 
     opt = compressed_dp(adam_base(), lr=..., sync_policy=...,
                         var_policy=...)(param_shapes, specs=..., n_workers=n)
@@ -26,15 +25,21 @@ styles:
 The gradient and mean styles then take the base's step on the mean
 gradient (:meth:`ComposedOptimizer._step_sync`). The policies run on the
 host, so the sync and variance branches are plain Python ``if``s.
+
+Every exchange runs once per *exchange unit*, in issue order
+(``ComposedOptimizer.units``): a DP leaf, or with ``bucket_mb`` a bucket
+of :mod:`repro_torch.core.bucketing`, whose EF state and anchor then live
+in the bucket's layout (``u``, ``m`` and ``v`` stay per leaf).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core import bucketing as BK
 from repro_torch.core import codecs as CODECS
 from repro_torch.core import compressor as C
 from repro_torch.core import leafwise
@@ -56,10 +61,25 @@ class CompressedDPState:
     slots: Dict[str, List[torch.Tensor]]   # "m" (+ "v"): stacked views
     # per leaf, None where the style keeps none (as the reference):
     u: List[Optional[torch.Tensor]]        # accumulated updates (accumulate)
+    # per exchange unit: per leaf, or per bucket with bucket_mb
     err_w: List[Optional[torch.Tensor]]    # worker EF (stack,
                                            # *ef_worker_shape; not in mean)
     err_s: List[Optional[torch.Tensor]]    # server EF (stack, *chunk_shape)
-    anchor: List[Optional[torch.Tensor]]   # x_{t'} copies (accumulate)
+    anchor: List[Optional[torch.Tensor]]   # x_{t'} copies (accumulate):
+                                           # natural per leaf, the bucket
+                                           # view per bucket
+
+
+class _ExchangeUnit(NamedTuple):
+    """One unit of the per-unit issue loop: a bucket, or a DP leaf when
+    bucketing is off. ``state_idx`` indexes the EF/anchor lists (the flat
+    leaf index, or the bucket index); ``members`` are flat leaf indices
+    in unit-buffer order."""
+
+    state_idx: int
+    members: tuple
+    layout: Any
+    bucket: Any               # bucketing.Bucket | None (per-leaf unit)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,10 +97,23 @@ class CompressedDP:
     codec: Any = "sign1bit"
     comm_dtype: Any = torch.bfloat16
     hierarchy: Optional[Hierarchy] = None   # two-level exchange (pods)
+    bucket_mb: Optional[float] = None   # MiB of f32 elements per fused
+                                        # bucket (core.bucketing); None:
+                                        # the per-leaf exchange
+    pack_order: str = "flat"            # unit packing/issue order
+                                        # (bucketing.PACK_ORDERS)
 
     def __post_init__(self):
         if self.style not in STYLES:
             raise ValueError(f"style={self.style!r}; choose from {STYLES}")
+        if self.bucket_mb is not None and self.bucket_mb <= 0:
+            raise ValueError(
+                f"bucket_mb must be positive (MiB per fused bucket), got "
+                f"{self.bucket_mb!r}")
+        if self.pack_order not in BK.PACK_ORDERS:
+            raise ValueError(
+                f"pack_order must be one of {BK.PACK_ORDERS}, got "
+                f"{self.pack_order!r}")
         C.validate_scale_mode(self.scale_mode)
         object.__setattr__(self, "codec", CODECS.make_codec(self.codec))
         if self.style == "accumulate" and self.weight_decay:
@@ -122,6 +155,19 @@ class ComposedOptimizer:
             self.plan, scale_mode=cfg.scale_mode, codec=cfg.codec,
             comm_dtype=cfg.comm_dtype)
         self.codec = self.ar_cfg.codec
+        self.bucket_plan = (BK.make_bucket_plan(self.plan, cfg.bucket_mb,
+                                                pack_order=cfg.pack_order)
+                            if cfg.bucket_mb is not None else None)
+        if self.bucket_plan is not None:
+            self.units = tuple(
+                _ExchangeUnit(bi, b.members, b.layout, b)
+                for bi, b in enumerate(self.bucket_plan.buckets))
+        else:
+            idx = list(range(len(self.layouts)))
+            if cfg.pack_order == "reverse_backward":
+                idx = idx[::-1]
+            self.units = tuple(_ExchangeUnit(i, (i,), self.layouts[i], None)
+                               for i in idx)
         self._use_sync_policy = cfg.style == "accumulate"
         self._use_var_policy = (cfg.style in ("accumulate", "gradient")
                                 and self.base.has_variance)
@@ -139,8 +185,21 @@ class ComposedOptimizer:
                                    dtype=torch.float32, device=x.device)
                         for x, lo in zip(xs, los)]
                  for name, (_, init) in self.base.slot_specs().items()}
-        efs = [AR.init_ef_state(lo, stack, x.device) if self._has_ef
-               else AR.EFState(None, None) for x, lo in zip(xs, los)]
+        dev = xs[0].device
+        if self.bucket_plan is None:
+            ef_los = los
+            anchor = [x.detach().clone() if self._has_anchor else None
+                      for x in xs]
+        else:
+            # per-bucket EF and anchors: the bucket buffer is what the
+            # codec compresses, so its error state and the re-anchored
+            # params live in bucket shape
+            ef_los = [b.layout for b in self.bucket_plan.buckets]
+            anchor = [self._gather_bucket(b, [xs[i] for i in b.members])
+                      .detach().clone() if self._has_anchor else None
+                      for b in self.bucket_plan.buckets]
+        efs = [AR.init_ef_state(lo, stack, dev) if self._has_ef
+               else AR.EFState(None, None) for lo in ef_los]
         return CompressedDPState(
             step=0, gamma_acc=np.float32(0.0),
             sync_pstate=(self.cfg.sync_policy.init()
@@ -151,9 +210,45 @@ class ComposedOptimizer:
             u=[torch.zeros((stack,) + lo.view_shape, device=x.device)
                if self._has_u else None for x, lo in zip(xs, los)],
             err_w=[ef.err_worker for ef in efs],
-            err_s=[ef.err_server for ef in efs],
-            anchor=[x.detach().clone() if self._has_anchor else None
-                    for x in xs])
+            err_s=[ef.err_server for ef in efs], anchor=anchor)
+
+    def _gather_bucket(self, bucket, leaves_nat):
+        """Natural member leaves -> bucket buffer (via their comm views)."""
+        return BK.gather_views(bucket, [
+            C.to_view(x, self.layouts[i])
+            for x, i in zip(leaves_nat, bucket.members)])
+
+    def _unit_gather(self, unit, views):
+        """Member comm views -> the unit's exchange buffer."""
+        if unit.bucket is None:
+            (v,) = views
+            return v
+        return BK.gather_views(unit.bucket, views)
+
+    def _unit_scatter(self, unit, buf):
+        """Unit exchange buffer -> member comm views (inverse of
+        :meth:`_unit_gather` on the true elements)."""
+        if unit.bucket is None:
+            return [buf]
+        return BK.scatter_views(unit.bucket, buf,
+                                [self.layouts[i] for i in unit.members])
+
+    def _fullprec_unit(self, comm, unit, bufs):
+        """Full-precision mean of one unit's member view buffers (the T_v
+        and mean rounds). Elementwise, so fusing members into a bucket
+        leaves every element's value as it is."""
+        o = AR.fullprec_allreduce_view(
+            comm, self._unit_gather(unit, bufs), self.cfg.comm_dtype,
+            self.hierarchy, unit.layout)
+        return self._unit_scatter(unit, o)
+
+    def _onebit_unit(self, comm, unit, bufs, err_w, err_s):
+        """Algorithm 2 over one unit's member view buffers: (the members'
+        mean estimates, the unit's new EFState)."""
+        o, ef = AR.onebit_allreduce_view(
+            comm, self._unit_gather(unit, bufs), AR.EFState(err_w, err_s),
+            unit.layout, self.ar_cfg)
+        return self._unit_scatter(unit, o), ef
 
     def step(self, comm: Comm, params, grads, state: CompressedDPState):
         """One step of every stacked worker in the configured style.
@@ -181,39 +276,61 @@ class ComposedOptimizer:
         # device (CUDA turns a divide by a host scalar into a multiply by
         # its reciprocal); made once per step
         gamma_t = torch.tensor(gamma_total, device=xs[0].device)
-        new_x, new_m, new_u = [], [], []
-        new_v = list(state.slots["v"]) if base.has_variance else None
+        gv = [C.to_view(g.to(torch.float32), lo)
+              for g, lo in zip(gs, self.layouts)]
+
+        # --- the local half-step of every leaf (kernel 1). On sync steps
+        # its delta is not needed: the re-anchor replaces x_{t+1/2}
+        new_x = [None] * len(xs)
+        new_m, new_u = [], []
+        for i, (x, g, lo) in enumerate(zip(xs, gv, self.layouts)):
+            mh, u_new, delta = K.fused_local_step_view(
+                g, state.slots["m"][i], state.u[i],
+                state.slots["v"][i] if base.has_variance else None, lr,
+                base.beta1, getattr(base, "eps", 0.0), lo, kind=base.kind)
+            if not do_sync:
+                new_x[i] = (x.to(torch.float32)
+                            - C.from_view(delta, lo)).to(x.dtype)
+            new_m.append(mh)
+            new_u.append(u_new)
+            del delta
+
+        # --- T_u: one Algorithm-2 exchange per unit, then each member's
+        # re-anchor x = anchor - precond(ubar), momentum ubar / gamma
         new_ew, new_es = list(state.err_w), list(state.err_s)
         new_anchor = list(state.anchor)
-        for i, (x, g, lo) in enumerate(zip(xs, gs, self.layouts)):
-            gv = C.to_view(g.to(torch.float32), lo)
-            slots = {name: state.slots[name][i] for name in state.slots}
-            mh, u_new, delta = K.fused_local_step_view(
-                gv, slots["m"], state.u[i], slots.get("v"), lr, base.beta1,
-                getattr(base, "eps", 0.0), lo, kind=base.kind)
-            if do_sync:
-                ubar, ef = AR.onebit_allreduce_view(
-                    comm, u_new, AR.EFState(state.err_w[i], state.err_s[i]),
-                    lo, self.ar_cfg)
-                slots.update(base.refresh_sync_slots(
-                    slots, state.anchor[i], ubar, gamma_total, lo))
-                nx = (state.anchor[i]
-                      - C.from_view(base.precond(ubar, slots), lo)
-                      ).to(x.dtype)
-                new_x.append(nx)
-                new_m.append(ubar / gamma_t)
-                new_u.append(torch.zeros_like(u_new))
-                new_ew[i], new_es[i] = ef.err_worker, ef.err_server
-                new_anchor[i] = nx
+        for unit in self.units if do_sync else ():
+            si = unit.state_idx
+            ubars, ef = self._onebit_unit(
+                comm, unit, [new_u[i] for i in unit.members],
+                state.err_w[si], state.err_s[si])
+            if unit.bucket is None:
+                ancs = [state.anchor[si]]
             else:
-                new_x.append((x.to(torch.float32)
-                              - C.from_view(delta, lo)).to(x.dtype))
-                new_m.append(mh)
-                new_u.append(u_new)
-            if do_var:
-                gbar = AR.fullprec_allreduce_view(
-                    comm, gv, cfg.comm_dtype, self.hierarchy, lo)
-                new_v[i] = base.update_variance(slots["v"], gbar)
+                ancs = [C.from_view(a, self.layouts[i]) for a, i in zip(
+                    self._unit_scatter(unit, state.anchor[si]),
+                    unit.members)]
+            for i, ubar, anc in zip(unit.members, ubars, ancs):
+                lo = self.layouts[i]
+                slots = {name: state.slots[name][i] for name in state.slots}
+                slots.update(base.refresh_sync_slots(
+                    slots, anc, ubar, gamma_total, lo))
+                new_x[i] = (anc - C.from_view(base.precond(ubar, slots), lo)
+                            ).to(xs[i].dtype)
+                new_m[i] = ubar / gamma_t
+                new_u[i] = torch.zeros_like(new_u[i])
+            new_ew[si], new_es[si] = ef.err_worker, ef.err_server
+            new_anchor[si] = (new_x[si] if unit.bucket is None else
+                              self._gather_bucket(unit.bucket, [
+                                  new_x[i] for i in unit.members]))
+
+        # --- T_v: the full-precision variance refresh, per unit too
+        new_v = list(state.slots["v"]) if base.has_variance else None
+        for unit in self.units if do_var else ():
+            gbars = self._fullprec_unit(comm, unit,
+                                        [gv[i] for i in unit.members])
+            for i, gbar in zip(unit.members, gbars):
+                new_v[i] = base.update_variance(state.slots["v"][i], gbar)
 
         new_slots = {"m": new_m}
         if new_v is not None:
@@ -246,22 +363,23 @@ class ComposedOptimizer:
                 do_var, var_ps = cfg.var_policy.step(state.var_pstate, t, 1)
             else:
                 do_var, var_ps = False, state.var_pstate
-            gbar = []
-            for i, (g, lo) in enumerate(zip(gv, self.layouts)):
-                if do_var:   # the full-precision stage: EF state kept
-                    gbar.append(AR.fullprec_allreduce_view(
-                        comm, g, cfg.comm_dtype, self.hierarchy, lo))
-                    continue
-                o, ef = AR.onebit_allreduce_view(
-                    comm, g, AR.EFState(state.err_w[i], state.err_s[i]), lo,
-                    self.ar_cfg)
-                gbar.append(o)
-                new_ew[i], new_es[i] = ef.err_worker, ef.err_server
         else:   # mean: the uncompressed baseline, no EF state at all
             do_var, var_ps = base.has_variance, state.var_pstate
-            gbar = [AR.fullprec_allreduce_view(comm, g, cfg.comm_dtype,
-                                               self.hierarchy, lo)
-                    for g, lo in zip(gv, self.layouts)]
+        # a full-precision round (the mean style, and the gradient
+        # style's first stage, which keeps its EF state), else 1-bit
+        full = cfg.style == "mean" or do_var
+        gbar = list(gv)
+        for unit in self.units:
+            si = unit.state_idx
+            bufs = [gv[i] for i in unit.members]
+            if full:
+                outs = self._fullprec_unit(comm, unit, bufs)
+            else:
+                outs, ef = self._onebit_unit(comm, unit, bufs,
+                                             state.err_w[si], state.err_s[si])
+                new_ew[si], new_es[si] = ef.err_worker, ef.err_server
+            for i, o in zip(unit.members, outs):
+                gbar[i] = o
 
         # The base step as XLA compiles the reference's (measured on
         # jax 0.9.0's CPU backend): m' = fma(b1, m, (1-b1)*g) and
@@ -317,13 +435,15 @@ def comm_accounting(opt: ComposedOptimizer) -> Dict[str, float]:
     sync, the owned slice for a full-precision round). The full-precision
     headline keeps the reference's (n-1)/n ring convention over the true
     parameters when flat and is the sum of the levels (padded views) with
-    a hierarchy. ``collectives_per_sync`` counts exchange phases: 2 per
-    leaf flat, 4 hierarchical."""
+    a hierarchy. Volumes and counts run over the exchange units (buckets
+    with ``bucket_mb``, else the DP leaves): ``collectives_per_sync``
+    counts exchange phases, 2 per unit flat, 4 hierarchical."""
     params = sum(int(np.prod(lo.shape)) for lo in opt.layouts)
     wire = torch.tensor([], dtype=opt.cfg.comm_dtype).element_size()
     comp = {"inner": 0, "outer": 0}
     full = {"inner": 0, "outer": 0}
-    for lo in opt.layouts:
+    units = [u.layout for u in opt.units]
+    for lo in units:
         lc = C.compressed_bytes_levels(lo, opt.cfg.scale_mode, wire,
                                        opt.codec)
         lf = C.fullprec_bytes_levels(lo, wire)
@@ -334,6 +454,7 @@ def comm_accounting(opt: ComposedOptimizer) -> Dict[str, float]:
     full_total = (full["inner"] + full["outer"] if n_inner > 1 else
                   2.0 * (opt.n - 1) / max(opt.n, 1) * params * wire)
     total = comp["inner"] + comp["outer"]
+    bplan = opt.bucket_plan
     return {"dp_params": float(params), "codec": opt.codec.name,
             "compressed_bytes_per_sync": float(total),
             "compressed_bytes_per_sync_inner": float(comp["inner"]),
@@ -344,5 +465,8 @@ def comm_accounting(opt: ComposedOptimizer) -> Dict[str, float]:
             "bits_per_param_sync": 8.0 * total / max(params, 1),
             "n_inner": float(n_inner), "n_outer": float(opt.n // n_inner),
             "dp_leaves": float(len(opt.layouts)),
+            "exchange_units": float(len(units)),
             "collectives_per_sync": float(
-                len(opt.layouts) * (4 if n_inner > 1 else 2))}
+                len(units) * (4 if n_inner > 1 else 2)),
+            "bucket_mb": (float(bplan.bucket_mb) if bplan is not None
+                          else None)}

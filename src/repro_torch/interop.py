@@ -1,9 +1,13 @@
-"""Carry the JAX reference's values into the port.
+"""Carry values between the JAX reference's trees and the port's.
 
 The reference initializes parameters from jax's threefry, whose bits
 PyTorch's generators do not reproduce; a comparison of the two packages
 starts both from the reference's draw. Inputs are numpy trees (e.g.
 ``jax.device_get`` of the reference's pytrees); nothing here imports jax.
+
+The same conversion gives the checkpoint tree both packages write
+(:mod:`repro_torch.checkpointing.io`): ``{"params", "state"}`` in the
+shapes of the reference trainer's tree for the same mode.
 """
 from __future__ import annotations
 
@@ -25,35 +29,82 @@ def params_from_reference(tree, device="cpu"):
     return _tensor(tree, device)
 
 
-def state_from_reference(state, opt: ComposedOptimizer,
-                         device="cpu") -> CompressedDPState:
-    """The reference's sim-mode ``CompressedDPState`` (every leaf stacked
-    over workers, as ``Trainer.sim_init`` returns it) -> the port's state
-    for ``opt``, in any style. Scalars and policy states are identical on
-    all workers and come from worker 0; a leaf the style keeps as
-    ``None`` stays ``None``."""
-    def first(x):
-        return np.asarray(x).reshape(-1)[0]
+def state_from_reference(state, opt: ComposedOptimizer, device="cpu",
+                         stacked: bool = True) -> CompressedDPState:
+    """The reference's ``CompressedDPState`` -> the port's state for
+    ``opt``, in any style, per leaf or bucketed (EF state and anchors per
+    bucket of ``opt.bucket_plan``). ``stacked``: every leaf carries the
+    worker dim (sim mode, as ``Trainer.sim_init`` returns it); else none
+    (single mode), and the port's stack of one is added. Scalars and
+    policy states must be identical on all workers (a ``ValueError``
+    otherwise); a leaf the style keeps as ``None`` stays ``None``."""
+    def first(x, name):
+        a = np.asarray(x).reshape(-1)
+        if not (a == a[0]).all():
+            raise ValueError(f"state {name} differs across workers "
+                             f"({a.tolist()}); the port keeps one value")
+        return a[0]
 
-    def scalar(x):
-        v = first(x)
+    def scalar(x, name):
+        v = first(x, name)
         return bool(v) if v.dtype == np.bool_ else int(v)
 
     def leaves(xs):
-        return [None if x is None else _tensor(x, device).to(torch.float32)
-                for x in xs]
+        out = []
+        for x in xs:
+            t = None if x is None else _tensor(x, device).to(torch.float32)
+            out.append(t if t is None or stacked else t[None])
+        return out
 
     n_leaves = len(opt.layouts)
-    for name in ("u", "err_w", "err_s", "anchor"):
-        if len(getattr(state, name)) != n_leaves:
+    n_units = (n_leaves if opt.bucket_plan is None
+               else len(opt.bucket_plan.buckets))
+    for name, n in (("u", n_leaves), ("err_w", n_units), ("err_s", n_units),
+                    ("anchor", n_units)):
+        if len(getattr(state, name)) != n:
             raise ValueError(f"reference state has {len(getattr(state, name))}"
-                             f" {name} leaves, the port plans {n_leaves}")
+                             f" {name} leaves, the port plans {n}")
     return CompressedDPState(
-        step=int(first(state.step)),
-        gamma_acc=np.float32(first(state.gamma_acc)),
-        sync_pstate=tuple(scalar(x) for x in state.sync_pstate),
-        var_pstate=tuple(scalar(x) for x in state.var_pstate),
+        step=int(first(state.step, "step")),
+        gamma_acc=np.float32(first(state.gamma_acc, "gamma_acc")),
+        sync_pstate=tuple(scalar(x, "sync_pstate")
+                          for x in state.sync_pstate),
+        var_pstate=tuple(scalar(x, "var_pstate") for x in state.var_pstate),
         slots={name: leaves(state.slots[name])
                for name in opt.base.slot_specs()},
+        u=leaves(state.u), err_w=leaves(state.err_w),
+        err_s=leaves(state.err_s), anchor=leaves(state.anchor))
+
+
+def _host_scalar(v):
+    """A host value of the port's state as the reference's array dtype:
+    bool, float32 (gamma) or int32 (step, policy counters)."""
+    if isinstance(v, (bool, np.bool_)):
+        return np.bool_(v)
+    if isinstance(v, (float, np.floating)):
+        return np.float32(v)
+    return np.int32(v)
+
+
+def state_to_reference(state: CompressedDPState,
+                       stacked: bool = True) -> CompressedDPState:
+    """The port's state -> the reference's state layout (the same field
+    order and ``None`` placements; tensors stay where they are): with
+    ``stacked`` every scalar becomes an array over the stacked workers
+    (sim mode), else the stack of one is dropped (single mode)."""
+    stack = state.slots["m"][0].shape[0]
+
+    def scalar(v):
+        a = _host_scalar(v)
+        return np.full((stack,), a) if stacked else np.asarray(a)
+
+    def leaves(xs):
+        return [None if x is None else (x if stacked else x[0]) for x in xs]
+
+    return CompressedDPState(
+        step=scalar(state.step), gamma_acc=scalar(state.gamma_acc),
+        sync_pstate=tuple(scalar(v) for v in state.sync_pstate),
+        var_pstate=tuple(scalar(v) for v in state.var_pstate),
+        slots={name: leaves(xs) for name, xs in state.slots.items()},
         u=leaves(state.u), err_w=leaves(state.err_w),
         err_s=leaves(state.err_s), anchor=leaves(state.anchor))

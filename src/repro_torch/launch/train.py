@@ -9,7 +9,10 @@ cuda:0``). Under torchrun the launcher's ranks are used; without it the
 CLI spawns ``--workers`` ranks itself. Only rank 0 prints.
 ``--hierarchy INNER`` (every mode) runs the two-level exchange over pods
 of INNER workers: bf16 inside a pod, 1-bit only across pods (0: flat;
-single mode has one worker and no pods).
+single mode has one worker and no pods). ``--bucket-mb MB`` fuses the
+per-leaf exchange into buckets of MB MiB of f32 elements
+(``core.bucketing``); ``--save PATH`` writes the final params and
+optimizer state as a checkpoint both packages read (sim and single mode).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2 --smoke \\
@@ -27,6 +30,9 @@ Examples:
       --mode dist --workers 4 --micro-batches 2 --device cpu [...]
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2 --smoke \\
       --mode sim --workers 4 --hierarchy 2 --device cpu [...]  # 2 pods x 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2 --smoke \
+      --mode sim --workers 4 --bucket-mb 4 --save build/ck.npz \
+      --device cpu [...]
 """
 from __future__ import annotations
 
@@ -47,7 +53,7 @@ from repro_torch.core.compressed import comm_accounting
 from repro_torch.data.synthetic import DataConfig, SyntheticLM
 from repro_torch.kernels import build
 from repro_torch.launch import mesh
-from repro_torch.train.step import Trainer, TrainerConfig
+from repro_torch.train.step import DIST_SAVE, Trainer, TrainerConfig
 
 
 def build_opt_cfg(args) -> OptimizerConfig:
@@ -62,7 +68,8 @@ def build_opt_cfg(args) -> OptimizerConfig:
             max_interval=args.max_interval),
         onebit_warmup=args.onebit_warmup,
         scale_mode=args.scale_mode, codec=args.codec,
-        hierarchy=Hierarchy(args.hierarchy) if args.hierarchy else None)
+        hierarchy=Hierarchy(args.hierarchy) if args.hierarchy else None,
+        bucket_mb=args.bucket_mb)
 
 
 def parse_args(argv=None):
@@ -101,8 +108,15 @@ def parse_args(argv=None):
                     help="workers per pod for the two-level exchange: "
                          "reduce uncompressed (bf16) inside pods, 1-bit "
                          "only across pods; 0 = flat")
+    ap.add_argument("--bucket-mb", type=float, default=None, metavar="MB",
+                    help="fuse the per-leaf compressed exchange into flat "
+                         "buckets of MB MiB of f32 elements each "
+                         "(core.bucketing): one codec encode and one "
+                         "collective pair per bucket instead of per leaf. "
+                         "Default: per-leaf exchange")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--save", default=None, help="checkpoint path (.npz)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain versions of the "
                          "kernels); dist mode with gloo may name one card "
@@ -131,14 +145,19 @@ def make_trainer(args, device=None) -> Trainer:
                    device=args.device if device is None else device)
 
 
-def train(args, tr: Trainer, kind: str = "lm", keep_step: int = None) -> dict:
+def train(args, tr: Trainer, kind: str = "lm", keep_step: int = None,
+          start=None) -> dict:
     """Run ``args.steps`` steps of ``tr`` from ``args.seed`` on the
     synthetic stream of ``kind`` (``lm`` next-token; ``mlm`` masked-LM).
     Prints on rank 0 (every process outside dist mode). Returns the final
     params and state, one record per step (this process's workers'
     losses, the step kind, and the times of :meth:`Trainer.step`, the
     step's being their sum) and, with ``keep_step``, the params, state
-    and batch that step started from (``kept``)."""
+    and batch that step started from (``kept``). ``start``: (params,
+    state, step) to resume from, e.g. :meth:`Trainer.restore`'s, instead
+    of the seed's init and step 0. With ``args.save`` the final params
+    and state are written there, at step ``args.steps`` (``save_s``: the
+    seconds that took)."""
     cfg, dev = tr.model_cfg, tr.device
     is_main = int(tr.comm.index()[0]) == 0
     acct = comm_accounting(tr.opt)
@@ -149,6 +168,12 @@ def train(args, tr: Trainer, kind: str = "lm", keep_step: int = None) -> dict:
               f"workers={tr.n_workers} mode={args.mode} "
               f"micro_batches={args.micro_batches} "
               f"optimizer={args.optimizer} device={dev}", flush=True)
+        if args.bucket_mb:
+            print(f"bucketed exchange: {int(acct['exchange_units'])} "
+                  f"buckets ({args.bucket_mb}MiB budget) over "
+                  f"{int(acct['dp_leaves'])} DP leaves -> "
+                  f"{int(acct['collectives_per_sync'])} collective "
+                  f"phases/sync", flush=True)
         if acct["n_inner"] > 1:
             print(f"hierarchy: {int(acct['n_outer'])} pods x "
                   f"{int(acct['n_inner'])} workers/pod; sync bytes/worker "
@@ -157,13 +182,19 @@ def train(args, tr: Trainer, kind: str = "lm", keep_step: int = None) -> dict:
                   f"{acct['compressed_bytes_per_sync_outer']/2**20:.2f}MiB",
                   flush=True)
 
-    params, state = tr.init(args.seed)
+    if args.save:
+        tr.checkpoint_stacked()         # raises in dist mode, before a run
+    if start is None:
+        params, state = tr.init(args.seed)
+        first = 0
+    else:
+        params, state, first = start
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                                   global_batch=args.batch, seed=args.seed,
                                   kind=kind), device=dev)
     t_start = time.time()
     comp_bytes, rounds, records, kept = 0.0, 0, [], None
-    for step in range(args.steps):
+    for step in range(first, args.steps):
         batch = data.batch(step)
         if not cfg.causal and "loss_mask" not in batch:
             # as the reference's CLI: next-token batches with every
@@ -202,8 +233,15 @@ def train(args, tr: Trainer, kind: str = "lm", keep_step: int = None) -> dict:
         print(f"DONE: {args.steps} steps, {rounds} comm rounds, "
               f"avg {bits_pp:.3f} bits/param/step "
               f"({time.time()-t_start:.1f}s)", flush=True)
+    save_s = None
+    if args.save:
+        t0 = time.perf_counter()
+        tr.save(args.save, params, state, step=args.steps,
+                meta={"arch": cfg.name, "n_workers": tr.n_workers})
+        save_s = time.perf_counter() - t0
+        print(f"saved checkpoint to {args.save}", flush=True)
     return {"params": params, "state": state, "records": records,
-            "kept": kept}
+            "kept": kept, "save_s": save_s}
 
 
 def _to_cpu(tree):
@@ -265,6 +303,8 @@ def main(argv=None):
             dist.destroy_process_group()
     else:
         # no launcher: spawn the ranks here, checked before any starts
+        if args.save:
+            raise NotImplementedError(DIST_SAVE)
         mesh.check_backend(
             args.backend or mesh.default_backend(args.device), args.device,
             args.workers)

@@ -24,6 +24,11 @@ worker normalizes the hierarchy away.
 Worker ``i`` takes rows ``[i*B/n, (i+1)*B/n)`` of the global batch in
 every regime, and with ``micro_batches > 1`` accumulates its gradient
 over equal splits of them (:func:`accumulate_grads`).
+
+:meth:`Trainer.save` and :meth:`Trainer.restore` write and read the
+checkpoint format both packages share
+(:mod:`repro_torch.checkpointing.io`), in the shapes of the reference
+trainer's tree for the same mode.
 """
 from __future__ import annotations
 
@@ -33,8 +38,10 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
+from repro_torch import interop
+from repro_torch.checkpointing import io as ckpt_io
 from repro_torch.core import api as opt_api
-from repro_torch.core.comm import Comm, norm_hierarchy
+from repro_torch.core.comm import Comm, DistComm, NullComm, norm_hierarchy
 from repro_torch.core.leafwise import flatten_tree, unflatten_tree
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -57,6 +64,12 @@ def resolve_device(device) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+DIST_SAVE = (
+    "checkpoints of --mode dist are not ported yet: each rank holds one "
+    "worker's state, and gathering the fleet's onto one rank is a later "
+    "item (the reference writes its mesh mode's global arrays)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,6 +218,51 @@ class Trainer:
             met["exchange_ms_intra"] = inner.exchange_ms()
             met["exchange_ms_inter"] = outer.exchange_ms()
         return params, state, met
+
+    # ------------------------------------------------------------------ #
+    # checkpoints
+    # ------------------------------------------------------------------ #
+    def checkpoint_stacked(self) -> bool:
+        """Whether the checkpoint's leaves carry the worker dim: yes in
+        sim mode; in single mode the optimizer state has none (its
+        parameters keep the leading 1 of the reference's single mode,
+        which is the port's stack of one)."""
+        if isinstance(self.comm, DistComm):
+            raise NotImplementedError(DIST_SAVE)
+        return not isinstance(self.comm, NullComm)
+
+    def checkpoint_tree(self, params, state):
+        """``{"params", "state"}`` in the shapes and dtypes of the
+        reference trainer's tree for this mode (tensor leaves where they
+        are; scalars as numpy arrays)."""
+        return {"params": params,
+                "state": interop.state_to_reference(
+                    state, stacked=self.checkpoint_stacked())}
+
+    def checkpoint_like(self):
+        """The checkpoint tree of this trainer on the ``meta`` device: the
+        ``like`` tree of ``io.restore``, allocating nothing."""
+        stack = len(self.comm.index())
+        paths, shapes = flatten_tree(param_shapes(self.template))
+        params = unflatten_tree(paths, [
+            torch.empty((stack,) + tuple(s), device="meta",
+                        dtype=self.model_cfg.param_dtype) for s in shapes])
+        return self.checkpoint_tree(params, self.opt.init(params))
+
+    def save(self, path: str, params, state, step: int, meta=None):
+        """Write ``{"params", "state"}`` to ``path`` (npz + manifest v2)."""
+        ckpt_io.save(path, self.checkpoint_tree(params, state), step=step,
+                     meta=meta)
+
+    def restore(self, path: str):
+        """Read a checkpoint of this trainer's layout (either package's):
+        (params, state, step, meta); the manifest is validated first."""
+        tree, step, meta = ckpt_io.restore(path, self.checkpoint_like())
+        params = interop.params_from_reference(tree["params"], self.device)
+        state = interop.state_from_reference(
+            tree["state"], self.opt, self.device,
+            stacked=self.checkpoint_stacked())
+        return params, state, step, meta
 
     def _sync(self):
         if self.device.type == "cuda":

@@ -67,7 +67,9 @@ CASES = {"tensor": [], "chunk": ["--scale-mode", "chunk"],
          # the baselines: a bf16 mean every step; 1-bit Adam's
          # full-precision stage of 2 steps, then its 1-bit exchange
          "adam": ["--optimizer", "adam"],
-         "one_bit": ["--optimizer", "one_bit_adam", "--onebit-warmup", "2"]}
+         "one_bit": ["--optimizer", "one_bit_adam", "--onebit-warmup", "2"],
+         # the bucketed exchange: 15 units, three multi-leaf buckets
+         "bucketed": ["--bucket-mb", "4"]}
 # T_u steps of each case's 8: the accumulate schedule, or every step
 SYNCS = {case: ([1] * STEPS if case in ("adam", "one_bit") else
                 [1, 1, 1, 1, 1, 0, 1, 0]) for case in CASES}
@@ -112,7 +114,8 @@ def _ref_run(argv, params_stacked, mb=1, single=False):
             warmup_steps=a.sync_warmup, double_every=a.double_every,
             max_interval=a.max_interval),
         onebit_warmup=a.onebit_warmup, scale_mode=a.scale_mode,
-        hierarchy=RefHierarchy(inner=a.hierarchy) if a.hierarchy else None)
+        hierarchy=RefHierarchy(inner=a.hierarchy) if a.hierarchy else None,
+        bucket_mb=a.bucket_mb)
     n = 1 if single else a.workers
     rt = RefTrainer(ref_get("gpt2").smoke, cfg, n_workers=n,
                     trainer_cfg=RefTrainerConfig(micro_batches=mb))

@@ -538,3 +538,109 @@ def test_cuda_baseline_step_matches_cpu(name):
             assert torch.equal(pa.cpu(), pb), lo.shape
     else:
         assert all(e is None for e in sk.err_w + sk.err_s)
+
+
+def _bucket_layouts(inner):
+    """gpt2 FULL's fused buckets of more than one leaf at 25 MiB."""
+    from repro_torch.core import bucketing as BK
+
+    tmpl = T.model_template(get("gpt2").config)
+    plan = make_plan(L.param_shapes(tmpl), L.param_specs(tmpl),
+                     L.dp_mask(tmpl), 4, Hierarchy(inner) if inner else None)
+    return [b.layout for b in BK.make_bucket_plan(plan, 25).buckets
+            if len(b.members) > 1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inner", [None, 2], ids=["flat", "2x2"])
+def test_cuda_kernels_at_bucket_frames(inner):
+    """The frames the bucketed exchange adds (gpt2 FULL's three fused
+    buckets, views (4, 4608), (4, 4608), (4, 384)), worker and server
+    side, tensor scales, 4 workers stacked: the two-pass compress and
+    the decode on the card against the same on the CPU (the plain
+    versions): scales within 64 ulp, bits and err_out bit for bit where
+    the scales are equal, decoded values bit for bit; and each worker's
+    compress from the stack bit for bit that worker's alone."""
+    dev = _card()
+    n, ni = 4, inner or 1
+    g = torch.Generator(device=dev).manual_seed(11)
+    los = _bucket_layouts(inner)
+    assert [lo.view_shape for lo in los] == [(4, 4608), (4, 4608), (4, 384)]
+    idx = None if inner is None else tuple(w % ni for w in range(n))
+    widx = tuple((w % ni) * (n // ni) + w // ni for w in range(n))
+    for lo in los:
+        shape = lo.view_shape if inner is None else lo.slice_shape
+        z = torch.randn((n,) + shape, device=dev, generator=g)
+        e = torch.randn((n,) + shape, device=dev, generator=g) * 0.3
+        ys = (n, 1) + lo.chunk_shape
+        avg = torch.randn(ys, device=dev, generator=g)
+        es = torch.randn(ys, device=dev, generator=g) * 0.1
+        sides = ((dispatch.ef_compress_view, z, e, idx),
+                 (dispatch.server_compress_view, avg, es, widx))
+        for fn, x, err, which in sides:
+            packed, scales, err_out = fn(x, err, lo, "tensor", which)
+            pc, sc, ec = fn(x.cpu(), err.cpu(), lo, "tensor", which)
+            assert _ulps(scales.cpu(), sc) <= 64, (lo.view_shape, fn)
+            if torch.equal(scales.cpu(), sc):    # then every bit agrees
+                assert torch.equal(packed.cpu(), pc), (lo.view_shape, fn)
+                assert torch.equal(err_out.cpu(), ec), (lo.view_shape, fn)
+            out = dispatch.decompress_view(packed, scales, lo)
+            assert torch.equal(out.cpu(), dispatch.decompress_view(
+                packed.cpu(), scales.cpu(), lo)), (lo.view_shape, fn)
+            for w in range(n):
+                alone = fn(x[w:w + 1].clone(), err[w:w + 1].clone(), lo,
+                           "tensor", None if which is None
+                           else which[w:w + 1])
+                for a, b in zip((packed, scales, err_out), alone):
+                    assert torch.equal(a[w:w + 1], b), (lo.view_shape, w)
+        del z, e, avg, es
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+def test_cuda_bucketed_step_matches_cpu():
+    """One sync step of zero_one_adam at bucket_mb=4 on gpt2-smoke (15
+    units, three multi-leaf buckets), 4 stacked workers, on the card and
+    on the CPU from the same inputs: the local step launches per leaf
+    (19) and kernels 2-4 per unit (2 x 15); params and state held to 1e-5
+    relative plus 1e-6 of each tensor's largest magnitude (scales within
+    a few ulp: another sum order)."""
+    from repro_torch.core import api as TA
+    from repro_torch.core import schedules as TS
+    from repro_torch.core.leafwise import flatten_tree, unflatten_tree
+
+    dev = _card()
+    tmpl = T.model_template(get("gpt2").smoke)
+    shapes = L.param_shapes(tmpl)
+    paths, leaves = flatten_tree(shapes)
+    rng = np.random.default_rng(6)
+    arrays = [[(rng.standard_normal((4,) + tuple(s)) * scale).astype(
+        np.float32) for s in leaves] for scale in (0.02, 1.0)]
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        opt = TA.build_optimizer(
+            TA.OptimizerConfig(lr=TS.ConstantLr(1e-3), bucket_mb=4.0),
+            shapes, specs=L.param_specs(tmpl), dp_mask=L.dp_mask(tmpl),
+            n_workers=4)
+        params, grads = (unflatten_tree(paths, [
+            torch.from_numpy(a).to(d) for a in xs]) for xs in arrays)
+        state = opt.init(params)
+        build.launch_counts.clear()
+        params, state, met = opt.step(SimComm(4), params, grads, state)
+        assert met["synced"] and len(opt.units) == 15
+        out[d.type] = (flatten_tree(params)[1], state,
+                       dict(build.launch_counts))
+    (xk, sk, launches), (xc, sc, _) = out["cuda"], out["cpu"]
+    assert launches == {"fused_local_step": 19, "abs_rowsum": 30,
+                        "ef_quantize": 30, "decompress": 30}
+
+    def close(a, b):
+        b = b.to(a.device)
+        torch.testing.assert_close(
+            a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max()) + 1e-30)
+
+    for a, b in zip(xk, xc):
+        close(a, b)
+    for name in ("u", "err_w", "err_s", "anchor"):
+        for a, b in zip(getattr(sk, name), getattr(sc, name)):
+            close(a, b)
