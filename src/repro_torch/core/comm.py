@@ -246,18 +246,30 @@ class DistComm(Comm):
         if self._root is not self:
             self._root._ms += ms
 
+    def _call(self, collective, out, x):
+        """The collective itself; a dtype the backend refuses raises,
+        naming the backend, the collective and the dtype (a payload is
+        never reinterpreted as another dtype)."""
+        try:
+            collective(out, x, group=self.group)
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"{dist.get_backend(self.group)} refused "
+                f"{collective.__name__} of a {x.dtype} tensor on "
+                f"{x.device}: {e}") from e
+
     def _run(self, collective, out, x):
         if x.is_cuda:
             stream = torch.cuda.current_stream(x.device)
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record(stream)
-            collective(out, x, group=self.group)
+            self._call(collective, out, x)
             ev[1].record(stream)
             self._root._pending.append((ev, self))
         else:
             t0 = time.perf_counter()
-            collective(out, x, group=self.group)
+            self._call(collective, out, x)
             self._add(1e3 * (time.perf_counter() - t0))
         return out[None]
 

@@ -15,7 +15,8 @@ styles:
   ``x = anchor - precond(u_bar)`` (the reference's ``store_anchor=True``);
   on T_v steps the variance is refreshed from a full-precision gradient
   mean, for bases that carry one (a base without a variance, momentum
-  SGD, has no ``"v"`` slot and no T_v round).
+  SGD, has no ``"v"`` slot and no T_v round). LAMB's trust ratio is a
+  carried per-leaf slot here, refreshed at each sync.
 * ``"gradient"`` (1-bit Adam's two stages): a full-precision gradient
   mean while ``var_policy`` fires, then the Algorithm-2 exchange of the
   gradient itself with the variance frozen.
@@ -23,7 +24,8 @@ styles:
   and a variance update every step.
 
 The gradient and mean styles then take the base's step on the mean
-gradient (:meth:`ComposedOptimizer._step_sync`). The policies run on the
+gradient (:meth:`ComposedOptimizer._step_sync`), LAMB's with a trust
+ratio recomputed every step. The policies run on the
 host, so the sync and variance branches are plain Python ``if``s.
 
 Every exchange runs once per *exchange unit*, in issue order
@@ -34,6 +36,7 @@ in the bucket's layout (``u``, ``m`` and ``v`` stay per leaf).
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -45,6 +48,7 @@ from repro_torch.core import compressor as C
 from repro_torch.core import leafwise
 from repro_torch.core import onebit_allreduce as AR
 from repro_torch.core import schedules as S
+from repro_torch.core.base_steps import bcast
 from repro_torch.core.comm import Comm, Hierarchy
 from repro_torch.kernels import dispatch as K
 from repro_torch.kernels.fused_adam import fma, rsqrt
@@ -58,7 +62,8 @@ class CompressedDPState:
     gamma_acc: np.float32         # sum of gamma since the last sync
     sync_pstate: tuple            # T_u policy state (host ints; accumulate)
     var_pstate: tuple             # T_v policy state (host ints)
-    slots: Dict[str, List[torch.Tensor]]   # "m" (+ "v"): stacked views
+    slots: Dict[str, List[torch.Tensor]]   # "m" (+ "v"): stacked views;
+                                           # (+ "trust"): (stack,) f32
     # per leaf, None where the style keeps none (as the reference):
     u: List[Optional[torch.Tensor]]        # accumulated updates (accumulate)
     # per exchange unit: per leaf, or per bucket with bucket_mb
@@ -94,7 +99,11 @@ class CompressedDP:
     var_policy: Any = S.AdaptiveFreezePolicy(kappa=16)
     weight_decay: float = 0.0
     scale_mode: C.ScaleMode = "tensor"
-    codec: Any = "sign1bit"
+    quantize: bool = True               # deprecated: False -> "identity"
+    codec: Any = "sign1bit"             # a codecs.CODEC_NAMES entry or a
+                                        # Codec instance
+    codec_arg: Optional[float] = None   # argument of a named codec (topk:
+                                        # density)
     comm_dtype: Any = torch.bfloat16
     hierarchy: Optional[Hierarchy] = None   # two-level exchange (pods)
     bucket_mb: Optional[float] = None   # MiB of f32 elements per fused
@@ -115,7 +124,15 @@ class CompressedDP:
                 f"pack_order must be one of {BK.PACK_ORDERS}, got "
                 f"{self.pack_order!r}")
         C.validate_scale_mode(self.scale_mode)
-        object.__setattr__(self, "codec", CODECS.make_codec(self.codec))
+        if not self.quantize:
+            warnings.warn(
+                "quantize=False is deprecated; use codec=\"identity\" "
+                "instead (the exact-mean exchange is now the identity "
+                "codec — see repro.core.codecs)", DeprecationWarning,
+                stacklevel=3)
+        codec = CODECS.resolve_with_quantize(self.codec, self.quantize)
+        object.__setattr__(self, "codec",
+                           CODECS.make_codec(codec, self.codec_arg))
         if self.style == "accumulate" and self.weight_decay:
             raise ValueError(
                 "weight_decay is not supported in the accumulate style: a "
@@ -181,10 +198,11 @@ class ComposedOptimizer:
         xs = self.plan.flat(params)
         stack = xs[0].shape[0]
         los = self.layouts
-        slots = {name: [torch.full((stack,) + lo.view_shape, init,
+        slots = {name: [torch.full((stack,) + (() if kind == "scalar"
+                                               else lo.view_shape), init,
                                    dtype=torch.float32, device=x.device)
                         for x, lo in zip(xs, los)]
-                 for name, (_, init) in self.base.slot_specs().items()}
+                 for name, (kind, init) in self.base.slot_specs().items()}
         dev = xs[0].device
         if self.bucket_plan is None:
             ef_los = los
@@ -279,8 +297,10 @@ class ComposedOptimizer:
         gv = [C.to_view(g.to(torch.float32), lo)
               for g, lo in zip(gs, self.layouts)]
 
-        # --- the local half-step of every leaf (kernel 1). On sync steps
-        # its delta is not needed: the re-anchor replaces x_{t+1/2}
+        # --- the local half-step of every leaf (kernel 1; LAMB scales its
+        # delta by the leaf's frozen trust after it, as the reference).
+        # On sync steps the delta is not needed: the re-anchor replaces
+        # x_{t+1/2}
         new_x = [None] * len(xs)
         new_m, new_u = [], []
         for i, (x, g, lo) in enumerate(zip(xs, gv, self.layouts)):
@@ -289,6 +309,8 @@ class ComposedOptimizer:
                 state.slots["v"][i] if base.has_variance else None, lr,
                 base.beta1, getattr(base, "eps", 0.0), lo, kind=base.kind)
             if not do_sync:
+                if base.has_trust:
+                    delta = bcast(state.slots["trust"][i], delta) * delta
                 new_x[i] = (x.to(torch.float32)
                             - C.from_view(delta, lo)).to(x.dtype)
             new_m.append(mh)
@@ -296,9 +318,12 @@ class ComposedOptimizer:
             del delta
 
         # --- T_u: one Algorithm-2 exchange per unit, then each member's
-        # re-anchor x = anchor - precond(ubar), momentum ubar / gamma
+        # slot refresh (LAMB's trust) and re-anchor x = anchor -
+        # precond(ubar), momentum ubar / gamma
         new_ew, new_es = list(state.err_w), list(state.err_s)
         new_anchor = list(state.anchor)
+        sync_names = tuple(base.sync_slot_names)
+        new_sync = {name: list(state.slots[name]) for name in sync_names}
         for unit in self.units if do_sync else ():
             si = unit.state_idx
             ubars, ef = self._onebit_unit(
@@ -314,9 +339,11 @@ class ComposedOptimizer:
                 lo = self.layouts[i]
                 slots = {name: state.slots[name][i] for name in state.slots}
                 slots.update(base.refresh_sync_slots(
-                    slots, anc, ubar, gamma_total, lo))
+                    slots, anc, ubar, gamma_t, lo))
                 new_x[i] = (anc - C.from_view(base.precond(ubar, slots), lo)
                             ).to(xs[i].dtype)
+                for name in sync_names:
+                    new_sync[name][i] = slots[name]
                 new_m[i] = ubar / gamma_t
                 new_u[i] = torch.zeros_like(new_u[i])
             new_ew[si], new_es[si] = ef.err_worker, ef.err_server
@@ -332,7 +359,7 @@ class ComposedOptimizer:
             for i, gbar in zip(unit.members, gbars):
                 new_v[i] = base.update_variance(state.slots["v"][i], gbar)
 
-        new_slots = {"m": new_m}
+        new_slots = {**state.slots, **new_sync, "m": new_m}
         if new_v is not None:
             new_slots["v"] = new_v
         new_state = CompressedDPState(
@@ -387,10 +414,14 @@ class ComposedOptimizer:
         # becomes a multiply by rsqrt(v + eps) with the variance from
         # before this step's update; the parameter update is one more
         # FMA: x' = fma(-(lr*m'), r, x) (momentum SGD: fma(m', -lr, x)),
-        # or with decay x' = x - fma(x, lr*wd, (lr*m')*r).
+        # or with decay x' = x - fma(x, lr*wd, (lr*m')*r). LAMB's update
+        # u = m'*r (with decay fma(x, wd, m'*r)) is scaled by lr*trust,
+        # its trust recomputed every step from the current params:
+        # x' = fma(u, -(lr*trust), x).
         def f32(a):   # a host scalar as the f32 the reference folds
             return float(np.float32(a))
 
+        wd = f32(cfg.weight_decay)
         lr_wd = f32(lr * np.float32(cfg.weight_decay))
         b1, omb1 = f32(base.beta1), f32(1.0 - base.beta1)
         if base.has_variance:
@@ -401,7 +432,16 @@ class ComposedOptimizer:
         for i, (x, g, lo) in enumerate(zip(xs, gbar, self.layouts)):
             nm = fma(state.slots["m"][i], b1, g * omb1)
             x32 = x.to(torch.float32)
-            if base.has_variance:
+            if base.has_trust:
+                v = state.slots["v"][i]
+                if do_var:
+                    new_v[i] = fma(v, b2, (g * omb2) * g)
+                upd = C.from_view(nm * rsqrt(v + eps), lo)
+                if wd:
+                    upd = fma(x32, wd, upd)
+                lr_trust = base.trust_ratio(x32, upd) * float(lr)
+                nx = fma(upd, bcast(-lr_trust, upd), x32)
+            elif base.has_variance:
                 v = state.slots["v"][i]
                 if do_var:
                     new_v[i] = fma(v, b2, (g * omb2) * g)
@@ -416,7 +456,7 @@ class ComposedOptimizer:
             new_x.append(nx.to(x.dtype))
             new_m.append(nm)
 
-        new_slots = {"m": new_m}
+        new_slots = {**state.slots, "m": new_m}
         if new_v is not None:
             new_slots["v"] = new_v
         new_state = dataclasses.replace(

@@ -51,14 +51,17 @@ def init_ef_state(layout: C.LeafLayout, stack: int, device=None,
 @dataclasses.dataclass(frozen=True)
 class OneBitConfig:
     scale_mode: C.ScaleMode = "tensor"
-    codec: Any = "sign1bit"
+    codec: Any = "sign1bit"                 # a Codec or a registry name
+    codec_arg: Optional[float] = None       # argument of a named codec
+                                            # (topk: density)
     hierarchy: Optional[Hierarchy] = None   # two levels: reduce in pods,
                                             # compress only across them
     comm_dtype: Any = torch.bfloat16        # wire of the intra-pod phases
 
     def __post_init__(self):
         C.validate_scale_mode(self.scale_mode)
-        object.__setattr__(self, "codec", CODECS.make_codec(self.codec))
+        object.__setattr__(self, "codec",
+                           CODECS.make_codec(self.codec, self.codec_arg))
 
 
 def onebit_allreduce_view(comm: Comm, z_view: torch.Tensor, ef: EFState,
@@ -81,7 +84,7 @@ def onebit_allreduce_view(comm: Comm, z_view: torch.Tensor, ef: EFState,
     recv = {name: comm.all_to_all(p) for name, p in payload.items()}
 
     widx = comm.index()
-    avg = codec.decode(recv, layout).mean(dim=1)
+    avg = codec.decode_mean(recv, layout)
     payload_s, err_s = codec.encode_server(
         avg, ef.err_server if codec.needs_ef else None, layout, mode, widx)
 
@@ -125,7 +128,7 @@ def _hier_allreduce_view(comm: Comm, z_view: torch.Tensor, ef: EFState,
         inner_index=j)
     recv = {name: outer.all_to_all(p) for name, p in payload.items()}
     widx = j * no + outer.index()
-    avg = codec.decode(recv, layout).mean(dim=1)
+    avg = codec.decode_mean(recv, layout)
     payload_s, err_s = codec.encode_server(
         avg, ef.err_server if codec.needs_ef else None, layout, mode, widx)
     gathered = {name: outer.all_gather(p) for name, p in payload_s.items()}

@@ -5,7 +5,8 @@ kernels. PyTorch port of the unsharded part of
     ef_compress_view      <->  compressor.ef_compress (z + err fused in)
     server_compress_view  <->  codecs._server_compress
     decompress_view       <->  compressor.decompress
-    fused_local_step_view <->  the local half-step of the base (adam, sgd)
+    fused_local_step_view <->  the local half-step of the base (adam, lamb,
+                               sgd)
 
 Every tensor carries a leading dim of stacked workers. Their frames stack
 along rows, so each phase of each leaf is one launch however many workers
@@ -212,14 +213,16 @@ def decompress_view(packed, scales, layout: C.LeafLayout):
 def fused_local_step_view(g, m, u, v, lr, beta1, eps, layout: C.LeafLayout,
                           kind: str = "adam"):
     """Fused local half-step over stacked comm views, keyed on the base
-    kind: "adam" (needs ``v``) or "sgd" (no variance, ``v`` ignored).
-    Returns (m', u', delta) in view shape."""
+    kind: "adam" and "lamb" share the variance kernel (``v`` needed; the
+    caller scales a LAMB delta by its trust afterwards, as the
+    reference does), "sgd" the kernel without (``v`` ignored). Returns
+    (m', u', delta) in view shape."""
     rows, cols = C.view_rows_cols(layout)
     rows *= g.shape[0]
     if kind == "sgd":
         f = [_frame(a, rows, cols) for a in (g, m, u)]
         outs = fused_adam.fused_local_step_sgd(*f, lr, beta1)
-    elif kind == "adam":
+    elif kind in ("adam", "lamb"):
         f = [_frame(a, rows, cols) for a in (g, m, u, v)]
         outs = fused_adam.fused_local_step(*f, lr, beta1, eps)
     else:

@@ -21,7 +21,8 @@ contracts both updates into single-rounding FMAs (for SGD too, although
 kernels write those two FMAs out and the plain versions reproduce them
 exactly (see :func:`fma_f32`), so m' and u' agree bit for bit, and so does
 the SGD step's ``d``. Adam's divide and square root are IEEE-rounded on
-both sides; its ``d`` is held to 2 ulp against the reference.
+both sides (the plain version's root through :func:`sqrt`); its ``d`` is
+held to 2 ulp against the reference.
 """
 from __future__ import annotations
 
@@ -72,6 +73,17 @@ def fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
     return torch.add(c, a, alpha=b)
 
 
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """``sqrt(x)`` of an f32 tensor, correctly rounded on every device, as
+    the kernels' ``__fsqrt_rn``: the card's ``torch.sqrt`` is; the CPU's
+    vectorized f32 ``torch.sqrt`` is not (1 ulp off on some inputs), so
+    the CPU takes it through f64, whose rounding to f32 is then exact for
+    a square root."""
+    if x.is_cuda:
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).float()
+
+
 def rsqrt(x: torch.Tensor) -> torch.Tensor:
     """``1/sqrt(x)`` in f32, as XLA lowers the reference's ``buf /
     sqrt(v + eps)`` (a multiply by ``rsqrt``). XLA's CPU ``rsqrt`` is an
@@ -95,7 +107,7 @@ def fused_local_step_plain(g, m, u, v, lr, beta1, eps=1e-8):
     lr32, b1, omb1, eps32 = _scalars(lr, beta1, eps)
     mh = fma_f32(m, b1, g * omb1)
     u_new = fma_f32(mh, lr32, u)
-    delta = (mh * lr32) / torch.sqrt(v + eps32)
+    delta = (mh * lr32) / sqrt(v + eps32)
     return mh, u_new, delta
 
 

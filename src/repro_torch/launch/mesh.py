@@ -144,16 +144,21 @@ def spawn(fn, nprocs: int, args=(), timeout_s: float = 900.0) -> None:
 # --- the exchange check (DistComm against SimComm) ---------------------
 
 def exchange_payloads(n: int, device) -> dict:
-    """Seeded stacked payloads (n, n, 6, 40) of n workers in f32, bf16 and
-    uint8, each also as a strided (transposed) view; every rank draws the
-    same ones and sends its own row."""
+    """Seeded stacked payloads (n, n, 6, 40) of n workers in f32, bf16,
+    uint8, int8 and int32 (every dtype a codec's payload carries), each
+    also as a strided (transposed) view; every rank draws the same ones
+    and sends its own row."""
     g = torch.Generator().manual_seed(0)
     f = torch.randn((n, n, 6, 40), generator=g)
     u8 = torch.randint(0, 256, (n, n, 6, 40), generator=g,
                        dtype=torch.uint8)
+    i8 = torch.randint(-128, 128, (n, n, 6, 40), generator=g,
+                       dtype=torch.int8)
+    i32 = torch.randint(-2 ** 31, 2 ** 31 - 1, (n, n, 6, 40), generator=g,
+                        dtype=torch.int32)
     out = {}
     for name, x in (("f32", f), ("bf16", f.to(torch.bfloat16)),
-                    ("uint8", u8)):
+                    ("uint8", u8), ("int8", i8), ("int32", i32)):
         out[name] = x.to(device)
         out[name + "_strided"] = out[name].transpose(2, 3)
     return out

@@ -24,6 +24,11 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2 --smoke \\
       --mode sim --optimizer one_bit_adam --onebit-warmup 2 [...]
       # the baselines: adam (bf16 mean every step), one_bit_adam
+  PYTHONPATH=src python -m repro_torch.launch.train --arch bert-base \\
+      --smoke --mode sim --optimizer zero_one_lamb [...]   # or one_bit_lamb,
+      # lamb
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2 --smoke \\
+      --mode sim --codec topk --codec-arg 0.01 [...]   # or qint8, qint4
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --arch gpt2 --smoke --mode dist --device cpu [...as above]
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2 --smoke \\
@@ -48,6 +53,7 @@ import torch.distributed as dist
 from repro_torch.configs.base import get
 from repro_torch.core import schedules as S
 from repro_torch.core.api import REGISTRY_NAMES, OptimizerConfig
+from repro_torch.core.codecs import CODEC_NAMES
 from repro_torch.core.comm import Hierarchy, NullComm, SimComm, norm_hierarchy
 from repro_torch.core.compressed import comm_accounting
 from repro_torch.data.synthetic import DataConfig, SyntheticLM
@@ -68,6 +74,7 @@ def build_opt_cfg(args) -> OptimizerConfig:
             max_interval=args.max_interval),
         onebit_warmup=args.onebit_warmup,
         scale_mode=args.scale_mode, codec=args.codec,
+        codec_arg=args.codec_arg,
         hierarchy=Hierarchy(args.hierarchy) if args.hierarchy else None,
         bucket_mb=args.bucket_mb)
 
@@ -103,7 +110,12 @@ def parse_args(argv=None):
     ap.add_argument("--scale-mode", default="tensor",
                     choices=["tensor", "chunk", "row"])
     ap.add_argument("--codec", default="sign1bit",
-                    choices=["sign1bit", "identity"])
+                    choices=list(CODEC_NAMES),
+                    help="wire format of the compressed EF exchange "
+                         "(core.codecs); sign1bit is the paper's")
+    ap.add_argument("--codec-arg", type=float, default=None,
+                    help="parameter for parameterized codecs "
+                         "(topk: density, default 0.01)")
     ap.add_argument("--hierarchy", type=int, default=0, metavar="INNER",
                     help="workers per pod for the two-level exchange: "
                          "reduce uncompressed (bf16) inside pods, 1-bit "

@@ -4,7 +4,9 @@
 * The file: the manifest (paths, shapes, dtypes, the treedef string,
   step, meta) is the one the reference's ``io.save`` writes for the same
   gpt2-smoke trainer tree, in sim and single mode, per leaf and
-  bucketed, under every optimizer style.
+  bucketed, under every optimizer style, and under ``zero_one_lamb``
+  (its trust slot: one scalar per worker and leaf in sim mode, a ()
+  array in single mode).
 * Validation: each of the reference's ``ValueError``s, raised by both
   packages on the same files with the same text.
 * Across packages: a reference checkpoint (taken after 4 steps)
@@ -59,7 +61,8 @@ LR = 3e-4
 CASES = {"per_leaf": {}, "bucketed": {"bucket_mb": 4.0},
          "bucketed_hier": {"bucket_mb": 4.0, "inner": 2},
          "one_bit_adam": {"name": "one_bit_adam"},
-         "adam": {"name": "adam"}}
+         "adam": {"name": "adam"},
+         "zero_one_lamb": {"name": "zero_one_lamb"}}
 ARGV = ["--arch", "gpt2", "--smoke", "--batch", str(B), "--seq", str(S),
         "--sync-warmup", "2", "--double-every", "2", "--kappa", "1",
         "--lr", "3e-4", "--log-every", str(STEPS), "--onebit-warmup", "2",
@@ -281,7 +284,8 @@ def _ref_like(rt):
         ("params", "state"), rt.sim_init(jax.random.PRNGKey(0)))))
 
 
-@pytest.mark.parametrize("case", ["per_leaf", "bucketed", "bucketed_hier"])
+@pytest.mark.parametrize("case", ["per_leaf", "bucketed", "bucketed_hier",
+                                  "zero_one_lamb"])
 def test_checkpoints_cross_packages_and_continue(case, tmp_path):
     """Steps 0-3 in each package from one draw, a checkpoint of each; the
     port continues steps 4-7 from the reference's file and the reference

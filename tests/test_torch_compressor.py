@@ -344,13 +344,14 @@ def test_fullprec_allreduce_matches_reference():
 
 
 def test_unported_modes_raise():
-    # all three scale modes are ported; a typo is refused
+    # all three scale modes and every codec of the reference are ported;
+    # a typo is refused
     for mode in ("tensor", "chunk", "row"):
         TAR.OneBitConfig(scale_mode=mode)
     with pytest.raises(ValueError):
         TAR.OneBitConfig(scale_mode="rows")
-    with pytest.raises(NotImplementedError):
-        TCD.make_codec("qint8")
+    for name in ("sign1bit", "topk", "qint8", "qint4", "identity"):
+        assert TAR.OneBitConfig(codec=name).codec.name == name
     with pytest.raises(ValueError):
         TCD.make_codec("nope")
 

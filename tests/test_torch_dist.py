@@ -69,10 +69,22 @@ CASES = {"tensor": [], "chunk": ["--scale-mode", "chunk"],
          "adam": ["--optimizer", "adam"],
          "one_bit": ["--optimizer", "one_bit_adam", "--onebit-warmup", "2"],
          # the bucketed exchange: 15 units, three multi-leaf buckets
-         "bucketed": ["--bucket-mb", "4"]}
+         "bucketed": ["--bucket-mb", "4"],
+         # 0/1 LAMB (its trust norms summed per worker); the dense codecs,
+         # whose payloads cross gloo as int8 and f32, and int32 and f32
+         "lamb": ["--optimizer", "zero_one_lamb"],
+         "qint8": ["--codec", "qint8"],
+         "topk": ["--codec", "topk", "--codec-arg", "0.05"]}
 # T_u steps of each case's 8: the accumulate schedule, or every step
 SYNCS = {case: ([1] * STEPS if case in ("adam", "one_bit") else
                 [1, 1, 1, 1, 1, 0, 1, 0]) for case in CASES}
+# qint8 dithers from a hash of each value's bits, so its trajectory is
+# chaotic in the last bit of its inputs: the reference itself, from
+# params one ulp away, moves by 2.3e-3 in loss within 8 steps (see
+# test_torch_codecs.py). Against the reference it is held to losses
+# within 1e-2 and every param within 0.05; against the port's sim run,
+# bit for bit like every case.
+NEAR_REF = {"qint8": dict(loss_atol=1e-2, share=0.0)}
 SPAWN_TIMEOUT_S = 120.0
 
 
@@ -114,6 +126,7 @@ def _ref_run(argv, params_stacked, mb=1, single=False):
             warmup_steps=a.sync_warmup, double_every=a.double_every,
             max_interval=a.max_interval),
         onebit_warmup=a.onebit_warmup, scale_mode=a.scale_mode,
+        codec=a.codec, codec_arg=a.codec_arg,
         hierarchy=RefHierarchy(inner=a.hierarchy) if a.hierarchy else None,
         bucket_mb=a.bucket_mb)
     n = 1 if single else a.workers
@@ -143,16 +156,17 @@ def _init_params(argv):
     return TLAUNCH.make_trainer(args).init(args.seed)[0]
 
 
-def _assert_near_reference(ranks, ref_losses, ref_params):
+def _assert_near_reference(ranks, ref_losses, ref_params, loss_atol=1e-4,
+                           share=0.99):
     got = np.mean([[rec["losses"][0] for rec in res["records"]]
                    for res in ranks], axis=0)
-    np.testing.assert_allclose(got, ref_losses, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got, ref_losses, rtol=0, atol=loss_atol)
     diff = np.concatenate([
         np.abs(np.stack([flatten_tree(res["params"])[1][i][0].numpy()
                          for res in ranks]) - want).ravel()
         for i, want in enumerate(ref_params)])
     assert diff.size == N * 346_880
-    assert (diff <= 1e-4).mean() >= 0.99
+    assert (diff <= 1e-4).mean() >= share
     assert diff.max() <= 0.05
 
 
@@ -190,7 +204,8 @@ def exchange_results(tmp_path_factory):
     return [torch.load(tmp / f"exchange{r}.pt") for r in range(N)]
 
 
-@pytest.mark.parametrize("dtype", ["f32", "bf16", "uint8"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "uint8", "int8",
+                                   "int32"])
 def test_dist_comm_matches_sim_comm(exchange_results, dtype):
     """all_to_all and all_gather of every rank, bit for bit what SimComm
     gives the worker of that index, from contiguous and strided views."""
@@ -220,17 +235,40 @@ def test_dist_split_matches_sim_split(exchange_results):
                     name, op, r)
 
 
+def test_refused_dtype_raises_naming_it(tmp_path, monkeypatch):
+    """A collective the backend refuses for a payload's dtype raises,
+    naming the backend, the collective and the dtype (a world of one
+    over gloo, the refusal simulated)."""
+    import torch.distributed as dist
+    from repro_torch.core.comm import DistComm
+
+    dist.init_process_group("gloo", init_method=mesh.file_rendezvous(
+        tmp_path), rank=0, world_size=1)
+    try:
+        def refuse(*a, **k):
+            raise RuntimeError("Unsupported dtype")
+
+        refuse.__name__ = "all_to_all_single"
+        monkeypatch.setattr(dist, "all_to_all_single", refuse)
+        with pytest.raises(RuntimeError, match="gloo refused "
+                           "all_to_all_single of a torch.int8 tensor"):
+            DistComm().all_to_all(torch.zeros((1, 1, 4), dtype=torch.int8))
+    finally:
+        dist.destroy_process_group()
+
+
 # --- (b), (c) gpt2-smoke in four ranks -----------------------------------
 
 @pytest.fixture(scope="module", params=list(CASES))
 def case_runs(request, tmp_path_factory):
     argv = ARGV + CASES[request.param]
     ranks = _spawn_ranks(tmp_path_factory.mktemp(request.param), argv)
-    return argv, ranks, SYNCS[request.param]
+    return argv, ranks, SYNCS[request.param], NEAR_REF.get(request.param,
+                                                           {})
 
 
 def test_dist_matches_port_sim_bitwise(case_runs):
-    argv, ranks, _ = case_runs
+    argv, ranks, _, _ = case_runs
     sim = _port_run(argv + ["--mode", "sim", "--workers", str(N)])
     _assert_ranks_equal_sim(ranks, sim)
     assert [r["records"][0]["sync"] for r in ranks] == [True] * N
@@ -248,10 +286,10 @@ def test_dist_matches_port_sim_bitwise(case_runs):
 
 
 def test_dist_matches_reference(case_runs):
-    argv, ranks, syncs = case_runs
+    argv, ranks, syncs, bars = case_runs
     ref_losses, ref_params = _ref_run(argv, _init_params(
         argv + ["--mode", "sim"]))
-    _assert_near_reference(ranks, ref_losses, ref_params)
+    _assert_near_reference(ranks, ref_losses, ref_params, **bars)
     assert [rec["sync"] for rec in ranks[0]["records"]] == syncs
 
 

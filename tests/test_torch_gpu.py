@@ -644,3 +644,122 @@ def test_cuda_bucketed_step_matches_cpu():
     for name in ("u", "err_w", "err_s", "anchor"):
         for a, b in zip(getattr(sk, name), getattr(sc, name)):
             close(a, b)
+
+
+def _full_layouts(arch):
+    tmpl = T.model_template(get(arch).config)
+    return make_plan(L.param_shapes(tmpl), L.param_specs(tmpl),
+                     L.dp_mask(tmpl), 4).layouts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["gpt2", "bert-base"])
+def test_cuda_trust_is_stack_independent(arch):
+    """Every gpt2-FULL and bert-base-FULL leaf: each worker's LAMB trust
+    (its norms, then the clipped ratio) from a stack of four equals that
+    worker's alone, bit for bit, for the natural-shape params and for a
+    leaf's update through its comm view (what keeps a rank of the
+    multi-process regime bitwise its simulated worker)."""
+    from repro_torch.core.base_steps import lamb_base, worker_l2
+
+    dev = _card()
+    base = lamb_base()
+    g = torch.Generator(device=dev).manual_seed(10)
+    for lo in _full_layouts(arch):
+        x = torch.randn((4,) + tuple(lo.shape), device=dev, generator=g)
+        r = torch.randn((4,) + lo.view_shape, device=dev, generator=g) * 1e-3
+        upd = C.from_view(r, lo)
+        whole = (worker_l2(x), base.trust_ratio(x, upd))
+        for w in range(4):
+            alone = (worker_l2(x[w:w + 1].clone()),
+                     base.trust_ratio(x[w:w + 1].clone(),
+                                      C.from_view(r[w:w + 1].clone(), lo)))
+            for a, b in zip(whole, alone):
+                assert torch.equal(a[w:w + 1], b), (lo.shape, w)
+        del x, r, upd
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+def test_cuda_lamb_local_step_at_bert_frames():
+    """Kernel 1 under kind "lamb" at every bert-base-FULL frame (4
+    stacked workers): m' and u' bit for bit its plain version, delta
+    within 2 ulp, and the trust-scaled delta within 3 ulp of the trust
+    times the plain delta (one more rounding)."""
+    from repro_torch.core.base_steps import bcast
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(11)
+    lr, b1 = np.float32(1.5e-4), 0.9
+    for lo in _full_layouts("bert-base"):
+        shape = (4,) + lo.view_shape
+        gr, m, u = (torch.randn(shape, device=dev, generator=g)
+                    for _ in range(3))
+        v = torch.rand(shape, device=dev, generator=g) * 1e-4
+        trust = torch.rand(4, device=dev, generator=g) * 10
+        build.launch_counts.clear()
+        mk, uk, dk = dispatch.fused_local_step_view(gr, m, u, v, lr, b1,
+                                                    1e-8, lo, kind="lamb")
+        assert build.launch_counts == {"fused_local_step": 1}
+        rows, cols = C.view_rows_cols(lo)
+        f = [a.reshape(4 * rows, cols) for a in (gr, m, u, v)]
+        mp, up, dp = fused_adam.fused_local_step_plain(*f, lr, b1)
+        assert torch.equal(mk.reshape(mp.shape), mp), lo.shape
+        assert torch.equal(uk.reshape(up.shape), up), lo.shape
+        assert _ulps(dk.reshape(dp.shape), dp) <= 2, lo.shape
+        scaled = bcast(trust, dk) * dk
+        want = bcast(trust, dk) * dp.reshape(dk.shape)
+        assert _ulps(scaled, want) <= 3, lo.shape
+        del gr, m, u, v, mk, uk, dk, f, mp, up, dp
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inner", [None, 2], ids=["flat", "2x2"])
+@pytest.mark.parametrize("codec", ["topk", "qint8", "qint4"])
+def test_cuda_dense_codecs_match_cpu(codec, inner):
+    """topk (density 0.05), qint8 and qint4 at every gpt2-smoke frame, 4
+    stacked workers, flat and at 2 pods x 2: the worker encode (payload
+    and EF residual), its decode, the server's mean over the senders
+    (qint: the first product, then one FMA a sender), the server encode
+    and the whole exchange (its estimate and both EF errors) on the card
+    bit for bit the same on the CPU (topk on values with ties at the k-th
+    magnitude, which both devices break as the reference does)."""
+    from repro_torch.core import codecs as CD
+
+    dev = _card()
+    c = CD.make_codec(codec, 0.05 if codec == "topk" else None)
+    cfg = AR.OneBitConfig(codec=c, hierarchy=Hierarchy(inner)
+                          if inner else None)
+    tmpl = T.model_template(get("gpt2").smoke)
+    layouts = make_plan(L.param_shapes(tmpl), L.param_specs(tmpl),
+                        L.dp_mask(tmpl), 4,
+                        Hierarchy(inner) if inner else None).layouts
+    rng = np.random.default_rng(12)
+    for lo in layouts:
+        m = C.pad_mask(lo)
+        m = 1.0 if m is None else m.numpy()
+        z = (rng.standard_normal((4,) + lo.view_shape) * m).astype(
+            np.float32)
+        if codec == "topk":
+            z = np.round(z * 2) / 2     # ties at the k-th magnitude
+        e = (rng.standard_normal((4,) + lo.ef_worker_shape) * 0.3).astype(
+            np.float32)
+        es = (rng.standard_normal((4,) + lo.chunk_shape) * 0.1).astype(
+            np.float32)
+        out = []
+        for d in (dev, torch.device("cpu")):
+            zt, et, est = (torch.from_numpy(a).to(d) for a in (z, e, es))
+            res = []
+            if inner is None:
+                p, err = c.encode_worker(zt, et, lo, "tensor")
+                recv = {k: SimComm(4).all_to_all(v) for k, v in p.items()}
+                res = [c.decode(p, lo), err, c.decode_mean(recv, lo)]
+                ps, errs = c.encode_server(res[2], est, lo, "tensor",
+                                           np.arange(4))
+                res += [c.decode(ps, lo), errs]
+            o, ef = AR.onebit_allreduce_view(SimComm(4), zt,
+                                             AR.EFState(et, est), lo, cfg)
+            out.append(res + [o, ef.err_worker, ef.err_server])
+        for a, b in zip(*out):
+            assert torch.equal(a.cpu(), b), (codec, lo.shape)

@@ -231,6 +231,20 @@ def test_fma_f32_rounds_once():
         assert got[i] == best, (i, got[i], best)
 
 
+def test_sqrt_is_correctly_rounded():
+    """``fused_adam.sqrt`` on the CPU is the correctly rounded f32 root
+    (numpy's, and the card's ``__fsqrt_rn``) over values like ``v + eps``,
+    where the vectorized f32 ``torch.sqrt`` may be 1 ulp off; the root of
+    an exact square stays exact."""
+    rng = np.random.default_rng(0)
+    x = np.concatenate([rng.random(1 << 18, np.float32) * 1e-2 + 1e-8,
+                        rng.standard_normal(1 << 16).astype(np.float32)
+                        ** 2, np.float32([0.0, 1e-45, 4.0, 2.0 ** 100])])
+    got = fused_adam.sqrt(_t(x)).numpy()
+    np.testing.assert_array_equal(got, np.sqrt(x))
+    assert got.dtype == np.float32 and got[-2] == 2.0
+
+
 def test_wrappers_check_operands_and_count_no_cpu_launch():
     z = torch.zeros(8, 16)
     cnt = torch.full((8,), 16, dtype=torch.int32)

@@ -401,17 +401,25 @@ def _parser_of(run, monkeypatch):
 def test_cli_defaults_match_reference(monkeypatch):
     """Every flag the two training CLIs share has the same default,
     ``--mode`` (single) included, so the same command line runs the same
-    number of workers in both packages."""
+    number of workers in both packages; ``--optimizer`` and ``--codec``
+    offer the same choices, and ``--codec-arg`` takes the same type with
+    the same help."""
     from repro.launch import train as ref_launch
-    defaults = [{a.dest: a.default for a in p._actions if a.dest != "help"}
-                for p in (_parser_of(ref_launch.main, monkeypatch),
-                          _parser_of(lambda: TLAUNCH.parse_args([]),
-                                     monkeypatch))]
+    parsers = (_parser_of(ref_launch.main, monkeypatch),
+               _parser_of(lambda: TLAUNCH.parse_args([]), monkeypatch))
+    actions = [{a.dest: a for a in p._actions if a.dest != "help"}
+               for p in parsers]
+    defaults = [{k: a.default for k, a in acts.items()} for acts in actions]
     shared = sorted(set(defaults[0]) & set(defaults[1]))
     assert {"mode", "workers", "optimizer", "scale_mode", "hierarchy",
-            "micro_batches", "lr", "steps"} <= set(shared)
+            "micro_batches", "lr", "steps", "codec", "codec_arg"} <= set(
+                shared)
     assert {k: defaults[1][k] for k in shared} == {
         k: defaults[0][k] for k in shared}
+    for dest in ("optimizer", "codec"):
+        assert actions[1][dest].choices == actions[0][dest].choices
+    assert actions[1]["codec_arg"].help == actions[0]["codec_arg"].help
+    assert actions[1]["codec_arg"].type is actions[0]["codec_arg"].type
     assert defaults[1]["mode"] == "single"
     args = TLAUNCH.parse_args(["--arch", "gpt2"])
     assert args.mode == "single" and args.device == "cuda"
