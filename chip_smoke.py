@@ -6,8 +6,9 @@
 Needs one card; on a machine with up to four, phase 6b puts one rank on
 each, and on four phase 6c runs its 2 pods x 2 ranks over NCCL and phase
 6d trains bert-large FULL in four ranks. ``--only`` runs, after the
-build, just the named checks of phases 5 and 6 (the second line: the
-four-card paths, on four cards) and prints no kernels or result line.
+build, just the named checks of phases 4n, 5 and 6 (the second line:
+the four-card paths, on four cards) and prints no kernels or result
+line.
 
 1. Prints the card (nvidia-smi name and power limit) and torch/CUDA.
 2. Builds the port's CUDA kernels from src/repro_torch/kernels/csrc with
@@ -85,6 +86,22 @@ four-card paths, on four cards) and prints no kernels or result line.
       into a fresh trainer, steps 4-7; the params and losses must be bit
       for bit those of 8 uninterrupted steps. Prints the file's size and
       the save and restore seconds, and deletes the file.
+   n. Elastic data parallelism (``repro_torch.elastic``), gpt2 FULL with
+      (a)'s flags: (i) ``--resize 3:4`` through the CLI's elastic path,
+      bit for bit (a) (losses, a SHA-256 of the params, launch counts);
+      (ii) FleetSim killing workers 1 and 3 and shrinking to 2 workers
+      before step 3, growing back to 4 before step 5: each resize's report
+      the static ``reshard_report``, the worker EF's mass conserved by the
+      shrink (rtol 1e-5, atol 1e-7), the joiners' ``u`` zero and their
+      params a survivor's bits after the grow, steps 0-2 and the launch
+      counts (a)'s; step and optimizer ms per step kind and width, and
+      each reshard's ms; (iii) 3 steps of (d) and of (g), then a reshard
+      at m = n, bit for bit the identity, and BENCH_elastic.json's
+      ``hier_4to2_podkill`` / ``bucketed_4to2_kill1`` (its geometry, the
+      mass conserved); (iv) 4 steps at 2 workers (batch 8 x 1024) with
+      ``--save`` under build/, ``restore_resharded`` into 4 workers bit
+      for bit ``reshard_trainer`` of the in-memory state, 4 more steps;
+      the file's size and the save and restore seconds (file deleted).
 5. Checks the card against the CPU on small inputs: the gpt2-smoke
    trainer (flat, with ``--hierarchy 2``, under ``adam`` and
    ``one_bit_adam``, with ``--bucket-mb 4`` flat and with
@@ -99,6 +116,10 @@ four-card paths, on four cards) and prints no kernels or result line.
    (carried error feedback, ``u`` and anchor); their trainers' loss and
    param gaps only have a sanity bound, three times the card's own
    spread from params one ulp up.
+   Elastic resharding: the five BENCH_elastic.json geometries and 4 -> 3
+   on gpt2-smoke state trained on the CPU, resharded on both devices, bit
+   for bit; FleetSim shrinking 4 -> 2 before step 4 and growing back
+   before step 8, 12 steps at a peak lr of 3e-4, within the bars above.
 6. Data parallel in processes (``--mode dist``, one paper-worker per
    process, spawned): first the exchange collectives of DistComm against
    SimComm's, bit for bit, over gloo with CUDA tensors and over NCCL;
@@ -867,10 +888,7 @@ def run_main_path(dev, label, arch, extra, batch, seq, kind):
               else None)
     if digest:
         print(f"  final params sha256 {digest}", flush=True)
-    for kind, t in times_by_kind(steps, step_kinds(extra)).items():
-        print(f"    {kind}: step {t['step_ms']:.1f} ms (fwd/bwd "
-              f"{t['fwd_bwd_ms']:.1f}, optimizer {t['optimizer_ms']:.1f})",
-              flush=True)
+    print_times(times_by_kind(steps, step_kinds(extra)))
     wire = step_bytes(tr.opt, steps)
     print(f"  wire MiB per worker and step "
           f"{[round(b / 2**20, 2) for b in wire]}; total {sum(wire) / 2**20:.2f} MiB in "
@@ -980,6 +998,439 @@ def run_checkpoint(extra):
                          extra, got, want)
     return {"file_bytes": size, "save_s": save_s, "restore_s": restore_s,
             "params_sha256": got[1]}
+
+
+# ----------------------------------------------------------------------- #
+# phase 4n: elastic data parallelism (repro_torch.elastic) on gpt2 FULL
+# ----------------------------------------------------------------------- #
+
+# (ii): kill workers 1 and 3 before step 3 (4 -> 2), rejoin before 5
+FLEET_EVENTS = [(3, 2, (0, 2)), (5, 4)]
+# (iii): steps trained before the reshards; per BENCH_elastic.json
+# scenario, the run's flags and the survivors of its 4 -> 2 resize
+GEOMETRY_STEPS = 3
+GEOMETRIES = {"hier_4to2_podkill": (["--hierarchy", str(INNER)], (0, 1)),
+              "bucketed_4to2_kill1": (BUCKETED, (0, 2))}
+# the fields of a reshard report that the resize alone decides, not the
+# model's size (BENCH_elastic.json records them for gpt2-smoke)
+GEOMETRY_KEYS = ("n_from", "n_to", "inner_from", "inner_to",
+                 "entities_from", "entities_to", "carried_entities",
+                 "dead_entities", "joiner_workers", "ef_fold", "dp_leaves")
+# the true elements of gpt2 FULL's DP leaves
+GPT2_ELEMS = 148_944_384
+# phase 5: the BENCH_elastic.json scenarios on gpt2-smoke plus 4 -> 3
+# (scenario: flags, n_from, n_to, survivors)
+SMALL_RESHARDS = {
+    "flat_4to4_identity": ([], 4, 4, None),
+    "flat_4to2_kill1": ([], 4, 2, (0, 2)),
+    "flat_2to4_grow": ([], 2, 4, None),
+    "hier_4to2_podkill": (["--hierarchy", str(INNER)], 4, 2, (0, 1)),
+    "bucketed_4to2_kill1": (["--bucket-mb", "0.25"], 4, 2, (0, 2)),
+    "flat_4to3_kill2": ([], 4, 3, (0, 1, 3))}
+
+
+def bench_elastic():
+    """The elastic_reshard rows of BENCH_elastic.json by scenario."""
+    with open(os.path.join(ROOT, "BENCH_elastic.json")) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    return {r["scenario"]: r for r in rows if r["bench"] == "elastic_reshard"}
+
+
+def sim_args(batch, workers, extra=(), steps=STEPS):
+    """4a's flags in sim mode at ``workers`` workers and global batch
+    ``batch``."""
+    from repro_torch.launch import train as launch
+
+    return launch.parse_args(gpt2_argv(batch, [
+        "--mode", "sim", "--workers", str(workers), *extra,
+        "--steps", str(steps)]))
+
+
+def tree_bits(params, state):
+    """(paths, leaves) of a stacked (params, state) in the checkpoint's
+    tree layout (tensors where they are, host scalars as arrays)."""
+    from repro_torch import interop
+    from repro_torch.checkpointing import io as ckpt_io
+
+    paths, leaves, _ = ckpt_io.flatten(
+        {"params": params, "state": interop.state_to_reference(state)})
+    return paths, leaves
+
+
+def bitwise(a, b) -> bool:
+    """Two (params, state) pairs hold the same paths, dtypes, shapes and
+    bytes (so -0 and +0 differ), on any devices."""
+    (pa, la), (pb, lb) = tree_bits(*a), tree_bits(*b)
+    if pa != pb:
+        return False
+    for x, y in zip(la, lb):
+        if isinstance(x, torch.Tensor):
+            y = y.to(x.device)
+            if (x.dtype, x.shape) != (y.dtype, y.shape) or not torch.equal(
+                    x.contiguous().view(torch.uint8),
+                    y.contiguous().view(torch.uint8)):
+                return False
+        elif not np.array_equal(x, y):
+            return False
+    return True
+
+
+def ef_mass(err_w, entities):
+    """Each exchange unit's pending worker-side correction
+    (1/entities)·Σ err_w, summed in f64."""
+    return np.array([float(e.double().sum()) / entities for e in err_w
+                     if e is not None])
+
+
+def check_mass(before, after, rep, what):
+    """The fold conserves the worker EF's mass per unit (the reference
+    test's bar), and the run left some residual to conserve."""
+    src = ef_mass(before, rep["entities_from"])
+    dst = ef_mass(after, rep["entities_to"])
+    gap = float(np.abs(dst - src).max())
+    print(f"  {what}: EF mass per unit conserved within {gap:.2e} (largest "
+          f"|mass| {float(np.abs(src).max()):.3e})", flush=True)
+    assert np.abs(src).max() > 0, what
+    np.testing.assert_allclose(dst, src, rtol=1e-5, atol=1e-7,
+                               err_msg=what)
+    return gap
+
+
+def times_by_kind_width(records):
+    """:func:`times_by_kind` per step kind and fleet width."""
+    kinds = {}
+    for kind, steps in STEP_KINDS.items():
+        for t in steps:
+            w = records[t]["workers"]
+            kinds.setdefault(f"{kind} @ {w} workers", []).append(t)
+    return times_by_kind(records, kinds)
+
+
+def print_times(times):
+    """Print the medians of :func:`times_by_kind` (or of
+    :func:`times_by_kind_width`), one line per step kind."""
+    for kind, t in times.items():
+        print(f"    {kind}: step {t['step_ms']:.1f} ms (fwd/bwd "
+              f"{t['fwd_bwd_ms']:.1f}, optimizer {t['optimizer_ms']:.1f})",
+              flush=True)
+
+
+def run_elastic_cli(dev, a):
+    """4n(i): ``--resize 3:4`` through the CLI's elastic path
+    (``launch._run_elastic``, FleetSim) with 4a's flags: the identity
+    resize; losses, params and launch counts those of 4a (``a``)."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import train as launch
+
+    args = sim_args(BATCH, N_WORKERS, ["--resize", "3:4"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.launch_counts.clear()
+    res = launch._run_elastic(args, device=dev)
+    counts = dict(build.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    (rep,) = res["resizes"]
+    digest = params_sha256(res["params"])
+    same = ([r["losses"] for r in res["records"]]
+            == [r["losses"] for r in a["steps"]]
+            and digest == a["params_sha256"])
+    print(f"  (i) --resize 3:4: launches {json.dumps(counts)}; peak memory "
+          f"{peak_gb:.1f} GB; reshard {rep['reshard_ms']:.1f} ms; losses "
+          f"and params bit for bit 4a: {same} (sha256 {digest})", flush=True)
+    print_times(times_by_kind(res["records"]))
+    assert same, "4n(i): the identity resize is not run 4a"
+    assert counts == a["launches"], (counts, a["launches"])
+    assert (rep["n_from"], rep["n_to"], rep["ef_fold"]) == (4, 4, False)
+    return {"steps": res["records"], "launches": counts,
+            "peak_memory_gb": peak_gb, "reshard_ms": rep["reshard_ms"],
+            "params_sha256": digest}
+
+
+def run_fleet(dev, a):
+    """4n(ii): FleetSim, kill workers 1 and 3 and shrink 4 -> 2 before
+    step 3, rejoin 2 -> 4 before step 5. Each resize's report is the
+    static reshard_report; right after the shrink the worker EF's mass is
+    conserved; after the grow the joiners' ``u`` is zero and their params
+    a survivor's bits; steps 0-2 are 4a's bit for bit; the launch counts
+    are 4a's (the stacked workers share each launch at every width)."""
+    from repro_torch.configs.base import get
+    from repro_torch.core.leafwise import flatten_tree
+    from repro_torch.elastic import FleetSim, ResizeEvent, reshard_report
+    from repro_torch.elastic import simulate
+    from repro_torch.kernels import build
+    from repro_torch.launch import train as launch
+
+    args = sim_args(BATCH, N_WORKERS)
+    kept, real = [], simulate.reshard_trainer
+
+    def keep(src, dst, params, state, *, survivors=None):
+        # hold what the checks read; they run after the timed reshards
+        out = real(src, dst, params, state, survivors=survivors)
+        kept.append((src.opt, dst.opt, survivors, state.err_w,
+                     out[1].err_w, out[0], out[1].u))
+        return out
+
+    simulate.reshard_trainer = keep
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.launch_counts.clear()
+        res = FleetSim(get("gpt2").config, launch.build_opt_cfg(args),
+                       N_WORKERS, seed=args.seed, device=dev).run(
+            STEPS, global_batch=BATCH, seq=SEQ,
+            events=[ResizeEvent(*e) for e in FLEET_EVENTS])
+        counts = dict(build.launch_counts)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        simulate.reshard_trainer = real
+    records, losses, resizes = res["records"], res["losses"], res["resizes"]
+    del res
+    print(f"  (ii) kill 1, 3 and shrink 4 -> 2 before step 3, rejoin 2 -> 4 "
+          f"before step 5: launches {json.dumps(counts)}; peak memory "
+          f"{peak_gb:.1f} GB (with the checked tensors held); reshard "
+          f"{[round(r['reshard_ms'], 2) for r in resizes]} ms", flush=True)
+    print(f"  losses {[round(x, 5) for x in losses]}; widths "
+          f"{[r['workers'] for r in records]}", flush=True)
+    print_times(times_by_kind_width(records))
+    assert np.isfinite(losses).all(), losses
+    assert [r["losses"] for r in records[:3]] == [
+        r["losses"] for r in a["steps"][:3]], "4n(ii): steps 0-2 are not 4a's"
+    assert counts == a["launches"], (counts, a["launches"])
+    assert [r["workers"] for r in records] == [4, 4, 4, 2, 2, 4, 4, 4]
+    mass_gap = None
+    for (src, dst, survivors, ew, ew2, params, u), got in zip(kept, resizes):
+        rep = reshard_report(src, dst, survivors=survivors)
+        assert {k: v for k, v in got.items()
+                if k not in ("step", "reshard_ms")} == rep, (got, rep)
+        if dst.n < src.n:
+            assert (rep["carried_entities"], rep["dead_entities"],
+                    rep["ef_fold"]) == (2, 2, True), rep
+            mass_gap = check_mass(ew, ew2, rep,
+                                  f"(ii) shrink before step {got['step']}")
+        else:
+            assert (rep["joiner_workers"], rep["ef_fold"]) == (2, True), rep
+            joiners = list(range(src.n, dst.n))
+            clone = all(torch.equal(x[k].contiguous().view(torch.uint8),
+                                    x[0].contiguous().view(torch.uint8))
+                        for x in flatten_tree(params)[1] for k in joiners)
+            zero_u = all(bool((x[joiners] == 0).all()) for x in u
+                         if x is not None)
+            print(f"  (ii) grow before step {got['step']}: joiners {joiners}"
+                  f" hold a survivor's params bit for bit: {clone}; their u"
+                  f" is zero: {zero_u}", flush=True)
+            assert clone and zero_u
+    del kept
+    return {"steps": records, "losses": losses, "launches": counts,
+            "peak_memory_gb": peak_gb, "resizes": resizes,
+            "mass_gap": mass_gap}
+
+
+def run_geometries(dev):
+    """4n(iii): per BENCH_elastic.json scenario of another exchange (2
+    pods x 2, and 25 MiB buckets), GEOMETRY_STEPS steps of gpt2 FULL with
+    4 workers, then a reshard at m = n (bit for bit the identity on every
+    params and state leaf) and the scenario's 4 -> 2 (its report's
+    geometry the file's, the worker EF's mass conserved)."""
+    from repro_torch.elastic import reshard_report, reshard_trainer
+    from repro_torch.launch import train as launch
+
+    bench, out = bench_elastic(), {}
+    for scenario, (extra, survivors) in GEOMETRIES.items():
+        args = sim_args(BATCH, N_WORKERS, extra, steps=GEOMETRY_STEPS)
+        tr = launch.make_trainer(args, device=dev)
+        res = launch.train(args, tr)
+        params, state = res["params"], res["state"]
+        del res
+        ms = {}
+        for m, sv in ((N_WORKERS, None), (2, survivors)):
+            dst = launch.make_trainer(
+                sim_args(BATCH, m, extra, steps=GEOMETRY_STEPS), device=dev)
+            rep = reshard_report(tr.opt, dst.opt, survivors=sv)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p2, s2 = reshard_trainer(tr, dst, params, state, survivors=sv)
+            torch.cuda.synchronize()
+            ms[m] = 1e3 * (time.perf_counter() - t0)
+            if m == N_WORKERS:
+                same = bitwise((params, state), (p2, s2))
+                print(f"  (iii) {scenario}: reshard at m = n bit for bit the"
+                      f" identity: {same} ({ms[m]:.1f} ms)", flush=True)
+                assert same, scenario
+            else:
+                row = bench[scenario]
+                geometry = {k: rep[k] for k in GEOMETRY_KEYS}
+                print(f"  (iii) {scenario}: 4 -> 2 survivors {sv} in "
+                      f"{ms[m]:.1f} ms; report {json.dumps(rep)}",
+                      flush=True)
+                assert geometry == {k: row[k] for k in GEOMETRY_KEYS}, (
+                    geometry, row)
+                assert rep["exchange_units"] == len(tr.opt.units)
+                assert rep["true_elems"] == GPT2_ELEMS
+                gap = check_mass(state.err_w, s2.err_w, rep,
+                                 f"(iii) {scenario}")
+            del p2, s2
+            gc.collect()
+            torch.cuda.empty_cache()
+        out[scenario] = {"identity_ms": ms[N_WORKERS], "reshard_ms": ms[2],
+                         "report": rep, "mass_gap": gap}
+        del params, state, tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_restore_resharded(dev):
+    """4n(iv): 4 steps of gpt2 FULL at 2 workers (batch 8 x SEQ, 4a's
+    flags) and ``--save`` under the git-ignored build/; restore_resharded
+    into a 4-worker trainer, bit for bit reshard_trainer of the in-memory
+    state; then steps 4-7 at 4 workers, finite losses. Returns the file's
+    size and the save and restore seconds; the file is deleted."""
+    from repro_torch.elastic import reshard_trainer, restore_resharded
+    from repro_torch.launch import train as launch
+
+    with scratch_dir() as tmp:
+        path = os.path.join(tmp, "ck.npz")
+        a2 = sim_args(8, 2, ["--save", path], steps=4)
+        tr2 = launch.make_trainer(a2, device=dev)
+        res = launch.train(a2, tr2)
+        save_s, size = res["save_s"], os.path.getsize(path)
+        a4 = sim_args(8, N_WORKERS)
+        tr4 = launch.make_trainer(a4, device=dev)
+        want = reshard_trainer(tr2, tr4, res["params"], res["state"])
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, step, meta = restore_resharded(path, tr4)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same = bitwise(want, (params, state))
+        del want
+        assert step == 4 and meta == {"arch": tr4.model_cfg.name,
+                                      "n_workers": 2}, (step, meta)
+    print(f"  (iv) 2 workers -> file -> 4 workers: {size / 1e9:.3f} GB, save "
+          f"{save_s:.2f} s, restore_resharded {restore_s:.2f} s; bit for bit"
+          f" the in-memory reshard: {same}", flush=True)
+    assert same, "4n(iv): restore_resharded is not the in-memory reshard"
+    gc.collect()
+    torch.cuda.empty_cache()
+    tail = launch.train(a4, tr4, start=(params, state, step))
+    losses = [float(np.mean(r["losses"])) for r in tail["records"]]
+    print(f"  (iv) steps 4-7 at 4 workers: losses "
+          f"{[round(x, 5) for x in losses]}", flush=True)
+    assert len(losses) == 4 and np.isfinite(losses).all(), losses
+    del tail, params, state
+    return {"file_bytes": size, "save_s": save_s, "restore_s": restore_s,
+            "losses": losses}
+
+
+def run_elastic_phase(dev, a):
+    """Phase 4n (i)-(iv); ``a``: run 4a's summary."""
+    out = {}
+    for key, run in (("cli_identity", lambda: run_elastic_cli(dev, a)),
+                     ("fleet", lambda: run_fleet(dev, a)),
+                     ("geometries", lambda: run_geometries(dev)),
+                     ("restore_resharded",
+                      lambda: run_restore_resharded(dev))):
+        out[key] = run()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _moved(params, state, d):
+    from repro_torch.core.leafwise import flatten_tree, unflatten_tree
+
+    paths, xs = flatten_tree(params)
+    return unflatten_tree(paths, [x.to(d) for x in xs]), state_to(state, d)
+
+
+def check_small_reshards(dev):
+    """Phase 5: SMALL_RESHARDS on gpt2-smoke from one state trained on the
+    CPU (7 steps, the last a local one; 2 workers: the CPU's 4 -> 2 of
+    it), resharded on the card and on the CPU: every params and state
+    leaf bit for bit; each report the file's (4 -> 3: its own)."""
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.elastic import reshard_report, reshard_trainer
+    from repro_torch.launch import train as launch
+
+    cpu, bench, trained, out = torch.device("cpu"), bench_elastic(), {}, {}
+
+    def trainer(extra, n, d):
+        args = smoke_args("gpt2", extra + ["--workers", str(n)])
+        return launch.make_trainer(args, device=d)
+
+    for scenario, (extra, n, m, survivors) in SMALL_RESHARDS.items():
+        key = tuple(extra)
+        if key not in trained:
+            tr = trainer(extra, N_WORKERS, cpu)
+            params, state = tr.init(0)
+            data = SyntheticLM(DataConfig(vocab=tr.model_cfg.vocab,
+                                          seq_len=32, global_batch=8,
+                                          seed=0))
+            for t in range(7):
+                params, state, _ = tr.step(params, state, data.batch(t))
+            trained[key] = (params, state)
+        params, state = trained[key]
+        if n != N_WORKERS:
+            params, state = reshard_trainer(
+                trainer(extra, N_WORKERS, cpu), trainer(extra, n, cpu),
+                params, state, survivors=(0, 2))
+        got = []
+        for d in (dev, cpu):
+            src, dst = trainer(extra, n, d), trainer(extra, m, d)
+            got.append(reshard_trainer(src, dst, *_moved(params, state, d),
+                                       survivors=survivors))
+        rep = reshard_report(src.opt, dst.opt, survivors=survivors)
+        same = bitwise(*got)
+        print(f"  gpt2-smoke reshard {scenario}: card vs cpu bit for bit "
+              f"{same}", flush=True)
+        assert same, scenario
+        if scenario in bench:
+            row = bench[scenario]
+            assert rep == {k: v for k, v in row.items() if k in rep}, (
+                rep, row)
+        out[scenario] = same
+    return out
+
+
+def check_small_fleet(dev):
+    """Phase 5: FleetSim on gpt2-smoke, 12 steps of phase 5's flags at a
+    peak lr of 3e-4, shrink 4 -> 2 (survivors 0, 2) before step 4 and grow
+    back before step 8, on the card and on the CPU from the same init:
+    phase 5's bars (losses within 1e-4, params 99% within 1e-4 and all
+    within 0.05), the reports equal. At 3e-3 the 12-step run is chaotic in
+    the last bit (the CPU against itself from params one ulp up: 1.6e-4
+    by step 12 without resizes)."""
+    from repro_torch.configs.base import get
+    from repro_torch.core.leafwise import flatten_tree
+    from repro_torch.elastic import FleetSim, ResizeEvent
+    from repro_torch.launch import train as launch
+
+    args = smoke_args("gpt2", ["--lr", "3e-4", "--steps", "12"])
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        res = FleetSim(get("gpt2").smoke, launch.build_opt_cfg(args),
+                       N_WORKERS, seed=0, device=d).run(
+            12, global_batch=8, seq=32,
+            events=[ResizeEvent(4, 2, (0, 2)), ResizeEvent(8, 4)])
+        runs.append((res["losses"], [x.cpu() for x in flatten_tree(
+            res["params"])[1]], [{k: v for k, v in r.items()
+                                  if k != "reshard_ms"}
+                                 for r in res["resizes"]]))
+    (lk, pk, rk), (lc, pc, rc) = runs
+    gap = max(abs(a - b) for a, b in zip(lk, lc))
+    diff = torch.cat([(a - b).abs().reshape(-1) for a, b in zip(pk, pc)])
+    frac = float((diff <= 1e-4).double().mean())
+    print(f"  gpt2-smoke FleetSim 4 -> 2 -> 4: losses card "
+          f"{[round(x, 5) for x in lk]}", flush=True)
+    print(f"  max loss gap card-cpu {gap:.2e}; params within 1e-4: "
+          f"{frac:.5f}; max param gap {float(diff.max()):.2e}", flush=True)
+    assert rk == rc, (rk, rc)
+    assert gap < 1e-4 and frac >= 0.99 and float(diff.max()) <= 0.05
+    return {"max_loss_gap": gap, "params_within_1e-4": frac,
+            "max_param_gap": float(diff.max())}
 
 
 def _device_us(evt) -> float:
@@ -1222,6 +1673,8 @@ def small_parts(dev):
             parts[key] = (check("gpt2", flags + topo) if name == "topk"
                           else (lambda f=flags + topo:
                                 check_small_qint(dev, f)))
+    parts["elastic_reshards"] = lambda: check_small_reshards(dev)
+    parts["elastic_fleet"] = lambda: check_small_fleet(dev)
     return parts
 
 
@@ -1582,8 +2035,8 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument(
         "--only", nargs="+", metavar="PART",
-        help="after the build, run only these checks of phases 5 and 6 "
-             "(names of small_parts and dist_parts, e.g. 'probe 6b 6b_lamb "
+        help="after the build, run only these checks of phases 4n, 5 and 6 "
+             "(4n, names of small_parts and dist_parts, e.g. 'probe 6b 6b_lamb "
              "6d 6d_lamb' for the four-card paths, or 'gpt2_qint8 "
              "gpt2_qint4_hier'), print their summary and the card line, and "
              "no kernels or result line")
@@ -1591,8 +2044,11 @@ def parse_args(argv=None):
 
 
 def run_only(dev, names, card, t_start):
-    """``--only``: the named checks of phases 5 and 6, in that order."""
-    parts = {**small_parts(dev), **dist_parts()}
+    """``--only``: the named checks of phases 4n (after run 4a), 5 and 6,
+    in that order."""
+    parts = {"4n": lambda: run_elastic_phase(
+        dev, run_main_path(dev, *RUNS[0])), **small_parts(dev),
+        **dist_parts()}
     unknown = sorted(set(names) - set(parts))
     if unknown:
         sys.exit(f"chip_smoke: unknown parts {unknown}; choose from "
@@ -1671,6 +2127,10 @@ def main(argv=None):
     checkpoints = {"per_leaf": run_checkpoint([]),
                    "bucketed": run_checkpoint(BUCKETED)}
 
+    print(f"phase 4n: elastic data parallelism, gpt2 FULL with 4a's flags",
+          flush=True)
+    elastic = run_elastic_phase(dev, runs["gpt2"])
+
     print("phase 5: smoke trainers on the card vs on the CPU", flush=True)
     small = {name: run() for name, run in small_parts(dev).items()}
 
@@ -1689,6 +2149,8 @@ def main(argv=None):
         bound_ms, bound_by = bound(r)
         by_run = {label: run["launches"].get(name, 0)
                   for label, run in runs.items()}
+        for part in ("cli_identity", "fleet"):
+            by_run[f"4n_{part}"] = elastic[part]["launches"].get(name, 0)
         for part, d in dist_phase.items():
             if not isinstance(d, dict) or "ranks" not in d:
                 continue            # the probes, the wall time; 6d on
@@ -1749,7 +2211,7 @@ def main(argv=None):
                 "launches_per_round": rb["launches_per_round"]}
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     assert not missing, f"kernels never launched on a main path: {missing}"
-    summary = {"runs": runs, "checkpoints": checkpoints,
+    summary = {"runs": runs, "checkpoints": checkpoints, "4n": elastic,
                "small_inputs": small,
                "data_parallel": dist_phase, "wall_s": time.time() - t_start}
     print(f"chip_smoke: all phases passed in {summary['wall_s']:.1f} s",

@@ -210,8 +210,8 @@ def restore(path: str, like: Any) -> Tuple[Any, int, Dict]:
                         f"at DP width n={meta_n} but the target tree is "
                         f"laid out for m={ref_shape[0]} workers. A width "
                         f"change re-chunks every comm view; restore "
-                        f"through repro.elastic (restore_resharded, or "
-                        f"reshard(state, n->m)) instead of loading the "
+                        f"through repro_torch.elastic (restore_resharded, "
+                        f"or reshard(state, n->m)) instead of loading the "
                         f"manifest directly")
                 raise ValueError(
                     f"leaf {i} ({name!r}): checkpoint shape {shape} != "

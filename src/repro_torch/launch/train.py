@@ -13,6 +13,8 @@ single mode has one worker and no pods). ``--bucket-mb MB`` fuses the
 per-leaf exchange into buckets of MB MiB of f32 elements
 (``core.bucketing``); ``--save PATH`` writes the final params and
 optimizer state as a checkpoint both packages read (sim and single mode).
+``--resize STEP:M`` (sim mode, repeatable) resizes the fleet to M workers
+before STEP through ``repro_torch.elastic.FleetSim``.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2 --smoke \\
@@ -38,6 +40,8 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2 --smoke \
       --mode sim --workers 4 --bucket-mb 4 --save build/ck.npz \
       --device cpu [...]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2 --smoke \\
+      --mode sim --workers 4 --resize 3:2 --resize 5:4 --device cpu [...]
 """
 from __future__ import annotations
 
@@ -57,9 +61,11 @@ from repro_torch.core.codecs import CODEC_NAMES
 from repro_torch.core.comm import Hierarchy, NullComm, SimComm, norm_hierarchy
 from repro_torch.core.compressed import comm_accounting
 from repro_torch.data.synthetic import DataConfig, SyntheticLM
+from repro_torch.elastic import FleetSim, ResizeEvent
 from repro_torch.kernels import build
 from repro_torch.launch import mesh
-from repro_torch.train.step import DIST_SAVE, Trainer, TrainerConfig
+from repro_torch.train.step import (DIST_SAVE, Trainer, TrainerConfig,
+                                    step_record)
 
 
 def build_opt_cfg(args) -> OptimizerConfig:
@@ -129,6 +135,13 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--save", default=None, help="checkpoint path (.npz)")
+    ap.add_argument("--resize", action="append", default=None,
+                    metavar="STEP:M",
+                    help="sim mode only: resize the fleet to M workers "
+                         "before running STEP (repeatable). Routes the run "
+                         "through repro_torch.elastic.FleetSim — EF state "
+                         "and anchors are resharded, not reset; the resize "
+                         "is recorded in the run summary")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain versions of the "
                          "kernels); dist mode with gloo may name one card "
@@ -157,6 +170,30 @@ def make_trainer(args, device=None) -> Trainer:
                    device=args.device if device is None else device)
 
 
+def print_header(args, tr: Trainer, acct) -> None:
+    """The run's first lines: model, codec, workers; the buckets and the
+    pods where the exchange has them."""
+    print(f"arch={tr.model_cfg.name} params(dp)={acct['dp_params']/1e6:.2f}M "
+          f"codec={acct['codec']} "
+          f"bits/param/sync={acct['bits_per_param_sync']:.3f} "
+          f"workers={tr.n_workers} mode={args.mode} "
+          f"micro_batches={args.micro_batches} "
+          f"optimizer={args.optimizer} device={tr.device}", flush=True)
+    if args.bucket_mb:
+        print(f"bucketed exchange: {int(acct['exchange_units'])} "
+              f"buckets ({args.bucket_mb}MiB budget) over "
+              f"{int(acct['dp_leaves'])} DP leaves -> "
+              f"{int(acct['collectives_per_sync'])} collective "
+              f"phases/sync", flush=True)
+    if acct["n_inner"] > 1:
+        print(f"hierarchy: {int(acct['n_outer'])} pods x "
+              f"{int(acct['n_inner'])} workers/pod; sync bytes/worker "
+              f"intra={acct['compressed_bytes_per_sync_inner']/2**20:.2f}"
+              f"MiB inter="
+              f"{acct['compressed_bytes_per_sync_outer']/2**20:.2f}MiB",
+              flush=True)
+
+
 def train(args, tr: Trainer, kind: str = "lm", keep_step: int = None,
           start=None) -> dict:
     """Run ``args.steps`` steps of ``tr`` from ``args.seed`` on the
@@ -174,25 +211,7 @@ def train(args, tr: Trainer, kind: str = "lm", keep_step: int = None,
     is_main = int(tr.comm.index()[0]) == 0
     acct = comm_accounting(tr.opt)
     if is_main:
-        print(f"arch={cfg.name} params(dp)={acct['dp_params']/1e6:.2f}M "
-              f"codec={acct['codec']} "
-              f"bits/param/sync={acct['bits_per_param_sync']:.3f} "
-              f"workers={tr.n_workers} mode={args.mode} "
-              f"micro_batches={args.micro_batches} "
-              f"optimizer={args.optimizer} device={dev}", flush=True)
-        if args.bucket_mb:
-            print(f"bucketed exchange: {int(acct['exchange_units'])} "
-                  f"buckets ({args.bucket_mb}MiB budget) over "
-                  f"{int(acct['dp_leaves'])} DP leaves -> "
-                  f"{int(acct['collectives_per_sync'])} collective "
-                  f"phases/sync", flush=True)
-        if acct["n_inner"] > 1:
-            print(f"hierarchy: {int(acct['n_outer'])} pods x "
-                  f"{int(acct['n_inner'])} workers/pod; sync bytes/worker "
-                  f"intra={acct['compressed_bytes_per_sync_inner']/2**20:.2f}"
-                  f"MiB inter="
-                  f"{acct['compressed_bytes_per_sync_outer']/2**20:.2f}MiB",
-                  flush=True)
+        print_header(args, tr, acct)
 
     if args.save:
         tr.checkpoint_stacked()         # raises in dist mode, before a run
@@ -216,12 +235,7 @@ def train(args, tr: Trainer, kind: str = "lm", keep_step: int = None,
         if step == keep_step:
             kept = (params, state, batch)
         params, state, met = tr.step(params, state, batch)
-        rec = {"step": step, "losses": met["losses"].tolist(),
-               "sync": met["synced"], "var": met["var_round"],
-               "step_ms": met["fwd_bwd_ms"] + met["optimizer_ms"]}
-        rec.update({k: met[k] for k in ("fwd_bwd_ms", "optimizer_ms",
-                                        "exchange_ms", "exchange_ms_intra",
-                                        "exchange_ms_inter") if k in met})
+        rec = step_record(step, met)
         records.append(rec)
         if met["synced"]:
             comp_bytes += acct["compressed_bytes_per_sync"]
@@ -302,10 +316,74 @@ def rank_main(rank: int, argv, world_size: int, init_method: str,
         dist.destroy_process_group()
 
 
+def _parse_resizes(specs):
+    events = []
+    for s in specs:
+        try:
+            step, m = s.split(":")
+            step, m = int(step), int(m)
+        except ValueError:
+            raise SystemExit(f"--resize expects STEP:M, got {s!r}")
+        events.append((step, m))
+    return sorted(events)
+
+
+def _run_elastic(args, device=None) -> dict:
+    """Sim-mode run with in-run DP resizes via
+    :class:`repro_torch.elastic.FleetSim` (``args.resize``), on ``device``
+    (default ``args.device``). Prints the reference's lines, with each
+    step's width and times; with ``args.save`` writes the final params
+    and state at the final width, ``meta`` recording the resizes.
+    Returns FleetSim's result and ``save_s``."""
+    events = [ResizeEvent(step=s, workers=m)
+              for s, m in _parse_resizes(args.resize)]
+    tr = make_trainer(args, device)
+    print_header(args, tr, comm_accounting(tr.opt))
+    fleet = FleetSim(tr.model_cfg, tr.opt_cfg, args.workers,
+                     trainer_cfg=tr.trainer_cfg, seed=args.seed,
+                     device=tr.device)
+    t0 = time.time()
+    res = fleet.run(args.steps, global_batch=args.batch, seq=args.seq,
+                    events=events)
+    for t, (loss, rec) in enumerate(zip(res["losses"], res["records"])):
+        if t % args.log_every == 0 or t == args.steps - 1:
+            print(f"step {t:5d} loss {loss:.4f} workers={rec['workers']} "
+                  f"sync={rec['sync']} var={rec['var']} step "
+                  f"{rec['step_ms']:.1f} ms (fwd/bwd {rec['fwd_bwd_ms']:.1f}"
+                  f", optimizer {rec['optimizer_ms']:.1f}) "
+                  f"[{time.time()-t0:.1f}s]", flush=True)
+    print(f"DONE: {args.steps} steps with {len(res['resizes'])} "
+          f"resize(s) ({time.time()-t0:.1f}s)")
+    for r in res["resizes"]:
+        print(f"  resize @ step {r['step']}: {r['n_from']} -> {r['n_to']} "
+              f"workers ({r['carried_entities']} EF entities carried, "
+              f"{r['dead_entities']} folded, fold={r['ef_fold']}) in "
+              f"{r['reshard_ms']:.1f}ms", flush=True)
+    res["save_s"] = None
+    if args.save:
+        final = res["trainer"]
+        t1 = time.perf_counter()
+        final.save(args.save, res["params"], res["state"], step=args.steps,
+                   meta={"arch": final.model_cfg.name,
+                         "n_workers": final.n_workers,
+                         "resizes": [
+                             {k: r[k] for k in ("step", "n_from", "n_to")}
+                             for r in res["resizes"]]})
+        res["save_s"] = time.perf_counter() - t1
+        print(f"saved checkpoint to {args.save} (width {final.n_workers})",
+              flush=True)
+    return res
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
-    if args.mode != "dist":
+    if args.resize:
+        if args.mode != "sim":
+            raise SystemExit("--resize needs --mode sim (the elastic "
+                             "resharding path runs over the sim trainer)")
+        _run_elastic(args)
+    elif args.mode != "dist":
         train(args, make_trainer(args))
     elif mesh.launched():
         dev = mesh.init_workers(args.backend, args.device)

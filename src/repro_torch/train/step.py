@@ -128,6 +128,20 @@ def accumulate_grads(loss_fn: Callable, params, batch: Dict[str, torch.Tensor],
     return lsum / d, unflatten_tree(paths, [acc.div_(d) for acc in gsum])
 
 
+def step_record(step: int, met) -> Dict:
+    """One step's record of :meth:`Trainer.step`'s metrics: the stacked
+    workers' losses, the step kind (``sync``, ``var``), and its times in
+    ms (``step_ms`` the sum of ``fwd_bwd_ms`` and ``optimizer_ms``; the
+    exchange's parts where the metrics have them)."""
+    rec = {"step": step, "losses": met["losses"].tolist(),
+           "sync": met["synced"], "var": met["var_round"],
+           "step_ms": met["fwd_bwd_ms"] + met["optimizer_ms"]}
+    rec.update({k: met[k] for k in ("fwd_bwd_ms", "optimizer_ms",
+                                    "exchange_ms", "exchange_ms_intra",
+                                    "exchange_ms_inter") if k in met})
+    return rec
+
+
 class Trainer:
     """Static plan (template, layouts, optimizer) plus the step of the
     workers this process runs."""
@@ -137,6 +151,7 @@ class Trainer:
                  device="cuda"):
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
+        self.opt_cfg = opt_cfg
         self.trainer_cfg = trainer_cfg
         self.comm = comm
         self.n_workers = comm.size()

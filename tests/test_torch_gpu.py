@@ -40,6 +40,10 @@ single-rounding multiply-adds on the card bit for bit the exact
 emulation; one step of ``adam`` and of ``one_bit_adam`` (1-bit stage) on
 gpt2-smoke on the card against the same step on the CPU, no launch of
 the fused local step.
+
+Elastic resharding (``repro_torch.elastic``): the five
+``BENCH_elastic.json`` geometries and 4 -> 3 on random state (pads
+included) at gpt2-FULL layouts, on the card bit for bit on the CPU.
 """
 import numpy as np
 import pytest
@@ -763,3 +767,83 @@ def test_cuda_dense_codecs_match_cpu(codec, inner):
             out.append(res + [o, ef.err_worker, ef.err_server])
         for a, b in zip(*out):
             assert torch.equal(a.cpu(), b), (codec, lo.shape)
+
+
+# gpt2 FULL without its three largest kinds of leaf (the two embedding
+# tables and the MLP weights): every layout kind the reshard meets
+# (structured and flatten views, fused buckets), at ~3 GB of state
+ELASTIC_DROP = (("embed",), ("pos_embed",), ("blocks", "mlp", "w_in"),
+                ("blocks", "mlp", "w_out"))
+# name: (inner, bucket_mb, n_from, n_to, survivors)
+ELASTIC_SCENARIOS = {
+    "flat_4to4_identity": (None, None, 4, 4, None),
+    "flat_4to2_kill1": (None, None, 4, 2, (0, 2)),
+    "flat_2to4_grow": (None, None, 2, 4, None),
+    "hier_4to2_podkill": (2, None, 4, 2, (0, 1)),
+    "bucketed_4to2_kill1": (None, 25.0, 4, 2, (0, 2)),
+    "flat_4to3_kill2": (None, None, 4, 3, (0, 1, 3)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scenario", list(ELASTIC_SCENARIOS))
+def test_cuda_reshard_matches_cpu(scenario):
+    """``reshard_trainer`` of one random stacked (params, state) (every
+    tensor, pads too, drawn on the card) on the card and on the CPU:
+    every output tensor bit for bit, the host scalars equal."""
+    import dataclasses
+    import types
+
+    from repro_torch import elastic as E
+    from repro_torch import interop
+    from repro_torch.checkpointing import io as ckpt_io
+    from repro_torch.core import api as TA
+    from repro_torch.core.leafwise import flatten_tree, unflatten_tree
+
+    dev = _card()
+    inner, bucket_mb, n, m, survivors = ELASTIC_SCENARIOS[scenario]
+    tmpl = T.model_template(get("gpt2").config)
+    keep = [(p, s, sp) for p, s, sp in zip(
+        *flatten_tree(L.param_shapes(tmpl)),
+        flatten_tree(L.param_specs(tmpl))[1]) if p not in ELASTIC_DROP]
+    paths = [p for p, _, _ in keep]
+    shapes = unflatten_tree(paths, [s for _, s, _ in keep])
+    specs = unflatten_tree(paths, [sp for _, _, sp in keep])
+    cfg = TA.OptimizerConfig(hierarchy=Hierarchy(inner) if inner else None,
+                             bucket_mb=bucket_mb)
+    src, dst = (types.SimpleNamespace(opt=TA.build_optimizer(
+        cfg, shapes, specs=specs, n_workers=w)) for w in (n, m))
+    g = torch.Generator(device=dev).manual_seed(11)
+    params = unflatten_tree(paths, [
+        torch.randn((n,) + tuple(s), device=dev, generator=g)
+        for _, s, _ in keep])
+    state = src.opt.init(params)
+    for xs in [*state.slots.values(), state.u, state.err_w, state.err_s,
+               state.anchor]:
+        for x in xs:
+            x.copy_(torch.randn(x.shape, device=dev, generator=g))
+    out = []
+    for d in (dev, torch.device("cpu")):
+        moved = {name: [None if x is None else x.to(d) for x in xs]
+                 for name, xs in [("u", state.u), ("err_w", state.err_w),
+                                  ("err_s", state.err_s),
+                                  ("anchor", state.anchor)]}
+        moved["slots"] = {k: [x.to(d) for x in xs]
+                          for k, xs in state.slots.items()}
+        p, st = E.reshard_trainer(
+            src, dst, unflatten_tree(paths, [
+                x.to(d) for x in flatten_tree(params)[1]]),
+            dataclasses.replace(state, **moved), survivors=survivors)
+        out.append(ckpt_io.flatten({"params": p, "state":
+                                    interop.state_to_reference(st)}))
+        del p, st, moved
+    (pk, lk, tk), (pc, lc, tc) = out
+    assert pk == pc and tk == tc
+    assert lk[0].shape[0] == m
+    for path, a, b in zip(pk, lk, lc):
+        if isinstance(a, torch.Tensor):
+            assert a.device.type == "cuda" and a.is_contiguous(), path
+            assert a.dtype == b.dtype and torch.equal(
+                a.cpu().view(torch.int32), b.view(torch.int32)), path
+        else:
+            assert np.array_equal(a, b), path
