@@ -2,13 +2,14 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only probe 6b 6b_lamb 6d 6d_lamb
+    python3 chip_smoke.py --only serve
 
 Needs one card; on a machine with up to four, phase 6b puts one rank on
 each, and on four phase 6c runs its 2 pods x 2 ranks over NCCL and phase
 6d trains bert-large FULL in four ranks. ``--only`` runs, after the
-build, just the named checks of phases 4n, 5 and 6 (the second line:
-the four-card paths, on four cards) and prints no kernels or result
-line.
+build, just the named checks of phases 4n, 5, 6 and 7 (the second
+line: the four-card paths, on four cards; the third: phase 7) and prints
+no kernels or result line.
 
 1. Prints the card (nvidia-smi name and power limit) and torch/CUDA.
 2. Builds the port's CUDA kernels from src/repro_torch/kernels/csrc with
@@ -153,7 +154,39 @@ line.
    leaf that differ. Each rank's launch counts must equal that worker's. Every step is timed as phase
    4's are (``launch.train``), and each rank's exchange collectives by
    CUDA events around them (``DistComm.exchange_ms``).
-7. Prints the kernels line, the card line and the result line.
+7. Serves gpt2 FULL (params from the port's init, f32 cache) through
+   ``repro_torch.launch.serve``'s own setup and loop (``build``,
+   ``serve``), each run with its ticks timed (host clock; a tick ends in
+   a host read of its tokens), tokens/s and peak memory:
+   a. ``--slots 8 --max-seq 1024 --requests 16 --prompt-len 512 --gen
+      128``: decode ms a tick (median, range), admission ticks; 4 of the
+      requests again alone at batch 1 through ``Server.prefill_fn`` /
+      ``decode_fn`` (teacher-forced with the batched tokens): tokens
+      equal except at top-2 logit gaps under 1e-4 (counted), logits
+      within 1e-4 of the batched ones;
+   b. (a) with ``--publish-every 32 --codec qint8`` (PublishConfig
+      defaults): bytes per delta and snapshot against
+      ``full_f32_bytes``, publish, apply and swap-tick ms; after every
+      apply the subscriber's anchors bit for bit the publisher's, the
+      served params their bits and within one quantization step of the
+      trainer's; ``weight_swaps`` counted;
+   c. (a) with ``--kv-quant qint8 --kv-page 16``: ``pages_quantized``
+      those the requests filled; a page quantized on the card bit for
+      bit the CPU's ``quant_page`` of the same lane;
+   d. prefill_32k: ``--slots 1 --requests 1 --prompt-len 32704 --gen 64
+      --max-seq 32768`` (a blockwise prefill, decodes against the full
+      cache); at S = 8192 the blockwise forward's logits within 1e-4 of
+      ``dot_attn``'s;
+   e. a snapshot and two deltas of gpt2 FULL per codec (sign1bit, qint4,
+      topk, identity): bytes equal ``wire_bytes``, anchors in lockstep,
+      identity bit for bit; sign1bit's launches of kernels 2-4 counted
+      per publish and per apply (one of each a bucket), its packed bytes
+      bit for bit the CPU plain path's for the first, a middle and the
+      last bucket, scales within 64 ulp.
+   Phase 5 also serves gpt2-smoke on the card against the CPU (prefill
+   + 8 decodes: logits within 1e-4, greedy tokens equal).
+8. Prints the kernels line (kernels 2-4 with their 7e launches), the
+   card line and the result line.
 
 Any failure raises; there is no CPU fallback. Exits non-zero without a
 result when there is no CUDA device or the repository's src/ is missing.
@@ -1675,6 +1708,7 @@ def small_parts(dev):
                                 check_small_qint(dev, f)))
     parts["elastic_reshards"] = lambda: check_small_reshards(dev)
     parts["elastic_fleet"] = lambda: check_small_fleet(dev)
+    parts["serve_smoke"] = lambda: check_small_serve(dev)
     return parts
 
 
@@ -2029,26 +2063,483 @@ def run_6d(extra=()):
             "ranks": rows}
 
 
+# ----------------------------------------------------------------------- #
+# phase 7: serving (repro_torch.serve through repro_torch.launch.serve),
+# gpt2 FULL, params from the port's init
+# ----------------------------------------------------------------------- #
+
+# 7a: gpt2 at its native 1024 context, two waves of 8 requests
+SERVE_BASE = ["--arch", "gpt2", "--slots", "8", "--max-seq", "1024",
+              "--requests", "16", "--prompt-len", "512", "--gen", "128"]
+SERVE_RUNS = {
+    "7a": SERVE_BASE,
+    "7b": SERVE_BASE + ["--publish-every", "32", "--codec", "qint8"],
+    "7c": SERVE_BASE + ["--kv-quant", "qint8", "--kv-page", "16"],
+    # prefill_32k: one request filling the 32768-position cache
+    "7d": ["--arch", "gpt2", "--slots", "1", "--requests", "1",
+           "--prompt-len", "32704", "--gen", "64", "--max-seq", "32768"],
+}
+LONE_REQUESTS = 4          # 7a's requests re-run alone at batch 1
+SERVE_LOGIT_TOL = 1e-4     # batched against lone logits; a token may
+                           # differ only where the top-2 gap is below it
+BLOCKWISE_CHECK_S = 8192   # blockwise against dot_attn on the card
+PUBLISH_CODECS = ("sign1bit", "qint4", "topk", "identity")   # 7e
+
+
+def serve_build(argv):
+    """``repro_torch.launch.serve``'s own setup of ``argv``, on the card."""
+    from repro_torch.launch import serve as launch
+
+    args = launch.parse_args(argv)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return launch.build(args)
+
+
+def serve_drive(run):
+    """Tick ``run`` to the end through ``launch.serve.serve``; its ticks'
+    times by kind: admission ticks (a prefill, then the batched decode)
+    and pure decode ticks, with and without a weight swap."""
+    from repro_torch.launch import serve as launch
+
+    out = launch.serve(run)
+    torch.cuda.synchronize()
+    ticks = out["ticks"]
+    decode = [t["ms"] for t in ticks if not t["prefills"]
+              and not t["swapped"]]
+    s = dict(run.scheduler.stats)
+    res = {"stats": s, "seconds": out["seconds"],
+           "tok_per_s": s["generated"] / out["seconds"],
+           "decode_tick_ms": {"median": statistics.median(decode),
+                              "min": min(decode), "max": max(decode),
+                              "n": len(decode)},
+           "admit_tick_ms": [t["ms"] for t in ticks if t["prefills"]],
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "ticks": ticks}
+    print(f"  {s['generated']} tokens in {out['seconds']:.3f} s "
+          f"({res['tok_per_s']:.1f} tok/s); decode tick median "
+          f"{res['decode_tick_ms']['median']:.3f} ms [{min(decode):.3f}-"
+          f"{max(decode):.3f}] over {len(decode)} ticks; admission ticks "
+          f"{[round(x, 1) for x in res['admit_tick_ms']]} ms; stats "
+          f"{json.dumps(s)}; peak {res['peak_memory_gb']:.2f} GB",
+          flush=True)
+    return res
+
+
+def record_logits(run, rids):
+    """Wrap the scheduler's batched decode to keep, for the requests
+    ``rids``, the logits row each decode gives: {(rid, token index):
+    logits over the real vocab}."""
+    sch, vocab, logs = run.scheduler, run.cfg.vocab, {}
+    decode = sch._decode
+
+    def recording(params, cache, tokens, pos):
+        lg, cache = decode(params, cache, tokens, pos)
+        for b, r in enumerate(sch.slots):
+            if r is not None and r.rid in rids:
+                logs[(r.rid, len(r.output))] = lg[b, 0, :vocab].clone()
+        return lg, cache
+
+    sch._decode = recording
+    return logs
+
+
+def top2_gap(logits) -> float:
+    v = torch.topk(logits, 2).values
+    return float(v[0] - v[1])
+
+
+def check_lone(run, logs):
+    """7a's check: the first LONE_REQUESTS requests each alone at batch 1
+    through ``Server.prefill_fn``/``decode_fn``, teacher-forced with the
+    batched run's tokens: every greedy token equal, except where the lone
+    logits' top-2 gap is under SERVE_LOGIT_TOL (counted), and every
+    decode's logits within SERVE_LOGIT_TOL of the batched ones. Times the
+    lone prefills and decodes."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Server
+
+    cfg, dev, params = run.cfg, run.device, run.scheduler.params
+    srv = Server(cfg, batch=1, max_seq=run.args.max_seq,
+                 cache_dtype=torch.float32, device=dev)
+    prefill, decode = srv.prefill_fn(), srv.decode_fn()
+    V = cfg.vocab
+    near_ties, worst, pre_ms, dec_ms = 0, 0.0, [], []
+    for r in run.requests[:LONE_REQUESTS]:
+        cache = T.init_cache(cfg, 1, run.args.max_seq, torch.float32, dev)
+        tokens = torch.tensor([r.prompt], device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = prefill(params, {"tokens": tokens}, cache)
+        torch.cuda.synchronize()
+        pre_ms.append((time.perf_counter() - t0) * 1e3)
+        outs = [lg[0, -1, :V]]
+        for i, tok in enumerate(r.output[:-1]):
+            t0 = time.perf_counter()
+            lg, cache = decode(params, cache, torch.tensor(
+                [[tok]], device=dev), len(r.prompt) + i)
+            outs.append(lg[0, 0, :V])
+            torch.cuda.synchronize()
+            dec_ms.append((time.perf_counter() - t0) * 1e3)
+        for i, lone in enumerate(outs):
+            if i:
+                worst = max(worst, float(
+                    (lone - logs[(r.rid, i)]).abs().max()))
+            if int(lone.argmax()) != r.output[i]:
+                gap = top2_gap(lone)
+                assert gap < SERVE_LOGIT_TOL, (r.rid, i, gap)
+                near_ties += 1
+    print(f"  7a lone check, {LONE_REQUESTS} requests at batch 1: batched "
+          f"logits within {worst:.2e} of the lone ones; {near_ties} "
+          f"token(s) differ, each at a top-2 gap < {SERVE_LOGIT_TOL}; lone "
+          f"prefill {statistics.median(pre_ms):.3f} ms a request, decode "
+          f"{statistics.median(dec_ms):.3f} ms a token", flush=True)
+    assert worst <= SERVE_LOGIT_TOL, worst
+    return {"max_logit_gap": worst, "near_tie_tokens": near_ties,
+            "lone_prefill_ms": pre_ms,
+            "lone_decode_ms_median": statistics.median(dec_ms)}
+
+
+def run_7a(dev):
+    print(f"phase 7a: {' '.join(SERVE_RUNS['7a'])}, f32 cache", flush=True)
+    run = serve_build(SERVE_RUNS["7a"])
+    logs = record_logits(run, set(range(LONE_REQUESTS)))
+    res = serve_drive(run)
+    assert all(r.done and len(r.output) == r.max_new_tokens
+               for r in run.requests)
+    res["lone"] = check_lone(run, logs)
+    return res
+
+
+def run_7b(dev):
+    """7a with a qint8 delta publish every 32 ticks: after every apply the
+    subscriber's anchors bit for bit the publisher's, the served tree
+    their unbucketized bits, and within one quantization step (each
+    chunk's scale, plus 2 ulp for the adds) of the trainer's params."""
+    print(f"phase 7b: {' '.join(SERVE_RUNS['7b'])}, PublishConfig "
+          f"defaults", flush=True)
+    run = serve_build(SERVE_RUNS["7b"])
+    pub, sub = run.publisher, run.subscriber
+    trainer = {"params": run.params}
+    log = {"apply_ms": [], "check_ms": [], "bytes": {}, "max_rel_step": 0.0}
+
+    publish, apply = pub.publish, sub.apply
+
+    def recorded_publish(params, step=0):
+        trainer["params"] = params
+        update = publish(params, step=step)
+        log["bytes"][update.kind] = update.nbytes()
+        return update
+
+    def checked_apply(update):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = apply(update)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        log["apply_ms"].append((t1 - t0) * 1e3)
+        assert all(torch.equal(a, b) for a, b in zip(sub._anchor,
+                                                     pub._anchor))
+        served = pub.wire.bucketize(params)
+        assert all(torch.equal(a, b) for a, b in zip(served, pub._anchor))
+        want = pub.wire.bucketize(trainer["params"])
+        for k, (w, a) in enumerate(zip(want, served)):
+            err = (w - a).abs()
+            if update.kind == "snapshot":
+                assert not err.any()
+                continue
+            step = torch.as_tensor(update.payloads[k]["scale"],
+                                   device=a.device)
+            bound = step + 2 * torch.nextafter(
+                w.abs(), torch.full_like(w, np.inf)).sub(w.abs())
+            assert (err <= bound).all(), k
+            log["max_rel_step"] = max(log["max_rel_step"], float(
+                (err / step.clamp_min(1e-30)).max()))
+        torch.cuda.synchronize()
+        log["check_ms"].append((time.perf_counter() - t1) * 1e3)
+        return params
+
+    pub.publish, sub.apply = recorded_publish, checked_apply
+    res = serve_drive(run)
+    checks, swap_ms = iter(log["check_ms"]), []
+    for t in res["ticks"]:
+        if t["swapped"]:
+            ms = t["ms"] - next(checks)
+            if not t["prefills"]:       # the first swap shares tick 0
+                swap_ms.append(ms)      # with the first admissions
+    n_pub = sum("publish_ms" in t for t in res["ticks"])
+    res.update(
+        publish_ms=[t["publish_ms"] for t in res["ticks"]
+                    if "publish_ms" in t],
+        apply_ms=log["apply_ms"], swap_tick_ms=swap_ms,
+        bytes={"delta": log["bytes"].get("delta"),
+               "snapshot": pub.wire.wire_bytes("snapshot"),
+               "full_f32": pub.wire.full_f32_bytes(),
+               "n_buckets": len(pub.wire.bp.buckets)},
+        max_err_in_steps=log["max_rel_step"])
+    print(f"  7b: {n_pub} publishes + the first snapshot, weight_swaps "
+          f"{res['stats']['weight_swaps']}; bytes {json.dumps(res['bytes'])}"
+          f"; publish ms {[round(x, 1) for x in res['publish_ms']]}; apply "
+          f"ms {[round(x, 1) for x in log['apply_ms']]}; swap ticks "
+          f"{[round(x, 1) for x in swap_ms]} ms (checks excluded); served "
+          f"params within {log['max_rel_step']:.3f} quantization steps",
+          flush=True)
+    assert res["stats"]["weight_swaps"] == n_pub + 1
+    assert len(log["apply_ms"]) == n_pub + 1 and n_pub >= 1
+    return res
+
+
+def run_7c(dev):
+    """7a with the paged qint8 KV cache: the pages quantized are those
+    each request filled while it ran, and one page of a lane, quantized
+    on the card, is bit for bit the CPU's ``quant_page`` of it."""
+    from repro_torch.serve.scheduler import quant_page
+
+    print(f"phase 7c: {' '.join(SERVE_RUNS['7c'])}", flush=True)
+    run = serve_build(SERVE_RUNS["7c"])
+    res = serve_drive(run)
+    a, sch = run.args, run.scheduler
+    # a request quantizes after each token but its last, at positions
+    # prompt .. prompt + gen - 2
+    want = sum((len(r.prompt) + r.max_new_tokens - 2) // a.kv_page
+               for r in run.requests)
+    assert res["stats"]["pages_quantized"] == want, (res["stats"], want)
+    # slot 0's last tenant left page (prompt + gen - 2) // page unquantized
+    start = (a.prompt_len + a.gen - 2) // a.kv_page * a.kv_page
+    lane = {k: c[:, :1].clone() for k, c in sch.cache.items()}
+    cpu = {k: c.cpu() for k, c in lane.items()}
+    assert all(c[:, 0, start:start + a.kv_page].any() for c in cpu.values())
+    quant_page(lane, 0, start, a.kv_page, a.max_seq)
+    quant_page(cpu, 0, start, a.kv_page, a.max_seq)
+    same = all(torch.equal(lane[k].cpu(), cpu[k]) for k in lane)
+    print(f"  7c: pages_quantized {res['stats']['pages_quantized']} "
+          f"(expected {want}); page at {start} of slot 0 quantized on the "
+          f"card bit for bit the CPU's: {same}", flush=True)
+    assert same
+    res["quant_page_bitwise"] = same
+    return res
+
+
+def run_7d(dev):
+    """The long shapes (prefill_32k): one request of 32704 tokens, a
+    blockwise prefill and 64 decodes against the full cache; then at S =
+    BLOCKWISE_CHECK_S the blockwise forward's logits against dot_attn's."""
+    import dataclasses
+
+    from repro_torch.models import transformer as T
+
+    print(f"phase 7d: {' '.join(SERVE_RUNS['7d'])}", flush=True)
+    run = serve_build(SERVE_RUNS["7d"])
+    res = serve_drive(run)
+    res["prefill_s"] = res["admit_tick_ms"][0] / 1e3
+    print(f"  7d: admission tick (prefill of {run.args.prompt_len} tokens "
+          f"+ the first batched decode) {res['prefill_s']:.3f} s; decode "
+          f"{res['decode_tick_ms']['median']:.3f} ms a token", flush=True)
+    cfg, params = run.cfg, run.params
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    S = BLOCKWISE_CHECK_S
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab, (1, S))).to(dev)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        bw, _ = T.forward(params, cfg, {"tokens": tokens})
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dense, _ = T.forward(params, dataclasses.replace(
+            cfg, blockwise_threshold=S + 1), {"tokens": tokens})
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    err = float((bw - dense).abs().max())
+    print(f"  7d: forward at S={S}: blockwise {1e3 * (t1 - t0):.1f} ms, "
+          f"dot_attn {1e3 * (t2 - t1):.1f} ms; logits within {err:.2e}",
+          flush=True)
+    assert err <= SERVE_LOGIT_TOL, err
+    res.update(blockwise_vs_dot_max_err=err,
+               forward_8k_ms={"blockwise": 1e3 * (t1 - t0),
+                              "dot_attn": 1e3 * (t2 - t1)})
+    return res
+
+
+def run_7e(dev):
+    """One snapshot and two deltas per codec at gpt2 FULL (PublishConfig
+    defaults): payload bytes equal ``wire_bytes``, subscriber anchors bit
+    for bit the publisher's; identity round-trips bit for bit; sign1bit
+    launches kernels 2-4 (one of each per bucket for a delta's encode,
+    one decompress per bucket for each side's anchor advance), and its
+    packed bytes are the CPU plain path's for the first, a middle and the
+    last bucket, scales within ROWSUM_ULPS."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import perturb
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_params
+    from repro_torch.configs.base import get
+    from repro_torch.serve import Publisher, PublishConfig, Subscriber
+
+    cfg = get("gpt2").config
+    p0 = init_params(T.model_template(cfg), 0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    trees = [p0, perturb(p0, gen)]
+    trees.append(perturb(trees[1], gen))
+    out = {}
+    for codec in PUBLISH_CODECS:
+        pc = PublishConfig(codec=codec)
+        pub, sub = Publisher(p0, pc), Subscriber(p0, pc)
+        nb = len(pub.wire.bp.buckets)
+        picks = sorted({0, nb // 2, nb - 1})
+        rows = []
+        for t, p in enumerate(trees):
+            before = [None if pub._anchor is None else pub._anchor[k].cpu()
+                      for k in picks]
+            torch.cuda.synchronize()
+            build.launch_counts.clear()
+            t0 = time.perf_counter()
+            u = pub.publish(p, step=t)
+            torch.cuda.synchronize()
+            pub_ms = (time.perf_counter() - t0) * 1e3
+            pub_launches = dict(build.launch_counts)
+            build.launch_counts.clear()
+            t0 = time.perf_counter()
+            got = sub.apply(u)
+            torch.cuda.synchronize()
+            apply_ms = (time.perf_counter() - t0) * 1e3
+            apply_launches = dict(build.launch_counts)
+            assert u.nbytes() == pub.wire.wire_bytes(u.kind)
+            assert all(torch.equal(a, b) for a, b in zip(sub._anchor,
+                                                         pub._anchor))
+            row = {"kind": u.kind, "bytes": u.nbytes(),
+                   "publish_ms": pub_ms, "apply_ms": apply_ms,
+                   "publish_launches": pub_launches,
+                   "apply_launches": apply_launches}
+            if codec == "identity":
+                from repro_torch.core.leafwise import flatten_tree
+                assert all(torch.equal(a, b) for a, b in zip(
+                    flatten_tree(got)[1], flatten_tree(p)[1]))
+            if codec == "sign1bit":
+                k2 = nb if u.kind == "delta" else 0
+                assert pub_launches == ({"abs_rowsum": k2, "ef_quantize": k2,
+                                         "decompress": k2} if k2 else {}), \
+                    pub_launches
+                assert apply_launches == ({"decompress": k2} if k2
+                                          else {}), apply_launches
+                if u.kind == "delta":
+                    row["cpu_check"] = sign1bit_vs_cpu(pub, p, before,
+                                                       picks, u)
+            rows.append(row)
+        print(f"  7e {codec}: {nb} buckets; " + "; ".join(
+            f"{r['kind']} {r['bytes']} B, publish {r['publish_ms']:.1f} "
+            f"ms, apply {r['apply_ms']:.1f} ms"
+            + (f", launches {json.dumps(r['publish_launches'])} + apply "
+               f"{json.dumps(r['apply_launches'])}"
+               if codec == "sign1bit" else "") for r in rows), flush=True)
+        out[codec] = {"n_buckets": nb, "publishes": rows,
+                      "full_f32_bytes": pub.wire.full_f32_bytes()}
+        del pub, sub
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def sign1bit_vs_cpu(pub, params, anchors, picks, update):
+    """The CPU plain path's payload of buckets ``picks`` from the same
+    params and anchors: packed bytes bit for bit the card's, scales
+    within ROWSUM_ULPS."""
+    bufs = pub.wire.bucketize(params)
+    codec, worst = pub.wire.codec, 0
+    for k, anchor in zip(picks, anchors):
+        delta = (bufs[k].cpu() - anchor)[None]
+        p, _ = codec.encode_worker(delta, torch.zeros_like(delta),
+                                   pub.wire.bp.buckets[k].layout,
+                                   pub.cfg.scale_mode)
+        got = update.payloads[k]
+        assert np.array_equal(p["packed"][0].numpy(), got["packed"]), k
+        worst = max(worst, ulps(p["scales"][0].contiguous(),
+                                torch.from_numpy(got["scales"])))
+    assert worst <= ROWSUM_ULPS, worst
+    return {"buckets": picks, "packed_bitwise": True, "scale_ulps": worst}
+
+
+def serve_parts(dev):
+    """Phase 7's runs by name, in order."""
+    return {"7a": lambda: run_7a(dev), "7b": lambda: run_7b(dev),
+            "7c": lambda: run_7c(dev), "7d": lambda: run_7d(dev),
+            "7e": lambda: run_7e(dev)}
+
+
+def run_serve_phase(dev):
+    out = {}
+    for name, run in serve_parts(dev).items():
+        out[name] = run()
+        for r in out[name].values() if name == "7e" else [out[name]]:
+            r.pop("ticks", None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_small_serve(dev):
+    """Phase 5: gpt2-smoke prefill + 8 greedy decode steps, 2 prompts, on
+    the card against the CPU from the same params: logits within
+    SERVE_LOGIT_TOL, greedy tokens equal."""
+    from repro_torch.configs.base import get
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_params
+
+    cfg = get("gpt2").smoke
+    cpu = torch.device("cpu")
+    params = init_params(T.model_template(cfg), 0, device=cpu)
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 12)))
+    runs = []
+    for d in (dev, cpu):
+        p = _to(params, d)
+        cache = T.init_cache(cfg, 2, 32, torch.float32, d)
+        lg, cache = T.prefill(p, cfg, {"tokens": prompt.to(d)}, cache)
+        logits, toks = [lg[:, -1, :cfg.vocab].cpu()], []
+        for i in range(8):
+            toks.append(logits[-1].argmax(-1))
+            lg, cache = T.decode(p, cfg, toks[-1][:, None].to(d), cache,
+                                 12 + i)
+            logits.append(lg[:, 0, :cfg.vocab].cpu())
+        runs.append((torch.stack(logits), torch.stack(toks)))
+    gap = float((runs[0][0] - runs[1][0]).abs().max())
+    same = torch.equal(runs[0][1], runs[1][1])
+    print(f"  gpt2-smoke serve: prefill + 8 decodes, logits card-cpu "
+          f"within {gap:.2e}, greedy tokens equal: {same}", flush=True)
+    assert gap <= SERVE_LOGIT_TOL and same
+    return {"max_logit_gap": gap, "tokens_equal": same}
+
+
+def _to(tree, d):
+    if isinstance(tree, dict):
+        return {k: _to(v, d) for k, v in tree.items()}
+    return tree.to(d)
+
+
 def parse_args(argv=None):
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument(
         "--only", nargs="+", metavar="PART",
-        help="after the build, run only these checks of phases 4n, 5 and 6 "
-             "(4n, names of small_parts and dist_parts, e.g. 'probe 6b 6b_lamb "
-             "6d 6d_lamb' for the four-card paths, or 'gpt2_qint8 "
-             "gpt2_qint4_hier'), print their summary and the card line, and "
-             "no kernels or result line")
+        help="after the build, run only these checks of phases 4n, 5, 6 "
+             "and 7 (4n, names of small_parts and dist_parts, e.g. 'probe "
+             "6b 6b_lamb 6d 6d_lamb' for the four-card paths, or "
+             "'gpt2_qint8 gpt2_qint4_hier'; 'serve' for phase 7, or its "
+             "runs '7a' ... '7e'), print their summary and the card line, "
+             "and no kernels or result line")
     return ap.parse_args(argv)
 
 
 def run_only(dev, names, card, t_start):
-    """``--only``: the named checks of phases 4n (after run 4a), 5 and 6,
-    in that order."""
+    """``--only``: the named checks of phases 4n (after run 4a), 5, 6 and
+    7 (``serve``: all of it, or its runs ``7a`` ... ``7e``), in that
+    order."""
     parts = {"4n": lambda: run_elastic_phase(
         dev, run_main_path(dev, *RUNS[0])), **small_parts(dev),
-        **dist_parts()}
+        **dist_parts(), **serve_parts(dev),
+        "serve": lambda: run_serve_phase(dev)}
     unknown = sorted(set(names) - set(parts))
     if unknown:
         sys.exit(f"chip_smoke: unknown parts {unknown}; choose from "
@@ -2137,6 +2628,10 @@ def main(argv=None):
     print("phase 6: data parallel in processes", flush=True)
     dist_phase = run_dist_phase()
 
+    print("phase 7: serving gpt2 FULL through repro_torch.launch.serve",
+          flush=True)
+    serve = run_serve_phase(dev)
+
     def bound(r):
         t_bytes = r["bytes"] / PEAK_BYTES_PER_S * 1e3
         t_ops = r["ops"] / PEAK_F32_PER_S * 1e3
@@ -2151,6 +2646,10 @@ def main(argv=None):
                   for label, run in runs.items()}
         for part in ("cli_identity", "fleet"):
             by_run[f"4n_{part}"] = elastic[part]["launches"].get(name, 0)
+        for side in ("publish", "apply"):
+            by_run[f"7e_sign1bit_{side}"] = sum(
+                r[f"{side}_launches"].get(name, 0)
+                for r in serve["7e"]["sign1bit"]["publishes"])
         for part, d in dist_phase.items():
             if not isinstance(d, dict) or "ranks" not in d:
                 continue            # the probes, the wall time; 6d on
@@ -2213,7 +2712,8 @@ def main(argv=None):
     assert not missing, f"kernels never launched on a main path: {missing}"
     summary = {"runs": runs, "checkpoints": checkpoints, "4n": elastic,
                "small_inputs": small,
-               "data_parallel": dist_phase, "wall_s": time.time() - t_start}
+               "data_parallel": dist_phase, "serve": serve,
+               "wall_s": time.time() - t_start}
     print(f"chip_smoke: all phases passed in {summary['wall_s']:.1f} s",
           flush=True)
     print("summary " + json.dumps(summary))

@@ -164,7 +164,7 @@ def make_bucket_plan(plan, bucket_mb: float, vspecs=None,
             raise NotImplementedError(
                 "sharded fused buckets (rest_factor > 1) need tensor "
                 "parallelism, which the port does not run yet (ROADMAP "
-                "item 7)")
+                "queue item 3)")
         lo = C.make_layout((off,), None, plan.n, n_inner=n_inner)
         bi = len(buckets)
         buckets.append(Bucket(members=tuple(pend), layout=lo, fused=True,

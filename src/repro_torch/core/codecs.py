@@ -294,11 +294,12 @@ class TopKCodec(_DenseEFCodec):
 
 
 def _top_k_indices(a: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices (rows, k), ascending, of the ``k`` largest of each row of
-    ``a``, equal values taken lowest index first: the set
-    ``jax.lax.top_k`` selects, on every device. (``torch.topk`` breaks
-    ties differently on the card and on the CPU, and the two-level
-    exchange's bf16 phases make ties at the k-th value common.)"""
+    """Indices (rows, k) of the ``k`` largest of each row of ``a``, equal
+    values taken lowest index first, in ``jax.lax.top_k``'s order
+    (descending value, ties by ascending index): the reference's
+    selection and payload, on every device. (``torch.topk`` breaks ties
+    differently on the card and on the CPU, and the two-level exchange's
+    bf16 phases make ties at the k-th value common.)"""
     kth = torch.topk(a, k, dim=1).values[:, -1:]
     take = a > kth
     tie = a == kth
@@ -308,7 +309,11 @@ def _top_k_indices(a: torch.Tensor, k: int) -> torch.Tensor:
     if over.numel():
         r = over.reshape(-1)
         tie[r] &= torch.cumsum(tie[r], dim=1) <= room[r]
-    return (take | tie).nonzero()[:, 1].reshape(a.shape[0], k)
+    idx = (take | tie).nonzero()[:, 1].reshape(a.shape[0], k)
+    # a stable sort keeps equal values in ascending index order
+    order = torch.sort(a.gather(1, idx), dim=1, descending=True,
+                       stable=True).indices
+    return idx.gather(1, order)
 
 
 _KNUTH = 2654435761        # the reference's uint32 multiplier

@@ -1,0 +1,174 @@
+"""Serving driver CLI, PyTorch port of ``src/repro/launch/serve.py``:
+continuous batching + live weight refresh.
+
+Builds a :class:`~repro_torch.serve.Server` + :class:`~repro_torch.serve.
+Scheduler` with an f32 cache, admits ``--requests`` synthetic prompts
+and decodes them to completion. With ``--publish-every N`` a
+trainer-side :class:`~repro_torch.serve.Publisher` pushes a
+codec-compressed delta refresh of perturbed weights every N ticks and
+the scheduler swaps weights at the tick boundary. Runs on the card
+unless ``--device cpu`` is given. Prompts come from a numpy generator
+seeded with ``--seed + 1``, the perturbations from a torch generator
+seeded with ``--seed + 2``; parameters from the port's own init.
+
+Examples:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2 --smoke \\
+      --slots 4 --requests 8 --gen 16 --codec qint8 --publish-every 8 \\
+      [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2 \\
+      --slots 8 --max-seq 1024 --requests 16 --prompt-len 512 --gen 128 \\
+      --kv-quant qint8 --kv-page 16
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Any, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import get
+from repro_torch.core.codecs import CODEC_NAMES
+from repro_torch.models import transformer as T
+from repro_torch.models.layers import init_params
+from repro_torch.serve import (Publisher, PublishConfig, Request, Scheduler,
+                               Server, Subscriber)
+from repro_torch.train.step import resolve_device
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced smoke config (CPU-friendly)")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="concurrent batch slots of the scheduler")
+    ap.add_argument("--max-seq", type=int, default=64)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=12)
+    ap.add_argument("--gen", type=int, default=16,
+                    help="new tokens per request")
+    ap.add_argument("--codec", default="qint8", choices=list(CODEC_NAMES),
+                    help="publish wire codec")
+    ap.add_argument("--bucket-mb", type=float, default=4.0)
+    ap.add_argument("--publish-every", type=int, default=0,
+                    help="push a delta weight refresh every N ticks "
+                         "(0 = serve fixed weights)")
+    ap.add_argument("--kv-quant", choices=["none", "qint8"],
+                    default="none",
+                    help="paged qint8 KV-cache storage quantization")
+    ap.add_argument("--kv-page", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu (plain versions of the "
+                         "kernels)")
+    return ap.parse_args(argv)
+
+
+@dataclasses.dataclass
+class ServeRun:
+    """What :func:`build` sets up from the flags."""
+
+    args: Any
+    cfg: Any
+    device: torch.device
+    params: dict
+    server: Server
+    scheduler: Scheduler
+    requests: List[Request]
+    publisher: Optional[Publisher] = None
+    subscriber: Optional[Subscriber] = None
+
+
+def build(args) -> ServeRun:
+    """The model, server, scheduler (with a publisher/subscriber pair when
+    ``--publish-every`` is set, its first snapshot pushed) and the
+    submitted requests of ``args``."""
+    spec = get(args.arch)
+    cfg = spec.smoke if args.smoke else spec.config
+    dev = resolve_device(args.device)
+    params = init_params(T.model_template(cfg), args.seed, device=dev)
+    srv = Server(cfg, batch=args.slots, max_seq=args.max_seq,
+                 cache_dtype=torch.float32, device=dev)
+    pub = sub = None
+    if args.publish_every:
+        pc = PublishConfig(codec=args.codec, bucket_mb=args.bucket_mb)
+        pub, sub = Publisher(params, pc), Subscriber(params, pc)
+        sub.push(pub.publish(params, step=0))
+    sch = Scheduler(srv, params, subscriber=sub,
+                    kv_quant=None if args.kv_quant == "none"
+                    else args.kv_quant,
+                    kv_page=args.kv_page)
+    rng = np.random.default_rng(args.seed + 1)
+    reqs = [Request(rid=i, prompt=rng.integers(
+                0, cfg.vocab, args.prompt_len).tolist(),
+                    max_new_tokens=args.gen)
+            for i in range(args.requests)]
+    for r in reqs:
+        sch.submit(r)
+    return ServeRun(args=args, cfg=cfg, device=dev, params=params,
+                    server=srv, scheduler=sch, requests=reqs,
+                    publisher=pub, subscriber=sub)
+
+
+def perturb(params, gen: torch.Generator, scale: float = 1e-3):
+    """``params`` plus ``scale`` times standard normal noise from
+    ``gen``, leaf by leaf in sorted-key order."""
+    if isinstance(params, dict):
+        return {k: perturb(params[k], gen, scale) for k in sorted(params)}
+    return params + scale * torch.randn(params.shape, generator=gen,
+                                        device=params.device,
+                                        dtype=params.dtype)
+
+
+def serve(run: ServeRun) -> dict:
+    """Tick the scheduler until it drains, publishing perturbed weights
+    every ``--publish-every`` ticks. Returns the wall seconds and one
+    record per tick: host ms of the tick (each ends in a host read of the
+    tokens), the prefills it admitted, whether it swapped weights, and
+    the ms of the publish before it."""
+    args, sch, pub, sub = run.args, run.scheduler, run.publisher, \
+        run.subscriber
+    gen = torch.Generator(device=run.device).manual_seed(args.seed + 2)
+    p = run.params
+    records = []
+    t0 = time.perf_counter()
+    ticks = 0
+    while not sch.idle:
+        rec = {"tick": ticks}
+        if pub is not None and ticks and ticks % args.publish_every == 0:
+            p = perturb(p, gen)
+            t = time.perf_counter()
+            sub.push(pub.publish(p, step=ticks))
+            rec["publish_ms"] = (time.perf_counter() - t) * 1e3
+        before = dict(sch.stats)
+        t = time.perf_counter()
+        sch.tick()
+        rec["ms"] = (time.perf_counter() - t) * 1e3
+        rec["prefills"] = sch.stats["prefills"] - before["prefills"]
+        rec["swapped"] = sch.stats["weight_swaps"] > before["weight_swaps"]
+        records.append(rec)
+        ticks += 1
+    return {"seconds": time.perf_counter() - t0, "ticks": records}
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    run = build(args)
+    out = serve(run)
+    dt = out["seconds"]
+    for r in run.requests:
+        print(f"req {r.rid}: {len(r.output)} tokens  {r.output}")
+    s = run.scheduler.stats
+    print(f"# {args.requests} requests over {args.slots} slots: "
+          f"{s['generated']} tokens in {dt:.2f}s "
+          f"({s['generated'] / dt:.1f} tok/s), "
+          f"{s['prefills']} prefills, {s['decode_ticks']} decode ticks, "
+          f"{s['weight_swaps']} weight swap(s), "
+          f"{s['pages_quantized']} KV page(s) quantized")
+
+
+if __name__ == "__main__":
+    main()

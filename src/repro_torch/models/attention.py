@@ -1,17 +1,25 @@
-"""Grouped-query attention, PyTorch port of the training path of
-``src/repro/models/attention.py``: the template, the additive mask and
-``dot_attn``. Below ``ModelConfig.blockwise_threshold`` the reference
-never takes its flash-style path, so that, the KV-cache decode and MLA
-wait for later slices.
+"""Grouped-query attention, PyTorch port of the dense path of
+``src/repro/models/attention.py``: the template, the additive mask,
+``dot_attn``, the flash-style ``blockwise_attn`` (taken at S >=
+``ModelConfig.blockwise_threshold``) and the KV-cache ``decode_attn``.
+MLA and the sliding and ring masks wait for the families that use them.
 
 Layouts follow the reference: activations (B, S, D), per-head tensors
-(B, S, H, hd). The two attention products are plain ``torch.einsum``
-matrix products, as the reference leaves them to XLA.
+(B, S, H, hd), KV caches (B, S_max, K, hd). The attention products are
+plain ``torch.einsum`` matrix products, as the reference leaves them to
+XLA (its own docstring leaves a fused kernel for later).
+
+Caches are written in place (the reference donates its cache buffers):
+a decode step writes k/v at ``cache_pos``, a prefill writes ``[0, S)``.
+``cache_pos`` may be a (B,) tensor, one position per row: each row is
+written and masked at its own position, the scheduler's vmapped decode
+of the reference computed batched.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.models import rope as R
@@ -55,6 +63,12 @@ def _mask_bias(q_pos, k_pos, kind: str):
     return torch.where(ok, zero, NEG_INF)
 
 
+def _mm_dtype(a, b):
+    """The dtype ``jnp`` promotes a product of ``a`` and ``b`` to
+    (``torch.einsum`` refuses mixed operands)."""
+    return torch.promote_types(a.dtype, b.dtype)
+
+
 def dot_attn(q, k, v, bias):
     """q (B,Sq,H,hd), k (B,Sk,K,hd), v (B,Sk,K,dv), bias (Sq,Sk)."""
     B, Sq, H, hd = q.shape
@@ -67,9 +81,108 @@ def dot_attn(q, k, v, bias):
     return o.reshape(B, Sq, H, dv)
 
 
-def gqa_forward(p, cfg, x, positions):
-    """Training-path GQA attention over (B, S, D), causal or bidirectional
-    as ``cfg.causal`` says; returns (out, None)."""
+def blockwise_attn(q, k, v, q_pos, k_pos, kind, bq=512, bk=1024):
+    """Flash-style attention: query blocks of ``bq``, and for each an
+    online softmax over KV blocks of ``bk``, so memory is O(bq * bk) per
+    step whatever the length. As the reference's ``lax.map`` /
+    ``lax.scan``: queries pad with position -1 and keys with
+    ``2**29``, every KV block is visited (masked ones too), scores are
+    *multiplied* by ``1 / sqrt(hd)`` (``dot_attn`` divides) and the
+    result is ``acc / max(den, 1e-30)``."""
+    B, Sq, H, hd = q.shape
+    Sk, K, dv = k.shape[1], k.shape[2], v.shape[3]
+    g = H // K
+    bq, bk = min(bq, Sq), min(bk, Sk)
+    nq, nk = -(-Sq // bq), -(-Sk // bk)
+    F = torch.nn.functional
+    qp = F.pad(q, (0, 0, 0, 0, 0, nq * bq - Sq))
+    qposp = F.pad(q_pos, (0, nq * bq - Sq), value=-1)
+    kp = F.pad(k, (0, 0, 0, 0, 0, nk * bk - Sk))
+    vp = F.pad(v, (0, 0, 0, 0, 0, nk * bk - Sk))
+    kposp = F.pad(k_pos, (0, nk * bk - Sk), value=_PAD_SENTINEL)
+    # the reference's f32 ``1.0 / jnp.sqrt(hd)``
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
+    out = []
+    for i in range(nq):
+        qg = qp[:, i * bq:(i + 1) * bq].reshape(B, bq, K, g, hd)
+        qpos_i = qposp[i * bq:(i + 1) * bq]
+        acc = torch.zeros((B, K, g, bq, dv), dtype=torch.float32,
+                          device=q.device)
+        mx = torch.full((B, K, g, bq), NEG_INF, dtype=torch.float32,
+                        device=q.device)
+        den = torch.zeros((B, K, g, bq), dtype=torch.float32,
+                          device=q.device)
+        for j in range(nk):
+            kj = kp[:, j * bk:(j + 1) * bk]
+            vj = vp[:, j * bk:(j + 1) * bk]
+            s = torch.einsum("bqkgd,bskd->bkgqs", qg, kj).to(torch.float32)
+            s = s * scale
+            s = s + _mask_bias(qpos_i, kposp[j * bk:(j + 1) * bk], kind)
+            new_mx = torch.maximum(mx, s.amax(dim=-1))
+            p = torch.exp(s - new_mx[..., None])
+            corr = torch.exp(mx - new_mx)
+            den = den * corr + p.sum(dim=-1)
+            pv = torch.einsum("bkgqs,bskd->bkgqd", p.to(vj.dtype), vj)
+            acc = acc * corr[..., None].to(acc.dtype) + pv.to(torch.float32)
+            mx = new_mx
+        o = acc / torch.clamp_min(den[..., None], 1e-30)
+        out.append(o.movedim(3, 1).reshape(B, bq, K * g, dv).to(q.dtype))
+    return torch.cat(out, dim=1)[:, :Sq]
+
+
+def decode_attn(q, k_cache, v_cache, pos, kind="causal"):
+    """One query position per row against a (B, S, K, hd) cache: keys at
+    positions ``<= pos`` (an int, or a (B,) tensor per row), for
+    ``kind`` causal and, as in the reference, bidir. The sliding and ring
+    caches come with the families that use them."""
+    if kind not in ("causal", "bidir"):
+        raise NotImplementedError(f"decode mask kind {kind!r} is not "
+                                  f"ported yet")
+    B, _, H, hd = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    kpos = torch.arange(S, dtype=torch.int32, device=q.device)
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        ok = kpos[None, :] <= pos[:, None].to(torch.int32)
+    else:
+        ok = (kpos <= pos)[None, :]
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    bias = torch.where(ok, zero, NEG_INF)                 # (B or 1, S)
+    qg = q.reshape(B, 1, K, H // K, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(_mm_dtype(q, k_cache)),
+                     k_cache.to(_mm_dtype(q, k_cache))).to(torch.float32)
+    s = s / math.sqrt(hd) + bias[:, None, None, None, :]
+    w = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    o = torch.einsum("bkgqs,bskd->bqkgd", w, v_cache)
+    return o.reshape(B, 1, H, hd)
+
+
+def _write_cache(cache, k, v, cache_pos):
+    """Write the new keys and values into the layer's cache in place: a
+    prefill (``cache_pos`` None or 0 with S > 1) at ``[0, S)``, a decode
+    step at ``cache_pos`` (an int, or a (B,) tensor: row b at
+    ``cache_pos[b]``). Values are cast to the cache's dtype."""
+    ck, cv = cache["k"], cache["v"]
+    if isinstance(cache_pos, torch.Tensor) and cache_pos.dim() == 1:
+        rows = torch.arange(k.shape[0], device=k.device)
+        idx = (rows, cache_pos.to(device=k.device, dtype=torch.long))
+        ck.index_put_(idx, k[:, 0].to(ck.dtype))
+        cv.index_put_(idx, v[:, 0].to(cv.dtype))
+    else:
+        p = int(cache_pos or 0)
+        ck[:, p:p + k.shape[1]] = k
+        cv[:, p:p + v.shape[1]] = v
+    return {"k": ck, "v": cv}
+
+
+def gqa_forward(p, cfg, x, positions, *, cache=None, cache_pos=None,
+                use_blockwise=False):
+    """GQA attention over (B, S, D), causal or bidirectional as
+    ``cfg.causal`` says. Returns (out, the layer's cache or None).
+
+    ``cache``: the layer's {"k", "v"} (B, S_max, K, hd), written in place;
+    with S == 1 and a ``cache_pos`` this is a decode step against the
+    cache, else a prefill that fills ``[0, S)`` and attends over the new
+    keys alone. ``use_blockwise``: the flash-style path."""
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv, cfg.hd
     q = x @ p["wq"]
@@ -84,7 +197,17 @@ def gqa_forward(p, cfg, x, positions):
         # as in the reference: any rope setting but "none" rotates q, k
         q = R.apply_rope(q, positions)
         k = R.apply_rope(k, positions)
-    pos = positions[0]
     kind = "causal" if cfg.causal else "bidir"
-    o = dot_attn(q, k, v, _mask_bias(pos, pos, kind))
-    return o.reshape(B, S, H * hd) @ p["wo"], None
+    new_kv = None
+    if cache is not None:
+        new_kv = _write_cache(cache, k, v, cache_pos)
+        if S == 1 and cache_pos is not None:
+            o = decode_attn(q, new_kv["k"], new_kv["v"], cache_pos, kind)
+            o = o.reshape(B, S, H * hd)
+            return o.to(_mm_dtype(o, p["wo"])) @ p["wo"], new_kv
+    pos = positions[0]
+    if use_blockwise:
+        o = blockwise_attn(q, k, v, pos, pos, kind)
+    else:
+        o = dot_attn(q, k, v, _mask_bias(pos, pos, kind))
+    return o.reshape(B, S, H * hd) @ p["wo"], new_kv

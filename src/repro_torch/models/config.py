@@ -33,8 +33,7 @@ class ModelConfig:
     vocab_pad_multiple: int = 256
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
-    blockwise_threshold: int = 8192   # reference's flash-style attention
-                                      # starts at this S (not ported)
+    blockwise_threshold: int = 8192   # flash-style attention at S >= this
     citation: str = ""
 
     @property

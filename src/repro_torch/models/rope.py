@@ -7,19 +7,24 @@ learned position table; the port does the same.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
-def _freqs(dim: int, theta: float):
-    # dim = number of rotated pairs
-    return 1.0 / (theta ** (torch.arange(0, dim, dtype=torch.float32) / dim))
+@functools.lru_cache(maxsize=None)
+def _freqs(dim: int, theta: float, device: torch.device):
+    """Inverse frequencies of ``dim`` rotated pairs, computed on the CPU
+    and moved to ``device`` once (no copy per call)."""
+    return (1.0 / (theta ** (torch.arange(0, dim, dtype=torch.float32)
+                             / dim))).to(device)
 
 
 def apply_rope(x, positions, theta=10000.0):
     """Rotate all of x (B, S, H, D), D even, by positions (B, S); the two
     halves of the head dim form the pairs, as in the reference."""
     half = x.shape[-1] // 2
-    inv = _freqs(half, theta).to(x.device)
+    inv = _freqs(half, theta, x.device)
     ang = positions.to(torch.float32)[..., None] * inv[None, None, :]
     cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
     sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
@@ -27,7 +32,12 @@ def apply_rope(x, positions, theta=10000.0):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def text_positions(batch: int, seq: int, offset: int = 0, device=None):
-    """(batch, seq) int32 positions ``offset .. offset + seq - 1``."""
-    pos = torch.arange(seq, dtype=torch.int32, device=device) + offset
-    return pos[None, :].expand(batch, seq)
+def text_positions(batch: int, seq: int, offset=0, device=None):
+    """(batch, seq) int32 positions ``offset .. offset + seq - 1``.
+    ``offset`` is an int, or a (batch,) tensor with one offset per row
+    (the scheduler's slots decode at their own positions; the reference
+    gets them by ``vmap`` over ``decode``)."""
+    pos = torch.arange(seq, dtype=torch.int32, device=device)
+    if isinstance(offset, torch.Tensor) and offset.dim() == 1:
+        return offset.to(torch.int32)[:, None] + pos[None, :]
+    return (pos + offset)[None, :].expand(batch, seq)

@@ -44,6 +44,15 @@ the fused local step.
 Elastic resharding (``repro_torch.elastic``): the five
 ``BENCH_elastic.json`` geometries and 4 -> 3 on random state (pads
 included) at gpt2-FULL layouts, on the card bit for bit on the CPU.
+
+Serving (``repro_torch.serve``): gpt2-smoke prefill and 8 decodes at
+per-row positions on the card against the CPU, logits within 1e-4 and
+greedy tokens equal; ``quant_page`` on the card bit for bit the CPU's; a
+sign1bit delta publish of gpt2-smoke (kernels 2-4, one launch of each a
+bucket, and one decompress a bucket on the subscriber) against the CPU's
+plain path, packed bytes bit for bit and chunk scales within 64 ulp;
+``blockwise_attn`` against ``dot_attn`` on gpt2 FULL's attention shapes
+at S = 8192, within 1e-5.
 """
 import numpy as np
 import pytest
@@ -847,3 +856,142 @@ def test_cuda_reshard_matches_cpu(scenario):
                 a.cpu().view(torch.int32), b.view(torch.int32)), path
         else:
             assert np.array_equal(a, b), path
+
+
+# --------------------------------------------------------------------- #
+# serving
+# --------------------------------------------------------------------- #
+
+def _to(tree, d):
+    if isinstance(tree, dict):
+        return {k: _to(v, d) for k, v in tree.items()}
+    return tree.to(d)
+
+
+@pytest.mark.gpu
+def test_cuda_decode_matches_cpu():
+    """gpt2-smoke: a prefill of three prompts of different lengths into
+    their own lanes, then 8 batched greedy decodes at per-row positions,
+    on the card and on the CPU from the same params."""
+    dev = _card()
+    cfg = get("gpt2").smoke
+    params = L.init_params(T.model_template(cfg), 0)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, (1, n)) for n in (5, 9, 12)]
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        p = _to(params, d)
+        cache = T.init_cache(cfg, 3, 32, torch.float32, d)
+        first = []
+        for b, pr in enumerate(prompts):
+            lane = {k: c[:, b:b + 1] for k, c in cache.items()}
+            lg, _ = T.prefill(p, cfg, {"tokens": torch.from_numpy(pr).to(d)},
+                              lane)
+            first.append(lg[0, -1, :cfg.vocab])
+        logits, toks = [torch.stack(first).cpu()], []
+        pos = torch.tensor([pr.shape[1] for pr in prompts], device=d)
+        for _ in range(8):
+            toks.append(logits[-1].argmax(-1))
+            lg, cache = T.decode(p, cfg, toks[-1][:, None].to(d), cache, pos)
+            logits.append(lg[:, 0, :cfg.vocab].cpu())
+            pos = pos + 1
+        runs.append((torch.stack(logits), torch.stack(toks), cache["k"].cpu()))
+    (lk, tk, ck), (lc, tc, cc) = runs
+    assert float((lk - lc).abs().max()) <= 1e-4
+    assert torch.equal(tk, tc)
+    assert float((ck - cc).abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_quant_page_matches_cpu(dtype):
+    """Every page of 3 slots of a random cache, each page at its own
+    magnitude, and an all-zero page: the card's ``quant_page`` bit for
+    bit the CPU's."""
+    from repro_torch.serve.scheduler import quant_page
+
+    dev = _card()
+    g = torch.Generator().manual_seed(5)
+    shape = (12, 3, 64, 12, 64)
+    mag = torch.exp(torch.rand((1, 3, 4, 1, 1, 1), generator=g) * 6 - 5)
+    base = {k: (torch.randn(shape, generator=g).reshape(
+        12, 3, 4, 16, 12, 64) * mag).reshape(shape).to(dtype)
+        for k in ("k", "v")}
+    for k in base:
+        base[k][:, 2, 16:32] = 0
+    card = {k: v.to(dev) for k, v in base.items()}
+    cpu = {k: v.clone() for k, v in base.items()}
+    for slot in range(3):
+        for start in range(0, 64, 16):
+            quant_page(card, slot, start, 16, 64)
+            quant_page(cpu, slot, start, 16, 64)
+    for k in cpu:
+        assert torch.equal(card[k].cpu(), cpu[k])
+        assert not torch.equal(cpu[k], base[k])
+
+
+@pytest.mark.gpu
+def test_cuda_sign1bit_publish_matches_cpu():
+    """A snapshot and a sign1bit delta of gpt2-smoke params, per leaf
+    (one bucket a leaf) and at the default 4 MiB (one bucket): on the
+    card the delta's encode launches kernels 2-4 once each a bucket and
+    the subscriber's anchor advance one decompress a bucket; packed bytes
+    bit for bit the CPU plain path's from the same params and anchors,
+    chunk scales within 64 ulp; the subscriber's anchors bit for bit the
+    publisher's."""
+    from repro_torch.serve import Publisher, PublishConfig, Subscriber
+
+    dev = _card()
+    cfg = get("gpt2").smoke
+    p0 = L.init_params(T.model_template(cfg), 0)
+    g = torch.Generator().manual_seed(9)
+    p1 = _perturb(p0, g)
+    for bucket_mb in (None, 4.0):
+        pc = PublishConfig(codec="sign1bit", bucket_mb=bucket_mb)
+        ups = []
+        for d in (dev, torch.device("cpu")):
+            pub, sub = Publisher(_to(p0, d), pc), Subscriber(_to(p0, d), pc)
+            sub.apply(pub.publish(_to(p0, d)))
+            build.launch_counts.clear()
+            u = pub.publish(_to(p1, d))
+            enc = dict(build.launch_counts)
+            build.launch_counts.clear()
+            sub.apply(u)
+            dec = dict(build.launch_counts)
+            assert all(torch.equal(a, b) for a, b in zip(pub._anchor,
+                                                         sub._anchor))
+            ups.append((u, enc, dec, len(pub.wire.bp.buckets)))
+        (uk, enc, dec, nb), (uc, enc_c, dec_c, _) = ups
+        assert uk.kind == "delta" and uk.manifest == uc.manifest
+        assert enc == {"abs_rowsum": nb, "ef_quantize": nb,
+                       "decompress": nb}
+        assert dec == {"decompress": nb} and enc_c == dec_c == {}
+        for a, b in zip(uk.payloads, uc.payloads):
+            assert np.array_equal(a["packed"], b["packed"])
+            assert _ulps(torch.from_numpy(a["scales"]),
+                         torch.from_numpy(b["scales"])) <= 64
+
+
+def _perturb(tree, g):
+    if isinstance(tree, dict):
+        return {k: _perturb(tree[k], g) for k in sorted(tree)}
+    return tree + 1e-3 * torch.randn(tree.shape, generator=g)
+
+
+@pytest.mark.gpu
+def test_cuda_blockwise_matches_dot_attn_at_8k():
+    """gpt2 FULL's attention shapes (12 heads of 64) at S = 8192, causal:
+    the flash-style blockwise path against the dense softmax, within
+    1e-5 (the same products, in blocks, with an online softmax)."""
+    from repro_torch.models import attention as A
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(4)
+    S = 8192
+    q, k, v = (torch.randn((1, S, 12, 64), device=dev, generator=g)
+               for _ in range(3))
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    bw = A.blockwise_attn(q, k, v, pos, pos, "causal")
+    dense = A.dot_attn(q, k, v, A._mask_bias(pos, pos, "causal"))
+    assert float((bw - dense).abs().max()) <= 1e-5
