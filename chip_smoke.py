@@ -3,13 +3,14 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only probe 6b 6b_lamb 6d 6d_lamb
     python3 chip_smoke.py --only serve
+    python3 chip_smoke.py --only audit
 
 Needs one card; on a machine with up to four, phase 6b puts one rank on
 each, and on four phase 6c runs its 2 pods x 2 ranks over NCCL and phase
 6d trains bert-large FULL in four ranks. ``--only`` runs, after the
-build, just the named checks of phases 4n, 5, 6 and 7 (the second
-line: the four-card paths, on four cards; the third: phase 7) and prints
-no kernels or result line.
+build, just the named checks of phases 4n, 5, 6, 7 and 8 (the second
+line: the four-card paths, on four cards; the third: phase 7; the
+fourth: phase 8) and prints no kernels or result line.
 
 1. Prints the card (nvidia-smi name and power limit) and torch/CUDA.
 2. Builds the port's CUDA kernels from src/repro_torch/kernels/csrc with
@@ -80,7 +81,16 @@ no kernels or result line.
       bytes per sync next to sign1bit's;
    (e) and (f) profile their step 6 as (a) does.
    Each run checks its losses, its step kinds and its launch counts, and
-   prints its step and optimizer ms per step kind.
+   prints its step and optimizer ms per step kind. Each of (a)-(h) and
+   (j)-(m) runs on a ``repro_torch.analysis.RecordingComm`` around its
+   SimComm, which logs every collective and passes on its result
+   unchanged, and is audited after its 8 steps
+   (``analysis.audit_trainer``: each step's collectives against the
+   declared sync and full-precision manifests, in order, dtype and shape;
+   every round the style declares seen; the bytes one worker sent in a
+   sync and in a variance round, per level, equal to ``comm_accounting``'s
+   as the audit's docstring reconciles them, and printed beside them; no
+   float64); a violation raises.
    i. A checkpoint round trip, gpt2 FULL in ``--mode single`` at batch
       4 x 1024 with (a)'s flags, per leaf and at ``--bucket-mb 25``: 4
       steps and ``--save`` into a temporary directory, ``Trainer.restore``
@@ -125,7 +135,10 @@ no kernels or result line.
    process, spawned): first the exchange collectives of DistComm against
    SimComm's, bit for bit, over gloo with CUDA tensors and over NCCL;
    then gpt2 FULL with phase 4a's flags, the launch counts of every rank
-   read after its run:
+   read after its run. The runs of each of 6a, 6b and 6c first run their
+   references in this process, then share one spawn of ranks, which run
+   them one after another (each with its own process group), so that a
+   rank's start-up is paid once per group:
    a. four ranks on this one card over gloo (asked for explicitly; the
       exchange goes through host memory), micro-batches 2, against a sim
       run of the same settings in this process; then the same under
@@ -151,7 +164,11 @@ no kernels or result line.
    Each rank's losses and params must be bit for bit its simulated
    worker's in 6a and, on one card, 6c; elsewhere they are held to phase
    5's bars, and bitwise equality is printed with the first step and
-   leaf that differ. Each rank's launch counts must equal that worker's. Every step is timed as phase
+   leaf that differ. Each rank's launch counts must equal that worker's.
+   Every rank of 6a-6c runs ``rank_main(audit=True)``: its recorded
+   collectives must pass the audit and equal, collective for collective,
+   those its simulated worker recorded in the run it is held to (itself
+   audited), and so must its bytes per round. Every step is timed as phase
    4's are (``launch.train``), and each rank's exchange collectives by
    CUDA events around them (``DistComm.exchange_ms``).
 7. Serves gpt2 FULL (params from the port's init, f32 cache) through
@@ -185,7 +202,11 @@ no kernels or result line.
       last bucket, scales within 64 ulp.
    Phase 5 also serves gpt2-smoke on the card against the CPU (prefill
    + 8 decodes: logits within 1e-4, greedy tokens equal).
-8. Prints the kernels line (kernels 2-4 with their 7e launches), the
+8. Runs ``python -m repro_torch.launch.audit --matrix --lints`` on the
+   card (in this process): the reference's audit matrix without its
+   tensor-parallel entries, 12 gpt2-smoke configurations of 8 recorded
+   steps each, and the port's lints; it must exit 0.
+9. Prints the kernels line (kernels 2-4 with their 7e launches), the
    card line and the result line.
 
 Any failure raises; there is no CPU fallback. Exits non-zero without a
@@ -197,6 +218,7 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -857,9 +879,12 @@ def expected_launches(label, layouts, units=None):
 
 def run_main_path(dev, label, arch, extra, batch, seq, kind):
     """Phase 4: one main path, 4 simulated workers, 8 steps, through
-    ``launch.train``. Returns the per-step records, the launch counts,
-    the peak memory and, for the gpt2 runs 4a, 4e and 4f, the profile of
-    step 6."""
+    ``launch.train``, on a recording comm whose log is audited after the
+    run (:func:`audit_run`). Returns the per-step records, the launch
+    counts, the peak memory, the audit's summary and, for the gpt2 runs
+    4a, 4e and 4f, the profile of step 6."""
+    from repro_torch import analysis
+    from repro_torch.core.comm import SimComm
     from repro_torch.kernels import build
     from repro_torch.launch import train as launch
 
@@ -868,7 +893,9 @@ def run_main_path(dev, label, arch, extra, batch, seq, kind):
         "--steps", str(STEPS), "--batch", str(batch), "--seq", str(seq),
         "--sync-warmup", "2", "--double-every", "2", "--kappa", "1",
         "--log-every", "1"] + extra)
-    tr = launch.make_trainer(args, device=dev)
+    tr = launch.make_trainer(args, device=dev, comm=analysis.RecordingComm(
+        SimComm(N_WORKERS)))
+    trace = analysis.watch(tr)
     trusts = (track_trust(tr) if tr.opt.base.has_trust
               and tr.opt.cfg.style == "accumulate" else None)
     torch.cuda.synchronize()
@@ -881,6 +908,7 @@ def run_main_path(dev, label, arch, extra, batch, seq, kind):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"  launches {json.dumps(counts)}; peak memory {peak_gb:.1f} GB",
           flush=True)
+    audit = audit_run(label, tr, trace)
 
     steps = res["records"]
     losses = [float(np.mean(s["losses"])) for s in steps]
@@ -932,7 +960,39 @@ def run_main_path(dev, label, arch, extra, batch, seq, kind):
     del kept, tr
     return {"steps": steps, "launches": counts, "peak_memory_gb": peak_gb,
             "wire_bytes": wire, "profile": profile,
-            "params_sha256": digest, "trust_at_syncs": trusts}
+            "params_sha256": digest, "trust_at_syncs": trusts,
+            "audit": audit}
+
+
+def audit_run(label, tr, trace):
+    """The communication audit of a recorded run
+    (``repro_torch.analysis.audit_trainer``): its collectives step by step
+    against the declared manifests, the bytes each round sent against
+    ``comm_accounting`` per level, dtypes. Prints the recorded bytes one
+    worker sent in a sync and in a variance round, per level, beside
+    ``comm_accounting``'s; raises on any violation. Returns the report's
+    summary."""
+    from repro_torch import analysis
+
+    rep = analysis.audit_trainer(tr, trace=trace)
+    s = rep.summary
+    acct = s["accounting"]
+    for name, key in (("sync", "compressed_bytes_per_sync"),
+                      ("fullprec", "fullprec_bytes_per_round")):
+        got = s["recorded_bytes"].get(name)
+        if got is not None:
+            print(f"  audit: {name} round recorded {got['inner']} B "
+                  f"intra-pod + {got['outer']} B across = {got['total']} B "
+                  f"a worker; comm_accounting {acct[key + '_inner']:.0f} + "
+                  f"{acct[key + '_outer']:.0f}, headline {acct[key]:.0f}",
+                  flush=True)
+    print(f"  audit: {len(rep.collectives)} collectives recorded over "
+          f"{s['steps']} steps ({', '.join(s['rounds'])}), "
+          f"{s['sync_collectives_declared']} declared a sync, "
+          f"{s['fullprec_collectives_declared']} a full-precision round: "
+          f"{'clean' if rep.ok else 'VIOLATIONS'}", flush=True)
+    assert rep.ok, (label, [v.to_dict() for v in rep.violations[:5]])
+    return {**s, "collectives": len(rep.collectives)}
 
 
 def track_trust(tr):
@@ -1772,63 +1832,129 @@ def times_by_kind(records, kinds=STEP_KINDS):
 
 def run_in_process(argv):
     """Phase 6: the sim or single run the ranks are held to, in this
-    process, its launch counts set to 0 just before it."""
+    process, its launch counts set to 0 just before it, its collectives
+    recorded and audited (:func:`audit_run`)."""
+    from repro_torch import analysis
+    from repro_torch.core.comm import NullComm, SimComm
     from repro_torch.core.leafwise import flatten_tree
     from repro_torch.kernels import build
     from repro_torch.launch import train as launch
 
     args = launch.parse_args(argv)
-    tr = launch.make_trainer(args)
+    tr = launch.make_trainer(args, comm=analysis.RecordingComm(
+        SimComm(args.workers) if args.mode == "sim" else NullComm()))
+    trace = analysis.watch(tr)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     build.launch_counts.clear()
     res = launch.train(args, tr)
     out = {"records": res["records"], "launches": dict(build.launch_counts),
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "params": [x.cpu() for x in flatten_tree(res["params"])[1]]}
+           "params": [x.cpu() for x in flatten_tree(res["params"])[1]],
+           "audit": audit_run(f"{args.mode} reference", tr, trace),
+           "recorded": [c.to_dict() for c in trace.collectives]}
     del res, tr
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def run_ranks(argv, n, kind="lm"):
-    """Phase 6: ``--mode dist`` in ``n`` spawned ranks on the synthetic
-    stream of ``kind``; each rank's results (params on the CPU) and the
-    wall time of the spawn."""
+def rank_jobs(rank, jobs, n):
+    """Phase 6: one spawned rank that runs ``jobs`` one after another,
+    each ``(argv, out_dir, kind, audit)`` through ``launch.rank_main``
+    with its own rendezvous in ``out_dir`` (the process group is made
+    and destroyed per job), and writes each job's wall seconds in this
+    rank to ``wall{rank}.json`` there. The jobs share the process's
+    start-up: the torch import, the CUDA context and the audit's first
+    meta-tensor op (~6 s each on the card's host)."""
     from repro_torch.launch import mesh
     from repro_torch.launch import train as launch
 
-    with scratch_dir() as tmp:
+    for argv, out_dir, kind, audit in jobs:
         t0 = time.time()
-        mesh.spawn(launch.rank_main, n,
-                   (argv, n, mesh.file_rendezvous(tmp), tmp, False, kind),
-                   timeout_s=DIST_TIMEOUT_S)
-        wall = time.time() - t0
-        return [torch.load(os.path.join(tmp, f"rank{r}.pt"))
-                for r in range(n)], wall
+        launch.rank_main(rank, argv, n, mesh.file_rendezvous(out_dir),
+                         out_dir, False, kind, audit)
+        with open(os.path.join(out_dir, f"wall{rank}.json"), "w") as f:
+            json.dump(time.time() - t0, f)
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
-def dist_runs(label, transport, ref, argv, n, expect, bitwise=False):
-    """Phase 6: ``argv`` in ``n`` ranks, held to ``ref`` by
-    :func:`compare_ranks` (bit for bit where ``bitwise``)."""
-    assert ref["launches"] == expect, (label, ref["launches"], expect)
-    print(f"  {label} reference run: peak {ref['peak_memory_gb']:.2f} GB",
-          flush=True)
-    kinds = step_kinds(argv)
-    ref_times = times_by_kind(ref["records"], kinds)
-    for kind, t in ref_times.items():
-        print(f"    {kind}: step {t['step_ms']:.1f} ms (fwd/bwd "
-              f"{t['fwd_bwd_ms']:.1f}, optimizer {t['optimizer_ms']:.1f}; "
-              f"exchange in-process)")
-    ranks, wall = run_ranks(argv, n)
-    out = {"transport": transport, "ranks_wall_s": wall,
-           "reference": {"peak_memory_gb": ref["peak_memory_gb"],
-                         "launches": ref["launches"], "times": ref_times},
-           "ranks": compare_ranks(label, transport, ref, ranks, bitwise,
-                                  kinds)}
-    del ranks
-    gc.collect()
+def run_ranks(argvs, n, kind="lm", audit=True):
+    """Phase 6: ``--mode dist`` runs of ``argvs`` in ``n`` spawned ranks,
+    which run them one after another (:func:`rank_jobs`) on the
+    synthetic stream of ``kind``. Yields, per argv in order, every
+    rank's results (params on the CPU; with ``audit`` its audit report
+    and recorded collectives) and the run's wall time (its slowest
+    rank's); each run's files are deleted once yielded."""
+    from repro_torch.launch import mesh
+
+    with scratch_dir() as tmp:
+        dirs = [os.path.join(tmp, f"run{i}") for i in range(len(argvs))]
+        for d in dirs:
+            os.makedirs(d)
+        mesh.spawn(rank_jobs, n, ([(argv, d, kind, audit)
+                                   for argv, d in zip(argvs, dirs)], n),
+                   timeout_s=DIST_TIMEOUT_S * len(argvs))
+        for d in dirs:
+            walls = []
+            for r in range(n):
+                with open(os.path.join(d, f"wall{r}.json")) as f:
+                    walls.append(json.load(f))
+            yield ([torch.load(os.path.join(d, f"rank{r}.pt"))
+                    for r in range(n)], max(walls))
+            shutil.rmtree(d)
+
+
+@dataclasses.dataclass
+class DistRun:
+    """A run of phase 6: its reference in this process and its ranks."""
+
+    key: str          # its name among dist_parts
+    label: str        # its name in the output
+    header: str       # printed before its reference run
+    ref_argv: list    # the reference run's CLI flags (sim or single mode)
+    argv: list        # the ranks' CLI flags (--mode dist)
+    n: int            # ranks
+    transport: str
+    expect: dict      # launch counts of the reference and of every rank
+    bitwise: bool = False
+
+
+def run_dist(runs):
+    """Phase 6: each of ``runs`` (all of one rank count) run in this
+    process as its reference, then all their ranks in one spawn
+    (:func:`run_ranks`), each held to its reference by
+    :func:`compare_ranks` (bit for bit where ``bitwise``). Returns each
+    run's summary by key."""
+    refs = []
+    for run in runs:
+        print(run.header, flush=True)
+        ref = run_in_process(run.ref_argv)
+        assert ref["launches"] == run.expect, (run.label, ref["launches"],
+                                               run.expect)
+        print(f"  {run.label} reference run: peak "
+              f"{ref['peak_memory_gb']:.2f} GB", flush=True)
+        ref["times"] = times_by_kind(ref["records"], step_kinds(run.argv))
+        for kind, t in ref["times"].items():
+            print(f"    {kind}: step {t['step_ms']:.1f} ms (fwd/bwd "
+                  f"{t['fwd_bwd_ms']:.1f}, optimizer "
+                  f"{t['optimizer_ms']:.1f}; exchange in-process)")
+        refs.append(ref)
+    out = {}
+    ranks_of = run_ranks([run.argv for run in runs], runs[0].n)
+    for run, ref, (ranks, wall) in zip(runs, refs, ranks_of):
+        print(f"phase {run.label}: {run.n} rank(s) over {run.transport}",
+              flush=True)
+        out[run.key] = {
+            "transport": run.transport, "ranks_wall_s": wall,
+            "reference": {"peak_memory_gb": ref["peak_memory_gb"],
+                          "launches": ref["launches"],
+                          "times": ref["times"]},
+            "ranks": compare_ranks(run.label, run.transport, ref, ranks,
+                                   run.bitwise, step_kinds(run.argv))}
+        del ranks
+        gc.collect()
     return out
 
 
@@ -1849,7 +1975,10 @@ def compare_ranks(label, transport, ref, ranks, bitwise=False,
     with ``bitwise`` losses and params bit for bit, else losses within
     1e-4, params 99% within 1e-4 and all within 0.05 (phase 5's bars),
     bitwise equality reported with the first step whose loss and the
-    first leaf whose params differ; launch counts equal."""
+    first leaf whose params differ; launch counts equal; where the rank
+    was audited, its audit clean and its recorded collectives (op, level,
+    dtype, one worker's shape and bytes, position, step) and bytes per
+    round those of its simulated worker."""
     from repro_torch.core.leafwise import flatten_tree
 
     rows = []
@@ -1901,43 +2030,114 @@ def compare_ranks(label, transport, ref, ranks, bitwise=False,
         assert row["max_loss_gap"] < 1e-4, (label, r, got, want)
         assert n_close / n >= 0.99 and max_gap <= 0.05, (label, r, row)
         assert res["launches"] == ref["launches"], (label, r)
+        if "audit" in res:
+            rec = res["audit"]["summary"]["recorded_bytes"]
+            same = res["recorded"] == ref["recorded"]
+            row["audit"] = {"ok": res["audit"]["ok"],
+                            "collectives": len(res["recorded"]),
+                            "recorded_bytes": rec,
+                            "sequence_equal_sim": same}
+            print(f"    audit: {len(res['recorded'])} collectives, "
+                  f"{'clean' if res['audit']['ok'] else 'VIOLATIONS'}; "
+                  f"the simulated worker's sequence: {same}; bytes a "
+                  f"worker per round {json.dumps(rec)}", flush=True)
+            assert res["audit"]["ok"], (label, r,
+                                        res["audit"]["violations"][:5])
+            assert same, (label, r, "recorded collectives differ")
+            assert rec == ref["audit"]["recorded_bytes"], (label, r, rec)
         rows.append(row)
     return rows
 
 
-def dist_parts():
-    """Phase 6's runs by name (see the module docstring), each a
-    callable returning its summary, in the order phase 6 runs them."""
-    cards = min(torch.cuda.device_count(), N_WORKERS)
+def dist_runs(cards):
+    """The runs of phases 6a-6c by key, in the order phase 6 runs them
+    (see the module docstring)."""
     layouts = full_plan("gpt2").layouts
     expect = expected_launches("gpt2", layouts)
     onebit = expected_launches("gpt2_onebit", layouts)
     bucketed = expected_launches("gpt2", layouts, n_units())
     local_only = expected_launches("gpt2_qint8", layouts)
-    return {
-        "probe": lambda: {
-            "nccl": probe_exchange("nccl", "cuda", cards,
-                                   INNER if cards == N_WORKERS else None),
-            "gloo cuda:0": probe_exchange("gloo", "cuda:0", N_WORKERS,
-                                          INNER)},
-        "6a": lambda: run_6a(expect),
-        "6a_onebit": lambda: run_6a(onebit, ONEBIT),
-        "6a_bucketed": lambda: run_6a(bucketed, BUCKETED),
-        "6a_lamb": lambda: run_6a(expect, LAMB),
-        "6a_qint8": lambda: run_6a(local_only, QINT8),
-        "6b": lambda: run_6b(cards, expect),
-        "6b_bucketed": lambda: run_6b(cards, bucketed, BUCKETED),
-        "6b_adam": lambda: run_6b(cards, {}, ["--optimizer", "adam"]),
-        "6b_onebit": lambda: run_6b(cards, onebit, ONEBIT),
-        "6b_lamb": lambda: run_6b(cards, expect, LAMB),
-        "6c": lambda: run_6c(expect), "6d": run_6d,
-        "6d_lamb": lambda: run_6d(LAMB)}
+    runs = {}
+    for key, launches, extra in (
+            ("6a", expect, []), ("6a_onebit", onebit, ONEBIT),
+            ("6a_bucketed", bucketed, BUCKETED), ("6a_lamb", expect, LAMB),
+            ("6a_qint8", local_only, QINT8)):
+        label = run_label("6a", extra)
+        flags = gpt2_argv(BATCH, ["--micro-batches", "2", *extra])
+        runs[key] = DistRun(
+            key, label, f"phase {label}: gpt2 FULL, {N_WORKERS} ranks on "
+            f"cuda:0 over gloo, batch {BATCH}, seq {SEQ}, micro-batches 2, "
+            f"vs sim", flags + ["--mode", "sim", "--workers",
+                                str(N_WORKERS), "--device", "cuda:0"],
+            flags + ["--mode", "dist", "--backend", "gloo", "--device",
+                     "cuda:0"], N_WORKERS,
+            f"gloo via host memory, {N_WORKERS} ranks on one card",
+            launches, bitwise=True)
+    batch = BATCH // N_WORKERS * cards
+    ref_mode = (["--mode", "single"] if cards == 1 else
+                ["--mode", "sim", "--workers", str(cards)])
+    for key, launches, extra in (
+            ("6b", expect, []), ("6b_bucketed", bucketed, BUCKETED),
+            ("6b_adam", {}, ["--optimizer", "adam"]),
+            ("6b_onebit", onebit, ONEBIT), ("6b_lamb", expect, LAMB)):
+        label = run_label("6b", extra)
+        runs[key] = DistRun(
+            key, label, f"phase {label}: gpt2 FULL, {cards} rank(s) over "
+            f"NCCL (one card each), batch {batch}, seq {SEQ}, vs "
+            f"{ref_mode[1]}", gpt2_argv(batch, ref_mode + extra),
+            gpt2_argv(batch, ["--mode", "dist", "--backend", "nccl",
+                              "--device", "cuda", *extra]), cards,
+            f"NCCL, {cards} card(s)", launches)
+    # 6c: run 4d in processes, 2 pods x 2 ranks over process subgroups:
+    # NCCL with one rank per card where there are four cards, else four
+    # ranks on cuda:0 over gloo (asked for) with micro-batches 2
+    four = cards == N_WORKERS
+    extra = ["--hierarchy", str(INNER)] + (
+        [] if four else ["--micro-batches", "2"])
+    transport = (f"NCCL, {N_WORKERS} cards" if four else
+                 f"gloo via host memory, {N_WORKERS} ranks on one card")
+    flags = gpt2_argv(BATCH, extra)
+    runs["6c"] = DistRun(
+        "6c", "6c", f"phase 6c: gpt2 FULL, {N_WORKERS // INNER} pods x "
+        f"{INNER} ranks over {transport}, batch {BATCH}, seq {SEQ}, "
+        f"{' '.join(extra)}, vs sim",
+        flags + ["--mode", "sim", "--workers", str(N_WORKERS), "--device",
+                 "cuda:0"],
+        flags + ["--mode", "dist"] + (
+            ["--backend", "nccl", "--device", "cuda"] if four else
+            ["--backend", "gloo", "--device", "cuda:0"]), N_WORKERS,
+        transport, expect, bitwise=not four)
+    return runs
+
+
+def dist_parts():
+    """Phase 6's checks by name (see the module docstring), each a
+    callable returning its summary; a run of 6a-6c alone spawns its own
+    ranks."""
+    cards = min(torch.cuda.device_count(), N_WORKERS)
+    parts = {"probe": lambda: {
+        "nccl": probe_exchange("nccl", "cuda", cards,
+                               INNER if cards == N_WORKERS else None),
+        "gloo cuda:0": probe_exchange("gloo", "cuda:0", N_WORKERS, INNER)}}
+    for key, run in dist_runs(cards).items():
+        parts[key] = lambda run=run: run_dist([run])[run.key]
+    parts["6d"] = run_6d
+    parts["6d_lamb"] = lambda: run_6d(LAMB)
+    return parts
 
 
 def run_dist_phase():
-    """Phase 6 (see the module docstring). Returns its summary."""
+    """Phase 6 (see the module docstring): the probes, then 6a, 6b and
+    6c, the runs of each of the three in one spawn of ranks, then 6d.
+    Returns its summary."""
     t0 = time.time()
-    out = {name: run() for name, run in dist_parts().items()}
+    parts = dist_parts()
+    out = {"probe": parts["probe"]()}
+    runs = dist_runs(min(torch.cuda.device_count(), N_WORKERS))
+    for group in ("6a", "6b", "6c"):
+        out.update(run_dist([run for key, run in runs.items()
+                             if key.split("_")[0] == group]))
+    out["6d"], out["6d_lamb"] = parts["6d"](), parts["6d_lamb"]()
     out["wall_s"] = time.time() - t0
     print(f"phase 6: {out['wall_s']:.1f} s", flush=True)
     return out
@@ -1951,63 +2151,6 @@ def run_label(part, extra):
     return (f"{part} {optimizer_of(extra)}"
             f"{f' {codec}' if codec else ''}"
             f"{' bucketed' if '--bucket-mb' in extra else ''}")
-
-
-def run_6a(expect, extra=()):
-    label = run_label("6a", extra)
-    print(f"phase {label}: gpt2 FULL, {N_WORKERS} ranks on cuda:0 over "
-          f"gloo, batch {BATCH}, seq {SEQ}, micro-batches 2, vs sim",
-          flush=True)
-    flags = gpt2_argv(BATCH, ["--micro-batches", "2", *extra])
-    sim = run_in_process(flags + ["--mode", "sim", "--workers",
-                                  str(N_WORKERS), "--device", "cuda:0"])
-    out = dist_runs(
-        label, f"gloo via host memory, {N_WORKERS} ranks on one card", sim,
-        flags + ["--mode", "dist", "--backend", "gloo", "--device",
-                 "cuda:0"], N_WORKERS, expect, bitwise=True)
-    del sim
-    gc.collect()
-    return out
-
-
-def run_6b(cards, expect, extra=()):
-    batch = BATCH // N_WORKERS * cards
-    ref_mode = (["--mode", "single"] if cards == 1 else
-                ["--mode", "sim", "--workers", str(cards)])
-    label = run_label("6b", extra)
-    print(f"phase {label}: gpt2 FULL, {cards} rank(s) over NCCL (one card "
-          f"each), batch {batch}, seq {SEQ}, vs {ref_mode[1]}", flush=True)
-    ref = run_in_process(gpt2_argv(batch, ref_mode + list(extra)))
-    return dist_runs(
-        label, f"NCCL, {cards} card(s)", ref,
-        gpt2_argv(batch, ["--mode", "dist", "--backend", "nccl", "--device",
-                          "cuda", *extra]), cards, expect)
-
-
-def run_6c(expect):
-    """Phase 6c: run 4d in processes, 2 pods x 2 ranks over process
-    subgroups, against a sim run of the same flags in this process: NCCL
-    with one rank per card where there are four cards, else four ranks
-    on cuda:0 over gloo (asked for) with micro-batches 2."""
-    four = torch.cuda.device_count() >= N_WORKERS
-    extra = ["--hierarchy", str(INNER)] + (
-        [] if four else ["--micro-batches", "2"])
-    dist_flags = (["--backend", "nccl", "--device", "cuda"] if four else
-                  ["--backend", "gloo", "--device", "cuda:0"])
-    transport = (f"NCCL, {N_WORKERS} cards" if four else
-                 f"gloo via host memory, {N_WORKERS} ranks on one card")
-    print(f"phase 6c: gpt2 FULL, {N_WORKERS // INNER} pods x {INNER} ranks "
-          f"over {transport}, batch {BATCH}, seq {SEQ}, "
-          f"{' '.join(extra)}, vs sim", flush=True)
-    flags = gpt2_argv(BATCH, extra)
-    sim = run_in_process(flags + ["--mode", "sim", "--workers",
-                                  str(N_WORKERS), "--device", "cuda:0"])
-    out = dist_runs("6c", transport, sim,
-                    flags + ["--mode", "dist"] + dist_flags, N_WORKERS,
-                    expect, bitwise=not four)
-    del sim
-    gc.collect()
-    return out
 
 
 def run_6d(extra=()):
@@ -2036,7 +2179,8 @@ def run_6d(extra=()):
           f"ranks over {transport},"
           f" mlm data, batch {BERT_BATCH}, seq {BERT_SEQ}; no in-process "
           f"run to compare with (it does not fit on one card)", flush=True)
-    ranks, wall = run_ranks(argv, N_WORKERS, kind="mlm")
+    ((ranks, wall),) = run_ranks([argv], N_WORKERS, kind="mlm",
+                                 audit=False)
     expect = expected_launches("bert_large", full_plan("bert-large").layouts)
     log_vocab = float(np.log(get("bert-large").config.padded_vocab))
     syncs, vars_ = schedule("zero_one_adam", True)
@@ -2511,6 +2655,34 @@ def check_small_serve(dev):
     return {"max_logit_gap": gap, "tokens_equal": same}
 
 
+# ----------------------------------------------------------------------- #
+# phase 8: the communication audit's matrix and the lints
+# ----------------------------------------------------------------------- #
+
+def run_audit_phase():
+    """Phase 8: ``python -m repro_torch.launch.audit --matrix --lints`` on
+    the card, in this process: the 12-entry gpt2-smoke matrix, 8 recorded
+    steps each, and the port's AST lints. Raises unless it exits 0.
+    Returns each entry's verdict and counts, and the wall time."""
+    from repro_torch.launch import audit as LA
+
+    t0 = time.time()
+    with scratch_dir() as tmp:
+        path = os.path.join(tmp, "audit.jsonl")
+        rc = LA.main(["--config", "gpt2", "--matrix", "--lints", "--device",
+                      "cuda", "--json", path])
+        with open(path) as f:
+            recs = [json.loads(line) for line in f]
+    out = {"exit_code": rc, "wall_s": time.time() - t0, "entries": [
+        {"config": r["config"], "ok": r["ok"],
+         "collectives": r["n_collectives"],
+         "recorded_bytes": r["summary"]["recorded_bytes"]} for r in recs]}
+    print(f"  audit matrix: exit code {rc}, {len(recs)} entries in "
+          f"{out['wall_s']:.1f} s", flush=True)
+    assert rc == 0 and len(recs) == 12 and all(r["ok"] for r in recs), out
+    return out
+
+
 def _to(tree, d):
     if isinstance(tree, dict):
         return {k: _to(v, d) for k, v in tree.items()}
@@ -2523,23 +2695,23 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument(
         "--only", nargs="+", metavar="PART",
-        help="after the build, run only these checks of phases 4n, 5, 6 "
-             "and 7 (4n, names of small_parts and dist_parts, e.g. 'probe "
+        help="after the build, run only these checks of phases 4n, 5, 6, "
+             "7 and 8 (4n, names of small_parts and dist_parts, e.g. 'probe "
              "6b 6b_lamb 6d 6d_lamb' for the four-card paths, or "
              "'gpt2_qint8 gpt2_qint4_hier'; 'serve' for phase 7, or its "
-             "runs '7a' ... '7e'), print their summary and the card line, "
-             "and no kernels or result line")
+             "runs '7a' ... '7e'; 'audit' for phase 8), print their "
+             "summary and the card line, and no kernels or result line")
     return ap.parse_args(argv)
 
 
 def run_only(dev, names, card, t_start):
-    """``--only``: the named checks of phases 4n (after run 4a), 5, 6 and
-    7 (``serve``: all of it, or its runs ``7a`` ... ``7e``), in that
-    order."""
+    """``--only``: the named checks of phases 4n (after run 4a), 5, 6, 7
+    (``serve``: all of it, or its runs ``7a`` ... ``7e``) and 8
+    (``audit``), in that order."""
     parts = {"4n": lambda: run_elastic_phase(
         dev, run_main_path(dev, *RUNS[0])), **small_parts(dev),
         **dist_parts(), **serve_parts(dev),
-        "serve": lambda: run_serve_phase(dev)}
+        "serve": lambda: run_serve_phase(dev), "audit": run_audit_phase}
     unknown = sorted(set(names) - set(parts))
     if unknown:
         sys.exit(f"chip_smoke: unknown parts {unknown}; choose from "
@@ -2583,6 +2755,17 @@ def main(argv=None):
     if args.only:
         run_only(dev, args.only, card, t_start)
         return
+    walls, mark = {}, [t_start]
+
+    def lap(phase):
+        """Note and print the wall seconds of ``phase`` (since the last
+        lap)."""
+        now = time.time()
+        walls[phase] = now - mark[0]
+        mark[0] = now
+        print(f"  phase {phase} took {walls[phase]:.1f} s", flush=True)
+
+    lap("1-2")
     print("phase 3: kernels vs plain versions at FULL frames, "
           f"{N_WORKERS} stacked workers; 3a: gpt2", flush=True)
     tally = Tally()
@@ -2596,6 +2779,7 @@ def main(argv=None):
           f"{BUCKET_MB} MiB, flat and {N_WORKERS // INNER} pods x {INNER}",
           flush=True)
     check_bucket_kernels(dev, tally)
+    lap("3")
 
     runs = {}
     for label, arch, extra, batch, seq, kind in RUNS:
@@ -2613,24 +2797,35 @@ def main(argv=None):
     print(f"phase 4h: one leaf per bucket bit for bit 4a: {same}",
           flush=True)
     assert same, "4h: the per-unit loop is not the per-leaf path"
+    lap("4")
     print(f"phase 4i: checkpoint round trips, gpt2 FULL single mode, "
           f"batch 4, seq {SEQ}", flush=True)
     checkpoints = {"per_leaf": run_checkpoint([]),
                    "bucketed": run_checkpoint(BUCKETED)}
+    lap("4i")
 
     print(f"phase 4n: elastic data parallelism, gpt2 FULL with 4a's flags",
           flush=True)
     elastic = run_elastic_phase(dev, runs["gpt2"])
+    lap("4n")
 
     print("phase 5: smoke trainers on the card vs on the CPU", flush=True)
     small = {name: run() for name, run in small_parts(dev).items()}
+    lap("5")
 
     print("phase 6: data parallel in processes", flush=True)
     dist_phase = run_dist_phase()
+    lap("6")
 
     print("phase 7: serving gpt2 FULL through repro_torch.launch.serve",
           flush=True)
     serve = run_serve_phase(dev)
+    lap("7")
+
+    print("phase 8: the communication audit's matrix (launch.audit "
+          "--matrix --lints) on the card", flush=True)
+    audit = run_audit_phase()
+    lap("8")
 
     def bound(r):
         t_bytes = r["bytes"] / PEAK_BYTES_PER_S * 1e3
@@ -2713,6 +2908,7 @@ def main(argv=None):
     summary = {"runs": runs, "checkpoints": checkpoints, "4n": elastic,
                "small_inputs": small,
                "data_parallel": dist_phase, "serve": serve,
+               "audit": audit, "phase_wall_s": walls,
                "wall_s": time.time() - t_start}
     print(f"chip_smoke: all phases passed in {summary['wall_s']:.1f} s",
           flush=True)

@@ -34,7 +34,7 @@ either way.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional, Tuple
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -275,3 +275,163 @@ def exchange_units(plan, bucket_plan: Optional[BucketPlan] = None,
     return [(plan.layouts[i],
              view_spec_entries(plan.layouts[i], plan.specs[i]),
              f"leaf[{i}]") for i in idx]
+
+
+# ---------------------------------------------------------------------------
+# Declared collective schedule (the manifest repro_torch.analysis.ir_audit
+# holds a step's recorded collectives to)
+# ---------------------------------------------------------------------------
+
+def dtype_name(dtype) -> str:
+    """Canonical name of a torch dtype ("float32", "bfloat16", "uint8"),
+    the reference's ``np.dtype(...).name`` of the same type."""
+    return str(dtype).rsplit(".", 1)[-1]
+
+
+class ExpectedCollective(NamedTuple):
+    """One declared collective of the exchange schedule.
+
+    ``level`` names a topology level: ``flat`` (the worker comm),
+    ``inner`` (the pod) or ``outer`` (across pods), the level of the comm
+    the exchange issues it on. ``shape``/``dtype`` describe one worker's
+    operand as the reference declares it (``ir_audit.RecordingComm``
+    records the port's under the same convention)."""
+
+    op: str                   # "all_to_all" | "all_gather"
+    level: str                # "flat" | "inner" | "outer"
+    phase: str                # "reduce_scatter" | "scatter" | "gather"
+    round: str                #   | "broadcast";  round: "sync" | "fullprec"
+    unit: int                 # exchange-unit ordinal (bucket / DP leaf)
+    unit_label: str           # "bucket[k]" or "leaf[i]"
+    leaf: str                 # payload leaf name, "raw" for uncompressed
+    dtype: str                # canonical dtype name of the operand
+    shape: Tuple[int, ...]    # operand shape of one worker
+
+    @property
+    def nbytes(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64)) * getattr(
+            torch, self.dtype).itemsize
+
+    @property
+    def inter_pod(self) -> bool:
+        return self.level == "outer"
+
+
+def _payload_shapes(layout: C.LeafLayout, ar_cfg):
+    """(worker payload, server payload) of one exchange unit, each a dict
+    of one worker's leaf shapes in the payload's own (emission) order,
+    derived by running the exchange's real encode helpers
+    (``codec.encode_worker``, ``decode_mean``, ``encode_server``) on
+    ``meta`` tensors of a stack of one: nothing is computed or allocated,
+    and the manifest's shapes cannot drift from what is sent."""
+    hier = ar_cfg.hierarchy is not None
+    codec, mode = ar_cfg.codec, ar_cfg.scale_mode
+    meta = torch.device("meta")
+
+    def empty(shape):
+        return torch.empty((1,) + tuple(shape), dtype=torch.float32,
+                           device=meta)
+
+    zero = np.zeros(1, dtype=np.int64)
+    z = empty(layout.slice_shape if hier else layout.view_shape)
+    ew = empty(layout.ef_worker_shape) if codec.needs_ef else None
+    es = empty(layout.chunk_shape) if codec.needs_ef else None
+    payload, _ = codec.encode_worker(z, ew, layout, mode,
+                                     inner_index=zero if hier else None)
+    avg = codec.decode_mean(payload, layout)
+    payload_s, _ = codec.encode_server(avg, es, layout, mode, zero)
+    return ({k: tuple(v.shape[1:]) for k, v in payload.items()},
+            {k: tuple(v.shape[1:]) for k, v in payload_s.items()})
+
+
+def _unit_payload_entries(unit, label, layout, ar_cfg):
+    """Per-unit (scatter entries, gather entries) of the compressed
+    exchange: shapes from the encode helpers (:func:`_payload_shapes`),
+    dtypes from the codec's *declared* ``payload_spec``, whose leaf names
+    must be the payload's, in its order."""
+    codec = ar_cfg.codec
+    level = "outer" if ar_cfg.hierarchy is not None else "flat"
+    wp, sp = _payload_shapes(layout, ar_cfg)
+    spec = codec.payload_spec(layout)
+    out = {}
+    for phase, tree in (("scatter", wp), ("gather", sp)):
+        declared = tuple(spec[phase])
+        if tuple(n for n, _ in declared) != tuple(tree):
+            raise ValueError(
+                f"codec {codec.name!r} payload_spec names "
+                f"{[n for n, _ in declared]} != the payload's leaves "
+                f"{list(tree)} ({phase} phase, {label})")
+        op = "all_to_all" if phase == "scatter" else "all_gather"
+        out[phase] = [
+            ExpectedCollective(op, level, phase, "sync", unit, label, name,
+                               dtype_name(dt), tree[name])
+            for name, dt in declared]
+    return out["scatter"], out["gather"]
+
+
+def _hier_raw_entries(unit, label, layout, ar_cfg):
+    """(intra-pod reduce-scatter, intra-pod broadcast) entries of the
+    two-level sync: the uncompressed phases at the wire dtype."""
+    ni, no, ck = layout.n_inner, layout.n_outer, layout.chunk_shape
+    cd = dtype_name(ar_cfg.comm_dtype)
+    rs = ExpectedCollective("all_to_all", "inner", "reduce_scatter", "sync",
+                            unit, label, "raw", cd, (ni, no) + ck)
+    bc = ExpectedCollective("all_gather", "inner", "broadcast", "sync",
+                            unit, label, "raw", cd, (1, no) + ck)
+    return rs, bc
+
+
+def expected_sync_schedule(plan, ar_cfg,
+                           bucket_plan: Optional[BucketPlan] = None,
+                           pack_order: str = "flat"
+                           ) -> List[ExpectedCollective]:
+    """The declared collectives of ONE compressed (Algorithm-2) sync
+    round: one contiguous block per exchange unit, in issue order. Flat:
+    ``[scatter, gather]`` (one collective per payload leaf each); two
+    levels: ``[intra-pod reduce-scatter, inter-pod scatter, inter-pod
+    gather, intra-pod broadcast]``."""
+    units = exchange_units(plan, bucket_plan, pack_order)
+    hier = ar_cfg.hierarchy is not None
+    out: List[ExpectedCollective] = []
+    for u, (lo, _, label) in enumerate(units):
+        sc, ga = _unit_payload_entries(u, label, lo, ar_cfg)
+        raw = (_hier_raw_entries(u, label, lo, ar_cfg)
+               if hier and lo.n_inner > 1 else None)
+        if raw:
+            out.append(raw[0])
+        out += sc + ga
+        if raw:
+            out.append(raw[1])
+    return out
+
+
+def expected_fullprec_schedule(plan, ar_cfg,
+                               bucket_plan: Optional[BucketPlan] = None,
+                               pack_order: str = "flat"
+                               ) -> List[ExpectedCollective]:
+    """The declared collectives of ONE full-precision (T_v / mean) round:
+    ``onebit_allreduce.fullprec_allreduce_view`` per exchange unit, in
+    issue order."""
+    units = exchange_units(plan, bucket_plan, pack_order)
+    cd = dtype_name(ar_cfg.comm_dtype)
+    hier = ar_cfg.hierarchy is not None
+    out: List[ExpectedCollective] = []
+    for u, (lo, _, label) in enumerate(units):
+        ck = lo.chunk_shape
+
+        def entry(op, level, phase, shape):
+            return ExpectedCollective(op, level, phase, "fullprec", u, label,
+                                      "raw", cd, tuple(shape))
+
+        if hier and lo.n_inner > 1:
+            ni, no = lo.n_inner, lo.n_outer
+            out += [entry("all_to_all", "inner", "reduce_scatter",
+                          (ni, no) + ck),
+                    entry("all_to_all", "outer", "scatter", (no,) + ck),
+                    entry("all_gather", "outer", "gather", (1,) + ck),
+                    entry("all_gather", "inner", "broadcast",
+                          (1, no) + ck)]
+        else:
+            out += [entry("all_to_all", "flat", "scatter", lo.view_shape),
+                    entry("all_gather", "flat", "gather", (1,) + ck)]
+    return out

@@ -10,7 +10,9 @@
 * ``decode(payload, layout) -> dense f32`` — the chunk dim is kept;
 * ``decode_mean(payload, layout)`` — the server's mean over the senders
   of the received chunks, dim 1 (a codec may fuse it into its decode);
-* ``wire_bytes(layout, mode)`` — bytes of one chunk's payload per phase.
+* ``wire_bytes(layout, mode)`` — bytes of one chunk's payload per phase;
+* ``payload_spec(layout)`` — the declared ``(leaf name, wire dtype)``
+  pairs of each phase's payload, in emission order.
 
 Payloads are dicts whose leaves all carry the chunk dim right after the
 worker stack dim, so the exchange maps collectives over them. The sign1bit
@@ -33,7 +35,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,6 +67,18 @@ class Codec:
         return self.decode(payload, layout).mean(dim=1)
 
     def wire_bytes(self, layout, mode) -> Dict[str, int]:
+        raise NotImplementedError
+
+    def payload_spec(self, layout
+                     ) -> Dict[str, Tuple[Tuple[str, torch.dtype], ...]]:
+        """Declared wire format: ``{"scatter": ..., "gather": ...}``, each
+        the ordered ``(leaf name, wire dtype)`` pairs of that phase's
+        payload. The order is the emission order: the exchange issues one
+        collective per payload leaf in the dict's insertion order, which
+        every codec keeps sorted, the reference's (``jax.tree``) order.
+        The communication audit (``repro_torch.analysis.ir_audit``) holds
+        the collectives a step records to this declaration, names and
+        dtypes, so a codec whose payloads disagree with it fails."""
         raise NotImplementedError
 
 
@@ -110,6 +124,10 @@ class Sign1BitCodec(Codec):
         # per-element scales (row mode on a 2-D view, gathered from the
         # server side): the reference's plain path, plain torch ops here
         return C.decompress(packed, scales, layout.pack_count)
+
+    def payload_spec(self, layout):
+        leaves = (("packed", torch.uint8), ("scales", torch.float32))
+        return {"scatter": leaves, "gather": leaves}
 
     def wire_bytes(self, layout, mode):
         C.validate_scale_mode(mode)
@@ -184,6 +202,10 @@ class IdentityCodec(Codec):
 
     def decode(self, payload, layout):
         return payload["values"]
+
+    def payload_spec(self, layout):
+        leaves = (("values", torch.float32),)
+        return {"scatter": leaves, "gather": leaves}
 
     def wire_bytes(self, layout, mode):
         ce = _chunk_elems(layout) * 4
@@ -288,6 +310,10 @@ class TopKCodec(_DenseEFCodec):
                        val.reshape(-1, k).to(torch.float32))
         return dense.reshape((stack, lead) + tuple(layout.chunk_shape))
 
+    def payload_spec(self, layout):
+        leaves = (("idx", torch.int32), ("val", torch.float32))
+        return {"scatter": leaves, "gather": leaves}
+
     def wire_bytes(self, layout, mode):
         per = self.k_for(layout) * (4 + 4)     # int32 index + f32 value
         return {"scatter": per, "gather": per}
@@ -300,6 +326,11 @@ def _top_k_indices(a: torch.Tensor, k: int) -> torch.Tensor:
     selection and payload, on every device. (``torch.topk`` breaks ties
     differently on the card and on the CPU, and the two-level exchange's
     bf16 phases make ties at the k-th value common.)"""
+    if a.device.type == "meta":
+        # the selection below reads counts on the host; a meta tensor
+        # (the audit's shape derivation) has only its shape
+        return torch.empty((a.shape[0], k), dtype=torch.int64,
+                           device=a.device)
     kth = torch.topk(a, k, dim=1).values[:, -1:]
     take = a > kth
     tie = a == kth
@@ -405,6 +436,11 @@ class QIntCodec(_DenseEFCodec):
             acc = fma(q[:, i], s[:, i], acc)
         acc = acc * float(np.float32(1.0 / q.shape[1]))
         return acc.reshape((q.shape[0],) + tuple(layout.chunk_shape))
+
+    def payload_spec(self, layout):
+        qdt = torch.int8 if self.bits == 8 else torch.uint8
+        leaves = (("q", qdt), ("scale", torch.float32))
+        return {"scatter": leaves, "gather": leaves}
 
     def wire_bytes(self, layout, mode):
         ce = _chunk_elems(layout)

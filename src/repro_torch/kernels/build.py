@@ -161,10 +161,12 @@ def check_operand(kernel: str, name: str, t: torch.Tensor, dtype, shape,
 
 def on_card(kernel: str, t: torch.Tensor) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
-    (use the plain version); any other device raises."""
+    (use the plain version) and for a ``meta`` one (the plain version
+    then only derives shapes and dtypes: the audit's declared manifests);
+    any other device raises."""
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"{kernel}: no kernel or plain version for device "
                      f"{t.device}")

@@ -72,6 +72,84 @@ def _server_counts(layout: C.LeafLayout, widx: tuple, device: str):
             torch.as_tensor(denom, device=dev))
 
 
+# Shared memory a block of the card may opt in to (H100, sm_90: 227 KB);
+# ``ef_compress`` keeps ``kept_cols`` f32 of z + err per block there
+SMEM_OPTIN_BYTES = 227 * 1024
+
+
+def frame_precheck(layout: C.LeafLayout, *, stack: int = 1) -> list:
+    """Static check of one comm layout's 2-D frame against the launch
+    contract of the CUDA kernels of ``csrc/onebit.cu`` (kernels 2-5:
+    ``abs_rowsum``, ``ef_quantize``, ``ef_compress``, ``decompress``),
+    for ``stack`` workers' frames stacked along rows in one launch (a
+    simulating process stacks all of its workers). Returns human-readable
+    issues; empty means every such kernel takes the frame (the worker
+    view's: the slice and server-chunk frames are row blocks of it).
+    Pure metadata: nothing is allocated, built or launched.
+
+    * cols a multiple of 8: sign bits pack whole bytes per row
+      (``ef_quantize``, ``ef_compress``, ``decompress`` refuse otherwise);
+    * the 32-bit element indices: ``ef_quantize``'s float4 count
+      ``n4 = rows * cols / 4 < 2**31``, ``decompress``'s packed bytes
+      ``< 2**31``, ``ef_compress``'s ``cols < 2**28``;
+    * ``ef_compress``'s geometry (``onebit.ef_compress_geometry``): a
+      cluster of 1-8 blocks whose 8-aligned slices cover the row, each
+      block keeping ``kept_cols * 4`` bytes of dynamic shared memory,
+      at most the card's opt-in limit per block (``SMEM_OPTIN_BYTES``);
+    * a flatten view is a whole number of the 128-element flatten quantum
+      wide and folds to at most ``FRAME_MAX_COLS`` columns
+      (``compressor.view_rows_cols``).
+
+    The reference's check (its ``kernels/dispatch.py::frame_precheck``)
+    also holds frames to the TPU's 128-lane tile on every view and to a
+    VMEM budget; neither exists on the card, so neither is checked."""
+    issues = []
+    vs = layout.view_shape
+    if layout.flatten and vs[-1] % 128:
+        return [f"flatten view {vs} is not a multiple of the 128-element "
+                f"flatten quantum wide (layout shape {layout.shape})"]
+    rows, cols = C.view_rows_cols(layout)
+    rows *= stack
+    if cols % 8:
+        issues.append(
+            f"frame cols={cols} not a multiple of 8: sign-bit packing "
+            f"needs byte-aligned rows (layout shape {layout.shape}, view "
+            f"{vs})")
+    if layout.flatten and cols > C.FRAME_MAX_COLS:
+        issues.append(
+            f"frame cols={cols} exceeds FRAME_MAX_COLS={C.FRAME_MAX_COLS} "
+            f"- view_rows_cols should have folded this view")
+    n4 = rows * (cols // 4)
+    if n4 >= onebit.EF_QUANTIZE_MAX_FLOAT4:
+        issues.append(
+            f"frame ({rows}, {cols}) holds n4={n4} float4, ef_quantize's "
+            f"32-bit index takes fewer than 2**31")
+    nbytes = rows * (cols // 8)
+    if nbytes >= onebit.DECOMPRESS_MAX_BYTES:
+        issues.append(
+            f"frame ({rows}, {cols}) packs to {nbytes} bytes, decompress's "
+            f"32-bit index takes fewer than 2**31")
+    if cols >= onebit.EF_COMPRESS_MAX_COLS:
+        issues.append(
+            f"frame cols={cols}: ef_compress's column index takes fewer "
+            f"than 2**28")
+    else:
+        cluster, slice_cols, kept = onebit.ef_compress_geometry(cols)
+        if not (1 <= cluster <= onebit.EF_MAX_CLUSTER and slice_cols % 8 == 0
+                and cluster * slice_cols >= cols and 4 <= kept <= slice_cols
+                and kept % 4 == 0):
+            issues.append(
+                f"ef_compress geometry (cluster {cluster}, slice "
+                f"{slice_cols}, kept {kept}) at cols={cols} breaks the "
+                f"kernel's cluster/slice rules")
+        if kept * 4 > SMEM_OPTIN_BYTES:
+            issues.append(
+                f"ef_compress keeps {kept} columns = {kept * 4} B of "
+                f"dynamic shared memory per block, above the "
+                f"{SMEM_OPTIN_BYTES} B a block may opt in to")
+    return issues
+
+
 def _frame(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return t.contiguous().view(rows, cols)
 

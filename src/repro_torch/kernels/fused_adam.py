@@ -42,8 +42,8 @@ def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
     round-to-odd with the TwoSum error term, and round-to-odd at 53 bits
     followed by round-to-nearest at 24 bits is the correctly rounded
     result (no double-rounding error)."""
-    p = a.double() * (b.double() if isinstance(b, torch.Tensor) else b)
-    c64 = c.double()
+    p = a.double() * (b.double() if isinstance(b, torch.Tensor) else b)  # audit-ok: float64-literal (the exact f32 product)
+    c64 = c.double()  # audit-ok: float64-literal (TwoSum in f64)
     s = p + c64
     bv = s - p
     av = s - bv
@@ -51,7 +51,7 @@ def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
     bits = s.view(torch.int64)
     step = torch.where((e > 0) == (s > 0), 1, -1)
     odd = torch.where((e != 0) & ((bits & 1) == 0), bits + step, bits)
-    return odd.view(torch.float64).float()
+    return odd.view(torch.float64).float()  # audit-ok: float64-literal (round-to-odd bits)
 
 
 def fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
@@ -81,7 +81,7 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
     a square root."""
     if x.is_cuda:
         return torch.sqrt(x)
-    return torch.sqrt(x.double()).float()
+    return torch.sqrt(x.double()).float()  # audit-ok: float64-literal (a correctly rounded root)
 
 
 def rsqrt(x: torch.Tensor) -> torch.Tensor:
@@ -92,7 +92,7 @@ def rsqrt(x: torch.Tensor) -> torch.Tensor:
     2 ulp."""
     if x.is_cuda:
         return torch.rsqrt(x)
-    return torch.rsqrt(x.double()).float()
+    return torch.rsqrt(x.double()).float()  # audit-ok: float64-literal (XLA's CPU rsqrt)
 
 
 def _scalars(lr, beta1, eps):

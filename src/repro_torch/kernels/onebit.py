@@ -48,6 +48,8 @@ def _mask(counts, rows, cols):
 # cluster sizes 1-8 that chip_sweep.py times; see PERF.md.)
 EF_MAX_CLUSTER = 8
 EF_KEPT_COLS = 7680
+# the kernel's column indices are 32-bit: cols < 2**28
+EF_COMPRESS_MAX_COLS = 1 << 28
 
 
 def ef_compress_geometry(cols: int):

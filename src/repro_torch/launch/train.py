@@ -154,17 +154,16 @@ def parse_args(argv=None):
     return args
 
 
-def make_trainer(args, device=None) -> Trainer:
+def make_trainer(args, device=None, comm=None) -> Trainer:
     """The trainer of ``args.mode`` on ``device`` (default
-    ``args.device``); in dist mode the process group must be up."""
+    ``args.device``); in dist mode the process group must be up.
+    ``comm``: the comm to run on instead of the mode's own (e.g. the
+    mode's comm wrapped in ``analysis.RecordingComm``)."""
     spec = get(args.arch)
     cfg = spec.smoke if args.smoke else spec.config
-    if args.mode == "sim":
-        comm = SimComm(args.workers)
-    elif args.mode == "single":
-        comm = NullComm()
-    else:
-        comm = mesh.worker_comm()
+    if comm is None:
+        comm = (SimComm(args.workers) if args.mode == "sim" else
+                NullComm() if args.mode == "single" else mesh.worker_comm())
     return Trainer(cfg, build_opt_cfg(args), comm=comm,
                    trainer_cfg=TrainerConfig(args.micro_batches),
                    device=args.device if device is None else device)
@@ -280,19 +279,25 @@ def _to_cpu(tree):
 
 def rank_main(rank: int, argv, world_size: int, init_method: str,
               out_dir: str = None, with_state: bool = False,
-              kind: str = "lm") -> None:
+              kind: str = "lm", audit: bool = False) -> None:
     """Entry of one spawned rank of ``--mode dist``: join the group, train
     on the synthetic stream of ``kind`` (see :func:`train`), and with
     ``out_dir`` save this rank's results there as ``rank{rank}.pt``: the
     step records, the final params on the CPU (and the optimizer state
     with ``with_state``), the kernel launches of the run and the peak
-    device memory."""
+    device memory. With ``audit`` the rank's comm records its collectives
+    (``analysis.RecordingComm``) and the file also holds the rank's audit
+    report (``audit``) and its recorded collectives (``recorded``)."""
     args = parse_args(argv)
     dev = mesh.init_workers(args.backend, args.device, rank=rank,
                             world_size=world_size, local_rank=rank,
                             init_method=init_method)
     try:
-        tr = make_trainer(args, device=dev)
+        from repro_torch import analysis
+
+        tr = make_trainer(args, device=dev, comm=(
+            analysis.RecordingComm(mesh.worker_comm()) if audit else None))
+        trace = analysis.watch(tr) if audit else None
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         build.launch_counts.clear()
@@ -305,6 +310,10 @@ def rank_main(rank: int, argv, world_size: int, init_method: str,
                "params": _to_cpu(res["params"]), "launches": launches,
                "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
                                      if dev.type == "cuda" else None)}
+        if audit:
+            report = analysis.audit_trainer(tr, trace=trace)
+            out["audit"] = report.to_dict()
+            out["recorded"] = [c.to_dict() for c in report.collectives]
         if with_state:
             st = res["state"]
             out["state"] = {"slots": _to_cpu(st.slots), "u": _to_cpu(st.u),

@@ -53,6 +53,10 @@ bucket, and one decompress a bucket on the subscriber) against the CPU's
 plain path, packed bytes bit for bit and chunk scales within 64 ulp;
 ``blockwise_attn`` against ``dot_attn`` on gpt2 FULL's attention shapes
 at S = 8192, within 1e-5.
+
+The communication audit (``repro_torch.analysis``): a gpt2-smoke run on a
+``RecordingComm`` bit for bit the plain run on the card, and audited
+clean; the audit CLI's 12-entry smoke matrix clean on the card.
 """
 import numpy as np
 import pytest
@@ -62,7 +66,7 @@ from repro_torch.configs.base import get
 from repro_torch.core import compressor as C
 from repro_torch.core import onebit_allreduce as AR
 from repro_torch.core.comm import DistComm, Hierarchy, NullComm, SimComm
-from repro_torch.core.leafwise import make_plan
+from repro_torch.core.leafwise import flatten_tree, make_plan
 from repro_torch.kernels import build, dispatch, fused_adam, onebit
 from repro_torch.launch import mesh
 from repro_torch.models import layers as L
@@ -995,3 +999,44 @@ def test_cuda_blockwise_matches_dot_attn_at_8k():
     bw = A.blockwise_attn(q, k, v, pos, pos, "causal")
     dense = A.dot_attn(q, k, v, A._mask_bias(pos, pos, "causal"))
     assert float((bw - dense).abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_cuda_recording_comm_is_bitwise_transparent():
+    """gpt2-smoke, 4 simulated workers on the card, 8 steps of the audit's
+    schedule (syncs, variance rounds, local-only steps): with a
+    RecordingComm around the SimComm the losses and params are the plain
+    run's bit for bit, and the recorded run passes the audit."""
+    from repro_torch.analysis import RecordingComm, audit_trainer, watch
+    from repro_torch.launch import audit as LA
+    from repro_torch.launch import train as TLAUNCH
+
+    _card()
+    argv = ["--arch", "gpt2", "--smoke", "--mode", "sim", "--workers", "4",
+            "--steps", "8", "--batch", "8", "--seq", "32", "--log-every",
+            "1", *LA.SCHEDULE]
+    args = TLAUNCH.parse_args(argv)
+    plain = TLAUNCH.train(args, TLAUNCH.make_trainer(args))
+    tr = TLAUNCH.make_trainer(args, comm=RecordingComm(SimComm(4)))
+    trace = watch(tr)
+    rec = TLAUNCH.train(args, tr)
+    assert [r["losses"] for r in rec["records"]] == [
+        r["losses"] for r in plain["records"]]
+    for x, y in zip(flatten_tree(plain["params"])[1],
+                    flatten_tree(rec["params"])[1]):
+        assert torch.equal(x, y)
+    rep = audit_trainer(tr, trace=trace)
+    assert rep.ok, rep.violations[:3]
+
+
+@pytest.mark.gpu
+def test_cuda_audit_smoke_matrix_is_clean():
+    """The audit CLI's 12-entry smoke matrix on the card, kernels 1-4
+    launched: every entry clean, frames included."""
+    from repro_torch.launch import audit as LA
+
+    _card()
+    for kw in LA._matrix(4):
+        rec = LA.audit_one("gpt2", device="cuda", **kw)
+        assert rec["ok"], (kw, rec["violations"][:3], rec["frame_issues"])
+
