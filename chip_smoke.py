@@ -4,13 +4,15 @@
     python3 chip_smoke.py --only probe 6b 6b_lamb 6d 6d_lamb
     python3 chip_smoke.py --only serve
     python3 chip_smoke.py --only audit
+    python3 chip_smoke.py --only families
 
 Needs one card; on a machine with up to four, phase 6b puts one rank on
 each, and on four phase 6c runs its 2 pods x 2 ranks over NCCL and phase
 6d trains bert-large FULL in four ranks. ``--only`` runs, after the
-build, just the named checks of phases 4n, 5, 6, 7 and 8 (the second
-line: the four-card paths, on four cards; the third: phase 7; the
-fourth: phase 8) and prints no kernels or result line.
+build, just the named checks of phases 4n, 5, 6, 7, 8 and 9 (the
+second line: the four-card paths, on four cards; the third: phase 7;
+the fourth: phase 8; the fifth: 3e, phase 5's rotary-family checks and
+phase 9, 9d on four cards only) and prints no kernels or result line.
 
 1. Prints the card (nvidia-smi name and power limit) and torch/CUDA.
 2. Builds the port's CUDA kernels from src/repro_torch/kernels/csrc with
@@ -43,6 +45,16 @@ fourth: phase 8) and prints no kernels or result line.
    (4, 4608) and (4, 384); the other 13 units are leaves 3a checks),
    flat and at 2 pods x 2, worker and server frames, checked and timed
    as 3a and 3c.
+   3e: kernels 1-4 on every frame of one step of each training run of
+   phase 9, at the depth and workers it runs (worker and server frames):
+   9a's granite-3-8b FULL width, 1 layer, 2 stacked workers; 9b's
+   chatglm3-6b, 1 layer, one worker; one rank of 9d's gemma3-12b, 1
+   layer, 4 ranks (its view, every rank's chunk), checked and timed as
+   3a (kernel 1's plain version by row slabs), with the byte bound and
+   the share of it; and
+   ``dispatch.frame_precheck`` on every unit of granite-3-8b,
+   phi4-mini-3.8b, chatglm3-6b and gemma3-12b FULL at full depth, at 2
+   and 4 stacked workers (metadata only), every unit passing.
 4. Drives the main paths, each through the trainer and CLI config a
    user would call, 4 simulated data-parallel workers, 8 steps (0/1
    Adam and 0/1-SGD: syncs at 0-4 and 6; variance at 0, 1, 3 where the
@@ -201,12 +213,37 @@ fourth: phase 8) and prints no kernels or result line.
       bit for bit the CPU plain path's for the first, a middle and the
       last bucket, scales within 64 ulp.
    Phase 5 also serves gpt2-smoke on the card against the CPU (prefill
-   + 8 decodes: logits within 1e-4, greedy tokens equal).
+   + 8 decodes: logits within 1e-4, greedy tokens equal), and trains the
+   rotary family's smoke configs (granite, phi4, chatglm3, gemma3: seq
+   32 past gemma3-smoke's window of 8) under its flags at a peak lr of
+   3e-4, on the card against the CPU under its bars.
 8. Runs ``python -m repro_torch.launch.audit --matrix --lints`` on the
    card (in this process): the reference's audit matrix without its
    tensor-parallel entries, 12 gpt2-smoke configurations of 8 recorded
    steps each, and the port's lints; it must exit 0.
-9. Prints the kernels line (kernels 2-4 with their 7e launches), the
+9. The dense rotary family at full width (depth cut to fit):
+   a. granite-3-8b (d 4096, 32 heads, kv 8, ff 12800, vocab 49155), 1 of
+      its 40 layers, zero_one_adam with tensor scales, 2 simulated
+      workers, global batch 8 x 1024, phase 4's 8-step schedule, remat
+      on, through ``run_main_path`` as phase 4 (step, fwd/bwd and
+      optimizer ms per step kind, launches of kernels 1-4 against
+      ``expected_launches``, peak memory, audited: the bytes a worker
+      sends a round equal to ``comm_accounting``);
+   b. chatglm3-6b (partial rotary 0.5, QKV bias, kv 2), 1 of its 28
+      layers, as (a) but in ``--mode single`` (one worker, batch 4 x
+      1024: two workers of it do not fit the card);
+   c. gemma3-12b, 12 of its 48 layers (10 sliding, 2 global), from the
+      port's seeded init, served through the Scheduler (4 slots, 8
+      requests of 1536-2048 prompt tokens, past the 1024 window, + 64
+      new tokens; f32 cache) with the dense cache and with
+      ``window_cache=True``: decode ms a tick, prefill ms and peak memory
+      for each; tokens equal a lone run's (7a's check, 2 requests) and
+      each other's but at top-2 gaps under 1e-4;
+   d. on four cards only: gemma3-12b, 1 layer (sliding), batch 4 x 2048,
+      four NCCL ranks with one worker each, zero_one_adam, 8 steps;
+      every rank audited, its losses finite, its launches and step kinds
+      4a's schedule.
+10. Prints the kernels line (kernels 2-4 with their 7e launches), the
    card line and the result line.
 
 Any failure raises; there is no CPU fallback. Exits non-zero without a
@@ -214,6 +251,7 @@ result when there is no CUDA device or the repository's src/ is missing.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -239,6 +277,9 @@ N_WORKERS, STEPS = 4, 8
 BATCH, SEQ = 16, 1024               # gpt2 run
 BERT_BATCH, BERT_SEQ = 32, 512      # bert runs
 REPS, PLAIN_REPS = 20, 5
+# kernel 1's plain version runs on row slabs of at most this many
+# elements (every gpt2 and bert frame is one slab)
+PLAIN_SLAB = 1 << 28
 TIME_BATCH, TIME_BATCH_REPS = 20, 5   # batched kernel time: 5 x 20 launches
 PROFILED_STEP = 6          # a sync step without a variance refresh (the
                            # baselines: a bf16 step, a 1-bit step)
@@ -285,6 +326,11 @@ HIER = {k: f"{k} (2 pods x 2)" for k in ("abs_rowsum", "ef_quantize",
 BUCKET = {k: f"{k} (buckets)" for k in ("abs_rowsum", "ef_quantize",
                                         "decompress")}
 BUCKET_HIER = {k: f"{k} (buckets, 2 pods x 2)" for k in BUCKET}
+# the kernels phase 3e holds at the frames of each training run of phase
+# 9 (FRAMES_3E): further tally rows, reported in each entry under
+# "family_frames"
+FAMILY_KERNELS = ("fused_local_step", "abs_rowsum", "ef_quantize",
+                  "decompress")
 # the round each kernel's "ms" sums over, on its own path
 PER = {"fused_local_step": "step (gpt2)", "abs_rowsum": "sync (gpt2)",
        "ef_quantize": "sync (gpt2)", "decompress": "sync (gpt2)",
@@ -425,6 +471,8 @@ class Tally:
                          "max_abs_err": 0.0, "launches_per_round": 0}
                      for k in [*KERNELS, BERT_DECOMPRESS, BERT_LAMB,
                                *HIER.values(),
+                               *(n for names in FAMILY_NAMES.values()
+                                 for n in names.values()),
                                *BUCKET.values(), *BUCKET_HIER.values()]}
 
     def add(self, name, fn, plain_fn, nbytes, ops, err, library=None,
@@ -475,18 +523,18 @@ def n_units(arch="gpt2", bucket_mb=BUCKET_MB):
     return len(BK.make_bucket_plan(full_plan(arch), bucket_mb).buckets)
 
 
-def flat_frames(lo):
+def flat_frames(lo, n=N_WORKERS):
     """(rows, row counts, denominators, decode) of a flat tensor-scale
-    sync's two frames of ``lo``, N_WORKERS stacked: the worker side on
-    the views, the server side on the chunks."""
+    sync's two frames of ``lo``, ``n`` workers stacked: the worker side
+    on the views, the server side on the chunks."""
     from repro_torch.core import compressor as C
 
     rows, _ = C.view_rows_cols(lo)
     total, _ = C.true_counts(lo)
-    return [(N_WORKERS * rows, np.tile(C.view_row_counts(lo), N_WORKERS),
-             np.full(N_WORKERS, total), True),
+    return [(n * rows, np.tile(C.view_row_counts(lo), n),
+             np.full(n, total), True),
             (rows, C.chunk_row_counts(lo).reshape(-1),
-             np.full(N_WORKERS, total), False)]
+             np.full(n, total), False)]
 
 
 def hier_frames(lo):
@@ -507,19 +555,31 @@ def hier_frames(lo):
              False)]
 
 
-def check_kernels(dev, tally):
+def row_slabs(rows, cols):
+    """Row slices of a (rows, cols) frame of at most PLAIN_SLAB elements
+    each (one slice where the frame fits), over which kernel 1's plain
+    version runs: its exact multiply-add holds ~7 float64 temporaries of
+    the frame's size."""
+    step = max(1, PLAIN_SLAB // max(cols, 1))
+    return [slice(r, min(r + step, rows)) for r in range(0, rows, step)]
+
+
+def check_kernels(dev, tally, plan=None, names=KERNEL_ROWS, n=N_WORKERS,
+                  frames=None):
     """Phase 3a: the gpt2 path's kernels vs their plain versions at
-    gpt2-FULL frames."""
+    gpt2-FULL frames, ``n`` workers stacked (3e: ``plan``'s frames,
+    tallied under ``names``; ``frames(lo)`` the compress frames of leaf
+    ``lo``, by default :func:`flat_frames`)."""
     from repro_torch.core import compressor as C
     from repro_torch.kernels import fused_adam as FA
 
-    plan = full_plan("gpt2")
+    plan = full_plan("gpt2") if plan is None else plan
     gen = torch.Generator(device=dev).manual_seed(0)
     lr, b1 = np.float32(1.5e-4), 0.9
     for lo in plan.layouts:
         rows, cols = C.view_rows_cols(lo)
-        R = N_WORKERS * rows
-        cnt = torch.as_tensor(np.tile(C.view_row_counts(lo), N_WORKERS),
+        R = n * rows
+        cnt = torch.as_tensor(np.tile(C.view_row_counts(lo), n),
                               device=dev)
         mask = torch.arange(cols, device=dev)[None, :] < cnt[:, None]
 
@@ -531,43 +591,55 @@ def check_kernels(dev, tally):
         g, m, u = rnd(), rnd(), rnd(1e-3)
         v = rnd(1e-2).square()
         fk = FA.fused_local_step(g, m, u, v, lr, b1)
-        fp = FA.fused_local_step_plain(g, m, u, v, lr, b1)
-        torch.cuda.synchronize()
-        assert torch.equal(fk[0], fp[0]), (lo.shape, "m' differs")
-        assert torch.equal(fk[1], fp[1]), (lo.shape, "u' differs")
-        assert ulps(fk[2], fp[2]) <= DELTA_ULPS, (lo.shape, "delta")
-        err = max(float((a - b).abs().max()) for a, b in zip(fk, fp))
-        # the baselines' plain step: its multiply-adds on the card are
-        # single-rounding, bit for bit the exact emulation (at f32
-        # scalars, as the step passes them)
-        for a_, b_, c_ in ((m, float(np.float32(b1)), g * 0.1),
-                           (g * 1e-3, g, v * 0.999), (fk[2], -1.0, m)):
-            assert torch.equal(FA.fma(a_, b_, c_), FA.fma_f32(a_, b_, c_)), (
-                lo.shape, "fma")
-        n = R * cols
-        tally.add("fused_local_step",
-                  lambda: FA.fused_local_step(g, m, u, v, lr, b1),
-                  lambda: FA.fused_local_step_plain(g, m, u, v, lr, b1),
-                  28.0 * n, 7.0 * n, err)
-        del g, m, u, v, fk, fp
+        slabs, err = row_slabs(R, cols), 0.0
+        for sl in slabs:
+            fp = FA.fused_local_step_plain(g[sl], m[sl], u[sl], v[sl], lr, b1)
+            torch.cuda.synchronize()
+            assert torch.equal(fk[0][sl], fp[0]), (lo.shape, "m' differs")
+            assert torch.equal(fk[1][sl], fp[1]), (lo.shape, "u' differs")
+            assert ulps(fk[2][sl], fp[2]) <= DELTA_ULPS, (lo.shape, "delta")
+            err = max([err] + [float((a[sl] - b).abs().max())
+                               for a, b in zip(fk, fp)])
+            del fp
+            # the baselines' plain step: its multiply-adds on the card are
+            # single-rounding, bit for bit the exact emulation (at f32
+            # scalars, as the step passes them)
+            gs, ms, vs = g[sl], m[sl], v[sl]
+            for a_, b_, c_ in ((ms, float(np.float32(b1)), gs * 0.1),
+                               (gs * 1e-3, gs, vs * 0.999),
+                               (fk[2][sl], -1.0, ms)):
+                assert torch.equal(FA.fma(a_, b_, c_),
+                                   FA.fma_f32(a_, b_, c_)), (lo.shape, "fma")
+
+        def plain():
+            for sl in slabs:
+                FA.fused_local_step_plain(g[sl], m[sl], u[sl], v[sl], lr, b1)
+
+        ne = R * cols
+        tally.add(names["fused_local_step"],
+                  lambda: FA.fused_local_step(g, m, u, v, lr, b1), plain,
+                  28.0 * ne, 7.0 * ne, err)
+        del g, m, u, v, fk
 
         # --- worker and server compress (once each per leaf per sync) --
-        check_compress_frames(dev, gen, tally, KERNEL_ROWS, lo, cols,
-                              flat_frames(lo))
+        check_compress_frames(dev, gen, tally, names, lo, cols,
+                              flat_frames(lo, n) if frames is None
+                              else frames(lo), n)
         torch.cuda.empty_cache()
         print(f"  leaf {lo.shape}: frame ({R}, {cols}) ok", flush=True)
 
 
-def check_compress_frames(dev, gen, tally, names, lo, cols, frames):
+def check_compress_frames(dev, gen, tally, names, lo, cols, frames,
+                          n=N_WORKERS):
     """The two-pass compress of one sync's frames of leaf ``lo``, each
     kernel against its plain version, tallied under ``names[kernel]``
     (``names`` None: checked only): abs_rowsum with its scale groups (G
     groups of equal consecutive rows, group g's row sums over
     ``denoms[g]``), then ef_quantize against those compact scales, and
     where ``decode`` is set both decodes of a sync on that frame's shape.
-    Each stacked worker's scales (its G / N_WORKERS groups) must also be
-    the same bits from its own rows alone as from the stack (what makes a
-    rank of the multi-process regime bitwise its simulated worker).
+    Each of the ``n`` stacked workers' scales (its G / n groups) must also
+    be the same bits from its own rows alone as from the stack (what makes
+    a rank of the multi-process regime bitwise its simulated worker).
     ``frames``: (rows, row counts, denoms, decode)."""
     from repro_torch.kernels import onebit as OB
 
@@ -579,13 +651,13 @@ def check_compress_frames(dev, gen, tally, names, lo, cols, frames):
                         generator=gen) * 0.3 * fmask
         d = torch.as_tensor(denom, dtype=torch.float32, device=dev)
         groups = d.numel()
-        gr, gw = frame_rows // groups, groups // N_WORKERS
+        gr, gw = frame_rows // groups, groups // n
         rk, sk = OB.abs_rowsum_scales(z, e, counts, gr, d)
         rp, sp = OB.abs_rowsum_scales_plain(z, e, counts, gr, d)
         torch.cuda.synchronize()
         assert ulps(rk, rp) <= ROWSUM_ULPS, (lo.shape, "abs_rowsum rows")
         assert ulps(sk, sp) <= ROWSUM_ULPS, (lo.shape, "abs_rowsum scales")
-        for w in range(N_WORKERS):
+        for w in range(n):
             own = slice(w * gw * gr, (w + 1) * gw * gr)
             _, sw = OB.abs_rowsum_scales(z[own].clone(), e[own].clone(),
                                          counts[own].clone(), gr,
@@ -610,11 +682,11 @@ def check_compress_frames(dev, gen, tally, names, lo, cols, frames):
                   max(float((rk - rp).abs().max()),
                       float((sk - sp).abs().max())),
                   library=lambda: (z + e).abs().sum(1))
-        n = frame_rows * cols
+        ne = frame_rows * cols
         tally.add(names["ef_quantize"],
                   lambda: OB.ef_quantize(z, e, sk, counts, gr),
                   lambda: OB.ef_quantize_plain(z, e, sk, counts, gr),
-                  12.125 * n + 4.0 * (frame_rows + groups), 3.0 * n, 0.0)
+                  12.125 * ne + 4.0 * (frame_rows + groups), 3.0 * ne, 0.0)
         if decode:
             # the all_to_all receive and the gathered results
             s = sk.repeat_interleave(gr)
@@ -624,7 +696,8 @@ def check_compress_frames(dev, gen, tally, names, lo, cols, frames):
             assert torch.equal(dk, dp), (lo.shape, "decompress")
             tally.add(names["decompress"], lambda: OB.decompress(pk, s),
                       lambda: OB.decompress_plain(pk, s),
-                      4.125 * n + 4.0 * frame_rows, 1.0 * n, 0.0, times=2)
+                      4.125 * ne + 4.0 * frame_rows, 1.0 * ne, 0.0,
+                      times=2)
             del dk, dp, s
         del z, e, rk, rp, sk, sp, pk, pp, ek, ep
 
@@ -877,24 +950,40 @@ def expected_launches(label, layouts, units=None):
             "decompress": n_syncs * 2 * units}
 
 
-def run_main_path(dev, label, arch, extra, batch, seq, kind):
+def first_loss(cfg) -> float:
+    """The loss expected at a random init (scale 0.02): log(padded vocab)
+    plus half the variance of the logits, 0.02**2 * d_model for the
+    rotary family's unit-RMS final norm (gpt2 and bert: log(padded
+    vocab), the check they always had)."""
+    lv = float(np.log(cfg.padded_vocab))
+    return lv + (0.5 * 0.02 ** 2 * cfg.d_model
+                 if cfg.norm_type == "rmsnorm" else 0.0)
+
+
+def run_main_path(dev, label, arch, extra, batch, seq, kind,
+                  workers=N_WORKERS, n_layers=None):
     """Phase 4: one main path, 4 simulated workers, 8 steps, through
     ``launch.train``, on a recording comm whose log is audited after the
     run (:func:`audit_run`). Returns the per-step records, the launch
     counts, the peak memory, the audit's summary and, for the gpt2 runs
-    4a, 4e and 4f, the profile of step 6."""
+    4a, 4e and 4f, the profile of step 6. Phase 9 runs the rotary family
+    through it at ``workers`` simulated workers (one: single mode), cut
+    to ``n_layers``."""
     from repro_torch import analysis
-    from repro_torch.core.comm import SimComm
+    from repro_torch.core.comm import NullComm, SimComm
     from repro_torch.kernels import build
     from repro_torch.launch import train as launch
 
+    mode = (["--mode", "sim", "--workers", str(workers)] if workers > 1
+            else ["--mode", "single"])
     args = launch.parse_args([
-        "--arch", arch, "--mode", "sim", "--workers", str(N_WORKERS),
-        "--steps", str(STEPS), "--batch", str(batch), "--seq", str(seq),
-        "--sync-warmup", "2", "--double-every", "2", "--kappa", "1",
-        "--log-every", "1"] + extra)
-    tr = launch.make_trainer(args, device=dev, comm=analysis.RecordingComm(
-        SimComm(N_WORKERS)))
+        "--arch", arch, *mode, "--steps", str(STEPS), "--batch", str(batch),
+        "--seq", str(seq), "--sync-warmup", "2", "--double-every", "2",
+        "--kappa", "1", "--log-every", "1"] + extra)
+    comm = analysis.RecordingComm(SimComm(workers) if workers > 1
+                                  else NullComm())
+    with cut_depth(n_layers):
+        tr = launch.make_trainer(args, device=dev, comm=comm)
     trace = analysis.watch(tr)
     trusts = (track_trust(tr) if tr.opt.base.has_trust
               and tr.opt.cfg.style == "accumulate" else None)
@@ -914,8 +1003,8 @@ def run_main_path(dev, label, arch, extra, batch, seq, kind):
     losses = [float(np.mean(s["losses"])) for s in steps]
     assert all(np.isfinite(losses)), losses
     # random init at scale 0.02: near-uniform logits over the padded vocab
-    assert abs(losses[0] - np.log(tr.model_cfg.padded_vocab)) < 0.5, (
-        losses[0])
+    assert abs(losses[0] - first_loss(tr.model_cfg)) < 0.5, (
+        losses[0], first_loss(tr.model_cfg))
     syncs, vars_ = schedule(args.optimizer, tr.opt.base.has_variance)
     assert [s["sync"] for s in steps] == syncs
     assert [s["var"] for s in steps] == vars_
@@ -1859,9 +1948,29 @@ def run_in_process(argv):
     return out
 
 
+@contextlib.contextmanager
+def cut_depth(n_layers):
+    """``launch.train``'s configs cut to ``n_layers`` layers, widths
+    unchanged, inside the block (``None``: as registered): a FULL config
+    whose full depth does not fit the card trains through the CLI's own
+    ``make_trainer``."""
+    from repro_torch.launch import train as launch
+
+    get = launch.get
+    if n_layers is not None:
+        launch.get = lambda name: dataclasses.replace(
+            get(name), config=dataclasses.replace(get(name).config,
+                                                  n_layers=n_layers))
+    try:
+        yield
+    finally:
+        launch.get = get
+
+
 def rank_jobs(rank, jobs, n):
     """Phase 6: one spawned rank that runs ``jobs`` one after another,
-    each ``(argv, out_dir, kind, audit)`` through ``launch.rank_main``
+    each ``(argv, out_dir, kind, audit, n_layers)`` through
+    ``launch.rank_main``
     with its own rendezvous in ``out_dir`` (the process group is made
     and destroyed per job), and writes each job's wall seconds in this
     rank to ``wall{rank}.json`` there. The jobs share the process's
@@ -1870,20 +1979,22 @@ def rank_jobs(rank, jobs, n):
     from repro_torch.launch import mesh
     from repro_torch.launch import train as launch
 
-    for argv, out_dir, kind, audit in jobs:
+    for argv, out_dir, kind, audit, n_layers in jobs:
         t0 = time.time()
-        launch.rank_main(rank, argv, n, mesh.file_rendezvous(out_dir),
-                         out_dir, False, kind, audit)
+        with cut_depth(n_layers):
+            launch.rank_main(rank, argv, n, mesh.file_rendezvous(out_dir),
+                             out_dir, False, kind, audit)
         with open(os.path.join(out_dir, f"wall{rank}.json"), "w") as f:
             json.dump(time.time() - t0, f)
         gc.collect()
         torch.cuda.empty_cache()
 
 
-def run_ranks(argvs, n, kind="lm", audit=True):
+def run_ranks(argvs, n, kind="lm", audit=True, n_layers=None):
     """Phase 6: ``--mode dist`` runs of ``argvs`` in ``n`` spawned ranks,
     which run them one after another (:func:`rank_jobs`) on the
-    synthetic stream of ``kind``. Yields, per argv in order, every
+    synthetic stream of ``kind`` (the model cut to ``n_layers`` where
+    given). Yields, per argv in order, every
     rank's results (params on the CPU; with ``audit`` its audit report
     and recorded collectives) and the run's wall time (its slowest
     rank's); each run's files are deleted once yielded."""
@@ -1893,7 +2004,7 @@ def run_ranks(argvs, n, kind="lm", audit=True):
         dirs = [os.path.join(tmp, f"run{i}") for i in range(len(argvs))]
         for d in dirs:
             os.makedirs(d)
-        mesh.spawn(rank_jobs, n, ([(argv, d, kind, audit)
+        mesh.spawn(rank_jobs, n, ([(argv, d, kind, audit, n_layers)
                                    for argv, d in zip(argvs, dirs)], n),
                    timeout_s=DIST_TIMEOUT_S * len(argvs))
         for d in dirs:
@@ -2293,8 +2404,8 @@ def top2_gap(logits) -> float:
     return float(v[0] - v[1])
 
 
-def check_lone(run, logs):
-    """7a's check: the first LONE_REQUESTS requests each alone at batch 1
+def check_lone(run, logs, n=LONE_REQUESTS):
+    """7a's check: the first ``n`` requests each alone at batch 1
     through ``Server.prefill_fn``/``decode_fn``, teacher-forced with the
     batched run's tokens: every greedy token equal, except where the lone
     logits' top-2 gap is under SERVE_LOGIT_TOL (counted), and every
@@ -2309,7 +2420,7 @@ def check_lone(run, logs):
     prefill, decode = srv.prefill_fn(), srv.decode_fn()
     V = cfg.vocab
     near_ties, worst, pre_ms, dec_ms = 0, 0.0, [], []
-    for r in run.requests[:LONE_REQUESTS]:
+    for r in run.requests[:n]:
         cache = T.init_cache(cfg, 1, run.args.max_seq, torch.float32, dev)
         tokens = torch.tensor([r.prompt], device=dev)
         torch.cuda.synchronize()
@@ -2333,7 +2444,7 @@ def check_lone(run, logs):
                 gap = top2_gap(lone)
                 assert gap < SERVE_LOGIT_TOL, (r.rid, i, gap)
                 near_ties += 1
-    print(f"  7a lone check, {LONE_REQUESTS} requests at batch 1: batched "
+    print(f"  lone check, {n} requests at batch 1: batched "
           f"logits within {worst:.2e} of the lone ones; {near_ties} "
           f"token(s) differ, each at a top-2 gap < {SERVE_LOGIT_TOL}; lone "
           f"prefill {statistics.median(pre_ms):.3f} ms a request, decode "
@@ -2683,6 +2794,368 @@ def run_audit_phase():
     return out
 
 
+# ----------------------------------------------------------------------- #
+# phase 3e and phase 9: the dense rotary family (granite-3-8b,
+# phi4-mini-3.8b, chatglm3-6b, gemma3-12b) at full width
+# ----------------------------------------------------------------------- #
+
+FAMILIES = ("granite-3-8b", "phi4-mini-3.8b", "chatglm3-6b", "gemma3-12b")
+# (label, arch, workers, layers kept, global batch) of runs 9a and 9b:
+# full width, depth cut so that a sync step fits the card: it holds ~60
+# GiB per 1e9 stacked elements (params, grads and their views, the old
+# and the new m, u, anchor and error feedback, v, the decoded exchange),
+# so granite at 2 layers x 2 workers (1.606e9 elements) and chatglm3 at
+# 1 layer x 2 workers (1.473e9) run out of the card's 79 GiB; 9b runs
+# one worker (single mode) at 9a's batch a worker
+FAMILY_RUNS = (("9a", "granite-3-8b", 2, 1, 8), ("9b", "chatglm3-6b", 1, 1, 4))
+FAMILY_SEQ = 1024
+# 9c: gemma3-12b at full width, 12 of its 48 layers (10 sliding, 2
+# global), 4 slots, 8 requests of 1536-2048 prompt tokens (past the
+# 1024-token window) and 64 new tokens each, dense and window cache
+SERVE9_LAYERS, SERVE9_SLOTS, SERVE9_REQUESTS = 12, 4, 8
+SERVE9_PROMPTS, SERVE9_GEN = (1536, 2048), 64
+SERVE9_LONE = 2            # requests re-run alone at batch 1 per cache
+# 9d (four cards): gemma3-12b at full width, 1 layer (sliding), one
+# worker a rank over NCCL, batch 4 x 2048 (2 layers, 1.455e9 elements a
+# rank, do not fit a card: one-card probes in single mode ran out at 2
+# layers and at 1; a rank's server error feedback is a quarter of single
+# mode's, 6.9 GiB less)
+DIST9_LAYERS, DIST9_BATCH, DIST9_SEQ = 1, 4, 2048
+# 3e: the frames of each training run of phase 9, as (label, arch,
+# layers, workers of the plan, workers stacked in one process): 9a and
+# 9b as FAMILY_RUNS gives them, 9d's one rank of N_WORKERS
+FRAMES_3E = tuple((label, arch, layers, workers, workers)
+                  for label, arch, workers, layers, _ in FAMILY_RUNS) + (
+    ("9d", "gemma3-12b", DIST9_LAYERS, N_WORKERS, 1),)
+FAMILY_NAMES = {label: {k: f"{k} ({arch}, {label})" for k in FAMILY_KERNELS}
+                for label, arch, *_ in FRAMES_3E}
+
+
+def family_plan(arch, n_layers=None, workers=N_WORKERS):
+    """The comm plan of ``arch`` FULL at ``workers`` workers, cut to
+    ``n_layers`` where given."""
+    from repro_torch.configs.base import get
+    from repro_torch.core.leafwise import make_plan
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cfg = get(arch).config
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    tmpl = T.model_template(cfg)
+    return make_plan(L.param_shapes(tmpl), L.param_specs(tmpl),
+                     L.dp_mask(tmpl), workers)
+
+
+def frames_3e_text(label):
+    """What 3e's frames of run ``label`` are, for the printed lines and
+    the kernels line."""
+    label, arch, layers, workers, stacked = next(
+        f for f in FRAMES_3E if f[0] == label)
+    who = (f"{workers} stacked workers" if stacked > 1 else
+           "one worker" if workers == 1 else
+           f"one rank of {workers} (its view and the last rank's chunk)")
+    return f"{label}: {arch} FULL width, {layers} layer(s), {who}"
+
+
+def rank_frames(lo, rank):
+    """(rows, row counts, denominators, decode) of the two frames of leaf
+    ``lo`` that rank ``rank`` of a one-worker-a-rank sync compresses: its
+    own view (the worker side; both decodes on its shape) and the chunk
+    it serves."""
+    from repro_torch.core import compressor as C
+
+    rows, _ = C.view_rows_cols(lo)
+    total, _ = C.true_counts(lo)
+    chunk = C.chunk_row_counts(lo)[rank]
+    return [(rows, C.view_row_counts(lo), np.full(1, total), True),
+            (rows // lo.n, chunk, np.full(1, max(chunk.sum(), 1)), False)]
+
+
+def check_family_kernels(dev, tally):
+    """Phase 3e: kernels 1-4 against their plain versions on every frame
+    of one step of each training run of phase 9 (FRAMES_3E: 9a's stacked
+    workers, 9b's single worker, a rank of 9d; worker and server frames),
+    timed as 3a under FAMILY_NAMES (9d's under its last rank, whose chunk
+    holds any pad; the other ranks' chunks checked only); then
+    ``dispatch.frame_precheck`` on every unit of the four FULL configs at
+    full depth, at 2 and 4 stacked workers (metadata only): every unit
+    must pass. Returns the pre-check's counts."""
+    from repro_torch.core import compressor as C
+    from repro_torch.kernels import dispatch as K
+
+    for label, arch, layers, workers, stacked in FRAMES_3E:
+        print(f"  3e {frames_3e_text(label)}", flush=True)
+        plan = family_plan(arch, layers, workers)
+        last = workers - 1
+        check_kernels(dev, tally, plan, FAMILY_NAMES[label], stacked,
+                      None if stacked == workers
+                      else (lambda lo: rank_frames(lo, last)))
+        if stacked == workers:
+            continue
+        gen = torch.Generator(device=dev).manual_seed(1)
+        for lo in plan.layouts:
+            chunks = [rank_frames(lo, r)[1] for r in range(last)]
+            check_compress_frames(dev, gen, tally, None, lo,
+                                  C.view_rows_cols(lo)[1], chunks, 1)
+        torch.cuda.empty_cache()
+    checked, largest = 0, (0, None)
+    for a in FAMILIES:
+        for n in (2, 4):
+            plan = family_plan(a, workers=n)
+            for path, lo in zip(plan.paths, plan.layouts):
+                issues = K.frame_precheck(lo, stack=n)
+                assert not issues, (a, n, path, issues)
+                rows, cols = C.view_rows_cols(lo)
+                largest = max(largest, (n * rows * cols,
+                                        f"{a} {'/'.join(path)} x{n}"))
+                checked += 1
+    print(f"  frame_precheck: {checked} units of the four FULL configs at "
+          f"2 and 4 stacked workers pass; the largest frame {largest[1]} "
+          f"holds {largest[0]:,} elements", flush=True)
+    return {"units_checked": checked, "largest_frame": largest[1],
+            "largest_frame_elements": largest[0]}
+
+
+def run_family_training(dev):
+    """Runs 9a and 9b through :func:`run_main_path`: zero_one_adam with
+    tensor scales, FAMILY_RUNS' workers (simulated; one: single mode) and
+    batch of seq 1024, phase 4's 8-step schedule, remat on (the FULL
+    configs set it), each audited, its launches of kernels 1-4 those
+    ``expected_launches`` gives."""
+    from repro_torch.configs.base import get
+
+    out = {}
+    for label, arch, workers, layers, batch in FAMILY_RUNS:
+        cfg = get(arch).config
+        print(f"phase {label}: {arch} FULL width (d {cfg.d_model}, "
+              f"{cfg.n_heads} heads, kv {cfg.n_kv}, ff {cfg.d_ff}, vocab "
+              f"{cfg.vocab}), {layers} of {cfg.n_layers} layers, "
+              f"{workers} worker(s), batch {batch}, seq {FAMILY_SEQ}, "
+              f"remat {cfg.remat}", flush=True)
+        out[label] = run_main_path(dev, label, arch, [], batch, FAMILY_SEQ,
+                                   "lm", workers, layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve9_run(dev, params, window_cache):
+    """9c's serve of one cache kind through ``launch.serve.serve`` (the
+    CLI's tick loop) over a Scheduler of gemma3-12b cut to SERVE9_LAYERS,
+    the logits of every decode recorded."""
+    from repro_torch.configs.base import get
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve import Request, Scheduler, Server
+
+    cfg = dataclasses.replace(get("gemma3-12b").config,
+                              n_layers=SERVE9_LAYERS,
+                              window_cache=window_cache)
+    max_seq = SERVE9_PROMPTS[1] + SERVE9_GEN
+    args = launch.parse_args([
+        "--arch", "gemma3-12b", "--slots", str(SERVE9_SLOTS), "--max-seq",
+        str(max_seq), "--requests", str(SERVE9_REQUESTS), "--gen",
+        str(SERVE9_GEN)])
+    rng = np.random.default_rng(args.seed + 1)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, int(n)).tolist(),
+                    max_new_tokens=SERVE9_GEN)
+            for i, n in enumerate(rng.integers(*SERVE9_PROMPTS,
+                                               SERVE9_REQUESTS))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    srv = Server(cfg, batch=SERVE9_SLOTS, max_seq=max_seq,
+                 cache_dtype=torch.float32, device=dev)
+    sch = Scheduler(srv, params)
+    for r in reqs:
+        sch.submit(r)
+    run = launch.ServeRun(args=args, cfg=cfg, device=dev, params=params,
+                          server=srv, scheduler=sch, requests=reqs)
+    logs = record_logits(run, {r.rid for r in reqs})
+    res = serve_drive(run)
+    assert all(r.done and len(r.output) == SERVE9_GEN for r in reqs)
+    res["lone"] = check_lone(run, logs, SERVE9_LONE)
+    res.pop("ticks")
+    return run, logs, res
+
+
+def run_9c(dev):
+    """9c: gemma3-12b at full width, SERVE9_LAYERS layers, from the port's
+    own seeded init, served through the Scheduler with the dense cache
+    and with ``window_cache=True``: each run's first requests against a
+    lone run (phase 7's bar), and the two runs' tokens equal but where a
+    top-2 gap under SERVE_LOGIT_TOL makes a near tie (the first such
+    token ends that request's comparison). Decode ms a tick, prefill
+    (admission tick) ms and peak memory for both caches."""
+    from repro_torch.configs.base import get
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get("gemma3-12b").config,
+                              n_layers=SERVE9_LAYERS)
+    kinds = ["sliding" if f else "global" for f in T._layer_flags(cfg)]
+    print(f"phase 9c: gemma3-12b FULL width, {SERVE9_LAYERS} of 48 layers "
+          f"({kinds.count('sliding')} sliding, {kinds.count('global')} "
+          f"global), {SERVE9_SLOTS} slots, {SERVE9_REQUESTS} requests of "
+          f"{SERVE9_PROMPTS[0]}-{SERVE9_PROMPTS[1]} + {SERVE9_GEN} tokens, "
+          f"f32 cache, dense and window", flush=True)
+    t0 = time.time()
+    params = L.init_params(T.model_template(cfg), 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    out, runs = {"init_s": init_s}, {}
+    for name, wc in (("dense", False), ("window", True)):
+        print(f"  9c {name} cache", flush=True)
+        run, logs, res = serve9_run(dev, params, wc)
+        runs[name] = (run, logs)
+        out[name] = res
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    (dense, dlogs), (window, wlogs) = runs["dense"], runs["window"]
+    near, compared = 0, 0
+    for a, b in zip(dense.requests, window.requests):
+        for i, (x, y) in enumerate(zip(a.output, b.output)):
+            if x != y:
+                # the first token comes from the prefill, the same
+                # computation for both caches; later ones are recorded
+                gaps = [top2_gap(lg[(a.rid, i)]) for lg in (dlogs, wlogs)
+                        if (a.rid, i) in lg]
+                assert gaps and min(gaps) < SERVE_LOGIT_TOL, (a.rid, i, gaps)
+                near += 1
+                break
+            compared += 1
+    print(f"  9c window cache against dense: {compared} tokens equal, "
+          f"{near} request(s) part at a top-2 gap < {SERVE_LOGIT_TOL}; "
+          f"params init {init_s:.1f} s", flush=True)
+    out["tokens_equal"], out["near_tie_requests"] = compared, near
+    del params, runs, dense, window
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_9d():
+    """9d, on four cards only: gemma3-12b at full width, DIST9_LAYERS
+    layers (both sliding), four NCCL ranks with one worker each,
+    zero_one_adam with tensor scales, phase 4a's flags, batch DIST9_BATCH
+    x DIST9_SEQ. No run in one process holds it (four workers of it do
+    not fit one card): each rank is audited (clean, its bytes a round
+    those ``comm_accounting`` gives), its losses finite and its first
+    near the random-init loss, its step kinds and launch counts 4a's
+    schedule over gemma3's leaves."""
+    from repro_torch.configs.base import get
+
+    if torch.cuda.device_count() < N_WORKERS:
+        why = (f"needs {N_WORKERS} cards, one rank each; this machine has "
+               f"{torch.cuda.device_count()}")
+        print(f"phase 9d: gemma3-12b FULL in processes not run: {why}",
+              flush=True)
+        return {"ran": False, "why": why}
+    argv = ["--arch", "gemma3-12b", "--steps", str(STEPS), "--batch",
+            str(DIST9_BATCH), "--seq", str(DIST9_SEQ), "--sync-warmup",
+            "2", "--double-every", "2", "--kappa", "1", "--log-every",
+            str(STEPS), "--mode", "dist", "--backend", "nccl", "--device",
+            "cuda"]
+    transport = f"NCCL, {N_WORKERS} cards"
+    print(f"phase 9d: gemma3-12b FULL width, {DIST9_LAYERS} layers, "
+          f"{N_WORKERS} ranks over {transport}, batch {DIST9_BATCH}, seq "
+          f"{DIST9_SEQ}", flush=True)
+    # a rank's sync step needs ~70 of the card's 79 GiB: the ranks' caching
+    # allocator maps expandable segments, so that freed blocks of the
+    # 3.75 GiB embedding views are reused across sizes (a probe in single
+    # mode on one card left 3.6 GiB reserved but unusable)
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ((ranks, wall),) = run_ranks([argv], N_WORKERS,
+                                     n_layers=DIST9_LAYERS)
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    cfg = dataclasses.replace(get("gemma3-12b").config, n_layers=DIST9_LAYERS)
+    expect = expected_launches(
+        "gemma3", family_plan("gemma3-12b", DIST9_LAYERS).layouts)
+    syncs, vars_ = schedule("zero_one_adam", True)
+    rows = []
+    for r, res in enumerate(ranks):
+        losses = [rec["losses"][0] for rec in res["records"]]
+        rec = res["audit"]["summary"]["recorded_bytes"]
+        row = {"rank": r, "device": res["device"], "losses": losses,
+               "peak_memory_gb": res["peak_memory_bytes"] / 1e9,
+               "launches": res["launches"], "audit_ok": res["audit"]["ok"],
+               "recorded_bytes": rec,
+               "times": times_by_kind(res["records"])}
+        print(f"  9d rank {r} on {res['device']}: losses "
+              f"{[round(x, 4) for x in losses]}; peak "
+              f"{row['peak_memory_gb']:.2f} GB; launches "
+              f"{json.dumps(res['launches'])}; audit "
+              f"{'clean' if row['audit_ok'] else 'VIOLATIONS'}, "
+              f"{len(res['recorded'])} collectives, bytes a round "
+              f"{json.dumps(rec)}", flush=True)
+        print_rank_times(row["times"], transport)
+        assert row["audit_ok"], (r, res["audit"]["violations"][:5])
+        assert all(np.isfinite(losses)), (r, losses)
+        assert abs(losses[0] - first_loss(cfg)) < 0.5, (r, losses[0])
+        assert [x["sync"] for x in res["records"]] == syncs, r
+        assert [x["var"] for x in res["records"]] == vars_, r
+        assert res["launches"] == expect, (r, res["launches"], expect)
+        rows.append(row)
+    return {"ran": True, "transport": transport, "ranks_wall_s": wall,
+            "ranks": rows}
+
+
+def family_parts(dev):
+    """Phase 5's family checks by name: each smoke config's 8 steps on
+    the card against the CPU, at a peak lr of 3e-4 (at the CLI's 3e-3
+    these models are chaotic in the last bit on one device: granite-
+    smoke's losses move by 5.1e-4 in 8 steps from params one ulp up on
+    the CPU, 2.1e-5 at 3e-4); gemma3-smoke's seq of 32 runs past its
+    window of 8."""
+    return {f"family_{a.split('-')[0]}":
+            (lambda a=a: check_small_input(dev, a, ["--lr", "3e-4"], "lm"))
+            for a in FAMILIES}
+
+
+def run_family_phase(dev):
+    """``--only families``: 3e (its own tally, printed), phase 5's family
+    checks, 9a-9d. The full run takes 3e in phase 3 and the family checks
+    in phase 5, and runs 9a-9d as phase 9 (:func:`run_phase9`)."""
+    tally = Tally()
+    out = {"3e": check_family_kernels(dev, tally)}
+    out["3e"]["rows"] = {label: tally_rows(tally, names)
+                         for label, names in FAMILY_NAMES.items()}
+    for label, rows in out["3e"]["rows"].items():
+        print(f"  3e {label} " + json.dumps(rows), flush=True)
+    out["5"] = {k: run() for k, run in family_parts(dev).items()}
+    out.update(run_phase9(dev))
+    return out
+
+
+def run_phase9(dev):
+    out = run_family_training(dev)
+    out["9c"] = run_9c(dev)
+    out["9d"] = run_9d()
+    return out
+
+
+def tally_rows(tally, names):
+    """Each kernel's row of ``tally`` under ``names``, with its bound and
+    the share of it the call and batched times reach."""
+    rows = {}
+    for k, name in names.items():
+        r = tally.rows[name]
+        b = max(r["bytes"] / PEAK_BYTES_PER_S, r["ops"] / PEAK_F32_PER_S) * 1e3
+        rows[k] = {"ms": r["ms"], "batched_ms": r["batched_ms"],
+                   "plain_ms": r["plain_ms"], "bound_ms": b,
+                   "share": b / r["ms"], "batched_share": b / r["batched_ms"],
+                   "library_ms": r["library_ms"],
+                   "max_abs_err": r["max_abs_err"],
+                   "launches_per_round": r["launches_per_round"]}
+    return rows
+
+
 def _to(tree, d):
     if isinstance(tree, dict):
         return {k: _to(v, d) for k, v in tree.items()}
@@ -2699,19 +3172,26 @@ def parse_args(argv=None):
              "7 and 8 (4n, names of small_parts and dist_parts, e.g. 'probe "
              "6b 6b_lamb 6d 6d_lamb' for the four-card paths, or "
              "'gpt2_qint8 gpt2_qint4_hier'; 'serve' for phase 7, or its "
-             "runs '7a' ... '7e'; 'audit' for phase 8), print their "
-             "summary and the card line, and no kernels or result line")
+             "runs '7a' ... '7e'; 'audit' for phase 8; 'families' for 3e, "
+             "phase 5's family checks and phase 9, or '9ab', '9c', '9d'), "
+             "print their summary and the card line, and no kernels or "
+             "result line")
     return ap.parse_args(argv)
 
 
 def run_only(dev, names, card, t_start):
     """``--only``: the named checks of phases 4n (after run 4a), 5, 6, 7
-    (``serve``: all of it, or its runs ``7a`` ... ``7e``) and 8
-    (``audit``), in that order."""
+    (``serve``: all of it, or its runs ``7a`` ... ``7e``), 8 (``audit``)
+    and 9 (``families``: 3e, phase 5's family checks and 9a-9d; or
+    ``9ab``, ``9c``, ``9d``), in that order."""
     parts = {"4n": lambda: run_elastic_phase(
         dev, run_main_path(dev, *RUNS[0])), **small_parts(dev),
+        **family_parts(dev),
         **dist_parts(), **serve_parts(dev),
-        "serve": lambda: run_serve_phase(dev), "audit": run_audit_phase}
+        "serve": lambda: run_serve_phase(dev), "audit": run_audit_phase,
+        "families": lambda: run_family_phase(dev),
+        "9ab": lambda: run_family_training(dev), "9c": lambda: run_9c(dev),
+        "9d": run_9d}
     unknown = sorted(set(names) - set(parts))
     if unknown:
         sys.exit(f"chip_smoke: unknown parts {unknown}; choose from "
@@ -2779,6 +3259,10 @@ def main(argv=None):
           f"{BUCKET_MB} MiB, flat and {N_WORKERS // INNER} pods x {INNER}",
           flush=True)
     check_bucket_kernels(dev, tally)
+    print("phase 3e: every frame of a step of each run of phase 9 (9a, 9b, "
+          "a rank of 9d); frame_precheck on the four FULL configs",
+          flush=True)
+    precheck = check_family_kernels(dev, tally)
     lap("3")
 
     runs = {}
@@ -2810,7 +3294,8 @@ def main(argv=None):
     lap("4n")
 
     print("phase 5: smoke trainers on the card vs on the CPU", flush=True)
-    small = {name: run() for name, run in small_parts(dev).items()}
+    small = {name: run() for name, run in {**small_parts(dev),
+                                           **family_parts(dev)}.items()}
     lap("5")
 
     print("phase 6: data parallel in processes", flush=True)
@@ -2826,6 +3311,10 @@ def main(argv=None):
           "--matrix --lints) on the card", flush=True)
     audit = run_audit_phase()
     lap("8")
+
+    print("phase 9: the dense rotary family at full width", flush=True)
+    families = run_phase9(dev)
+    lap("9")
 
     def bound(r):
         t_bytes = r["bytes"] / PEAK_BYTES_PER_S * 1e3
@@ -2845,6 +3334,10 @@ def main(argv=None):
             by_run[f"7e_sign1bit_{side}"] = sum(
                 r[f"{side}_launches"].get(name, 0)
                 for r in serve["7e"]["sign1bit"]["publishes"])
+        for label, *_ in FAMILY_RUNS:
+            by_run[label] = families[label]["launches"].get(name, 0)
+        for row in families["9d"].get("ranks", []):
+            by_run[f"9d_rank{row['rank']}"] = row["launches"].get(name, 0)
         for part, d in dist_phase.items():
             if not isinstance(d, dict) or "ranks" not in d:
                 continue            # the probes, the wall time; 6d on
@@ -2886,6 +3379,12 @@ def main(argv=None):
                     "library_ms": rb["library_ms"],
                     "max_abs_err": rb["max_abs_err"],
                     "launches_per_round": rb["launches_per_round"]}
+        if name in FAMILY_KERNELS:
+            kernels[-1]["family_frames"] = {
+                label: {"per": "step (kernel 1) or sync (kernels 2-4) of "
+                               + frames_3e_text(label),
+                        **tally_rows(tally, {name: names[name]})[name]}
+                for label, names in FAMILY_NAMES.items()}
         if name == "fused_local_step":
             rb = tally.rows[BERT_LAMB]
             kernels[-1]["bert_lamb"] = {
@@ -2906,6 +3405,7 @@ def main(argv=None):
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     assert not missing, f"kernels never launched on a main path: {missing}"
     summary = {"runs": runs, "checkpoints": checkpoints, "4n": elastic,
+               "3e_precheck": precheck, "families": families,
                "small_inputs": small,
                "data_parallel": dist_phase, "serve": serve,
                "audit": audit, "phase_wall_s": walls,

@@ -1,7 +1,8 @@
 """Architecture registry, PyTorch port of ``src/repro/configs/base.py``.
 
 Each entry carries the FULL config and a reduced SMOKE config of the same
-family. Ported so far: gpt2, bert-base and bert-large.
+family. Ported so far: gpt2, bert-base and bert-large, and the dense
+rotary family: granite-3-8b, phi4-mini-3.8b, chatglm3-6b, gemma3-12b.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ class ArchSpec:
 
 
 _REGISTRY: Dict[str, ArchSpec] = {}
-_ARCH_MODULES = ["bert_base", "bert_large", "gpt2"]
+_ARCH_MODULES = ["chatglm3_6b", "gemma3_12b", "granite_3_8b",
+                 "phi4_mini_3p8b", "bert_base", "bert_large", "gpt2"]
 
 
 def register(name: str, spec: ArchSpec):

@@ -71,7 +71,12 @@ class AdamBase:
         return self.precond_raw(buf, slots)
 
     def update_variance(self, v, g):
-        return self.beta2 * v + (1 - self.beta2) * g * g
+        """``beta2 * v + ((1 - beta2) * g) * g``, each product and the sum
+        rounded as written; two temporaries at a time, not three (a leaf
+        of gemma3-12b's embedding is 3.75 GiB)."""
+        gg = (1 - self.beta2) * g
+        gg.mul_(g)
+        return torch.mul(v, self.beta2).add_(gg)
 
     def refresh_sync_slots(self, slots, anchor_nat, ubar_view, gamma_total,
                            layout) -> Dict[str, torch.Tensor]:

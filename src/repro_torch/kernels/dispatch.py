@@ -89,9 +89,11 @@ def frame_precheck(layout: C.LeafLayout, *, stack: int = 1) -> list:
 
     * cols a multiple of 8: sign bits pack whole bytes per row
       (``ef_quantize``, ``ef_compress``, ``decompress`` refuse otherwise);
-    * the 32-bit element indices: ``ef_quantize``'s float4 count
-      ``n4 = rows * cols / 4 < 2**31``, ``decompress``'s packed bytes
-      ``< 2**31``, ``ef_compress``'s ``cols < 2**28``;
+    * the 32-bit element indices: ``ef_quantize`` launches in slabs of
+      whole scale groups, each of ``n4 = rows * cols / 4 < 2**31`` float4,
+      so one scale group must be smaller, and the largest is one worker's
+      whole frame (tensor scales); ``decompress``'s packed bytes of the
+      stacked frame ``< 2**31``; ``ef_compress``'s ``cols < 2**28``;
     * ``ef_compress``'s geometry (``onebit.ef_compress_geometry``): a
       cluster of 1-8 blocks whose 8-aligned slices cover the row, each
       block keeping ``kept_cols * 4`` bytes of dynamic shared memory,
@@ -119,11 +121,12 @@ def frame_precheck(layout: C.LeafLayout, *, stack: int = 1) -> list:
         issues.append(
             f"frame cols={cols} exceeds FRAME_MAX_COLS={C.FRAME_MAX_COLS} "
             f"- view_rows_cols should have folded this view")
-    n4 = rows * (cols // 4)
+    n4 = rows // stack * (cols // 4)
     if n4 >= onebit.EF_QUANTIZE_MAX_FLOAT4:
         issues.append(
-            f"frame ({rows}, {cols}) holds n4={n4} float4, ef_quantize's "
-            f"32-bit index takes fewer than 2**31")
+            f"one worker's frame ({rows // stack}, {cols}) holds n4={n4} "
+            f"float4, ef_quantize's 32-bit index takes fewer than 2**31 a "
+            f"scale group")
     nbytes = rows * (cols // 8)
     if nbytes >= onebit.DECOMPRESS_MAX_BYTES:
         issues.append(

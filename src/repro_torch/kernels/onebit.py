@@ -86,7 +86,9 @@ def abs_rowsum_geometry(cols: int):
 
 
 # decompress and ef_quantize: element indices are 32-bit, the row of a
-# byte, of a float4 and the group of a row a multiply-shift
+# byte, of a float4 and the group of a row a multiply-shift; ef_quantize
+# launches a larger frame in slabs of whole scale groups, each under
+# EF_QUANTIZE_MAX_FLOAT4
 DECOMPRESS_MAX_BYTES = 1 << 31
 EF_QUANTIZE_MAX_FLOAT4 = 1 << 31
 
@@ -109,6 +111,23 @@ def ef_quantize_divisors(cols: int, group_rows: int):
     of a ``cols``-wide frame and the scale group of row r, each by
     :func:`divisor`."""
     return (*divisor(cols // 4), *divisor(group_rows))
+
+
+def ef_quantize_slabs(rows: int, cols: int, group_rows: int,
+                      max_n4: int = EF_QUANTIZE_MAX_FLOAT4):
+    """(first row, rows) of each launch of ``ef_quantize`` on a (rows,
+    cols) frame: whole scale groups of ``group_rows`` rows, fewer than
+    ``max_n4`` float4 a launch (one launch where the frame fits). Raises
+    where one group holds ``max_n4`` float4 or more."""
+    if not rows or not cols:
+        return []
+    group_n4 = group_rows * (cols // 4)
+    if group_n4 >= max_n4:
+        raise ValueError(f"ef_quantize: a scale group of {group_rows} rows "
+                         f"x {cols} holds {group_n4} float4; the kernel "
+                         f"takes fewer than {max_n4} a launch")
+    slab = (max_n4 - 1) // group_n4 * group_rows
+    return [(r0, min(slab, rows - r0)) for r0 in range(0, rows, slab)]
 
 
 # --- plain versions ----------------------------------------------------
@@ -229,17 +248,29 @@ def ef_quantize(z, err, scales, counts, group_rows=1):
                         (groups,), dev)
     if not build.on_card("ef_quantize", z):
         return ef_quantize_plain(z, err, scales, counts, group_rows)
-    if z.numel() // 4 >= EF_QUANTIZE_MAX_FLOAT4:
-        raise ValueError(f"ef_quantize: {z.numel()} elements; the kernel "
-                         f"takes fewer than 2**33")
+    slabs = ef_quantize_slabs(rows, cols, group_rows)
     packed = torch.empty((rows, cols // 8), dtype=torch.uint8, device=dev)
     err_out = torch.empty_like(z)
-    if z.numel():
-        build.launch("ef_quantize", "ef_quantize_f32", dev, z.data_ptr(),
-                     err.data_ptr(), scales.data_ptr(), counts.data_ptr(),
-                     packed.data_ptr(), err_out.data_ptr(), rows, cols,
-                     *ef_quantize_divisors(cols, group_rows))
+    _launch_ef_quantize(z, err, scales, counts, packed, err_out, group_rows,
+                        slabs)
     return packed, err_out
+
+
+def _launch_ef_quantize(z, err, scales, counts, packed, err_out, group_rows,
+                        slabs):
+    """One launch a slab of :func:`ef_quantize_slabs`, its operands offset
+    to the slab's first row: every element gets the arithmetic of one
+    launch over the frame."""
+    cols = z.shape[1]
+    divs = ef_quantize_divisors(cols, group_rows)
+    for r0, n in slabs:
+        off = r0 * cols * 4
+        build.launch("ef_quantize", "ef_quantize_f32", z.device,
+                     z.data_ptr() + off, err.data_ptr() + off,
+                     scales.data_ptr() + r0 // group_rows * 4,
+                     counts.data_ptr() + r0 * 4,
+                     packed.data_ptr() + r0 * (cols // 8),
+                     err_out.data_ptr() + off, n, cols, *divs)
 
 
 def ef_compress(z, err, counts):

@@ -1,8 +1,9 @@
 """Grouped-query attention, PyTorch port of the dense path of
-``src/repro/models/attention.py``: the template, the additive mask,
-``dot_attn``, the flash-style ``blockwise_attn`` (taken at S >=
-``ModelConfig.blockwise_threshold``) and the KV-cache ``decode_attn``.
-MLA and the sliding and ring masks wait for the families that use them.
+``src/repro/models/attention.py``: the template, the additive mask
+(causal, sliding-window and bidirectional), ``dot_attn``, the flash-style
+``blockwise_attn`` (taken at S >= ``ModelConfig.blockwise_threshold``)
+and the KV-cache ``decode_attn``, over a full cache or a ring of
+``window`` slots. MLA waits for its family (ROADMAP item 4).
 
 Layouts follow the reference: activations (B, S, D), per-head tensors
 (B, S, H, hd), KV caches (B, S_max, K, hd). The attention products are
@@ -13,7 +14,10 @@ Caches are written in place (the reference donates its cache buffers):
 a decode step writes k/v at ``cache_pos``, a prefill writes ``[0, S)``.
 ``cache_pos`` may be a (B,) tensor, one position per row: each row is
 written and masked at its own position, the scheduler's vmapped decode
-of the reference computed batched.
+of the reference computed batched. A sliding layer whose cache holds
+exactly ``window`` slots keeps a ring: position p lives in slot
+``p % window`` (keys are rotated at their absolute positions, so slot
+order does not matter).
 """
 from __future__ import annotations
 
@@ -49,16 +53,20 @@ def gqa_template(d, n_heads, n_kv, head_dim, bias=False, stack=None):
     return t
 
 
-def _mask_bias(q_pos, k_pos, kind: str):
+def _mask_bias(q_pos, k_pos, kind: str, window: int = 0):
     """Additive f32 mask (Sq, Sk): 0 where the query may attend to the
-    key, NEG_INF elsewhere. ``kind="causal"``: valid keys not after the
-    query; ``kind="bidir"``: every valid key (the reference's kinds of
-    the same names)."""
-    if kind not in ("causal", "bidir"):
-        raise NotImplementedError(f"mask kind {kind!r} is not ported yet")
+    key, NEG_INF elsewhere, as the reference's kinds of the same names:
+    ``bidir`` every valid key; ``causal`` valid keys not after the query;
+    ``sliding`` with a ``window`` those of them less than ``window``
+    positions back (``0 <= q - k < window``)."""
+    if kind not in ("causal", "sliding", "bidir"):
+        raise ValueError(f"mask kind {kind!r}: causal, sliding or bidir")
     ok = (k_pos < _PAD_SENTINEL)[None, :].expand(q_pos.shape[0], -1)
-    if kind == "causal":
-        ok = ok & ((q_pos[:, None] - k_pos[None, :]) >= 0)
+    if kind != "bidir":
+        rel = q_pos[:, None] - k_pos[None, :]
+        ok = ok & (rel >= 0)
+        if kind == "sliding" and window:
+            ok = ok & (rel < window)
     zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
     return torch.where(ok, zero, NEG_INF)
 
@@ -81,7 +89,8 @@ def dot_attn(q, k, v, bias):
     return o.reshape(B, Sq, H, dv)
 
 
-def blockwise_attn(q, k, v, q_pos, k_pos, kind, bq=512, bk=1024):
+def blockwise_attn(q, k, v, q_pos, k_pos, kind, window=0, bq=512,
+                   bk=1024):
     """Flash-style attention: query blocks of ``bq``, and for each an
     online softmax over KV blocks of ``bk``, so memory is O(bq * bk) per
     step whatever the length. As the reference's ``lax.map`` /
@@ -117,7 +126,8 @@ def blockwise_attn(q, k, v, q_pos, k_pos, kind, bq=512, bk=1024):
             vj = vp[:, j * bk:(j + 1) * bk]
             s = torch.einsum("bqkgd,bskd->bkgqs", qg, kj).to(torch.float32)
             s = s * scale
-            s = s + _mask_bias(qpos_i, kposp[j * bk:(j + 1) * bk], kind)
+            s = s + _mask_bias(qpos_i, kposp[j * bk:(j + 1) * bk], kind,
+                               window)
             new_mx = torch.maximum(mx, s.amax(dim=-1))
             p = torch.exp(s - new_mx[..., None])
             corr = torch.exp(mx - new_mx)
@@ -130,21 +140,27 @@ def blockwise_attn(q, k, v, q_pos, k_pos, kind, bq=512, bk=1024):
     return torch.cat(out, dim=1)[:, :Sq]
 
 
-def decode_attn(q, k_cache, v_cache, pos, kind="causal"):
-    """One query position per row against a (B, S, K, hd) cache: keys at
-    positions ``<= pos`` (an int, or a (B,) tensor per row), for
-    ``kind`` causal and, as in the reference, bidir. The sliding and ring
-    caches come with the families that use them."""
-    if kind not in ("causal", "bidir"):
-        raise NotImplementedError(f"decode mask kind {kind!r} is not "
-                                  f"ported yet")
+def decode_attn(q, k_cache, v_cache, pos, kind="causal", window=0,
+                ring=False):
+    """One query position per row against a (B, S, K, hd) cache, at
+    ``pos`` (an int, or a (B,) tensor per row). Keys at positions
+    ``<= pos`` (``kind`` causal and, as in the reference, bidir), and for
+    ``sliding`` only those ``> pos - window``. ``ring=True``: the cache is
+    a ring of S == window slots holding the last S positions; a slot is
+    valid once written (``slot <= pos`` or ``pos >= S``)."""
     B, _, H, hd = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
-    kpos = torch.arange(S, dtype=torch.int32, device=q.device)
+    kpos = torch.arange(S, dtype=torch.int32, device=q.device)[None, :]
     if isinstance(pos, torch.Tensor) and pos.dim() == 1:
-        ok = kpos[None, :] <= pos[:, None].to(torch.int32)
+        p = pos.to(device=q.device, dtype=torch.int32)[:, None]
     else:
-        ok = (kpos <= pos)[None, :]
+        p = int(pos)
+    if ring:
+        ok = (kpos <= p) | (p >= S)
+    else:
+        ok = kpos <= p
+        if kind == "sliding" and window:
+            ok = ok & (kpos > p - window)
     zero = torch.zeros((), dtype=torch.float32, device=q.device)
     bias = torch.where(ok, zero, NEG_INF)                 # (B or 1, S)
     qg = q.reshape(B, 1, K, H // K, hd)
@@ -156,35 +172,51 @@ def decode_attn(q, k_cache, v_cache, pos, kind="causal"):
     return o.reshape(B, 1, H, hd)
 
 
-def _write_cache(cache, k, v, cache_pos):
+def _write_cache(cache, k, v, cache_pos, ring=0):
     """Write the new keys and values into the layer's cache in place: a
     prefill (``cache_pos`` None or 0 with S > 1) at ``[0, S)``, a decode
     step at ``cache_pos`` (an int, or a (B,) tensor: row b at
-    ``cache_pos[b]``). Values are cast to the cache's dtype."""
+    ``cache_pos[b]``). ``ring``: the cache is a ring of that many slots,
+    position p goes to slot ``p % ring`` (a prefill keeps its last
+    ``ring`` positions). Values are cast to the cache's dtype."""
     ck, cv = cache["k"], cache["v"]
     if isinstance(cache_pos, torch.Tensor) and cache_pos.dim() == 1:
-        rows = torch.arange(k.shape[0], device=k.device)
-        idx = (rows, cache_pos.to(device=k.device, dtype=torch.long))
+        slot = cache_pos.to(device=k.device, dtype=torch.long)
+        if ring:
+            slot = slot % ring
+        idx = (torch.arange(k.shape[0], device=k.device), slot)
         ck.index_put_(idx, k[:, 0].to(ck.dtype))
         cv.index_put_(idx, v[:, 0].to(cv.dtype))
+        return {"k": ck, "v": cv}
+    p, S = int(cache_pos or 0), k.shape[1]
+    if ring:
+        lo = max(0, S - ring)
+        slots = (torch.arange(p + lo, p + S, device=k.device) % ring)
+        ck[:, slots] = k[:, lo:].to(ck.dtype)
+        cv[:, slots] = v[:, lo:].to(cv.dtype)
     else:
-        p = int(cache_pos or 0)
-        ck[:, p:p + k.shape[1]] = k
-        cv[:, p:p + v.shape[1]] = v
+        ck[:, p:p + S] = k
+        cv[:, p:p + S] = v
     return {"k": ck, "v": cv}
 
 
-def gqa_forward(p, cfg, x, positions, *, cache=None, cache_pos=None,
-                use_blockwise=False):
-    """GQA attention over (B, S, D), causal or bidirectional as
-    ``cfg.causal`` says. Returns (out, the layer's cache or None).
+def gqa_forward(p, cfg, x, positions, *, kind=None, window=0, cache=None,
+                cache_pos=None, use_blockwise=False):
+    """GQA attention over (B, S, D). ``kind``: causal, sliding (with
+    ``window``) or bidir; by default causal or bidirectional as
+    ``cfg.causal`` says. q and k are rotated at ``cfg.rope_theta`` over
+    ``cfg.rope_fraction`` of the head dim. Returns (out, the layer's
+    cache or None).
 
-    ``cache``: the layer's {"k", "v"} (B, S_max, K, hd), written in place;
-    with S == 1 and a ``cache_pos`` this is a decode step against the
-    cache, else a prefill that fills ``[0, S)`` and attends over the new
-    keys alone. ``use_blockwise``: the flash-style path."""
+    ``cache``: the layer's {"k", "v"} (B, S_max, K, hd), written in place
+    (a ring when a sliding layer's cache holds exactly ``window`` slots,
+    as in the reference); with S == 1 and a ``cache_pos`` this is a decode
+    step against the cache, else a prefill that fills it and attends over
+    the new keys alone. ``use_blockwise``: the flash-style path."""
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    if kind is None:
+        kind = "causal" if cfg.causal else "bidir"
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
@@ -195,19 +227,21 @@ def gqa_forward(p, cfg, x, positions, *, cache=None, cache_pos=None,
     v = v.reshape(B, S, K, hd)
     if cfg.rope != "none":
         # as in the reference: any rope setting but "none" rotates q, k
-        q = R.apply_rope(q, positions)
-        k = R.apply_rope(k, positions)
-    kind = "causal" if cfg.causal else "bidir"
+        q = R.apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+        k = R.apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
     new_kv = None
     if cache is not None:
-        new_kv = _write_cache(cache, k, v, cache_pos)
+        ring = (window if kind == "sliding" and window > 0
+                and cache["k"].shape[1] == window else 0)
+        new_kv = _write_cache(cache, k, v, cache_pos, ring)
         if S == 1 and cache_pos is not None:
-            o = decode_attn(q, new_kv["k"], new_kv["v"], cache_pos, kind)
+            o = decode_attn(q, new_kv["k"], new_kv["v"], cache_pos, kind,
+                            window, ring=bool(ring))
             o = o.reshape(B, S, H * hd)
             return o.to(_mm_dtype(o, p["wo"])) @ p["wo"], new_kv
     pos = positions[0]
     if use_blockwise:
-        o = blockwise_attn(q, k, v, pos, pos, kind)
+        o = blockwise_attn(q, k, v, pos, pos, kind, window)
     else:
-        o = dot_attn(q, k, v, _mask_bias(pos, pos, kind))
+        o = dot_attn(q, k, v, _mask_bias(pos, pos, kind, window))
     return o.reshape(B, S, H * hd) @ p["wo"], new_kv

@@ -1,8 +1,11 @@
 """Model configuration, PyTorch port of ``src/repro/models/config.py``.
 
-Only the fields the dense family (gpt2 decoders, bert encoders) reads are
-ported; the MoE, SSM, MLA, encoder-decoder and vision options of the
-reference arrive with the slices that port those families.
+The fields of the dense family are ported: gpt2 and bert (learned
+positions, gelu, layernorm) and the rotary family (granite, phi4,
+chatglm3's partial rotary and QKV bias, gemma3's sliding windows and
+window cache; rmsnorm, swiglu, remat). Defaults are the reference's. A
+config of another family, or with M-RoPE, is refused by
+:func:`unported` (ROADMAP item 4).
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # only "dense" is ported
+    family: str                  # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -23,16 +26,31 @@ class ModelConfig:
     d_ff: int
     vocab: int
     head_dim: Optional[int] = None
+
+    # attention
     attn_bias: bool = False
-    rope: str = "learned"        # only "learned" positions are ported
+    rope: str = "standard"       # none | standard | partial | learned
+                                 # (mrope not ported)
+    rope_fraction: float = 1.0
+    rope_theta: float = 10000.0
+    sliding_window: int = 0      # >0 enables local attention
+    global_every: int = 0        # gemma3: every k-th layer is global
     causal: bool = True          # False = bidirectional (bert)
-    mlp_type: str = "gelu"       # only the gelu MLP is ported
-    norm_type: str = "layernorm"  # only layernorm is ported
+
+    # serving
+    window_cache: bool = False   # sliding-window layers keep only
+                                 # ``window`` KV slots (a ring), global
+                                 # layers a compact stack
+
+    # misc
+    mlp_type: str = "swiglu"     # swiglu | gelu
+    norm_type: str = "rmsnorm"   # rmsnorm | layernorm
     tie_embeddings: bool = False  # False: a separate lm_head leaf
     max_seq: int = 8192
     vocab_pad_multiple: int = 256
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
+    remat: bool = False          # recompute each layer in the backward
     blockwise_threshold: int = 8192   # flash-style attention at S >= this
     citation: str = ""
 
@@ -44,3 +62,18 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         m = self.vocab_pad_multiple
         return ((self.vocab + m - 1) // m) * m
+
+    @property
+    def n_global_layers(self) -> int:
+        if not self.global_every:
+            return 0
+        return self.n_layers // self.global_every
+
+
+def unported(cfg: ModelConfig) -> Optional[str]:
+    """What of ``cfg`` the port does not run yet, or None."""
+    if cfg.rope == "mrope":
+        return "M-RoPE"
+    if cfg.family != "dense":
+        return f"the {cfg.family} family"
+    return None

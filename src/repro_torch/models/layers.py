@@ -84,6 +84,15 @@ def model_dim_spec(dim: int, mesh_axis: str = "model"):
 # Elementary ops
 # ---------------------------------------------------------------------------
 
+def rms_norm(x, scale, eps=1e-6):
+    """The reference's RMSNorm: in f32, ``x * rsqrt(mean(x^2) + eps)``
+    times the gain ``1 + scale`` (scale initialized to zeros)."""
+    x32 = x.to(torch.float32)
+    var = (x32 * x32).mean(-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.to(torch.float32))).to(x.dtype)
+
+
 def layer_norm(x, scale, bias, eps=1e-5):
     x32 = x.to(torch.float32)
     mu = x32.mean(-1, keepdim=True)
@@ -94,26 +103,31 @@ def layer_norm(x, scale, bias, eps=1e-5):
 
 
 def norm_template(cfg_norm: str, d: int):
-    if cfg_norm != "layernorm":
-        raise NotImplementedError(f"norm {cfg_norm!r} is not ported yet")
+    if cfg_norm == "rmsnorm":
+        return {"scale": PD((d,), "zeros")}
     return {"scale": PD((d,), "ones"), "bias": PD((d,), "zeros")}
 
 
 def apply_norm(p, x, cfg_norm: str):
+    if cfg_norm == "rmsnorm":
+        return rms_norm(x, p["scale"])
     return layer_norm(x, p["scale"], p["bias"])
 
 
 def mlp_template(d: int, ff: int, kind: str,
                  layers_axis: Optional[int] = None):
-    """GELU MLP params, optionally stacked over a layers axis."""
-    if kind != "gelu":
-        raise NotImplementedError(f"mlp {kind!r} is not ported yet")
-
+    """SwiGLU or GELU MLP params, optionally stacked over a layers axis."""
     def st(shape, spec):
         if layers_axis is None:
             return shape, spec
         return (layers_axis, *shape), (None, *spec)
     ffs = model_dim_spec(ff)
+    if kind == "swiglu":
+        s1, p1 = st((d, ff), (None, ffs))
+        s3, p3 = st((d, ff), (None, ffs))
+        s2, p2 = st((ff, d), (ffs, None))
+        return {"w_gate": PD(s1, spec=p1), "w_up": PD(s3, spec=p3),
+                "w_down": PD(s2, spec=p2)}
     s1, p1 = st((d, ff), (None, ffs))
     s2, p2 = st((ff, d), (ffs, None))
     sb1, pb1 = st((ff,), (ffs,))
@@ -123,6 +137,8 @@ def mlp_template(d: int, ff: int, kind: str,
 
 
 def apply_mlp(p, x, kind: str):
+    if kind == "swiglu":
+        return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(x @ p["w_in"] + p["b_in"], approximate="tanh")
     return h @ p["w_out"] + p["b_out"]

@@ -1,5 +1,7 @@
-"""Dense transformer assembly (gpt2 decoders, bert encoders), PyTorch port
-of the dense path of ``src/repro/models/transformer.py``.
+"""Dense transformer assembly, PyTorch port of the dense path of
+``src/repro/models/transformer.py``: gpt2 and bert (learned positions,
+gelu, layernorm) and the rotary family (granite, phi4, chatglm3's partial
+rotary, gemma3's 5:1 sliding:global layers; rmsnorm, swiglu).
 
     model_template(cfg)                   -> PD tree (the params' source)
     forward(params, cfg, batch)           -> (logits over the padded
@@ -11,23 +13,31 @@ of the dense path of ``src/repro/models/transformer.py``.
     decode(params, cfg, tokens, cache, pos) -> (logits, cache)
 
 At S >= ``cfg.blockwise_threshold`` attention takes the flash-style
-``attention.blockwise_attn``, as in the reference. ``prefill`` and
-``decode`` write the cache in place and run without autograd. The
-MLA, window-cache, SSM and dense-prefix caches of the reference belong
-to families the port does not run yet.
+``attention.blockwise_attn``, as in the reference. With ``cfg.remat``
+each layer runs under ``torch.utils.checkpoint`` (non-reentrant) when
+gradients are recorded: its activations are recomputed in the backward,
+bit for bit the run without it. ``prefill`` and ``decode`` write the
+cache in place and run without autograd. With ``cfg.window_cache``
+(gemma3) the cache is split: each sliding layer keeps a ring of
+``sliding_window`` slots, the global layers a compact stack; ``decode``
+runs through it as the reference's ``_decoder_scan_window_decode``, and
+``prefill`` fills it too (the reference's prefill cannot take the split
+cache: its layer scan refuses stacks of unequal length). MoE, SSM and
+hybrid, MLA, M-RoPE, the encoder and the dense prefix raise
+``NotImplementedError`` (ROADMAP item 4).
 
 Layer weights stay stacked on a leading layers axis, as in the reference:
-that keeps the leaves (19 for gpt2, 20 for bert with its untied
-``lm_head``) and their comm layouts identical. The layer
-loop unbinds the stack; autograd stacks the layers' gradients back.
+that keeps the leaves and their comm layouts identical. The layer loop
+unbinds the stack; autograd stacks the layers' gradients back.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import rope as R
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, unported
 from repro_torch.models.layers import (PD, apply_mlp, apply_norm,
                                        mlp_template, model_dim_spec,
                                        norm_template, stack_template)
@@ -47,30 +57,32 @@ def _block_template(cfg: ModelConfig, n_layers: int):
 
 
 def model_template(cfg: ModelConfig):
-    if cfg.family != "dense":
+    what = unported(cfg)
+    if what is not None:
         raise NotImplementedError(
-            f"only the dense family is ported yet ({cfg.name})")
-    if cfg.rope != "learned":
-        raise NotImplementedError("only learned positions (gpt2, bert) are "
-                                  "ported yet")
+            f"{cfg.name}: {what} is not ported yet (ROADMAP item 4)")
     d, V = cfg.d_model, cfg.padded_vocab
     vs = model_dim_spec(V)
     t = {"embed": PD((V, d), spec=(vs, None), scale=0.02),
          "final_norm": norm_template(cfg.norm_type, d)}
     if not cfg.tie_embeddings:
         t["lm_head"] = PD((d, V), spec=(None, vs))
-    t["pos_embed"] = PD((cfg.max_seq, d), scale=0.02)
+    if cfg.rope == "learned":
+        t["pos_embed"] = PD((cfg.max_seq, d), scale=0.02)
     t["blocks"] = _block_template(cfg, cfg.n_layers)
     return t
 
 
 def _embed(params, cfg: ModelConfig, tokens, offset=0):
-    """Token embeddings plus the learned positions ``offset ..
-    offset + S - 1``, ``offset`` an int or a (B,) tensor per row. The
-    reference's ``dynamic_slice`` clamps a read past the table without a
-    word; the port raises for an int offset (callers with per-row offsets
-    check ``max_seq`` up front, as ``serve.Server`` does)."""
+    """Token embeddings plus, for learned positions, the positions
+    ``offset .. offset + S - 1``, ``offset`` an int or a (B,) tensor per
+    row. The reference's ``dynamic_slice`` clamps a read past the table
+    without a word; the port raises for an int offset (callers with
+    per-row offsets check ``max_seq`` up front, as ``serve.Server``
+    does)."""
     h = params["embed"][tokens].to(cfg.compute_dtype)
+    if cfg.rope != "learned":
+        return h
     S = tokens.shape[1]
     pe = params["pos_embed"]
     if isinstance(offset, torch.Tensor) and offset.dim() == 1:
@@ -103,19 +115,64 @@ def _layers(blocks, n: int):
     return out
 
 
+def _layer_flags(cfg: ModelConfig):
+    """Each layer's attention: 1 sliding, 0 global (the model's own causal
+    or bidirectional kind). gemma3: every ``global_every``-th layer
+    global, the rest sliding; a window alone makes every layer sliding."""
+    L = cfg.n_layers
+    if cfg.sliding_window and cfg.global_every:
+        return [0 if (i + 1) % cfg.global_every == 0 else 1
+                for i in range(L)]
+    return [1 if cfg.sliding_window else 0] * L
+
+
+def _layer(lp, cfg: ModelConfig, h, positions, kind, window, cache=None,
+           cache_pos=None, use_blockwise=False):
+    """One pre-norm block: attention of ``kind``, then the MLP."""
+    hn = apply_norm(lp["attn_norm"], h, cfg.norm_type)
+    ao, _ = A.gqa_forward(lp["attn"], cfg, hn, positions, kind=kind,
+                          window=window, cache=cache, cache_pos=cache_pos,
+                          use_blockwise=use_blockwise)
+    h = h + ao
+    hm = apply_norm(lp["mlp_norm"], h, cfg.norm_type)
+    return h + apply_mlp(lp["mlp"], hm, cfg.mlp_type)
+
+
+def _layer_caches(cfg: ModelConfig, cache):
+    """Each layer's slice of ``cache`` (views, written in place): of the
+    dense stack, or with the split window cache a sliding layer's ring
+    and a global layer's slot of the compact stack, in layer order."""
+    if cache is None:
+        return [None] * cfg.n_layers
+    if "local" not in cache:
+        return [{k: c[l] for k, c in cache.items()}
+                for l in range(cfg.n_layers)]
+    out, g = [], 0
+    for l, flag in enumerate(_layer_flags(cfg)):
+        part, i = ("local", l) if flag else ("global", g)
+        g += 1 - flag
+        out.append({k: c[i] for k, c in cache[part].items()})
+    return out
+
+
 def _blocks(params, cfg: ModelConfig, h, positions, cache=None,
             cache_pos=None, use_blockwise=False):
     """The decoder (or encoder) blocks, layer by layer; layer ``l`` reads
-    and writes ``cache[...][l]`` in place."""
-    for l, lp in enumerate(_layers(params["blocks"], cfg.n_layers)):
-        lc = None if cache is None else {k: c[l] for k, c in cache.items()}
-        hn = apply_norm(lp["attn_norm"], h, cfg.norm_type)
-        ao, _ = A.gqa_forward(lp["attn"], cfg, hn, positions, cache=lc,
-                              cache_pos=cache_pos,
-                              use_blockwise=use_blockwise)
-        h = h + ao
-        hm = apply_norm(lp["mlp_norm"], h, cfg.norm_type)
-        h = h + apply_mlp(lp["mlp"], hm, cfg.mlp_type)
+    and writes its cache in place (:func:`_layer_caches`). Under
+    ``cfg.remat``, with gradients recorded, each layer is checkpointed."""
+    base = "causal" if cfg.causal else "bidir"
+    remat = cfg.remat and torch.is_grad_enabled()
+    caches = _layer_caches(cfg, cache)
+    for lp, flag, lc in zip(_layers(params["blocks"], cfg.n_layers),
+                            _layer_flags(cfg), caches):
+        kind, window = (("sliding", cfg.sliding_window) if flag
+                        else (base, 0))
+        if remat:
+            h = checkpoint(_layer, lp, cfg, h, positions, kind, window,
+                           None, None, use_blockwise, use_reentrant=False)
+        else:
+            h = _layer(lp, cfg, h, positions, kind, window, lc, cache_pos,
+                       use_blockwise)
     return h
 
 
@@ -134,17 +191,26 @@ def forward(params, cfg: ModelConfig, batch):
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None):
     """Zeroed decode cache: {"k", "v"} of shape (L, B, max_seq, K, hd),
-    the reference's dense layout, so caches compare leaf for leaf."""
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    the reference's dense layout, so caches compare leaf for leaf. With
+    ``cfg.window_cache`` (a sliding window and global layers) the
+    reference's split cache: {"local": {"k", "v"} (L, B, window, K, hd),
+    "global": {"k", "v"} (G, B, max_seq, K, hd)}; only the sliding
+    layers' rings of "local" are used, as in the reference."""
+    def kv(*shape):
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    K, hd = cfg.n_kv, cfg.hd
+    if cfg.window_cache and cfg.sliding_window and cfg.global_every:
+        return {"local": kv(cfg.n_layers, batch, cfg.sliding_window, K, hd),
+                "global": kv(cfg.n_global_layers, batch, max_seq, K, hd)}
+    return kv(cfg.n_layers, batch, max_seq, K, hd)
 
 
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, batch, cache):
     """Process the prompts (B, S), write their keys and values into
-    ``cache[..., :S]`` in place; returns (logits of the last position (B,
-    1, padded_vocab), cache)."""
+    ``cache[..., :S]`` in place (a ring keeps the last ``window``);
+    returns (logits of the last position (B, 1, padded_vocab), cache)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     h = _embed(params, cfg, tokens)

@@ -30,7 +30,7 @@ class Server:
             raise NotImplementedError(
                 "a serving mesh needs tensor and expert parallelism, which "
                 "the port does not run yet (ROADMAP queue items 3 and 4)")
-        if max_seq > model_cfg.max_seq:
+        if model_cfg.rope == "learned" and max_seq > model_cfg.max_seq:
             raise ValueError(
                 f"max_seq {max_seq} exceeds {model_cfg.name}'s learned "
                 f"position table ({model_cfg.max_seq})")

@@ -21,7 +21,14 @@ tenant and no second cache. Every cache write is in place.
 KV-cache quantization (``kv_quant="qint8"``): each page of ``kv_page``
 positions of a slot is quantized in place exactly once, when it fills
 (max-abs scale per page, qint8 codes by the wire codec's hash-dither
-stochastic rounding), so the storage error stays within one step.
+stochastic rounding), so the storage error stays within one step. It
+applies to the seq-indexed cache leaves (``shape[2] == max_seq``), as in
+the reference: the split window cache's rings stay full precision.
+
+Caches are nested dicts ({"k", "v"}, or gemma3's split window cache
+{"local": ..., "global": ...}); every leaf carries the slots at axis 1.
+The reference's Scheduler cannot take the split cache (its prefill
+refuses it); the port's prefills into it.
 """
 from __future__ import annotations
 
@@ -65,12 +72,18 @@ class Request:
                 f"request {self.rid!r}: max_new_tokens must be >= 1")
 
 
+def cache_leaves(cache):
+    """The tensors of a (nested) cache dict, in key order."""
+    for _, x in sorted(cache.items()):
+        yield from cache_leaves(x) if isinstance(x, dict) else (x,)
+
+
 def quant_page(cache, slot: int, start: int, page: int, max_seq: int):
     """Quantize positions ``[start, start + page)`` of ``slot``'s lane of
     every seq-indexed float cache leaf (``shape[2] == max_seq``) in
     place: one max-abs scale over the page, ``q = clip(floor(z / s +
     dither(z)), -127, 127)``, stored as ``q * s`` in the leaf's dtype."""
-    for x in cache.values():
+    for x in cache_leaves(cache):
         if not (x.dim() >= 3 and x.shape[2] == max_seq
                 and x.dtype.is_floating_point):
             continue
@@ -127,9 +140,12 @@ class Scheduler:
     def _prefill_one(self, params, tokens, slot: int) -> int:
         """Zero the slot's lane and prefill ``tokens`` (1, L) into it;
         returns the greedy first token."""
-        lane = {k: c[:, slot:slot + 1] for k, c in self.cache.items()}
-        for c in lane.values():
-            c.zero_()
+        def lane_of(c):
+            if isinstance(c, dict):
+                return {k: lane_of(v) for k, v in c.items()}
+            return c[:, slot:slot + 1].zero_()
+
+        lane = lane_of(self.cache)
         logits, _ = self._prefill(params, {"tokens": tokens}, lane)
         return int(torch.argmax(logits[0, -1, :self.cfg.vocab]))
 

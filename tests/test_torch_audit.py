@@ -183,14 +183,17 @@ def test_frame_precheck_flags_bad_frames(monkeypatch):
     lo = C.LeafLayout(shape=(400,), n=N, flatten=True, split_axis=0,
                       padded=400, view_shape=(N, 100))
     assert any("quantum" in i for i in KD.frame_precheck(lo))
-    # n4 >= 2**31: too many float4 for ef_quantize's 32-bit index (a
-    # stack of 2**21 frames of 4 x 1024)
+    # a stack of 2**21 frames of 4 x 1024 (n4 = 2**31): ef_quantize
+    # launches it in slabs of whole scale groups, so only one worker's
+    # frame of n4 >= 2**31 float4 is refused (2**31 elements x 4 rows)
     big = C.make_layout((4096,), None, N)
-    issues = KD.frame_precheck(big, stack=2 ** 21)
-    assert any("n4=2147483648" in i for i in issues), issues
-    assert not any("decompress" in i for i in issues), issues
+    assert KD.frame_precheck(big, stack=2 ** 21) == []
     assert any("decompress" in i
                for i in KD.frame_precheck(big, stack=2 ** 22))
+    wide = C.LeafLayout(shape=(8, 2 ** 30), n=N, flatten=False,
+                        split_axis=0, padded=8, view_shape=(N, 2, 2 ** 30))
+    assert any("one worker's frame (8, 1073741824) holds n4=2147483648" in i
+               for i in KD.frame_precheck(wide)), KD.frame_precheck(wide)
     # ef_compress's columns and shared memory: a block keeping 64 Ki
     # columns needs 256 KiB, above the 227 KB a block may opt in to
     wide = C.LeafLayout(shape=(8, 2 ** 20), n=N, flatten=False,

@@ -1040,3 +1040,195 @@ def test_cuda_audit_smoke_matrix_is_clean():
         rec = LA.audit_one("gpt2", device="cuda", **kw)
         assert rec["ok"], (kw, rec["violations"][:3], rec["frame_issues"])
 
+
+
+# --------------------------------------------------------------------- #
+# the dense rotary family (granite, phi4, chatglm3, gemma3)
+# --------------------------------------------------------------------- #
+
+@pytest.mark.gpu
+def test_cuda_family_layers_match_cpu():
+    """rms_norm, swiglu, partial rotary at gemma3's theta, the sliding
+    mask through ``dot_attn``, sliding ``blockwise_attn`` and sliding and
+    ring ``decode_attn`` (per-row positions) on the card against the
+    CPU, within 1e-5 (f32 products in another order)."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import rope as R
+
+    dev = _card()
+    cpu = torch.device("cpu")
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(2, 40, 64, generator=g)
+    scale = torch.randn(64, generator=g) * 0.1
+    w = {k: torch.randn(s, generator=g) * 0.02 for k, s in
+         (("w_gate", (64, 96)), ("w_up", (64, 96)), ("w_down", (96, 64)))}
+    q = torch.randn(2, 40, 4, 32, generator=g)
+    k = torch.randn(2, 40, 2, 32, generator=g)
+    v = torch.randn(2, 40, 2, 32, generator=g)
+    pos = torch.arange(40, dtype=torch.int32)
+    cache = torch.randn(4, 8, 2, 32, generator=g)
+    qd = torch.randn(4, 1, 4, 32, generator=g)
+    rows = torch.tensor([3, 7, 9, 20])
+
+    def run(d):
+        def t(a):
+            return a.to(d)
+        return [
+            L.rms_norm(t(x), t(scale)),
+            L.apply_mlp({n: t(a) for n, a in w.items()}, t(x), "swiglu"),
+            R.apply_rope(t(q), t(pos)[None].expand(2, -1), 1e6, 0.5),
+            A.dot_attn(t(q), t(k), t(v), A._mask_bias(t(pos), t(pos),
+                                                      "sliding", 8)),
+            A.blockwise_attn(t(q), t(k), t(v), t(pos), t(pos), "sliding", 8,
+                             bq=16, bk=8),
+            A.decode_attn(t(qd), t(cache), t(cache), t(rows), "sliding", 6),
+            A.decode_attn(t(qd), t(cache), t(cache), t(rows), "sliding", 8,
+                          ring=True)]
+
+    for a, b in zip(run(dev), run(cpu)):
+        assert a.is_cuda
+        assert float((a.cpu() - b).abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_at_a_granite_frame():
+    """Kernels 1-4 at granite-3-8b FULL's largest layer frame of run 9a
+    (``blocks/mlp/w_gate`` of 2 layers, 2 workers stacked: (16384,
+    12800)), worker and server side, against their plain versions: m'
+    and u' bit for bit, delta within 2 ulp, row sums and scales within 64
+    ulp, packed bytes, err_out and decoded values bit for bit."""
+    import dataclasses
+
+    dev = _card()
+    cfg = dataclasses.replace(get("granite-3-8b").config, n_layers=2)
+    tmpl = T.model_template(cfg)
+    plan = make_plan(L.param_shapes(tmpl), L.param_specs(tmpl),
+                     L.dp_mask(tmpl), 2)
+    lo = plan.layouts[plan.paths.index(("blocks", "mlp", "w_gate"))]
+    rows, cols = C.view_rows_cols(lo)
+    assert (2 * rows, cols) == (16384, 12800)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    cnt = torch.as_tensor(np.tile(C.view_row_counts(lo), 2), device=dev)
+    g, m, u = (torch.randn(2 * rows, cols, device=dev, generator=gen)
+               for _ in range(3))
+    vv = torch.randn(2 * rows, cols, device=dev, generator=gen).square()
+    lr = np.float32(1.5e-4)
+    fk = fused_adam.fused_local_step(g, m, u * 1e-3, vv * 1e-4, lr, 0.9)
+    fp = fused_adam.fused_local_step_plain(g, m, u * 1e-3, vv * 1e-4, lr,
+                                           0.9)
+    assert torch.equal(fk[0], fp[0]) and torch.equal(fk[1], fp[1])
+    assert _ulps(fk[2], fp[2]) <= 2
+    del fk, fp, vv
+    total, _ = C.true_counts(lo)
+    for frame_rows, counts, groups in (
+            (2 * rows, cnt, 2),
+            (rows, torch.as_tensor(C.chunk_row_counts(lo).reshape(-1),
+                                   device=dev), 2)):
+        z, e = g[:frame_rows] * 0.5, m[:frame_rows] * 0.1
+        d = torch.full((groups,), float(total), device=dev)
+        gr = frame_rows // groups
+        rk, sk = onebit.abs_rowsum_scales(z, e, counts, gr, d)
+        rp, sp = onebit.abs_rowsum_scales_plain(z, e, counts, gr, d)
+        assert _ulps(rk, rp) <= 64 and _ulps(sk, sp) <= 64
+        pk, ek = onebit.ef_quantize(z, e, sk, counts, gr)
+        pp, ep = onebit.ef_quantize_plain(z, e, sk, counts, gr)
+        assert torch.equal(pk, pp) and torch.equal(ek, ep)
+        s = sk.repeat_interleave(gr)
+        assert torch.equal(onebit.decompress(pk, s),
+                           onebit.decompress_plain(pk, s))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("group_rows", [1, 3, 8])
+def test_cuda_ef_quantize_launches_in_slabs(group_rows):
+    """The launcher with a slab limit of 24 groups' float4 and less: the
+    frame goes in slabs of whole scale groups, one counted launch each,
+    bit for bit one launch's bits and err_out (the plain version)."""
+    dev = _card()
+    rows, cols = 96, 1040
+    z, e, cnt = _frame(rows, cols, 3, dev)
+    s = torch.rand(rows // group_rows, device=dev) + 0.1
+    want = onebit.ef_quantize_plain(z, e, s, cnt, group_rows)
+    c4 = cols // 4
+    for max_n4 in (group_rows * c4 + 1, 5 * group_rows * c4,
+                   24 * group_rows * c4 + 7, 1 << 31):
+        packed = torch.full((rows, cols // 8), 7, dtype=torch.uint8,
+                            device=dev)
+        err_out = torch.full_like(z, 7.0)
+        slabs = onebit.ef_quantize_slabs(rows, cols, group_rows, max_n4)
+        build.launch_counts.clear()
+        onebit._launch_ef_quantize(z, e, s, cnt, packed, err_out,
+                                   group_rows, slabs)
+        torch.cuda.synchronize()
+        assert build.launch_counts["ef_quantize"] == len(slabs), max_n4
+        assert torch.equal(packed, want[0]) and torch.equal(err_out,
+                                                            want[1]), max_n4
+
+
+@pytest.mark.gpu
+def test_cuda_ef_quantize_past_2_31_float4():
+    """A frame of 2**31 + 2**21 float4 (8.6e9 elements, two scale groups
+    of 2**30 + 2**20), the size of gemma3-12b FULL's MLP frames at 4
+    stacked workers: ef_quantize launches one slab a group; the rows at
+    both ends and across the slab boundary bit for bit the plain version
+    on those rows. Needs ~70 GB of device memory (z doubles as err)."""
+    dev = _card()
+    if torch.cuda.get_device_properties(dev).total_memory < 79e9:
+        pytest.skip("needs an 80 GB card: the frame alone is 34 GB")
+    cols, per = 8192, 524_800          # 2048 float4 a row
+    rows = 2 * per
+    assert rows * cols // 4 == 2 ** 31 + 2 ** 21
+    gen = torch.Generator(device=dev).manual_seed(1)
+    z = torch.randn(rows, cols, device=dev, generator=gen)
+    cnt = torch.full((rows,), cols, dtype=torch.int32, device=dev)
+    cnt[per - 1] = 5
+    s = torch.tensor([0.7, 1.3], device=dev)
+    build.launch_counts.clear()
+    packed, err_out = onebit.ef_quantize(z, z, s, cnt, per)
+    torch.cuda.synchronize()
+    assert build.launch_counts["ef_quantize"] == 2
+    for lo_, hi_ in ((0, 4), (per - 4, per + 4), (rows - 4, rows)):
+        g0 = lo_ // per
+        sl = slice(lo_, hi_)
+        groups = s[torch.arange(lo_, hi_, device=dev) // per]
+        pp, ep = onebit.ef_quantize_plain(z[sl], z[sl], groups, cnt[sl], 1)
+        assert torch.equal(packed[sl], pp), (lo_, g0)
+        assert torch.equal(err_out[sl], ep), (lo_, g0)
+
+
+@pytest.mark.gpu
+def test_cuda_window_cache_matches_full_cache():
+    """gemma3-smoke on the card: 24 decode steps from position 0 (> 2x the
+    window of 8) with the ring cache against the full cache within 2e-4
+    (the reference's bar), and against the CPU's ring run within 1e-4;
+    then a prefill of 13 tokens into each cache and 8 decodes at per-row
+    positions, within 2e-4."""
+    import dataclasses
+
+    dev = _card()
+    cfg = get("gemma3-12b").smoke
+    wcfg = dataclasses.replace(cfg, window_cache=True)
+    params = L.init_params(T.model_template(cfg), 0)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (2, 24)))
+    runs = {}
+    for name, c, d in (("full", cfg, dev), ("ring", wcfg, dev),
+                       ("ring_cpu", wcfg, torch.device("cpu"))):
+        p = _to(params, d)
+        cache = T.init_cache(c, 2, 32, torch.float32, d)
+        runs[name] = torch.stack([T.decode(p, c, toks[:, i:i + 1].to(d),
+                                           cache, i)[0].cpu()
+                                  for i in range(24)])
+    assert float((runs["ring"] - runs["full"]).abs().max()) <= 2e-4
+    assert float((runs["ring"] - runs["ring_cpu"]).abs().max()) <= 1e-4
+    p = _to(params, dev)
+    caches = [T.init_cache(c, 2, 40, torch.float32, dev) for c in (cfg, wcfg)]
+    t = toks.to(dev)
+    outs = [T.prefill(p, c, {"tokens": t[:, :13]}, k)[0]
+            for c, k in zip((cfg, wcfg), caches)]
+    assert float((outs[0] - outs[1]).abs().max()) <= 2e-4
+    pos = torch.tensor([13, 13], device=dev)
+    for i in range(8):
+        a = T.decode(p, cfg, t[:, 13 + i:14 + i], caches[0], pos + i)[0]
+        b = T.decode(p, wcfg, t[:, 13 + i:14 + i], caches[1], pos + i)[0]
+        assert float((a - b).abs().max()) <= 2e-4, i

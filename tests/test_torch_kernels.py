@@ -487,6 +487,37 @@ def test_two_pass_geometry_and_divisors_at_full_frames(arch):
             *onebit.divisor(cols // 4), *onebit.divisor(group_rows))
 
 
+@pytest.mark.parametrize("rows, cols, group_rows, max_n4", [
+    (96, 1040, 1, 1 << 31), (96, 1040, 3, 3 * 260 + 1),
+    (96, 1040, 8, 5 * 8 * 260), (96, 1040, 1, 24 * 260 + 7),
+    (2 * 524_800, 8192, 524_800, 1 << 31), (0, 64, 1, 1 << 31)])
+def test_ef_quantize_slabs_cover_the_frame_in_whole_groups(rows, cols,
+                                                           group_rows,
+                                                           max_n4):
+    """ef_quantize's launches: in row order, whole scale groups each,
+    every launch under ``max_n4`` float4 (its 32-bit index), each but the
+    last as many groups as fit; one launch where the frame fits."""
+    slabs = onebit.ef_quantize_slabs(rows, cols, group_rows, max_n4)
+    fit = (max_n4 - 1) // (group_rows * (cols // 4))
+    start = 0
+    for r0, n in slabs:
+        assert r0 == start and r0 % group_rows == 0 and n % group_rows == 0
+        assert 0 < n * (cols // 4) < max_n4
+        start += n
+    assert start == rows
+    assert len(slabs) == -(-(rows // group_rows) // fit)
+    assert all(n == fit * group_rows for _, n in slabs[:-1])
+    if rows * (cols // 4) < max_n4:
+        assert len(slabs) == (1 if rows else 0)
+
+
+def test_ef_quantize_slabs_refuse_a_group_past_the_index():
+    with pytest.raises(ValueError, match="scale group"):
+        onebit.ef_quantize_slabs(16, 1040, 8, 8 * 260)
+    with pytest.raises(ValueError, match="scale group"):
+        onebit.ef_quantize_slabs(8, 2 ** 30, 8, onebit.EF_QUANTIZE_MAX_FLOAT4)
+
+
 def test_abs_rowsum_geometry_depends_on_the_width_alone():
     """The geometry takes the row width and nothing else, so a worker's
     frame alone and a stack of them sum each row (and each group) in the
