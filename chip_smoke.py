@@ -5,14 +5,16 @@
     python3 chip_smoke.py --only serve
     python3 chip_smoke.py --only audit
     python3 chip_smoke.py --only families
+    python3 chip_smoke.py --only moe          (10c on four cards only)
 
 Needs one card; on a machine with up to four, phase 6b puts one rank on
 each, and on four phase 6c runs its 2 pods x 2 ranks over NCCL and phase
 6d trains bert-large FULL in four ranks. ``--only`` runs, after the
-build, just the named checks of phases 4n, 5, 6, 7, 8 and 9 (the
+build, just the named checks of phases 4n, 5, 6, 7, 8, 9 and 10 (the
 second line: the four-card paths, on four cards; the third: phase 7;
 the fourth: phase 8; the fifth: 3e, phase 5's rotary-family checks and
-phase 9, 9d on four cards only) and prints no kernels or result line.
+phase 9, 9d on four cards only; the sixth: 3f and phase 10) and prints
+no kernels or result line.
 
 1. Prints the card (nvidia-smi name and power limit) and torch/CUDA.
 2. Builds the port's CUDA kernels from src/repro_torch/kernels/csrc with
@@ -31,7 +33,11 @@ phase 9, 9d on four cards only) and prints no kernels or result line.
    fused_local_step_sgd on all 20 BERT-Base frames and decompress (both
    decodes of a sync) on the same 20 frames, and fused_local_step on the
    same 20 frames as 0/1 LAMB runs it (its delta then scaled by each
-   worker's trust, held to the trust times the plain delta); then (3c)
+   worker's trust, held to the trust times the plain delta). Kernel 1
+   runs in place as the optimizer calls it (``fused_local_step_`` and
+   ``fused_local_step_sgd_``: m and u updated through the same pointers,
+   the delta written over the gradient), on copies, held to the plain
+   version of the inputs; then (3c)
    the frames of the
    two-level exchange at 2 pods x 2 workers, stacked workers owning
    different inner slices: abs_rowsum and ef_quantize (tensor scales) on
@@ -55,6 +61,10 @@ phase 9, 9d on four cards only) and prints no kernels or result line.
    ``dispatch.frame_precheck`` on every unit of granite-3-8b,
    phi4-mini-3.8b, chatglm3-6b and gemma3-12b FULL at full depth, at 2
    and 4 stacked workers (metadata only), every unit passing.
+   3f: the same for one rank of 10c (deepseek-v2-236b FULL width, 2
+   layers, 4 ranks, EP 4): kernels 1-4 on each of its DP units' frames,
+   the 102400 x 5120 embedding and head among them (the experts take
+   the plain local step).
 4. Drives the main paths, each through the trainer and CLI config a
    user would call, 4 simulated data-parallel workers, 8 steps (0/1
    Adam and 0/1-SGD: syncs at 0-4 and 6; variance at 0, 1, 3 where the
@@ -222,13 +232,14 @@ phase 9, 9d on four cards only) and prints no kernels or result line.
    tensor-parallel entries, 12 gpt2-smoke configurations of 8 recorded
    steps each, and the port's lints; it must exit 0.
 9. The dense rotary family at full width (depth cut to fit):
-   a. granite-3-8b (d 4096, 32 heads, kv 8, ff 12800, vocab 49155), 1 of
+   a. granite-3-8b (d 4096, 32 heads, kv 8, ff 12800, vocab 49155), 2 of
       its 40 layers, zero_one_adam with tensor scales, 2 simulated
       workers, global batch 8 x 1024, phase 4's 8-step schedule, remat
       on, through ``run_main_path`` as phase 4 (step, fwd/bwd and
       optimizer ms per step kind, launches of kernels 1-4 against
-      ``expected_launches``, peak memory, audited: the bytes a worker
-      sends a round equal to ``comm_accounting``);
+      ``expected_launches``, peak memory and its GB per 1e9 stacked
+      elements, audited: the bytes a worker sends a round equal to
+      ``comm_accounting``; ``--only 9a_1layer`` runs it at 1 layer);
    b. chatglm3-6b (partial rotary 0.5, QKV bias, kv 2), 1 of its 28
       layers, as (a) but in ``--mode single`` (one worker, batch 4 x
       1024: two workers of it do not fit the card);
@@ -239,11 +250,31 @@ phase 9, 9d on four cards only) and prints no kernels or result line.
       ``window_cache=True``: decode ms a tick, prefill ms and peak memory
       for each; tokens equal a lone run's (7a's check, 2 requests) and
       each other's but at top-2 gaps under 1e-4;
-   d. on four cards only: gemma3-12b, 1 layer (sliding), batch 4 x 2048,
+   d. on four cards only: gemma3-12b, 2 layers (sliding), batch 4 x 2048,
       four NCCL ranks with one worker each, zero_one_adam, 8 steps;
       every rank audited, its losses finite, its launches and step kinds
       4a's schedule.
-10. Prints the kernels line (kernels 2-4 with their 7e launches), the
+10. Mixture of experts with expert parallelism (llama4-scout,
+   deepseek-v2 with MLA and a dense first layer; the router, dispatch,
+   expert FFN and MLA are plain torch, as they reach no Pallas kernel in
+   the reference; the DP leaves go through kernels 1-4):
+   a. both smoke configs in sim mode, 4 workers (EP 4: each worker run
+      against the merged experts), 8 steps at a peak lr of 3e-4, on the
+      card against the CPU under phase 5's bars;
+   b. llama4-smoke in four gloo ranks on this card with the real expert
+      exchange (``all_to_all`` both ways, forward and backward), each
+      rank against its simulated worker (losses within 1e-5, params
+      within 1e-4: the merged experts sum an expert's gradient in
+      another order), launch counts equal, audited clean with the
+      exchanges classified as expert-parallel dispatch;
+   c. on four cards only: deepseek-v2-236b FULL width, 2 layers (the
+      dense first and one MoE layer of 160 experts, 40 a rank), four
+      NCCL ranks, EP 4, zero_one_adam with 4a's schedule, 1 x 2048 tokens
+      a rank, remat on, 8 steps: audited, losses finite, the first near
+      log(102400) + 0.02**2 * 5120 / 2 plus the aux term, launches 4a's
+      schedule over the DP leaves; peak memory (under 79.18 GiB), times
+      by step kind, the EP exchange's ms, dropped_frac and aux a step.
+11. Prints the kernels line (kernels 2-4 with their 7e launches), the
    card line and the result line.
 
 Any failure raises; there is no CPU fallback. Exits non-zero without a
@@ -471,7 +502,8 @@ class Tally:
                          "max_abs_err": 0.0, "launches_per_round": 0}
                      for k in [*KERNELS, BERT_DECOMPRESS, BERT_LAMB,
                                *HIER.values(),
-                               *(n for names in FAMILY_NAMES.values()
+                               *(n for names in {**FAMILY_NAMES,
+                                                 **MOE_NAMES}.values()
                                  for n in names.values()),
                                *BUCKET.values(), *BUCKET_HIER.values()]}
 
@@ -564,6 +596,26 @@ def row_slabs(rows, cols):
     return [slice(r, min(r + step, rows)) for r in range(0, rows, step)]
 
 
+def inplace_step(g, m, u, v, lr, b1):
+    """Kernel 1 in place, as the optimizer calls it, on copies of ``g``,
+    ``m`` and ``u``: m and u updated, the delta written over the copy of
+    the gradient (``v`` None: the SGD kernel). Returns its (m', u',
+    delta) and a closure that repeats the in-place call on the same
+    copies (for timing; it overwrites them, so compare first)."""
+    from repro_torch.kernels import fused_adam as FA
+
+    gk, mk, uk = g.clone(), m.clone(), u.clone()
+    if v is None:
+        def call():
+            return FA.fused_local_step_sgd_(gk, mk, uk, lr, b1, d=gk)
+    else:
+        def call():
+            return FA.fused_local_step_(gk, mk, uk, v, lr, b1, d=gk)
+    dk = call()
+    assert dk.data_ptr() == gk.data_ptr(), "the delta is not over g"
+    return (mk, uk, dk), call
+
+
 def check_kernels(dev, tally, plan=None, names=KERNEL_ROWS, n=N_WORKERS,
                   frames=None):
     """Phase 3a: the gpt2 path's kernels vs their plain versions at
@@ -587,10 +639,11 @@ def check_kernels(dev, tally, plan=None, names=KERNEL_ROWS, n=N_WORKERS,
             return (torch.randn(R, cols, device=dev, generator=gen)
                     * scale * mask)
 
-        # --- fused local step (once per leaf per step) ----------------
+        # --- fused local step (once per leaf per step), in place as the
+        # optimizer calls it: m and u updated, the delta over g ---------
         g, m, u = rnd(), rnd(), rnd(1e-3)
         v = rnd(1e-2).square()
-        fk = FA.fused_local_step(g, m, u, v, lr, b1)
+        fk, step_ = inplace_step(g, m, u, v, lr, b1)
         slabs, err = row_slabs(R, cols), 0.0
         for sl in slabs:
             fp = FA.fused_local_step_plain(g[sl], m[sl], u[sl], v[sl], lr, b1)
@@ -616,10 +669,9 @@ def check_kernels(dev, tally, plan=None, names=KERNEL_ROWS, n=N_WORKERS,
                 FA.fused_local_step_plain(g[sl], m[sl], u[sl], v[sl], lr, b1)
 
         ne = R * cols
-        tally.add(names["fused_local_step"],
-                  lambda: FA.fused_local_step(g, m, u, v, lr, b1), plain,
-                  28.0 * ne, 7.0 * ne, err)
-        del g, m, u, v, fk
+        tally.add(names["fused_local_step"], step_, plain, 28.0 * ne,
+                  7.0 * ne, err)
+        del g, m, u, v, fk, step_
 
         # --- worker and server compress (once each per leaf per sync) --
         check_compress_frames(dev, gen, tally, names, lo, cols,
@@ -781,25 +833,24 @@ def check_bert_kernels(dev, tally):
             return (torch.randn(R, cols, device=dev, generator=gen)
                     * scale * mask)
 
-        # --- fused SGD local step (once per leaf per step) ------------
+        # --- fused SGD local step (once per leaf per step), in place ---
         g, m, u = rnd(), rnd(), rnd(1e-3)
-        fk = FA.fused_local_step_sgd(g, m, u, lr, b1)
+        fk, step_ = inplace_step(g, m, u, None, lr, b1)
         fp = FA.fused_local_step_sgd_plain(g, m, u, lr, b1)
         torch.cuda.synchronize()
         for what, a, b in zip(("m'", "u'", "delta"), fk, fp):
             assert torch.equal(a, b), (lo.shape, what + " differs")
-        tally.add("fused_local_step_sgd",
-                  lambda: FA.fused_local_step_sgd(g, m, u, lr, b1),
+        tally.add("fused_local_step_sgd", step_,
                   lambda: FA.fused_local_step_sgd_plain(g, m, u, lr, b1),
                   24.0 * n, 6.0 * n, 0.0)
-        del fk, fp
+        del fk, fp, step_
 
         # --- the Adam kernel as 0/1 LAMB's local step (once per leaf per
         # step): its delta then scaled by each stacked worker's trust
         v = rnd(1e-2).square()
         trust = (torch.rand(N_WORKERS, device=dev, generator=gen) * 10
                  ).repeat_interleave(rows)[:, None]
-        fk = FA.fused_local_step(g, m, u, v, lr, b1)
+        fk, step_ = inplace_step(g, m, u, v, lr, b1)
         fp = FA.fused_local_step_plain(g, m, u, v, lr, b1)
         torch.cuda.synchronize()
         assert torch.equal(fk[0], fp[0]), (lo.shape, "lamb m' differs")
@@ -808,11 +859,10 @@ def check_bert_kernels(dev, tally):
         assert ulps(trust * fk[2], trust * fp[2]) <= TRUST_DELTA_ULPS, (
             lo.shape, "trust-scaled delta")
         err = max(float((a - b).abs().max()) for a, b in zip(fk, fp))
-        tally.add(BERT_LAMB,
-                  lambda: FA.fused_local_step(g, m, u, v, lr, b1),
+        tally.add(BERT_LAMB, step_,
                   lambda: FA.fused_local_step_plain(g, m, u, v, lr, b1),
                   28.0 * n, 7.0 * n, err)
-        del g, m, u, v, fk, fp, trust
+        del g, m, u, v, fk, fp, trust, step_
 
         # --- both decodes of a sync (run (b): every leaf; run (a) leaves
         # the gathered results of the 8 flatten leaves to torch ops) ----
@@ -988,15 +1038,20 @@ def run_main_path(dev, label, arch, extra, batch, seq, kind,
     trusts = (track_trust(tr) if tr.opt.base.has_trust
               and tr.opt.cfg.style == "accumulate" else None)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    parts = track_peaks(tr)
     build.launch_counts.clear()
     res = launch.train(args, tr, kind=kind, keep_step=(
         PROFILED_STEP if label in ("gpt2", "gpt2_adam", "gpt2_onebit")
         else None))
     counts = dict(build.launch_counts)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"  launches {json.dumps(counts)}; peak memory {peak_gb:.1f} GB",
-          flush=True)
+    for obj, attr in ((tr, "init"), (tr, "grads"), (tr.opt, "step")):
+        delattr(obj, attr)          # the class's own methods again
+    peak_gb = max(parts.values())
+    print(f"  launches {json.dumps(counts)}; peak memory {peak_gb:.1f} GB "
+          f"(init {parts['init']:.2f}, fwd/bwd {parts['fwd_bwd']:.2f}, "
+          f"optimizer {parts['optimizer']:.2f}; allocated before the run "
+          f"{before_gb:.2f})", flush=True)
     audit = audit_run(label, tr, trace)
 
     steps = res["records"]
@@ -1048,9 +1103,37 @@ def run_main_path(dev, label, arch, extra, batch, seq, kind,
     profile = profile_step(tr, *kept) if kept is not None else None
     del kept, tr
     return {"steps": steps, "launches": counts, "peak_memory_gb": peak_gb,
+            "peak_parts_gb": parts, "allocated_before_gb": before_gb,
             "wire_bytes": wire, "profile": profile,
             "params_sha256": digest, "trust_at_syncs": trusts,
             "audit": audit}
+
+
+def track_peaks(tr):
+    """Peak device memory (GB) of each part of ``tr``'s run: ``init``,
+    ``fwd_bwd`` (``Trainer.grads``) and ``optimizer`` (the optimizer's
+    step), each the largest over its calls, the peak statistic reset
+    before each call; their maximum is the run's peak (allocations
+    between the parts stay allocated into the next)."""
+    peaks = {"init": 0.0, "fwd_bwd": 0.0, "optimizer": 0.0}
+
+    def wrap(obj, attr, part):
+        fn = getattr(obj, attr)
+
+        def measured(*a, **k):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            peaks[part] = max(peaks[part],
+                              torch.cuda.max_memory_allocated() / 1e9)
+            return out
+        setattr(obj, attr, measured)
+
+    wrap(tr, "init", "init")
+    wrap(tr, "grads", "fwd_bwd")
+    wrap(tr.opt, "step", "optimizer")
+    return peaks
 
 
 def audit_run(label, tr, trace):
@@ -1336,7 +1419,7 @@ def run_fleet(dev, a):
     a survivor's bits; steps 0-2 are 4a's bit for bit; the launch counts
     are 4a's (the stacked workers share each launch at every width)."""
     from repro_torch.configs.base import get
-    from repro_torch.core.leafwise import flatten_tree
+    from repro_torch.core.leafwise import clone_tree, flatten_tree
     from repro_torch.elastic import FleetSim, ResizeEvent, reshard_report
     from repro_torch.elastic import simulate
     from repro_torch.kernels import build
@@ -1346,10 +1429,25 @@ def run_fleet(dev, a):
     kept, real = [], simulate.reshard_trainer
 
     def keep(src, dst, params, state, *, survivors=None):
-        # hold what the checks read; they run after the timed reshards
+        # hold what the checks read; they run after the timed reshards.
+        # The destination's first step updates its params and state in
+        # place, so copies of them are taken just before it (outside the
+        # reshard's and the step's timings); the source state is not
+        # stepped again
         out = real(src, dst, params, state, survivors=survivors)
-        kept.append((src.opt, dst.opt, survivors, state.err_w,
-                     out[1].err_w, out[0], out[1].u))
+        held = [src.opt, dst.opt, survivors, state.err_w, out[1].err_w,
+                out[0], out[1].u]
+        kept.append(held)
+        step = dst.step
+
+        def first_step(*a, **k):
+            held[4] = [None if e is None else e.clone() for e in held[4]]
+            held[5] = clone_tree(held[5])
+            held[6] = [None if x is None else x.clone() for x in held[6]]
+            del dst.step            # the class's own step again
+            return step(*a, **k)
+
+        dst.step = first_step
         return out
 
     simulate.reshard_trainer = keep
@@ -1525,7 +1623,8 @@ def _moved(params, state, d):
     from repro_torch.core.leafwise import flatten_tree, unflatten_tree
 
     paths, xs = flatten_tree(params)
-    return unflatten_tree(paths, [x.to(d) for x in xs]), state_to(state, d)
+    return (unflatten_tree(paths, [x.to(d, copy=True) for x in xs]),
+            state_to(state, d))
 
 
 def check_small_reshards(dev):
@@ -1721,10 +1820,12 @@ def check_small_input(dev, arch, extra, kind):
 
 
 def state_to(state, d):
-    """An optimizer state with every tensor moved to device ``d``."""
+    """An optimizer state with every tensor copied to device ``d`` (a copy
+    on its own device too: the optimizer's step updates its state in
+    place)."""
 
     def move(xs):
-        return [None if x is None else x.to(d) for x in xs]
+        return [None if x is None else x.to(d, copy=True) for x in xs]
 
     return dataclasses.replace(
         state, slots={k: move(v) for k, v in state.slots.items()},
@@ -1767,8 +1868,8 @@ def check_small_qint(dev, extra):
             (N_WORKERS,) + tuple(sh)) * sc).astype(np.float32))
             for sh in leaves]
 
-    def to(xs, d):
-        return unflatten_tree(paths, [x.to(d) for x in xs])
+    def to(xs, d):   # copies: the optimizer steps its params in place
+        return unflatten_tree(paths, [x.to(d, copy=True) for x in xs])
 
     params, grads = draw(0.02), [draw(1.0) for _ in range(7)]
     opts = {d: api.build_optimizer(launch.build_opt_cfg(args), shapes,
@@ -2801,13 +2902,13 @@ def run_audit_phase():
 
 FAMILIES = ("granite-3-8b", "phi4-mini-3.8b", "chatglm3-6b", "gemma3-12b")
 # (label, arch, workers, layers kept, global batch) of runs 9a and 9b:
-# full width, depth cut so that a sync step fits the card: it holds ~60
-# GiB per 1e9 stacked elements (params, grads and their views, the old
-# and the new m, u, anchor and error feedback, v, the decoded exchange),
-# so granite at 2 layers x 2 workers (1.606e9 elements) and chatglm3 at
-# 1 layer x 2 workers (1.473e9) run out of the card's 79 GiB; 9b runs
-# one worker (single mode) at 9a's batch a worker
-FAMILY_RUNS = (("9a", "granite-3-8b", 2, 1, 8), ("9b", "chatglm3-6b", 1, 1, 4))
+# full width, depth cut so that a sync step fits the card. The optimizer
+# updates its state in place (~29 B an element: param, grad, m, v, u,
+# anchor, the error feedback), so granite runs 2 layers x 2 workers
+# (1.606e9 stacked elements; 1 layer held ~63 B an element while a sync
+# step kept a second copy of the state); 9b runs one worker (single
+# mode) at 9a's batch a worker
+FAMILY_RUNS = (("9a", "granite-3-8b", 2, 2, 8), ("9b", "chatglm3-6b", 1, 1, 4))
 FAMILY_SEQ = 1024
 # 9c: gemma3-12b at full width, 12 of its 48 layers (10 sliding, 2
 # global), 4 slots, 8 requests of 1536-2048 prompt tokens (past the
@@ -2815,12 +2916,10 @@ FAMILY_SEQ = 1024
 SERVE9_LAYERS, SERVE9_SLOTS, SERVE9_REQUESTS = 12, 4, 8
 SERVE9_PROMPTS, SERVE9_GEN = (1536, 2048), 64
 SERVE9_LONE = 2            # requests re-run alone at batch 1 per cache
-# 9d (four cards): gemma3-12b at full width, 1 layer (sliding), one
-# worker a rank over NCCL, batch 4 x 2048 (2 layers, 1.455e9 elements a
-# rank, do not fit a card: one-card probes in single mode ran out at 2
-# layers and at 1; a rank's server error feedback is a quarter of single
-# mode's, 6.9 GiB less)
-DIST9_LAYERS, DIST9_BATCH, DIST9_SEQ = 1, 4, 2048
+# 9d (four cards): gemma3-12b at full width, 2 layers (sliding), one
+# worker a rank over NCCL, batch 4 x 2048 (1.455e9 elements a rank; with
+# the state updated in place a rank holds ~29 B an element)
+DIST9_LAYERS, DIST9_BATCH, DIST9_SEQ = 2, 4, 2048
 # 3e: the frames of each training run of phase 9, as (label, arch,
 # layers, workers of the plan, workers stacked in one process): 9a and
 # 9b as FAMILY_RUNS gives them, 9d's one rank of N_WORKERS
@@ -2829,29 +2928,43 @@ FRAMES_3E = tuple((label, arch, layers, workers, workers)
     ("9d", "gemma3-12b", DIST9_LAYERS, N_WORKERS, 1),)
 FAMILY_NAMES = {label: {k: f"{k} ({arch}, {label})" for k in FAMILY_KERNELS}
                 for label, arch, *_ in FRAMES_3E}
+# 3f: the frames of one rank of 10c (deepseek-v2-236b FULL width, 2
+# layers: the dense first one and one MoE layer, 4 ranks, EP 4): its DP
+# units, the 102400 x 5120 embedding and head among them
+MOE_LAYERS, MOE_BATCH, MOE_SEQ = 2, 4, 2048
+FRAMES_3F = (("10c", "deepseek-v2-236b", MOE_LAYERS, N_WORKERS, 1),)
+MOE_NAMES = {"10c": {k: f"{k} (deepseek-v2-236b, 10c)"
+                     for k in FAMILY_KERNELS}}
 
 
 def family_plan(arch, n_layers=None, workers=N_WORKERS):
     """The comm plan of ``arch`` FULL at ``workers`` workers, cut to
-    ``n_layers`` where given."""
+    ``n_layers`` where given: its data-parallel leaves (a MoE model's
+    experts, split over the workers, are in no exchange unit)."""
     from repro_torch.configs.base import get
     from repro_torch.core.leafwise import make_plan
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
+    from repro_torch.train.step import choose_ep
 
     cfg = get(arch).config
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    tmpl = T.model_template(cfg)
-    return make_plan(L.param_shapes(tmpl), L.param_specs(tmpl),
+    tmpl = T.model_template(cfg, ep_workers=choose_ep(cfg.n_experts,
+                                                      workers, None))
+    plan = make_plan(L.param_shapes(tmpl), L.param_specs(tmpl),
                      L.dp_mask(tmpl), workers)
+    keep = [i for i, dp in enumerate(plan.dp_mask) if dp]
+    return dataclasses.replace(plan, **{
+        f: [getattr(plan, f)[i] for i in keep]
+        for f in ("paths", "shapes", "specs", "dp_mask", "layouts")})
 
 
-def frames_3e_text(label):
-    """What 3e's frames of run ``label`` are, for the printed lines and
-    the kernels line."""
+def frames_3e_text(label, runs=FRAMES_3E):
+    """What 3e's (or 3f's) frames of run ``label`` are, for the printed
+    lines and the kernels line."""
     label, arch, layers, workers, stacked = next(
-        f for f in FRAMES_3E if f[0] == label)
+        f for f in runs if f[0] == label)
     who = (f"{workers} stacked workers" if stacked > 1 else
            "one worker" if workers == 1 else
            f"one rank of {workers} (its view and the last rank's chunk)")
@@ -2872,6 +2985,30 @@ def rank_frames(lo, rank):
             (rows // lo.n, chunk, np.full(1, max(chunk.sum(), 1)), False)]
 
 
+def check_run_frames(dev, tally, runs, names, phase):
+    """Kernels 1-4 on every frame of one step of each run of ``runs``
+    ((label, arch, layers, workers, stacked)), tallied under
+    ``names[label]``; a rank of a run in processes (one stacked worker)
+    is timed on the last rank's frames and the others' chunks checked."""
+    from repro_torch.core import compressor as C
+
+    for label, arch, layers, workers, stacked in runs:
+        print(f"  {phase} {frames_3e_text(label, runs)}", flush=True)
+        plan = family_plan(arch, layers, workers)
+        last = workers - 1
+        check_kernels(dev, tally, plan, names[label], stacked,
+                      None if stacked == workers
+                      else (lambda lo: rank_frames(lo, last)))
+        if stacked == workers:
+            continue
+        gen = torch.Generator(device=dev).manual_seed(1)
+        for lo in plan.layouts:
+            chunks = [rank_frames(lo, r)[1] for r in range(last)]
+            check_compress_frames(dev, gen, tally, None, lo,
+                                  C.view_rows_cols(lo)[1], chunks, 1)
+        torch.cuda.empty_cache()
+
+
 def check_family_kernels(dev, tally):
     """Phase 3e: kernels 1-4 against their plain versions on every frame
     of one step of each training run of phase 9 (FRAMES_3E: 9a's stacked
@@ -2884,21 +3021,7 @@ def check_family_kernels(dev, tally):
     from repro_torch.core import compressor as C
     from repro_torch.kernels import dispatch as K
 
-    for label, arch, layers, workers, stacked in FRAMES_3E:
-        print(f"  3e {frames_3e_text(label)}", flush=True)
-        plan = family_plan(arch, layers, workers)
-        last = workers - 1
-        check_kernels(dev, tally, plan, FAMILY_NAMES[label], stacked,
-                      None if stacked == workers
-                      else (lambda lo: rank_frames(lo, last)))
-        if stacked == workers:
-            continue
-        gen = torch.Generator(device=dev).manual_seed(1)
-        for lo in plan.layouts:
-            chunks = [rank_frames(lo, r)[1] for r in range(last)]
-            check_compress_frames(dev, gen, tally, None, lo,
-                                  C.view_rows_cols(lo)[1], chunks, 1)
-        torch.cuda.empty_cache()
+    check_run_frames(dev, tally, FRAMES_3E, FAMILY_NAMES, "3e")
     checked, largest = 0, (0, None)
     for a in FAMILIES:
         for n in (2, 4):
@@ -2935,9 +3058,34 @@ def run_family_training(dev):
               f"remat {cfg.remat}", flush=True)
         out[label] = run_main_path(dev, label, arch, [], batch, FAMILY_SEQ,
                                    "lm", workers, layers)
+        report_density(out[label], arch, layers, workers)
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+def report_density(run, arch, layers, workers):
+    """Print and keep a run's peak memory per 1e9 stacked elements (the
+    params of every stacked worker)."""
+    elements = workers * sum(
+        int(np.prod(lo.shape)) for lo in family_plan(arch, layers,
+                                                     workers).layouts)
+    run["stacked_elements"] = elements
+    run["gb_per_1e9_elements"] = run["peak_memory_gb"] / (elements / 1e9)
+    print(f"  {arch} {layers} layer(s) x {workers} worker(s): "
+          f"{elements / 1e9:.3f}e9 stacked elements, peak "
+          f"{run['peak_memory_gb']:.2f} GB = "
+          f"{run['gb_per_1e9_elements']:.2f} GB per 1e9", flush=True)
+
+
+def run_9a_one_layer(dev):
+    """9a as it ran before the in-place optimizer, at 1 layer: its peak
+    against the 75.8 GB of the two-copy step."""
+    label, arch, workers, _, batch = FAMILY_RUNS[0]
+    run = run_main_path(dev, label, arch, [], batch, FAMILY_SEQ, "lm",
+                        workers, 1)
+    report_density(run, arch, 1, workers)
+    return run
 
 
 def serve9_run(dev, params, window_cache):
@@ -3140,6 +3288,205 @@ def run_phase9(dev):
     return out
 
 
+# --------------------------------------------------------------------- #
+# phase 10: mixture of experts with expert parallelism
+# --------------------------------------------------------------------- #
+
+MOE_SMOKES = ("llama4-scout-17b-a16e", "deepseek-v2-236b")
+# 10b: the real expert exchange between processes, checked against the
+# simulated workers (which run each worker against the merged experts:
+# an expert's gradient summed in another order, tests/test_torch_dist.py)
+MOE_LOSS_TOL, MOE_PARAM_TOL = 1e-5, 1e-4
+
+
+def moe_parts(dev):
+    """Phase 10a's checks by name: each MoE smoke config in sim mode, 4
+    workers (EP 4: the experts split over the workers, each worker run
+    against the merged experts), 8 steps on the card against the CPU
+    under phase 5's bars, at a peak lr of 3e-4."""
+    return {f"moe_{a.split('-')[0]}":
+            (lambda a=a: check_small_input(dev, a, ["--lr", "3e-4"], "lm"))
+            for a in MOE_SMOKES}
+
+
+def ep_records(res):
+    """The expert-parallel exchange's share of each step of a rank:
+    (ep_a2a_ms, aux, dropped_frac) per step."""
+    return [{k: rec.get(k) for k in ("ep_a2a_ms", "aux", "dropped_frac")}
+            for rec in res["records"]]
+
+
+def run_10b():
+    """10b: llama4-smoke in four gloo ranks on this one card (the expert
+    exchange through host memory), each rank against the worker of its
+    index in a sim run of the same flags on the card: losses within
+    MOE_LOSS_TOL, params within MOE_PARAM_TOL, launch counts equal, its
+    audit clean with the exchanges classified as expert-parallel dispatch
+    and its optimizer collectives those of its simulated worker."""
+    arch = MOE_SMOKES[0]
+    base = ["--arch", arch, "--smoke", "--steps", str(STEPS), "--batch",
+            "8", "--seq", "32", "--sync-warmup", "2", "--double-every",
+            "2", "--kappa", "1", "--lr", "3e-4", "--log-every",
+            str(STEPS)]
+    print(f"phase 10b: {arch} in {N_WORKERS} gloo ranks on cuda:0 with "
+          f"the real expert exchange, against {N_WORKERS} simulated "
+          f"workers", flush=True)
+    ref = run_in_process(base + ["--mode", "sim", "--workers",
+                                 str(N_WORKERS)])
+    argv = base + ["--mode", "dist", "--backend", "gloo", "--device",
+                   "cuda:0", "--workers", str(N_WORKERS)]
+    ((ranks, wall),) = run_ranks([argv], N_WORKERS)
+    from repro_torch.configs.base import get
+
+    cfg = get(arch).smoke
+    moe_layers = cfg.n_layers - cfg.first_k_dense
+    key = ("op", "level", "dtype", "shape")
+    want_seq = [tuple(c[k] for k in key) for c in ref["recorded"]]
+    rows = []
+    for r, res in enumerate(ranks):
+        got = [rec["losses"][0] for rec in res["records"]]
+        want = [rec["losses"][r] for rec in ref["records"]]
+        gap = max(abs(a - b) for a, b in zip(got, want))
+        pgap = max(float((a[0] - b[r]).abs().max()) for a, b in zip(
+            flatten_params(res["params"]), ref["params"]))
+        seq = [tuple(c[k] for k in key) for c in res["recorded"]
+               if c["level"] != "ep"]
+        allowed = res["audit"]["summary"]["allowed"]
+        ep = ep_records(res)
+        row = {"rank": r, "max_loss_gap": gap, "max_param_gap": pgap,
+               "launches": res["launches"], "audit_ok": res["audit"]["ok"],
+               "allowed": allowed, "sequence_equal_sim": seq == want_seq,
+               "ep_a2a_ms": [x["ep_a2a_ms"] for x in ep],
+               "times": times_by_kind(res["records"])}
+        print(f"  10b rank {r}: loss gap {gap:.2e}, param gap {pgap:.2e}; "
+              f"launches {json.dumps(res['launches'])}; audit "
+              f"{'clean' if row['audit_ok'] else 'VIOLATIONS'}, allowed "
+              f"{json.dumps(allowed)}; optimizer collectives those of its "
+              f"simulated worker: {row['sequence_equal_sim']}; EP a2a ms "
+              f"a step {[round(x, 2) for x in row['ep_a2a_ms']]}",
+              flush=True)
+        assert all(np.isfinite(got)), (r, got)
+        assert gap <= MOE_LOSS_TOL and pgap <= MOE_PARAM_TOL, row
+        assert res["launches"] == ref["launches"], (r, res["launches"])
+        assert row["audit_ok"], (r, res["audit"]["violations"][:5])
+        assert allowed.get("expert-parallel dispatch") == (
+            STEPS * moe_layers * 4), allowed
+        assert row["sequence_equal_sim"], r
+        rows.append(row)
+    return {"ranks_wall_s": wall, "reference_launches": ref["launches"],
+            "ranks": rows}
+
+
+def flatten_params(tree):
+    from repro_torch.core.leafwise import flatten_tree
+
+    return flatten_tree(tree)[1]
+
+
+def run_10c():
+    """10c, on four cards only: deepseek-v2-236b at full width (d 5120,
+    128 MLA heads, 160 experts of d_ff 1536), MOE_LAYERS layers (the dense
+    first one and one MoE layer, 40 experts a rank), one NCCL rank a
+    card, EP 4, zero_one_adam with tensor scales and phase 4a's schedule,
+    8 steps of 1 x MOE_SEQ tokens a rank, remat on. Each rank audited
+    (clean, the expert exchange classified as expert-parallel dispatch),
+    its losses finite, the first near log(102400) plus the aux term, its
+    step kinds and launch counts 4a's schedule over its DP leaves; peak
+    memory, times by step kind, the EP exchange's ms, dropped_frac and
+    aux printed per rank."""
+    from repro_torch.configs.base import get
+
+    arch = "deepseek-v2-236b"
+    if torch.cuda.device_count() < N_WORKERS:
+        why = (f"needs {N_WORKERS} cards, one rank each; this machine has "
+               f"{torch.cuda.device_count()}")
+        print(f"phase 10c: {arch} FULL in processes not run: {why}",
+              flush=True)
+        return {"ran": False, "why": why}
+    cfg = dataclasses.replace(get(arch).config, n_layers=MOE_LAYERS)
+    argv = ["--arch", arch, "--layers", str(MOE_LAYERS), "--steps",
+            str(STEPS), "--batch", str(MOE_BATCH), "--seq", str(MOE_SEQ),
+            "--sync-warmup", "2", "--double-every", "2", "--kappa", "1",
+            "--log-every", "1", "--mode", "dist", "--backend", "nccl",
+            "--device", "cuda"]
+    transport = f"NCCL, {N_WORKERS} cards"
+    print(f"phase 10c: {arch} FULL width (d {cfg.d_model}, {cfg.n_heads} "
+          f"MLA heads, {cfg.n_experts} experts of d_ff {cfg.moe_d_ff}, top "
+          f"{cfg.top_k}), {MOE_LAYERS} of 60 layers, {N_WORKERS} ranks "
+          f"over {transport}, EP {N_WORKERS}, batch {MOE_BATCH}, seq "
+          f"{MOE_SEQ}, remat {cfg.remat}", flush=True)
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ((ranks, wall),) = run_ranks([argv], N_WORKERS)
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    expect = expected_launches(
+        "deepseek", family_plan(arch, MOE_LAYERS).layouts)
+    syncs, vars_ = schedule("zero_one_adam", True)
+    rows = []
+    for r, res in enumerate(ranks):
+        losses = [rec["losses"][0] for rec in res["records"]]
+        ep = ep_records(res)
+        allowed = res["audit"]["summary"]["allowed"]
+        first = first_loss(cfg) + cfg.aux_loss_weight * ep[0]["aux"]
+        row = {"rank": r, "device": res["device"], "losses": losses,
+               "first_loss_expected": first,
+               "peak_memory_gb": res["peak_memory_bytes"] / 1e9,
+               "peak_memory_gib": res["peak_memory_bytes"] / 2 ** 30,
+               "launches": res["launches"], "audit_ok": res["audit"]["ok"],
+               "allowed": allowed, "ep": ep,
+               "recorded_bytes": res["audit"]["summary"]["recorded_bytes"],
+               "times": times_by_kind(res["records"])}
+        print(f"  10c rank {r} on {res['device']}: losses "
+              f"{[round(x, 4) for x in losses]} (first expected "
+              f"{first:.4f}); peak {row['peak_memory_gb']:.2f} GB "
+              f"({row['peak_memory_gib']:.2f} GiB); launches "
+              f"{json.dumps(res['launches'])}; audit "
+              f"{'clean' if row['audit_ok'] else 'VIOLATIONS'}, allowed "
+              f"{json.dumps(allowed)}", flush=True)
+        print(f"    EP a2a ms a step "
+              f"{[round(x['ep_a2a_ms'], 2) for x in ep]}; dropped_frac "
+              f"{[round(x['dropped_frac'], 4) for x in ep]}; aux "
+              f"{[round(x['aux'], 4) for x in ep]}", flush=True)
+        print_rank_times(row["times"], transport)
+        assert row["audit_ok"], (r, res["audit"]["violations"][:5])
+        assert allowed.get("expert-parallel dispatch", 0) > 0, allowed
+        assert all(np.isfinite(losses)), (r, losses)
+        assert abs(losses[0] - first) < 0.1, (r, losses[0], first)
+        assert [x["sync"] for x in res["records"]] == syncs, r
+        assert [x["var"] for x in res["records"]] == vars_, r
+        assert res["launches"] == expect, (r, res["launches"], expect)
+        assert row["peak_memory_gib"] < 79.18, row["peak_memory_gib"]
+        rows.append(row)
+    return {"ran": True, "transport": transport, "ranks_wall_s": wall,
+            "ranks": rows}
+
+
+def run_moe_only(dev):
+    """``--only moe``: 3f (its own tally, printed), then phase 10."""
+    tally = Tally()
+    check_run_frames(dev, tally, FRAMES_3F, MOE_NAMES, "3f")
+    out = {"3f": {label: tally_rows(tally, names)
+                  for label, names in MOE_NAMES.items()}}
+    for label, rows in out["3f"].items():
+        print(f"  3f {label} " + json.dumps(rows), flush=True)
+    out.update(run_moe_phase(dev))
+    return out
+
+
+def run_moe_phase(dev):
+    """Phase 10: 10a (both smokes, card against CPU), 10b (gloo ranks on
+    one card), 10c (four cards only)."""
+    out = {k: run() for k, run in moe_parts(dev).items()}
+    out["10b"] = run_10b()
+    out["10c"] = run_10c()
+    return out
+
+
 def tally_rows(tally, names):
     """Each kernel's row of ``tally`` under ``names``, with its bound and
     the share of it the call and batched times reach."""
@@ -3173,7 +3520,8 @@ def parse_args(argv=None):
              "6b 6b_lamb 6d 6d_lamb' for the four-card paths, or "
              "'gpt2_qint8 gpt2_qint4_hier'; 'serve' for phase 7, or its "
              "runs '7a' ... '7e'; 'audit' for phase 8; 'families' for 3e, "
-             "phase 5's family checks and phase 9, or '9ab', '9c', '9d'), "
+             "phase 5's family checks and phase 9, or '9ab', '9c', '9d', "
+             "'9a_1layer'; 'moe' for 3f and phase 10, or '10ab', '10c'), "
              "print their summary and the card line, and no kernels or "
              "result line")
     return ap.parse_args(argv)
@@ -3190,8 +3538,13 @@ def run_only(dev, names, card, t_start):
         **dist_parts(), **serve_parts(dev),
         "serve": lambda: run_serve_phase(dev), "audit": run_audit_phase,
         "families": lambda: run_family_phase(dev),
+        "9a_1layer": lambda: run_9a_one_layer(dev),
         "9ab": lambda: run_family_training(dev), "9c": lambda: run_9c(dev),
-        "9d": run_9d}
+        "9d": run_9d,
+        **moe_parts(dev), "moe": lambda: run_moe_only(dev),
+        "10ab": lambda: {**{k: run() for k, run in moe_parts(dev).items()},
+                         "10b": run_10b()},
+        "10c": run_10c}
     unknown = sorted(set(names) - set(parts))
     if unknown:
         sys.exit(f"chip_smoke: unknown parts {unknown}; choose from "
@@ -3263,6 +3616,9 @@ def main(argv=None):
           "a rank of 9d); frame_precheck on the four FULL configs",
           flush=True)
     precheck = check_family_kernels(dev, tally)
+    print("phase 3f: every DP frame of a step of one rank of 10c "
+          "(deepseek-v2-236b FULL width, 2 layers, 4 ranks)", flush=True)
+    check_run_frames(dev, tally, FRAMES_3F, MOE_NAMES, "3f")
     lap("3")
 
     runs = {}
@@ -3316,6 +3672,11 @@ def main(argv=None):
     families = run_phase9(dev)
     lap("9")
 
+    print("phase 10: mixture of experts with expert parallelism",
+          flush=True)
+    moe = run_moe_phase(dev)
+    lap("10")
+
     def bound(r):
         t_bytes = r["bytes"] / PEAK_BYTES_PER_S * 1e3
         t_ops = r["ops"] / PEAK_F32_PER_S * 1e3
@@ -3338,6 +3699,10 @@ def main(argv=None):
             by_run[label] = families[label]["launches"].get(name, 0)
         for row in families["9d"].get("ranks", []):
             by_run[f"9d_rank{row['rank']}"] = row["launches"].get(name, 0)
+        for part in ("10b", "10c"):
+            for row in moe[part].get("ranks", []):
+                by_run[f"{part}_rank{row['rank']}"] = (
+                    row["launches"].get(name, 0))
         for part, d in dist_phase.items():
             if not isinstance(d, dict) or "ranks" not in d:
                 continue            # the probes, the wall time; 6d on
@@ -3380,6 +3745,11 @@ def main(argv=None):
                     "max_abs_err": rb["max_abs_err"],
                     "launches_per_round": rb["launches_per_round"]}
         if name in FAMILY_KERNELS:
+            kernels[-1]["moe_frames"] = {
+                label: {"per": "step (kernel 1) or sync (kernels 2-4) of "
+                               + frames_3e_text(label, FRAMES_3F),
+                        **tally_rows(tally, {name: names[name]})[name]}
+                for label, names in MOE_NAMES.items()}
             kernels[-1]["family_frames"] = {
                 label: {"per": "step (kernel 1) or sync (kernels 2-4) of "
                                + frames_3e_text(label),
@@ -3405,7 +3775,7 @@ def main(argv=None):
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     assert not missing, f"kernels never launched on a main path: {missing}"
     summary = {"runs": runs, "checkpoints": checkpoints, "4n": elastic,
-               "3e_precheck": precheck, "families": families,
+               "3e_precheck": precheck, "families": families, "moe": moe,
                "small_inputs": small,
                "data_parallel": dist_phase, "serve": serve,
                "audit": audit, "phase_wall_s": walls,

@@ -45,6 +45,14 @@ Sections (all by default, in this order):
   of its final params (the bytes of every leaf in flatten order) with
   its step losses: run in two checkouts, equal digests show that their
   4a is the same bit for bit.
+* ``memory``: where a training step's device memory goes, for
+  chip_smoke.py's run 9a (granite-3-8b FULL width, 2 simulated workers,
+  batch 8 x 1024, remat) at 1 and at 2 layers: the memory held after
+  the init, then three steps (two sync + variance steps, a sync step)
+  under the CUDA caching allocator's history, replayed to the moment of
+  the most memory allocated during the steps; the blocks alive then,
+  summed by the line of the port that allocated them (the innermost
+  frame under ``src/repro_torch``), the largest first.
 
 Every time is the median of 5 CUDA-event pairs around 20 calls back to
 back. Prints one JSON line per frame, then the card line. Exits non-zero
@@ -334,9 +342,91 @@ def run4a(dev, gen):
           flush=True)
 
 
+def memory(dev, gen):
+    """The ``memory`` section (module docstring). Each part of a step
+    (``Trainer.grads``, the optimizer's step) is marked in the history by
+    a small allocation, so that the peak and each block alive at it are
+    placed in a step and a part."""
+    import collections
+
+    from repro_torch.launch import train as launch
+
+    for layers in (1, 2):
+        args = launch.parse_args([
+            "--arch", "granite-3-8b", "--mode", "sim", "--workers", "2",
+            "--steps", "3", "--batch", "8", "--seq", "1024",
+            "--sync-warmup", "2", "--double-every", "2", "--kappa", "1",
+            "--layers", str(layers)])
+        tr = launch.make_trainer(args, device=dev)
+        params, state = tr.init(0)
+        data = launch.SyntheticLM(launch.DataConfig(
+            vocab=tr.model_cfg.vocab, seq_len=args.seq,
+            global_batch=args.batch, seed=0), device=dev)
+        marks, keep = {}, []
+
+        def marked(fn, part):
+            def call(*a, **k):
+                m = torch.empty(8 * (len(marks) + 1), dtype=torch.uint8,
+                                device=dev)
+                marks[m.data_ptr()] = f"step {len(marks) // 2} {part}"
+                keep.append(m)
+                return fn(*a, **k)
+            return call
+
+        tr.grads = marked(tr.grads, "fwd/bwd")
+        tr.opt.step = marked(tr.opt.step, "optimizer")
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.memory._record_memory_history(
+            enabled="all", stacks="python", max_entries=1_000_000)
+        for t in range(args.steps):
+            params, state, _ = tr.step(params, state, data.batch(t))
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+        torch.cuda.memory._record_memory_history(enabled=None)
+        trace = snap["device_traces"][dev.index or 0]
+        # a marker's own event: the last allocation at its address (the
+        # markers are never freed; an earlier block may have had it)
+        marker_at = {}
+        for k, ev in enumerate(trace):
+            if ev["action"] == "alloc" and ev["addr"] in marks:
+                marker_at[ev["addr"]] = k
+        marker_at = {k: marks[a] for a, k in marker_at.items()}
+        live, cur, peak, at_peak = {}, 0, 0, {}
+        part, peak_part = "before", None
+        for k, ev in enumerate(trace):
+            if ev["action"] == "alloc":
+                part = marker_at.get(k, part)
+                live[ev["addr"]] = (ev["size"], ev["frames"], part)
+                cur += ev["size"]
+                if cur > peak:
+                    peak, at_peak, peak_part = cur, dict(live), part
+            elif (ev["action"] in ("free_requested", "free_completed")
+                  and ev["addr"] in live):
+                cur -= live.pop(ev["addr"])[0]
+        by_line = collections.Counter()
+        for size, frames, born in at_peak.values():
+            where = next((f"{f['filename'].split('src/')[-1]}:{f['line']} "
+                          f"{f['name']}" for f in frames
+                          if "repro_torch" in f["filename"]), "other")
+            by_line[f"{where} [{born}]"] += size
+        print(json.dumps({
+            "memory": f"granite-3-8b FULL width, {layers} layer(s) x 2 "
+                      f"workers, batch 8 x 1024",
+            "held_after_init_gb": held / 1e9,
+            "peak_during_steps_gb": (held + peak) / 1e9,
+            "allocated_at_peak_gb": peak / 1e9, "peak_in": peak_part,
+            "by_line_gb": {k: round(v / 1e9, 3)
+                           for k, v in by_line.most_common(15)}}),
+            flush=True)
+        del tr, params, state, snap, live, at_peak, keep
+        torch.cuda.empty_cache()
+
+
 SECTIONS = {"abs_rowsum": sweep_abs_rowsum, "ef_quantize": sweep_ef_quantize,
             "decompress": decompress_frames, "ef_compress": sweep_ef_compress,
-            "stacked": stacked_reductions, "phase3": phase3, "run4a": run4a}
+            "stacked": stacked_reductions, "phase3": phase3, "run4a": run4a,
+            "memory": memory}
 
 
 def main(names):

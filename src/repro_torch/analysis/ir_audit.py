@@ -20,7 +20,10 @@ of every real step, which the checks then hold to the declared contract:
    two intra-pod phases with pods), op, level, dtype and shape equal. A
    step that ran a round consumes that manifest whole; a step that did
    not consumes none of it. Reductions of at most 64 elements a worker
-   (the loss ``pmean``) are allowed anywhere; any other collective is a
+   (the loss ``pmean``) are allowed anywhere, and so are a MoE model's
+   expert-parallel exchanges (recorded at the ``ep`` level) and its
+   expert gradients' replica mean (``ep_residual``), the reference's
+   allowances (:func:`allowance`); any other collective is a
    violation, ``interpod-bytes`` where it crosses the inter-pod level
    wider than 8 bits an element. The reference sees both branches of
    each ``cond`` in one trace; the port sees the rounds its run takes, so
@@ -218,6 +221,19 @@ class RecordingComm(Comm):
         self._rec("all_to_all", x)
         return self.comm.all_to_all(x)
 
+    def ep_all_to_all(self, x):
+        """The expert-parallel exchange of one worker's buffer, recorded
+        at the ``ep`` level (its operand has no stack dim)."""
+        self.book.add("all_to_all", "ep", x[None], self.comm.size())
+        return self.comm.ep_all_to_all(x)
+
+    def ep_residual_mean(self, x):
+        self.book.add("pmean", "ep_residual", x[None], self.comm.size())
+        return self.comm.ep_residual_mean(x)
+
+    def ep_ms(self):
+        return self.comm.ep_ms()
+
     def split(self, inner: int):
         if inner not in self._levels:
             outer, pod = self.comm.split(inner)
@@ -387,9 +403,33 @@ def concretize_manifest(entries, trainer) -> List[ConcreteCollective]:
 # checks
 # ---------------------------------------------------------------------------
 
+def allowance(c: RecordedCollective) -> Optional[str]:
+    """Why a collective outside the declared manifests is acceptable, or
+    None, as the reference's ``_allowance``: a control/metric scalar
+    reduction (the loss pmean); the expert-parallel token exchange of a
+    MoE layer (recorded at the ``ep`` level, inside the forward and the
+    backward); the mean of the expert gradients over their replicas
+    (``ep_residual``)."""
+    if c.op in _REDUCTIONS and c.elems <= _SMALL_ELEMS:
+        return "control/metric scalar"
+    if c.level == "ep" and c.op == "all_to_all":
+        return "expert-parallel dispatch"
+    if c.level == "ep_residual" and c.op == "pmean":
+        return "EP residual-axis gradient mean"
+    return None
+
+
 def _allowed(c: RecordedCollective) -> bool:
-    """A control/metric scalar reduction (the loss pmean)."""
-    return c.op in _REDUCTIONS and c.elems <= _SMALL_ELEMS
+    return allowance(c) is not None
+
+
+def _allowed_counts(collectives) -> Dict[str, int]:
+    out: Dict[str, int] = {}
+    for c in collectives:
+        why = allowance(c)
+        if why is not None:
+            out[why] = out.get(why, 0) + 1
+    return out
 
 
 def _entry_eq(got: RecordedCollective, exp: ConcreteCollective) -> bool:
@@ -732,6 +772,9 @@ def audit_trainer(trainer, params=None, state=None, batches=None, *,
         # ran it, per level, beside comm_accounting's
         "recorded_bytes": {name: rows[0] for name, rows in rec.items()
                            if rows},
+        # collectives outside the manifests, by the allowance that
+        # admitted them
+        "allowed": _allowed_counts(trace.collectives),
         "accounting": {k: acct[k] for k in acct if "bytes" in k},
     }
     return AuditReport(ok=not violations, violations=violations,

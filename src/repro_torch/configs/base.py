@@ -2,7 +2,8 @@
 
 Each entry carries the FULL config and a reduced SMOKE config of the same
 family. Ported so far: gpt2, bert-base and bert-large, and the dense
-rotary family: granite-3-8b, phi4-mini-3.8b, chatglm3-6b, gemma3-12b.
+rotary family: granite-3-8b, phi4-mini-3.8b, chatglm3-6b, gemma3-12b;
+and the moe family: llama4-scout-17b-a16e, deepseek-v2-236b.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ class ArchSpec:
 
 
 _REGISTRY: Dict[str, ArchSpec] = {}
-_ARCH_MODULES = ["chatglm3_6b", "gemma3_12b", "granite_3_8b",
+_ARCH_MODULES = ["chatglm3_6b", "deepseek_v2_236b", "gemma3_12b",
+                 "granite_3_8b", "llama4_scout_17b_a16e",
                  "phi4_mini_3p8b", "bert_base", "bert_large", "gpt2"]
 
 

@@ -70,6 +70,10 @@ class AdamBase:
         """Parameter movement for a momentum-like buffer; linear in buf."""
         return self.precond_raw(buf, slots)
 
+    def precond_(self, buf, slots):
+        """:meth:`precond` written into ``buf`` itself, the same bits."""
+        return buf.div_(FA.sqrt(slots["v"] + self.eps))
+
     def update_variance(self, v, g):
         """``beta2 * v + ((1 - beta2) * g) * g``, each product and the sum
         rounded as written; two temporaries at a time, not three (a leaf
@@ -77,6 +81,13 @@ class AdamBase:
         gg = (1 - self.beta2) * g
         gg.mul_(g)
         return torch.mul(v, self.beta2).add_(gg)
+
+    def update_variance_(self, v, g):
+        """:meth:`update_variance` written into ``v`` itself, the same
+        roundings in the same order."""
+        gg = (1 - self.beta2) * g
+        gg.mul_(g)
+        return v.mul_(self.beta2).add_(gg)
 
     def refresh_sync_slots(self, slots, anchor_nat, ubar_view, gamma_total,
                            layout) -> Dict[str, torch.Tensor]:
@@ -121,6 +132,9 @@ class LambBase(AdamBase):
     def precond(self, buf, slots):
         return bcast(slots["trust"], buf) * self.precond_raw(buf, slots)
 
+    def precond_(self, buf, slots):
+        return super().precond_(buf, slots).mul_(bcast(slots["trust"], buf))
+
     def trust_ratio(self, x_nat, upd_nat) -> torch.Tensor:
         """Per stacked worker: ``||x|| / ||upd||`` clipped to [min_trust,
         max_trust]; 1.0 wherever either norm is 0."""
@@ -157,6 +171,9 @@ class MomentumSgdBase:
         return buf
 
     def precond(self, buf, slots):
+        return buf
+
+    def precond_(self, buf, slots):
         return buf
 
     def refresh_sync_slots(self, slots, anchor_nat, ubar_view, gamma_total,

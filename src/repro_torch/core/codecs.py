@@ -294,7 +294,7 @@ class TopKCodec(_DenseEFCodec):
             z = z * mask.to(z.dtype)
         zf = _rows(z, layout)
         k = self.k_for(layout)
-        idx = _top_k_indices(zf.abs(), k)
+        idx = top_k_indices(zf.abs(), k)
         val = torch.gather(zf, 1, idx)
         # the residual: zf with the shipped elements zeroed
         err = zf.scatter(1, idx, 0.0).reshape(z.shape)
@@ -319,7 +319,7 @@ class TopKCodec(_DenseEFCodec):
         return {"scatter": per, "gather": per}
 
 
-def _top_k_indices(a: torch.Tensor, k: int) -> torch.Tensor:
+def top_k_indices(a: torch.Tensor, k: int) -> torch.Tensor:
     """Indices (rows, k) of the ``k`` largest of each row of ``a``, equal
     values taken lowest index first, in ``jax.lax.top_k``'s order
     (descending value, ties by ascending index): the reference's

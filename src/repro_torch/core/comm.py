@@ -10,6 +10,15 @@ runs one worker of a real fleet holds a stack of one (:class:`DistComm`,
 the counterpart of the reference's ``mesh_comm``): its collectives go
 through ``torch.distributed``, NCCL between cards and gloo on the CPU.
 
+Expert parallelism exchanges tokens inside a forward, one worker at a
+time: :meth:`Comm.ep_all_to_all` takes one worker's ``(n, ...)`` buffer
+(no stack dim). A process holds one worker, so :class:`DistComm` runs it
+over its group (timed apart from the optimizer's exchange:
+:meth:`DistComm.ep_ms`) and :class:`NullComm` returns it; the simulator
+has no worker to exchange with inside one worker's forward and refuses
+it (its trainer runs each worker against the merged experts instead,
+``repro_torch.models.moe``).
+
 A two-level topology (:class:`Hierarchy`: pods of ``inner`` workers)
 splits a comm into an outer and an inner comm (:meth:`Comm.split`). The
 flat worker index is outer-major, ``w = k * n_inner + j``: the inner comm
@@ -81,9 +90,32 @@ class Comm:
         every worker, in sender order (split dim 1, concat dim 1)."""
         raise NotImplementedError
 
+    def ep_all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """The expert-parallel exchange of ONE worker's buffer (n, ...):
+        block j goes to worker j, and block i of the result came from
+        worker i."""
+        if self.size() == 1:
+            return x
+        raise NotImplementedError(
+            f"{type(self).__name__} runs the workers of a stack one at a "
+            f"time in the forward, so one worker has no peer to exchange "
+            f"tokens with: run each worker against the merged experts")
+
+    def ep_residual_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of one worker's expert gradient over the replicas of
+        its experts (this comm's group); the identity for one worker."""
+        if self.size() == 1:
+            return x
+        return self.pmean(x[None])[0]
+
     def exchange_ms(self):
         """Time the exchange collectives took since the last call, in ms;
         None where they run in process and move nothing."""
+        return None
+
+    def ep_ms(self):
+        """Time the expert-parallel exchanges took since the last call, in
+        ms; None where there are none across processes."""
         return None
 
     def split(self, inner: int):
@@ -228,6 +260,8 @@ class DistComm(Comm):
         self._root = self if _root is None else _root
         self._pending = []    # (event pair, owning comm), on the root only
         self._ms = 0.0
+        self._ep_pending = []     # the same, of the EP exchanges
+        self._ep_ms = 0.0
         self._levels = {}
 
     def size(self) -> int:
@@ -258,7 +292,10 @@ class DistComm(Comm):
                 f"{collective.__name__} of a {x.dtype} tensor on "
                 f"{x.device}: {e}") from e
 
-    def _run(self, collective, out, x):
+    def _run(self, collective, out, x, ep=False):
+        """Run and time one collective: an exchange collective, or with
+        ``ep`` an expert-parallel one (kept in the root's own sum)."""
+        root = self._root
         if x.is_cuda:
             stream = torch.cuda.current_stream(x.device)
             ev = (torch.cuda.Event(enable_timing=True),
@@ -266,11 +303,18 @@ class DistComm(Comm):
             ev[0].record(stream)
             self._call(collective, out, x)
             ev[1].record(stream)
-            self._root._pending.append((ev, self))
+            if ep:
+                root._ep_pending.append(ev)
+            else:
+                root._pending.append((ev, self))
         else:
             t0 = time.perf_counter()
             self._call(collective, out, x)
-            self._add(1e3 * (time.perf_counter() - t0))
+            ms = 1e3 * (time.perf_counter() - t0)
+            if ep:
+                root._ep_ms += ms
+            else:
+                self._add(ms)
         return out[None]
 
     def exchange_ms(self) -> float:
@@ -285,6 +329,18 @@ class DistComm(Comm):
                 owner._add(a.elapsed_time(b))
             root._pending = []
         ms, self._ms = self._ms, 0.0
+        return ms
+
+    def ep_ms(self) -> float:
+        """Summed time of the expert-parallel exchanges since the last
+        call (of every level), timed as :meth:`exchange_ms`'s."""
+        root = self._root
+        if root._ep_pending:
+            root._ep_pending[-1][1].synchronize()
+            root._ep_ms += sum(a.elapsed_time(b)
+                               for a, b in root._ep_pending)
+            root._ep_pending = []
+        ms, root._ep_ms = root._ep_ms, 0.0
         return ms
 
     def split(self, inner: int):
@@ -339,3 +395,13 @@ class DistComm(Comm):
                              f"got {x.shape[1]}")
         x0 = x[0].contiguous()
         return self._run(dist.all_to_all_single, torch.empty_like(x0), x0)
+
+    def ep_all_to_all(self, x):
+        if x.shape[0] != self.n:
+            raise ValueError(f"the EP exchange needs {self.n} blocks on dim "
+                             f"0, got {x.shape[0]}")
+        if self.n == 1:
+            return x
+        x = x.contiguous()
+        return self._run(dist.all_to_all_single, torch.empty_like(x), x,
+                         ep=True)[0]

@@ -74,6 +74,20 @@ class CompressedDPState:
                                            # natural per leaf, the bucket
                                            # view per bucket
 
+    def clone(self) -> "CompressedDPState":
+        """A copy with storage of its own: the optimizer's step updates
+        its state in place, so a caller that steps one state twice, or
+        reads it after stepping it, steps a clone."""
+        def c(x):
+            return x.clone() if isinstance(x, torch.Tensor) else x
+        return CompressedDPState(
+            step=self.step, gamma_acc=self.gamma_acc,
+            sync_pstate=self.sync_pstate, var_pstate=self.var_pstate,
+            slots={k: [c(x) for x in v] for k, v in self.slots.items()},
+            u=[c(x) for x in self.u], err_w=[c(x) for x in self.err_w],
+            err_s=[c(x) for x in self.err_s],
+            anchor=[c(x) for x in self.anchor])
+
 
 class _ExchangeUnit(NamedTuple):
     """One unit of the per-unit issue loop: a bucket, or a DP leaf when
@@ -161,10 +175,7 @@ class ComposedOptimizer:
         self.base = cfg.base
         self.plan = leafwise.make_plan(param_shapes, specs, dp_mask,
                                        n_workers, cfg.hierarchy)
-        if not all(self.plan.dp_mask):
-            raise NotImplementedError(
-                "leaves outside data parallelism (expert-parallel MoE) are "
-                "not ported yet")
+        self.dp = list(self.plan.dp_mask)
         self.n = n_workers
         self.hierarchy = self.plan.hierarchy
         self.layouts = self.plan.layouts
@@ -180,7 +191,7 @@ class ComposedOptimizer:
                 _ExchangeUnit(bi, b.members, b.layout, b)
                 for bi, b in enumerate(self.bucket_plan.buckets))
         else:
-            idx = list(range(len(self.layouts)))
+            idx = [i for i, dp in enumerate(self.dp) if dp]
             if cfg.pack_order == "reverse_backward":
                 idx = idx[::-1]
             self.units = tuple(_ExchangeUnit(i, (i,), self.layouts[i], None)
@@ -194,20 +205,30 @@ class ComposedOptimizer:
 
     # ------------------------------------------------------------------ #
     def init(self, params) -> CompressedDPState:
-        """State for stacked params (every leaf (stack, *shape))."""
+        """State for stacked params (every leaf (stack, *shape)). A leaf
+        outside data parallelism (an expert-parallel leaf) keeps its
+        slots in its natural shape, no scalar slot, and no ``u``, EF
+        state or anchor, as the reference."""
         xs = self.plan.flat(params)
         stack = xs[0].shape[0]
-        los = self.layouts
-        slots = {name: [torch.full((stack,) + (() if kind == "scalar"
-                                               else lo.view_shape), init,
-                                   dtype=torch.float32, device=x.device)
-                        for x, lo in zip(xs, los)]
+        los, dps = self.layouts, self.dp
+
+        def slot(kind, init, x, lo, dp):
+            if kind == "scalar":
+                return (torch.full((stack,), init, dtype=torch.float32,
+                                   device=x.device) if dp else None)
+            return torch.full(x.shape[:1] + (lo.view_shape if dp
+                                             else x.shape[1:]),
+                              init, dtype=torch.float32, device=x.device)
+
+        slots = {name: [slot(kind, init, x, lo, dp)
+                        for x, lo, dp in zip(xs, los, dps)]
                  for name, (kind, init) in self.base.slot_specs().items()}
         dev = xs[0].device
         if self.bucket_plan is None:
-            ef_los = los
-            anchor = [x.detach().clone() if self._has_anchor else None
-                      for x in xs]
+            ef_los = [lo if dp else None for lo, dp in zip(los, dps)]
+            anchor = [x.detach().clone() if self._has_anchor and dp
+                      else None for x, dp in zip(xs, dps)]
         else:
             # per-bucket EF and anchors: the bucket buffer is what the
             # codec compresses, so its error state and the re-anchored
@@ -216,7 +237,8 @@ class ComposedOptimizer:
             anchor = [self._gather_bucket(b, [xs[i] for i in b.members])
                       .detach().clone() if self._has_anchor else None
                       for b in self.bucket_plan.buckets]
-        efs = [AR.init_ef_state(lo, stack, dev) if self._has_ef
+        efs = [AR.init_ef_state(lo, stack, dev)
+               if self._has_ef and lo is not None
                else AR.EFState(None, None) for lo in ef_los]
         return CompressedDPState(
             step=0, gamma_acc=np.float32(0.0),
@@ -226,7 +248,8 @@ class ComposedOptimizer:
                         if self._use_var_policy else ()),
             slots=slots,
             u=[torch.zeros((stack,) + lo.view_shape, device=x.device)
-               if self._has_u else None for x, lo in zip(xs, los)],
+               if self._has_u and dp else None
+               for x, lo, dp in zip(xs, los, dps)],
             err_w=[ef.err_worker for ef in efs],
             err_s=[ef.err_server for ef in efs], anchor=anchor)
 
@@ -268,15 +291,50 @@ class ComposedOptimizer:
             unit.layout, self.ar_cfg)
         return self._unit_scatter(unit, o), ef
 
-    def step(self, comm: Comm, params, grads, state: CompressedDPState):
+    def step(self, comm: Comm, params, grads, state: CompressedDPState,
+             donate_grads: bool = False):
         """One step of every stacked worker in the configured style.
-        Returns (new params, new state, metrics); the inputs are not
-        modified."""
+        Returns (params, state, metrics): the same ``params`` tree and
+        ``state`` object, updated in place (every tensor keeps its
+        storage; the reference donates its state under ``jit``). A
+        caller that needs the state or params from before the step
+        clones them first (:meth:`CompressedDPState.clone`,
+        :func:`repro_torch.core.leafwise.clone_tree`). With
+        ``donate_grads`` the gradients' buffers may hold the local step's
+        deltas afterwards (the trainer's gradients are dead after the
+        step); else they stay as they were."""
         if self.cfg.style == "accumulate":
-            return self._step_accumulate(comm, params, grads, state)
+            return self._step_accumulate(comm, params, grads, state,
+                                         donate_grads)
         return self._step_sync(comm, params, grads, state)
 
-    def _step_accumulate(self, comm, params, grads, state):
+    def _local_base_step(self, i, x, g, state, lr):
+        """The plain local base step of a leaf outside data parallelism
+        (an expert-parallel leaf), which never syncs, in place: the
+        reference's ``mh = b1*m + (1-b1)*g`` (one FMA, as XLA contracts
+        it), ``x -= precond(lr*mh)`` with the variance from before the
+        step (LAMB: ``lr * trust * upd`` with the trust of this step),
+        and the variance refreshed every step."""
+        base = self.base
+        b1 = float(np.float32(base.beta1))
+        omb1 = float(np.float32(1.0 - base.beta1))
+        m = state.slots["m"][i]
+        mh = fma(m, b1, g * omb1)
+        x32 = x.to(torch.float32)
+        if base.has_trust:
+            upd = base.precond_raw(mh, {"v": state.slots["v"][i]})
+            lr_trust = float(lr) * base.trust_ratio(x32, upd)
+            delta = bcast(lr_trust, upd) * upd
+        elif base.has_variance:
+            delta = base.precond_(mh * float(lr), {"v": state.slots["v"][i]})
+        else:
+            delta = mh * float(lr)
+        _sub_into(x, x32, delta)
+        m.copy_(mh)
+        if base.has_variance:
+            base.update_variance_(state.slots["v"][i], g)
+
+    def _step_accumulate(self, comm, params, grads, state, donate_grads):
         cfg, base = self.cfg, self.base
         t = state.step
         lr = np.float32(cfg.lr(t))
@@ -294,41 +352,47 @@ class ComposedOptimizer:
         # device (CUDA turns a divide by a host scalar into a multiply by
         # its reciprocal); made once per step
         gamma_t = torch.tensor(gamma_total, device=xs[0].device)
-        gv = [C.to_view(g.to(torch.float32), lo)
-              for g, lo in zip(gs, self.layouts)]
+        slots = state.slots
 
-        # --- the local half-step of every leaf (kernel 1; LAMB scales its
-        # delta by the leaf's frozen trust after it, as the reference).
-        # On sync steps the delta is not needed: the re-anchor replaces
-        # x_{t+1/2}
-        new_x = [None] * len(xs)
-        new_m, new_u = [], []
-        for i, (x, g, lo) in enumerate(zip(xs, gv, self.layouts)):
-            mh, u_new, delta = K.fused_local_step_view(
-                g, state.slots["m"][i], state.u[i],
-                state.slots["v"][i] if base.has_variance else None, lr,
-                base.beta1, getattr(base, "eps", 0.0), lo, kind=base.kind)
+        def grad_view(i):
+            return C.to_view(gs[i].to(torch.float32), self.layouts[i])
+
+        # --- the local half-step of every leaf, in place (kernel 1 on DP
+        # leaves: m and u updated, the delta over the gradient's view
+        # unless the T_v round below still needs the gradient; LAMB
+        # scales its delta by the leaf's frozen trust after it, as the
+        # reference). On sync steps the delta is not needed: the
+        # re-anchor replaces x_{t+1/2}. Leaves outside data parallelism
+        # take their plain local base step.
+        for i, (x, lo) in enumerate(zip(xs, self.layouts)):
+            if not self.dp[i]:
+                self._local_base_step(i, x, gs[i].to(torch.float32), state,
+                                      lr)
+                continue
+            delta = K.fused_local_step_view_(
+                grad_view(i), slots["m"][i], state.u[i],
+                slots["v"][i] if base.has_variance else None, lr,
+                base.beta1, getattr(base, "eps", 0.0), lo, kind=base.kind,
+                into_grad=donate_grads and not do_var)
             if not do_sync:
                 if base.has_trust:
-                    delta = bcast(state.slots["trust"][i], delta) * delta
-                new_x[i] = (x.to(torch.float32)
-                            - C.from_view(delta, lo)).to(x.dtype)
-            new_m.append(mh)
-            new_u.append(u_new)
+                    delta.mul_(bcast(slots["trust"][i], delta))
+                _sub_into(x, x, C.from_view(delta, lo))
             del delta
 
         # --- T_u: one Algorithm-2 exchange per unit, then each member's
         # slot refresh (LAMB's trust) and re-anchor x = anchor -
-        # precond(ubar), momentum ubar / gamma
-        new_ew, new_es = list(state.err_w), list(state.err_s)
-        new_anchor = list(state.anchor)
+        # precond(ubar), momentum ubar / gamma, u = 0; EF state and
+        # anchor written back before the next unit
         sync_names = tuple(base.sync_slot_names)
-        new_sync = {name: list(state.slots[name]) for name in sync_names}
         for unit in self.units if do_sync else ():
             si = unit.state_idx
             ubars, ef = self._onebit_unit(
-                comm, unit, [new_u[i] for i in unit.members],
+                comm, unit, [state.u[i] for i in unit.members],
                 state.err_w[si], state.err_s[si])
+            state.err_w[si].copy_(ef.err_worker)
+            state.err_s[si].copy_(ef.err_server)
+            del ef
             if unit.bucket is None:
                 ancs = [state.anchor[si]]
             else:
@@ -337,54 +401,53 @@ class ComposedOptimizer:
                     unit.members)]
             for i, ubar, anc in zip(unit.members, ubars, ancs):
                 lo = self.layouts[i]
-                slots = {name: state.slots[name][i] for name in state.slots}
-                slots.update(base.refresh_sync_slots(
-                    slots, anc, ubar, gamma_t, lo))
-                new_x[i] = (anc - C.from_view(base.precond(ubar, slots), lo)
-                            ).to(xs[i].dtype)
+                sl = {name: slots[name][i] for name in slots}
+                sl.update(base.refresh_sync_slots(sl, anc, ubar, gamma_t,
+                                                  lo))
                 for name in sync_names:
-                    new_sync[name][i] = slots[name]
-                new_m[i] = ubar / gamma_t
-                new_u[i] = torch.zeros_like(new_u[i])
-            new_ew[si], new_es[si] = ef.err_worker, ef.err_server
-            new_anchor[si] = (new_x[si] if unit.bucket is None else
-                              self._gather_bucket(unit.bucket, [
-                                  new_x[i] for i in unit.members]))
+                    slots[name][i].copy_(sl[name])
+                torch.div(ubar, gamma_t, out=slots["m"][i])
+                # ubar is dead after the momentum: precondition it in place
+                # (a copy first where the exchange handed back a broadcast
+                # view, as an exact codec's gather does)
+                ubar = ubar.contiguous()
+                _sub_into(xs[i], anc, C.from_view(base.precond_(ubar, sl),
+                                                  lo))
+                state.u[i].zero_()
+            # drop the unit's temporaries (the loop's names too) before
+            # the next unit's exchange
+            del ubars, ancs, ubar, anc, sl
+            state.anchor[si].copy_(
+                xs[si] if unit.bucket is None else self._gather_bucket(
+                    unit.bucket, [xs[i] for i in unit.members]))
 
         # --- T_v: the full-precision variance refresh, per unit too
-        new_v = list(state.slots["v"]) if base.has_variance else None
         for unit in self.units if do_var else ():
             gbars = self._fullprec_unit(comm, unit,
-                                        [gv[i] for i in unit.members])
+                                        [grad_view(i) for i in unit.members])
             for i, gbar in zip(unit.members, gbars):
-                new_v[i] = base.update_variance(state.slots["v"][i], gbar)
+                base.update_variance_(slots["v"][i], gbar)
+            del gbars, gbar
 
-        new_slots = {**state.slots, **new_sync, "m": new_m}
-        if new_v is not None:
-            new_slots["v"] = new_v
-        new_state = CompressedDPState(
-            step=t + 1,
-            gamma_acc=np.float32(0.0) if do_sync else gamma_total,
-            sync_pstate=sync_ps, var_pstate=var_ps, slots=new_slots,
-            u=new_u, err_w=new_ew, err_s=new_es, anchor=new_anchor)
+        state.step = t + 1
+        state.gamma_acc = np.float32(0.0) if do_sync else gamma_total
+        state.sync_pstate, state.var_pstate = sync_ps, var_ps
         metrics = {"lr": lr, "synced": do_sync, "var_round": do_var,
                    "interval": interval}
-        return (leafwise.unflatten_tree(self.plan.paths, new_x), new_state,
-                metrics)
+        return params, state, metrics
 
     def _step_sync(self, comm, params, grads, state):
         """The gradient and mean styles: exchange the gradient itself,
-        then take the base's step on the mean. The step is the
-        reference's plain arithmetic, never the fused local step (which
-        would write a ``u'`` these styles do not have); its
-        multiply-adds are single-rounding, as XLA contracts them."""
+        then take the base's step on the mean, unit by unit, in place.
+        The step is the reference's plain arithmetic, never the fused
+        local step (which would write a ``u'`` these styles do not have);
+        its multiply-adds are single-rounding, as XLA contracts them.
+        Leaves outside data parallelism step on their own gradient and
+        refresh their variance every step."""
         cfg, base = self.cfg, self.base
         t = state.step
         lr = np.float32(cfg.lr(t))
         xs, gs = self.plan.flat(params), self.plan.flat(grads)
-        gv = [C.to_view(g.to(torch.float32), lo)
-              for g, lo in zip(gs, self.layouts)]
-        new_ew, new_es = list(state.err_w), list(state.err_s)
         if cfg.style == "gradient":
             if self._use_var_policy:
                 do_var, var_ps = cfg.var_policy.step(state.var_pstate, t, 1)
@@ -395,18 +458,6 @@ class ComposedOptimizer:
         # a full-precision round (the mean style, and the gradient
         # style's first stage, which keeps its EF state), else 1-bit
         full = cfg.style == "mean" or do_var
-        gbar = list(gv)
-        for unit in self.units:
-            si = unit.state_idx
-            bufs = [gv[i] for i in unit.members]
-            if full:
-                outs = self._fullprec_unit(comm, unit, bufs)
-            else:
-                outs, ef = self._onebit_unit(comm, unit, bufs,
-                                             state.err_w[si], state.err_s[si])
-                new_ew[si], new_es[si] = ef.err_worker, ef.err_server
-            for i, o in zip(unit.members, outs):
-                gbar[i] = o
 
         # The base step as XLA compiles the reference's (measured on
         # jax 0.9.0's CPU backend): m' = fma(b1, m, (1-b1)*g) and
@@ -427,45 +478,81 @@ class ComposedOptimizer:
         if base.has_variance:
             b2, omb2, eps = (f32(base.beta2), f32(1.0 - base.beta2),
                              f32(base.eps))
-        new_x, new_m = [], []
-        new_v = list(state.slots["v"]) if base.has_variance else None
-        for i, (x, g, lo) in enumerate(zip(xs, gbar, self.layouts)):
-            nm = fma(state.slots["m"][i], b1, g * omb1)
+
+        def base_step(i, g):
+            x, lo, dp = xs[i], self.layouts[i], self.dp[i]
+
+            def nat(a):
+                return C.from_view(a, lo) if dp else a
+
+            m = state.slots["m"][i]
+            nm = fma(m, b1, g * omb1)
             x32 = x.to(torch.float32)
-            if base.has_trust:
+            nv = None
+            if base.has_variance:
                 v = state.slots["v"][i]
-                if do_var:
-                    new_v[i] = fma(v, b2, (g * omb2) * g)
-                upd = C.from_view(nm * rsqrt(v + eps), lo)
+                if do_var or not dp:
+                    nv = fma(v, b2, (g * omb2) * g)
+            if base.has_trust:
+                upd = nat(nm * rsqrt(v + eps))
                 if wd:
                     upd = fma(x32, wd, upd)
                 lr_trust = base.trust_ratio(x32, upd) * float(lr)
                 nx = fma(upd, bcast(-lr_trust, upd), x32)
             elif base.has_variance:
-                v = state.slots["v"][i]
-                if do_var:
-                    new_v[i] = fma(v, b2, (g * omb2) * g)
-                step = C.from_view(nm * float(lr), lo)
-                r = C.from_view(rsqrt(v + eps), lo)
+                step = nat(nm * float(lr))
+                r = nat(rsqrt(v + eps))
                 nx = (x32 - fma(x32, lr_wd, step * r) if lr_wd
                       else fma(-step, r, x32))
             else:
-                step = C.from_view(nm, lo)
+                step = nat(nm)
                 nx = (x32 - fma(x32, lr_wd, step * float(lr)) if lr_wd
                       else fma(step, -float(lr), x32))
-            new_x.append(nx.to(x.dtype))
-            new_m.append(nm)
+            _store(x, nx)
+            m.copy_(nm)
+            if nv is not None:
+                state.slots["v"][i].copy_(nv)
 
-        new_slots = {**state.slots, "m": new_m}
-        if new_v is not None:
-            new_slots["v"] = new_v
-        new_state = dataclasses.replace(
-            state, step=t + 1, var_pstate=var_ps, slots=new_slots,
-            err_w=new_ew, err_s=new_es)
+        for unit in self.units:
+            si = unit.state_idx
+            bufs = [C.to_view(gs[i].to(torch.float32), self.layouts[i])
+                    for i in unit.members]
+            if full:
+                outs = self._fullprec_unit(comm, unit, bufs)
+            else:
+                outs, ef = self._onebit_unit(comm, unit, bufs,
+                                             state.err_w[si], state.err_s[si])
+                state.err_w[si].copy_(ef.err_worker)
+                state.err_s[si].copy_(ef.err_server)
+                del ef
+            del bufs
+            for i, o in zip(unit.members, outs):
+                base_step(i, o)
+            del outs, o
+        for i, dp in enumerate(self.dp):
+            if not dp:
+                base_step(i, gs[i].to(torch.float32))
+
+        state.step = t + 1
+        state.var_pstate = var_ps
         metrics = {"lr": lr, "synced": True, "var_round": bool(do_var),
                    "interval": 1}
-        return (leafwise.unflatten_tree(self.plan.paths, new_x), new_state,
-                metrics)
+        return params, state, metrics
+
+
+def _store(x: torch.Tensor, value: torch.Tensor) -> None:
+    """Write an f32 result into the parameter ``x`` in place, rounded to
+    its dtype."""
+    x.copy_(value if value.dtype == x.dtype else value.to(x.dtype))
+
+
+def _sub_into(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> None:
+    """``x = a - b`` in f32 written into the parameter ``x`` (``a`` may be
+    ``x`` itself): without a temporary when ``x`` is f32."""
+    if x.dtype == torch.float32:
+        torch.sub(a, b, out=x)
+    else:
+        _store(x, a.to(torch.float32) - b)
 
 
 def comm_accounting(opt: ComposedOptimizer) -> Dict[str, float]:
@@ -478,7 +565,8 @@ def comm_accounting(opt: ComposedOptimizer) -> Dict[str, float]:
     a hierarchy. Volumes and counts run over the exchange units (buckets
     with ``bucket_mb``, else the DP leaves): ``collectives_per_sync``
     counts exchange phases, 2 per unit flat, 4 hierarchical."""
-    params = sum(int(np.prod(lo.shape)) for lo in opt.layouts)
+    params = sum(int(np.prod(lo.shape))
+                 for lo, dp in zip(opt.layouts, opt.dp) if dp)
     wire = torch.tensor([], dtype=opt.cfg.comm_dtype).element_size()
     comp = {"inner": 0, "outer": 0}
     full = {"inner": 0, "outer": 0}
@@ -504,7 +592,7 @@ def comm_accounting(opt: ComposedOptimizer) -> Dict[str, float]:
             "fullprec_bytes_per_round_outer": float(full["outer"]),
             "bits_per_param_sync": 8.0 * total / max(params, 1),
             "n_inner": float(n_inner), "n_outer": float(opt.n // n_inner),
-            "dp_leaves": float(len(opt.layouts)),
+            "dp_leaves": float(sum(opt.dp)),
             "exchange_units": float(len(units)),
             "collectives_per_sync": float(
                 len(units) * (4 if n_inner > 1 else 2)),

@@ -14,19 +14,22 @@ from repro_torch.core import onebit_allreduce as AR
 from repro_torch.core.comm import Hierarchy, norm_hierarchy
 
 
+def _visit(node, prefix, paths, leaves):
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _visit(node[k], prefix + (k,), paths, leaves)
+    else:
+        paths.append(prefix)
+        leaves.append(node)
+
+
 def flatten_tree(tree) -> Tuple[List[Tuple[str, ...]], List[Any]]:
-    """Nested dict -> (key paths, leaves) in sorted-key order."""
+    """Nested dict -> (key paths, leaves) in sorted-key order. (A module
+    function, not a recursive closure: a closure that calls itself is a
+    reference cycle, which would hold the leaves, a step's gradients
+    among them, until the cyclic garbage collector runs.)"""
     paths, leaves = [], []
-
-    def visit(node, prefix):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                visit(node[k], prefix + (k,))
-        else:
-            paths.append(prefix)
-            leaves.append(node)
-
-    visit(tree, ())
+    _visit(tree, (), paths, leaves)
     return paths, leaves
 
 
@@ -38,6 +41,13 @@ def unflatten_tree(paths, leaves) -> Dict:
             node = node.setdefault(k, {})
         node[path[-1]] = leaf
     return out
+
+
+def clone_tree(tree) -> Dict:
+    """A nested dict of tensors with storage of its own (the optimizer
+    updates params in place)."""
+    paths, leaves = flatten_tree(tree)
+    return unflatten_tree(paths, [x.clone() for x in leaves])
 
 
 @dataclasses.dataclass(frozen=True)

@@ -52,8 +52,13 @@ drawing from two source pods has no well-defined residual and raises.
 Every tensor carries the stack of workers on dim 0 (the sim layout of
 ``Trainer``); outputs are new contiguous tensors on the inputs' device,
 the inputs are not modified. Leaves outside data parallelism (MoE's
-expert-parallel leaves, which the reference splits on the expert axis)
-do not reach here: the port's optimizer refuses them when it is built.
+expert-parallel leaves) are split on their expert axis: their params
+and slots merge the workers' blocks and split them again over the new
+fleet (:func:`ep_merge`, :func:`ep_split`), as the reference's. As in
+the reference, a width change that changes a worker's share of experts
+changes the leaf's shape, which :func:`reshard` refuses ("reshard
+changes the worker count, never the model"); at m = n the transform is
+the identity.
 """
 from __future__ import annotations
 
@@ -67,7 +72,7 @@ from repro_torch.core.compressed import ComposedOptimizer, CompressedDPState
 from repro_torch.core.leafwise import unflatten_tree
 
 __all__ = ["reshard", "reshard_trainer", "resize_opt", "worker_origin",
-           "reshard_report"]
+           "reshard_report", "ep_merge", "ep_split"]
 
 
 # --------------------------------------------------------------------- #
@@ -155,6 +160,29 @@ def _remap_fn(src_lo, dst_lo):
     if src_lo == dst_lo:
         return lambda v: v
     return lambda v: C.to_view(C.from_view(v, src_lo), dst_lo)
+
+
+def ep_merge(x: torch.Tensor, ax: int) -> torch.Tensor:
+    """Worker-stacked EP leaf (n, ..., E/n @ ax+1, ...) -> the global leaf
+    (..., E @ ax, ...)."""
+    return x.movedim(0, ax).flatten(ax, ax + 1)
+
+
+def ep_split(x: torch.Tensor, ax: int, m: int) -> torch.Tensor:
+    """Global EP leaf -> worker-stacked (m, ..., E/m @ ax+1, ...)."""
+    return x.unflatten(ax, (m, x.shape[ax] // m)).movedim(ax, 0).contiguous()
+
+
+def _ep_reshard(x, i, ax, n, m, what):
+    """An expert-parallel buffer from n workers' blocks to m's."""
+    if n == m:
+        return x.clone()
+    merged = ep_merge(x, ax)
+    if merged.shape[ax] % m:
+        raise ValueError(
+            f"{what} leaf {i}: expert axis of size {merged.shape[ax]} does "
+            f"not divide over m={m} workers")
+    return ep_split(merged, ax, m)
 
 
 def _take(x: torch.Tensor, rows) -> torch.Tensor:
@@ -296,14 +324,17 @@ def _stack_of(state: CompressedDPState) -> Tuple[int, ...]:
 
 
 def reshard(state: CompressedDPState, src: ComposedOptimizer,
-            dst: ComposedOptimizer, *, survivors=None) -> CompressedDPState:
+            dst: ComposedOptimizer, *, survivors=None,
+            ep_axes=None) -> CompressedDPState:
     """Remap worker-stacked optimizer state from ``src`` (n workers) to
     ``dst`` (m workers) under the module's carry-vs-reset policy.
 
     ``state`` is the sim-layout stacked state (every per-worker tensor
     with a leading dim of n, as ``Trainer.init`` gives it under
-    ``SimComm(n)``). Prefer :func:`reshard_trainer`, which reshards the
-    parameters too.
+    ``SimComm(n)``). ``ep_axes`` (flat leaf index -> expert axis, the
+    trainer's ``ep_leaf_axes``) is needed only where the tree has
+    expert-parallel leaves. Prefer :func:`reshard_trainer`, which
+    supplies it and reshards the parameters too.
     """
     _require_composed(src, "source")
     _require_composed(dst, "destination")
@@ -319,6 +350,14 @@ def reshard(state: CompressedDPState, src: ComposedOptimizer,
             f"layout); state.slots['m'][0] has shape {_stack_of(state)}")
     ctx = _Ctx(src, dst, survivors)
 
+    def ep(x, i, what):
+        if ep_axes is None or i not in ep_axes:
+            raise ValueError(
+                f"leaf {i} is expert-parallel (dp_mask False) and its "
+                f"'{what}' buffer is split on the expert axis; pass "
+                f"ep_axes= or use reshard_trainer(...)")
+        return _ep_reshard(x, i, ep_axes[i], n, dst.n, what)
+
     slot_specs = src.base.slot_specs()
     new_slots: Dict[str, list] = {}
     for name, vals in state.slots.items():
@@ -329,6 +368,8 @@ def reshard(state: CompressedDPState, src: ComposedOptimizer,
                 outs.append(None)
             elif kind == "scalar":
                 outs.append(ctx.carry(x))
+            elif not src.plan.dp_mask[i]:
+                outs.append(ep(x, i, name))
             else:
                 outs.append(ctx.carry(
                     x, _remap_fn(src.layouts[i], dst.layouts[i])))
@@ -376,13 +417,19 @@ def reshard(state: CompressedDPState, src: ComposedOptimizer,
 
 def reshard_trainer(src_tr, dst_tr, params, state, *, survivors=None):
     """Reshard stacked (params, state) from one Trainer's width to
-    another's. Params carry per worker: joiners clone a survivor and
-    re-converge bitwise at the next re-anchoring."""
+    another's. DP params carry per worker (joiners clone a survivor and
+    re-converge bitwise at the next re-anchoring); EP params merge their
+    expert axis and split it again over the new fleet."""
+    n, m = src_tr.opt.n, dst_tr.opt.n
     ctx = _Ctx(src_tr.opt, dst_tr.opt, survivors)
     plan = src_tr.opt.plan
-    params_m = unflatten_tree(plan.paths,
-                              [ctx.carry(x) for x in plan.flat(params)])
-    state_m = reshard(state, src_tr.opt, dst_tr.opt, survivors=survivors)
+    # a trainer of a model without experts may come as its bare optimizer
+    axes = getattr(src_tr, "ep_leaf_axes", {})
+    params_m = unflatten_tree(plan.paths, [
+        _ep_reshard(x, i, axes[i], n, m, "param") if i in axes
+        else ctx.carry(x) for i, x in enumerate(plan.flat(params))])
+    state_m = reshard(state, src_tr.opt, dst_tr.opt, survivors=survivors,
+                      ep_axes=axes)
     return params_m, state_m
 
 

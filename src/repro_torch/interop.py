@@ -8,6 +8,13 @@ starts both from the reference's draw. Inputs are numpy trees (e.g.
 The same conversion gives the checkpoint tree both packages write
 (:mod:`repro_torch.checkpointing.io`): ``{"params", "state"}`` in the
 shapes of the reference trainer's tree for the same mode.
+
+A MoE model's expert-parallel leaves need no conversion: in sim mode
+both packages stack each worker's block of experts on dim 0 ``(n, ...,
+E/n, ...)``, and the reference's state keeps for them the slots in
+that shape and ``None`` for ``u``, the EF state, the anchor and LAMB's
+trust, as the port's. (Single mode has no expert-parallel leaf: one
+worker holds every expert as a data-parallel leaf in both.)
 """
 from __future__ import annotations
 

@@ -38,9 +38,9 @@ _P, _I64, _F32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
 # C entry point -> (source, argtypes); every entry point returns int
 _ENTRY_POINTS = {
     "fused_local_step_f32": ("fused_adam",
-                             [_P] * 7 + [_I64] + [_F32] * 4 + [_P]),
+                             [_P] * 5 + [_I64] + [_F32] * 4 + [_P]),
     "fused_local_step_sgd_f32": ("fused_adam",
-                                 [_P] * 6 + [_I64] + [_F32] * 3 + [_P]),
+                                 [_P] * 4 + [_I64] + [_F32] * 3 + [_P]),
     "abs_rowsum_f32": ("onebit", [_P] * 6 + [_I64] * 5 + [_P]),
     "ef_quantize_f32": ("onebit", [_P] * 6 + [_I64] * 6 + [_P]),
     "ef_compress_f32": ("onebit", [_P] * 6 + [_I64] * 5 + [_P]),

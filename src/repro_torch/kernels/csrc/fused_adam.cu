@@ -1,17 +1,23 @@
 // Fused local half-steps of the 0/1 optimizers for Hopper (sm_90a), one
-// per base kind.
+// per base kind. Both update the optimizer state in place.
 //
 // fused_local_step      replaces src/repro/kernels/fused_adam.py::
 //                       fused_local_step (Adam base):
-//   m' = fma(b1, m, omb1 * g)        omb1 = 1 - b1, folded on the host
-//   u' = fma(lr, m', u)
-//   d  = (lr * m') / sqrt(v + eps)
+//   m <- fma(b1, m, omb1 * g)        omb1 = 1 - b1, folded on the host
+//   u <- fma(lr, m, u)               with the new m
+//   d  = (lr * m) / sqrt(v + eps)
 //
 // fused_local_step_sgd  replaces src/repro/kernels/fused_adam.py::
 //                       fused_local_step_sgd (momentum-SGD base):
-//   m' = fma(b1, m, omb1 * g)
-//   u' = fma(lr, m', u)              from m', not as u + d
-//   d  = lr * m'
+//   m <- fma(b1, m, omb1 * g)
+//   u <- fma(lr, m, u)               from the new m, not as u + d
+//   d  = lr * m
+//
+// In place: m and u are read and written through the same pointers, and
+// d may be the gradient's own buffer (the caller's gradient is dead after
+// the step). Each element is read once and written once by one thread,
+// every load before any store, so the aliased pointers carry no
+// __restrict__ (v, only read, is the one operand that aliases nothing).
 //
 // Bound: bytes. The Adam step reads four f32 operands and writes three,
 // 28 bytes per element; the SGD step reads three and writes three, 24
@@ -56,14 +62,9 @@ __device__ __forceinline__ void step_one(float g, float m, float u, float v,
 }
 
 template <bool kSgd>
-__global__ void local_step_vec4(const float4* __restrict__ g,
-                                const float4* __restrict__ m,
-                                const float4* __restrict__ u,
-                                const float4* __restrict__ v,
-                                float4* __restrict__ m_out,
-                                float4* __restrict__ u_out,
-                                float4* __restrict__ d_out, int64_t n4,
-                                Scalars s) {
+__global__ void local_step_vec4(const float4* g, float4* m, float4* u,
+                                const float4* __restrict__ v, float4* d,
+                                int64_t n4, Scalars s) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
        i += stride) {
@@ -74,26 +75,26 @@ __global__ void local_step_vec4(const float4* __restrict__ g,
     step_one<kSgd>(gg.y, mm.y, uu.y, vv.y, s, &mo.y, &uo.y, &dd.y);
     step_one<kSgd>(gg.z, mm.z, uu.z, vv.z, s, &mo.z, &uo.z, &dd.z);
     step_one<kSgd>(gg.w, mm.w, uu.w, vv.w, s, &mo.w, &uo.w, &dd.w);
-    m_out[i] = mo;
-    u_out[i] = uo;
-    d_out[i] = dd;
+    m[i] = mo;
+    u[i] = uo;
+    d[i] = dd;
   }
 }
 
 template <bool kSgd>
-__global__ void local_step_scalar(const float* __restrict__ g,
-                                  const float* __restrict__ m,
-                                  const float* __restrict__ u,
-                                  const float* __restrict__ v,
-                                  float* __restrict__ m_out,
-                                  float* __restrict__ u_out,
-                                  float* __restrict__ d_out, int64_t n,
-                                  Scalars s) {
+__global__ void local_step_scalar(const float* g, float* m, float* u,
+                                  const float* __restrict__ v, float* d,
+                                  int64_t n, Scalars s) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    step_one<kSgd>(g[i], m[i], u[i], kSgd ? 0.f : v[i], s, &m_out[i],
-                   &u_out[i], &d_out[i]);
+    const float gg = g[i], mm = m[i], uu = u[i];
+    const float vv = kSgd ? 0.f : v[i];
+    float mo, uo, dd;
+    step_one<kSgd>(gg, mm, uu, vv, s, &mo, &uo, &dd);
+    m[i] = mo;
+    u[i] = uo;
+    d[i] = dd;
   }
 }
 
@@ -111,27 +112,23 @@ int blocks_for(int64_t work) {
 }
 
 template <bool kSgd>
-int launch(const void* g, const void* m, const void* u, const void* v,
-           void* m_out, void* u_out, void* d_out, long long n,
-           const Scalars& s, void* stream) {
+int launch(const void* g, void* m, void* u, const void* v, void* d,
+           long long n, const Scalars& s, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const bool vec = (n % 4 == 0) && aligned16(g) && aligned16(m) &&
-                   aligned16(u) && aligned16(v) && aligned16(m_out) &&
-                   aligned16(u_out) && aligned16(d_out);
+                   aligned16(u) && aligned16(v) && aligned16(d);
   if (vec) {
     const int64_t n4 = n / 4;
     local_step_vec4<kSgd><<<blocks_for(n4), kThreads, 0, st>>>(
-        static_cast<const float4*>(g), static_cast<const float4*>(m),
-        static_cast<const float4*>(u), static_cast<const float4*>(v),
-        static_cast<float4*>(m_out), static_cast<float4*>(u_out),
-        static_cast<float4*>(d_out), n4, s);
+        static_cast<const float4*>(g), static_cast<float4*>(m),
+        static_cast<float4*>(u), static_cast<const float4*>(v),
+        static_cast<float4*>(d), n4, s);
   } else {
     local_step_scalar<kSgd><<<blocks_for(n), kThreads, 0, st>>>(
-        static_cast<const float*>(g), static_cast<const float*>(m),
-        static_cast<const float*>(u), static_cast<const float*>(v),
-        static_cast<float*>(m_out), static_cast<float*>(u_out),
-        static_cast<float*>(d_out), n, s);
+        static_cast<const float*>(g), static_cast<float*>(m),
+        static_cast<float*>(u), static_cast<const float*>(v),
+        static_cast<float*>(d), n, s);
   }
   return (int)cudaGetLastError();
 }
@@ -139,21 +136,19 @@ int launch(const void* g, const void* m, const void* u, const void* v,
 }  // namespace
 
 // Each entry point returns cudaGetLastError() after its launch (0 = ok).
+// m and u are updated in place; d may equal g.
 
-extern "C" int fused_local_step_f32(const void* g, const void* m,
-                                    const void* u, const void* v,
-                                    void* m_out, void* u_out, void* d_out,
-                                    long long n, float lr, float b1,
-                                    float omb1, float eps, void* stream) {
-  return launch<false>(g, m, u, v, m_out, u_out, d_out, n,
-                       Scalars{lr, b1, omb1, eps}, stream);
+extern "C" int fused_local_step_f32(const void* g, void* m, void* u,
+                                    const void* v, void* d, long long n,
+                                    float lr, float b1, float omb1,
+                                    float eps, void* stream) {
+  return launch<false>(g, m, u, v, d, n, Scalars{lr, b1, omb1, eps},
+                       stream);
 }
 
-extern "C" int fused_local_step_sgd_f32(const void* g, const void* m,
-                                        const void* u, void* m_out,
-                                        void* u_out, void* d_out,
-                                        long long n, float lr, float b1,
-                                        float omb1, void* stream) {
-  return launch<true>(g, m, u, nullptr, m_out, u_out, d_out, n,
-                      Scalars{lr, b1, omb1, 0.f}, stream);
+extern "C" int fused_local_step_sgd_f32(const void* g, void* m, void* u,
+                                        void* d, long long n, float lr,
+                                        float b1, float omb1, void* stream) {
+  return launch<true>(g, m, u, nullptr, d, n, Scalars{lr, b1, omb1, 0.f},
+                      stream);
 }

@@ -5,7 +5,7 @@ kernels. PyTorch port of the unsharded part of
     ef_compress_view      <->  compressor.ef_compress (z + err fused in)
     server_compress_view  <->  codecs._server_compress
     decompress_view       <->  compressor.decompress
-    fused_local_step_view <->  the local half-step of the base (adam, lamb,
+    fused_local_step_view_ <->  the local half-step of the base (adam, lamb,
                                sgd)
 
 Every tensor carries a leading dim of stacked workers. Their frames stack
@@ -291,22 +291,30 @@ def decompress_view(packed, scales, layout: C.LeafLayout):
     return out2.view(tuple(packed.shape[:-1]) + (layout.pack_count,))
 
 
-def fused_local_step_view(g, m, u, v, lr, beta1, eps, layout: C.LeafLayout,
-                          kind: str = "adam"):
+def fused_local_step_view_(g, m, u, v, lr, beta1, eps, layout: C.LeafLayout,
+                           kind: str = "adam", into_grad: bool = False):
     """Fused local half-step over stacked comm views, keyed on the base
     kind: "adam" and "lamb" share the variance kernel (``v`` needed; the
     caller scales a LAMB delta by its trust afterwards, as the
-    reference does), "sgd" the kernel without (``v`` ignored). Returns
-    (m', u', delta) in view shape."""
+    reference does), "sgd" the kernel without (``v`` ignored). Updates
+    ``m`` and ``u`` (contiguous view-shaped state) in place and returns
+    the delta in view shape: written over the gradient's frame with
+    ``into_grad`` (the gradient is dead after it), else a new tensor."""
+    for name, t in (("m", m), ("u", u)):
+        if not t.is_contiguous():
+            raise ValueError(f"fused local step: {name} must be contiguous "
+                             f"to be updated in place")
     rows, cols = C.view_rows_cols(layout)
     rows *= g.shape[0]
+    gf = _frame(g, rows, cols)
+    d = gf if into_grad else None
     if kind == "sgd":
-        f = [_frame(a, rows, cols) for a in (g, m, u)]
-        outs = fused_adam.fused_local_step_sgd(*f, lr, beta1)
+        mf, uf = (_frame(a, rows, cols) for a in (m, u))
+        d = fused_adam.fused_local_step_sgd_(gf, mf, uf, lr, beta1, d)
     elif kind in ("adam", "lamb"):
-        f = [_frame(a, rows, cols) for a in (g, m, u, v)]
-        outs = fused_adam.fused_local_step(*f, lr, beta1, eps)
+        mf, uf, vf = (_frame(a, rows, cols) for a in (m, u, v))
+        d = fused_adam.fused_local_step_(gf, mf, uf, vf, lr, beta1, eps, d)
     else:
         raise ValueError(f"unknown base kind {kind!r} for the fused local "
                          f"step")
-    return tuple(o.view(g.shape) for o in outs)
+    return d.view(g.shape)

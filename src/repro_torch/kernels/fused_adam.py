@@ -1,14 +1,14 @@
 """Fused local half-steps of the 0/1 optimizers, one per base kind: CUDA
 kernels, plain versions, wrappers.
 
-* :func:`fused_local_step` (Adam base) replaces the Pallas kernel
+* :func:`fused_local_step_` (Adam base) replaces the Pallas kernel
   ``src/repro/kernels/fused_adam.py::fused_local_step``:
 
       m' = fma(b1, m, (1-b1)*g)
       u' = fma(lr, m', u)
       d  = (lr*m') / sqrt(v + eps)
 
-* :func:`fused_local_step_sgd` (momentum-SGD base) replaces
+* :func:`fused_local_step_sgd_` (momentum-SGD base) replaces
   ``src/repro/kernels/fused_adam.py::fused_local_step_sgd``:
 
       m' = fma(b1, m, (1-b1)*g)
@@ -23,6 +23,13 @@ exactly (see :func:`fma_f32`), so m' and u' agree bit for bit, and so does
 the SGD step's ``d``. Adam's divide and square root are IEEE-rounded on
 both sides (the plain version's root through :func:`sqrt`); its ``d`` is
 held to 2 ulp against the reference.
+
+Both kernels update ``m`` and ``u`` in place and write ``d`` into a
+buffer the caller names, which may be the gradient's own (the optimizer
+passes it where the gradient is dead after the step), so that a step
+holds no second copy of the state. :func:`fused_local_step` and
+:func:`fused_local_step_sgd` are the out-of-place forms over copies, and
+the plain versions keep the same contracts.
 """
 from __future__ import annotations
 
@@ -102,55 +109,101 @@ def _scalars(lr, beta1, eps):
             float(np.float32(1.0 - beta1)), float(np.float32(eps)))
 
 
-def fused_local_step_plain(g, m, u, v, lr, beta1, eps=1e-8):
-    """Plain PyTorch version of the kernel (the CPU path)."""
+def fused_local_step_plain_(g, m, u, v, lr, beta1, eps=1e-8, d=None):
+    """Plain PyTorch version of the kernel (the CPU path), with its
+    in-place contract: ``m`` and ``u`` are updated in place and the
+    delta is written into ``d`` (a new tensor when None; may be ``g``).
+    Returns ``d``."""
     lr32, b1, omb1, eps32 = _scalars(lr, beta1, eps)
     mh = fma_f32(m, b1, g * omb1)
-    u_new = fma_f32(mh, lr32, u)
     delta = (mh * lr32) / sqrt(v + eps32)
-    return mh, u_new, delta
+    u.copy_(fma_f32(mh, lr32, u))
+    m.copy_(mh)
+    if d is None:
+        return delta
+    return d.copy_(delta)
+
+
+def fused_local_step_(g, m, u, v, lr, beta1, eps=1e-8, d=None):
+    """One fused local step over (R, C) f32 frames, in place: ``m`` <- m',
+    ``u`` <- u', and the delta into ``d`` (a new tensor when None; ``g``
+    itself where the gradient is dead after the step). Returns ``d``.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    dev, shape = g.device, g.shape
+    ops = (("g", g), ("m", m), ("u", u), ("v", v))
+    for name, t in ops + ((("d", d),) if d is not None else ()):
+        build.check_operand(KERNEL, name, t, torch.float32, shape, dev)
+    if not build.on_card(KERNEL, g):
+        return fused_local_step_plain_(g, m, u, v, lr, beta1, eps, d)
+    if d is None:
+        d = torch.empty_like(g)
+    if g.numel():
+        lr32, b1, omb1, eps32 = _scalars(lr, beta1, eps)
+        build.launch(KERNEL, "fused_local_step_f32", dev, g.data_ptr(),
+                     m.data_ptr(), u.data_ptr(), v.data_ptr(), d.data_ptr(),
+                     g.numel(), lr32, b1, omb1, eps32)
+    return d
+
+
+def fused_local_step_plain(g, m, u, v, lr, beta1, eps=1e-8):
+    """Plain PyTorch version of :func:`fused_local_step` (the CPU path)."""
+    m, u = m.clone(), u.clone()
+    d = fused_local_step_plain_(g, m, u, v, lr, beta1, eps)
+    return m, u, d
 
 
 def fused_local_step(g, m, u, v, lr, beta1, eps=1e-8):
-    """One fused local step over (R, C) f32 frames; returns (m', u', d).
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    dev, shape = g.device, g.shape
-    for name, t in (("g", g), ("m", m), ("u", u), ("v", v)):
-        build.check_operand(KERNEL, name, t, torch.float32, shape, dev)
-    if not build.on_card(KERNEL, g):
-        return fused_local_step_plain(g, m, u, v, lr, beta1, eps)
-    m_out, u_out, d_out = (torch.empty_like(g) for _ in range(3))
-    if g.numel():
-        lr32, b1, omb1, eps32 = _scalars(lr, beta1, eps)
-        build.launch(KERNEL, "fused_local_step_f32", dev, g.data_ptr(), m.data_ptr(), u.data_ptr(),
-                     v.data_ptr(), m_out.data_ptr(), u_out.data_ptr(), d_out.data_ptr(), g.numel(), lr32, b1,
-                     omb1, eps32)
-    return m_out, u_out, d_out
+    """The out-of-place form: (m', u', d) in new tensors, the inputs as
+    they were (the in-place kernel on copies of ``m`` and ``u``)."""
+    m, u = m.clone(), u.clone()
+    d = fused_local_step_(g, m, u, v, lr, beta1, eps)
+    return m, u, d
 
 
-def fused_local_step_sgd_plain(g, m, u, lr, beta1):
-    """Plain PyTorch version of the SGD kernel (the CPU path)."""
+def fused_local_step_sgd_plain_(g, m, u, lr, beta1, d=None):
+    """Plain PyTorch version of the SGD kernel (the CPU path), in place as
+    :func:`fused_local_step_plain_`."""
     lr32, b1, omb1, _ = _scalars(lr, beta1, 0.0)
     mh = fma_f32(m, b1, g * omb1)
-    return mh, fma_f32(mh, lr32, u), mh * lr32
+    delta = mh * lr32
+    u.copy_(fma_f32(mh, lr32, u))
+    m.copy_(mh)
+    if d is None:
+        return delta
+    return d.copy_(delta)
 
 
-def fused_local_step_sgd(g, m, u, lr, beta1):
-    """One fused momentum-SGD local step over (R, C) f32 frames; returns
-    (m', u', d).
+def fused_local_step_sgd_(g, m, u, lr, beta1, d=None):
+    """One fused momentum-SGD local step over (R, C) f32 frames, in place
+    as :func:`fused_local_step_`. Returns ``d``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     dev, shape = g.device, g.shape
-    for name, t in (("g", g), ("m", m), ("u", u)):
+    ops = (("g", g), ("m", m), ("u", u))
+    for name, t in ops + ((("d", d),) if d is not None else ()):
         build.check_operand(KERNEL_SGD, name, t, torch.float32, shape, dev)
     if not build.on_card(KERNEL_SGD, g):
-        return fused_local_step_sgd_plain(g, m, u, lr, beta1)
-    m_out, u_out, d_out = (torch.empty_like(g) for _ in range(3))
+        return fused_local_step_sgd_plain_(g, m, u, lr, beta1, d)
+    if d is None:
+        d = torch.empty_like(g)
     if g.numel():
         lr32, b1, omb1, _ = _scalars(lr, beta1, 0.0)
         build.launch(KERNEL_SGD, "fused_local_step_sgd_f32", dev,
-                     g.data_ptr(), m.data_ptr(), u.data_ptr(),
-                     m_out.data_ptr(), u_out.data_ptr(), d_out.data_ptr(),
+                     g.data_ptr(), m.data_ptr(), u.data_ptr(), d.data_ptr(),
                      g.numel(), lr32, b1, omb1)
-    return m_out, u_out, d_out
+    return d
+
+
+def fused_local_step_sgd_plain(g, m, u, lr, beta1):
+    """Plain PyTorch version of :func:`fused_local_step_sgd`."""
+    m, u = m.clone(), u.clone()
+    d = fused_local_step_sgd_plain_(g, m, u, lr, beta1)
+    return m, u, d
+
+
+def fused_local_step_sgd(g, m, u, lr, beta1):
+    """The out-of-place SGD form: (m', u', d) in new tensors."""
+    m, u = m.clone(), u.clone()
+    d = fused_local_step_sgd_(g, m, u, lr, beta1)
+    return m, u, d

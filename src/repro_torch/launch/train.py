@@ -42,10 +42,15 @@ Examples:
       --device cpu [...]
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2 --smoke \\
       --mode sim --workers 4 --resize 3:2 --resize 5:4 --device cpu [...]
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch deepseek-v2-236b --smoke --mode sim --workers 4 \\
+      --device cpu [...]   # or llama4-scout-17b-a16e: experts split
+      # over the workers; FULL with --layers 2 and --mode dist on cards
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import tempfile
@@ -60,6 +65,7 @@ from repro_torch.core.api import REGISTRY_NAMES, OptimizerConfig
 from repro_torch.core.codecs import CODEC_NAMES
 from repro_torch.core.comm import Hierarchy, NullComm, SimComm, norm_hierarchy
 from repro_torch.core.compressed import comm_accounting
+from repro_torch.core.leafwise import clone_tree
 from repro_torch.data.synthetic import DataConfig, SyntheticLM
 from repro_torch.elastic import FleetSim, ResizeEvent
 from repro_torch.kernels import build
@@ -100,6 +106,10 @@ def parse_args(argv=None):
     ap.add_argument("--backend", default=None, choices=list(mesh.BACKENDS),
                     help="dist only: nccl (the default on cuda) or gloo "
                          "(the default on cpu)")
+    ap.add_argument("--layers", type=int, default=None, metavar="L",
+                    help="cut the config to L layers, widths unchanged "
+                         "(a MoE model keeps its dense prefix: L must "
+                         "exceed first_k_dense)")
     ap.add_argument("--micro-batches", type=int, default=1)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
@@ -161,6 +171,12 @@ def make_trainer(args, device=None, comm=None) -> Trainer:
     mode's comm wrapped in ``analysis.RecordingComm``)."""
     spec = get(args.arch)
     cfg = spec.smoke if args.smoke else spec.config
+    if args.layers is not None:
+        if args.layers <= cfg.first_k_dense:
+            raise SystemExit(f"--layers {args.layers}: {cfg.name} has "
+                             f"{cfg.first_k_dense} dense layers before its "
+                             f"MoE layers; ask for more")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if comm is None:
         comm = (SimComm(args.workers) if args.mode == "sim" else
                 NullComm() if args.mode == "single" else mesh.worker_comm())
@@ -200,8 +216,8 @@ def train(args, tr: Trainer, kind: str = "lm", keep_step: int = None,
     Prints on rank 0 (every process outside dist mode). Returns the final
     params and state, one record per step (this process's workers'
     losses, the step kind, and the times of :meth:`Trainer.step`, the
-    step's being their sum) and, with ``keep_step``, the params, state
-    and batch that step started from (``kept``). ``start``: (params,
+    step's being their sum) and, with ``keep_step``, copies of the params
+    and state that step started from, and its batch (``kept``). ``start``: (params,
     state, step) to resume from, e.g. :meth:`Trainer.restore`'s, instead
     of the seed's init and step 0. With ``args.save`` the final params
     and state are written there, at step ``args.steps`` (``save_s``: the
@@ -232,7 +248,8 @@ def train(args, tr: Trainer, kind: str = "lm", keep_step: int = None,
             batch["loss_mask"] = torch.ones((args.batch, args.seq),
                                             device=dev)
         if step == keep_step:
-            kept = (params, state, batch)
+            # copies: the step below updates params and state in place
+            kept = (clone_tree(params), state.clone(), batch)
         params, state, met = tr.step(params, state, batch)
         rec = step_record(step, met)
         records.append(rec)

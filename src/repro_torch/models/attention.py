@@ -3,7 +3,9 @@
 (causal, sliding-window and bidirectional), ``dot_attn``, the flash-style
 ``blockwise_attn`` (taken at S >= ``ModelConfig.blockwise_threshold``)
 and the KV-cache ``decode_attn``, over a full cache or a ring of
-``window`` slots. MLA waits for its family (ROADMAP item 4).
+``window`` slots; and the training path of DeepSeek-V2's multi-head
+latent attention (:func:`mla_forward`; its latent cache and absorbed
+decode wait with MoE serving, ROADMAP item 4).
 
 Layouts follow the reference: activations (B, S, D), per-head tensors
 (B, S, H, hd), KV caches (B, S_max, K, hd). The attention products are
@@ -51,6 +53,28 @@ def gqa_template(d, n_heads, n_kv, head_dim, bias=False, stack=None):
         t["bk"] = st((n_kv * head_dim,), (ks,), "zeros")
         t["bv"] = st((n_kv * head_dim,), (ks,), "zeros")
     return t
+
+
+def mla_template(d, n_heads, kv_lora, qk_nope, qk_rope, v_dim, stack=None):
+    """Multi-head latent attention params (the reference's, leaf for
+    leaf): the query projection, the down-projection to the latent plus
+    the shared rope key, the latent's RMSNorm gain and the up-projections
+    to per-head keys and values."""
+    hq = model_dim_spec(n_heads * (qk_nope + qk_rope))
+    hu = model_dim_spec(n_heads * qk_nope)
+    hv = model_dim_spec(n_heads * v_dim)
+
+    def st(shape, spec):
+        if stack is None:
+            return PD(shape, spec=spec)
+        return PD((stack, *shape), spec=(None, *spec))
+
+    return {"wq": st((d, n_heads * (qk_nope + qk_rope)), (None, hq)),
+            "w_dkv": st((d, kv_lora + qk_rope), (None, None)),
+            "kv_norm": st((kv_lora,), (None,)),
+            "w_uk": st((kv_lora, n_heads * qk_nope), (None, hu)),
+            "w_uv": st((kv_lora, n_heads * v_dim), (None, hv)),
+            "wo": st((n_heads * v_dim, d), (hv, None))}
 
 
 def _mask_bias(q_pos, k_pos, kind: str, window: int = 0):
@@ -245,3 +269,32 @@ def gqa_forward(p, cfg, x, positions, *, kind=None, window=0, cache=None,
     else:
         o = dot_attn(q, k, v, _mask_bias(pos, pos, kind, window))
     return o.reshape(B, S, H * hd) @ p["wo"], new_kv
+
+
+def mla_forward(p, cfg, x, positions, *, use_blockwise=False):
+    """Multi-head latent attention over (B, S, D), the training path of
+    the reference's ``mla_forward``: keys and values expanded from the
+    RMS-normed latent per head, the rope part of the key shared by the
+    heads, causal, scores at ``1/sqrt(dn + dr)``. Returns (out, None)."""
+    from repro_torch.models.layers import rms_norm
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    dn, dr, dv, r = (cfg.mla_qk_nope, cfg.mla_qk_rope, cfg.mla_v_dim,
+                     cfg.kv_lora_rank)
+    q = (x @ p["wq"]).reshape(B, S, H, dn + dr)
+    qn, qr = q[..., :dn], q[..., dn:]
+    dkv = x @ p["w_dkv"]
+    ckv, kr = dkv[..., :r], dkv[..., r:]
+    ckv = rms_norm(ckv, p["kv_norm"])
+    qr = R.apply_rope(qr, positions, cfg.rope_theta)
+    kr = R.apply_rope(kr[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    kn = torch.einsum("bsr,rhd->bshd", ckv, p["w_uk"].reshape(r, H, dn))
+    v = torch.einsum("bsr,rhd->bshd", ckv, p["w_uv"].reshape(r, H, dv))
+    k = torch.cat([kn, kr[:, :, None, :].expand(B, S, H, dr)], dim=-1)
+    qfull = torch.cat([qn, qr], dim=-1)
+    pos = positions[0]
+    if use_blockwise:
+        o = blockwise_attn(qfull, k, v, pos, pos, "causal")
+    else:
+        o = dot_attn(qfull, k, v, _mask_bias(pos, pos, "causal"))
+    return o.reshape(B, S, H * dv) @ p["wo"], None

@@ -3,9 +3,12 @@
 The fields of the dense family are ported: gpt2 and bert (learned
 positions, gelu, layernorm) and the rotary family (granite, phi4,
 chatglm3's partial rotary and QKV bias, gemma3's sliding windows and
-window cache; rmsnorm, swiglu, remat). Defaults are the reference's. A
-config of another family, or with M-RoPE, is refused by
-:func:`unported` (ROADMAP item 4).
+window cache; rmsnorm, swiglu, remat); and those of the moe family:
+the experts, the router's top-k and capacity, the shared experts, the
+dense prefix (``first_k_dense``) and DeepSeek-V2's multi-head latent
+attention (``attn_type="mla"``). Defaults are the reference's. A config
+of another family (ssm, hybrid, the encoder-decoder, the vlm), or with
+M-RoPE, is refused by :func:`unported` (ROADMAP item 4).
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ class ModelConfig:
     head_dim: Optional[int] = None
 
     # attention
+    attn_type: str = "gqa"       # gqa | mla
     attn_bias: bool = False
     rope: str = "standard"       # none | standard | partial | learned
                                  # (mrope not ported)
@@ -36,6 +40,21 @@ class ModelConfig:
     sliding_window: int = 0      # >0 enables local attention
     global_every: int = 0        # gemma3: every k-th layer is global
     causal: bool = True          # False = bidirectional (bert)
+
+    # MLA (DeepSeek-V2)
+    kv_lora_rank: int = 0
+    mla_qk_nope: int = 128
+    mla_qk_rope: int = 64
+    mla_v_dim: int = 128
+
+    # MoE
+    n_experts: int = 0
+    top_k: int = 1
+    n_shared_experts: int = 0
+    first_k_dense: int = 0
+    moe_d_ff: int = 0
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 0.01
 
     # serving
     window_cache: bool = False   # sliding-window layers keep only
@@ -74,6 +93,6 @@ def unported(cfg: ModelConfig) -> Optional[str]:
     """What of ``cfg`` the port does not run yet, or None."""
     if cfg.rope == "mrope":
         return "M-RoPE"
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         return f"the {cfg.family} family"
     return None

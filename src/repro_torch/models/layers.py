@@ -3,7 +3,9 @@
 
 A module builds a *template*: a nested dict whose leaves are :class:`PD`
 descriptors. Parameters, tensor-parallel specs and the DP mask all derive
-from it, so they agree by construction. The specs matter even without
+from it, so they agree by construction. An expert-parallel leaf
+(``dp=False``, its ``ep_axis`` split over the workers) stays out of the
+data-parallel exchange. The specs matter even without
 tensor parallelism: ``core.compressor.make_layout`` chooses each leaf's
 comm view from them, exactly as the reference does.
 """
@@ -26,6 +28,8 @@ class PD:
     scale: float = 0.02
     spec: Optional[tuple] = None  # per-axis 'model' entries, or None
     dp: bool = True
+    ep_axis: Optional[int] = None  # expert-parallel axis (dp=False
+                                   # leaves): split over the workers
 
 
 def _map(tmpl, fn, prefix=()):
@@ -65,12 +69,18 @@ def dp_mask(template):
     return _map(template, lambda _, pd: pd.dp)
 
 
+def ep_axes(template):
+    """Each leaf's expert-parallel axis (None: a leaf of every worker)."""
+    return _map(template, lambda _, pd: pd.ep_axis)
+
+
 def stack_template(tmpl, n: int):
     """Prepend a layer-stacking axis to every PD of a template."""
     def f(_, pd: PD) -> PD:
         spec = pd.spec if pd.spec is not None else (None,) * len(pd.shape)
+        ep = None if pd.ep_axis is None else pd.ep_axis + 1
         return dataclasses.replace(pd, shape=(n, *pd.shape),
-                                   spec=(None, *spec))
+                                   spec=(None, *spec), ep_axis=ep)
     return _map(tmpl, f)
 
 

@@ -1,13 +1,16 @@
-"""Dense transformer assembly, PyTorch port of the dense path of
+"""Transformer assembly, PyTorch port of the dense and MoE paths of
 ``src/repro/models/transformer.py``: gpt2 and bert (learned positions,
-gelu, layernorm) and the rotary family (granite, phi4, chatglm3's partial
-rotary, gemma3's 5:1 sliding:global layers; rmsnorm, swiglu).
+gelu, layernorm), the rotary family (granite, phi4, chatglm3's partial
+rotary, gemma3's 5:1 sliding:global layers; rmsnorm, swiglu) and the moe
+family (llama4-scout; deepseek-v2 with multi-head latent attention and a
+dense first layer).
 
-    model_template(cfg)                   -> PD tree (the params' source)
-    forward(params, cfg, batch)           -> (logits over the padded
-                                              vocab, aux)
-    lm_loss(params, cfg, batch)           -> (mean NLL over the loss
-                                              mask, metrics)
+    model_template(cfg, ep_workers)       -> PD tree (the params' source)
+    forward(params, cfg, batch, comm)     -> (logits over the padded
+                                              vocab, MoE aux loss)
+    lm_loss(params, cfg, batch, comm)     -> (mean NLL over the loss
+                                              mask + aux_loss_weight *
+                                              aux, metrics)
     init_cache(cfg, batch, max_seq)       -> zeroed KV cache
     prefill(params, cfg, batch, cache)    -> (last logits, cache)
     decode(params, cfg, tokens, cache, pos) -> (logits, cache)
@@ -22,9 +25,15 @@ cache in place and run without autograd. With ``cfg.window_cache``
 ``sliding_window`` slots, the global layers a compact stack; ``decode``
 runs through it as the reference's ``_decoder_scan_window_decode``, and
 ``prefill`` fills it too (the reference's prefill cannot take the split
-cache: its layer scan refuses stacks of unequal length). MoE, SSM and
-hybrid, MLA, M-RoPE, the encoder and the dense prefix raise
-``NotImplementedError`` (ROADMAP item 4).
+cache: its layer scan refuses stacks of unequal length). SSM and
+hybrid, M-RoPE and the encoder raise ``NotImplementedError``, and so do
+MoE and MLA serving (ROADMAP item 4).
+
+A MoE model's ``first_k_dense`` layers are a stack of their own
+(``dense_blocks``) run before ``blocks``, whose MLP is a
+:func:`~repro_torch.models.moe.moe_forward` layer; its aux losses are
+summed over the layers. ``comm`` is the expert-parallel comm of a
+process (see :mod:`repro_torch.models.moe`), None elsewhere.
 
 Layer weights stay stacked on a leading layers axis, as in the reference:
 that keeps the leaves and their comm layouts identical. The layer loop
@@ -36,6 +45,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
+from repro_torch.models import moe as MOE
 from repro_torch.models import rope as R
 from repro_torch.models.config import ModelConfig, unported
 from repro_torch.models.layers import (PD, apply_mlp, apply_norm,
@@ -43,20 +53,34 @@ from repro_torch.models.layers import (PD, apply_mlp, apply_norm,
                                        norm_template, stack_template)
 
 
-def _block_template(cfg: ModelConfig, n_layers: int):
+def _block_template(cfg: ModelConfig, n_layers: int, moe: bool = False,
+                    ep_workers: int = 1):
+    """One stacked run of decoder blocks."""
     d = cfg.d_model
-    return {
-        "attn_norm": stack_template(norm_template(cfg.norm_type, d),
-                                    n_layers),
-        "mlp_norm": stack_template(norm_template(cfg.norm_type, d),
-                                   n_layers),
-        "attn": A.gqa_template(d, cfg.n_heads, cfg.n_kv, cfg.hd,
-                               bias=cfg.attn_bias, stack=n_layers),
-        "mlp": mlp_template(d, cfg.d_ff, cfg.mlp_type, layers_axis=n_layers),
-    }
+    t = {"attn_norm": stack_template(norm_template(cfg.norm_type, d),
+                                     n_layers),
+         "mlp_norm": stack_template(norm_template(cfg.norm_type, d),
+                                    n_layers)}
+    if cfg.attn_type == "mla":
+        t["attn"] = A.mla_template(d, cfg.n_heads, cfg.kv_lora_rank,
+                                   cfg.mla_qk_nope, cfg.mla_qk_rope,
+                                   cfg.mla_v_dim, stack=n_layers)
+    else:
+        t["attn"] = A.gqa_template(d, cfg.n_heads, cfg.n_kv, cfg.hd,
+                                   bias=cfg.attn_bias, stack=n_layers)
+    if moe:
+        t["moe"] = MOE.moe_template(d, cfg.moe_d_ff or cfg.d_ff,
+                                    cfg.n_experts, cfg.n_shared_experts,
+                                    ep_workers, stack=n_layers)
+    else:
+        t["mlp"] = mlp_template(d, cfg.d_ff, cfg.mlp_type,
+                                layers_axis=n_layers)
+    return t
 
 
-def model_template(cfg: ModelConfig):
+def model_template(cfg: ModelConfig, ep_workers: int = 1):
+    """The parameter template; ``ep_workers``: the expert-parallel degree
+    (expert leaves are ``dp=False`` above 1)."""
     what = unported(cfg)
     if what is not None:
         raise NotImplementedError(
@@ -69,7 +93,11 @@ def model_template(cfg: ModelConfig):
         t["lm_head"] = PD((d, V), spec=(None, vs))
     if cfg.rope == "learned":
         t["pos_embed"] = PD((cfg.max_seq, d), scale=0.02)
-    t["blocks"] = _block_template(cfg, cfg.n_layers)
+    if cfg.first_k_dense:
+        t["dense_blocks"] = _block_template(cfg, cfg.first_k_dense)
+    t["blocks"] = _block_template(cfg, cfg.n_layers - cfg.first_k_dense,
+                                  moe=cfg.n_experts > 0,
+                                  ep_workers=ep_workers)
     return t
 
 
@@ -118,8 +146,9 @@ def _layers(blocks, n: int):
 def _layer_flags(cfg: ModelConfig):
     """Each layer's attention: 1 sliding, 0 global (the model's own causal
     or bidirectional kind). gemma3: every ``global_every``-th layer
-    global, the rest sliding; a window alone makes every layer sliding."""
-    L = cfg.n_layers
+    global, the rest sliding; a window alone makes every layer sliding.
+    (The layers of ``blocks``; a dense prefix is global.)"""
+    L = cfg.n_layers - cfg.first_k_dense
     if cfg.sliding_window and cfg.global_every:
         return [0 if (i + 1) % cfg.global_every == 0 else 1
                 for i in range(L)]
@@ -127,15 +156,27 @@ def _layer_flags(cfg: ModelConfig):
 
 
 def _layer(lp, cfg: ModelConfig, h, positions, kind, window, cache=None,
-           cache_pos=None, use_blockwise=False):
-    """One pre-norm block: attention of ``kind``, then the MLP."""
+           cache_pos=None, use_blockwise=False, comm=None):
+    """One pre-norm block: attention of ``kind`` (or MLA), then the MLP
+    or the MoE layer. Returns (h, the MoE layer's metrics or None)."""
     hn = apply_norm(lp["attn_norm"], h, cfg.norm_type)
-    ao, _ = A.gqa_forward(lp["attn"], cfg, hn, positions, kind=kind,
-                          window=window, cache=cache, cache_pos=cache_pos,
-                          use_blockwise=use_blockwise)
+    if cfg.attn_type == "mla":
+        ao, _ = A.mla_forward(lp["attn"], cfg, hn, positions,
+                              use_blockwise=use_blockwise)
+    else:
+        ao, _ = A.gqa_forward(lp["attn"], cfg, hn, positions, kind=kind,
+                              window=window, cache=cache,
+                              cache_pos=cache_pos,
+                              use_blockwise=use_blockwise)
     h = h + ao
     hm = apply_norm(lp["mlp_norm"], h, cfg.norm_type)
-    return h + apply_mlp(lp["mlp"], hm, cfg.mlp_type)
+    if "moe" in lp:
+        mo, met = MOE.moe_forward(lp["moe"], hm, top_k=cfg.top_k,
+                                  n_experts=cfg.n_experts,
+                                  capacity_factor=cfg.capacity_factor,
+                                  comm=comm)
+        return h + mo, met
+    return h + apply_mlp(lp["mlp"], hm, cfg.mlp_type), None
 
 
 def _layer_caches(cfg: ModelConfig, cache):
@@ -156,35 +197,51 @@ def _layer_caches(cfg: ModelConfig, cache):
 
 
 def _blocks(params, cfg: ModelConfig, h, positions, cache=None,
-            cache_pos=None, use_blockwise=False):
-    """The decoder (or encoder) blocks, layer by layer; layer ``l`` reads
-    and writes its cache in place (:func:`_layer_caches`). Under
-    ``cfg.remat``, with gradients recorded, each layer is checkpointed."""
+            cache_pos=None, use_blockwise=False, comm=None, moe_stats=None):
+    """The decoder (or encoder) blocks, layer by layer: the dense prefix,
+    then ``blocks``; layer ``l`` reads and writes its cache in place
+    (:func:`_layer_caches`). Under ``cfg.remat``, with gradients
+    recorded, each layer is checkpointed. Returns (h, the summed MoE aux
+    loss); each MoE layer's metrics are appended to ``moe_stats``."""
     base = "causal" if cfg.causal else "bidir"
     remat = cfg.remat and torch.is_grad_enabled()
     caches = _layer_caches(cfg, cache)
-    for lp, flag, lc in zip(_layers(params["blocks"], cfg.n_layers),
-                            _layer_flags(cfg), caches):
-        kind, window = (("sliding", cfg.sliding_window) if flag
-                        else (base, 0))
-        if remat:
-            h = checkpoint(_layer, lp, cfg, h, positions, kind, window,
-                           None, None, use_blockwise, use_reentrant=False)
-        else:
-            h = _layer(lp, cfg, h, positions, kind, window, lc, cache_pos,
-                       use_blockwise)
-    return h
+    runs = []
+    if cfg.first_k_dense:
+        runs.append((params["dense_blocks"], [0] * cfg.first_k_dense))
+    runs.append((params["blocks"], _layer_flags(cfg)))
+    auxes, l = [], 0
+    for blocks, flags in runs:
+        for lp, flag in zip(_layers(blocks, len(flags)), flags):
+            kind, window = (("sliding", cfg.sliding_window) if flag
+                            else (base, 0))
+            if remat:
+                h, met = checkpoint(_layer, lp, cfg, h, positions, kind,
+                                    window, None, None, use_blockwise, comm,
+                                    use_reentrant=False)
+            else:
+                h, met = _layer(lp, cfg, h, positions, kind, window,
+                                caches[l], cache_pos, use_blockwise, comm)
+            if met is not None:
+                auxes.append(met["aux_loss"])
+                if moe_stats is not None:
+                    moe_stats.append(met)
+            l += 1
+    aux = (torch.stack(auxes).sum() if auxes else
+           torch.zeros((), dtype=torch.float32, device=h.device))
+    return h, aux
 
 
-def forward(params, cfg: ModelConfig, batch):
-    """Training forward: (logits (B, S, padded_vocab), aux loss)."""
+def forward(params, cfg: ModelConfig, batch, comm=None, moe_stats=None):
+    """Training forward: (logits (B, S, padded_vocab), the summed MoE aux
+    loss, 0 for a dense model)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     h = _embed(params, cfg, tokens)
     positions = R.text_positions(B, S, device=tokens.device)
-    h = _blocks(params, cfg, h, positions,
-                use_blockwise=S >= cfg.blockwise_threshold)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    h, aux = _blocks(params, cfg, h, positions,
+                     use_blockwise=S >= cfg.blockwise_threshold, comm=comm,
+                     moe_stats=moe_stats)
     return _logits(params, cfg, h), aux
 
 
@@ -196,6 +253,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     reference's split cache: {"local": {"k", "v"} (L, B, window, K, hd),
     "global": {"k", "v"} (G, B, max_seq, K, hd)}; only the sliding
     layers' rings of "local" are used, as in the reference."""
+    if cfg.n_experts or cfg.attn_type == "mla":
+        raise NotImplementedError(
+            f"{cfg.name}: MoE and MLA serving (the latent cache, the "
+            f"absorbed decode) is not ported yet (ROADMAP item 4)")
+
     def kv(*shape):
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -215,8 +277,8 @@ def prefill(params, cfg: ModelConfig, batch, cache):
     B, S = tokens.shape
     h = _embed(params, cfg, tokens)
     positions = R.text_positions(B, S, device=tokens.device)
-    h = _blocks(params, cfg, h, positions, cache=cache, cache_pos=0,
-                use_blockwise=S >= cfg.blockwise_threshold)
+    h, _ = _blocks(params, cfg, h, positions, cache=cache, cache_pos=0,
+                   use_blockwise=S >= cfg.blockwise_threshold)
     return _logits(params, cfg, h[:, -1:]), cache
 
 
@@ -229,16 +291,18 @@ def decode(params, cfg: ModelConfig, tokens, cache, pos):
     B = tokens.shape[0]
     h = _embed(params, cfg, tokens, pos)
     positions = R.text_positions(B, 1, offset=pos, device=tokens.device)
-    h = _blocks(params, cfg, h, positions, cache=cache, cache_pos=pos)
+    h, _ = _blocks(params, cfg, h, positions, cache=cache, cache_pos=pos)
     return _logits(params, cfg, h), cache
 
 
-def lm_loss(params, cfg: ModelConfig, batch):
+def lm_loss(params, cfg: ModelConfig, batch, comm=None, moe_stats=None):
     """Cross-entropy of the labels: the mean over every position, or with
     a ``loss_mask`` in the batch (masked LM) ``sum(nll * mask) /
-    max(sum(mask), 1)``. ``logsumexp`` runs over the padded vocab, pad
+    max(sum(mask), 1)``, plus ``cfg.aux_loss_weight`` times the MoE aux
+    loss for a MoE model. ``logsumexp`` runs over the padded vocab, pad
     columns included, exactly as in the reference."""
-    logits, aux = forward(params, cfg, batch)
+    logits, aux = forward(params, cfg, batch, comm=comm,
+                          moe_stats=moe_stats)
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, batch["labels"][..., None].long())[..., 0]
@@ -249,4 +313,5 @@ def lm_loss(params, cfg: ModelConfig, batch):
     else:
         mask = mask.to(torch.float32)
         loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)
-    return loss, {"nll": loss, "aux": aux}
+    total = loss + cfg.aux_loss_weight * aux if cfg.n_experts else loss
+    return total, {"nll": loss, "aux": aux}

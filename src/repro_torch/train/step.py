@@ -25,6 +25,19 @@ Worker ``i`` takes rows ``[i*B/n, (i+1)*B/n)`` of the global batch in
 every regime, and with ``micro_batches > 1`` accumulates its gradient
 over equal splits of them (:func:`accumulate_grads`).
 
+**Expert parallelism** (the moe family, the reference's EP planning):
+the experts are split over the largest suffix of the worker axes whose
+size divides the expert count (:func:`choose_ep`: every worker, the
+pods of a hierarchy, or none); each worker holds its ``E/n_ep`` experts
+on the stack dim like any other leaf, ``dp=False`` for the optimizer. A
+process runs the real token exchange over its EP comm (the world, or
+its pod); the simulator runs each worker against the merged experts and
+gives each worker the sum of every worker's gradient of its experts
+(see :mod:`repro_torch.models.moe`). The expert gradients are then
+averaged over their replicas (the residual axis, processes only) and
+divided by the EP degree (:meth:`Trainer._ep_scale_grads`), the
+reference's mean-loss objective.
+
 :meth:`Trainer.save` and :meth:`Trainer.restore` write and read the
 checkpoint format both packages share
 (:mod:`repro_torch.checkpointing.io`), in the shapes of the reference
@@ -36,6 +49,7 @@ import dataclasses
 import time
 from typing import Callable, Dict, List, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import interop
@@ -45,8 +59,8 @@ from repro_torch.core.comm import Comm, DistComm, NullComm, norm_hierarchy
 from repro_torch.core.leafwise import flatten_tree, unflatten_tree
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (dp_mask, init_params, param_shapes,
-                                       param_specs)
+from repro_torch.models.layers import (dp_mask, ep_axes, init_params,
+                                       param_shapes, param_specs)
 
 
 def resolve_device(device) -> torch.device:
@@ -138,8 +152,25 @@ def step_record(step: int, met) -> Dict:
            "step_ms": met["fwd_bwd_ms"] + met["optimizer_ms"]}
     rec.update({k: met[k] for k in ("fwd_bwd_ms", "optimizer_ms",
                                     "exchange_ms", "exchange_ms_intra",
-                                    "exchange_ms_inter") if k in met})
+                                    "exchange_ms_inter", "ep_a2a_ms",
+                                    "aux", "dropped_frac") if k in met})
     return rec
+
+
+def choose_ep(n_experts: int, n_workers: int, hierarchy) -> int:
+    """The expert-parallel degree, as the reference's ``_choose_ep``: the
+    size of the largest suffix of the worker axes (flat: the workers;
+    with a hierarchy: (pods, workers a pod)) that divides the expert
+    count; 1 without experts."""
+    if not n_experts:
+        return 1
+    sizes = ([n_workers // hierarchy.inner, hierarchy.inner]
+             if hierarchy is not None else [n_workers])
+    for start in range(len(sizes) + 1):
+        deg = int(np.prod(sizes[start:], dtype=np.int64))
+        if n_experts % deg == 0:
+            return deg
+    return 1
 
 
 class Trainer:
@@ -160,28 +191,85 @@ class Trainer:
         # subgroups before the first step, in the same order
         self.levels = (comm.split(self.hierarchy.inner)
                        if self.hierarchy is not None else None)
-        self.template = T.model_template(model_cfg)
+        self.stack = len(comm.index())
+        self.ep_degree = choose_ep(model_cfg.n_experts, self.n_workers,
+                                   self.hierarchy)
+        if 1 < self.ep_degree < self.n_workers and self.stack > 1:
+            raise NotImplementedError(
+                f"{model_cfg.name}: {model_cfg.n_experts} experts over "
+                f"pods of {self.ep_degree} simulated workers (the EP "
+                f"degree below the fleet's) runs only in processes: the "
+                f"reference's simulator splits the experts over every "
+                f"worker")
+        self.template = T.model_template(model_cfg,
+                                         ep_workers=self.ep_degree)
+        paths, axes = flatten_tree(ep_axes(self.template))
+        self.ep_leaf_axes = {i: a for i, a in enumerate(axes)
+                             if a is not None}
+        # each worker's shapes: EP leaves hold E / ep_degree experts
+        _, shapes = flatten_tree(param_shapes(self.template))
+        for i, a in self.ep_leaf_axes.items():
+            sh = list(shapes[i])
+            sh[a] //= self.ep_degree
+            shapes[i] = tuple(sh)
+        self.local_shapes = unflatten_tree(paths, shapes)
+        self.moe_metrics: Dict[str, float] = {}
         self.opt = opt_api.build_optimizer(
-            opt_cfg, param_shapes(self.template),
-            specs=param_specs(self.template),
+            opt_cfg, self.local_shapes, specs=param_specs(self.template),
             dp_mask=dp_mask(self.template), n_workers=self.n_workers)
+
+    def ep_comms(self):
+        """(EP comm, residual comm) of a process that holds one worker of
+        an expert-parallel fleet: the comm of the workers that split the
+        experts (the world, or the pod) and that of the workers holding
+        the same experts (None when every worker holds its own); (None,
+        None) elsewhere. Taken from ``self.comm`` at each call, so that a
+        recording comm sees the exchanges."""
+        if self.ep_degree == 1 or self.stack > 1:
+            return None, None
+        if self.ep_degree == self.n_workers:
+            return self.comm, None
+        outer, pod = self.comm.split(self.hierarchy.inner)
+        return pod, outer
+
+    def _ep_index(self, w: int) -> int:
+        """The EP group index of stacked worker ``w`` (its experts' block):
+        the worker itself in the simulator, the rank within its EP comm in
+        a process."""
+        if self.stack > 1:
+            return w
+        ep, _ = self.ep_comms()
+        return int(ep.index()[0])
 
     def init(self, seed: int):
         """Stacked params (every worker starts from the same draw, in
-        every process) and the optimizer state."""
-        params = init_params(self.template, seed, device=self.device,
+        every process; an expert-parallel leaf holds its worker's block of
+        experts) and the optimizer state. The draw is made on the CPU and
+        moved to the device leaf by leaf."""
+        params = init_params(self.template, seed, device="cpu",
                              dtype=self.model_cfg.param_dtype)
         paths, leaves = flatten_tree(params)
-        stack = len(self.comm.index())
-        stacked = [x[None].expand((stack,) + tuple(x.shape)).clone()
-                   for x in leaves]
-        params = unflatten_tree(paths, stacked)
+        del params
+        stack = self.stack
+        for i in range(len(leaves)):
+            x = leaves[i]
+            a = self.ep_leaf_axes.get(i)
+            if a is None:
+                x = x.to(self.device)
+                leaves[i] = x[None].expand((stack,) + tuple(x.shape)).clone()
+            else:
+                blocks = x.unflatten(a, (self.ep_degree, -1)).movedim(a, 0)
+                idx = [self._ep_index(w) for w in range(stack)]
+                leaves[i] = blocks[idx].to(self.device).contiguous()
+            del x
+        params = unflatten_tree(paths, leaves)
         return params, self.opt.init(params)
 
     def grads(self, params, batch) -> Tuple[torch.Tensor, Dict]:
         """Per-worker loss and gradients of the stacked workers: worker i
         takes rows [i*B/n, (i+1)*B/n) of the global batch. Returns
-        (losses (stack,), stacked grads tree)."""
+        (losses (stack,), stacked grads tree). The MoE layers' mean aux
+        loss and dropped fraction are kept in ``self.moe_metrics``."""
         n = self.n_workers
         paths, xs = flatten_tree(params)
         B = batch["tokens"].shape[0]
@@ -190,23 +278,75 @@ class Trainer:
                              f"{n} workers")
         per = B // n
         widx = self.comm.index()
-        gbuf: List[torch.Tensor] = [torch.empty_like(x) for x in xs]
+        ep_comm, _ = self.ep_comms()
+        merged = self.stack > 1 and self.ep_degree > 1
         losses = torch.empty(len(widx), dtype=torch.float32,
                              device=self.device)
+        gbuf: List[torch.Tensor] = []
+        ep_sum: Dict[int, torch.Tensor] = {}
+        stats: List[Dict] = []
         for w, i in enumerate(widx):
             b = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+            mine = [x[w] for x in xs]
+            if merged:
+                # the simulator: every expert, each worker's block in turn
+                for j, a in self.ep_leaf_axes.items():
+                    mine[j] = xs[j].movedim(0, a).flatten(a, a + 1)
             loss, gs = accumulate_grads(
-                lambda p, b_: T.lm_loss(p, self.model_cfg, b_),
-                unflatten_tree(paths, [x[w] for x in xs]), b,
+                lambda p, b_: T.lm_loss(p, self.model_cfg, b_, comm=ep_comm,
+                                        moe_stats=stats),
+                unflatten_tree(paths, mine), b,
                 self.trainer_cfg.micro_batches)
-            for buf, g in zip(gbuf, flatten_tree(gs)[1]):
-                buf[w].copy_(g)
+            del mine
+            gs = flatten_tree(gs)[1]
+            if merged:
+                for j in self.ep_leaf_axes:
+                    g, gs[j] = gs[j], None
+                    ep_sum[j] = g if w == 0 else ep_sum[j].add_(g)
+            if len(widx) == 1:
+                # a stack of one: the gradients themselves, no copy
+                gbuf = [g.to(x.dtype)[None] for g, x in zip(gs, xs)]
+            else:
+                if not gbuf:
+                    gbuf = [torch.empty_like(x) for x in xs]
+                for buf, g in zip(gbuf, gs):
+                    if g is not None:
+                        buf[w].copy_(g)
+            del gs
             losses[w] = loss
+        for j, a in self.ep_leaf_axes.items():
+            if merged:
+                # worker k's experts: block k of the summed gradient
+                gbuf[j].copy_(ep_sum.pop(j).unflatten(
+                    a, (self.ep_degree, -1)).movedim(a, 0))
+            gbuf[j] = self._ep_scale_grads(gbuf[j])
+        self.moe_metrics = ({
+            "aux": float(torch.stack([m["aux_loss"].detach()
+                                      for m in stats]).sum()) / len(widx),
+            "dropped_frac": float(torch.stack(
+                [m["dropped_frac"] for m in stats]).mean())}
+            if stats else {})
         return losses, unflatten_tree(paths, gbuf)
+
+    def _ep_scale_grads(self, g):
+        """An expert leaf's gradient arrives as the sum over the EP group
+        (the exchange's transpose): its mean over the replicas of these
+        experts (the residual axis), then a true divide by the EP degree,
+        the reference's ``_ep_scale_grads``."""
+        _, residual = self.ep_comms()
+        if residual is not None:
+            g = residual.ep_residual_mean(g[0])[None]
+        return g / torch.tensor(float(self.ep_degree), dtype=g.dtype,
+                                device=g.device)
 
     def step(self, params, state, batch):
         """One training step of the stacked workers: (params, state,
-        metrics). ``metrics["losses"]`` holds each stacked worker's loss,
+        metrics), where ``params`` and ``state`` are the objects passed in,
+        updated in place (the optimizer keeps every tensor's storage, and
+        the gradients are freed once it has consumed them): a caller that
+        steps one init twice, or reads the params or state from before a
+        step, clones them first (``leafwise.clone_tree``,
+        ``CompressedDPState.clone``). ``metrics["losses"]`` holds each stacked worker's loss,
         ``metrics["loss"]`` their mean (the fleet's in sim and single
         mode; see :meth:`mean_loss` for a process of a larger fleet).
         The device is synchronized before the step and after each of its
@@ -214,13 +354,19 @@ class Trainer:
         ``optimizer_ms`` and ``exchange_ms`` (the part of the optimizer
         spent in the comm's collectives, None in process); with pods of
         more than one worker also ``exchange_ms_intra`` and
-        ``exchange_ms_inter``, its intra-pod and inter-pod parts."""
+        ``exchange_ms_inter``, its intra-pod and inter-pod parts. A MoE
+        model adds ``aux`` (the workers' mean aux loss, summed over the
+        layers), ``dropped_frac`` (the mean share of dropped token
+        assignments) and, in processes, ``ep_a2a_ms`` (the time of the
+        expert-parallel exchanges, within ``fwd_bwd_ms``)."""
         self._sync()
         t0 = time.perf_counter()
         losses, grads = self.grads(params, batch)
         self._sync()
         t1 = time.perf_counter()
-        params, state, met = self.opt.step(self.comm, params, grads, state)
+        params, state, met = self.opt.step(self.comm, params, grads, state,
+                                           donate_grads=True)
+        del grads
         self._sync()
         t2 = time.perf_counter()
         met["losses"] = losses
@@ -228,6 +374,10 @@ class Trainer:
         met["fwd_bwd_ms"] = 1e3 * (t1 - t0)
         met["optimizer_ms"] = 1e3 * (t2 - t1)
         met["exchange_ms"] = self.comm.exchange_ms()
+        ep_ms = self.comm.ep_ms()
+        if ep_ms is not None and self.ep_degree > 1:
+            met["ep_a2a_ms"] = ep_ms
+        met.update(self.moe_metrics)
         if self.hierarchy is not None and self.hierarchy.inner > 1:
             outer, inner = self.levels
             met["exchange_ms_intra"] = inner.exchange_ms()
@@ -258,7 +408,7 @@ class Trainer:
         """The checkpoint tree of this trainer on the ``meta`` device: the
         ``like`` tree of ``io.restore``, allocating nothing."""
         stack = len(self.comm.index())
-        paths, shapes = flatten_tree(param_shapes(self.template))
+        paths, shapes = flatten_tree(self.local_shapes)
         params = unflatten_tree(paths, [
             torch.empty((stack,) + tuple(s), device="meta",
                         dtype=self.model_cfg.param_dtype) for s in shapes])

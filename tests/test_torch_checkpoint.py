@@ -28,6 +28,10 @@
   stay near it, so their ~1e-8 differences are 1% of their largest
   magnitude.
 * Resuming inside the port is bit for bit the uninterrupted run.
+* MoE (llama4-smoke, deepseek-smoke, 4 simulated workers, EP 4): a
+  trainer's file after two steps, written by either package and read by
+  the other, every leaf (the expert blocks, which the state keeps
+  without EF state, anchor or ``u``) bit for bit.
 """
 import dataclasses
 import json
@@ -302,7 +306,9 @@ def test_checkpoints_cross_packages_and_continue(case, tmp_path):
     batches = _batches()
     ref_step = rt.sim_step_fn()
     params, state = pt.init(0)
-    rp = jax.tree.map(lambda x: jnp.asarray(x.numpy()), params)
+    # a copy: the port's step updates params in place, and jax may alias
+    # a numpy buffer on the CPU
+    rp = jax.tree.map(lambda x: jnp.asarray(np.array(x.numpy())), params)
     rs = jax.vmap(lambda i: rt.opt.init(jax.tree.map(lambda x: x[i], rp)))(
         jnp.arange(N))
     for t in range(4):
@@ -398,3 +404,36 @@ def test_state_dtypes_and_scalar_shapes():
     st1 = ps.checkpoint_tree(*ps.init(0))["state"]
     assert st1.step.shape == () and st1.slots["m"][0].shape == (1, 2, 128)
     assert dataclasses.is_dataclass(st1)
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e",
+                                  "deepseek-v2-236b"])
+def test_moe_checkpoints_cross_packages(arch, tmp_path):
+    """A sim trainer (EP 4) after two steps, written by each package and
+    read by the other: every params and state leaf bit for bit."""
+    rcfg, pcfg = _cfgs()
+    rt = RefTrainer(ref_get(arch).smoke, rcfg, n_workers=4)
+    key = jax.random.PRNGKey(1)
+    rp, rs = rt.sim_init(key)
+    step = rt.sim_step_fn()
+    for b in _batches()[:2]:
+        rp, rs, _ = step(rp, rs, _ref_batch(b))
+    pt = TSTEP.Trainer(port_get(arch).smoke, pcfg, comm=SimComm(4),
+                       device="cpu")
+    ref_path = str(tmp_path / "ref.npz")
+    ref_io.save(ref_path, {"params": rp, "state": rs}, step=2)
+    p, s, step_no, _ = pt.restore(ref_path)
+    assert step_no == 2
+    want = jax.tree.leaves(jax.device_get({"params": rp, "state": rs}))
+    got = port_io.flatten(pt.checkpoint_tree(p, s))[1]
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+    port_path = str(tmp_path / "port.npz")
+    pt.save(port_path, p, s, step=2)
+    like = jax.eval_shape(lambda: dict(zip(("params", "state"),
+                                           rt.sim_init(key))))
+    tree, step_no, _ = ref_io.restore(port_path, like)
+    assert step_no == 2
+    for a, b in zip(jax.tree.leaves(tree), want):
+        assert np.array_equal(np.asarray(a), np.asarray(b))

@@ -27,7 +27,15 @@ Tolerances, with their reasons:
   moves its whole row's server scale) and 7.3e-4 (single mode, where no
   mean over workers damps a flip), with the port's sim and dist runs
   bitwise equal throughout, so the difference lies between the packages'
-  forward and backward passes (~5e-7 on the logits), not in the regime.
+  forward and backward passes (~5e-7 on the logits), not in the regime;
+* MoE (llama4-smoke, deepseek-smoke) ranks exchanging their tokens for
+  real against the port's simulated workers, which run each worker
+  against the merged experts: an expert's weight gradient is summed
+  over the workers' rows in another order (and its forward batches
+  other rows together), so step losses within 1e-5 (measured <= 9.6e-7)
+  and every param within 1e-4 (measured <= 1.0e-5); each rank audited
+  clean. With pods below the expert count's reach (8 ranks, pods of 4,
+  4 experts) the replicas of an expert are equal bit for bit.
 """
 import ast
 import pathlib
@@ -45,6 +53,7 @@ from repro.core.comm import Hierarchy as RefHierarchy
 from repro.train import Trainer as RefTrainer
 from repro.train import TrainerConfig as RefTrainerConfig
 
+from repro_torch.configs.base import get as get_arch
 from repro_torch.core.leafwise import flatten_tree
 from repro_torch.data import synthetic as TD
 from repro_torch.launch import mesh
@@ -346,6 +355,73 @@ def test_failing_rank_fails_the_launcher(tmp_path):
     # a global batch of 6 does not split over 4 ranks: every rank raises
     with pytest.raises(Exception, match="not divisible"):
         _spawn_ranks(tmp_path, ARGV + ["--batch", "6", "--steps", "1"])
+
+
+# --------------------------------------------------------------------- #
+# (f) MoE: the real expert exchange
+# --------------------------------------------------------------------- #
+
+MOE_ARCHS = ["llama4-scout-17b-a16e", "deepseek-v2-236b"]
+MOE_ARGV = ARGV[2:]      # ARGV without its arch
+
+
+def _spawn_audited(tmp, argv, n):
+    """``--mode dist`` in ``n`` gloo ranks, each recording and auditing
+    its collectives; each rank's saved results."""
+    argv = argv + ["--mode", "dist", "--workers", str(n)]
+    mesh.spawn(TLAUNCH.rank_main, n,
+               (argv, n, mesh.file_rendezvous(str(tmp)), str(tmp), True,
+                "lm", True), timeout_s=SPAWN_TIMEOUT_S)
+    return [torch.load(pathlib.Path(tmp) / f"rank{r}.pt") for r in range(n)]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_ranks_match_their_simulated_workers(arch, tmp_path):
+    """4 gloo ranks, one worker each, exchanging their tokens for real
+    (both directions of the forward and the backward through the
+    recording comm), each against its simulated worker, and audited:
+    the exchanges classified as expert-parallel dispatch, the optimizer's
+    manifest exact."""
+    argv = ["--arch", arch] + MOE_ARGV
+    ranks = _spawn_audited(tmp_path, argv, 4)
+    args = TLAUNCH.parse_args(argv + ["--mode", "sim", "--workers", "4"])
+    sim = TLAUNCH.train(args, TLAUNCH.make_trainer(args))
+    moe_layers = (get_arch(arch).smoke.n_layers
+                  - get_arch(arch).smoke.first_k_dense)
+    for r, res in enumerate(ranks):
+        for got, want in zip(res["records"], sim["records"]):
+            assert abs(got["losses"][0] - want["losses"][r]) <= 1e-5
+            assert (got["sync"], got["var"]) == (want["sync"], want["var"])
+            assert got["ep_a2a_ms"] > 0 and "ep_a2a_ms" not in want
+        for a, b in zip(flatten_tree(res["params"])[1],
+                        flatten_tree(sim["params"])[1]):
+            assert float((a[0] - b[r]).abs().max()) <= 1e-4, r
+        audit = res["audit"]
+        assert audit["ok"], audit["violations"]
+        assert audit["summary"]["allowed"]["expert-parallel dispatch"] == (
+            STEPS * moe_layers * 4)
+
+
+def test_moe_pods_average_the_expert_replicas(tmp_path):
+    """8 ranks in 2 pods of 4 with llama4-smoke's 4 experts: the experts
+    split over each pod (EP 4), the two pods hold replicas whose
+    gradients are averaged across them (the residual mean, audited as
+    such), so every rank's experts equal its replica's, bit for bit."""
+    argv = ["--arch", "llama4-scout-17b-a16e", "--hierarchy", "4"] + MOE_ARGV
+    ranks = _spawn_audited(tmp_path, argv, 8)
+    tr = TLAUNCH.make_trainer(TLAUNCH.parse_args(
+        argv + ["--mode", "sim", "--workers", "4"]))
+    ep = sorted(tr.ep_leaf_axes)
+    for r in range(4):
+        a = flatten_tree(ranks[r]["params"])[1]
+        b = flatten_tree(ranks[r + 4]["params"])[1]
+        for i in ep:
+            assert torch.equal(a[i], b[i]), (r, i)
+    for res in ranks:
+        assert res["audit"]["ok"], res["audit"]["violations"]
+        allowed = res["audit"]["summary"]["allowed"]
+        assert allowed["EP residual-axis gradient mean"] == STEPS * len(ep)
+        assert all(np.isfinite(rec["losses"][0]) for rec in res["records"])
 
 
 def test_port_imports_neither_jax_nor_the_reference():

@@ -194,15 +194,20 @@ def test_refresh_sync_slots_matches_reference():
 
 def test_fused_local_step_view_takes_lamb_through_the_adam_kernel():
     """kind "lamb" runs kernel 1 as "adam" does (the plain version on the
-    CPU): the same m', u' and delta bits; an unknown kind raises."""
+    CPU): the same m', u' and delta bits; an unknown kind raises. The
+    step updates m and u in place, so each kind steps its own copies."""
     lo = TC.make_layout((13, 40), (None, "model"), N)
     g, m, u = (torch.randn((N,) + lo.view_shape) for _ in range(3))
     v = torch.rand((N,) + lo.view_shape)
-    a = K.fused_local_step_view(g, m, u, v, 1e-2, 0.9, 1e-8, lo, "adam")
-    b = K.fused_local_step_view(g, m, u, v, 1e-2, 0.9, 1e-8, lo, "lamb")
+    outs = []
+    for kind in ("adam", "lamb"):
+        mk, uk = m.clone(), u.clone()
+        d = K.fused_local_step_view_(g, mk, uk, v, 1e-2, 0.9, 1e-8, lo, kind)
+        outs.append((mk, uk, d))
+    a, b = outs
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     with pytest.raises(ValueError, match="unknown base kind"):
-        K.fused_local_step_view(g, m, u, v, 1e-2, 0.9, 1e-8, lo, "nope")
+        K.fused_local_step_view_(g, m, u, v, 1e-2, 0.9, 1e-8, lo, "nope")
 
 
 # --- registry ---------------------------------------------------------------

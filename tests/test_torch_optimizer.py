@@ -475,8 +475,10 @@ def test_one_bit_step_from_reference_state(ref_pallas):
     assert ts.var_pstate == () and any(e.any() for e in ts.err_w)
     g3 = grads[3]
     rx, rs_new, _ = ref_step(rx, _map(jnp.asarray, g3), rs)
+    # the step updates its state in place: step a clone, and read the
+    # state from before the step below
     tx, ts_new, tm = port_opt.step(SimComm(N), tx,
-                                   _map(torch.from_numpy, g3), ts)
+                                   _map(torch.from_numpy, g3), ts.clone())
     assert not tm["var_round"]
     equal_scales = 0
     for i, (g, lo_t, lo_r) in enumerate(zip(
