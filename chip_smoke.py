@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only audit
     python3 chip_smoke.py --only families
     python3 chip_smoke.py --only moe          (10c on four cards only)
+    python3 chip_smoke.py --only ssm
 
 Needs one card; on a machine with up to four, phase 6b puts one rank on
 each, and on four phase 6c runs its 2 pods x 2 ranks over NCCL and phase
@@ -13,8 +14,9 @@ each, and on four phase 6c runs its 2 pods x 2 ranks over NCCL and phase
 build, just the named checks of phases 4n, 5, 6, 7, 8, 9 and 10 (the
 second line: the four-card paths, on four cards; the third: phase 7;
 the fourth: phase 8; the fifth: 3e, phase 5's rotary-family checks and
-phase 9, 9d on four cards only; the sixth: 3f and phase 10) and prints
-no kernels or result line.
+phase 9, 9d on four cards only; the sixth: 3f and phase 10; the
+seventh: 3g, phase 5's state-space checks and phase 11) and prints no
+kernels or result line.
 
 1. Prints the card (nvidia-smi name and power limit) and torch/CUDA.
 2. Builds the port's CUDA kernels from src/repro_torch/kernels/csrc with
@@ -65,6 +67,11 @@ no kernels or result line.
    layers, 4 ranks, EP 4): kernels 1-4 on each of its DP units' frames,
    the 102400 x 5120 embedding and head among them (the experts take
    the plain local step).
+   3g: the same for one step of 11a (mamba2-2.7b FULL width, 8 layers, 2
+   stacked workers: the (8, 2560, 5120) projections and the (8, 80)
+   A_log, D and dt_bias among its frames) and 11b (zamba2-1.2b FULL, 38
+   layers, one worker), with ``dispatch.frame_precheck`` on every unit of
+   both FULL configs at full depth, at 2 and 4 stacked workers.
 4. Drives the main paths, each through the trainer and CLI config a
    user would call, 4 simulated data-parallel workers, 8 steps (0/1
    Adam and 0/1-SGD: syncs at 0-4 and 6; variance at 0, 1, 3 where the
@@ -226,7 +233,10 @@ no kernels or result line.
    + 8 decodes: logits within 1e-4, greedy tokens equal), and trains the
    rotary family's smoke configs (granite, phi4, chatglm3, gemma3: seq
    32 past gemma3-smoke's window of 8) under its flags at a peak lr of
-   3e-4, on the card against the CPU under its bars.
+   3e-4, on the card against the CPU under its bars; and the state-space
+   family's smoke configs (mamba2, zamba2: seq 32, four chunks of 8) the
+   same way, each also served (a prefill of 16 tokens, 8 decodes: logits
+   within 1e-4, greedy tokens equal).
 8. Runs ``python -m repro_torch.launch.audit --matrix --lints`` on the
    card (in this process): the reference's audit matrix without its
    tensor-parallel entries, 12 gpt2-smoke configurations of 8 recorded
@@ -274,7 +284,25 @@ no kernels or result line.
       log(102400) + 0.02**2 * 5120 / 2 plus the aux term, launches 4a's
       schedule over the DP leaves; peak memory (under 79.18 GiB), times
       by step kind, the EP exchange's ms, dropped_frac and aux a step.
-11. Prints the kernels line (kernels 2-4 with their 7e launches), the
+11. The state-space family (Mamba2's chunked SSD and O(1) decode,
+   zamba2's shared attention block: plain torch, as the reference
+   computes them outside any Pallas kernel; the DP leaves go through
+   kernels 1-4) at full width, each run through ``run_main_path`` as
+   9a (zero_one_adam, tensor scales, phase 4's 8-step schedule, remat
+   on, seq 1024, audited, launches against ``expected_launches``, peak
+   memory), every gradient of step 0 asserted finite (the reference's
+   scan gives NaN at the chunk of 256):
+   a. mamba2-2.7b (d 2560, 80 SSM heads x 64, state 128, chunk 256,
+      vocab 50280 padded to 50432, untied head), 8 of its 64 layers, 2
+      simulated workers, global batch 8;
+   b. zamba2-1.2b at full depth (38 layers, the shared block applied 6
+      times), ``--mode single``, batch 4;
+   c. both FULL configs at full depth from the port's seeded init
+      (mamba2: 2.83e9 parameters, 11.3 GB in f32), served through the
+      Scheduler: 4 slots, 8 requests of 1024, 1536 or 2048 prompt tokens
+      + 64 new ones, f32 cache; decode ms a tick, prefill ms, peak
+      memory, and 2 requests against a lone run (7a's check).
+12. Prints the kernels line (kernels 2-4 with their 7e launches), the
    card line and the result line.
 
 Any failure raises; there is no CPU fallback. Exits non-zero without a
@@ -503,7 +531,8 @@ class Tally:
                      for k in [*KERNELS, BERT_DECOMPRESS, BERT_LAMB,
                                *HIER.values(),
                                *(n for names in {**FAMILY_NAMES,
-                                                 **MOE_NAMES}.values()
+                                                 **MOE_NAMES,
+                                                 **SSM_NAMES}.values()
                                  for n in names.values()),
                                *BUCKET.values(), *BUCKET_HIER.values()]}
 
@@ -1011,14 +1040,15 @@ def first_loss(cfg) -> float:
 
 
 def run_main_path(dev, label, arch, extra, batch, seq, kind,
-                  workers=N_WORKERS, n_layers=None):
+                  workers=N_WORKERS, n_layers=None, check_first_grads=False):
     """Phase 4: one main path, 4 simulated workers, 8 steps, through
     ``launch.train``, on a recording comm whose log is audited after the
     run (:func:`audit_run`). Returns the per-step records, the launch
     counts, the peak memory, the audit's summary and, for the gpt2 runs
     4a, 4e and 4f, the profile of step 6. Phase 9 runs the rotary family
     through it at ``workers`` simulated workers (one: single mode), cut
-    to ``n_layers``."""
+    to ``n_layers``; phase 11 asks ``check_first_grads``: every gradient
+    of step 0 finite (:func:`finite_first_grads`)."""
     from repro_torch import analysis
     from repro_torch.core.comm import NullComm, SimComm
     from repro_torch.kernels import build
@@ -1040,6 +1070,7 @@ def run_main_path(dev, label, arch, extra, batch, seq, kind,
     torch.cuda.synchronize()
     before_gb = torch.cuda.memory_allocated() / 1e9
     parts = track_peaks(tr)
+    grads0 = finite_first_grads(tr) if check_first_grads else None
     build.launch_counts.clear()
     res = launch.train(args, tr, kind=kind, keep_step=(
         PROFILED_STEP if label in ("gpt2", "gpt2_adam", "gpt2_onebit")
@@ -1102,7 +1133,11 @@ def run_main_path(dev, label, arch, extra, batch, seq, kind,
     del res
     profile = profile_step(tr, *kept) if kept is not None else None
     del kept, tr
+    if grads0 is not None:
+        print(f"  step 0: {grads0['leaves']} gradient leaves, "
+              f"{grads0['elements']:,} elements, all finite", flush=True)
     return {"steps": steps, "launches": counts, "peak_memory_gb": peak_gb,
+            "first_grads": grads0,
             "peak_parts_gb": parts, "allocated_before_gb": before_gb,
             "wire_bytes": wire, "profile": profile,
             "params_sha256": digest, "trust_at_syncs": trusts,
@@ -1134,6 +1169,28 @@ def track_peaks(tr):
     wrap(tr, "grads", "fwd_bwd")
     wrap(tr.opt, "step", "optimizer")
     return peaks
+
+
+def finite_first_grads(tr):
+    """Wrap ``tr.grads`` so that its first call asserts every gradient
+    finite (all stacked workers); returns the record it fills."""
+    from repro_torch.core.leafwise import flatten_tree
+
+    rec = {}
+    fn = tr.grads
+
+    def checked(*a, **k):
+        losses, grads = fn(*a, **k)
+        if not rec:
+            leaves = flatten_tree(grads)[1]
+            bad = [i for i, g in enumerate(leaves)
+                   if not bool(torch.isfinite(g).all())]
+            assert not bad, f"non-finite gradients at step 0: leaves {bad}"
+            rec.update(leaves=len(leaves),
+                       elements=sum(g.numel() for g in leaves))
+        return losses, grads
+    tr.grads = checked
+    return rec
 
 
 def audit_run(label, tr, trace):
@@ -2834,19 +2891,20 @@ def run_serve_phase(dev):
     return out
 
 
-def check_small_serve(dev):
-    """Phase 5: gpt2-smoke prefill + 8 greedy decode steps, 2 prompts, on
-    the card against the CPU from the same params: logits within
-    SERVE_LOGIT_TOL, greedy tokens equal."""
+def check_small_serve(dev, arch="gpt2", prompt_len=12):
+    """Phase 5: ``arch``'s smoke config (gpt2; the state-space family at
+    a prompt of 16, two chunks), prefill + 8 greedy decode steps, 2
+    prompts, on the card against the CPU from the same params: logits
+    within SERVE_LOGIT_TOL, greedy tokens equal."""
     from repro_torch.configs.base import get
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import init_params
 
-    cfg = get("gpt2").smoke
+    cfg = get(arch).smoke
     cpu = torch.device("cpu")
     params = init_params(T.model_template(cfg), 0, device=cpu)
     prompt = torch.from_numpy(np.random.default_rng(3).integers(
-        0, cfg.vocab, (2, 12)))
+        0, cfg.vocab, (2, prompt_len)))
     runs = []
     for d in (dev, cpu):
         p = _to(params, d)
@@ -2856,12 +2914,12 @@ def check_small_serve(dev):
         for i in range(8):
             toks.append(logits[-1].argmax(-1))
             lg, cache = T.decode(p, cfg, toks[-1][:, None].to(d), cache,
-                                 12 + i)
+                                 prompt_len + i)
             logits.append(lg[:, 0, :cfg.vocab].cpu())
         runs.append((torch.stack(logits), torch.stack(toks)))
     gap = float((runs[0][0] - runs[1][0]).abs().max())
     same = torch.equal(runs[0][1], runs[1][1])
-    print(f"  gpt2-smoke serve: prefill + 8 decodes, logits card-cpu "
+    print(f"  {cfg.name} serve: prefill + 8 decodes, logits card-cpu "
           f"within {gap:.2e}, greedy tokens equal: {same}", flush=True)
     assert gap <= SERVE_LOGIT_TOL and same
     return {"max_logit_gap": gap, "tokens_equal": same}
@@ -3018,12 +3076,19 @@ def check_family_kernels(dev, tally):
     ``dispatch.frame_precheck`` on every unit of the four FULL configs at
     full depth, at 2 and 4 stacked workers (metadata only): every unit
     must pass. Returns the pre-check's counts."""
+    check_run_frames(dev, tally, FRAMES_3E, FAMILY_NAMES, "3e")
+    return precheck_units(FAMILIES)
+
+
+def precheck_units(archs):
+    """``dispatch.frame_precheck`` on every unit of ``archs``' FULL
+    configs at full depth, at 2 and 4 stacked workers (metadata only):
+    every unit must pass. Returns the counts and the largest frame."""
     from repro_torch.core import compressor as C
     from repro_torch.kernels import dispatch as K
 
-    check_run_frames(dev, tally, FRAMES_3E, FAMILY_NAMES, "3e")
     checked, largest = 0, (0, None)
-    for a in FAMILIES:
+    for a in archs:
         for n in (2, 4):
             plan = family_plan(a, workers=n)
             for path, lo in zip(plan.paths, plan.layouts):
@@ -3033,7 +3098,7 @@ def check_family_kernels(dev, tally):
                 largest = max(largest, (n * rows * cols,
                                         f"{a} {'/'.join(path)} x{n}"))
                 checked += 1
-    print(f"  frame_precheck: {checked} units of the four FULL configs at "
+    print(f"  frame_precheck: {checked} units of {', '.join(archs)} FULL at "
           f"2 and 4 stacked workers pass; the largest frame {largest[1]} "
           f"holds {largest[0]:,} elements", flush=True)
     return {"units_checked": checked, "largest_frame": largest[1],
@@ -3487,6 +3552,174 @@ def run_moe_phase(dev):
     return out
 
 
+# --------------------------------------------------------------------- #
+# phase 11: the state-space family (mamba2, zamba2) at full width
+# --------------------------------------------------------------------- #
+
+SSM_ARCHS = ("mamba2-2.7b", "zamba2-1.2b")
+# (label, arch, workers, layers kept, global batch) of runs 11a and 11b:
+# full width, seq 1024. mamba2-2.7b: 8 of its 64 layers, 2 simulated
+# workers (1.16e9 stacked elements); zamba2-1.2b at full depth (38
+# layers, the shared block applied 6 times), one worker (1.17e9)
+SSM_RUNS = (("11a", "mamba2-2.7b", 2, 8, 8), ("11b", "zamba2-1.2b", 1, 38, 4))
+SSM_SEQ = 1024
+# 3g: the frames of one step of 11a and 11b (stacked as they run)
+FRAMES_3G = tuple((label, arch, layers, workers, workers)
+                  for label, arch, workers, layers, _ in SSM_RUNS)
+SSM_NAMES = {label: {k: f"{k} ({arch}, {label})" for k in FAMILY_KERNELS}
+             for label, arch, *_ in FRAMES_3G}
+# 11c: each FULL config at full depth from the port's seeded init, served
+# through the Scheduler: 4 slots, 8 requests of 1024, 1536 or 2048 prompt
+# tokens (multiples of the chunk of 256) and 64 new tokens, f32 cache
+SERVE11_SLOTS, SERVE11_REQUESTS = 4, 8
+SERVE11_PROMPTS, SERVE11_GEN = (1024, 1536, 2048), 64
+SERVE11_LONE = 2           # requests re-run alone at batch 1 per model
+
+
+def check_ssm_kernels(dev, tally):
+    """Phase 3g: kernels 1-4 against their plain versions on every frame
+    of one step of 11a (2 stacked workers) and 11b (one worker), worker
+    and server frames, timed as 3a under SSM_NAMES; then
+    ``dispatch.frame_precheck`` on every unit of both FULL configs at full
+    depth, at 2 and 4 stacked workers."""
+    check_run_frames(dev, tally, FRAMES_3G, SSM_NAMES, "3g")
+    return precheck_units(SSM_ARCHS)
+
+
+def ssm_parts(dev):
+    """Phase 5's state-space checks by name: each smoke config's 8 steps
+    on the card against the CPU at a peak lr of 3e-4 (seq 32: four chunks
+    of 8), and its serve (a prefill of 16 tokens, 8 decodes)."""
+    parts = {}
+    for a in SSM_ARCHS:
+        short = a.split("-")[0]
+        parts[f"ssm_{short}"] = (lambda a=a: check_small_input(
+            dev, a, ["--lr", "3e-4"], "lm"))
+        parts[f"ssm_serve_{short}"] = (lambda a=a: check_small_serve(
+            dev, a, 16))
+    return parts
+
+
+def run_ssm_training(dev):
+    """Runs 11a and 11b through :func:`run_main_path`: zero_one_adam with
+    tensor scales, SSM_RUNS' workers (one: single mode), batch and seq,
+    phase 4's 8-step schedule, remat on (the FULL configs set it), each
+    audited, its launches of kernels 1-4 those ``expected_launches``
+    gives, every gradient of step 0 finite (the reference's chunked scan
+    gives NaN there at the chunk of 256)."""
+    from repro_torch.configs.base import get
+
+    out = {}
+    for label, arch, workers, layers, batch in SSM_RUNS:
+        cfg = get(arch).config
+        shared = (f", the shared block (heads {cfg.n_heads}, ff {cfg.d_ff}) "
+                  f"applied {layers // cfg.attn_every} times"
+                  if cfg.attn_every else "")
+        print(f"phase {label}: {arch} FULL width (d {cfg.d_model}, "
+              f"{cfg.ssm_heads} SSM heads x {cfg.ssm_head_dim}, state "
+              f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}, vocab {cfg.vocab} "
+              f"-> {cfg.padded_vocab}){shared}, {layers} of "
+              f"{cfg.n_layers} layers, {workers} worker(s), batch {batch}, "
+              f"seq {SSM_SEQ}, remat {cfg.remat}", flush=True)
+        out[label] = run_main_path(dev, label, arch, [], batch, SSM_SEQ,
+                                   "lm", workers, layers,
+                                   check_first_grads=True)
+        report_density(out[label], arch, layers, workers)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve11_run(dev, arch, params):
+    """11c's serve of ``arch`` FULL through ``launch.serve.serve`` (the
+    CLI's tick loop) over a Scheduler, the logits of every decode
+    recorded, the first SERVE11_LONE requests checked against a lone run
+    (7a's check)."""
+    from repro_torch.configs.base import get
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve import Request, Scheduler, Server
+
+    cfg = get(arch).config
+    max_seq = max(SERVE11_PROMPTS) + SERVE11_GEN
+    args = launch.parse_args([
+        "--arch", arch, "--slots", str(SERVE11_SLOTS), "--max-seq",
+        str(max_seq), "--requests", str(SERVE11_REQUESTS), "--gen",
+        str(SERVE11_GEN)])
+    rng = np.random.default_rng(args.seed + 1)
+    lens = rng.choice(SERVE11_PROMPTS, SERVE11_REQUESTS)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, int(n)).tolist(),
+                    max_new_tokens=SERVE11_GEN) for i, n in enumerate(lens)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    srv = Server(cfg, batch=SERVE11_SLOTS, max_seq=max_seq,
+                 cache_dtype=torch.float32, device=dev)
+    sch = Scheduler(srv, params)
+    for r in reqs:
+        sch.submit(r)
+    run = launch.ServeRun(args=args, cfg=cfg, device=dev, params=params,
+                          server=srv, scheduler=sch, requests=reqs)
+    logs = record_logits(run, {r.rid for r in reqs})
+    res = serve_drive(run)
+    assert all(r.done and len(r.output) == SERVE11_GEN for r in reqs)
+    res["prompt_lens"] = [int(n) for n in lens]
+    res["lone"] = check_lone(run, logs, SERVE11_LONE)
+    res.pop("ticks")
+    return res
+
+
+def run_11c(dev):
+    """11c: mamba2-2.7b FULL at full depth (64 layers) and zamba2-1.2b
+    FULL (38 layers), each from the port's own seeded init, served
+    through the Scheduler (SERVE11_SLOTS slots, SERVE11_REQUESTS requests
+    of SERVE11_PROMPTS prompt tokens + SERVE11_GEN new ones, f32 cache):
+    decode ms a tick, prefill (admission tick) ms, peak memory, tokens
+    equal to a lone run's."""
+    from repro_torch.configs.base import get
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    out = {}
+    for arch in SSM_ARCHS:
+        cfg = get(arch).config
+        print(f"phase 11c: {arch} FULL, {cfg.n_layers} layers, "
+              f"{SERVE11_SLOTS} slots, {SERVE11_REQUESTS} requests of "
+              f"{'/'.join(map(str, SERVE11_PROMPTS))} + {SERVE11_GEN} "
+              f"tokens, f32 cache", flush=True)
+        t0 = time.time()
+        params = L.init_params(T.model_template(cfg), 0, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.time() - t0
+        elements = sum(x.numel() for x in flatten_params(params))
+        print(f"  {elements:,} parameters ({elements * 4 / 1e9:.2f} GB in "
+              f"f32), init {init_s:.1f} s", flush=True)
+        out[arch] = {"params": elements, "init_s": init_s,
+                     **serve11_run(dev, arch, params)}
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_phase11(dev):
+    out = run_ssm_training(dev)
+    out["11c"] = run_11c(dev)
+    return out
+
+
+def run_ssm_only(dev):
+    """``--only ssm``: 3g (its own tally, printed), phase 5's state-space
+    checks, then phase 11."""
+    tally = Tally()
+    out = {"3g": check_ssm_kernels(dev, tally)}
+    out["3g"]["rows"] = {label: tally_rows(tally, names)
+                         for label, names in SSM_NAMES.items()}
+    for label, rows in out["3g"]["rows"].items():
+        print(f"  3g {label} " + json.dumps(rows), flush=True)
+    out["5"] = {k: run() for k, run in ssm_parts(dev).items()}
+    out.update(run_phase11(dev))
+    return out
+
+
 def tally_rows(tally, names):
     """Each kernel's row of ``tally`` under ``names``, with its bound and
     the share of it the call and batched times reach."""
@@ -3521,7 +3754,9 @@ def parse_args(argv=None):
              "'gpt2_qint8 gpt2_qint4_hier'; 'serve' for phase 7, or its "
              "runs '7a' ... '7e'; 'audit' for phase 8; 'families' for 3e, "
              "phase 5's family checks and phase 9, or '9ab', '9c', '9d', "
-             "'9a_1layer'; 'moe' for 3f and phase 10, or '10ab', '10c'), "
+             "'9a_1layer'; 'moe' for 3f and phase 10, or '10ab', '10c'; "
+             "'ssm' for 3g, phase 5's state-space checks and phase 11, or "
+             "'11ab', '11c'), "
              "print their summary and the card line, and no kernels or "
              "result line")
     return ap.parse_args(argv)
@@ -3529,9 +3764,11 @@ def parse_args(argv=None):
 
 def run_only(dev, names, card, t_start):
     """``--only``: the named checks of phases 4n (after run 4a), 5, 6, 7
-    (``serve``: all of it, or its runs ``7a`` ... ``7e``), 8 (``audit``)
-    and 9 (``families``: 3e, phase 5's family checks and 9a-9d; or
-    ``9ab``, ``9c``, ``9d``), in that order."""
+    (``serve``: all of it, or its runs ``7a`` ... ``7e``), 8 (``audit``),
+    9 (``families``: 3e, phase 5's family checks and 9a-9d; or ``9ab``,
+    ``9c``, ``9d``), 10 (``moe``) and 11 (``ssm``: 3g, phase 5's
+    state-space checks and 11a-11c; or ``11ab``, ``11c``), in that
+    order."""
     parts = {"4n": lambda: run_elastic_phase(
         dev, run_main_path(dev, *RUNS[0])), **small_parts(dev),
         **family_parts(dev),
@@ -3544,7 +3781,9 @@ def run_only(dev, names, card, t_start):
         **moe_parts(dev), "moe": lambda: run_moe_only(dev),
         "10ab": lambda: {**{k: run() for k, run in moe_parts(dev).items()},
                          "10b": run_10b()},
-        "10c": run_10c}
+        "10c": run_10c,
+        **ssm_parts(dev), "ssm": lambda: run_ssm_only(dev),
+        "11ab": lambda: run_ssm_training(dev), "11c": lambda: run_11c(dev)}
     unknown = sorted(set(names) - set(parts))
     if unknown:
         sys.exit(f"chip_smoke: unknown parts {unknown}; choose from "
@@ -3619,6 +3858,10 @@ def main(argv=None):
     print("phase 3f: every DP frame of a step of one rank of 10c "
           "(deepseek-v2-236b FULL width, 2 layers, 4 ranks)", flush=True)
     check_run_frames(dev, tally, FRAMES_3F, MOE_NAMES, "3f")
+    print("phase 3g: every frame of a step of 11a and 11b (mamba2-2.7b, "
+          "zamba2-1.2b FULL width); frame_precheck on both FULL configs",
+          flush=True)
+    precheck_ssm = check_ssm_kernels(dev, tally)
     lap("3")
 
     runs = {}
@@ -3651,7 +3894,8 @@ def main(argv=None):
 
     print("phase 5: smoke trainers on the card vs on the CPU", flush=True)
     small = {name: run() for name, run in {**small_parts(dev),
-                                           **family_parts(dev)}.items()}
+                                           **family_parts(dev),
+                                           **ssm_parts(dev)}.items()}
     lap("5")
 
     print("phase 6: data parallel in processes", flush=True)
@@ -3677,6 +3921,10 @@ def main(argv=None):
     moe = run_moe_phase(dev)
     lap("10")
 
+    print("phase 11: the state-space family at full width", flush=True)
+    ssm = run_phase11(dev)
+    lap("11")
+
     def bound(r):
         t_bytes = r["bytes"] / PEAK_BYTES_PER_S * 1e3
         t_ops = r["ops"] / PEAK_F32_PER_S * 1e3
@@ -3697,6 +3945,8 @@ def main(argv=None):
                 for r in serve["7e"]["sign1bit"]["publishes"])
         for label, *_ in FAMILY_RUNS:
             by_run[label] = families[label]["launches"].get(name, 0)
+        for label, *_ in SSM_RUNS:
+            by_run[label] = ssm[label]["launches"].get(name, 0)
         for row in families["9d"].get("ranks", []):
             by_run[f"9d_rank{row['rank']}"] = row["launches"].get(name, 0)
         for part in ("10b", "10c"):
@@ -3745,6 +3995,11 @@ def main(argv=None):
                     "max_abs_err": rb["max_abs_err"],
                     "launches_per_round": rb["launches_per_round"]}
         if name in FAMILY_KERNELS:
+            kernels[-1]["ssm_frames"] = {
+                label: {"per": "step (kernel 1) or sync (kernels 2-4) of "
+                               + frames_3e_text(label, FRAMES_3G),
+                        **tally_rows(tally, {name: names[name]})[name]}
+                for label, names in SSM_NAMES.items()}
             kernels[-1]["moe_frames"] = {
                 label: {"per": "step (kernel 1) or sync (kernels 2-4) of "
                                + frames_3e_text(label, FRAMES_3F),
@@ -3776,6 +4031,7 @@ def main(argv=None):
     assert not missing, f"kernels never launched on a main path: {missing}"
     summary = {"runs": runs, "checkpoints": checkpoints, "4n": elastic,
                "3e_precheck": precheck, "families": families, "moe": moe,
+               "3g_precheck": precheck_ssm, "ssm": ssm,
                "small_inputs": small,
                "data_parallel": dist_phase, "serve": serve,
                "audit": audit, "phase_wall_s": walls,

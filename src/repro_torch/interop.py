@@ -15,6 +15,11 @@ E/n, ...)``, and the reference's state keeps for them the slots in
 that shape and ``None`` for ``u``, the EF state, the anchor and LAMB's
 trust, as the port's. (Single mode has no expert-parallel leaf: one
 worker holds every expert as a data-parallel leaf in both.)
+
+The state-space family needs no conversion either: its stacked
+``blocks`` (``norm``, ``ssm.*``) and zamba2's ``shared_attn`` carry the
+reference's names and shapes, so its params and optimizer state cross
+leaf for leaf both ways.
 """
 from __future__ import annotations
 

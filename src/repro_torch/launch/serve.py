@@ -18,6 +18,9 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2 \\
       --slots 8 --max-seq 1024 --requests 16 --prompt-len 512 --gen 128 \\
       --kv-quant qint8 --kv-page 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+      --smoke --prompt-len 16 --device cpu   # prompts: a multiple of the
+                                             # config's ssm_chunk
 """
 from __future__ import annotations
 
@@ -43,6 +46,8 @@ def parse_args(argv=None):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config (CPU-friendly)")
+    ap.add_argument("--layers", type=int, default=None, metavar="L",
+                    help="cut the config to L layers, widths unchanged")
     ap.add_argument("--slots", type=int, default=4,
                     help="concurrent batch slots of the scheduler")
     ap.add_argument("--max-seq", type=int, default=64)
@@ -88,6 +93,8 @@ def build(args) -> ServeRun:
     submitted requests of ``args``."""
     spec = get(args.arch)
     cfg = spec.smoke if args.smoke else spec.config
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     dev = resolve_device(args.device)
     params = init_params(T.model_template(cfg), args.seed, device=dev)
     srv = Server(cfg, batch=args.slots, max_seq=args.max_seq,

@@ -46,6 +46,9 @@ Examples:
       --arch deepseek-v2-236b --smoke --mode sim --workers 4 \\
       --device cpu [...]   # or llama4-scout-17b-a16e: experts split
       # over the workers; FULL with --layers 2 and --mode dist on cards
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \
+      --smoke --mode sim --workers 4 --seq 32 --device cpu [...]
+      # or zamba2-1.2b; --seq a multiple of the config's ssm_chunk
 """
 from __future__ import annotations
 

@@ -6,9 +6,11 @@ chatglm3's partial rotary and QKV bias, gemma3's sliding windows and
 window cache; rmsnorm, swiglu, remat); and those of the moe family:
 the experts, the router's top-k and capacity, the shared experts, the
 dense prefix (``first_k_dense``) and DeepSeek-V2's multi-head latent
-attention (``attn_type="mla"``). Defaults are the reference's. A config
-of another family (ssm, hybrid, the encoder-decoder, the vlm), or with
-M-RoPE, is refused by :func:`unported` (ROADMAP item 4).
+attention (``attn_type="mla"``); and those of the state-space family:
+Mamba2's SSD layer (``ssm_*``, ``conv_kernel``) and zamba2's shared
+attention block (``attn_every``). Defaults are the reference's. A config
+of another family (the encoder-decoder, the vlm), or with M-RoPE, is
+refused by :func:`unported` (ROADMAP item 4).
 """
 from __future__ import annotations
 
@@ -56,6 +58,15 @@ class ModelConfig:
     capacity_factor: float = 1.25
     aux_loss_weight: float = 0.01
 
+    # SSM (Mamba2) / hybrid (Zamba2)
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_groups: int = 1
+    ssm_chunk: int = 256
+    conv_kernel: int = 4
+    attn_every: int = 0          # zamba2: shared attn block every k layers
+
     # serving
     window_cache: bool = False   # sliding-window layers keep only
                                  # ``window`` KV slots (a ring), global
@@ -83,16 +94,31 @@ class ModelConfig:
         return ((self.vocab + m - 1) // m) * m
 
     @property
+    def ssm_heads(self) -> int:
+        return (self.ssm_expand * self.d_model) // self.ssm_head_dim
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
     def n_global_layers(self) -> int:
         if not self.global_every:
             return 0
         return self.n_layers // self.global_every
+
+    @property
+    def n_attn_apps(self) -> int:
+        """Hybrid: how many times the shared attention block fires."""
+        if not self.attn_every:
+            return 0
+        return self.n_layers // self.attn_every
 
 
 def unported(cfg: ModelConfig) -> Optional[str]:
     """What of ``cfg`` the port does not run yet, or None."""
     if cfg.rope == "mrope":
         return "M-RoPE"
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         return f"the {cfg.family} family"
     return None

@@ -12,7 +12,9 @@ comm view from them, exactly as the reference does.
 from __future__ import annotations
 
 import dataclasses
+import os
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Tuple
 
 import torch
@@ -42,7 +44,9 @@ def init_params(template, seed: int, device=None, dtype=torch.float32):
     """Materialize a template. Each leaf draws from its own CPU generator
     seeded from ``seed`` and its path, so the values do not depend on the
     device or on the order of leaves. (The reference draws from jax's
-    threefry; its values come across through ``repro_torch.interop``.)"""
+    threefry; its values come across through ``repro_torch.interop``.)
+    A generator fills its tensor on one core, so the leaves are drawn on
+    a pool of threads, one leaf a thread."""
     def make(path, pd: PD):
         if pd.init == "zeros":
             x = torch.zeros(pd.shape)
@@ -54,7 +58,13 @@ def init_params(template, seed: int, device=None, dtype=torch.float32):
                 & 0x7FFFFFFFFFFF)
             x = torch.randn(pd.shape, generator=g) * pd.scale
         return x.to(device=device, dtype=dtype)
-    return _map(template, make)
+
+    leaves = []
+    _map(template, lambda path, pd: leaves.append((path, pd)))
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        made = dict(zip((p for p, _ in leaves),
+                        ex.map(lambda item: make(*item), leaves)))
+    return _map(template, lambda path, _: made[path])
 
 
 def param_shapes(template):

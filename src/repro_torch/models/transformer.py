@@ -1,9 +1,10 @@
-"""Transformer assembly, PyTorch port of the dense and MoE paths of
-``src/repro/models/transformer.py``: gpt2 and bert (learned positions,
-gelu, layernorm), the rotary family (granite, phi4, chatglm3's partial
-rotary, gemma3's 5:1 sliding:global layers; rmsnorm, swiglu) and the moe
-family (llama4-scout; deepseek-v2 with multi-head latent attention and a
-dense first layer).
+"""Transformer assembly, PyTorch port of the dense, MoE and state-space
+paths of ``src/repro/models/transformer.py``: gpt2 and bert (learned
+positions, gelu, layernorm), the rotary family (granite, phi4,
+chatglm3's partial rotary, gemma3's 5:1 sliding:global layers; rmsnorm,
+swiglu), the moe family (llama4-scout; deepseek-v2 with multi-head
+latent attention and a dense first layer) and the state-space family
+(mamba2; zamba2 with its shared attention block).
 
     model_template(cfg, ep_workers)       -> PD tree (the params' source)
     forward(params, cfg, batch, comm)     -> (logits over the padded
@@ -25,9 +26,19 @@ cache in place and run without autograd. With ``cfg.window_cache``
 ``sliding_window`` slots, the global layers a compact stack; ``decode``
 runs through it as the reference's ``_decoder_scan_window_decode``, and
 ``prefill`` fills it too (the reference's prefill cannot take the split
-cache: its layer scan refuses stacks of unequal length). SSM and
-hybrid, M-RoPE and the encoder raise ``NotImplementedError``, and so do
-MoE and MLA serving (ROADMAP item 4).
+cache: its layer scan refuses stacks of unequal length). M-RoPE and the
+encoder raise ``NotImplementedError``, and so do MoE and MLA serving
+(ROADMAP item 4).
+
+The state-space family (mamba2; zamba2, the hybrid) runs its stacked
+layers through :func:`_ssm_scan`: each layer's norm, Mamba2 block
+(:mod:`repro_torch.models.ssm`) and residual, and for the hybrid one
+shared attention + MLP block (``shared_attn``, one set of weights)
+applied after every ``attn_every``-th layer, its n-th application
+reading and writing slot n of the shared KV cache. Its cache is the
+reference's: {"ssm": {"h", "conv_x", "conv_B", "conv_C"}} stacked over
+the layers in f32, plus for the hybrid {"shared": {"k", "v"}} of shape
+(n_attn_apps, B, max_seq, n_kv, hd); every leaf written in place.
 
 A MoE model's ``first_k_dense`` layers are a stack of their own
 (``dense_blocks``) run before ``blocks``, whose MLP is a
@@ -47,6 +58,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention as A
 from repro_torch.models import moe as MOE
 from repro_torch.models import rope as R
+from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig, unported
 from repro_torch.models.layers import (PD, apply_mlp, apply_norm,
                                        mlp_template, model_dim_spec,
@@ -78,6 +90,15 @@ def _block_template(cfg: ModelConfig, n_layers: int, moe: bool = False,
     return t
 
 
+def _ssm_block_template(cfg: ModelConfig, n_layers: int):
+    return {"norm": stack_template(norm_template(cfg.norm_type,
+                                                 cfg.d_model), n_layers),
+            "ssm": SSM.ssm_template(cfg.d_model, cfg.d_inner, cfg.ssm_heads,
+                                    cfg.ssm_head_dim, cfg.ssm_state,
+                                    cfg.ssm_groups, cfg.conv_kernel,
+                                    stack=n_layers)}
+
+
 def model_template(cfg: ModelConfig, ep_workers: int = 1):
     """The parameter template; ``ep_workers``: the expert-parallel degree
     (expert leaves are ``dp=False`` above 1)."""
@@ -93,6 +114,16 @@ def model_template(cfg: ModelConfig, ep_workers: int = 1):
         t["lm_head"] = PD((d, V), spec=(None, vs))
     if cfg.rope == "learned":
         t["pos_embed"] = PD((cfg.max_seq, d), scale=0.02)
+    if cfg.family in ("ssm", "hybrid"):
+        t["blocks"] = _ssm_block_template(cfg, cfg.n_layers)
+        if cfg.attn_every:
+            t["shared_attn"] = {
+                "norm": norm_template(cfg.norm_type, d),
+                "attn": A.gqa_template(d, cfg.n_heads, cfg.n_kv, cfg.hd),
+                "mlp_norm": norm_template(cfg.norm_type, d),
+                "mlp": mlp_template(d, cfg.d_ff, cfg.mlp_type),
+            }
+        return t
     if cfg.first_k_dense:
         t["dense_blocks"] = _block_template(cfg, cfg.first_k_dense)
     t["blocks"] = _block_template(cfg, cfg.n_layers - cfg.first_k_dense,
@@ -232,6 +263,58 @@ def _blocks(params, cfg: ModelConfig, h, positions, cache=None,
     return h, aux
 
 
+def _ssm_layer(lp, shared, cfg: ModelConfig, h, positions, with_attn,
+               state=None, decode=False, slot=None, cache_pos=None,
+               use_blockwise=False):
+    """One layer of the state-space family: norm, Mamba2 block, residual;
+    then, where ``with_attn``, the shared attention + MLP block over its
+    KV slot ``slot`` (None in training). ``state`` (the layer's SSM
+    state) and ``slot`` are written in place."""
+    so, _ = SSM.ssm_forward(lp["ssm"], cfg,
+                            apply_norm(lp["norm"], h, cfg.norm_type),
+                            state=state, decode=decode)
+    h = h + so
+    if with_attn:
+        an = apply_norm(shared["norm"], h, cfg.norm_type)
+        ao, _ = A.gqa_forward(shared["attn"], cfg, an, positions,
+                              kind="causal", cache=slot, cache_pos=cache_pos,
+                              use_blockwise=use_blockwise)
+        h = h + ao
+        mn = apply_norm(shared["mlp_norm"], h, cfg.norm_type)
+        h = h + apply_mlp(shared["mlp"], mn, cfg.mlp_type)
+    return h
+
+
+def _ssm_scan(params, cfg: ModelConfig, h, positions, cache=None,
+              cache_pos=None, decode=False, use_blockwise=False):
+    """The state-space family's layers, as the reference's ``_ssm_scan``:
+    layer ``l`` reads and writes its slice of ``cache["ssm"]``; the
+    shared block fires after every ``attn_every``-th layer, its n-th
+    application on slot n of ``cache["shared"]``. Under ``cfg.remat``,
+    with gradients recorded, each layer (the shared block included) is
+    checkpointed."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    shared = params.get("shared_attn")
+    app = 0
+    for l, lp in enumerate(_layers(params["blocks"], cfg.n_layers)):
+        with_attn = bool(shared is not None and cfg.attn_every
+                         and (l + 1) % cfg.attn_every == 0)
+        state = slot = None
+        if cache is not None:
+            state = {k: c[l] for k, c in cache["ssm"].items()}
+            if with_attn:
+                slot = {k: c[app] for k, c in cache["shared"].items()}
+        if remat:
+            h = checkpoint(_ssm_layer, lp, shared, cfg, h, positions,
+                           with_attn, None, False, None, None,
+                           use_blockwise, use_reentrant=False)
+        else:
+            h = _ssm_layer(lp, shared, cfg, h, positions, with_attn, state,
+                           decode, slot, cache_pos, use_blockwise)
+        app += with_attn
+    return h
+
+
 def forward(params, cfg: ModelConfig, batch, comm=None, moe_stats=None):
     """Training forward: (logits (B, S, padded_vocab), the summed MoE aux
     loss, 0 for a dense model)."""
@@ -239,9 +322,13 @@ def forward(params, cfg: ModelConfig, batch, comm=None, moe_stats=None):
     B, S = tokens.shape
     h = _embed(params, cfg, tokens)
     positions = R.text_positions(B, S, device=tokens.device)
-    h, aux = _blocks(params, cfg, h, positions,
-                     use_blockwise=S >= cfg.blockwise_threshold, comm=comm,
-                     moe_stats=moe_stats)
+    use_bw = S >= cfg.blockwise_threshold
+    if cfg.family in ("ssm", "hybrid"):
+        h = _ssm_scan(params, cfg, h, positions, use_blockwise=use_bw)
+        return _logits(params, cfg, h), torch.zeros(
+            (), dtype=torch.float32, device=h.device)
+    h, aux = _blocks(params, cfg, h, positions, use_blockwise=use_bw,
+                     comm=comm, moe_stats=moe_stats)
     return _logits(params, cfg, h), aux
 
 
@@ -252,7 +339,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     ``cfg.window_cache`` (a sliding window and global layers) the
     reference's split cache: {"local": {"k", "v"} (L, B, window, K, hd),
     "global": {"k", "v"} (G, B, max_seq, K, hd)}; only the sliding
-    layers' rings of "local" are used, as in the reference."""
+    layers' rings of "local" are used, as in the reference. The
+    state-space family: {"ssm": each layer's state stacked, in f32 (not
+    ``dtype``)}, and for the hybrid {"shared": {"k", "v"} (n_attn_apps,
+    B, max_seq, K, hd)}."""
+    if cfg.family in ("ssm", "hybrid"):
+        one = SSM.init_ssm_state(cfg, batch, torch.float32, device)
+        cache = {"ssm": {k: torch.zeros((cfg.n_layers, *x.shape),
+                                        dtype=x.dtype, device=device)
+                         for k, x in one.items()}}
+        if cfg.attn_every:
+            cache["shared"] = {
+                k: torch.zeros((cfg.n_attn_apps, batch, max_seq, cfg.n_kv,
+                                cfg.hd), dtype=dtype, device=device)
+                for k in ("k", "v")}
+        return cache
     if cfg.n_experts or cfg.attn_type == "mla":
         raise NotImplementedError(
             f"{cfg.name}: MoE and MLA serving (the latent cache, the "
@@ -271,14 +372,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, batch, cache):
     """Process the prompts (B, S), write their keys and values into
-    ``cache[..., :S]`` in place (a ring keeps the last ``window``);
-    returns (logits of the last position (B, 1, padded_vocab), cache)."""
+    ``cache[..., :S]`` in place (a ring keeps the last ``window``; the
+    state-space family: each layer's final state, from the cached ``h``,
+    and its last conv inputs); returns (logits of the last position (B,
+    1, padded_vocab), cache)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     h = _embed(params, cfg, tokens)
     positions = R.text_positions(B, S, device=tokens.device)
-    h, _ = _blocks(params, cfg, h, positions, cache=cache, cache_pos=0,
-                   use_blockwise=S >= cfg.blockwise_threshold)
+    use_bw = S >= cfg.blockwise_threshold
+    if cfg.family in ("ssm", "hybrid"):
+        h = _ssm_scan(params, cfg, h, positions, cache=cache, cache_pos=0,
+                      use_blockwise=use_bw)
+    else:
+        h, _ = _blocks(params, cfg, h, positions, cache=cache, cache_pos=0,
+                       use_blockwise=use_bw)
     return _logits(params, cfg, h[:, -1:]), cache
 
 
@@ -291,7 +399,11 @@ def decode(params, cfg: ModelConfig, tokens, cache, pos):
     B = tokens.shape[0]
     h = _embed(params, cfg, tokens, pos)
     positions = R.text_positions(B, 1, offset=pos, device=tokens.device)
-    h, _ = _blocks(params, cfg, h, positions, cache=cache, cache_pos=pos)
+    if cfg.family in ("ssm", "hybrid"):
+        h = _ssm_scan(params, cfg, h, positions, cache=cache, cache_pos=pos,
+                      decode=True)
+    else:
+        h, _ = _blocks(params, cfg, h, positions, cache=cache, cache_pos=pos)
     return _logits(params, cfg, h), cache
 
 

@@ -25,10 +25,21 @@ stochastic rounding), so the storage error stays within one step. It
 applies to the seq-indexed cache leaves (``shape[2] == max_seq``), as in
 the reference: the split window cache's rings stay full precision.
 
-Caches are nested dicts ({"k", "v"}, or gemma3's split window cache
-{"local": ..., "global": ...}); every leaf carries the slots at axis 1.
-The reference's Scheduler cannot take the split cache (its prefill
-refuses it); the port's prefills into it.
+Caches are nested dicts ({"k", "v"}, gemma3's split window cache
+{"local": ..., "global": ...}, or the state-space family's {"ssm": ...,
+"shared": ...}); every leaf carries the slots at axis 1. The reference's
+Scheduler cannot take the split cache (its prefill refuses it); the
+port's prefills into it.
+
+The state-space family (mamba2, zamba2): a slot's lane holds each
+layer's SSM state and conv windows, and for zamba2 the shared block's
+KV slots; prefill scans the prompt in chunks of ``cfg.ssm_chunk``, so
+:meth:`Scheduler.submit` refuses a prompt whose length is not a multiple
+of it (the reference fails there too, at its prefill's assertion).
+``quant_page`` picks leaves by ``shape[2] == max_seq`` as the reference
+does: when ``max_seq`` equals ``cfg.ssm_heads`` the SSM's ``h`` (L, B,
+H, P, N) is quantized too, one page of heads at a time. That quirk of
+the reference is kept, not repaired (ROADMAP section 3).
 """
 from __future__ import annotations
 
@@ -162,6 +173,12 @@ class Scheduler:
                 f"request {req.rid!r}: prompt ({len(req.prompt)}) + "
                 f"max_new_tokens ({req.max_new_tokens}) exceeds max_seq "
                 f"({self.max_seq})")
+        chunk = self.cfg.ssm_chunk
+        if self.cfg.family in ("ssm", "hybrid") and len(req.prompt) % chunk:
+            raise ValueError(
+                f"request {req.rid!r}: prompt length {len(req.prompt)} is "
+                f"not a multiple of {self.cfg.name}'s ssm_chunk ({chunk}); "
+                f"the chunked scan of its prefill needs one")
         self.queue.append(req)
         return req
 

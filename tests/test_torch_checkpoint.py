@@ -411,6 +411,21 @@ def test_state_dtypes_and_scalar_shapes():
 def test_moe_checkpoints_cross_packages(arch, tmp_path):
     """A sim trainer (EP 4) after two steps, written by each package and
     read by the other: every params and state leaf bit for bit."""
+    check_cross_packages(arch, tmp_path)
+
+
+def test_ssm_checkpoints_cross_packages(tmp_path):
+    """mamba2-smoke's sim trainer (4 workers) after two steps, written by
+    each package and read by the other: every params and state leaf (the
+    stacked SSM leaves among them) bit for bit."""
+    check_cross_packages("mamba2-2.7b", tmp_path)
+
+
+def check_cross_packages(arch, tmp_path):
+    """The reference's sim trainer of ``arch``-smoke (4 workers) after two
+    steps, saved by the reference and restored by the port, then saved
+    by the port and restored by the reference: every leaf bit for
+    bit."""
     rcfg, pcfg = _cfgs()
     rt = RefTrainer(ref_get(arch).smoke, rcfg, n_workers=4)
     key = jax.random.PRNGKey(1)
@@ -437,3 +452,4 @@ def test_moe_checkpoints_cross_packages(arch, tmp_path):
     assert step_no == 2
     for a, b in zip(jax.tree.leaves(tree), want):
         assert np.array_equal(np.asarray(a), np.asarray(b))
+

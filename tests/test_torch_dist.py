@@ -35,7 +35,9 @@ Tolerances, with their reasons:
   other rows together), so step losses within 1e-5 (measured <= 9.6e-7)
   and every param within 1e-4 (measured <= 1.0e-5); each rank audited
   clean. With pods below the expert count's reach (8 ranks, pods of 4,
-  4 experts) the replicas of an expert are equal bit for bit.
+  4 experts) the replicas of an expert are equal bit for bit;
+* the state-space family (mamba2-smoke): every rank bit for bit its
+  simulated worker, as gpt2's.
 """
 import ast
 import pathlib
@@ -422,6 +424,22 @@ def test_moe_pods_average_the_expert_replicas(tmp_path):
         allowed = res["audit"]["summary"]["allowed"]
         assert allowed["EP residual-axis gradient mean"] == STEPS * len(ep)
         assert all(np.isfinite(rec["losses"][0]) for rec in res["records"])
+
+
+# --------------------------------------------------------------------- #
+# (g) the state-space family
+# --------------------------------------------------------------------- #
+
+def test_ssm_ranks_match_their_simulated_workers(tmp_path):
+    """4 gloo ranks of mamba2-smoke (seq 32, four chunks of 8), each
+    recording and auditing its collectives, bit for bit its simulated
+    worker as in 6a: losses, params, m, v, u and both EF errors."""
+    argv = ["--arch", "mamba2-2.7b"] + MOE_ARGV
+    ranks = _spawn_audited(tmp_path, argv, N)
+    sim = _port_run(argv + ["--mode", "sim", "--workers", str(N)])
+    _assert_ranks_equal_sim(ranks, sim)
+    for res in ranks:
+        assert res["audit"]["ok"], res["audit"]["violations"]
 
 
 def test_port_imports_neither_jax_nor_the_reference():

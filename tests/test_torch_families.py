@@ -74,8 +74,7 @@ torch.set_num_threads(1)
 
 ARCHS = ["granite-3-8b", "phi4-mini-3.8b", "chatglm3-6b", "gemma3-12b"]
 # the reference's configs whose families the port does not run yet
-UNPORTED = ["mamba2-2.7b", "zamba2-1.2b", "qwen2-vl-2b",
-            "whisper-large-v3"]
+UNPORTED = ["qwen2-vl-2b", "whisper-large-v3"]
 N, B, S, STEPS = 4, 8, 32, 8
 LR = 1e-4
 # the sync step the 8-step trainer test leaves out to show its bars' power
@@ -208,14 +207,14 @@ def test_unported_families_raise_naming_roadmap_item_4(arch):
 
 
 @pytest.mark.parametrize("change", [
-    {"family": "moe", "rope": "mrope"}, {"family": "ssm"},
-    {"family": "hybrid"}, {"family": "encdec"}, {"family": "vlm"},
-    {"rope": "mrope"}])
+    {"family": "moe", "rope": "mrope"}, {"family": "encdec"},
+    {"family": "vlm"}, {"rope": "mrope"}])
 def test_unported_kinds_raise(change):
     """A dense config turned into another family, or given M-RoPE, is
-    refused: the SSM, hybrid, encoder and vision configs all carry a
-    family other than dense or moe, and M-RoPE is refused in either
-    (the moe family itself is ported: tests/test_torch_moe.py)."""
+    refused: the encoder and vision configs carry a family the port does
+    not run, and M-RoPE is refused in any family (the moe family is
+    ported: tests/test_torch_moe.py; the ssm and hybrid families:
+    tests/test_torch_ssm.py)."""
     base = port_get("granite-3-8b").smoke
     with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
         TT.model_template(dataclasses.replace(base, **change))

@@ -1301,3 +1301,111 @@ def test_cuda_merged_expert_sim_matches_gloo_exchange(tmp_path):
         for a, b in zip(flatten_tree(res["params"])[1],
                         flatten_tree(sim["params"])[1]):
             assert float((a[0] - b[r].cpu()).abs().max()) <= 1e-4, r
+
+
+# --------------------------------------------------------------------- #
+# the state-space family (mamba2, zamba2)
+# --------------------------------------------------------------------- #
+
+def _ssd_inputs(g, b=2, L=64, h=4, p=8, n=6, dt_zero=False):
+    xh = torch.randn(b, L, h, p, generator=g)
+    raw = torch.zeros(b, L, h) if dt_zero else torch.randn(b, L, h,
+                                                          generator=g)
+    dt = torch.nn.functional.softplus(raw)
+    A = -torch.ones(h) if dt_zero else -torch.exp(torch.randn(h,
+                                                              generator=g))
+    return (xh, dt, A, torch.randn(b, L, h, n, generator=g),
+            torch.randn(b, L, h, n, generator=g),
+            torch.randn(b, h, p, n, generator=g))
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_and_ssm_layer_match_cpu():
+    """``ssd_chunked`` (output and final state, with an initial state) and
+    layer 0 of mamba2-smoke's ``ssm_forward`` in its three modes (train,
+    prefill into a state, three decodes) on the card against the CPU,
+    within 1e-5 (f32 sums in another order)."""
+    from repro_torch.models import ssm as SSM
+
+    dev = _card()
+    cpu = torch.device("cpu")
+    args = _ssd_inputs(torch.Generator().manual_seed(3))
+    got = SSM.ssd_chunked(*[a.to(dev) for a in args[:5]], 16,
+                          args[5].to(dev))
+    want = SSM.ssd_chunked(*args[:5], 16, args[5])
+    for a, b in zip(got, want):
+        assert a.is_cuda and float((a.cpu() - b).abs().max()) <= 1e-5
+    cfg = get("mamba2-2.7b").smoke
+    params = L.init_params(T.model_template(cfg), 0)
+    lp = {k: v[0] for k, v in params["blocks"]["ssm"].items()}
+    x = torch.randn(2, 19, cfg.d_model, generator=torch.Generator(
+    ).manual_seed(4))
+
+    def run(d):
+        p = {k: v.to(d) for k, v in lp.items()}
+        outs = [SSM.ssm_forward(p, cfg, x[:, :16].to(d))[0]]
+        st = SSM.init_ssm_state(cfg, 2, device=d)
+        outs.append(SSM.ssm_forward(p, cfg, x[:, :16].to(d), state=st)[0])
+        for i in range(16, 19):
+            outs.append(SSM.ssm_forward(p, cfg, x[:, i:i + 1].to(d),
+                                        state=st, decode=True)[0])
+        return [o.cpu() for o in outs] + [v.cpu() for v in st.values()]
+
+    for a, b in zip(run(dev), run(cpu)):
+        assert float((a - b).abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_gradient_finite_at_chunk_256():
+    """The published chunk on a 2-head toy (dt = softplus(0), A = -1): the
+    gradient of dt on the card finite, and within 1e-5 of the card's own
+    chunk-64 gradient and of the CPU's."""
+    from repro_torch.models import ssm as SSM
+
+    dev = _card()
+    args = _ssd_inputs(torch.Generator().manual_seed(5), L=256, h=2, p=4,
+                       n=4, dt_zero=True)[:5]
+
+    def grad(d, chunk):
+        ins = [a.to(d) for a in args]
+        ins[1].requires_grad_(True)
+        SSM.ssd_chunked(*ins, chunk)[0].sum().backward()
+        return ins[1].grad.cpu()
+
+    g256 = grad(dev, 256)
+    assert torch.isfinite(g256).all()
+    scale = max(1.0, float(g256.abs().max()))
+    assert float((g256 - grad(dev, 64)).abs().max()) <= 1e-5 * scale
+    assert float((g256 - grad(torch.device("cpu"), 256)).abs().max()) <= \
+        1e-5 * scale
+
+
+@pytest.mark.gpu
+def test_cuda_zamba2_decode_with_per_row_positions():
+    """zamba2-smoke on the card: two rows prefilled with 8 and 16 tokens
+    into their lanes, then 6 batched decodes at per-row positions (the
+    shared block's KV slots written per row), against the CPU's run,
+    logits within 1e-4 and greedy tokens equal."""
+    dev = _card()
+    cfg = get("zamba2-1.2b").smoke
+    params = L.init_params(T.model_template(cfg), 0)
+    rng = np.random.default_rng(6)
+    prompts = [torch.from_numpy(rng.integers(0, cfg.vocab, (1, n)))
+               for n in (8, 16)]
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 6)))
+
+    def run(d):
+        p = _to(params, d)
+        cache = T.init_cache(cfg, 2, 32, torch.float32, d)
+        for r, pr in enumerate(prompts):
+            lane = {k: {kk: vv[:, r:r + 1] for kk, vv in v.items()}
+                    for k, v in cache.items()}
+            T.prefill(p, cfg, {"tokens": pr.to(d)}, lane)
+        pos = torch.tensor([8, 16], device=d)
+        return torch.stack([T.decode(p, cfg, nxt[:, i:i + 1].to(d), cache,
+                                     pos + i)[0].cpu() for i in range(6)])
+
+    a, b = run(dev), run(torch.device("cpu"))
+    assert float((a - b).abs().max()) <= 1e-4
+    assert torch.equal(a[..., :cfg.vocab].argmax(-1),
+                       b[..., :cfg.vocab].argmax(-1))

@@ -546,13 +546,16 @@ def _parser_of(run, monkeypatch):
 
 def test_cli_defaults_match_reference(monkeypatch):
     """Every flag of the reference's serve CLI, with the same default,
-    choices and help; the port adds only ``--device`` (cuda)."""
+    choices and help; the port adds only ``--device`` (cuda) and
+    ``--layers`` (no default: the config's depth, as in the training
+    CLI)."""
     from repro.launch import serve as ref_launch
     parsers = (_parser_of(ref_launch.main, monkeypatch),
                _parser_of(lambda: TLAUNCH.parse_args([]), monkeypatch))
     actions = [{a.dest: a for a in p._actions if a.dest != "help"}
                for p in parsers]
-    assert set(actions[1]) == set(actions[0]) | {"device"}
+    assert set(actions[1]) == set(actions[0]) | {"device", "layers"}
+    assert actions[1]["layers"].default is None
     for dest, a in actions[0].items():
         b = actions[1][dest]
         assert (b.default, b.choices, b.type, b.help, b.required) == (
