@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only families
     python3 chip_smoke.py --only moe          (10c on four cards only)
     python3 chip_smoke.py --only ssm
+    python3 chip_smoke.py --only vlm_encdec
 
 Needs one card; on a machine with up to four, phase 6b puts one rank on
 each, and on four phase 6c runs its 2 pods x 2 ranks over NCCL and phase
@@ -15,7 +16,8 @@ build, just the named checks of phases 4n, 5, 6, 7, 8, 9 and 10 (the
 second line: the four-card paths, on four cards; the third: phase 7;
 the fourth: phase 8; the fifth: 3e, phase 5's rotary-family checks and
 phase 9, 9d on four cards only; the sixth: 3f and phase 10; the
-seventh: 3g, phase 5's state-space checks and phase 11) and prints no
+seventh: 3g, phase 5's state-space checks and phase 11; the eighth: 3h,
+phase 5's vlm and encoder-decoder checks and phase 12) and prints no
 kernels or result line.
 
 1. Prints the card (nvidia-smi name and power limit) and torch/CUDA.
@@ -72,6 +74,12 @@ kernels or result line.
    A_log, D and dt_bias among its frames) and 11b (zamba2-1.2b FULL, 38
    layers, one worker), with ``dispatch.frame_precheck`` on every unit of
    both FULL configs at full depth, at 2 and 4 stacked workers.
+   3h: the same for one step of 12a (qwen2-vl-2b FULL, 28 layers, one
+   worker: the (152064, 1536) embedding and head, the (28, 1536, 8960)
+   MLP stacks, the (28, 256) k/v biases) and 12b (whisper-large-v3 FULL
+   width, 8 + 8 layers, 2 stacked workers: the (32768, 1280) position
+   table and the always-zero (8, 1280) cross biases among its frames),
+   with ``dispatch.frame_precheck`` on every unit of both FULL configs.
 4. Drives the main paths, each through the trainer and CLI config a
    user would call, 4 simulated data-parallel workers, 8 steps (0/1
    Adam and 0/1-SGD: syncs at 0-4 and 6; variance at 0, 1, 3 where the
@@ -120,8 +128,9 @@ kernels or result line.
    sync and in a variance round, per level, equal to ``comm_accounting``'s
    as the audit's docstring reconciles them, and printed beside them; no
    float64); a violation raises.
-   i. A checkpoint round trip, gpt2 FULL in ``--mode single`` at batch
-      4 x 1024 with (a)'s flags, per leaf and at ``--bucket-mb 25``: 4
+   i. A checkpoint round trip, gpt2 FULL width at 4 of its 12 layers
+      (``FILE_LAYERS``) in ``--mode single`` at batch 4 x 1024 with
+      (a)'s flags, per leaf and at ``--bucket-mb 25``: 4
       steps and ``--save`` into a temporary directory, ``Trainer.restore``
       into a fresh trainer, steps 4-7; the params and losses must be bit
       for bit those of 8 uninterrupted steps. Prints the file's size and
@@ -138,7 +147,8 @@ kernels or result line.
       each reshard's ms; (iii) 3 steps of (d) and of (g), then a reshard
       at m = n, bit for bit the identity, and BENCH_elastic.json's
       ``hier_4to2_podkill`` / ``bucketed_4to2_kill1`` (its geometry, the
-      mass conserved); (iv) 4 steps at 2 workers (batch 8 x 1024) with
+      mass conserved); (iv) 4 steps at 2 workers (batch 8 x 1024, 4 of
+      the 12 layers: ``FILE_LAYERS``) with
       ``--save`` under build/, ``restore_resharded`` into 4 workers bit
       for bit ``reshard_trainer`` of the in-memory state, 4 more steps;
       the file's size and the save and restore seconds (file deleted).
@@ -169,8 +179,10 @@ kernels or result line.
    them one after another (each with its own process group), so that a
    rank's start-up is paid once per group:
    a. four ranks on this one card over gloo (asked for explicitly; the
-      exchange goes through host memory), micro-batches 2, against a sim
-      run of the same settings in this process; then the same under
+      exchange goes through host memory), micro-batches 2, gpt2 FULL
+      width at 2 of its 12 layers (``DIST_LAYERS``: the script's time
+      limit), against a sim run of the same settings in this process;
+      then the same under
       ``one_bit_adam``, ``zero_one_lamb``, ``--codec qint8`` (int8
       payloads through gloo with CUDA tensors), and with
       ``--bucket-mb 25``;
@@ -182,8 +194,8 @@ kernels or result line.
    c. run 4d in processes, 2 pods x 2 ranks over process subgroups,
       against a sim run of the same flags: NCCL with one rank per card
       on a machine with four cards, else four ranks on this card over
-      gloo with micro-batches 2; each rank's exchange split into its
-      intra-pod and inter-pod parts;
+      gloo with micro-batches 2 at 2 layers, as 6a; each rank's exchange
+      split into its intra-pod and inter-pod parts;
    d. on four cards only: bert-large FULL (24 layers, d=1024), masked-LM
       data at 15%, zero_one_adam and then zero_one_lamb, tensor scales,
       global batch 32 x 512, one rank per card over NCCL; finite losses,
@@ -302,7 +314,30 @@ kernels or result line.
       Scheduler: 4 slots, 8 requests of 1024, 1536 or 2048 prompt tokens
       + 64 new ones, f32 cache; decode ms a tick, prefill ms, peak
       memory, and 2 requests against a lone run (7a's check).
-12. Prints the kernels line (kernels 2-4 with their 7e launches), the
+12. The vlm and the encoder-decoder (M-RoPE, the vision prefix, the
+   encoder and cross-attention: plain torch, as the reference computes
+   them outside any Pallas kernel; the DP leaves go through kernels
+   1-4) at full width, each run through ``run_main_path`` as 11a
+   (zero_one_adam, tensor scales, phase 4's 8-step schedule, remat on,
+   audited, launches against ``expected_launches``, peak memory, every
+   gradient of step 0 finite):
+   a. qwen2-vl-2b FULL at full depth (28 layers, M-RoPE sections 16 +
+      24 + 24, vocab 151936 padded to 152064), ``--mode single``, batch
+      2 x 2048: a 1024-token vision prefix of seeded embeddings (with
+      the CLI's zeros the 28-layer gradient overflows to NaN, in the
+      reference too) and 1024 text tokens;
+   b. whisper-large-v3 FULL width with ``--layers 8`` (8 encoder and 8
+      decoder layers), 2 simulated workers, batch 4 x 1024 decoder
+      tokens and 1500 zero frames a row;
+   c. both FULL configs at full depth from the port's seeded init, f32
+      cache: qwen2-vl through the Scheduler as 11c (tokens only), and
+      both through ``Server.prefill_fn``/``decode_fn`` at batch 4 with 64
+      greedy decodes (qwen2-vl: a seeded 1024-token vision prefix and
+      512 text tokens; whisper, 32 + 32 layers: seeded frames encoded
+      once, a 4-token prompt, every decode given ``enc_out``), every
+      row then alone at batch 1 (7a's check); prefill ms, decode ms a
+      tick, peak memory.
+13. Prints the kernels line (kernels 2-4 with their 7e launches), the
    card line and the result line.
 
 Any failure raises; there is no CPU fallback. Exits non-zero without a
@@ -532,7 +567,8 @@ class Tally:
                                *HIER.values(),
                                *(n for names in {**FAMILY_NAMES,
                                                  **MOE_NAMES,
-                                                 **SSM_NAMES}.values()
+                                                 **SSM_NAMES,
+                                                 **VLM_ENCDEC_NAMES}.values()
                                  for n in names.values()),
                                *BUCKET.values(), *BUCKET_HIER.values()]}
 
@@ -1271,8 +1307,9 @@ def params_sha256(params) -> str:
 
 
 def run_checkpoint(extra):
-    """Phase 4i: gpt2 FULL in single mode at batch 4 x SEQ with 4a's
-    flags (``extra``: the exchange's): 8 uninterrupted steps, then 4
+    """Phase 4i: gpt2 FULL width at FILE_LAYERS of its 12 layers, single
+    mode, batch 4 x SEQ, 4a's flags (``extra``: the exchange's): 8
+    uninterrupted steps, then 4
     steps with ``--save`` into a temporary directory in the checkout,
     ``Trainer.restore`` into a fresh trainer and steps 4-7 from it. The
     resumed run's losses and final params must be bit for bit the
@@ -1282,7 +1319,8 @@ def run_checkpoint(extra):
 
     flags = ["--arch", "gpt2", "--mode", "single", "--batch", "4",
              "--seq", str(SEQ), "--sync-warmup", "2", "--double-every", "2",
-             "--kappa", "1", "--log-every", str(STEPS)] + extra
+             "--kappa", "1", "--log-every", str(STEPS), "--layers",
+             str(FILE_LAYERS)] + extra
     whole = launch.parse_args(flags + ["--steps", str(STEPS)])
     ref = launch.train(whole, launch.make_trainer(whole))
     want = ([r["losses"] for r in ref["records"]],
@@ -1617,8 +1655,9 @@ def run_geometries(dev):
 
 
 def run_restore_resharded(dev):
-    """4n(iv): 4 steps of gpt2 FULL at 2 workers (batch 8 x SEQ, 4a's
-    flags) and ``--save`` under the git-ignored build/; restore_resharded
+    """4n(iv): 4 steps of gpt2 FULL width at FILE_LAYERS layers, 2
+    workers (batch 8 x SEQ, 4a's flags) and ``--save`` under the
+    git-ignored build/; restore_resharded
     into a 4-worker trainer, bit for bit reshard_trainer of the in-memory
     state; then steps 4-7 at 4 workers, finite losses. Returns the file's
     size and the save and restore seconds; the file is deleted."""
@@ -1627,11 +1666,12 @@ def run_restore_resharded(dev):
 
     with scratch_dir() as tmp:
         path = os.path.join(tmp, "ck.npz")
-        a2 = sim_args(8, 2, ["--save", path], steps=4)
+        cut = ["--layers", str(FILE_LAYERS)]
+        a2 = sim_args(8, 2, cut + ["--save", path], steps=4)
         tr2 = launch.make_trainer(a2, device=dev)
         res = launch.train(a2, tr2)
         save_s, size = res["save_s"], os.path.getsize(path)
-        a4 = sim_args(8, N_WORKERS)
+        a4 = sim_args(8, N_WORKERS, cut)
         tr4 = launch.make_trainer(a4, device=dev)
         want = reshard_trainer(tr2, tr4, res["params"], res["state"])
         del res
@@ -1830,7 +1870,8 @@ def smoke_run(args, d, kind, nudge=False):
     from repro_torch.configs.base import get
     from repro_torch.core.comm import SimComm
     from repro_torch.core.leafwise import flatten_tree, unflatten_tree
-    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.data.synthetic import (DataConfig, SyntheticLM,
+                                            add_model_inputs)
     from repro_torch.launch import train as launch
     from repro_torch.train.step import Trainer
 
@@ -1847,7 +1888,11 @@ def smoke_run(args, d, kind, nudge=False):
                        device=d)
     losses = []
     for t in range(8):
-        params, state, met = tr.step(params, state, data.batch(t))
+        batch = data.batch(t)
+        if cfg.enc_layers or cfg.vision_tokens:
+            # the CLI's zero frames / vision embeddings
+            batch = add_model_inputs(batch, cfg, d)
+        params, state, met = tr.step(params, state, batch)
         losses.append(float(met["loss"]))
     return losses, [x.cpu() for x in flatten_tree(params)[1]]
 
@@ -2111,14 +2156,15 @@ def cut_depth(n_layers):
     """``launch.train``'s configs cut to ``n_layers`` layers, widths
     unchanged, inside the block (``None``: as registered): a FULL config
     whose full depth does not fit the card trains through the CLI's own
-    ``make_trainer``."""
+    ``make_trainer``. (An encoder-decoder keeps as many encoder layers,
+    as ``--layers`` cuts it.)"""
     from repro_torch.launch import train as launch
+    from repro_torch.models.config import cut_layers
 
     get = launch.get
     if n_layers is not None:
         launch.get = lambda name: dataclasses.replace(
-            get(name), config=dataclasses.replace(get(name).config,
-                                                  n_layers=n_layers))
+            get(name), config=cut_layers(get(name).config, n_layers))
     try:
         yield
     finally:
@@ -2318,6 +2364,14 @@ def compare_ranks(label, transport, ref, ranks, bitwise=False,
     return rows
 
 
+# 6a and 6c (four ranks on one card over gloo, their exchange through
+# host memory) run gpt2 FULL width at DIST_LAYERS of its 12 layers, and
+# 4i and 4n(iv) (the paths through checkpoint files) at FILE_LAYERS, so
+# that the script keeps its time limit as phase 12 joins it (the same 19
+# leaves and 16 buckets, so the same launches)
+DIST_LAYERS, FILE_LAYERS = 2, 4
+
+
 def dist_runs(cards):
     """The runs of phases 6a-6c by key, in the order phase 6 runs them
     (see the module docstring)."""
@@ -2332,11 +2386,12 @@ def dist_runs(cards):
             ("6a_bucketed", bucketed, BUCKETED), ("6a_lamb", expect, LAMB),
             ("6a_qint8", local_only, QINT8)):
         label = run_label("6a", extra)
-        flags = gpt2_argv(BATCH, ["--micro-batches", "2", *extra])
+        flags = gpt2_argv(BATCH, ["--micro-batches", "2", "--layers",
+                                  str(DIST_LAYERS), *extra])
         runs[key] = DistRun(
-            key, label, f"phase {label}: gpt2 FULL, {N_WORKERS} ranks on "
-            f"cuda:0 over gloo, batch {BATCH}, seq {SEQ}, micro-batches 2, "
-            f"vs sim", flags + ["--mode", "sim", "--workers",
+            key, label, f"phase {label}: gpt2 FULL width, {DIST_LAYERS} of "
+            f"12 layers, {N_WORKERS} ranks on cuda:0 over gloo, batch "
+            f"{BATCH}, seq {SEQ}, micro-batches 2, vs sim", flags + ["--mode", "sim", "--workers",
                                 str(N_WORKERS), "--device", "cuda:0"],
             flags + ["--mode", "dist", "--backend", "gloo", "--device",
                      "cuda:0"], N_WORKERS,
@@ -2362,7 +2417,8 @@ def dist_runs(cards):
     # ranks on cuda:0 over gloo (asked for) with micro-batches 2
     four = cards == N_WORKERS
     extra = ["--hierarchy", str(INNER)] + (
-        [] if four else ["--micro-batches", "2"])
+        [] if four else ["--micro-batches", "2", "--layers",
+                         str(DIST_LAYERS)])
     transport = (f"NCCL, {N_WORKERS} cards" if four else
                  f"gloo via host memory, {N_WORKERS} ranks on one card")
     flags = gpt2_argv(BATCH, extra)
@@ -2893,7 +2949,8 @@ def run_serve_phase(dev):
 
 def check_small_serve(dev, arch="gpt2", prompt_len=12):
     """Phase 5: ``arch``'s smoke config (gpt2; the state-space family at
-    a prompt of 16, two chunks), prefill + 8 greedy decode steps, 2
+    a prompt of 16, two chunks; whisper with seeded frames, encoded once,
+    its decodes given ``enc_out``), prefill + 8 greedy decode steps, 2
     prompts, on the card against the CPU from the same params: logits
     within SERVE_LOGIT_TOL, greedy tokens equal."""
     from repro_torch.configs.base import get
@@ -2903,18 +2960,24 @@ def check_small_serve(dev, arch="gpt2", prompt_len=12):
     cfg = get(arch).smoke
     cpu = torch.device("cpu")
     params = init_params(T.model_template(cfg), 0, device=cpu)
-    prompt = torch.from_numpy(np.random.default_rng(3).integers(
-        0, cfg.vocab, (2, prompt_len)))
+    rng = np.random.default_rng(3)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, prompt_len)))
+    frames = torch.from_numpy((0.02 * rng.standard_normal(
+        (2, cfg.enc_frames, cfg.d_model))).astype(np.float32))
     runs = []
     for d in (dev, cpu):
         p = _to(params, d)
         cache = T.init_cache(cfg, 2, 32, torch.float32, d)
-        lg, cache = T.prefill(p, cfg, {"tokens": prompt.to(d)}, cache)
+        enc = (T.encode(p, cfg, frames.to(d)) if cfg.enc_layers else None)
+        batch = {"tokens": prompt.to(d)}
+        if enc is not None:
+            batch["enc_out"] = enc
+        lg, cache = T.prefill(p, cfg, batch, cache)
         logits, toks = [lg[:, -1, :cfg.vocab].cpu()], []
         for i in range(8):
             toks.append(logits[-1].argmax(-1))
             lg, cache = T.decode(p, cfg, toks[-1][:, None].to(d), cache,
-                                 prompt_len + i)
+                                 prompt_len + i, enc_out=enc)
             logits.append(lg[:, 0, :cfg.vocab].cpu())
         runs.append((torch.stack(logits), torch.stack(toks)))
     gap = float((runs[0][0] - runs[1][0]).abs().max())
@@ -3005,9 +3068,11 @@ def family_plan(arch, n_layers=None, workers=N_WORKERS):
     from repro_torch.models import transformer as T
     from repro_torch.train.step import choose_ep
 
+    from repro_torch.models.config import cut_layers
+
     cfg = get(arch).config
     if n_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        cfg = cut_layers(cfg, n_layers)
     tmpl = T.model_template(cfg, ep_workers=choose_ep(cfg.n_experts,
                                                       workers, None))
     plan = make_plan(L.param_shapes(tmpl), L.param_specs(tmpl),
@@ -3720,6 +3785,272 @@ def run_ssm_only(dev):
     return out
 
 
+# --------------------------------------------------------------------- #
+# phase 12: the vlm (qwen2-vl) and the encoder-decoder (whisper)
+# --------------------------------------------------------------------- #
+
+VLM_ENCDEC_ARCHS = ("qwen2-vl-2b", "whisper-large-v3")
+# (label, arch, workers, layers kept, global batch, seq, extra CLI flags)
+# of runs 12a and 12b, at full width: qwen2-vl-2b at full depth (28
+# layers, 1.777e9 elements), one worker, batch 2 x 2048 (a 1024-token
+# vision prefix of seeded embeddings, see ``seeded_vision``, then 1024
+# text tokens); whisper-large-v3 with ``--layers 8`` (8 encoder and 8 decoder
+# layers, 0.544e9 elements a worker), 2 simulated workers, batch 4 x 1024
+# decoder tokens and 1500 zero frames a row
+VLM_ENCDEC_RUNS = (
+    ("12a", "qwen2-vl-2b", 1, 28, 2, 2048, []),
+    ("12b", "whisper-large-v3", 2, 8, 4, 1024, ["--layers", "8"]))
+# 3h: the frames of one step of 12a and 12b (stacked as they run)
+FRAMES_3H = tuple((label, arch, layers, workers, workers)
+                  for label, arch, workers, layers, *_ in VLM_ENCDEC_RUNS)
+VLM_ENCDEC_NAMES = {label: {k: f"{k} ({arch}, {label})"
+                            for k in FAMILY_KERNELS}
+                    for label, arch, *_ in FRAMES_3H}
+# 12c: both FULL configs at full depth from the port's seeded init, f32
+# cache: qwen2-vl through the Scheduler as 11c (SERVE11_*), and through
+# Server.prefill_fn with a seeded 1024-token vision prefix and
+# SERVE12_TEXT text tokens; whisper (32 + 32 layers) through Server with
+# seeded frames, encoded once, and a SERVE12_PROMPT-token prompt. Each
+# Server run: SERVE12_ROWS rows, SERVE12_GEN greedy decodes, every row
+# then alone at batch 1
+SERVE12_ROWS, SERVE12_GEN, SERVE12_TEXT, SERVE12_PROMPT = 4, 64, 512, 4
+
+
+def check_vlm_encdec_kernels(dev, tally):
+    """Phase 3h: kernels 1-4 against their plain versions on every frame
+    of one step of 12a (one worker) and 12b (2 stacked workers), worker
+    and server frames, timed as 3a under VLM_ENCDEC_NAMES (qwen2-vl's
+    (152064, 1536) embedding and head, its (28, 1536, 8960) MLP stacks and
+    (28, 256) k/v biases; whisper's (32768, 1280) position table and its
+    always-zero (8, 1280) cross biases among them); then
+    ``dispatch.frame_precheck`` on every unit of both FULL configs at full
+    depth, at 2 and 4 stacked workers."""
+    check_run_frames(dev, tally, FRAMES_3H, VLM_ENCDEC_NAMES, "3h")
+    return precheck_units(VLM_ENCDEC_ARCHS)
+
+
+def vlm_encdec_parts(dev):
+    """Phase 5's vlm and encoder-decoder checks by name: each smoke
+    config's 8 steps on the card against the CPU at a peak lr of 3e-4,
+    with the CLI's zero vision embeddings or frames, and its serve (a
+    prefill of 12 tokens, past qwen2vl-smoke's 8-token prefix; whisper's
+    seeded frames encoded once; 8 decodes)."""
+    parts = {}
+    for a in VLM_ENCDEC_ARCHS:
+        short = a.split("-")[0]
+        parts[f"vlm_encdec_{short}"] = (lambda a=a: check_small_input(
+            dev, a, ["--lr", "3e-4"], "lm"))
+        parts[f"vlm_encdec_serve_{short}"] = (lambda a=a: check_small_serve(
+            dev, a, 12))
+    return parts
+
+
+@contextlib.contextmanager
+def seeded_vision(dev, seed=12):
+    """Inside the block the CLI's batches carry seeded vision embeddings
+    (normal at 0.02, new ones every step, as a vision tower would give)
+    in place of its zeros. With the zeros the prefix rows stay exactly
+    zero through every layer, and each RMSNorm passes their gradient on
+    times ``rsqrt(eps)`` = 1000: at qwen2-vl's 28 layers the step-0
+    gradient overflows to NaN, in the reference as in the port
+    (``tests/test_torch_vlm.py``)."""
+    from repro_torch.launch import train as launch
+
+    zeros = launch.add_model_inputs
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def seeded(batch, cfg, device=None):
+        batch = zeros(batch, cfg, device)
+        if "vision_embeds" in batch:
+            v = batch["vision_embeds"]
+            batch["vision_embeds"] = 0.02 * torch.randn(
+                v.shape, device=v.device, generator=gen)
+        return batch
+
+    launch.add_model_inputs = seeded
+    try:
+        yield
+    finally:
+        launch.add_model_inputs = zeros
+
+
+def run_vlm_encdec_training(dev):
+    """Runs 12a and 12b through :func:`run_main_path`: zero_one_adam with
+    tensor scales, VLM_ENCDEC_RUNS' workers (one: single mode), batch,
+    seq and flags (12b cuts both stacks with the CLI's ``--layers``),
+    phase 4's 8-step schedule, remat on (the FULL configs set it), each
+    audited, its launches of kernels 1-4 those ``expected_launches``
+    gives, every gradient of step 0 finite (12a on seeded vision
+    embeddings: :func:`seeded_vision`)."""
+    from repro_torch.configs.base import get
+
+    out = {}
+    for label, arch, workers, layers, batch, seq, extra in VLM_ENCDEC_RUNS:
+        cfg = get(arch).config
+        what = (f"{layers} encoder + {layers} decoder layers of "
+                f"{cfg.enc_layers} + {cfg.n_layers}, {cfg.enc_frames} zero "
+                f"frames a row" if cfg.enc_layers else
+                f"{layers} of {cfg.n_layers} layers, M-RoPE "
+                f"{cfg.mrope_sections}, a {cfg.vision_tokens}-token seeded "
+                f"vision prefix")
+        print(f"phase {label}: {arch} FULL width (d {cfg.d_model}, "
+              f"{cfg.n_heads} heads, kv {cfg.n_kv}, ff {cfg.d_ff}, vocab "
+              f"{cfg.vocab} -> {cfg.padded_vocab}), {what}, {workers} "
+              f"worker(s), batch {batch}, seq {seq}, remat {cfg.remat} "
+              f"{' '.join(extra)}", flush=True)
+        with (seeded_vision(dev) if cfg.vision_tokens
+              else contextlib.nullcontext()):
+            out[label] = run_main_path(dev, label, arch, extra, batch, seq,
+                                       "lm", workers, check_first_grads=True)
+        report_density(out[label], arch, layers, workers)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+@torch.no_grad()
+def serve12_rows(dev, arch, params, batch, prompt_len):
+    """12c's Server run of ``arch`` FULL: ``prefill_fn`` of ``batch``
+    (SERVE12_ROWS rows; whisper's frames encoded once first) and
+    SERVE12_GEN greedy decodes through ``decode_fn`` (whisper's given
+    ``enc_out``), each tick timed; then every row alone at batch 1,
+    teacher-forced with the batched tokens: its greedy tokens equal,
+    except where the lone logits' top-2 gap is under SERVE_LOGIT_TOL
+    (counted), and its logits within SERVE_LOGIT_TOL of the batched."""
+    from repro_torch.configs.base import get
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Server
+
+    cfg = get(arch).config
+    V, max_seq = cfg.vocab, prompt_len + SERVE12_GEN
+
+    def run(rows, forced=None):
+        srv = Server(cfg, batch=len(rows), max_seq=max_seq,
+                     cache_dtype=torch.float32, device=dev)
+        prefill, decode = srv.prefill_fn(), srv.decode_fn()
+        cache = T.init_cache(cfg, len(rows), max_seq, torch.float32, dev)
+        b = {k: v[rows] for k, v in batch.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = None
+        if cfg.enc_layers:
+            enc = T.encode(params, cfg, b.pop("frames"))
+            b["enc_out"] = enc
+        lg, cache = prefill(params, b, cache)
+        logits, ticks = [lg[:, -1, :V]], []
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        for i in range(SERVE12_GEN):
+            tok = (logits[-1].argmax(-1) if forced is None
+                   else forced[:, i].to(dev))
+            t0 = time.perf_counter()
+            lg, cache = decode(params, cache, tok[:, None], prompt_len + i,
+                               enc_out=enc)
+            logits.append(lg[:, 0, :V])
+            torch.cuda.synchronize()
+            ticks.append((time.perf_counter() - t0) * 1e3)
+        return torch.stack(logits, 1), prefill_ms, ticks
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows = list(range(SERVE12_ROWS))
+    logits, prefill_ms, ticks = run(rows)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    toks = logits.argmax(-1)                 # (rows, SERVE12_GEN + 1)
+    near_ties, worst = 0, 0.0
+    for r in rows:
+        lone, _, _ = run([r], toks[r:r + 1])
+        worst = max(worst, float((lone[0] - logits[r]).abs().max()))
+        for i in torch.nonzero(lone[0].argmax(-1) != toks[r]).flatten():
+            gap = top2_gap(lone[0, int(i)])
+            assert gap < SERVE_LOGIT_TOL, (arch, r, int(i), gap)
+            near_ties += 1
+    tick = {"median": statistics.median(ticks), "min": min(ticks),
+            "max": max(ticks), "n": len(ticks)}
+    print(f"  {arch} Server, {SERVE12_ROWS} rows, prompt {prompt_len}: "
+          f"prefill {prefill_ms:.1f} ms, decode tick median "
+          f"{tick['median']:.3f} ms [{tick['min']:.3f}-{tick['max']:.3f}] "
+          f"over {tick['n']}, peak {peak:.2f} GB; every row alone at batch "
+          f"1: logits within {worst:.2e}, {near_ties} token(s) differ, "
+          f"each at a top-2 gap < {SERVE_LOGIT_TOL}", flush=True)
+    assert worst <= SERVE_LOGIT_TOL, worst
+    return {"prefill_ms": prefill_ms, "decode_tick_ms": tick,
+            "peak_memory_gb": peak, "max_logit_gap": worst,
+            "near_tie_tokens": near_ties, "tokens": toks.tolist()}
+
+
+def run_12c(dev):
+    """12c: qwen2-vl-2b FULL (28 layers) through the Scheduler as 11c and
+    through ``Server.prefill_fn`` with a seeded vision prefix; then
+    whisper-large-v3 FULL (32 + 32 layers) through ``Server`` with seeded
+    frames; each from the port's own seeded init, f32 cache, the batched
+    tokens held to each row's lone run."""
+    from repro_torch.configs.base import get
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    out = {}
+    for arch in VLM_ENCDEC_ARCHS:
+        cfg = get(arch).config
+        t0 = time.time()
+        params = L.init_params(T.model_template(cfg), 0, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.time() - t0
+        elements = sum(x.numel() for x in flatten_params(params))
+        print(f"phase 12c: {arch} FULL, {cfg.n_layers} layers"
+              f"{f' + {cfg.enc_layers} encoder layers' if cfg.enc_layers else ''}"
+              f", {elements:,} parameters ({elements * 4 / 1e9:.2f} GB in "
+              f"f32), init {init_s:.1f} s", flush=True)
+        res = {"params": elements, "init_s": init_s}
+        g = torch.Generator(device=dev).manual_seed(12)
+        if cfg.vision_tokens:
+            print(f"  Scheduler: {SERVE11_SLOTS} slots, {SERVE11_REQUESTS} "
+                  f"requests of {'/'.join(map(str, SERVE11_PROMPTS))} + "
+                  f"{SERVE11_GEN} tokens", flush=True)
+            res["scheduler"] = serve11_run(dev, arch, params)
+            n = cfg.vision_tokens + SERVE12_TEXT
+            batch = {"tokens": torch.randint(
+                         0, cfg.vocab, (SERVE12_ROWS, n), device=dev,
+                         generator=g),
+                     "vision_embeds": 0.02 * torch.randn(
+                         SERVE12_ROWS, cfg.vision_tokens, cfg.d_model,
+                         device=dev, generator=g)}
+        else:
+            n = SERVE12_PROMPT
+            batch = {"tokens": torch.randint(
+                         0, cfg.vocab, (SERVE12_ROWS, n), device=dev,
+                         generator=g),
+                     "frames": 0.02 * torch.randn(
+                         SERVE12_ROWS, cfg.enc_frames, cfg.d_model,
+                         device=dev, generator=g)}
+        res["server"] = serve12_rows(dev, arch, params, batch, n)
+        out[arch] = res
+        del params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_phase12(dev):
+    out = run_vlm_encdec_training(dev)
+    out["12c"] = run_12c(dev)
+    return out
+
+
+def run_vlm_encdec_only(dev):
+    """``--only vlm_encdec``: 3h (its own tally, printed), phase 5's vlm
+    and encoder-decoder checks, then phase 12."""
+    tally = Tally()
+    out = {"3h": check_vlm_encdec_kernels(dev, tally)}
+    out["3h"]["rows"] = {label: tally_rows(tally, names)
+                         for label, names in VLM_ENCDEC_NAMES.items()}
+    for label, rows in out["3h"]["rows"].items():
+        print(f"  3h {label} " + json.dumps(rows), flush=True)
+    out["5"] = {k: run() for k, run in vlm_encdec_parts(dev).items()}
+    out.update(run_phase12(dev))
+    return out
+
+
 def tally_rows(tally, names):
     """Each kernel's row of ``tally`` under ``names``, with its bound and
     the share of it the call and batched times reach."""
@@ -3756,7 +4087,8 @@ def parse_args(argv=None):
              "phase 5's family checks and phase 9, or '9ab', '9c', '9d', "
              "'9a_1layer'; 'moe' for 3f and phase 10, or '10ab', '10c'; "
              "'ssm' for 3g, phase 5's state-space checks and phase 11, or "
-             "'11ab', '11c'), "
+             "'11ab', '11c'; 'vlm_encdec' for 3h, phase 5's vlm and "
+             "encoder-decoder checks and phase 12, or '12ab', '12c'), "
              "print their summary and the card line, and no kernels or "
              "result line")
     return ap.parse_args(argv)
@@ -3767,8 +4099,9 @@ def run_only(dev, names, card, t_start):
     (``serve``: all of it, or its runs ``7a`` ... ``7e``), 8 (``audit``),
     9 (``families``: 3e, phase 5's family checks and 9a-9d; or ``9ab``,
     ``9c``, ``9d``), 10 (``moe``) and 11 (``ssm``: 3g, phase 5's
-    state-space checks and 11a-11c; or ``11ab``, ``11c``), in that
-    order."""
+    state-space checks and 11a-11c; or ``11ab``, ``11c``) and 12
+    (``vlm_encdec``: 3h, phase 5's vlm and encoder-decoder checks and
+    12a-12c; or ``12ab``, ``12c``), in that order."""
     parts = {"4n": lambda: run_elastic_phase(
         dev, run_main_path(dev, *RUNS[0])), **small_parts(dev),
         **family_parts(dev),
@@ -3783,7 +4116,11 @@ def run_only(dev, names, card, t_start):
                          "10b": run_10b()},
         "10c": run_10c,
         **ssm_parts(dev), "ssm": lambda: run_ssm_only(dev),
-        "11ab": lambda: run_ssm_training(dev), "11c": lambda: run_11c(dev)}
+        "11ab": lambda: run_ssm_training(dev), "11c": lambda: run_11c(dev),
+        **vlm_encdec_parts(dev),
+        "vlm_encdec": lambda: run_vlm_encdec_only(dev),
+        "12ab": lambda: run_vlm_encdec_training(dev),
+        "12c": lambda: run_12c(dev)}
     unknown = sorted(set(names) - set(parts))
     if unknown:
         sys.exit(f"chip_smoke: unknown parts {unknown}; choose from "
@@ -3862,6 +4199,10 @@ def main(argv=None):
           "zamba2-1.2b FULL width); frame_precheck on both FULL configs",
           flush=True)
     precheck_ssm = check_ssm_kernels(dev, tally)
+    print("phase 3h: every frame of a step of 12a and 12b (qwen2-vl-2b, "
+          "whisper-large-v3 FULL width); frame_precheck on both FULL "
+          "configs", flush=True)
+    precheck_vlm_encdec = check_vlm_encdec_kernels(dev, tally)
     lap("3")
 
     runs = {}
@@ -3881,8 +4222,9 @@ def main(argv=None):
           flush=True)
     assert same, "4h: the per-unit loop is not the per-leaf path"
     lap("4")
-    print(f"phase 4i: checkpoint round trips, gpt2 FULL single mode, "
-          f"batch 4, seq {SEQ}", flush=True)
+    print(f"phase 4i: checkpoint round trips, gpt2 FULL width, "
+          f"{FILE_LAYERS} of 12 layers, single mode, batch 4, seq {SEQ}",
+          flush=True)
     checkpoints = {"per_leaf": run_checkpoint([]),
                    "bucketed": run_checkpoint(BUCKETED)}
     lap("4i")
@@ -3895,7 +4237,8 @@ def main(argv=None):
     print("phase 5: smoke trainers on the card vs on the CPU", flush=True)
     small = {name: run() for name, run in {**small_parts(dev),
                                            **family_parts(dev),
-                                           **ssm_parts(dev)}.items()}
+                                           **ssm_parts(dev),
+                                           **vlm_encdec_parts(dev)}.items()}
     lap("5")
 
     print("phase 6: data parallel in processes", flush=True)
@@ -3925,6 +4268,11 @@ def main(argv=None):
     ssm = run_phase11(dev)
     lap("11")
 
+    print("phase 12: the vlm (qwen2-vl-2b) and the encoder-decoder "
+          "(whisper-large-v3) at full width", flush=True)
+    vlm_encdec = run_phase12(dev)
+    lap("12")
+
     def bound(r):
         t_bytes = r["bytes"] / PEAK_BYTES_PER_S * 1e3
         t_ops = r["ops"] / PEAK_F32_PER_S * 1e3
@@ -3947,6 +4295,8 @@ def main(argv=None):
             by_run[label] = families[label]["launches"].get(name, 0)
         for label, *_ in SSM_RUNS:
             by_run[label] = ssm[label]["launches"].get(name, 0)
+        for label, *_ in VLM_ENCDEC_RUNS:
+            by_run[label] = vlm_encdec[label]["launches"].get(name, 0)
         for row in families["9d"].get("ranks", []):
             by_run[f"9d_rank{row['rank']}"] = row["launches"].get(name, 0)
         for part in ("10b", "10c"):
@@ -3995,6 +4345,11 @@ def main(argv=None):
                     "max_abs_err": rb["max_abs_err"],
                     "launches_per_round": rb["launches_per_round"]}
         if name in FAMILY_KERNELS:
+            kernels[-1]["vlm_encdec_frames"] = {
+                label: {"per": "step (kernel 1) or sync (kernels 2-4) of "
+                               + frames_3e_text(label, FRAMES_3H),
+                        **tally_rows(tally, {name: names[name]})[name]}
+                for label, names in VLM_ENCDEC_NAMES.items()}
             kernels[-1]["ssm_frames"] = {
                 label: {"per": "step (kernel 1) or sync (kernels 2-4) of "
                                + frames_3e_text(label, FRAMES_3G),
@@ -4032,6 +4387,7 @@ def main(argv=None):
     summary = {"runs": runs, "checkpoints": checkpoints, "4n": elastic,
                "3e_precheck": precheck, "families": families, "moe": moe,
                "3g_precheck": precheck_ssm, "ssm": ssm,
+               "3h_precheck": precheck_vlm_encdec, "vlm_encdec": vlm_encdec,
                "small_inputs": small,
                "data_parallel": dist_phase, "serve": serve,
                "audit": audit, "phase_wall_s": walls,

@@ -70,3 +70,23 @@ class SyntheticLM:
             out = {"tokens": torch.where(mask, 0, tokens), "labels": tokens,
                    "loss_mask": mask.to(torch.float32)}
         return {k: v.to(self.device) for k, v in out.items()}
+
+
+def add_model_inputs(batch, model_cfg, device=None):
+    """Add to ``batch`` (B rows of S tokens) the inputs beside the tokens
+    that the reference's CLI, FleetSim and audit feed every batch: zero
+    ``frames`` (B, enc_frames, d) for an encoder-decoder, zero
+    ``vision_embeds`` (B, vision_tokens, d) for the vlm, and for a
+    bidirectional model without a ``loss_mask`` one of ones (next-token
+    batches with every position in the loss). Returns ``batch``."""
+    B, S = batch["tokens"].shape
+    d = model_cfg.d_model
+    if model_cfg.enc_layers:
+        batch["frames"] = torch.zeros((B, model_cfg.enc_frames, d),
+                                      device=device)
+    if model_cfg.vision_tokens:
+        batch["vision_embeds"] = torch.zeros(
+            (B, model_cfg.vision_tokens, d), device=device)
+    if not model_cfg.causal and "loss_mask" not in batch:
+        batch["loss_mask"] = torch.ones((B, S), device=device)
+    return batch

@@ -15,10 +15,9 @@ import time
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from repro_torch.core.comm import SimComm
-from repro_torch.data.synthetic import DataConfig, SyntheticLM
+from repro_torch.data.synthetic import DataConfig, SyntheticLM, add_model_inputs
 from repro_torch.elastic.reshard import reshard_report, reshard_trainer
 from repro_torch.train.step import (Trainer, TrainerConfig, resolve_device,
                                     step_record)
@@ -101,10 +100,8 @@ class FleetSim:
                 rep["reshard_ms"] = (time.perf_counter() - t0) * 1e3
                 resizes.append(rep)
                 tr = dst
-            batch = data.batch(t)
-            if not self.model_cfg.causal:
-                batch["loss_mask"] = torch.ones((global_batch, seq),
-                                                device=self.device)
+            batch = add_model_inputs(data.batch(t), self.model_cfg,
+                                     self.device)
             params, state, met = tr.step(params, state, batch)
             losses.append(float(met["loss"]))
             records.append({**step_record(t, met), "workers": tr.n_workers})

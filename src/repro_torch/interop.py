@@ -19,7 +19,11 @@ worker holds every expert as a data-parallel leaf in both.)
 The state-space family needs no conversion either: its stacked
 ``blocks`` (``norm``, ``ssm.*``) and zamba2's ``shared_attn`` carry the
 reference's names and shapes, so its params and optimizer state cross
-leaf for leaf both ways.
+leaf for leaf both ways. Nor do the vlm and the encoder-decoder:
+qwen2-vl-2b's 15 leaves and whisper-large-v3's 47 (its ``encoder``
+stack and position table, and the per-layer ``cross`` norm and
+attention, the always-zero ``bk``/``bv`` among them) cross leaf for
+leaf with their optimizer state (``tests/test_torch_vlm_encdec_train.py``).
 """
 from __future__ import annotations
 

@@ -42,16 +42,16 @@ KERNEL = "fused_local_step"
 KERNEL_SGD = "fused_local_step_sgd"
 
 
-def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
-    """``a*b + c`` in f32 with one rounding, like a hardware FMA.
+# an f64 whose low 29 mantissa bits are 1 followed by 28 zeros lies
+# exactly halfway between two f32 neighbours (normal range)
+_F32_MID, _F32_LOW = 1 << 28, (1 << 29) - 1
+_F32_TINY = 2.0 ** -126        # below it the f32 result is subnormal
 
-    The product of two f32 is exact in f64; the f64 sum is made
-    round-to-odd with the TwoSum error term, and round-to-odd at 53 bits
-    followed by round-to-nearest at 24 bits is the correctly rounded
-    result (no double-rounding error)."""
-    p = a.double() * (b.double() if isinstance(b, torch.Tensor) else b)  # audit-ok: float64-literal (the exact f32 product)
-    c64 = c.double()  # audit-ok: float64-literal (TwoSum in f64)
-    s = p + c64
+
+def _round_to_odd_f32(p, c64, s):
+    """``s = p + c64`` made round-to-odd with the TwoSum error term, then
+    rounded to f32: round-to-odd at 53 bits followed by round-to-nearest
+    at 24 bits is the correctly rounded result."""
     bv = s - p
     av = s - bv
     e = (p - av) + (c64 - bv)
@@ -59,6 +59,27 @@ def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
     step = torch.where((e > 0) == (s > 0), 1, -1)
     odd = torch.where((e != 0) & ((bits & 1) == 0), bits + step, bits)
     return odd.view(torch.float64).float()  # audit-ok: float64-literal (round-to-odd bits)
+
+
+def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """``a*b + c`` in f32 with one rounding, like a hardware FMA.
+
+    The product of two f32 is exact in f64. Rounding the f64 sum to f32
+    is the correctly rounded result unless the sum lies exactly halfway
+    between two f32 (then the f64 rounding may have moved it onto the
+    tie) or in f32's subnormal range: those elements alone go through
+    :func:`_round_to_odd_f32` (no double-rounding error)."""
+    p = a.double() * (b.double() if isinstance(b, torch.Tensor) else b)  # audit-ok: float64-literal (the exact f32 product)
+    c64 = c.double()  # audit-ok: float64-literal (the sum in f64)
+    s = p + c64
+    out = s.float()
+    if out.is_meta:
+        return out      # shapes only (the audit's payload manifests)
+    slow = (((s.view(torch.int64) & _F32_LOW) == _F32_MID)
+            | ((s.abs() < _F32_TINY) & (s != 0)))
+    if bool(slow.any()):
+        out[slow] = _round_to_odd_f32(p[slow], c64[slow], s[slow])
+    return out
 
 
 def fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:

@@ -34,8 +34,6 @@ import dataclasses
 import json
 import sys
 
-import torch
-
 from repro_torch.analysis import RecordingComm, audit_trainer
 from repro_torch.analysis.lints import run_lints
 from repro_torch.configs.base import get, list_archs
@@ -43,7 +41,7 @@ from repro_torch.core import bucketing as BK
 from repro_torch.core.api import REGISTRY_NAMES
 from repro_torch.core.codecs import CODEC_NAMES
 from repro_torch.core.comm import SimComm
-from repro_torch.data.synthetic import DataConfig, SyntheticLM
+from repro_torch.data.synthetic import DataConfig, SyntheticLM, add_model_inputs
 from repro_torch.kernels import dispatch as KD
 from repro_torch.launch import train as launch
 from repro_torch.train.step import Trainer, TrainerConfig
@@ -101,11 +99,9 @@ def audit_one(arch: str, *, optimizer="zero_one_adam", codec="sign1bit",
                        device=tr.device)
     batches = []
     for t in range(STEPS):
-        b = data.batch(t)
-        if not cfg.causal:
-            # as launch.train: next-token batches, every position in the loss
-            b["loss_mask"] = torch.ones((batch, seq), device=tr.device)
-        batches.append(b)
+        # as launch.train: zero frames / vision embeddings, next-token
+        # batches with every position in the loss
+        batches.append(add_model_inputs(data.batch(t), cfg, tr.device))
     params, state = tr.init(seed)
     rep = audit_trainer(tr, params, state, batches)
     del params, state, batches

@@ -35,6 +35,7 @@ import torch
 from repro_torch.configs.base import get
 from repro_torch.core.codecs import CODEC_NAMES
 from repro_torch.models import transformer as T
+from repro_torch.models.config import cut_layers
 from repro_torch.models.layers import init_params
 from repro_torch.serve import (Publisher, PublishConfig, Request, Scheduler,
                                Server, Subscriber)
@@ -47,7 +48,8 @@ def parse_args(argv=None):
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config (CPU-friendly)")
     ap.add_argument("--layers", type=int, default=None, metavar="L",
-                    help="cut the config to L layers, widths unchanged")
+                    help="cut the config to L layers, widths unchanged (an "
+                         "encoder-decoder: L of each stack)")
     ap.add_argument("--slots", type=int, default=4,
                     help="concurrent batch slots of the scheduler")
     ap.add_argument("--max-seq", type=int, default=64)
@@ -94,7 +96,7 @@ def build(args) -> ServeRun:
     spec = get(args.arch)
     cfg = spec.smoke if args.smoke else spec.config
     if args.layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        cfg = cut_layers(cfg, args.layers)
     dev = resolve_device(args.device)
     params = init_params(T.model_template(cfg), args.seed, device=dev)
     srv = Server(cfg, batch=args.slots, max_seq=args.max_seq,

@@ -49,11 +49,14 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \
       --smoke --mode sim --workers 4 --seq 32 --device cpu [...]
       # or zamba2-1.2b; --seq a multiple of the config's ssm_chunk
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --arch whisper-large-v3 --smoke --mode sim --workers 4 \
+      --device cpu [...]   # or qwen2-vl-2b; zero frames / vision
+      # embeddings in every batch; FULL with --layers 8: 8 + 8 layers
 """
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import os
 import sys
 import tempfile
@@ -69,10 +72,12 @@ from repro_torch.core.codecs import CODEC_NAMES
 from repro_torch.core.comm import Hierarchy, NullComm, SimComm, norm_hierarchy
 from repro_torch.core.compressed import comm_accounting
 from repro_torch.core.leafwise import clone_tree
-from repro_torch.data.synthetic import DataConfig, SyntheticLM
+from repro_torch.data.synthetic import (DataConfig, SyntheticLM,
+                                        add_model_inputs)
 from repro_torch.elastic import FleetSim, ResizeEvent
 from repro_torch.kernels import build
 from repro_torch.launch import mesh
+from repro_torch.models.config import cut_layers
 from repro_torch.train.step import (DIST_SAVE, Trainer, TrainerConfig,
                                     step_record)
 
@@ -112,7 +117,8 @@ def parse_args(argv=None):
     ap.add_argument("--layers", type=int, default=None, metavar="L",
                     help="cut the config to L layers, widths unchanged "
                          "(a MoE model keeps its dense prefix: L must "
-                         "exceed first_k_dense)")
+                         "exceed first_k_dense; an encoder-decoder keeps "
+                         "L encoder and L decoder layers)")
     ap.add_argument("--micro-batches", type=int, default=1)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
@@ -179,7 +185,7 @@ def make_trainer(args, device=None, comm=None) -> Trainer:
             raise SystemExit(f"--layers {args.layers}: {cfg.name} has "
                              f"{cfg.first_k_dense} dense layers before its "
                              f"MoE layers; ask for more")
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        cfg = cut_layers(cfg, args.layers)
     if comm is None:
         comm = (SimComm(args.workers) if args.mode == "sim" else
                 NullComm() if args.mode == "single" else mesh.worker_comm())
@@ -191,7 +197,11 @@ def make_trainer(args, device=None, comm=None) -> Trainer:
 def print_header(args, tr: Trainer, acct) -> None:
     """The run's first lines: model, codec, workers; the buckets and the
     pods where the exchange has them."""
-    print(f"arch={tr.model_cfg.name} params(dp)={acct['dp_params']/1e6:.2f}M "
+    cfg = tr.model_cfg
+    layers = (f" layers={cfg.n_layers}+{cfg.enc_layers}(encoder)"
+              if cfg.enc_layers else f" layers={cfg.n_layers}")
+    print(f"arch={cfg.name}{layers} "
+          f"params(dp)={acct['dp_params']/1e6:.2f}M "
           f"codec={acct['codec']} "
           f"bits/param/sync={acct['bits_per_param_sync']:.3f} "
           f"workers={tr.n_workers} mode={args.mode} "
@@ -244,12 +254,9 @@ def train(args, tr: Trainer, kind: str = "lm", keep_step: int = None,
     t_start = time.time()
     comp_bytes, rounds, records, kept = 0.0, 0, [], None
     for step in range(first, args.steps):
-        batch = data.batch(step)
-        if not cfg.causal and "loss_mask" not in batch:
-            # as the reference's CLI: next-token batches with every
-            # position in the loss
-            batch["loss_mask"] = torch.ones((args.batch, args.seq),
-                                            device=dev)
+        # as the reference's CLI: zero frames / vision embeddings, and
+        # next-token batches with every position in the loss
+        batch = add_model_inputs(data.batch(step), cfg, dev)
         if step == keep_step:
             # copies: the step below updates params and state in place
             kept = (clone_tree(params), state.clone(), batch)
@@ -343,6 +350,17 @@ def rank_main(rank: int, argv, world_size: int, init_method: str,
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
+
+
+def rank_jobs(rank: int, jobs, world_size: int) -> None:
+    """Entry of one spawned rank that runs ``jobs`` one after another,
+    each ``(argv, out_dir, with_state, kind, audit)`` through
+    :func:`rank_main` with a rendezvous of its own in ``out_dir`` (the
+    process group is made and destroyed per job): the jobs share the
+    process's start-up (the torch import, the first group's setup)."""
+    for argv, out_dir, with_state, kind, audit in jobs:
+        rank_main(rank, argv, world_size, mesh.file_rendezvous(out_dir),
+                  out_dir, with_state, kind, audit)
 
 
 def _parse_resizes(specs):

@@ -3,9 +3,15 @@
 (causal, sliding-window and bidirectional), ``dot_attn``, the flash-style
 ``blockwise_attn`` (taken at S >= ``ModelConfig.blockwise_threshold``)
 and the KV-cache ``decode_attn``, over a full cache or a ring of
-``window`` slots; and the training path of DeepSeek-V2's multi-head
-latent attention (:func:`mla_forward`; its latent cache and absorbed
-decode wait with MoE serving, ROADMAP item 4).
+``window`` slots; whisper's cross-attention (``gqa_forward``'s
+``kv_override``) and qwen2-vl's M-RoPE; and the training path of
+DeepSeek-V2's multi-head latent attention (:func:`mla_forward`; its
+latent cache and absorbed decode wait with MoE serving, ROADMAP item 4).
+
+The prefill mask reads the query positions of stream 0, row 0: with
+M-RoPE's (3, B, S) positions that is the temporal stream, on which the
+whole vision prefix sits at 0, so the prefix attends both ways inside
+itself, as in the reference. A decode step masks by its cache slot.
 
 Layouts follow the reference: activations (B, S, D), per-head tensors
 (B, S, H, hd), KV caches (B, S_max, K, hd). The attention products are
@@ -224,35 +230,61 @@ def _write_cache(cache, k, v, cache_pos, ring=0):
     return {"k": ck, "v": cv}
 
 
+def query_positions(positions):
+    """The positions a prefill masks by: stream 0 of (3, B, S) M-RoPE
+    positions, then row 0 (the reference's ``qpos0``)."""
+    if positions.dim() == 3:
+        positions = positions[0]
+    return positions[0] if positions.dim() == 2 else positions
+
+
 def gqa_forward(p, cfg, x, positions, *, kind=None, window=0, cache=None,
-                cache_pos=None, use_blockwise=False):
+                cache_pos=None, kv_override=None, use_blockwise=False):
     """GQA attention over (B, S, D). ``kind``: causal, sliding (with
     ``window``) or bidir; by default causal or bidirectional as
     ``cfg.causal`` says. q and k are rotated at ``cfg.rope_theta`` over
-    ``cfg.rope_fraction`` of the head dim. Returns (out, the layer's
+    ``cfg.rope_fraction`` of the head dim (M-RoPE: by ``positions``' three
+    streams over ``cfg.mrope_sections``). Returns (out, the layer's
     cache or None).
 
     ``cache``: the layer's {"k", "v"} (B, S_max, K, hd), written in place
     (a ring when a sliding layer's cache holds exactly ``window`` slots,
     as in the reference); with S == 1 and a ``cache_pos`` this is a decode
     step against the cache, else a prefill that fills it and attends over
-    the new keys alone. ``use_blockwise``: the flash-style path."""
+    the new keys alone. ``use_blockwise``: the flash-style path.
+
+    ``kv_override``: (k, v) of shape (B, S_enc, K, hd) computed elsewhere
+    (whisper's cross-attention): only ``bq`` is added, nothing is rotated,
+    no cache is taken, and every query attends to every key
+    (bidirectional over key positions ``0 .. S_enc - 1``)."""
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv, cfg.hd
     if kind is None:
         kind = "causal" if cfg.causal else "bidir"
     q = x @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"]
+    q = q.reshape(B, S, H, hd)
+    if kv_override is not None:
+        if cache is not None:
+            raise ValueError("kv_override (cross-attention) takes no cache")
+        k, v = kv_override
+        kpos = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
+        o = dot_attn(q, k, v, _mask_bias(query_positions(positions), kpos,
+                                          "bidir"))
+        return o.reshape(B, S, H * hd) @ p["wo"], None
     k = x @ p["wk"]
     v = x @ p["wv"]
-    if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, H, hd)
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
     k = k.reshape(B, S, K, hd)
     v = v.reshape(B, S, K, hd)
     if cfg.rope != "none":
         # as in the reference: any rope setting but "none" rotates q, k
-        q = R.apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
-        k = R.apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+        rot = (cfg.rope_theta, cfg.rope_fraction) + (
+            (cfg.mrope_sections,) if cfg.rope == "mrope" else ())
+        q = R.apply_rope(q, positions, *rot)
+        k = R.apply_rope(k, positions, *rot)
     new_kv = None
     if cache is not None:
         ring = (window if kind == "sliding" and window > 0
@@ -263,7 +295,7 @@ def gqa_forward(p, cfg, x, positions, *, kind=None, window=0, cache=None,
                             window, ring=bool(ring))
             o = o.reshape(B, S, H * hd)
             return o.to(_mm_dtype(o, p["wo"])) @ p["wo"], new_kv
-    pos = positions[0]
+    pos = query_positions(positions)
     if use_blockwise:
         o = blockwise_attn(q, k, v, pos, pos, kind, window)
     else:
@@ -292,7 +324,7 @@ def mla_forward(p, cfg, x, positions, *, use_blockwise=False):
     v = torch.einsum("bsr,rhd->bshd", ckv, p["w_uv"].reshape(r, H, dv))
     k = torch.cat([kn, kr[:, :, None, :].expand(B, S, H, dr)], dim=-1)
     qfull = torch.cat([qn, qr], dim=-1)
-    pos = positions[0]
+    pos = query_positions(positions)
     if use_blockwise:
         o = blockwise_attn(qfull, k, v, pos, pos, "causal")
     else:

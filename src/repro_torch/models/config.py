@@ -8,14 +8,14 @@ the experts, the router's top-k and capacity, the shared experts, the
 dense prefix (``first_k_dense``) and DeepSeek-V2's multi-head latent
 attention (``attn_type="mla"``); and those of the state-space family:
 Mamba2's SSD layer (``ssm_*``, ``conv_kernel``) and zamba2's shared
-attention block (``attn_every``). Defaults are the reference's. A config
-of another family (the encoder-decoder, the vlm), or with M-RoPE, is
-refused by :func:`unported` (ROADMAP item 4).
+attention block (``attn_every``); and those of the vlm (qwen2-vl's
+M-RoPE sections and vision prefix) and of the encoder-decoder (whisper's
+encoder depth and frames). Defaults are the reference's.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -35,10 +35,11 @@ class ModelConfig:
     # attention
     attn_type: str = "gqa"       # gqa | mla
     attn_bias: bool = False
-    rope: str = "standard"       # none | standard | partial | learned
-                                 # (mrope not ported)
+    rope: str = "standard"       # none | standard | partial | mrope |
+                                 # learned
     rope_fraction: float = 1.0
     rope_theta: float = 10000.0
+    mrope_sections: Tuple[int, ...] = ()   # rotated pairs per t/h/w stream
     sliding_window: int = 0      # >0 enables local attention
     global_every: int = 0        # gemma3: every k-th layer is global
     causal: bool = True          # False = bidirectional (bert)
@@ -66,6 +67,14 @@ class ModelConfig:
     ssm_chunk: int = 256
     conv_kernel: int = 4
     attn_every: int = 0          # zamba2: shared attn block every k layers
+
+    # encoder-decoder (whisper)
+    enc_layers: int = 0
+    enc_frames: int = 1500
+
+    # vlm stub (qwen2-vl): vision embeddings replace the sequence's prefix
+    vision_tokens: int = 0
+    vision_grid_h: int = 32
 
     # serving
     window_cache: bool = False   # sliding-window layers keep only
@@ -115,10 +124,10 @@ class ModelConfig:
         return self.n_layers // self.attn_every
 
 
-def unported(cfg: ModelConfig) -> Optional[str]:
-    """What of ``cfg`` the port does not run yet, or None."""
-    if cfg.rope == "mrope":
-        return "M-RoPE"
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        return f"the {cfg.family} family"
-    return None
+def cut_layers(cfg: ModelConfig, n_layers: int) -> ModelConfig:
+    """``cfg`` cut to ``n_layers`` layers, widths unchanged; a config with
+    an encoder keeps ``n_layers`` encoder layers too (the port's
+    ``--layers``; the reference has no such cut)."""
+    return dataclasses.replace(
+        cfg, n_layers=n_layers,
+        enc_layers=n_layers if cfg.enc_layers else 0)

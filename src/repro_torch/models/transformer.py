@@ -1,10 +1,11 @@
-"""Transformer assembly, PyTorch port of the dense, MoE and state-space
-paths of ``src/repro/models/transformer.py``: gpt2 and bert (learned
-positions, gelu, layernorm), the rotary family (granite, phi4,
-chatglm3's partial rotary, gemma3's 5:1 sliding:global layers; rmsnorm,
-swiglu), the moe family (llama4-scout; deepseek-v2 with multi-head
-latent attention and a dense first layer) and the state-space family
-(mamba2; zamba2 with its shared attention block).
+"""Transformer assembly, PyTorch port of ``src/repro/models/
+transformer.py``: gpt2 and bert (learned positions, gelu, layernorm),
+the rotary family (granite, phi4, chatglm3's partial rotary, gemma3's
+5:1 sliding:global layers; rmsnorm, swiglu), the moe family
+(llama4-scout; deepseek-v2 with multi-head latent attention and a dense
+first layer), the state-space family (mamba2; zamba2 with its shared
+attention block), the vlm (qwen2-vl: M-RoPE and the vision prefix) and
+the encoder-decoder (whisper: the encoder and cross-attention).
 
     model_template(cfg, ep_workers)       -> PD tree (the params' source)
     forward(params, cfg, batch, comm)     -> (logits over the padded
@@ -12,9 +13,10 @@ latent attention and a dense first layer) and the state-space family
     lm_loss(params, cfg, batch, comm)     -> (mean NLL over the loss
                                               mask + aux_loss_weight *
                                               aux, metrics)
+    encode(params, cfg, frames)           -> the encoder's output
     init_cache(cfg, batch, max_seq)       -> zeroed KV cache
     prefill(params, cfg, batch, cache)    -> (last logits, cache)
-    decode(params, cfg, tokens, cache, pos) -> (logits, cache)
+    decode(params, cfg, tokens, cache, pos, enc_out) -> (logits, cache)
 
 At S >= ``cfg.blockwise_threshold`` attention takes the flash-style
 ``attention.blockwise_attn``, as in the reference. With ``cfg.remat``
@@ -26,9 +28,28 @@ cache in place and run without autograd. With ``cfg.window_cache``
 ``sliding_window`` slots, the global layers a compact stack; ``decode``
 runs through it as the reference's ``_decoder_scan_window_decode``, and
 ``prefill`` fills it too (the reference's prefill cannot take the split
-cache: its layer scan refuses stacks of unequal length). M-RoPE and the
-encoder raise ``NotImplementedError``, and so do MoE and MLA serving
-(ROADMAP item 4).
+cache: its layer scan refuses stacks of unequal length). MoE and MLA
+serving raise ``NotImplementedError`` (ROADMAP item 4).
+
+The vlm (qwen2-vl) takes the batch's ``vision_embeds`` (B, N, d), which
+replace the first N rows of the token embeddings (so ``embed`` gets its
+gradient through the text positions alone), and (3, B, S) M-RoPE
+positions (:func:`repro_torch.models.rope.mrope_positions`); a decode
+step has no vision input and continues the text positions.
+
+The encoder-decoder (whisper) encodes the batch's ``frames`` (B,
+enc_frames, d) plus the encoder's ``pos_embed`` through
+:func:`_blocks` with the encoder's own config (bidirectional, no
+rotation; each layer checkpointed under ``cfg.remat``) and its final
+norm. Each decoder layer then runs a cross-attention step after its
+self-attention: its ``cross.norm``, and attention whose keys and values
+are ``enc_out @ cross.attn.wk / wv`` with no bias (the reference's; so
+``cross.attn.bk`` and ``bv`` get a gradient of exactly zero), computed
+for every layer before the layer loop. ``prefill`` takes ``enc_out``
+from the batch or encodes its ``frames``; ``decode`` takes ``enc_out=``
+and recomputes every layer's cross keys and values from it on each
+call, as the reference does. Both families keep the dense {"k", "v"}
+cache over the decoder layers.
 
 The state-space family (mamba2; zamba2, the hybrid) runs its stacked
 layers through :func:`_ssm_scan`: each layer's norm, Mamba2 block
@@ -52,6 +73,8 @@ unbinds the stack; autograd stacks the layers' gradients back.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -59,7 +82,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import moe as MOE
 from repro_torch.models import rope as R
 from repro_torch.models import ssm as SSM
-from repro_torch.models.config import ModelConfig, unported
+from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (PD, apply_mlp, apply_norm,
                                        mlp_template, model_dim_spec,
                                        norm_template, stack_template)
@@ -102,10 +125,6 @@ def _ssm_block_template(cfg: ModelConfig, n_layers: int):
 def model_template(cfg: ModelConfig, ep_workers: int = 1):
     """The parameter template; ``ep_workers``: the expert-parallel degree
     (expert leaves are ``dp=False`` above 1)."""
-    what = unported(cfg)
-    if what is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: {what} is not ported yet (ROADMAP item 4)")
     d, V = cfg.d_model, cfg.padded_vocab
     vs = model_dim_spec(V)
     t = {"embed": PD((V, d), spec=(vs, None), scale=0.02),
@@ -129,31 +148,61 @@ def model_template(cfg: ModelConfig, ep_workers: int = 1):
     t["blocks"] = _block_template(cfg, cfg.n_layers - cfg.first_k_dense,
                                   moe=cfg.n_experts > 0,
                                   ep_workers=ep_workers)
+    if cfg.enc_layers:
+        # whisper: the encoder, and a cross-attention block per decoder
+        # layer
+        t["encoder"] = {
+            "blocks": _block_template(
+                dataclasses.replace(cfg, n_experts=0), cfg.enc_layers),
+            "pos_embed": PD((cfg.enc_frames, d), scale=0.02),
+            "final_norm": norm_template(cfg.norm_type, d)}
+        t["cross"] = {
+            "norm": stack_template(norm_template(cfg.norm_type, d),
+                                   cfg.n_layers),
+            "attn": A.gqa_template(d, cfg.n_heads, cfg.n_kv, cfg.hd,
+                                   bias=cfg.attn_bias, stack=cfg.n_layers)}
     return t
 
 
-def _embed(params, cfg: ModelConfig, tokens, offset=0):
+def _positions(cfg: ModelConfig, B: int, S: int, offset=0, device=None):
+    """(B, S) text positions, or (3, B, S) M-RoPE positions for the vlm;
+    ``offset`` an int or a (B,) tensor per row."""
+    if cfg.rope == "mrope":
+        return R.mrope_positions(B, S, cfg.vision_tokens, cfg.vision_grid_h,
+                                 offset, device)
+    return R.text_positions(B, S, offset, device)
+
+
+def _embed(params, cfg: ModelConfig, tokens, offset=0, vision_embeds=None):
     """Token embeddings plus, for learned positions, the positions
     ``offset .. offset + S - 1``, ``offset`` an int or a (B,) tensor per
     row. The reference's ``dynamic_slice`` clamps a read past the table
     without a word; the port raises for an int offset (callers with
     per-row offsets check ``max_seq`` up front, as ``serve.Server``
-    does)."""
+    does). For the vlm, ``vision_embeds`` (B, N, d) replace the first N
+    rows."""
     h = params["embed"][tokens].to(cfg.compute_dtype)
-    if cfg.rope != "learned":
-        return h
-    S = tokens.shape[1]
-    pe = params["pos_embed"]
-    if isinstance(offset, torch.Tensor) and offset.dim() == 1:
-        idx = offset.to(torch.long)[:, None] + torch.arange(
-            S, device=offset.device)
-        return h + pe[idx].to(h.dtype)
-    offset = int(offset)
-    if offset + S > pe.shape[0]:
-        raise ValueError(f"positions {offset}..{offset + S - 1} run past "
-                         f"the learned position table (max_seq "
-                         f"{pe.shape[0]})")
-    return h + pe[offset:offset + S][None].to(h.dtype)
+    if cfg.rope == "learned":
+        S = tokens.shape[1]
+        pe = params["pos_embed"]
+        if isinstance(offset, torch.Tensor) and offset.dim() == 1:
+            idx = offset.to(torch.long)[:, None] + torch.arange(
+                S, device=offset.device)
+            h = h + pe[idx].to(h.dtype)
+        else:
+            offset = int(offset)
+            if offset + S > pe.shape[0]:
+                raise ValueError(
+                    f"positions {offset}..{offset + S - 1} run past the "
+                    f"learned position table (max_seq {pe.shape[0]})")
+            h = h + pe[offset:offset + S][None].to(h.dtype)
+    if vision_embeds is not None and cfg.vision_tokens:
+        n = vision_embeds.shape[1]
+        if n > h.shape[1]:
+            raise ValueError(f"{n} vision embeddings do not fit a sequence "
+                             f"of {h.shape[1]}")
+        h = torch.cat([vision_embeds.to(h.dtype), h[:, n:]], dim=1)
+    return h
 
 
 def _logits(params, cfg: ModelConfig, h):
@@ -187,9 +236,11 @@ def _layer_flags(cfg: ModelConfig):
 
 
 def _layer(lp, cfg: ModelConfig, h, positions, kind, window, cache=None,
-           cache_pos=None, use_blockwise=False, comm=None):
-    """One pre-norm block: attention of ``kind`` (or MLA), then the MLP
-    or the MoE layer. Returns (h, the MoE layer's metrics or None)."""
+           cache_pos=None, use_blockwise=False, comm=None, cross_kv=None):
+    """One pre-norm block: attention of ``kind`` (or MLA); with
+    ``cross_kv`` (this layer's cross keys and values) the cross-attention
+    step over ``lp["cross_norm"]`` / ``lp["cross_attn"]``; then the MLP or
+    the MoE layer. Returns (h, the MoE layer's metrics or None)."""
     hn = apply_norm(lp["attn_norm"], h, cfg.norm_type)
     if cfg.attn_type == "mla":
         ao, _ = A.mla_forward(lp["attn"], cfg, hn, positions,
@@ -200,6 +251,11 @@ def _layer(lp, cfg: ModelConfig, h, positions, kind, window, cache=None,
                               cache_pos=cache_pos,
                               use_blockwise=use_blockwise)
     h = h + ao
+    if cross_kv is not None:
+        cn = apply_norm(lp["cross_norm"], h, cfg.norm_type)
+        co, _ = A.gqa_forward(lp["cross_attn"], cfg, cn, positions,
+                              kind="bidir", kv_override=cross_kv)
+        h = h + co
     hm = apply_norm(lp["mlp_norm"], h, cfg.norm_type)
     if "moe" in lp:
         mo, met = MOE.moe_forward(lp["moe"], hm, top_k=cfg.top_k,
@@ -227,32 +283,58 @@ def _layer_caches(cfg: ModelConfig, cache):
     return out
 
 
+def _cross_kv(params, cfg: ModelConfig, enc_out):
+    """Each decoder layer's cross-attention keys and values, (B, S_enc, K,
+    hd) each, from ``enc_out`` by ``cross.attn.wk`` / ``wv`` (no bias), as
+    the reference computes them for every layer before its layer scan;
+    None for a model without an encoder or without ``enc_out``."""
+    if enc_out is None or "cross" not in params:
+        return None
+    B, Se, _ = enc_out.shape
+    attn = params["cross"]["attn"]
+    return [((enc_out @ wk).reshape(B, Se, cfg.n_kv, cfg.hd),
+             (enc_out @ wv).reshape(B, Se, cfg.n_kv, cfg.hd))
+            for wk, wv in zip(attn["wk"].unbind(0), attn["wv"].unbind(0))]
+
+
 def _blocks(params, cfg: ModelConfig, h, positions, cache=None,
-            cache_pos=None, use_blockwise=False, comm=None, moe_stats=None):
+            cache_pos=None, use_blockwise=False, comm=None, moe_stats=None,
+            enc_out=None):
     """The decoder (or encoder) blocks, layer by layer: the dense prefix,
     then ``blocks``; layer ``l`` reads and writes its cache in place
-    (:func:`_layer_caches`). Under ``cfg.remat``, with gradients
-    recorded, each layer is checkpointed. Returns (h, the summed MoE aux
-    loss); each MoE layer's metrics are appended to ``moe_stats``."""
+    (:func:`_layer_caches`). With ``enc_out`` (whisper) each layer of
+    ``blocks`` runs its cross-attention step (:func:`_cross_kv`). Under
+    ``cfg.remat``, with gradients recorded, each layer is checkpointed.
+    Returns (h, the summed MoE aux loss); each MoE layer's metrics are
+    appended to ``moe_stats``."""
     base = "causal" if cfg.causal else "bidir"
     remat = cfg.remat and torch.is_grad_enabled()
     caches = _layer_caches(cfg, cache)
+    n_main = cfg.n_layers - cfg.first_k_dense
+    main = _layers(params["blocks"], n_main)
+    cross_kv = _cross_kv(params, cfg, enc_out)
+    if cross_kv is not None:
+        cross = _layers(params["cross"], n_main)
+        for lp, cp in zip(main, cross):
+            lp["cross_norm"], lp["cross_attn"] = cp["norm"], cp["attn"]
     runs = []
     if cfg.first_k_dense:
-        runs.append((params["dense_blocks"], [0] * cfg.first_k_dense))
-    runs.append((params["blocks"], _layer_flags(cfg)))
+        runs.append((_layers(params["dense_blocks"], cfg.first_k_dense),
+                     [0] * cfg.first_k_dense, [None] * cfg.first_k_dense))
+    runs.append((main, _layer_flags(cfg), cross_kv or [None] * n_main))
     auxes, l = [], 0
-    for blocks, flags in runs:
-        for lp, flag in zip(_layers(blocks, len(flags)), flags):
+    for layers, flags, ckvs in runs:
+        for lp, flag, ckv in zip(layers, flags, ckvs):
             kind, window = (("sliding", cfg.sliding_window) if flag
                             else (base, 0))
             if remat:
                 h, met = checkpoint(_layer, lp, cfg, h, positions, kind,
                                     window, None, None, use_blockwise, comm,
-                                    use_reentrant=False)
+                                    ckv, use_reentrant=False)
             else:
                 h, met = _layer(lp, cfg, h, positions, kind, window,
-                                caches[l], cache_pos, use_blockwise, comm)
+                                caches[l], cache_pos, use_blockwise, comm,
+                                ckv)
             if met is not None:
                 auxes.append(met["aux_loss"])
                 if moe_stats is not None:
@@ -315,20 +397,37 @@ def _ssm_scan(params, cfg: ModelConfig, h, positions, cache=None,
     return h
 
 
+def encode(params, cfg: ModelConfig, frames):
+    """Whisper's encoder over the stub frame embeddings (B, enc_frames,
+    d): plus the encoder's position table, its blocks bidirectional and
+    unrotated (each checkpointed under ``cfg.remat``), its final norm."""
+    enc = params["encoder"]
+    h = (frames.to(cfg.compute_dtype)
+         + enc["pos_embed"][None].to(cfg.compute_dtype))
+    ecfg = dataclasses.replace(cfg, causal=False, rope="none", n_experts=0,
+                               first_k_dense=0, sliding_window=0,
+                               n_layers=cfg.enc_layers)
+    B, S, _ = h.shape
+    h, _ = _blocks(enc, ecfg, h, R.text_positions(B, S, device=h.device))
+    return apply_norm(enc["final_norm"], h, cfg.norm_type)
+
+
 def forward(params, cfg: ModelConfig, batch, comm=None, moe_stats=None):
     """Training forward: (logits (B, S, padded_vocab), the summed MoE aux
-    loss, 0 for a dense model)."""
+    loss, 0 for a dense model). The vlm reads the batch's
+    ``vision_embeds``, the encoder-decoder its ``frames``."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    h = _embed(params, cfg, tokens)
-    positions = R.text_positions(B, S, device=tokens.device)
+    h = _embed(params, cfg, tokens, 0, batch.get("vision_embeds"))
+    positions = _positions(cfg, B, S, device=tokens.device)
     use_bw = S >= cfg.blockwise_threshold
     if cfg.family in ("ssm", "hybrid"):
         h = _ssm_scan(params, cfg, h, positions, use_blockwise=use_bw)
         return _logits(params, cfg, h), torch.zeros(
             (), dtype=torch.float32, device=h.device)
+    enc_out = encode(params, cfg, batch["frames"]) if cfg.enc_layers else None
     h, aux = _blocks(params, cfg, h, positions, use_blockwise=use_bw,
-                     comm=comm, moe_stats=moe_stats)
+                     comm=comm, moe_stats=moe_stats, enc_out=enc_out)
     return _logits(params, cfg, h), aux
 
 
@@ -375,35 +474,43 @@ def prefill(params, cfg: ModelConfig, batch, cache):
     ``cache[..., :S]`` in place (a ring keeps the last ``window``; the
     state-space family: each layer's final state, from the cached ``h``,
     and its last conv inputs); returns (logits of the last position (B,
-    1, padded_vocab), cache)."""
+    1, padded_vocab), cache). The vlm reads the batch's
+    ``vision_embeds`` if it has them; the encoder-decoder its ``enc_out``,
+    or else encodes its ``frames``."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    h = _embed(params, cfg, tokens)
-    positions = R.text_positions(B, S, device=tokens.device)
+    h = _embed(params, cfg, tokens, 0, batch.get("vision_embeds"))
+    positions = _positions(cfg, B, S, device=tokens.device)
     use_bw = S >= cfg.blockwise_threshold
     if cfg.family in ("ssm", "hybrid"):
         h = _ssm_scan(params, cfg, h, positions, cache=cache, cache_pos=0,
                       use_blockwise=use_bw)
     else:
+        enc_out = batch.get("enc_out")
+        if cfg.enc_layers and enc_out is None:
+            enc_out = encode(params, cfg, batch["frames"])
         h, _ = _blocks(params, cfg, h, positions, cache=cache, cache_pos=0,
-                       use_blockwise=use_bw)
+                       use_blockwise=use_bw, enc_out=enc_out)
     return _logits(params, cfg, h[:, -1:]), cache
 
 
 @torch.no_grad()
-def decode(params, cfg: ModelConfig, tokens, cache, pos):
+def decode(params, cfg: ModelConfig, tokens, cache, pos, enc_out=None):
     """One decode step: tokens (B, 1) at position ``pos`` (an int, or a
     (B,) tensor with each row's own position); writes their keys and
-    values into the cache in place. Returns (logits (B, 1, padded_vocab),
+    values into the cache in place. ``enc_out``: the encoder-decoder's
+    encoder output (B, S_enc, d), from which every layer's cross keys and
+    values are computed again. Returns (logits (B, 1, padded_vocab),
     cache)."""
     B = tokens.shape[0]
     h = _embed(params, cfg, tokens, pos)
-    positions = R.text_positions(B, 1, offset=pos, device=tokens.device)
+    positions = _positions(cfg, B, 1, offset=pos, device=tokens.device)
     if cfg.family in ("ssm", "hybrid"):
         h = _ssm_scan(params, cfg, h, positions, cache=cache, cache_pos=pos,
                       decode=True)
     else:
-        h, _ = _blocks(params, cfg, h, positions, cache=cache, cache_pos=pos)
+        h, _ = _blocks(params, cfg, h, positions, cache=cache, cache_pos=pos,
+                       enc_out=enc_out)
     return _logits(params, cfg, h), cache
 
 

@@ -54,7 +54,10 @@ class Server:
                             self.cache_dtype, device="meta")
 
     def prefill_fn(self):
-        """``run(params, batch, cache) -> (last logits, cache)``."""
+        """``run(params, batch, cache) -> (last logits, cache)``; the batch
+        passes through whole: ``tokens``, and the vlm's
+        ``vision_embeds``, the encoder-decoder's ``enc_out`` or
+        ``frames``."""
         cfg = self.cfg
 
         def run(params, batch, cache):
@@ -63,11 +66,12 @@ class Server:
         return run
 
     def decode_fn(self):
-        """``run(params, cache, tokens, pos) -> (logits, cache)``; ``pos``
-        an int or a (batch,) tensor of per-row positions."""
+        """``run(params, cache, tokens, pos, enc_out=None) -> (logits,
+        cache)``; ``pos`` an int or a (batch,) tensor of per-row positions,
+        ``enc_out`` the encoder-decoder's encoder output."""
         cfg = self.cfg
 
-        def run(params, cache, tokens, pos):
-            return T.decode(params, cfg, tokens, cache, pos)
+        def run(params, cache, tokens, pos, enc_out=None):
+            return T.decode(params, cfg, tokens, cache, pos, enc_out=enc_out)
 
         return run

@@ -113,11 +113,18 @@ class Scheduler:
 
     ``server.batch`` fixes the slot count and ``server.max_seq`` the cache
     extent; a request needs ``len(prompt) + max_new_tokens <= max_seq``.
+    Encoder-decoder configs are refused, as in the reference (decode would
+    need each slot's encoder output, which the scheduler does not carry);
+    the vlm is served from tokens alone, each slot decoding at its own
+    M-RoPE positions.
     """
 
     def __init__(self, server: Server, params, *,
                  subscriber=None, kv_quant: Optional[str] = None,
                  kv_page: int = 64):
+        if server.cfg.enc_layers:
+            raise ValueError("Scheduler does not serve encoder-decoder "
+                             "configs (per-slot enc_out not supported)")
         if kv_quant not in (None, "qint8"):
             raise ValueError(f"kv_quant must be None or 'qint8', "
                              f"got {kv_quant!r}")

@@ -108,14 +108,16 @@ def accumulate_grads(loss_fn: Callable, params, batch: Dict[str, torch.Tensor],
     more than one split, zeros + g_1 + ... + g_mb in split order, then one
     f32 divide by mb, and the loss likewise. ``loss_fn(params, batch) ->
     (loss, aux)``; ``params`` is a tree of leaves without a worker dim.
-    Returns (loss, gradient tree), both detached."""
+    Returns (loss, gradient tree), both detached; a leaf the loss does
+    not reach (whisper's cross ``bk``/``bv``) gets zeros, as under
+    ``jax.grad``."""
     mb = micro_batches
     paths, xs = flatten_tree(params)
     leaves = [x.detach().requires_grad_(True) for x in xs]
     tree = unflatten_tree(paths, leaves)
     if mb <= 1:
         loss, _ = loss_fn(tree, batch)
-        gs = torch.autograd.grad(loss, leaves)
+        gs = torch.autograd.grad(loss, leaves, materialize_grads=True)
         return loss.detach(), unflatten_tree(
             paths, [g.to(torch.float32) for g in gs])
     for k, v in batch.items():
@@ -132,7 +134,7 @@ def accumulate_grads(loss_fn: Callable, params, batch: Dict[str, torch.Tensor],
     for j in range(mb):
         loss, _ = loss_fn(tree, {k: v[j * per:(j + 1) * per]
                                  for k, v in batch.items()})
-        gs = torch.autograd.grad(loss, leaves)
+        gs = torch.autograd.grad(loss, leaves, materialize_grads=True)
         for acc, g in zip(gsum, gs):
             acc.add_(g)
         lsum = lsum + loss.detach()

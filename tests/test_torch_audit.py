@@ -27,7 +27,6 @@ manifests, live, and its detection of seeded violations.
   codes.
 """
 import dataclasses
-import pathlib
 
 import jax
 import numpy as np
@@ -464,16 +463,30 @@ ARGV = ["--arch", "gpt2", "--smoke", "--steps", str(LA.STEPS), "--batch",
         *LA.SCHEDULE]
 
 
-@pytest.fixture
-def one_thread_ranks(monkeypatch):
-    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+RANK_RUNS = {"flat": [], "hier": ["--hierarchy", "2"]}
 
 
-@pytest.mark.parametrize("extra", [[], ["--hierarchy", "2"]],
-                         ids=["flat", "hier"])
-def test_gloo_ranks_record_their_workers_sequence(tmp_path, extra,
-                                                  one_thread_ranks):
-    argv = ARGV + extra
+@pytest.fixture(scope="module")
+def rank_runs(tmp_path_factory):
+    """Both runs of RANK_RUNS in one spawn of N gloo ranks, one after
+    another (``launch.train.rank_jobs``), each rank recording and
+    auditing its collectives: name -> the directory of its rank files."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("OMP_NUM_THREADS", "1")
+    dirs = {k: tmp_path_factory.mktemp(k) for k in RANK_RUNS}
+    try:
+        mesh.spawn(TLAUNCH.rank_jobs, N, ([
+            (ARGV + extra + ["--mode", "dist"], str(dirs[k]), False, "lm",
+             True) for k, extra in RANK_RUNS.items()], N),
+            timeout_s=SPAWN_TIMEOUT_S * len(RANK_RUNS))
+    finally:
+        mp.undo()
+    return dirs
+
+
+@pytest.mark.parametrize("name", list(RANK_RUNS))
+def test_gloo_ranks_record_their_workers_sequence(rank_runs, name):
+    argv = ARGV + RANK_RUNS[name]
     args = TLAUNCH.parse_args(argv + ["--mode", "sim", "--workers", str(N)])
     tr = TLAUNCH.make_trainer(args, comm=IA.RecordingComm(SimComm(N)))
     trace = IA.watch(tr)
@@ -481,12 +494,8 @@ def test_gloo_ranks_record_their_workers_sequence(tmp_path, extra,
     sim = IA.audit_trainer(tr, trace=trace)
     assert sim.ok, sim.violations[:3]
     want = [c.to_dict() for c in sim.collectives]
-    mesh.spawn(TLAUNCH.rank_main, N,
-               (argv + ["--mode", "dist"], N,
-                mesh.file_rendezvous(tmp_path), str(tmp_path), False, "lm",
-                True), timeout_s=SPAWN_TIMEOUT_S)
     for r in range(N):
-        res = torch.load(pathlib.Path(tmp_path) / f"rank{r}.pt")
+        res = torch.load(rank_runs[name] / f"rank{r}.pt")
         assert res["audit"]["ok"], res["audit"]["violations"][:3]
         assert res["recorded"] == want, r
         assert res["audit"]["summary"]["recorded_bytes"] == (

@@ -25,6 +25,7 @@ Tolerances, with their reasons:
   port's loss and param gaps to three times it (the forward and
   backward passes of the two packages differ by ~5e-7 on the logits).
 """
+import functools
 import warnings
 
 import jax
@@ -442,6 +443,20 @@ def _port_batch(b):
             else torch.from_numpy(np.array(v)).long() for k, v in b.items()}
 
 
+@functools.lru_cache(maxsize=None)
+def _ref_trainer(codec):
+    """The reference's gpt2-smoke sim trainer over ``codec`` and its
+    jitted step, made once per codec: the run from the reference's draw
+    and the run from params one ulp up share the step's compilation."""
+    arg = 0.05 if codec == "topk" else None
+    ref_cfg = RefOptimizerConfig(
+        lr=RS.ConstantLr(1e-3), var_policy=RS.AdaptiveFreezePolicy(kappa=1),
+        sync_policy=RS.LrProportionalSyncPolicy(2, 2), name="zero_one_adam",
+        codec=codec, codec_arg=arg)
+    rt = RefTrainer(ref_get("gpt2").smoke, ref_cfg, n_workers=N)
+    return rt, rt.sim_step_fn()
+
+
 def _smoke_run(codec, nudge=False, port=False):
     """8 steps of the gpt2-smoke zero_one_adam trainer over ``codec``
     (syncs at 0-4 and 6) from the reference's draw (each param one ulp
@@ -450,10 +465,7 @@ def _smoke_run(codec, nudge=False, port=False):
     the port's trainer."""
     arg = 0.05 if codec == "topk" else None
     kw = dict(name="zero_one_adam", codec=codec, codec_arg=arg)
-    ref_cfg = RefOptimizerConfig(
-        lr=RS.ConstantLr(1e-3), var_policy=RS.AdaptiveFreezePolicy(kappa=1),
-        sync_policy=RS.LrProportionalSyncPolicy(2, 2), **kw)
-    rt = RefTrainer(ref_get("gpt2").smoke, ref_cfg, n_workers=N)
+    rt, step = _ref_trainer(codec)
     rp, rs = rt.sim_init(jax.random.PRNGKey(0))
     if nudge:
         rp = jax.tree.map(lambda a: jnp.nextafter(a, jnp.inf), rp)
@@ -472,7 +484,6 @@ def _smoke_run(codec, nudge=False, port=False):
             tp, ts, tm = pt.step(tp, ts, _port_batch(data.batch(t)))
             losses.append(float(tm["loss"]))
         return np.array(losses), [a.numpy() for a in flatten_tree(tp)[1]]
-    step = rt.sim_step_fn()
     for t in range(8):
         rp, rs, rm = step(rp, rs, data.batch(t))
         losses.append(float(rm["loss"][0]))

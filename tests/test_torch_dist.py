@@ -5,9 +5,13 @@ reference, live.
 The ranks run ``repro_torch.launch.train.rank_main`` (or
 ``repro_torch.launch.mesh.check_exchange``), spawned fresh, so they never
 import JAX; they write their results under ``tmp_path`` and meet through
-a file there (no port to collide on under pytest-xdist). Every spawn has
-a join timeout. One intra-op thread in the ranks and here, so that the
-bitwise comparisons compare the same arithmetic.
+a file there (no port to collide on under pytest-xdist). Every 4-rank
+run of the file (the gpt2-smoke cases, micro-batches, the MoE, SSM and
+encoder-decoder runs) is a job of one module-scoped spawn of 4 ranks
+(``launch.train.rank_jobs``: the jobs one after another, a process group
+each), so the ranks' start-up is paid once. Every spawn has a join
+timeout. One intra-op thread in the ranks and here, so that the bitwise
+comparisons compare the same arithmetic.
 
 Tolerances, with their reasons:
 * against the port's sim run of the same settings: bit for bit (losses,
@@ -36,8 +40,9 @@ Tolerances, with their reasons:
   and every param within 1e-4 (measured <= 1.0e-5); each rank audited
   clean. With pods below the expert count's reach (8 ranks, pods of 4,
   4 experts) the replicas of an expert are equal bit for bit;
-* the state-space family (mamba2-smoke): every rank bit for bit its
-  simulated worker, as gpt2's.
+* the state-space family (mamba2-smoke) and the encoder-decoder
+  (whisper-smoke, its frames sliced per rank as its tokens): every rank
+  bit for bit its simulated worker, as gpt2's.
 """
 import ast
 import pathlib
@@ -268,14 +273,45 @@ def test_refused_dtype_raises_naming_it(tmp_path, monkeypatch):
         dist.destroy_process_group()
 
 
+# --- every 4-rank run of the file, in one spawn --------------------------
+
+MOE_ARCHS = ["llama4-scout-17b-a16e", "deepseek-v2-236b"]
+MOE_ARGV = ARGV[2:]      # ARGV without its arch
+AUDITED = ["--mode", "dist", "--workers", str(N)]
+# name -> (argv of the dist run, audited): the gpt2-smoke cases and
+# micro-batches as _spawn_ranks runs them; the MoE, SSM and
+# encoder-decoder runs recording and auditing their collectives
+JOBS = {**{case: (ARGV + extra + ["--mode", "dist"], False)
+           for case, extra in CASES.items()},
+        "micro_batches": (ARGV + ["--micro-batches", "2", "--mode", "dist"],
+                          False),
+        **{f"moe_{arch}": (["--arch", arch] + MOE_ARGV + AUDITED, True)
+           for arch in MOE_ARCHS},
+        "ssm": (["--arch", "mamba2-2.7b"] + MOE_ARGV + AUDITED, True),
+        "encdec": (["--arch", "whisper-large-v3"] + MOE_ARGV + AUDITED,
+                   True)}
+
+
+@pytest.fixture(scope="module")
+def shared_ranks(tmp_path_factory):
+    """Every job of JOBS in one spawn of N gloo ranks (each job its own
+    process group and rendezvous): name -> each rank's saved results."""
+    dirs = {name: tmp_path_factory.mktemp(name) for name in JOBS}
+    jobs = [(argv, str(dirs[name]), True, "lm", audit)
+            for name, (argv, audit) in JOBS.items()]
+    mesh.spawn(TLAUNCH.rank_jobs, N, (jobs, N),
+               timeout_s=SPAWN_TIMEOUT_S * len(jobs) / 4)
+    return {name: [torch.load(d / f"rank{r}.pt") for r in range(N)]
+            for name, d in dirs.items()}
+
+
 # --- (b), (c) gpt2-smoke in four ranks -----------------------------------
 
 @pytest.fixture(scope="module", params=list(CASES))
-def case_runs(request, tmp_path_factory):
+def case_runs(request, shared_ranks):
     argv = ARGV + CASES[request.param]
-    ranks = _spawn_ranks(tmp_path_factory.mktemp(request.param), argv)
-    return argv, ranks, SYNCS[request.param], NEAR_REF.get(request.param,
-                                                           {})
+    return argv, shared_ranks[request.param], SYNCS[request.param], \
+        NEAR_REF.get(request.param, {})
 
 
 def test_dist_matches_port_sim_bitwise(case_runs):
@@ -306,9 +342,9 @@ def test_dist_matches_reference(case_runs):
 
 # --- (d) micro-batches, (e) single mode ----------------------------------
 
-def test_dist_micro_batches_match_sim_and_reference(tmp_path):
+def test_dist_micro_batches_match_sim_and_reference(shared_ranks):
     argv = ARGV + ["--micro-batches", "2"]
-    ranks = _spawn_ranks(tmp_path, argv)
+    ranks = shared_ranks["micro_batches"]
     _assert_ranks_equal_sim(ranks, _port_run(argv + ["--mode", "sim"]))
     ref_losses, ref_params = _ref_run(argv, _init_params(
         argv + ["--mode", "sim"]), mb=2)
@@ -363,10 +399,6 @@ def test_failing_rank_fails_the_launcher(tmp_path):
 # (f) MoE: the real expert exchange
 # --------------------------------------------------------------------- #
 
-MOE_ARCHS = ["llama4-scout-17b-a16e", "deepseek-v2-236b"]
-MOE_ARGV = ARGV[2:]      # ARGV without its arch
-
-
 def _spawn_audited(tmp, argv, n):
     """``--mode dist`` in ``n`` gloo ranks, each recording and auditing
     its collectives; each rank's saved results."""
@@ -378,14 +410,14 @@ def _spawn_audited(tmp, argv, n):
 
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
-def test_moe_ranks_match_their_simulated_workers(arch, tmp_path):
+def test_moe_ranks_match_their_simulated_workers(arch, shared_ranks):
     """4 gloo ranks, one worker each, exchanging their tokens for real
     (both directions of the forward and the backward through the
     recording comm), each against its simulated worker, and audited:
     the exchanges classified as expert-parallel dispatch, the optimizer's
     manifest exact."""
     argv = ["--arch", arch] + MOE_ARGV
-    ranks = _spawn_audited(tmp_path, argv, 4)
+    ranks = shared_ranks[f"moe_{arch}"]
     args = TLAUNCH.parse_args(argv + ["--mode", "sim", "--workers", "4"])
     sim = TLAUNCH.train(args, TLAUNCH.make_trainer(args))
     moe_layers = (get_arch(arch).smoke.n_layers
@@ -430,16 +462,35 @@ def test_moe_pods_average_the_expert_replicas(tmp_path):
 # (g) the state-space family
 # --------------------------------------------------------------------- #
 
-def test_ssm_ranks_match_their_simulated_workers(tmp_path):
+def test_ssm_ranks_match_their_simulated_workers(shared_ranks):
     """4 gloo ranks of mamba2-smoke (seq 32, four chunks of 8), each
     recording and auditing its collectives, bit for bit its simulated
     worker as in 6a: losses, params, m, v, u and both EF errors."""
     argv = ["--arch", "mamba2-2.7b"] + MOE_ARGV
-    ranks = _spawn_audited(tmp_path, argv, N)
+    ranks = shared_ranks["ssm"]
     sim = _port_run(argv + ["--mode", "sim", "--workers", str(N)])
     _assert_ranks_equal_sim(ranks, sim)
     for res in ranks:
         assert res["audit"]["ok"], res["audit"]["violations"]
+
+
+# --------------------------------------------------------------------- #
+# (h) the encoder-decoder
+# --------------------------------------------------------------------- #
+
+def test_encdec_ranks_match_their_simulated_workers(shared_ranks):
+    """4 gloo ranks of whisper-smoke, each encoding its quarter of the
+    CLI's zero frames beside its quarter of the tokens, recording and
+    auditing its collectives, bit for bit its simulated worker as in 6a:
+    losses, params (the always-zero cross biases among them), m, v, u and
+    both EF errors."""
+    argv = ["--arch", "whisper-large-v3"] + MOE_ARGV
+    ranks = shared_ranks["encdec"]
+    sim = _port_run(argv + ["--mode", "sim", "--workers", str(N)])
+    _assert_ranks_equal_sim(ranks, sim)
+    for res in ranks:
+        assert res["audit"]["ok"], res["audit"]["violations"]
+        assert not res["params"]["cross"]["attn"]["bk"].any()
 
 
 def test_port_imports_neither_jax_nor_the_reference():

@@ -4,8 +4,8 @@ the config's theta, sliding-window layers, remat) on the training side,
 against the reference live in one process: configs, templates and comm
 layouts at SMOKE and FULL (FULL as metadata only), the elementary layers,
 ``forward`` and ``lm_loss`` gradients, remat, the 8-step ``zero_one_adam``
-sim trainer, the CLI, checkpoints across packages, the kernels' frame
-pre-check on every FULL unit, and the families still refused.
+sim trainer, the CLI, checkpoints across packages, and the kernels' frame
+pre-check on every FULL unit.
 
 Tolerances, with their reasons:
 * configs, templates, layouts, pre-check verdicts: equal;
@@ -62,7 +62,6 @@ from repro_torch.core.comm import SimComm
 from repro_torch.core.leafwise import flatten_tree, unflatten_tree
 from repro_torch.kernels import dispatch as KD
 from repro_torch.launch import train as TLAUNCH
-from repro_torch.models import config as TCFG
 from repro_torch.models import layers as TL
 from repro_torch.models import rope as TR
 from repro_torch.models import transformer as TT
@@ -73,8 +72,6 @@ from repro_torch.train import step as TSTEP
 torch.set_num_threads(1)
 
 ARCHS = ["granite-3-8b", "phi4-mini-3.8b", "chatglm3-6b", "gemma3-12b"]
-# the reference's configs whose families the port does not run yet
-UNPORTED = ["qwen2-vl-2b", "whisper-large-v3"]
 N, B, S, STEPS = 4, 8, 32, 8
 LR = 1e-4
 # the sync step the 8-step trainer test leaves out to show its bars' power
@@ -189,35 +186,6 @@ def test_frame_precheck_passes_on_every_full_unit(arch, n):
         emb = plan.layouts[plan.paths.index(("embed",))]
         rows, cols = TC.view_rows_cols(emb)
         assert n * rows * cols == n * 262144 * 3840
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise_naming_roadmap_item_4(arch):
-    """The reference's configs of the families still to port, carried
-    over field by field: the port refuses each, naming ROADMAP item 4,
-    and does not register them."""
-    rc = ref_get(arch).smoke
-    fields = {f.name for f in dataclasses.fields(TCFG.ModelConfig)}
-    pc = TCFG.ModelConfig(**{k: getattr(rc, k) for k in fields
-                             if k not in ("param_dtype", "compute_dtype")})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        TT.model_template(pc)
-    with pytest.raises(KeyError, match="ported"):
-        port_get(arch)
-
-
-@pytest.mark.parametrize("change", [
-    {"family": "moe", "rope": "mrope"}, {"family": "encdec"},
-    {"family": "vlm"}, {"rope": "mrope"}])
-def test_unported_kinds_raise(change):
-    """A dense config turned into another family, or given M-RoPE, is
-    refused: the encoder and vision configs carry a family the port does
-    not run, and M-RoPE is refused in any family (the moe family is
-    ported: tests/test_torch_moe.py; the ssm and hybrid families:
-    tests/test_torch_ssm.py)."""
-    base = port_get("granite-3-8b").smoke
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        TT.model_template(dataclasses.replace(base, **change))
 
 
 # --------------------------------------------------------------------- #

@@ -73,7 +73,7 @@ from repro_torch.configs.base import get
 from repro_torch.core import compressor as C
 from repro_torch.core import onebit_allreduce as AR
 from repro_torch.core.comm import DistComm, Hierarchy, NullComm, SimComm
-from repro_torch.core.leafwise import flatten_tree, make_plan
+from repro_torch.core.leafwise import flatten_tree, make_plan, unflatten_tree
 from repro_torch.kernels import build, dispatch, fused_adam, onebit
 from repro_torch.launch import mesh
 from repro_torch.models import layers as L
@@ -1404,6 +1404,88 @@ def test_cuda_zamba2_decode_with_per_row_positions():
         pos = torch.tensor([8, 16], device=d)
         return torch.stack([T.decode(p, cfg, nxt[:, i:i + 1].to(d), cache,
                                      pos + i)[0].cpu() for i in range(6)])
+
+    a, b = run(dev), run(torch.device("cpu"))
+    assert float((a - b).abs().max()) <= 1e-4
+    assert torch.equal(a[..., :cfg.vocab].argmax(-1),
+                       b[..., :cfg.vocab].argmax(-1))
+
+
+# --------------------------------------------------------------------- #
+# the vlm (qwen2-vl) and the encoder-decoder (whisper)
+# --------------------------------------------------------------------- #
+
+def _vlm_encdec_inputs(cfg, b=2, s=16):
+    """Tokens, labels and (seeded, 0.02) vision embeddings or frames."""
+    rng = np.random.default_rng(8)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s + 1)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.vision_tokens:
+        batch["vision_embeds"] = torch.from_numpy((0.02 * rng.standard_normal(
+            (b, cfg.vision_tokens, cfg.d_model))).astype(np.float32))
+    if cfg.enc_layers:
+        batch["frames"] = torch.from_numpy((0.02 * rng.standard_normal(
+            (b, cfg.enc_frames, cfg.d_model))).astype(np.float32))
+    return batch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "whisper-large-v3"])
+def test_cuda_vlm_encdec_forward_and_grads_match_cpu(arch):
+    """The smoke model's logits (M-RoPE and the vision prefix; the encoder
+    and cross-attention) and every gradient on the card against the CPU:
+    logits within 1e-4, each gradient within 1e-4 of its leaf's largest
+    magnitude (f32 sums in another order); whisper's cross ``bk``/``bv``
+    gradients exactly zero on both."""
+    dev = _card()
+    cfg = get(arch).smoke
+    params = L.init_params(T.model_template(cfg), 0)
+    batch = _vlm_encdec_inputs(cfg)
+
+    def run(d):
+        paths, xs = flatten_tree(_to(params, d))
+        leaves = [x.requires_grad_(True) for x in xs]
+        tree = unflatten_tree(paths, leaves)
+        b = {k: v.to(d) for k, v in batch.items()}
+        loss, _ = T.lm_loss(tree, cfg, b)
+        gs = torch.autograd.grad(loss, leaves, materialize_grads=True)
+        logits, _ = T.forward(tree, cfg, b)
+        return paths, logits.detach().cpu(), [g.cpu() for g in gs]
+
+    paths, la, ga = run(dev)
+    _, lb, gb = run(torch.device("cpu"))
+    assert float((la - lb).abs().max()) <= 1e-4
+    for path, a, b in zip(paths, ga, gb):
+        assert float((a - b).abs().max()) <= 1e-4 * max(
+            float(b.abs().max()), 1e-6), path
+        if path[0] == "cross" and path[-1] in ("bk", "bv"):
+            assert not a.any() and not b.any(), path
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "whisper-large-v3"])
+def test_cuda_vlm_encdec_decode_matches_cpu(arch):
+    """Prefill 11 tokens (the vision prefix, or the frames encoded once)
+    and 6 greedy decodes (M-RoPE text positions; ``enc_out`` recomputing
+    the cross keys and values) on the card against the CPU: logits within
+    1e-4 and greedy tokens equal."""
+    dev = _card()
+    cfg = get(arch).smoke
+    params = L.init_params(T.model_template(cfg), 0)
+    batch = _vlm_encdec_inputs(cfg, s=11)
+
+    def run(d):
+        p = _to(params, d)
+        b = {k: v.to(d) for k, v in batch.items() if k != "labels"}
+        enc = T.encode(p, cfg, b["frames"]) if cfg.enc_layers else None
+        cache = T.init_cache(cfg, 2, 32, torch.float32, d)
+        logits, _ = T.prefill(p, cfg, b, cache)
+        out = [logits.cpu()]
+        for i in range(6):
+            tok = logits[:, -1, :cfg.vocab].argmax(-1)[:, None]
+            logits, _ = T.decode(p, cfg, tok, cache, 11 + i, enc_out=enc)
+            out.append(logits.cpu())
+        return torch.cat(out, dim=1)
 
     a, b = run(dev), run(torch.device("cpu"))
     assert float((a - b).abs().max()) <= 1e-4

@@ -212,11 +212,14 @@ def test_fused_local_step_sgd_matches_reference(shape):
 
 def test_fma_f32_rounds_once():
     """Cases where rounding a*b+c in f64 and then to f32 (two roundings)
-    differs from the single rounding of an FMA; the exact value comes from
-    rational arithmetic."""
-    a = np.array([1 + 2.0 ** -12, 1 + 2.0 ** -12, 3.0, 0.1], np.float32)
-    b = np.array([1 + 2.0 ** -12, 1 - 2.0 ** -12, 1 / 3, 0.9], np.float32)
-    c = np.array([2.0 ** -70, -(2.0 ** -70), 1e-30, -0.09], np.float32)
+    differs from the single rounding of an FMA, and results in f32's
+    subnormal range; the exact value comes from rational arithmetic."""
+    a = np.array([1 + 2.0 ** -12, 1 + 2.0 ** -12, 3.0, 0.1, 2.0 ** -70,
+                  3e-20, 1e-30], np.float32)
+    b = np.array([1 + 2.0 ** -12, 1 - 2.0 ** -12, 1 / 3, 0.9, 2.0 ** -70,
+                  -7e-20, 1e-9], np.float32)
+    c = np.array([2.0 ** -70, -(2.0 ** -70), 1e-30, -0.09, 2.0 ** -149,
+                  2e-39, -1e-45], np.float32)
     got = fused_adam.fma_f32(_t(a), _t(b), _t(c)).numpy()
     for i in range(len(a)):
         exact = (fractions.Fraction(float(a[i])) * fractions.Fraction(
