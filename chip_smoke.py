@@ -8,17 +8,19 @@
     python3 chip_smoke.py --only moe          (10c on four cards only)
     python3 chip_smoke.py --only ssm
     python3 chip_smoke.py --only vlm_encdec
+    python3 chip_smoke.py --only moe_serve    (13d on four cards only)
 
 Needs one card; on a machine with up to four, phase 6b puts one rank on
 each, and on four phase 6c runs its 2 pods x 2 ranks over NCCL and phase
 6d trains bert-large FULL in four ranks. ``--only`` runs, after the
-build, just the named checks of phases 4n, 5, 6, 7, 8, 9 and 10 (the
+build, just the named checks of phases 4n, 5, 6, 7, 8, 9, 10 and 13 (the
 second line: the four-card paths, on four cards; the third: phase 7;
 the fourth: phase 8; the fifth: 3e, phase 5's rotary-family checks and
 phase 9, 9d on four cards only; the sixth: 3f and phase 10; the
 seventh: 3g, phase 5's state-space checks and phase 11; the eighth: 3h,
-phase 5's vlm and encoder-decoder checks and phase 12) and prints no
-kernels or result line.
+phase 5's vlm and encoder-decoder checks and phase 12; the ninth: phase
+5's MoE serving checks and phase 13) and prints no kernels or result
+line.
 
 1. Prints the card (nvidia-smi name and power limit) and torch/CUDA.
 2. Builds the port's CUDA kernels from src/repro_torch/kernels/csrc with
@@ -128,7 +130,7 @@ kernels or result line.
    sync and in a variance round, per level, equal to ``comm_accounting``'s
    as the audit's docstring reconciles them, and printed beside them; no
    float64); a violation raises.
-   i. A checkpoint round trip, gpt2 FULL width at 4 of its 12 layers
+   i. A checkpoint round trip, gpt2 FULL width at 2 of its 12 layers
       (``FILE_LAYERS``) in ``--mode single`` at batch 4 x 1024 with
       (a)'s flags, per leaf and at ``--bucket-mb 25``: 4
       steps and ``--save`` into a temporary directory, ``Trainer.restore``
@@ -147,7 +149,7 @@ kernels or result line.
       each reshard's ms; (iii) 3 steps of (d) and of (g), then a reshard
       at m = n, bit for bit the identity, and BENCH_elastic.json's
       ``hier_4to2_podkill`` / ``bucketed_4to2_kill1`` (its geometry, the
-      mass conserved); (iv) 4 steps at 2 workers (batch 8 x 1024, 4 of
+      mass conserved); (iv) 4 steps at 2 workers (batch 8 x 1024, 2 of
       the 12 layers: ``FILE_LAYERS``) with
       ``--save`` under build/, ``restore_resharded`` into 4 workers bit
       for bit ``reshard_trainer`` of the in-memory state, 4 more steps;
@@ -187,7 +189,8 @@ kernels or result line.
       payloads through gloo with CUDA tensors), and with
       ``--bucket-mb 25``;
    b. NCCL, one rank per card, on min(device count, 4) cards: on one
-      card a world of one at batch 4 x 1024 against ``--mode single``,
+      card a world of one at batch 4 x 1024, 2 of the 12 layers
+      (``DIST_LAYERS``), against ``--mode single``,
       on four the 4-rank run without micro-batches against a sim run;
       under zero_one_adam, ``adam``, ``one_bit_adam`` and
       ``zero_one_lamb``, and zero_one_adam with ``--bucket-mb 25``;
@@ -248,7 +251,13 @@ kernels or result line.
    3e-4, on the card against the CPU under its bars; and the state-space
    family's smoke configs (mamba2, zamba2: seq 32, four chunks of 8) the
    same way, each also served (a prefill of 16 tokens, 8 decodes: logits
-   within 1e-4, greedy tokens equal).
+   within 1e-4, greedy tokens equal); and both MoE smoke configs
+   (llama4-smoke, deepseek-smoke with MLA's latent cache) served through
+   the Scheduler on the card and on the CPU from the same params, 3
+   slots, 5 requests, paged qint8 KV, a sign1bit delta publish swapped in
+   mid-run (kernels 2-4 on the MoE leaves' frames, one launch of each a
+   bucket, counted into the kernels line; packed bytes bit for bit the
+   CPU's, scales within 64 ulp): tokens and stats equal.
 8. Runs ``python -m repro_torch.launch.audit --matrix --lints`` on the
    card (in this process): the reference's audit matrix without its
    tensor-parallel entries, 12 gpt2-smoke configurations of 8 recorded
@@ -265,7 +274,7 @@ kernels or result line.
    b. chatglm3-6b (partial rotary 0.5, QKV bias, kv 2), 1 of its 28
       layers, as (a) but in ``--mode single`` (one worker, batch 4 x
       1024: two workers of it do not fit the card);
-   c. gemma3-12b, 12 of its 48 layers (10 sliding, 2 global), from the
+   c. gemma3-12b, 6 of its 48 layers (5 sliding, 1 global), from the
       port's seeded init, served through the Scheduler (4 slots, 8
       requests of 1536-2048 prompt tokens, past the 1024 window, + 64
       new tokens; f32 cache) with the dense cache and with
@@ -309,8 +318,10 @@ kernels or result line.
       simulated workers, global batch 8;
    b. zamba2-1.2b at full depth (38 layers, the shared block applied 6
       times), ``--mode single``, batch 4;
-   c. both FULL configs at full depth from the port's seeded init
-      (mamba2: 2.83e9 parameters, 11.3 GB in f32), served through the
+   c. both FULL configs at full width from the port's seeded init,
+      mamba2 at 8 of its 64 layers and zamba2 at 6 of its 38 (the
+      shared block applied once; ``SERVE_LAYERS``: full depth until
+      phase 13 joined the script's time limit), served through the
       Scheduler: 4 slots, 8 requests of 1024, 1536 or 2048 prompt tokens
       + 64 new ones, f32 cache; decode ms a tick, prefill ms, peak
       memory, and 2 requests against a lone run (7a's check).
@@ -329,16 +340,42 @@ kernels or result line.
    b. whisper-large-v3 FULL width with ``--layers 8`` (8 encoder and 8
       decoder layers), 2 simulated workers, batch 4 x 1024 decoder
       tokens and 1500 zero frames a row;
-   c. both FULL configs at full depth from the port's seeded init, f32
-      cache: qwen2-vl through the Scheduler as 11c (tokens only), and
-      both through ``Server.prefill_fn``/``decode_fn`` at batch 4 with 64
-      greedy decodes (qwen2-vl: a seeded 1024-token vision prefix and
-      512 text tokens; whisper, 32 + 32 layers: seeded frames encoded
+   c. both FULL configs at full width from the port's seeded init
+      (qwen2-vl at 8 of its 28 layers, whisper at 4 + 4 of its 32 + 32:
+      ``SERVE_LAYERS``), f32 cache: qwen2-vl through the Scheduler as
+      11c (tokens only), and both through
+      ``Server.prefill_fn``/``decode_fn`` at batch 4 with 64 greedy
+      decodes (qwen2-vl: a seeded 1024-token vision prefix and 512 text
+      tokens; whisper: seeded frames encoded
       once, a 4-token prompt, every decode given ``enc_out``), every
       row then alone at batch 1 (7a's check); prefill ms, decode ms a
       tick, peak memory.
-13. Prints the kernels line (kernels 2-4 with their 7e launches), the
-   card line and the result line.
+13. MoE and MLA serving at full width (the latent cache and the
+   absorbed decode, the dense-prefix cache, each Scheduler slot routed
+   alone, expert parallelism in processes: plain torch, as the
+   reference computes them outside any Pallas kernel), from the port's
+   seeded init in f32, f32 caches, 8 requests of 1024 prompt tokens;
+   every line with the card's name and power limit:
+   a. deepseek-v2-236b, 3 layers (the dense first one and 2 MoE layers
+      of 160 experts, top 6; ~38.3 GB), through the Scheduler over 8
+      slots with 64 greedy tokens each; every row then alone at batch 1
+      (7a's check, no token may differ: the largest logit gap and the
+      smallest top-2 gap printed); ``Server.decode_fn`` at batch 8 over
+      the same prompts (the batch-wide capacity: its dropped fraction a
+      tick against the Scheduler's none); prefill and decode ms, peak
+      memory, the latent cache's bytes against per-head K/V's;
+   b. llama4-scout-17b-a16e, 4 layers (16 experts, top 1; ~43.5 GB), the
+      same;
+   c. (a)'s model in 2 gloo ranks on this card (``Server(comm=)``, EP
+      2, 80 experts a rank): each rank prefills its 4 of the 8 rows and
+      decodes 32 greedy tokens, its tokens equal and its logits within
+      1e-4 of a one-card engine run of its rows at batch 4 (run in this
+      process before the spawn, that model freed); the EP all_to_all's
+      ms a tick (CUDA events), peak memory a rank;
+   d. on four cards only: the same over NCCL, EP 4, 40 experts and 2
+      rows a rank.
+14. Prints the kernels line (kernels 2-4 with their 7e and phase-5
+   publish launches), the card line and the result line.
 
 Any failure raises; there is no CPU fallback. Exits non-zero without a
 result when there is no CUDA device or the repository's src/ is missing.
@@ -2364,12 +2401,13 @@ def compare_ranks(label, transport, ref, ranks, bitwise=False,
     return rows
 
 
-# 6a and 6c (four ranks on one card over gloo, their exchange through
-# host memory) run gpt2 FULL width at DIST_LAYERS of its 12 layers, and
-# 4i and 4n(iv) (the paths through checkpoint files) at FILE_LAYERS, so
-# that the script keeps its time limit as phase 12 joins it (the same 19
-# leaves and 16 buckets, so the same launches)
-DIST_LAYERS, FILE_LAYERS = 2, 4
+# 6a, 6c and on one card 6b (four ranks on one card over gloo, their
+# exchange through host memory; a world of one) run gpt2 FULL width at
+# DIST_LAYERS of its 12 layers, and 4i and 4n(iv) (the paths through
+# checkpoint files) at FILE_LAYERS, so that the script keeps its time
+# limit as phases 12 and 13 join it (the same 19 leaves and 16 buckets,
+# so the same launches)
+DIST_LAYERS, FILE_LAYERS = 2, 2
 
 
 def dist_runs(cards):
@@ -2398,19 +2436,22 @@ def dist_runs(cards):
             f"gloo via host memory, {N_WORKERS} ranks on one card",
             launches, bitwise=True)
     batch = BATCH // N_WORKERS * cards
-    ref_mode = (["--mode", "single"] if cards == 1 else
-                ["--mode", "sim", "--workers", str(cards)])
+    ref_mode = (["--mode", "single", "--layers", str(DIST_LAYERS)]
+                if cards == 1 else ["--mode", "sim", "--workers", str(cards)])
+    one = ["--layers", str(DIST_LAYERS)] if cards == 1 else []
     for key, launches, extra in (
             ("6b", expect, []), ("6b_bucketed", bucketed, BUCKETED),
             ("6b_adam", {}, ["--optimizer", "adam"]),
             ("6b_onebit", onebit, ONEBIT), ("6b_lamb", expect, LAMB)):
         label = run_label("6b", extra)
         runs[key] = DistRun(
-            key, label, f"phase {label}: gpt2 FULL, {cards} rank(s) over "
-            f"NCCL (one card each), batch {batch}, seq {SEQ}, vs "
-            f"{ref_mode[1]}", gpt2_argv(batch, ref_mode + extra),
+            key, label, f"phase {label}: gpt2 FULL"
+            f"{f' width, {DIST_LAYERS} of 12 layers' if one else ''}, "
+            f"{cards} rank(s) over NCCL (one card each), batch {batch}, "
+            f"seq {SEQ}, vs {ref_mode[1]}",
+            gpt2_argv(batch, ref_mode + extra),
             gpt2_argv(batch, ["--mode", "dist", "--backend", "nccl",
-                              "--device", "cuda", *extra]), cards,
+                              "--device", "cuda", *one, *extra]), cards,
             f"NCCL, {cards} card(s)", launches)
     # 6c: run 4d in processes, 2 pods x 2 ranks over process subgroups:
     # NCCL with one rank per card where there are four cards, else four
@@ -2602,8 +2643,8 @@ def record_logits(run, rids):
     sch, vocab, logs = run.scheduler, run.cfg.vocab, {}
     decode = sch._decode
 
-    def recording(params, cache, tokens, pos):
-        lg, cache = decode(params, cache, tokens, pos)
+    def recording(params, cache, tokens, pos, **kw):
+        lg, cache = decode(params, cache, tokens, pos, **kw)
         for b, r in enumerate(sch.slots):
             if r is not None and r.rid in rids:
                 logs[(r.rid, len(r.output))] = lg[b, 0, :vocab].clone()
@@ -2618,13 +2659,14 @@ def top2_gap(logits) -> float:
     return float(v[0] - v[1])
 
 
-def check_lone(run, logs, n=LONE_REQUESTS):
+def check_lone(run, logs, n=LONE_REQUESTS, exact=False):
     """7a's check: the first ``n`` requests each alone at batch 1
     through ``Server.prefill_fn``/``decode_fn``, teacher-forced with the
     batched run's tokens: every greedy token equal, except where the lone
-    logits' top-2 gap is under SERVE_LOGIT_TOL (counted), and every
-    decode's logits within SERVE_LOGIT_TOL of the batched ones. Times the
-    lone prefills and decodes."""
+    logits' top-2 gap is under SERVE_LOGIT_TOL (counted; ``exact``: none
+    may differ), and every decode's logits within SERVE_LOGIT_TOL of the
+    batched ones; the smallest top-2 gap of the lone logits is kept.
+    Times the lone prefills and decodes."""
     from repro_torch.models import transformer as T
     from repro_torch.serve import Server
 
@@ -2633,7 +2675,7 @@ def check_lone(run, logs, n=LONE_REQUESTS):
                  cache_dtype=torch.float32, device=dev)
     prefill, decode = srv.prefill_fn(), srv.decode_fn()
     V = cfg.vocab
-    near_ties, worst, pre_ms, dec_ms = 0, 0.0, [], []
+    near_ties, worst, pre_ms, dec_ms, least = 0, 0.0, [], [], float("inf")
     for r in run.requests[:n]:
         cache = T.init_cache(cfg, 1, run.args.max_seq, torch.float32, dev)
         tokens = torch.tensor([r.prompt], device=dev)
@@ -2651,6 +2693,7 @@ def check_lone(run, logs, n=LONE_REQUESTS):
             torch.cuda.synchronize()
             dec_ms.append((time.perf_counter() - t0) * 1e3)
         for i, lone in enumerate(outs):
+            least = min(least, top2_gap(lone))
             if i:
                 worst = max(worst, float(
                     (lone - logs[(r.rid, i)]).abs().max()))
@@ -2660,11 +2703,14 @@ def check_lone(run, logs, n=LONE_REQUESTS):
                 near_ties += 1
     print(f"  lone check, {n} requests at batch 1: batched "
           f"logits within {worst:.2e} of the lone ones; {near_ties} "
-          f"token(s) differ, each at a top-2 gap < {SERVE_LOGIT_TOL}; lone "
-          f"prefill {statistics.median(pre_ms):.3f} ms a request, decode "
+          f"token(s) differ, each at a top-2 gap < {SERVE_LOGIT_TOL}; "
+          f"smallest top-2 gap {least:.3e}; lone prefill "
+          f"{statistics.median(pre_ms):.3f} ms a request, decode "
           f"{statistics.median(dec_ms):.3f} ms a token", flush=True)
     assert worst <= SERVE_LOGIT_TOL, worst
+    assert not (exact and near_ties), near_ties
     return {"max_logit_gap": worst, "near_tie_tokens": near_ties,
+            "min_top2_gap": least,
             "lone_prefill_ms": pre_ms,
             "lone_decode_ms_median": statistics.median(dec_ms)}
 
@@ -3031,10 +3077,11 @@ FAMILIES = ("granite-3-8b", "phi4-mini-3.8b", "chatglm3-6b", "gemma3-12b")
 # mode) at 9a's batch a worker
 FAMILY_RUNS = (("9a", "granite-3-8b", 2, 2, 8), ("9b", "chatglm3-6b", 1, 1, 4))
 FAMILY_SEQ = 1024
-# 9c: gemma3-12b at full width, 12 of its 48 layers (10 sliding, 2
-# global), 4 slots, 8 requests of 1536-2048 prompt tokens (past the
-# 1024-token window) and 64 new tokens each, dense and window cache
-SERVE9_LAYERS, SERVE9_SLOTS, SERVE9_REQUESTS = 12, 4, 8
+# 9c: gemma3-12b at full width, 6 of its 48 layers (5 sliding, 1 global;
+# 12 until phase 13 joined the script's time limit), 4 slots, 8 requests
+# of 1536-2048 prompt tokens (past the 1024-token window) and 64 new
+# tokens each, dense and window cache
+SERVE9_LAYERS, SERVE9_SLOTS, SERVE9_REQUESTS = 6, 4, 8
 SERVE9_PROMPTS, SERVE9_GEN = (1536, 2048), 64
 SERVE9_LONE = 2            # requests re-run alone at batch 1 per cache
 # 9d (four cards): gemma3-12b at full width, 2 layers (sliding), one
@@ -3633,10 +3680,15 @@ FRAMES_3G = tuple((label, arch, layers, workers, workers)
                   for label, arch, workers, layers, _ in SSM_RUNS)
 SSM_NAMES = {label: {k: f"{k} ({arch}, {label})" for k in FAMILY_KERNELS}
              for label, arch, *_ in FRAMES_3G}
-# 11c: each FULL config at full depth from the port's seeded init, served
+# 11c: each FULL config at full width from the port's seeded init, served
 # through the Scheduler: 4 slots, 8 requests of 1024, 1536 or 2048 prompt
 # tokens (multiples of the chunk of 256) and 64 new tokens, f32 cache
 SERVE11_SLOTS, SERVE11_REQUESTS = 4, 8
+# the depth 11c and 12c serve at: cut (from full depth, PRs 25-26) for the
+# script's time limit as phase 13 joined it; zamba2 keeps one application
+# of its shared block, whisper 4 encoder and 4 decoder layers
+SERVE_LAYERS = {"mamba2-2.7b": 8, "zamba2-1.2b": 6, "qwen2-vl-2b": 8,
+                "whisper-large-v3": 4}
 SERVE11_PROMPTS, SERVE11_GEN = (1024, 1536, 2048), 64
 SERVE11_LONE = 2           # requests re-run alone at batch 1 per model
 
@@ -3700,16 +3752,15 @@ def serve11_run(dev, arch, params):
     CLI's tick loop) over a Scheduler, the logits of every decode
     recorded, the first SERVE11_LONE requests checked against a lone run
     (7a's check)."""
-    from repro_torch.configs.base import get
     from repro_torch.launch import serve as launch
     from repro_torch.serve import Request, Scheduler, Server
 
-    cfg = get(arch).config
     max_seq = max(SERVE11_PROMPTS) + SERVE11_GEN
     args = launch.parse_args([
-        "--arch", arch, "--slots", str(SERVE11_SLOTS), "--max-seq",
-        str(max_seq), "--requests", str(SERVE11_REQUESTS), "--gen",
-        str(SERVE11_GEN)])
+        "--arch", arch, "--layers", str(SERVE_LAYERS[arch]), "--slots",
+        str(SERVE11_SLOTS), "--max-seq", str(max_seq), "--requests",
+        str(SERVE11_REQUESTS), "--gen", str(SERVE11_GEN)])
+    cfg = launch.config_of(args)
     rng = np.random.default_rng(args.seed + 1)
     lens = rng.choice(SERVE11_PROMPTS, SERVE11_REQUESTS)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, int(n)).tolist(),
@@ -3733,8 +3784,8 @@ def serve11_run(dev, arch, params):
 
 
 def run_11c(dev):
-    """11c: mamba2-2.7b FULL at full depth (64 layers) and zamba2-1.2b
-    FULL (38 layers), each from the port's own seeded init, served
+    """11c: mamba2-2.7b and zamba2-1.2b FULL width at SERVE_LAYERS, each
+    from the port's own seeded init, served
     through the Scheduler (SERVE11_SLOTS slots, SERVE11_REQUESTS requests
     of SERVE11_PROMPTS prompt tokens + SERVE11_GEN new ones, f32 cache):
     decode ms a tick, prefill (admission tick) ms, peak memory, tokens
@@ -3742,11 +3793,12 @@ def run_11c(dev):
     from repro_torch.configs.base import get
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
+    from repro_torch.models.config import cut_layers
 
     out = {}
     for arch in SSM_ARCHS:
-        cfg = get(arch).config
-        print(f"phase 11c: {arch} FULL, {cfg.n_layers} layers, "
+        cfg = cut_layers(get(arch).config, SERVE_LAYERS[arch])
+        print(f"phase 11c: {arch} FULL width, {cfg.n_layers} layers, "
               f"{SERVE11_SLOTS} slots, {SERVE11_REQUESTS} requests of "
               f"{'/'.join(map(str, SERVE11_PROMPTS))} + {SERVE11_GEN} "
               f"tokens, f32 cache", flush=True)
@@ -3806,10 +3858,10 @@ FRAMES_3H = tuple((label, arch, layers, workers, workers)
 VLM_ENCDEC_NAMES = {label: {k: f"{k} ({arch}, {label})"
                             for k in FAMILY_KERNELS}
                     for label, arch, *_ in FRAMES_3H}
-# 12c: both FULL configs at full depth from the port's seeded init, f32
-# cache: qwen2-vl through the Scheduler as 11c (SERVE11_*), and through
-# Server.prefill_fn with a seeded 1024-token vision prefix and
-# SERVE12_TEXT text tokens; whisper (32 + 32 layers) through Server with
+# 12c: both FULL configs at full width (SERVE_LAYERS) from the port's
+# seeded init, f32 cache: qwen2-vl through the Scheduler as 11c
+# (SERVE11_*), and through Server.prefill_fn with a seeded 1024-token
+# vision prefix and SERVE12_TEXT text tokens; whisper through Server with
 # seeded frames, encoded once, and a SERVE12_PROMPT-token prompt. Each
 # Server run: SERVE12_ROWS rows, SERVE12_GEN greedy decodes, every row
 # then alone at batch 1
@@ -3919,9 +3971,10 @@ def serve12_rows(dev, arch, params, batch, prompt_len):
     (counted), and its logits within SERVE_LOGIT_TOL of the batched."""
     from repro_torch.configs.base import get
     from repro_torch.models import transformer as T
+    from repro_torch.models.config import cut_layers
     from repro_torch.serve import Server
 
-    cfg = get(arch).config
+    cfg = cut_layers(get(arch).config, SERVE_LAYERS[arch])
     V, max_seq = cfg.vocab, prompt_len + SERVE12_GEN
 
     def run(rows, forced=None):
@@ -3980,24 +4033,25 @@ def serve12_rows(dev, arch, params, batch, prompt_len):
 
 
 def run_12c(dev):
-    """12c: qwen2-vl-2b FULL (28 layers) through the Scheduler as 11c and
-    through ``Server.prefill_fn`` with a seeded vision prefix; then
-    whisper-large-v3 FULL (32 + 32 layers) through ``Server`` with seeded
-    frames; each from the port's own seeded init, f32 cache, the batched
-    tokens held to each row's lone run."""
+    """12c: qwen2-vl-2b FULL width at SERVE_LAYERS through the Scheduler
+    as 11c and through ``Server.prefill_fn`` with a seeded vision prefix;
+    then whisper-large-v3 FULL width at SERVE_LAYERS through ``Server``
+    with seeded frames; each from the port's own seeded init, f32 cache,
+    the batched tokens held to each row's lone run."""
     from repro_torch.configs.base import get
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
+    from repro_torch.models.config import cut_layers
 
     out = {}
     for arch in VLM_ENCDEC_ARCHS:
-        cfg = get(arch).config
+        cfg = cut_layers(get(arch).config, SERVE_LAYERS[arch])
         t0 = time.time()
         params = L.init_params(T.model_template(cfg), 0, device=dev)
         torch.cuda.synchronize()
         init_s = time.time() - t0
         elements = sum(x.numel() for x in flatten_params(params))
-        print(f"phase 12c: {arch} FULL, {cfg.n_layers} layers"
+        print(f"phase 12c: {arch} FULL width, {cfg.n_layers} layers"
               f"{f' + {cfg.enc_layers} encoder layers' if cfg.enc_layers else ''}"
               f", {elements:,} parameters ({elements * 4 / 1e9:.2f} GB in "
               f"f32), init {init_s:.1f} s", flush=True)
@@ -4051,6 +4105,385 @@ def run_vlm_encdec_only(dev):
     return out
 
 
+# --------------------------------------------------------------------- #
+# phase 13: MoE and MLA serving (the latent cache and absorbed decode,
+# the dense-prefix cache, per-slot routing, expert-parallel processes)
+# --------------------------------------------------------------------- #
+
+# (label, arch, layers kept) of 13a and 13b: full width, the port's
+# seeded init in f32, served through the Scheduler. deepseek-v2 keeps its
+# dense first layer (``cut_layers``): 1 dense + 2 MoE layers of 160
+# experts (~38.3 GB); llama4-scout 4 layers of 16 experts (~43.5 GB)
+MOE_SERVE_RUNS = (("13a", "deepseek-v2-236b", 3),
+                  ("13b", "llama4-scout-17b-a16e", 4))
+MOE_SERVE_SLOTS, MOE_SERVE_PROMPT, MOE_SERVE_GEN = 8, 1024, 64
+# 13c (2 gloo ranks on one card) and 13d (4 NCCL ranks, four cards only):
+# deepseek-v2 as 13a, each rank its share of the 8 rows and its block of
+# the experts, prefill + MOE_EP_GEN greedy decodes, against a one-card
+# engine run of its rows at its batch
+MOE_EP_RUNS = (("13c", 2), ("13d", 4))
+MOE_EP_GEN = 32
+# phase 5: each MoE smoke served card against CPU, paged qint8 KV, one
+# sign1bit publish swapped in before this tick
+MOE_SERVE_SWAP_TICK = 2
+# its buckets: the smoke models' expert stacks (0.6-0.8 MB each) take
+# buckets of their own
+MOE_SERVE_BUCKET_MB = 0.25
+
+
+def moe_serve_argv(arch, layers, slots, gen, device="cuda"):
+    """The serve CLI's flags of phase 13 (the prompts ``--requests`` of
+    ``--prompt-len`` tokens from ``--seed`` 0, every run the same)."""
+    return ["--arch", arch, "--layers", str(layers), "--slots", str(slots),
+            "--requests", str(MOE_SERVE_SLOTS), "--prompt-len",
+            str(MOE_SERVE_PROMPT), "--gen", str(gen), "--max-seq",
+            str(MOE_SERVE_PROMPT + MOE_SERVE_GEN), "--device", device]
+
+
+def cache_report(cfg, cache):
+    """The cache's bytes, and for MLA those of a cache of the per-head
+    keys and values the prefill expands (H (dn + dr) + H dv values a
+    token and layer) at the same depth, slots and extent."""
+    from repro_torch.serve.scheduler import cache_leaves
+
+    got = sum(x.nbytes for x in cache_leaves(cache))
+    out = {"cache_bytes": got}
+    if cfg.attn_type == "mla":
+        per = cfg.n_heads * (cfg.mla_qk_nope + cfg.mla_qk_rope
+                             + cfg.mla_v_dim)
+        latent = cfg.kv_lora_rank + cfg.mla_qk_rope
+        out["per_head_kv_bytes"] = got * per // latent
+        out["ratio"] = per / latent
+    return out
+
+
+@torch.no_grad()
+def serve13_run(dev, card, label, arch, layers):
+    """13a / 13b: ``arch`` FULL width at ``layers`` layers, from the
+    port's seeded init: the Scheduler over MOE_SERVE_SLOTS slots (each
+    slot's token routed alone), every row then alone at batch 1 (tokens
+    equal, teacher-forced; the largest logit gap and the smallest top-2
+    gap stated); ``Server.decode_fn`` at batch 8 over the same prompts
+    (the batch-wide capacity) with its dropped fraction against the
+    Scheduler's; for deepseek-v2 also the one-card engine runs of each
+    13c / 13d rank's rows at its batch, returned for the ranks."""
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve import Request, Scheduler, Server
+
+    args = launch.parse_args(moe_serve_argv(arch, layers, MOE_SERVE_SLOTS,
+                                            MOE_SERVE_GEN))
+    cfg = launch.config_of(args)
+    t0 = time.time()
+    srv = Server(cfg, batch=MOE_SERVE_SLOTS, max_seq=args.max_seq,
+                 cache_dtype=torch.float32, device=dev)
+    params = srv.init_params(args.seed)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    elements = sum(x.numel() for x in flatten_params(params))
+    print(f"phase {label}: {arch} FULL width, {layers} layers "
+          f"({cfg.first_k_dense} dense), {cfg.n_experts} experts top "
+          f"{cfg.top_k}, {cfg.attn_type}; {elements:,} parameters "
+          f"({elements * 4 / 1e9:.2f} GB in f32), init {init_s:.1f} s; "
+          f"{MOE_SERVE_SLOTS} slots, {MOE_SERVE_SLOTS} requests of "
+          f"{MOE_SERVE_PROMPT} + {MOE_SERVE_GEN} tokens, f32 cache; {card}",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    sch = Scheduler(srv, params)
+    sch.moe_stats = []
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=MOE_SERVE_GEN)
+            for i, p in enumerate(launch.prompts_of(args, cfg))]
+    for r in reqs:
+        sch.submit(r)
+    run = launch.ServeRun(args=args, cfg=cfg, device=dev, params=params,
+                          server=srv, scheduler=sch, requests=reqs)
+    logs = record_logits(run, {r.rid for r in reqs})
+    res = serve_drive(run)
+    assert all(r.done and len(r.output) == MOE_SERVE_GEN for r in reqs)
+    res.pop("ticks")
+    res["prefill_ms"] = res["admit_tick_ms"]
+    per_slot = [float(m["dropped_frac"]) for m in sch.moe_stats]
+    res.update(init_s=init_s, params=elements,
+               **cache_report(cfg, sch.cache),
+               scheduler_dropped_frac=max(per_slot))
+    print(f"  {label} Scheduler: decode tick median "
+          f"{res['decode_tick_ms']['median']:.3f} ms, admission tick "
+          f"{res['admit_tick_ms'][0]:.1f} ms (8 prefills of "
+          f"{MOE_SERVE_PROMPT}), peak {res['peak_memory_gb']:.2f} GB, cache "
+          f"{res['cache_bytes']:,} B"
+          + (f" against {res['per_head_kv_bytes']:,} B of per-head K/V "
+             f"(1/{res['ratio']:.1f})" if "ratio" in res else "")
+          + f"; per-slot dropped_frac at most {max(per_slot)}; {card}",
+          flush=True)
+    res["lone"] = check_lone(run, logs, MOE_SERVE_SLOTS, exact=True)
+    del sch, run, logs
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = launch.prompts_of(args, cfg)
+    whole = launch.serve_rows(Server(cfg, batch=MOE_SERVE_SLOTS,
+                                     max_seq=args.max_seq,
+                                     cache_dtype=torch.float32, device=dev),
+                              params, rows, MOE_EP_GEN)
+    res["batch_wide"] = {
+        "dropped_frac": whole["dropped_frac"],
+        "decode_tick_ms": statistics.median(whole["tick_ms"]),
+        "prefill_ms": whole["prefill_ms"]}
+    print(f"  {label} Server.decode_fn at batch {MOE_SERVE_SLOTS} (the "
+          f"batch-wide capacity): dropped_frac a tick "
+          f"{[round(x, 4) for x in whole['dropped_frac']]} (mean "
+          f"{statistics.mean(whole['dropped_frac']):.4f}) against the "
+          f"Scheduler's at most {max(per_slot)}; prefill of "
+          f"{MOE_SERVE_SLOTS} x {MOE_SERVE_PROMPT} "
+          f"{whole['prefill_ms']:.1f} ms, decode tick median "
+          f"{res['batch_wide']['decode_tick_ms']:.3f} ms; {card}",
+          flush=True)
+    del whole
+    # a slot's token routes alone: its top-k experts are distinct, each
+    # with a capacity of at least one
+    assert max(per_slot) == 0.0, per_slot
+    engine = {}
+    if cfg.attn_type == "mla":
+        for ep_label, n in MOE_EP_RUNS:
+            if n > 2 and torch.cuda.device_count() < n:
+                continue
+            per = MOE_SERVE_SLOTS // n
+            srv_n = Server(cfg, batch=per, max_seq=MOE_SERVE_PROMPT
+                           + MOE_EP_GEN, cache_dtype=torch.float32,
+                           device=dev)
+            engine[ep_label] = []
+            for r in range(n):
+                out = launch.serve_rows(srv_n, params,
+                                        rows[r * per:(r + 1) * per],
+                                        MOE_EP_GEN)
+                engine[ep_label].append({k: out[k] for k in (
+                    "logits", "tokens", "prefill_ms", "tick_ms",
+                    "dropped_frac")})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, engine
+
+
+def run_13_ep(card, label, n, engine):
+    """13c / 13d: deepseek-v2 as 13a in ``n`` spawned ranks
+    (``launch.train.rank_jobs`` with a serve job: 13c gloo on this one
+    card, 13d NCCL a rank a card), EP ``n``: each rank's block of the
+    experts from the same seeded init, its 8 / n rows, prefill +
+    MOE_EP_GEN greedy decodes through ``Server(comm=)``, its dispatch
+    buffers exchanged with the others; its tokens equal and its logits
+    within SERVE_LOGIT_TOL of the one-card engine run of its rows
+    (``engine``), its exchange ms a tick (CUDA events), peak memory."""
+    from repro_torch.configs.base import get
+    from repro_torch.launch import mesh
+    from repro_torch.launch import train as launch
+
+    arch, layers = MOE_SERVE_RUNS[0][1:]
+    experts = get(arch).config.n_experts
+    if label not in engine:
+        why = (f"needs {n} cards, one rank each; this machine has "
+               f"{torch.cuda.device_count()}")
+        print(f"phase {label}: {arch} EP {n} in processes not run: {why}",
+              flush=True)
+        return {"ran": False, "why": why}
+    per = MOE_SERVE_SLOTS // n
+    device = "cuda:0" if n == 2 else "cuda"
+    transport = ("gloo on one card" if n == 2
+                 else f"NCCL, {n} cards")
+    print(f"phase {label}: {arch} FULL width, {layers} layers, {n} ranks "
+          f"over {transport}, EP {n} ({experts // n} experts a rank), {per} "
+          f"rows of {MOE_SERVE_PROMPT} + {MOE_EP_GEN} tokens a rank; "
+          f"{card}", flush=True)
+    argv = moe_serve_argv(arch, layers, per, MOE_EP_GEN, device)
+    t0 = time.time()
+    with scratch_dir() as tmp:
+        mesh.spawn(launch.rank_jobs, n, ([(argv, tmp, False, "serve",
+                                          False)], n),
+                   timeout_s=DIST_TIMEOUT_S)
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                 for r in range(n)]
+    wall = time.time() - t0
+    rows = []
+    for r, res in enumerate(ranks):
+        want = engine[label][r]
+        gap = float((res["logits"] - want["logits"]).abs().max())
+        same = torch.equal(res["tokens"], want["tokens"])
+        row = {"rank": r, "device": res["device"],
+               "ep_degree": res["ep_degree"], "max_logit_gap": gap,
+               "tokens_equal": same, "prefill_ms": res["prefill_ms"],
+               "prefill_ep_ms": res["prefill_ep_ms"],
+               "decode_tick_ms": statistics.median(res["tick_ms"]),
+               "ep_ms_median": statistics.median(res["ep_ms"]),
+               "ep_ms": res["ep_ms"],
+               "engine_decode_tick_ms": statistics.median(want["tick_ms"]),
+               "dropped_frac": res["dropped_frac"],
+               "peak_memory_gb": res["peak_memory_bytes"] / 1e9}
+        print(f"  {label} rank {r} on {res['device']}: EP "
+              f"{res['ep_degree']}, logits within {gap:.2e} of the "
+              f"one-card rows, tokens equal {same}; prefill "
+              f"{res['prefill_ms']:.1f} ms (exchange "
+              f"{res['prefill_ep_ms']:.1f}), decode tick median "
+              f"{row['decode_tick_ms']:.3f} ms (one card at batch {per}: "
+              f"{row['engine_decode_tick_ms']:.3f}), EP all_to_all "
+              f"{row['ep_ms_median']:.3f} ms a tick; peak "
+              f"{row['peak_memory_gb']:.2f} GB; {card}", flush=True)
+        assert res["ep_degree"] == n, res["ep_degree"]
+        assert same and gap <= SERVE_LOGIT_TOL, row
+        rows.append(row)
+    return {"ran": True, "transport": transport, "wall_s": wall,
+            "ranks": rows}
+
+
+def run_phase13(dev, card):
+    """Phase 13: 13a, 13b, then 13c (13d on four cards only)."""
+    out, engine = {}, {}
+    for label, arch, layers in MOE_SERVE_RUNS:
+        out[label], got = serve13_run(dev, card, label, arch, layers)
+        engine.update(got)
+    for label, n in MOE_EP_RUNS:
+        out[label] = run_13_ep(card, label, n, engine)
+    return out
+
+
+def serve_small_swap(d, cfg, params, moved, mix, kv_quant):
+    """One Scheduler run of phase 5's MoE serving on device ``d``: 3
+    slots, ``mix``'s requests, ``kv_quant`` at pages of 8, a sign1bit
+    delta to ``moved`` published before tick MOE_SERVE_SWAP_TICK. On the
+    card each page is quantized as the CPU's ``quant_page`` would
+    quantize the same lane (checked bit for bit, page by page). Returns
+    the tokens, the stats, the delta, its launches (publish, apply), the
+    bucket count and the pages checked."""
+    from repro_torch.kernels import build
+    from repro_torch.serve import (Publisher, PublishConfig, Request,
+                                   Scheduler, Server, Subscriber)
+    from repro_torch.serve import scheduler as S
+
+    p, m = _to(params, d), _to(moved, d)
+    pc = PublishConfig(codec="sign1bit", bucket_mb=MOE_SERVE_BUCKET_MB)
+    pub, sub = Publisher(p, pc), Subscriber(p, pc)
+    sub.push(pub.publish(p, step=0))
+    sch = Scheduler(Server(cfg, batch=3, max_seq=64,
+                           cache_dtype=torch.float32, device=d), p,
+                    subscriber=sub, kv_quant=kv_quant, kv_page=8)
+    reqs = [Request(rid=i, prompt=q, max_new_tokens=n)
+            for i, (q, n) in enumerate(mix)]
+    for r in reqs:
+        sch.submit(r)
+    plain, pages = S.quant_page, []
+
+    def checked(cache, slot, start, page, max_seq):
+        cpu = {k: c[:, slot:slot + 1].cpu() for k, c in cache.items()}
+        plain(cpu, 0, start, page, max_seq)
+        plain(cache, slot, start, page, max_seq)
+        pages.append(all(torch.equal(c[:, slot:slot + 1].cpu(), cpu[k])
+                         for k, c in cache.items()))
+
+    if d.type == "cuda":
+        S.quant_page = checked
+    try:
+        ticks, launches = 0, {}
+        while not sch.idle:
+            if ticks == MOE_SERVE_SWAP_TICK:
+                build.launch_counts.clear()
+                update = pub.publish(m, step=1)
+                launches["publish"] = dict(build.launch_counts)
+                sub.push(update)
+                build.launch_counts.clear()
+            sch.tick()
+            if ticks == MOE_SERVE_SWAP_TICK:
+                launches["apply"] = dict(build.launch_counts)
+            ticks += 1
+    finally:
+        S.quant_page = plain
+    return ([r.output for r in reqs], dict(sch.stats), update, launches,
+            len(pub.wire.bp.buckets), pages)
+
+
+@torch.no_grad()
+def check_small_moe_serve(dev, arch):
+    """Phase 5: ``arch``'s smoke config served through the Scheduler on
+    the card and on the CPU from the same params: 3 slots, 5 requests, a
+    sign1bit delta of the params plus seeded noise published before tick
+    MOE_SERVE_SWAP_TICK and swapped in at its boundary, with the paged
+    qint8 KV cache (pages of 8; MLA: ``ckv`` and ``kr``) and without.
+    The publish runs kernels 2-4 on the frames of the MoE leaves' buckets
+    (one launch of each a bucket; the apply one decompress a bucket), its
+    packed bytes bit for bit the CPU's, its scales within ROWSUM_ULPS;
+    the stats equal; every page the card quantizes bit for bit the CPU's
+    ``quant_page`` of the same lane. Without qint8 the tokens equal the
+    CPU's; with it they are counted, not held: its dither hashes each
+    value's last bits, which the card's and the CPU's products do not
+    share (as the qint codecs of phase 5)."""
+    from repro_torch.configs.base import get
+    from repro_torch.core.leafwise import flatten_tree, unflatten_tree
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import init_params
+
+    cfg = get(arch).smoke
+    cpu = torch.device("cpu")
+    params = init_params(T.model_template(cfg), 0, device=cpu)
+    g = torch.Generator().manual_seed(5)
+    paths, xs = flatten_tree(params)
+    moved = unflatten_tree(paths, [x + 1e-3 * torch.randn(
+        x.shape, generator=g) for x in xs])
+    rng = np.random.default_rng(13)
+    mix = [(rng.integers(0, cfg.vocab, (5, 9)[i % 2]).tolist(), 6 + i)
+           for i in range(5)]
+    out = {}
+    for kv in ("qint8", None):
+        (tok_a, st_a, up_a, la, nb, pages), (tok_b, st_b, up_b, _, _, _) = (
+            serve_small_swap(d, cfg, params, moved, mix, kv)
+            for d in (dev, cpu))
+        worst = 0
+        for k in range(nb):
+            pa, pb = up_a.payloads[k], up_b.payloads[k]
+            assert np.array_equal(pa["packed"], pb["packed"]), k
+            worst = max(worst, ulps(torch.from_numpy(pa["scales"]),
+                                    torch.from_numpy(pb["scales"])))
+        equal = sum(a == b for a, b in zip(tok_a, tok_b))
+        print(f"  {cfg.name} served card against CPU, KV {kv or 'f32'}, a "
+              f"sign1bit swap before tick {MOE_SERVE_SWAP_TICK} ({nb} "
+              f"buckets): stats equal {st_a == st_b}; {equal} of "
+              f"{len(mix)} requests' tokens equal; {len(pages)} pages "
+              f"quantized on the card, bit for bit the CPU's: "
+              f"{all(pages)}; packed bytes bit for bit, scales within "
+              f"{worst} ulp; launches publish {json.dumps(la['publish'])} "
+              f"+ apply {json.dumps(la['apply'])}", flush=True)
+        assert st_a == st_b and worst <= ROWSUM_ULPS, (st_a, st_b, worst)
+        assert st_a["weight_swaps"] == 2, st_a
+        assert all(pages) and len(pages) == st_a["pages_quantized"], pages
+        assert bool(pages) == (kv is not None), pages
+        assert kv is not None or tok_a == tok_b, (tok_a, tok_b)
+        assert la["publish"] == {k: nb for k in (
+            "abs_rowsum", "ef_quantize", "decompress")}, la
+        assert la["apply"] == {"decompress": nb}, la
+        out[kv or "f32"] = {
+            "requests_equal": equal, "scale_ulps": worst, "n_buckets": nb,
+            "pages_bitwise": len(pages), "publish_launches": la["publish"],
+            "apply_launches": la["apply"], "stats": st_a}
+    # the kernels line counts both runs' publishes
+    out["publish_launches"] = {k: sum(r["publish_launches"].get(k, 0)
+                                      for r in (out["qint8"], out["f32"]))
+                               for k in out["f32"]["publish_launches"]}
+    out["apply_launches"] = {k: sum(r["apply_launches"].get(k, 0)
+                                    for r in (out["qint8"], out["f32"]))
+                             for k in out["f32"]["apply_launches"]}
+    return out
+
+
+def moe_serve_parts(dev):
+    """Phase 5's MoE serving checks by name (``check_small_moe_serve``)."""
+    return {f"moe_serve_{a.split('-')[0]}":
+            (lambda a=a: check_small_moe_serve(dev, a))
+            for a in MOE_SMOKES}
+
+
+def run_moe_serve_only(dev, card):
+    """``--only moe_serve``: phase 5's MoE serving checks, then phase
+    13."""
+    out = {"5": {k: run() for k, run in moe_serve_parts(dev).items()}}
+    out.update(run_phase13(dev, card))
+    return out
+
+
 def tally_rows(tally, names):
     """Each kernel's row of ``tally`` under ``names``, with its bound and
     the share of it the call and batched times reach."""
@@ -4088,7 +4521,8 @@ def parse_args(argv=None):
              "'9a_1layer'; 'moe' for 3f and phase 10, or '10ab', '10c'; "
              "'ssm' for 3g, phase 5's state-space checks and phase 11, or "
              "'11ab', '11c'; 'vlm_encdec' for 3h, phase 5's vlm and "
-             "encoder-decoder checks and phase 12, or '12ab', '12c'), "
+             "encoder-decoder checks and phase 12, or '12ab', '12c'; "
+             "'moe_serve' for phase 5's MoE serving checks and phase 13), "
              "print their summary and the card line, and no kernels or "
              "result line")
     return ap.parse_args(argv)
@@ -4101,7 +4535,8 @@ def run_only(dev, names, card, t_start):
     ``9c``, ``9d``), 10 (``moe``) and 11 (``ssm``: 3g, phase 5's
     state-space checks and 11a-11c; or ``11ab``, ``11c``) and 12
     (``vlm_encdec``: 3h, phase 5's vlm and encoder-decoder checks and
-    12a-12c; or ``12ab``, ``12c``), in that order."""
+    12a-12c; or ``12ab``, ``12c``) and 13 (``moe_serve``: phase 5's MoE
+    serving checks and 13a-13d), in that order."""
     parts = {"4n": lambda: run_elastic_phase(
         dev, run_main_path(dev, *RUNS[0])), **small_parts(dev),
         **family_parts(dev),
@@ -4120,7 +4555,9 @@ def run_only(dev, names, card, t_start):
         **vlm_encdec_parts(dev),
         "vlm_encdec": lambda: run_vlm_encdec_only(dev),
         "12ab": lambda: run_vlm_encdec_training(dev),
-        "12c": lambda: run_12c(dev)}
+        "12c": lambda: run_12c(dev),
+        **moe_serve_parts(dev),
+        "moe_serve": lambda: run_moe_serve_only(dev, card)}
     unknown = sorted(set(names) - set(parts))
     if unknown:
         sys.exit(f"chip_smoke: unknown parts {unknown}; choose from "
@@ -4238,7 +4675,8 @@ def main(argv=None):
     small = {name: run() for name, run in {**small_parts(dev),
                                            **family_parts(dev),
                                            **ssm_parts(dev),
-                                           **vlm_encdec_parts(dev)}.items()}
+                                           **vlm_encdec_parts(dev),
+                                           **moe_serve_parts(dev)}.items()}
     lap("5")
 
     print("phase 6: data parallel in processes", flush=True)
@@ -4273,6 +4711,12 @@ def main(argv=None):
     vlm_encdec = run_phase12(dev)
     lap("12")
 
+    print("phase 13: MoE and MLA serving at full width (deepseek-v2-236b, "
+          "llama4-scout-17b-a16e), expert parallel in processes",
+          flush=True)
+    moe_serve = run_phase13(dev, card)
+    lap("13")
+
     def bound(r):
         t_bytes = r["bytes"] / PEAK_BYTES_PER_S * 1e3
         t_ops = r["ops"] / PEAK_F32_PER_S * 1e3
@@ -4291,6 +4735,9 @@ def main(argv=None):
             by_run[f"7e_sign1bit_{side}"] = sum(
                 r[f"{side}_launches"].get(name, 0)
                 for r in serve["7e"]["sign1bit"]["publishes"])
+            for part in moe_serve_parts(dev):
+                by_run[f"5_{part}_{side}"] = (
+                    small[part][f"{side}_launches"].get(name, 0))
         for label, *_ in FAMILY_RUNS:
             by_run[label] = families[label]["launches"].get(name, 0)
         for label, *_ in SSM_RUNS:
@@ -4388,6 +4835,7 @@ def main(argv=None):
                "3e_precheck": precheck, "families": families, "moe": moe,
                "3g_precheck": precheck_ssm, "ssm": ssm,
                "3h_precheck": precheck_vlm_encdec, "vlm_encdec": vlm_encdec,
+               "moe_serve": moe_serve,
                "small_inputs": small,
                "data_parallel": dist_phase, "serve": serve,
                "audit": audit, "phase_wall_s": walls,

@@ -24,6 +24,11 @@ qwen2-vl-2b's 15 leaves and whisper-large-v3's 47 (its ``encoder``
 stack and position table, and the per-layer ``cross`` norm and
 attention, the always-zero ``bk``/``bv`` among them) cross leaf for
 leaf with their optimizer state (``tests/test_torch_vlm_encdec_train.py``).
+
+Expert-parallel serving (``serve.Server(comm=)``) holds a process's
+block of the experts; :func:`expert_block` cuts it from the reference's
+whole tree, so that a rank and the reference's single-device run of its
+rows compute from the same weights.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.compressed import ComposedOptimizer, CompressedDPState
+from repro_torch.models.layers import ep_axes
 
 
 def _tensor(a, device):
@@ -43,6 +49,24 @@ def params_from_reference(tree, device="cpu"):
     if isinstance(tree, dict):
         return {k: params_from_reference(v, device) for k, v in tree.items()}
     return _tensor(tree, device)
+
+
+def expert_block(tree, template, n: int, i: int, device="cpu"):
+    """The reference's whole parameter tree (a single device's, every
+    expert) -> the port's tree of process ``i`` of an expert-parallel
+    degree ``n`` (``serve.Server(comm=)``): each leaf with an ``ep_axis``
+    in ``template`` (a template built with ``ep_workers=n``, see
+    ``layers.ep_axes``) keeps block ``i`` of ``n`` along it, every other
+    leaf comes whole. The reference's MoE ``shard_map`` hands each worker
+    that block."""
+    def cut(t, axes):
+        if isinstance(t, dict):
+            return {k: cut(t[k], axes[k]) for k in t}
+        x = np.asarray(t)
+        if axes is not None:
+            x = np.split(x, n, axis=axes)[i]
+        return _tensor(x, device)
+    return cut(tree, ep_axes(template))
 
 
 def state_from_reference(state, opt: ComposedOptimizer, device="cpu",

@@ -21,19 +21,31 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
       --smoke --prompt-len 16 --device cpu   # prompts: a multiple of the
                                              # config's ssm_chunk
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-v2-236b --smoke --kv-quant qint8 --kv-page 8 \
+      --device cpu                           # MLA's latent cache, MoE
+
+Expert-parallel serving runs one process per worker
+(:func:`serve_rank`, spawned by ``launch.train.rank_jobs`` with a job of
+kind ``"serve"``): each rank takes its ``--slots`` rows of the
+``--requests`` prompts, its block of the experts, and exchanges the
+MoE layers' dispatch buffers with the other ranks.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import Any, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import get
 from repro_torch.core.codecs import CODEC_NAMES
+from repro_torch.launch import mesh
 from repro_torch.models import transformer as T
 from repro_torch.models.config import cut_layers
 from repro_torch.models.layers import init_params
@@ -89,14 +101,27 @@ class ServeRun:
     subscriber: Optional[Subscriber] = None
 
 
+def config_of(args):
+    """The model config the flags name: ``--arch``, ``--smoke``,
+    ``--layers``."""
+    spec = get(args.arch)
+    cfg = spec.smoke if args.smoke else spec.config
+    return cfg if args.layers is None else cut_layers(cfg, args.layers)
+
+
+def prompts_of(args, cfg):
+    """The ``--requests`` prompts of ``--prompt-len`` tokens, from a
+    numpy generator seeded with ``--seed + 1``."""
+    rng = np.random.default_rng(args.seed + 1)
+    return [rng.integers(0, cfg.vocab, args.prompt_len).tolist()
+            for _ in range(args.requests)]
+
+
 def build(args) -> ServeRun:
     """The model, server, scheduler (with a publisher/subscriber pair when
     ``--publish-every`` is set, its first snapshot pushed) and the
     submitted requests of ``args``."""
-    spec = get(args.arch)
-    cfg = spec.smoke if args.smoke else spec.config
-    if args.layers is not None:
-        cfg = cut_layers(cfg, args.layers)
+    cfg = config_of(args)
     dev = resolve_device(args.device)
     params = init_params(T.model_template(cfg), args.seed, device=dev)
     srv = Server(cfg, batch=args.slots, max_seq=args.max_seq,
@@ -110,11 +135,8 @@ def build(args) -> ServeRun:
                     kv_quant=None if args.kv_quant == "none"
                     else args.kv_quant,
                     kv_page=args.kv_page)
-    rng = np.random.default_rng(args.seed + 1)
-    reqs = [Request(rid=i, prompt=rng.integers(
-                0, cfg.vocab, args.prompt_len).tolist(),
-                    max_new_tokens=args.gen)
-            for i in range(args.requests)]
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=args.gen)
+            for i, p in enumerate(prompts_of(args, cfg))]
     for r in reqs:
         sch.submit(r)
     return ServeRun(args=args, cfg=cfg, device=dev, params=params,
@@ -161,6 +183,98 @@ def serve(run: ServeRun) -> dict:
         records.append(rec)
         ticks += 1
     return {"seconds": time.perf_counter() - t0, "ticks": records}
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+@torch.no_grad()
+def serve_rows(srv: Server, params, prompts, gen: int) -> dict:
+    """Prefill the equal-length ``prompts`` as one batch of ``srv`` and
+    decode ``gen`` greedy tokens at the positions after them, through
+    ``prefill_fn`` / ``decode_fn`` (a MoE model's tokens routed over the
+    whole batch, as the reference's engine routes them). Returns the
+    logits over the real vocab (rows, gen + 1, vocab) and the greedy
+    tokens (rows, gen + 1) on the CPU, the prefill's and each decode
+    tick's host ms (each ends in a device sync), each tick's MoE dropped
+    fraction (the mean over the MoE layers) and, with an expert-parallel
+    comm, each tick's exchange ms (its collectives timed by CUDA events,
+    or on the CPU by the host clock)."""
+    cfg, dev = srv.cfg, srv.device
+    V, P = cfg.vocab, len(prompts[0])
+    cache = T.init_cache(cfg, len(prompts), P + gen, srv.cache_dtype, dev)
+    prefill, decode = srv.prefill_fn(), srv.decode_fn()
+    tokens = torch.tensor(prompts, dtype=torch.long, device=dev)
+    if srv.comm is not None:
+        srv.comm.ep_ms()
+    _sync(dev)
+    t0 = time.perf_counter()
+    lg, cache = prefill(params, {"tokens": tokens}, cache)
+    _sync(dev)
+    out = {"prefill_ms": (time.perf_counter() - t0) * 1e3, "tick_ms": [],
+           "ep_ms": [], "dropped_frac": []}
+    if srv.comm is not None:
+        out["prefill_ep_ms"] = srv.comm.ep_ms()
+    logits = [lg[:, -1, :V].cpu()]
+    for i in range(gen):
+        tok = logits[-1].argmax(-1).to(dev)[:, None]
+        stats = []
+        t0 = time.perf_counter()
+        lg, cache = decode(params, cache, tok, P + i, moe_stats=stats)
+        _sync(dev)
+        out["tick_ms"].append((time.perf_counter() - t0) * 1e3)
+        logits.append(lg[:, 0, :V].cpu())
+        if stats:
+            out["dropped_frac"].append(float(torch.stack(
+                [m["dropped_frac"] for m in stats]).mean()))
+        if srv.comm is not None:
+            out["ep_ms"].append(srv.comm.ep_ms())
+    out["logits"] = torch.stack(logits, 1)
+    out["tokens"] = out["logits"].argmax(-1)
+    return out
+
+
+def serve_rank(rank: int, argv, world_size: int, init_method: str,
+               out_dir: str) -> None:
+    """Entry of one spawned rank of expert-parallel serving: join the
+    group (gloo on the CPU and where every rank shares one indexed card,
+    ``--device cuda:0``; nccl with ``--device cuda``, a card a rank),
+    build the ``Server`` over this process's comm with ``--slots`` rows
+    (``--requests`` must be the world's rows) and its block of experts
+    from ``--seed``'s init, and :func:`serve_rows` its rows, requests
+    ``[rank * slots, (rank + 1) * slots)``, for ``--gen`` tokens. Saves
+    the result, the EP degree, the device and its peak memory to
+    ``rank{rank}.pt`` in ``out_dir``."""
+    args = parse_args(argv)
+    if args.requests != args.slots * world_size:
+        raise ValueError(f"--requests {args.requests} must be --slots "
+                         f"{args.slots} x {world_size} ranks")
+    want = torch.device(args.device)
+    backend = "nccl" if want.type == "cuda" and want.index is None \
+        else "gloo"
+    dev = mesh.init_workers(backend, args.device, rank=rank,
+                            world_size=world_size, local_rank=rank,
+                            init_method=init_method)
+    try:
+        cfg = config_of(args)
+        srv = Server(cfg, comm=mesh.worker_comm(), batch=args.slots,
+                     max_seq=args.prompt_len + args.gen,
+                     cache_dtype=torch.float32, device=dev)
+        params = srv.init_params(args.seed)
+        rows = prompts_of(args, cfg)[rank * args.slots:
+                                     (rank + 1) * args.slots]
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        out = serve_rows(srv, params, rows, args.gen)
+        out.update(rank=rank, device=str(dev), backend=backend,
+                   ep_degree=srv.ep_degree,
+                   peak_memory_bytes=(torch.cuda.max_memory_allocated(dev)
+                                      if dev.type == "cuda" else None))
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
 
 
 def main(argv=None):

@@ -357,10 +357,19 @@ def rank_jobs(rank: int, jobs, world_size: int) -> None:
     each ``(argv, out_dir, with_state, kind, audit)`` through
     :func:`rank_main` with a rendezvous of its own in ``out_dir`` (the
     process group is made and destroyed per job): the jobs share the
-    process's start-up (the torch import, the first group's setup)."""
+    process's start-up (the torch import, the first group's setup). A job
+    of kind ``"serve"`` is expert-parallel serving, ``argv`` the serve
+    CLI's flags (``launch.serve.serve_rank``; ``with_state`` and
+    ``audit`` unused)."""
     for argv, out_dir, with_state, kind, audit in jobs:
-        rank_main(rank, argv, world_size, mesh.file_rendezvous(out_dir),
-                  out_dir, with_state, kind, audit)
+        init = mesh.file_rendezvous(out_dir)
+        if kind == "serve":
+            from repro_torch.launch.serve import serve_rank
+
+            serve_rank(rank, argv, world_size, init, out_dir)
+        else:
+            rank_main(rank, argv, world_size, init, out_dir, with_state,
+                      kind, audit)
 
 
 def _parse_resizes(specs):

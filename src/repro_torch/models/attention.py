@@ -4,9 +4,9 @@
 ``blockwise_attn`` (taken at S >= ``ModelConfig.blockwise_threshold``)
 and the KV-cache ``decode_attn``, over a full cache or a ring of
 ``window`` slots; whisper's cross-attention (``gqa_forward``'s
-``kv_override``) and qwen2-vl's M-RoPE; and the training path of
-DeepSeek-V2's multi-head latent attention (:func:`mla_forward`; its
-latent cache and absorbed decode wait with MoE serving, ROADMAP item 4).
+``kv_override``) and qwen2-vl's M-RoPE; and DeepSeek-V2's multi-head
+latent attention (:func:`mla_forward`) with its latent cache and the
+absorbed decode (:func:`mla_absorbed_decode`).
 
 The prefill mask reads the query positions of stream 0, row 0: with
 M-RoPE's (3, B, S) positions that is the temporal stream, on which the
@@ -303,11 +303,72 @@ def gqa_forward(p, cfg, x, positions, *, kind=None, window=0, cache=None,
     return o.reshape(B, S, H * hd) @ p["wo"], new_kv
 
 
-def mla_forward(p, cfg, x, positions, *, use_blockwise=False):
-    """Multi-head latent attention over (B, S, D), the training path of
-    the reference's ``mla_forward``: keys and values expanded from the
-    RMS-normed latent per head, the rope part of the key shared by the
-    heads, causal, scores at ``1/sqrt(dn + dr)``. Returns (out, None)."""
+def _write_latent(cache, ckv, kr, pos):
+    """Write the latent and the roped shared key into the layer's MLA
+    cache in place, cast to its dtype, at ``[pos, pos + S)``; ``pos`` an
+    int, or for one position a row a (B,) tensor."""
+    cc, ckr = cache["ckv"], cache["kr"]
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        idx = (torch.arange(ckv.shape[0], device=ckv.device),
+               pos.to(device=ckv.device, dtype=torch.long))
+        cc.index_put_(idx, ckv[:, 0].to(cc.dtype))
+        ckr.index_put_(idx, kr[:, 0].to(ckr.dtype))
+    else:
+        p, S = int(pos), ckv.shape[1]
+        cc[:, p:p + S] = ckv
+        ckr[:, p:p + S] = kr
+    return {"ckv": cc, "kr": ckr}
+
+
+def mla_absorbed_decode(p, cfg, qn, qr, cache, pos):
+    """One query position per row against the layer's latent cache, the
+    reference's absorbed form: ``qlat = qn . w_uk`` per head, scores
+    ``qlat . ckv + qr . kr`` in f32 times ``1/sqrt(dn + dr)``, keys at
+    positions ``<= pos`` (an int, or a (B,) tensor per row), the softmax
+    cast to the cache's dtype, the latent context ``w . ckv``, then
+    ``w_uv`` and ``wo``. The cache is never expanded to per-head keys and
+    values. qn (B, 1, H, dn), qr (B, 1, H, dr); returns (B, 1, d)."""
+    B, _, H, dn = qn.shape
+    dr, dv, r = cfg.mla_qk_rope, cfg.mla_v_dim, cfg.kv_lora_rank
+    cc, ckr = cache["ckv"], cache["kr"]
+    qlat = torch.einsum("bqhd,rhd->bqhr", qn, p["w_uk"].reshape(r, H, dn))
+    t = _mm_dtype(qlat, cc)
+    s = (torch.einsum("bqhr,bsr->bhqs", qlat.to(t), cc.to(t))
+         + torch.einsum("bqhd,bsd->bhqs", qr.to(t), ckr.to(t))
+         ).to(torch.float32)
+    # the reference's f32 ``1.0 / jnp.sqrt(dn + dr)``
+    s = s * float(np.float32(1.0) / np.sqrt(np.float32(dn + dr)))
+    kpos = torch.arange(cc.shape[1], dtype=torch.int32, device=qn.device)
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        ok = kpos[None, :] <= pos.to(device=qn.device,
+                                     dtype=torch.int32)[:, None]
+    else:
+        ok = (kpos <= int(pos))[None, :]
+    zero = torch.zeros((), dtype=torch.float32, device=qn.device)
+    s = s + torch.where(ok, zero, NEG_INF)[:, None, None, :]
+    w = torch.softmax(s, dim=-1).to(cc.dtype)
+    ctx = torch.einsum("bhqs,bsr->bqhr", w, cc)              # latent context
+    wuv = p["w_uv"].reshape(r, H, dv)
+    t = _mm_dtype(ctx, wuv)
+    o = torch.einsum("bqhr,rhd->bqhd", ctx.to(t), wuv.to(t))
+    o = o.reshape(B, 1, H * dv)
+    return o.to(_mm_dtype(o, p["wo"])) @ p["wo"]
+
+
+def mla_forward(p, cfg, x, positions, *, cache=None, cache_pos=None,
+                use_blockwise=False):
+    """Multi-head latent attention over (B, S, D), the reference's
+    ``mla_forward``: keys and values expanded from the RMS-normed latent
+    per head, the rope part of the key shared by the heads, causal,
+    scores at ``1/sqrt(dn + dr)``. Returns (out, the layer's cache or
+    None).
+
+    ``cache``: the layer's {"ckv": (B, S_max, kv_lora_rank), "kr": (B,
+    S_max, qk_rope)}, the compressed KV, written in place. With S == 1
+    and a ``cache_pos`` a decode step (:func:`mla_absorbed_decode`, the
+    new latent written at ``cache_pos`` first); else a prefill that
+    writes ``[0, S)`` and attends over the expanded keys and values as
+    training does."""
     from repro_torch.models.layers import rms_norm
     B, S, _ = x.shape
     H = cfg.n_heads
@@ -320,6 +381,14 @@ def mla_forward(p, cfg, x, positions, *, use_blockwise=False):
     ckv = rms_norm(ckv, p["kv_norm"])
     qr = R.apply_rope(qr, positions, cfg.rope_theta)
     kr = R.apply_rope(kr[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    new_cache = None
+    if cache is not None:
+        decode = S == 1 and cache_pos is not None
+        new_cache = _write_latent(cache, ckv, kr,
+                                  cache_pos if decode else 0)
+        if decode:
+            return mla_absorbed_decode(p, cfg, qn, qr, new_cache,
+                                       cache_pos), new_cache
     kn = torch.einsum("bsr,rhd->bshd", ckv, p["w_uk"].reshape(r, H, dn))
     v = torch.einsum("bsr,rhd->bshd", ckv, p["w_uv"].reshape(r, H, dv))
     k = torch.cat([kn, kr[:, :, None, :].expand(B, S, H, dr)], dim=-1)
@@ -329,4 +398,4 @@ def mla_forward(p, cfg, x, positions, *, use_blockwise=False):
         o = blockwise_attn(qfull, k, v, pos, pos, "causal")
     else:
         o = dot_attn(qfull, k, v, _mask_bias(pos, pos, "causal"))
-    return o.reshape(B, S, H * dv) @ p["wo"], None
+    return o.reshape(B, S, H * dv) @ p["wo"], new_cache

@@ -12,6 +12,7 @@ comm view from them, exactly as the reference does.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import zlib
 from concurrent.futures import ThreadPoolExecutor
@@ -40,23 +41,72 @@ def _map(tmpl, fn, prefix=()):
     return fn(prefix, tmpl)
 
 
-def init_params(template, seed: int, device=None, dtype=torch.float32):
+# elements a chunk of an expert-parallel block's draw (a multiple of 16)
+_BLOCK_CHUNK = 1 << 24
+
+
+def _seed(seed: int, path) -> int:
+    return ((seed * 1_000_003 + zlib.crc32("/".join(path).encode()))
+            & 0x7FFFFFFFFFFF)
+
+
+def _draw_block(pd: PD, g, n: int, i: int, device, dtype):
+    """Block ``i`` of ``n`` along ``pd.ep_axis`` of ``torch.randn(pd.shape,
+    generator=g) * pd.scale``, drawn in chunks of _BLOCK_CHUNK elements
+    and copied out piece by piece, so the host never holds the whole
+    leaf. The values are the whole draw's: the CPU's normal fill draws
+    one uniform an element in order and transforms them 16 at a time
+    (its tail of under 16 from 16 more uniforms), so chunks that start at
+    multiples of 16, the last one at least 16 long, give the same
+    numbers. The draw stops after the block's last element."""
+    a = pd.ep_axis
+    inner = math.prod(pd.shape[a + 1:])
+    row = pd.shape[a] * inner                 # one index of the dims before
+    width = row // n                          # the block's part of a row
+    lo = i * width
+    total = math.prod(pd.shape)
+    stop = total - row + lo + width           # after the last row's block
+    out = torch.empty(total // n, device=device, dtype=dtype)
+    pos = 0
+    while pos < stop:
+        end = min(pos + _BLOCK_CHUNK, total)
+        if 0 < total - end < 16:
+            end = total
+        x = torch.randn(end - pos, generator=g).mul_(pd.scale)
+        for r in range(pos // row, (end - 1) // row + 1):
+            a0, a1 = max(pos, r * row + lo), min(end, r * row + lo + width)
+            if a0 < a1:
+                dst = r * width + a0 - r * row - lo
+                out[dst:dst + a1 - a0].copy_(x[a0 - pos:a1 - pos])
+        pos = end
+    shape = list(pd.shape)
+    shape[a] //= n
+    return out.view(shape)
+
+
+def init_params(template, seed: int, device=None, dtype=torch.float32,
+                ep_block=None):
     """Materialize a template. Each leaf draws from its own CPU generator
     seeded from ``seed`` and its path, so the values do not depend on the
     device or on the order of leaves. (The reference draws from jax's
     threefry; its values come across through ``repro_torch.interop``.)
     A generator fills its tensor on one core, so the leaves are drawn on
-    a pool of threads, one leaf a thread."""
+    a pool of threads, one leaf a thread. ``ep_block=(n, i)``: each
+    expert-parallel leaf keeps only block ``i`` of ``n`` along its
+    ``ep_axis`` (a process's experts), with the values of the whole
+    draw (:func:`_draw_block`)."""
     def make(path, pd: PD):
-        if pd.init == "zeros":
-            x = torch.zeros(pd.shape)
-        elif pd.init == "ones":
-            x = torch.ones(pd.shape)
+        cut = ep_block is not None and pd.ep_axis is not None
+        if pd.init in ("zeros", "ones"):
+            shape = list(pd.shape)
+            if cut:
+                shape[pd.ep_axis] //= ep_block[0]
+            x = (torch.zeros if pd.init == "zeros" else torch.ones)(shape)
         else:
-            g = torch.Generator().manual_seed(
-                (seed * 1_000_003 + zlib.crc32("/".join(path).encode()))
-                & 0x7FFFFFFFFFFF)
-            x = torch.randn(pd.shape, generator=g) * pd.scale
+            g = torch.Generator().manual_seed(_seed(seed, path))
+            if cut:
+                return _draw_block(pd, g, *ep_block, device, dtype)
+            x = torch.randn(pd.shape, generator=g).mul_(pd.scale)
         return x.to(device=device, dtype=dtype)
 
     leaves = []
@@ -69,6 +119,18 @@ def init_params(template, seed: int, device=None, dtype=torch.float32):
 
 def param_shapes(template):
     return _map(template, lambda _, pd: tuple(pd.shape))
+
+
+def local_shapes(template, ep_degree: int):
+    """Each leaf's shape on one worker of an expert-parallel degree of
+    ``ep_degree``: an expert-parallel leaf holds ``E / ep_degree``
+    experts along its ``ep_axis``, every other leaf its whole shape."""
+    def f(_, pd: PD):
+        sh = list(pd.shape)
+        if pd.ep_axis is not None:
+            sh[pd.ep_axis] //= ep_degree
+        return tuple(sh)
+    return _map(template, f)
 
 
 def param_specs(template):

@@ -30,6 +30,11 @@ Three regimes, one code path:
   the reverse exchange through the same comm (so a recording comm logs
   both directions of both passes).
 
+Serving routes a decode batch either over the whole batch (the
+reference's engine) or, with ``groups``, each slot's token alone (the
+reference's Scheduler, whose ``vmap`` decodes one slot at a time): one
+batched pass either way.
+
 The router's top-k follows ``jax.lax.top_k``'s order on ties
 (``codecs.top_k_indices``); the combine sums each token's ``top_k``
 weighted expert outputs with ``index_add_``, whose order may differ from
@@ -103,14 +108,31 @@ class _EPExchange(torch.autograd.Function):
         return ctx.comm.ep_all_to_all(g.contiguous()), None
 
 
-def moe_forward(p, x, *, top_k, n_experts, capacity_factor, comm=None):
+def moe_forward(p, x, *, top_k, n_experts, capacity_factor, comm=None,
+                groups=1):
     """x (B, S, d) -> (out (B, S, d), {"aux_loss", "dropped_frac"}).
     ``comm``: the expert-parallel comm of a process (None: every expert
-    in ``p`` is local)."""
+    in ``p`` is local).
+
+    ``groups``: the rows split into that many routing groups of ``B /
+    groups`` rows each (``groups=B``: a row each), each routed as if
+    alone, as the reference's Scheduler routes each slot inside its
+    ``vmap``: its own capacity ``max(1, ceil(capacity_factor * T_g *
+    top_k / E))`` over its ``T_g`` tokens, its own dispatch order and
+    its own part of every expert's buffer, all in one batched pass (the
+    experts' rows laid out (E, groups * C_g, d)). The aux loss is then
+    the mean of the groups' own. Only with ``comm=None``."""
     B, S, d = x.shape
     T = B * S
     xf = x.reshape(T, d)
     n = comm.size() if comm is not None else 1
+    G = groups
+    if B % G:
+        raise ValueError(f"{B} rows do not split into {G} routing groups")
+    if G > 1 and comm is not None:
+        raise ValueError("routing groups are a single-process decode's "
+                         "(comm=None)")
+    Tg = T // G
 
     logits = (xf @ p["router"]).to(torch.float32)            # (T, E)
     gates_full = torch.softmax(logits, dim=-1)
@@ -118,28 +140,32 @@ def moe_forward(p, x, *, top_k, n_experts, capacity_factor, comm=None):
     topv = gates_full.gather(1, topi)
     topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
 
-    # load-balance aux loss (Switch): E * sum_e f_e * p_e
-    me = gates_full.mean(dim=0)
-    ce = torch.zeros((n_experts,), dtype=torch.float32,
+    # load-balance aux loss (Switch): E * sum_e f_e * p_e, per group
+    me = gates_full.view(G, Tg, n_experts).mean(dim=1)        # (G, E)
+    gid = torch.arange(G, device=x.device).repeat_interleave(Tg * top_k)
+    ce = torch.zeros((G * n_experts,), dtype=torch.float32,
                      device=x.device).index_add_(
-        0, topi.reshape(-1), torch.full((T * top_k,), 1.0 / (T * top_k),
-                                        dtype=torch.float32,
-                                        device=x.device))
-    aux_loss = n_experts * torch.sum(me * ce)
+        0, gid * n_experts + topi.reshape(-1),
+        torch.full((T * top_k,), 1.0 / (Tg * top_k), dtype=torch.float32,
+                   device=x.device)).view(G, n_experts)
+    aux_loss = (n_experts * torch.sum(me * ce, dim=1)).mean()
 
-    capacity = int(max(1, -(-int(capacity_factor * T * top_k)
+    capacity = int(max(1, -(-int(capacity_factor * Tg * top_k)
                             // n_experts)))
     eids = topi.reshape(-1)                                   # (T*k,)
     gvals = topv.reshape(-1)
-    slot = _dispatch_indices(eids, n_experts, capacity)
+    # a group's run of an expert id is its run of (group, expert)
+    slot = _dispatch_indices(gid * n_experts + eids, G * n_experts,
+                             capacity)
     keep = slot < capacity
     # dropped assignments go to a spare slot past the capacity, cut off
     drop_slot = torch.where(keep, slot, capacity).to(torch.int64)
     tok_idx = torch.arange(T, device=x.device).repeat_interleave(top_k)
-    flat = eids * (capacity + 1) + drop_slot
-    buf = torch.zeros((n_experts * (capacity + 1), d), dtype=x.dtype,
+    flat = (eids * G + gid) * (capacity + 1) + drop_slot
+    buf = torch.zeros((n_experts * G * (capacity + 1), d), dtype=x.dtype,
                       device=x.device).index_put((flat,), xf[tok_idx])
-    buf = buf.view(n_experts, capacity + 1, d)[:, :capacity]
+    buf = buf.view(n_experts, G, capacity + 1, d)[:, :, :capacity].reshape(
+        n_experts, G * capacity, d)
 
     if n > 1:
         # (E, C, d) -> (n, E_local, C, d) -> exchange -> (E_local, n*C, d)
@@ -163,7 +189,7 @@ def moe_forward(p, x, *, top_k, n_experts, capacity_factor, comm=None):
 
     # combine: each assignment's expert output, weighted, summed per token
     safe_slot = torch.clamp(drop_slot, max=capacity - 1)
-    y = outbuf[eids, safe_slot]                               # (T*k, d)
+    y = outbuf.view(n_experts * G, capacity, d)[eids * G + gid, safe_slot]
     y = y * (gvals * keep.to(gvals.dtype))[:, None].to(y.dtype)
     out = torch.zeros((T, d), dtype=y.dtype, device=x.device).index_add(
         0, tok_idx, y)

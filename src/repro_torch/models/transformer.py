@@ -15,8 +15,9 @@ the encoder-decoder (whisper: the encoder and cross-attention).
                                               aux, metrics)
     encode(params, cfg, frames)           -> the encoder's output
     init_cache(cfg, batch, max_seq)       -> zeroed KV cache
-    prefill(params, cfg, batch, cache)    -> (last logits, cache)
-    decode(params, cfg, tokens, cache, pos, enc_out) -> (logits, cache)
+    prefill(params, cfg, batch, cache, comm) -> (last logits, cache)
+    decode(params, cfg, tokens, cache, pos, enc_out, comm, groups)
+                                          -> (logits, cache)
 
 At S >= ``cfg.blockwise_threshold`` attention takes the flash-style
 ``attention.blockwise_attn``, as in the reference. With ``cfg.remat``
@@ -28,8 +29,11 @@ cache in place and run without autograd. With ``cfg.window_cache``
 ``sliding_window`` slots, the global layers a compact stack; ``decode``
 runs through it as the reference's ``_decoder_scan_window_decode``, and
 ``prefill`` fills it too (the reference's prefill cannot take the split
-cache: its layer scan refuses stacks of unequal length). MoE and MLA
-serving raise ``NotImplementedError`` (ROADMAP item 4).
+cache: its layer scan refuses stacks of unequal length). MLA keeps the
+compressed KV (the latent and the rope key, 576 values a token and
+layer at deepseek-v2's widths) and decodes in the absorbed form;
+``decode(groups=B)`` routes each row's token alone through the MoE
+layers, as the reference's Scheduler does.
 
 The vlm (qwen2-vl) takes the batch's ``vision_embeds`` (B, N, d), which
 replace the first N rows of the token embeddings (so ``embed`` gets its
@@ -236,14 +240,17 @@ def _layer_flags(cfg: ModelConfig):
 
 
 def _layer(lp, cfg: ModelConfig, h, positions, kind, window, cache=None,
-           cache_pos=None, use_blockwise=False, comm=None, cross_kv=None):
+           cache_pos=None, use_blockwise=False, comm=None, cross_kv=None,
+           groups=1):
     """One pre-norm block: attention of ``kind`` (or MLA); with
     ``cross_kv`` (this layer's cross keys and values) the cross-attention
     step over ``lp["cross_norm"]`` / ``lp["cross_attn"]``; then the MLP or
-    the MoE layer. Returns (h, the MoE layer's metrics or None)."""
+    the MoE layer (its tokens routed in ``groups`` groups of rows).
+    Returns (h, the MoE layer's metrics or None)."""
     hn = apply_norm(lp["attn_norm"], h, cfg.norm_type)
     if cfg.attn_type == "mla":
-        ao, _ = A.mla_forward(lp["attn"], cfg, hn, positions,
+        ao, _ = A.mla_forward(lp["attn"], cfg, hn, positions, cache=cache,
+                              cache_pos=cache_pos,
                               use_blockwise=use_blockwise)
     else:
         ao, _ = A.gqa_forward(lp["attn"], cfg, hn, positions, kind=kind,
@@ -261,15 +268,18 @@ def _layer(lp, cfg: ModelConfig, h, positions, kind, window, cache=None,
         mo, met = MOE.moe_forward(lp["moe"], hm, top_k=cfg.top_k,
                                   n_experts=cfg.n_experts,
                                   capacity_factor=cfg.capacity_factor,
-                                  comm=comm)
+                                  comm=comm, groups=groups)
         return h + mo, met
     return h + apply_mlp(lp["mlp"], hm, cfg.mlp_type), None
 
 
 def _layer_caches(cfg: ModelConfig, cache):
-    """Each layer's slice of ``cache`` (views, written in place): of the
-    dense stack, or with the split window cache a sliding layer's ring
-    and a global layer's slot of the compact stack, in layer order."""
+    """Each layer's slice of ``cache`` (views, written in place), in
+    layer order: of the dense or MLA stack by the global layer number (a
+    dense prefix takes the first ``first_k_dense`` slots, as the
+    reference splits the stack and concatenates it back), or with the
+    split window cache a sliding layer's ring and a global layer's slot
+    of the compact stack."""
     if cache is None:
         return [None] * cfg.n_layers
     if "local" not in cache:
@@ -299,14 +309,15 @@ def _cross_kv(params, cfg: ModelConfig, enc_out):
 
 def _blocks(params, cfg: ModelConfig, h, positions, cache=None,
             cache_pos=None, use_blockwise=False, comm=None, moe_stats=None,
-            enc_out=None):
+            enc_out=None, groups=1):
     """The decoder (or encoder) blocks, layer by layer: the dense prefix,
     then ``blocks``; layer ``l`` reads and writes its cache in place
     (:func:`_layer_caches`). With ``enc_out`` (whisper) each layer of
     ``blocks`` runs its cross-attention step (:func:`_cross_kv`). Under
     ``cfg.remat``, with gradients recorded, each layer is checkpointed.
     Returns (h, the summed MoE aux loss); each MoE layer's metrics are
-    appended to ``moe_stats``."""
+    appended to ``moe_stats``, its tokens routed in ``groups`` groups of
+    rows (:func:`~repro_torch.models.moe.moe_forward`)."""
     base = "causal" if cfg.causal else "bidir"
     remat = cfg.remat and torch.is_grad_enabled()
     caches = _layer_caches(cfg, cache)
@@ -334,7 +345,7 @@ def _blocks(params, cfg: ModelConfig, h, positions, cache=None,
             else:
                 h, met = _layer(lp, cfg, h, positions, kind, window,
                                 caches[l], cache_pos, use_blockwise, comm,
-                                ckv)
+                                ckv, groups)
             if met is not None:
                 auxes.append(met["aux_loss"])
                 if moe_stats is not None:
@@ -441,7 +452,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     layers' rings of "local" are used, as in the reference. The
     state-space family: {"ssm": each layer's state stacked, in f32 (not
     ``dtype``)}, and for the hybrid {"shared": {"k", "v"} (n_attn_apps,
-    B, max_seq, K, hd)}."""
+    B, max_seq, K, hd)}. Multi-head latent attention: the compressed KV,
+    {"ckv": (L, B, max_seq, kv_lora_rank), "kr": (L, B, max_seq,
+    qk_rope)}; a dense prefix takes the first slots of either stack."""
     if cfg.family in ("ssm", "hybrid"):
         one = SSM.init_ssm_state(cfg, batch, torch.float32, device)
         cache = {"ssm": {k: torch.zeros((cfg.n_layers, *x.shape),
@@ -453,10 +466,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                                 cfg.hd), dtype=dtype, device=device)
                 for k in ("k", "v")}
         return cache
-    if cfg.n_experts or cfg.attn_type == "mla":
-        raise NotImplementedError(
-            f"{cfg.name}: MoE and MLA serving (the latent cache, the "
-            f"absorbed decode) is not ported yet (ROADMAP item 4)")
+    if cfg.attn_type == "mla":
+        return {k: torch.zeros((cfg.n_layers, batch, max_seq, w),
+                               dtype=dtype, device=device)
+                for k, w in (("ckv", cfg.kv_lora_rank),
+                             ("kr", cfg.mla_qk_rope))}
 
     def kv(*shape):
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -469,14 +483,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 @torch.no_grad()
-def prefill(params, cfg: ModelConfig, batch, cache):
+def prefill(params, cfg: ModelConfig, batch, cache, comm=None):
     """Process the prompts (B, S), write their keys and values into
-    ``cache[..., :S]`` in place (a ring keeps the last ``window``; the
-    state-space family: each layer's final state, from the cached ``h``,
-    and its last conv inputs); returns (logits of the last position (B,
-    1, padded_vocab), cache). The vlm reads the batch's
-    ``vision_embeds`` if it has them; the encoder-decoder its ``enc_out``,
-    or else encodes its ``frames``."""
+    ``cache[..., :S]`` in place (a ring keeps the last ``window``; MLA
+    its latent and rope key; the state-space family: each layer's final
+    state, from the cached ``h``, and its last conv inputs); returns
+    (logits of the last position (B, 1, padded_vocab), cache). The vlm
+    reads the batch's ``vision_embeds`` if it has them; the
+    encoder-decoder its ``enc_out``, or else encodes its ``frames``.
+    ``comm``: a process's expert-parallel comm (see ``forward``)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     h = _embed(params, cfg, tokens, 0, batch.get("vision_embeds"))
@@ -490,18 +505,24 @@ def prefill(params, cfg: ModelConfig, batch, cache):
         if cfg.enc_layers and enc_out is None:
             enc_out = encode(params, cfg, batch["frames"])
         h, _ = _blocks(params, cfg, h, positions, cache=cache, cache_pos=0,
-                       use_blockwise=use_bw, enc_out=enc_out)
+                       use_blockwise=use_bw, comm=comm, enc_out=enc_out)
     return _logits(params, cfg, h[:, -1:]), cache
 
 
 @torch.no_grad()
-def decode(params, cfg: ModelConfig, tokens, cache, pos, enc_out=None):
+def decode(params, cfg: ModelConfig, tokens, cache, pos, enc_out=None,
+           comm=None, groups=1, moe_stats=None):
     """One decode step: tokens (B, 1) at position ``pos`` (an int, or a
     (B,) tensor with each row's own position); writes their keys and
-    values into the cache in place. ``enc_out``: the encoder-decoder's
-    encoder output (B, S_enc, d), from which every layer's cross keys and
-    values are computed again. Returns (logits (B, 1, padded_vocab),
-    cache)."""
+    values (MLA: its latent, then the absorbed decode) into the cache in
+    place. ``enc_out``: the encoder-decoder's encoder output (B, S_enc,
+    d), from which every layer's cross keys and values are computed
+    again. ``comm``: a process's expert-parallel comm; ``groups``: the
+    MoE layers route the rows in that many groups (``groups=B``: each row
+    alone, as the reference's Scheduler decodes each slot inside its
+    ``vmap``; 1: over the whole batch, as its ``decode``); ``moe_stats``
+    collects each MoE layer's metrics. Returns (logits (B, 1,
+    padded_vocab), cache)."""
     B = tokens.shape[0]
     h = _embed(params, cfg, tokens, pos)
     positions = _positions(cfg, B, 1, offset=pos, device=tokens.device)
@@ -510,7 +531,8 @@ def decode(params, cfg: ModelConfig, tokens, cache, pos, enc_out=None):
                       decode=True)
     else:
         h, _ = _blocks(params, cfg, h, positions, cache=cache, cache_pos=pos,
-                       enc_out=enc_out)
+                       comm=comm, moe_stats=moe_stats, enc_out=enc_out,
+                       groups=groups)
     return _logits(params, cfg, h), cache
 
 

@@ -7,7 +7,11 @@ in pending weights, admits queued requests into free slots
 with per-slot positions, and evicts slots whose requests completed. The
 reference gets per-slot positions by ``vmap`` over ``decode``; here one
 batched ``decode`` takes a (slots,) position tensor, each row written
-and masked at its own position.
+and masked at its own position. Inside the reference's ``vmap`` a MoE
+layer routes each slot's one token alone (its own expert capacity,
+``max(1, ceil(cf * top_k / E))``); the port's batched decode routes the
+slots as as many groups (``decode(groups=slots)``), so no slot's token
+is dropped for another's, and the tokens are the reference's.
 
 Weight refresh: a :class:`~repro_torch.serve.publish.Subscriber` with a
 pending update is applied at the tick boundary, never mid-decode.
@@ -23,7 +27,8 @@ positions of a slot is quantized in place exactly once, when it fills
 (max-abs scale per page, qint8 codes by the wire codec's hash-dither
 stochastic rounding), so the storage error stays within one step. It
 applies to the seq-indexed cache leaves (``shape[2] == max_seq``), as in
-the reference: the split window cache's rings stay full precision.
+the reference: MLA's latent ``ckv`` and rope key ``kr`` are paged, the
+split window cache's rings stay full precision.
 
 Caches are nested dicts ({"k", "v"}, gemma3's split window cache
 {"local": ..., "global": ...}, or the state-space family's {"ssm": ...,
@@ -153,6 +158,8 @@ class Scheduler:
             "weight_swaps": 0, "pages_quantized": 0}
         self._prefill = server.prefill_fn()
         self._decode = server.decode_fn()
+        # a list here collects each decode tick's MoE layers' metrics
+        self.moe_stats: Optional[List[Dict]] = None
 
     # ------------------------------------------------------------------ #
     def _prefill_one(self, params, tokens, slot: int) -> int:
@@ -168,9 +175,12 @@ class Scheduler:
         return int(torch.argmax(logits[0, -1, :self.cfg.vocab]))
 
     def _decode_tick(self, params, tokens, pos):
-        """One batched decode of every slot, each at its own position;
-        returns the greedy tokens (slots,) on the host."""
-        logits, _ = self._decode(params, self.cache, tokens[:, None], pos)
+        """One batched decode of every slot, each at its own position and
+        (a MoE model) routed alone; returns the greedy tokens (slots,) on
+        the host."""
+        logits, _ = self._decode(params, self.cache, tokens[:, None], pos,
+                                 groups=self.n_slots,
+                                 moe_stats=self.moe_stats)
         return torch.argmax(logits[:, 0, :self.cfg.vocab], dim=-1).cpu()
 
     # ------------------------------------------------------------------ #

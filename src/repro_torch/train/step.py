@@ -60,7 +60,7 @@ from repro_torch.core.leafwise import flatten_tree, unflatten_tree
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (dp_mask, ep_axes, init_params,
-                                       param_shapes, param_specs)
+                                       local_shapes, param_specs)
 
 
 def resolve_device(device) -> torch.device:
@@ -205,16 +205,11 @@ class Trainer:
                 f"worker")
         self.template = T.model_template(model_cfg,
                                          ep_workers=self.ep_degree)
-        paths, axes = flatten_tree(ep_axes(self.template))
+        _, axes = flatten_tree(ep_axes(self.template))
         self.ep_leaf_axes = {i: a for i, a in enumerate(axes)
                              if a is not None}
         # each worker's shapes: EP leaves hold E / ep_degree experts
-        _, shapes = flatten_tree(param_shapes(self.template))
-        for i, a in self.ep_leaf_axes.items():
-            sh = list(shapes[i])
-            sh[a] //= self.ep_degree
-            shapes[i] = tuple(sh)
-        self.local_shapes = unflatten_tree(paths, shapes)
+        self.local_shapes = local_shapes(self.template, self.ep_degree)
         self.moe_metrics: Dict[str, float] = {}
         self.opt = opt_api.build_optimizer(
             opt_cfg, self.local_shapes, specs=param_specs(self.template),

@@ -1491,3 +1491,105 @@ def test_cuda_vlm_encdec_decode_matches_cpu(arch):
     assert float((a - b).abs().max()) <= 1e-4
     assert torch.equal(a[..., :cfg.vocab].argmax(-1),
                        b[..., :cfg.vocab].argmax(-1))
+
+
+# --------------------------------------------------------------------- #
+# MoE and MLA serving
+# --------------------------------------------------------------------- #
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_mla_absorbed_decode_matches_cpu(dtype):
+    """deepseek-smoke's MLA layer on the card: a prefill of 11 positions
+    into the latent cache, then 6 absorbed decode steps with per-row
+    positions, against the CPU's: outputs within 1e-4 (f32 cache; in
+    bf16 two bf16 ulp of the largest output: the softmax weights and the
+    latent context are rounded to bf16) and the caches within 1e-5 (f32;
+    one bf16 ulp of the largest value)."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import rope as R
+
+    dev = _card()
+    cfg = get("deepseek-v2-236b").smoke
+    params = L.init_params(A.mla_template(
+        cfg.d_model, cfg.n_heads, cfg.kv_lora_rank, cfg.mla_qk_nope,
+        cfg.mla_qk_rope, cfg.mla_v_dim), 0)
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (2, 17, cfg.d_model)).astype(np.float32))
+
+    def run(d):
+        p = _to(params, d)
+        cache = {"ckv": torch.zeros(2, 24, cfg.kv_lora_rank, dtype=dtype,
+                                    device=d),
+                 "kr": torch.zeros(2, 24, cfg.mla_qk_rope, dtype=dtype,
+                                   device=d)}
+        out, _ = A.mla_forward(p, cfg, x[:, :11].to(d),
+                               R.text_positions(2, 11, device=d),
+                               cache=cache, cache_pos=0)
+        outs = [out.float().cpu()]
+        pos = torch.tensor([11, 7], device=d)
+        for i in range(6):
+            out, _ = A.mla_forward(p, cfg, x[:, 11 + i:12 + i].to(d),
+                                   R.text_positions(2, 1, pos + i, d),
+                                   cache=cache, cache_pos=pos + i)
+            outs.append(out.float().cpu())
+        return torch.cat(outs, 1), {k: v.float().cpu()
+                                    for k, v in cache.items()}
+
+    (a, ca), (b, cb) = run(dev), run(torch.device("cpu"))
+    bf16 = dtype == torch.bfloat16
+    assert float((a - b).abs().max()) <= (
+        float(b.abs().max()) * 2 ** -6 if bf16 else 1e-4)
+    for k in ca:
+        tol = 1e-5 if not bf16 else float(cb[k].abs().max()) * 2 ** -7
+        assert float((ca[k] - cb[k]).abs().max()) <= tol, k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e",
+                                  "deepseek-v2-236b"])
+def test_cuda_routing_groups_match_cpu(arch):
+    """The smoke model's MoE layer on 8 rows of one token, routed a row a
+    group (``groups=8``) and over the whole batch, on the card against
+    the CPU: outputs within 1e-5, the dropped fractions equal (the same
+    prompt in every row: llama4's batch-wide capacity drops half,
+    per-row none); then 4 Scheduler-style decodes of the whole model at
+    per-row positions and ``groups=8``, logits within 1e-4 and greedy
+    tokens equal."""
+    from repro_torch.models import moe as MOE
+
+    dev = _card()
+    cfg = get(arch).smoke
+    params = L.init_params(T.model_template(cfg), 0)
+    layer = {k: v[0] for k, v in params["blocks"]["moe"].items()}
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (1, 1, cfg.d_model)).astype(np.float32)).expand(8, 1, -1)
+    kw = dict(top_k=cfg.top_k, n_experts=cfg.n_experts,
+              capacity_factor=cfg.capacity_factor)
+    for groups in (1, 8):
+        a, ma = MOE.moe_forward(_to(layer, dev), x.to(dev), groups=groups,
+                                **kw)
+        b, mb = MOE.moe_forward(layer, x, groups=groups, **kw)
+        assert float((a.cpu() - b).abs().max()) <= 1e-5, groups
+        assert float(ma["dropped_frac"]) == float(mb["dropped_frac"])
+        if groups == 8:
+            assert float(mb["dropped_frac"]) == 0.0
+    prompt = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (8, 9)))
+
+    def run(d):
+        p = _to(params, d)
+        cache = T.init_cache(cfg, 8, 16, torch.float32, d)
+        logits, _ = T.prefill(p, cfg, {"tokens": prompt.to(d)}, cache)
+        pos = torch.full((8,), 9, device=d)
+        out = []
+        for i in range(4):
+            tok = logits[:, -1, :cfg.vocab].argmax(-1)[:, None]
+            logits, _ = T.decode(p, cfg, tok, cache, pos + i, groups=8)
+            out.append(logits.cpu())
+        return torch.cat(out, 1)
+
+    a, b = run(dev), run(torch.device("cpu"))
+    assert float((a - b).abs().max()) <= 1e-4
+    assert torch.equal(a[..., :cfg.vocab].argmax(-1),
+                       b[..., :cfg.vocab].argmax(-1))

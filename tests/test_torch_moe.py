@@ -273,10 +273,17 @@ def test_forward_logits_and_loss_match_reference(arch):
     assert abs(float(gm["nll"]) - float(wm["nll"])) <= 1e-5
 
 
-def test_moe_and_mla_serving_is_refused():
+@pytest.mark.parametrize("how", ["comm", "mesh"])
+def test_dense_server_across_devices_is_refused(how):
+    """A dense model's Server given a comm or a mesh needs tensor
+    parallelism (ROADMAP item 3); MoE and MLA serve (their caches exist)."""
+    from repro_torch.serve import Server
+
+    kw = {"comm": SimComm(2)} if how == "comm" else {"mesh": object()}
+    with pytest.raises(NotImplementedError, match="ROADMAP queue item 3"):
+        Server(port_get("gpt2").smoke, device="cpu", **kw)
     for arch in ARCHS:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-            TT.init_cache(port_get(arch).smoke, 1, 16)
+        assert TT.init_cache(port_get(arch).smoke, 1, 16)
 
 
 def test_ep_exchange_of_one_worker():

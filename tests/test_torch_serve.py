@@ -420,7 +420,7 @@ def test_scheduler_rejects_as_reference(gpt2, case):
 
 def test_server_entry_points(gpt2):
     """The abstract trees match the reference's leaf for leaf; a mesh is
-    refused, naming the queue items it waits for."""
+    refused, naming the queue item it waits for."""
     rc, pc, _, _ = gpt2
     rsrv = RefServer(rc, batch=2, max_seq=32)
     srv = Server(pc, batch=2, max_seq=32, device="cpu")
@@ -434,7 +434,7 @@ def test_server_entry_points(gpt2):
     for k in rcache:
         assert tuple(tcache[k].shape) == rcache[k].shape
         assert str(tcache[k].dtype) == f"torch.{rcache[k].dtype}"
-    with pytest.raises(NotImplementedError, match="items 3 and 4"):
+    with pytest.raises(NotImplementedError, match="queue item 3"):
         Server(pc, mesh=object(), device="cpu")
 
 
