@@ -9,18 +9,19 @@
     python3 chip_smoke.py --only ssm
     python3 chip_smoke.py --only vlm_encdec
     python3 chip_smoke.py --only moe_serve    (13d on four cards only)
+    python3 chip_smoke.py --only precision
 
 Needs one card; on a machine with up to four, phase 6b puts one rank on
 each, and on four phase 6c runs its 2 pods x 2 ranks over NCCL and phase
 6d trains bert-large FULL in four ranks. ``--only`` runs, after the
-build, just the named checks of phases 4n, 5, 6, 7, 8, 9, 10 and 13 (the
+build, just the named checks of phases 4n, 5, 6, 7, 8, 9, 10, 13 and 14 (the
 second line: the four-card paths, on four cards; the third: phase 7;
 the fourth: phase 8; the fifth: 3e, phase 5's rotary-family checks and
 phase 9, 9d on four cards only; the sixth: 3f and phase 10; the
 seventh: 3g, phase 5's state-space checks and phase 11; the eighth: 3h,
 phase 5's vlm and encoder-decoder checks and phase 12; the ninth: phase
-5's MoE serving checks and phase 13) and prints no kernels or result
-line.
+5's MoE serving checks and phase 13; the tenth: 3i and phase 14) and
+prints no kernels or result line.
 
 1. Prints the card (nvidia-smi name and power limit) and torch/CUDA.
 2. Builds the port's CUDA kernels from src/repro_torch/kernels/csrc with
@@ -82,6 +83,15 @@ line.
    width, 8 + 8 layers, 2 stacked workers: the (32768, 1280) position
    table and the always-zero (8, 1280) cross biases among its frames),
    with ``dispatch.frame_precheck`` on every unit of both FULL configs.
+   3i: production precision: the kernels that read or write optimizer
+   state at bf16 operands (kernel 1 with a bf16 gradient, m, u and v,
+   u' into bf16 and, as a sync step takes it, into f32; abs_rowsum and
+   ef_quantize with a bf16 err and err_out) at every gpt2-FULL frame,
+   worker and server side, and the SGD kernel and ef_compress at the
+   BERT-Base FULL frames, 4 workers stacked: bf16 outputs and packed
+   bytes bit for bit the plain versions', sums within 64 ulp, the Adam
+   delta within 2 ulp; call and batched times against the byte bound
+   at bf16, reported under each kernel's "production_precision".
 4. Drives the main paths, each through the trainer and CLI config a
    user would call, 4 simulated data-parallel workers, 8 steps (0/1
    Adam and 0/1-SGD: syncs at 0-4 and 6; variance at 0, 1, 3 where the
@@ -130,7 +140,7 @@ line.
    sync and in a variance round, per level, equal to ``comm_accounting``'s
    as the audit's docstring reconciles them, and printed beside them; no
    float64); a violation raises.
-   i. A checkpoint round trip, gpt2 FULL width at 2 of its 12 layers
+   i. A checkpoint round trip, gpt2 FULL width at 1 of its 12 layers
       (``FILE_LAYERS``) in ``--mode single`` at batch 4 x 1024 with
       (a)'s flags, per leaf and at ``--bucket-mb 25``: 4
       steps and ``--save`` into a temporary directory, ``Trainer.restore``
@@ -149,7 +159,7 @@ line.
       each reshard's ms; (iii) 3 steps of (d) and of (g), then a reshard
       at m = n, bit for bit the identity, and BENCH_elastic.json's
       ``hier_4to2_podkill`` / ``bucketed_4to2_kill1`` (its geometry, the
-      mass conserved); (iv) 4 steps at 2 workers (batch 8 x 1024, 2 of
+      mass conserved); (iv) 4 steps at 2 workers (batch 8 x 1024, 1 of
       the 12 layers: ``FILE_LAYERS``) with
       ``--save`` under build/, ``restore_resharded`` into 4 workers bit
       for bit ``reshard_trainer`` of the in-memory state, 4 more steps;
@@ -182,14 +192,14 @@ line.
    rank's start-up is paid once per group:
    a. four ranks on this one card over gloo (asked for explicitly; the
       exchange goes through host memory), micro-batches 2, gpt2 FULL
-      width at 2 of its 12 layers (``DIST_LAYERS``: the script's time
+      width at 1 of its 12 layers (``DIST_LAYERS``: the script's time
       limit), against a sim run of the same settings in this process;
       then the same under
       ``one_bit_adam``, ``zero_one_lamb``, ``--codec qint8`` (int8
       payloads through gloo with CUDA tensors), and with
       ``--bucket-mb 25``;
    b. NCCL, one rank per card, on min(device count, 4) cards: on one
-      card a world of one at batch 4 x 1024, 2 of the 12 layers
+      card a world of one at batch 4 x 1024, 1 of the 12 layers
       (``DIST_LAYERS``), against ``--mode single``,
       on four the 4-rank run without micro-batches against a sim run;
       under zero_one_adam, ``adam``, ``one_bit_adam`` and
@@ -319,9 +329,10 @@ line.
    b. zamba2-1.2b at full depth (38 layers, the shared block applied 6
       times), ``--mode single``, batch 4;
    c. both FULL configs at full width from the port's seeded init,
-      mamba2 at 8 of its 64 layers and zamba2 at 6 of its 38 (the
+      mamba2 at 4 of its 64 layers and zamba2 at 6 of its 38 (the
       shared block applied once; ``SERVE_LAYERS``: full depth until
-      phase 13 joined the script's time limit), served through the
+      phase 13 joined the script's time limit, cut again as phase 14
+      did), served through the
       Scheduler: 4 slots, 8 requests of 1024, 1536 or 2048 prompt tokens
       + 64 new ones, f32 cache; decode ms a tick, prefill ms, peak
       memory, and 2 requests against a lone run (7a's check).
@@ -341,7 +352,7 @@ line.
       decoder layers), 2 simulated workers, batch 4 x 1024 decoder
       tokens and 1500 zero frames a row;
    c. both FULL configs at full width from the port's seeded init
-      (qwen2-vl at 8 of its 28 layers, whisper at 4 + 4 of its 32 + 32:
+      (qwen2-vl at 4 of its 28 layers, whisper at 2 + 2 of its 32 + 32:
       ``SERVE_LAYERS``), f32 cache: qwen2-vl through the Scheduler as
       11c (tokens only), and both through
       ``Server.prefill_fn``/``decode_fn`` at batch 4 with 64 greedy
@@ -356,16 +367,17 @@ line.
    reference computes them outside any Pallas kernel), from the port's
    seeded init in f32, f32 caches, 8 requests of 1024 prompt tokens;
    every line with the card's name and power limit:
-   a. deepseek-v2-236b, 3 layers (the dense first one and 2 MoE layers
-      of 160 experts, top 6; ~38.3 GB), through the Scheduler over 8
+   a. deepseek-v2-236b, 2 layers (the dense first one and an MoE layer
+      of 160 experts, top 6; 3 layers until phase 14 joined the script's
+      time limit), through the Scheduler over 8
       slots with 64 greedy tokens each; every row then alone at batch 1
       (7a's check, no token may differ: the largest logit gap and the
       smallest top-2 gap printed); ``Server.decode_fn`` at batch 8 over
       the same prompts (the batch-wide capacity: its dropped fraction a
       tick against the Scheduler's none); prefill and decode ms, peak
       memory, the latent cache's bytes against per-head K/V's;
-   b. llama4-scout-17b-a16e, 4 layers (16 experts, top 1; ~43.5 GB), the
-      same;
+   b. llama4-scout-17b-a16e, 2 layers (16 experts, top 1; 4 until phase
+      14), the same;
    c. (a)'s model in 2 gloo ranks on this card (``Server(comm=)``, EP
       2, 80 experts a rank): each rank prefills its 4 of the 8 rows and
       decodes 32 greedy tokens, its tokens equal and its logits within
@@ -374,7 +386,25 @@ line.
       ms a tick (CUDA events), peak memory a rank;
    d. on four cards only: the same over NCCL, EP 4, 40 experts and 2
       rows a rank.
-14. Prints the kernels line (kernels 2-4 with their 7e and phase-5
+14. Production precision (bf16 parameters, compute and optimizer
+   state: ``launch.train.production``, the reference's dry-run config),
+   each run through phase 4's ``run_main_path`` (audited, launches
+   against ``expected_launches``, state bytes a stacked element, peak
+   memory a 1e9 stacked elements), every line with the card:
+   a. run 4a at production precision: its launch counts 4a's;
+   b. (a) with ``store_anchor=False``: losses within
+      PRECISION_LOSS_BAR of (a)'s at every step, its peak below (a)'s;
+   c. phi4-mini-3.8b FULL width (4.45e9 parameters), ``--mode single``,
+      batch 4 x 1024, production precision without the anchor, 4a's
+      schedule: full depth (32 layers) if it fits, else the deepest of
+      PHI4_DEPTHS that does;
+   d. gpt2-smoke at production precision, card against CPU: one
+      optimizer step from equal params, gradients and state (steps 0, 5
+      and 6, with and without the anchor): the local step bit for bit,
+      the sync steps at most SYNC_UNEQUAL of elements unequal; the
+      8-step trainers within three times the card's own spread from
+      params one bf16 ulp up.
+15. Prints the kernels line (kernels 2-4 with their 7e and phase-5
    publish launches), the card line and the result line.
 
 Any failure raises; there is no CPU fallback. Exits non-zero without a
@@ -384,6 +414,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -494,6 +525,27 @@ CODECS = {"topk": ["--codec", "topk", "--codec-arg", "0.01"],
           "qint8": QINT8, "qint4": ["--codec", "qint4"]}
 # the phase-4 runs whose final params are digested (4h against 4a)
 GPT2_DIGESTS = ("gpt2", "gpt2_bucketed", "gpt2_one_leaf")
+# phase 3i: the kernels that read or write optimizer state, at bf16
+# operands; further tally rows, reported in each kernel's entry under
+# "production_precision"
+PRECISION = {k: f"{k} (bf16 state)" for k in (
+    "fused_local_step", "abs_rowsum", "ef_quantize", "ef_compress",
+    "fused_local_step_sgd")}
+# 14b's losses against 14a's, at every step: the anchor-free re-anchor
+# differs from the stored one by f32 and bf16 roundings, which the
+# bf16 params carry on (the reference's own two gpt2-smoke runs differ by
+# 5.4e-4 at step 3)
+PRECISION_LOSS_BAR = 0.05
+# 14d: the share of bf16 params and state elements a sync step from
+# equal inputs may leave unequal between the card and the CPU: the
+# kernel's scales are f32 sums in another order than torch's (within
+# ROWSUM_ULPS), and a bf16 rounding passes an ulp on rarely (measured
+# 1.1e-5 to 2.3e-5 on an H100; a kernel fault in a tail or a slab
+# touches more)
+SYNC_UNEQUAL = 1e-4
+# 14c: phi4-mini-3.8b FULL width in single mode, deepest depth that fits
+PHI4_DEPTHS = (32, 28, 24, 16)
+PHI4_BATCH = 4
 # the two-level exchange of runs 4d, 6c and phase 3c: pods of 2 workers
 INNER = 2
 # the bucketed exchange of runs 4g, 4i, 6a, 6b and phase 3d: 25 MiB
@@ -601,7 +653,7 @@ class Tally:
                          "bytes": 0.0, "ops": 0.0, "library_ms": None,
                          "max_abs_err": 0.0, "launches_per_round": 0}
                      for k in [*KERNELS, BERT_DECOMPRESS, BERT_LAMB,
-                               *HIER.values(),
+                               *HIER.values(), *PRECISION.values(),
                                *(n for names in {**FAMILY_NAMES,
                                                  **MOE_NAMES,
                                                  **SSM_NAMES,
@@ -784,7 +836,7 @@ def check_kernels(dev, tally, plan=None, names=KERNEL_ROWS, n=N_WORKERS,
 
 
 def check_compress_frames(dev, gen, tally, names, lo, cols, frames,
-                          n=N_WORKERS):
+                          n=N_WORKERS, err_dtype=torch.float32):
     """The two-pass compress of one sync's frames of leaf ``lo``, each
     kernel against its plain version, tallied under ``names[kernel]``
     (``names`` None: checked only): abs_rowsum with its scale groups (G
@@ -794,15 +846,18 @@ def check_compress_frames(dev, gen, tally, names, lo, cols, frames,
     Each of the ``n`` stacked workers' scales (its G / n groups) must also
     be the same bits from its own rows alone as from the stack (what makes
     a rank of the multi-process regime bitwise its simulated worker).
-    ``frames``: (rows, row counts, denoms, decode)."""
+    ``frames``: (rows, row counts, denoms, decode). ``err_dtype``: the
+    error feedback's dtype (the optimizer's state_dtype; err_out comes
+    back in it)."""
     from repro_torch.kernels import onebit as OB
 
+    esize = torch.tensor([], dtype=err_dtype).element_size()
     for frame_rows, cnt_np, denom, decode in frames:
         counts = torch.as_tensor(cnt_np, device=dev)
         fmask = torch.arange(cols, device=dev)[None, :] < counts[:, None]
         z = torch.randn(frame_rows, cols, device=dev, generator=gen) * fmask
-        e = torch.randn(frame_rows, cols, device=dev,
-                        generator=gen) * 0.3 * fmask
+        e = (torch.randn(frame_rows, cols, device=dev,
+                         generator=gen) * 0.3 * fmask).to(err_dtype)
         d = torch.as_tensor(denom, dtype=torch.float32, device=dev)
         groups = d.numel()
         gr, gw = frame_rows // groups, groups // n
@@ -831,7 +886,7 @@ def check_compress_frames(dev, gen, tally, names, lo, cols, frames,
         tally.add(names["abs_rowsum"],
                   lambda: OB.abs_rowsum_scales(z, e, counts, gr, d),
                   lambda: OB.abs_rowsum_scales_plain(z, e, counts, gr, d),
-                  8.0 * true_elems + 8.0 * (frame_rows + groups),
+                  (4.0 + esize) * true_elems + 8.0 * (frame_rows + groups),
                   3.0 * true_elems,
                   max(float((rk - rp).abs().max()),
                       float((sk - sp).abs().max())),
@@ -840,7 +895,8 @@ def check_compress_frames(dev, gen, tally, names, lo, cols, frames,
         tally.add(names["ef_quantize"],
                   lambda: OB.ef_quantize(z, e, sk, counts, gr),
                   lambda: OB.ef_quantize_plain(z, e, sk, counts, gr),
-                  12.125 * ne + 4.0 * (frame_rows + groups), 3.0 * ne, 0.0)
+                  (4.125 + 2.0 * esize) * ne + 4.0 * (frame_rows + groups),
+                  3.0 * ne, 0.0)
         if decode:
             # the all_to_all receive and the gathered results
             s = sk.repeat_interleave(gr)
@@ -1113,7 +1169,8 @@ def first_loss(cfg) -> float:
 
 
 def run_main_path(dev, label, arch, extra, batch, seq, kind,
-                  workers=N_WORKERS, n_layers=None, check_first_grads=False):
+                  workers=N_WORKERS, n_layers=None, check_first_grads=False,
+                  configure=None):
     """Phase 4: one main path, 4 simulated workers, 8 steps, through
     ``launch.train``, on a recording comm whose log is audited after the
     run (:func:`audit_run`). Returns the per-step records, the launch
@@ -1121,7 +1178,10 @@ def run_main_path(dev, label, arch, extra, batch, seq, kind,
     4a, 4e and 4f, the profile of step 6. Phase 9 runs the rotary family
     through it at ``workers`` simulated workers (one: single mode), cut
     to ``n_layers``; phase 11 asks ``check_first_grads``: every gradient
-    of step 0 finite (:func:`finite_first_grads`)."""
+    of step 0 finite (:func:`finite_first_grads`); phase 14 a
+    ``configure`` (``launch.make_trainer``'s). Each run also reports its
+    state bytes a stacked parameter element (:func:`state_report`) and
+    its peak memory a 1e9 stacked elements."""
     from repro_torch import analysis
     from repro_torch.core.comm import NullComm, SimComm
     from repro_torch.kernels import build
@@ -1136,7 +1196,8 @@ def run_main_path(dev, label, arch, extra, batch, seq, kind,
     comm = analysis.RecordingComm(SimComm(workers) if workers > 1
                                   else NullComm())
     with cut_depth(n_layers):
-        tr = launch.make_trainer(args, device=dev, comm=comm)
+        tr = launch.make_trainer(args, device=dev, comm=comm,
+                                 configure=configure)
     trace = analysis.watch(tr)
     trusts = (track_trust(tr) if tr.opt.base.has_trust
               and tr.opt.cfg.style == "accumulate" else None)
@@ -1202,6 +1263,11 @@ def run_main_path(dev, label, arch, extra, batch, seq, kind,
     print(f"  wire MiB per worker and step "
           f"{[round(b / 2**20, 2) for b in wire]}; total {sum(wire) / 2**20:.2f} MiB in "
           f"{sum(1 for b in wire if b)} steps that exchange", flush=True)
+    state = state_report(res["params"], res["state"])
+    per_1e9 = peak_gb / (state["stacked_elements"] / 1e9)
+    print(f"  {state['stacked_elements'] / 1e9:.4f}e9 stacked elements; "
+          f"state {state['state_bytes_per_element']:.2f} B an element; peak "
+          f"{per_1e9:.2f} GB a 1e9 stacked elements", flush=True)
     kept = res["kept"]
     del res
     profile = profile_step(tr, *kept) if kept is not None else None
@@ -1210,7 +1276,8 @@ def run_main_path(dev, label, arch, extra, batch, seq, kind,
         print(f"  step 0: {grads0['leaves']} gradient leaves, "
               f"{grads0['elements']:,} elements, all finite", flush=True)
     return {"steps": steps, "launches": counts, "peak_memory_gb": peak_gb,
-            "first_grads": grads0,
+            "first_grads": grads0, "state": state,
+            "peak_gb_per_1e9_elements": per_1e9,
             "peak_parts_gb": parts, "allocated_before_gb": before_gb,
             "wire_bytes": wire, "profile": profile,
             "params_sha256": digest, "trust_at_syncs": trusts,
@@ -1900,9 +1967,10 @@ def smoke_args(arch, extra):
         "--sync-warmup", "2", "--double-every", "2", "--kappa", "1"] + extra)
 
 
-def smoke_run(args, d, kind, nudge=False):
+def smoke_run(args, d, kind, nudge=False, configure=None):
     """Phase 5: 8 steps of the smoke trainer of ``args`` on device ``d``
-    from seed 0 (each param one ulp up with ``nudge``): the losses and the
+    from seed 0 (each param one ulp up with ``nudge``), its configs
+    through ``configure`` (``launch.make_trainer``'s): the losses and the
     final params (on the CPU)."""
     from repro_torch.configs.base import get
     from repro_torch.core.comm import SimComm
@@ -1912,14 +1980,14 @@ def smoke_run(args, d, kind, nudge=False):
     from repro_torch.launch import train as launch
     from repro_torch.train.step import Trainer
 
-    cfg = get(args.arch).smoke
-    tr = Trainer(cfg, launch.build_opt_cfg(args), comm=SimComm(N_WORKERS),
-                 device=d)
+    cfg, opt_cfg = get(args.arch).smoke, launch.build_opt_cfg(args)
+    if configure is not None:
+        cfg, opt_cfg = configure(cfg, opt_cfg)
+    tr = Trainer(cfg, opt_cfg, comm=SimComm(N_WORKERS), device=d)
     params, state = tr.init(0)
     if nudge:
         paths, xs = flatten_tree(params)
-        params = unflatten_tree(paths, [
-            torch.nextafter(x, torch.full_like(x, np.inf)) for x in xs])
+        params = unflatten_tree(paths, nudged(xs))
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32,
                                   global_batch=8, seed=0, kind=kind),
                        device=d)
@@ -2405,9 +2473,9 @@ def compare_ranks(label, transport, ref, ranks, bitwise=False,
 # exchange through host memory; a world of one) run gpt2 FULL width at
 # DIST_LAYERS of its 12 layers, and 4i and 4n(iv) (the paths through
 # checkpoint files) at FILE_LAYERS, so that the script keeps its time
-# limit as phases 12 and 13 join it (the same 19 leaves and 16 buckets,
-# so the same launches)
-DIST_LAYERS, FILE_LAYERS = 2, 2
+# limit as phases 12-14 join it (2 layers from PR 26, 1 from PR 28; the
+# same 19 leaves and 16 buckets at any depth, so the same launches)
+DIST_LAYERS, FILE_LAYERS = 1, 1
 
 
 def dist_runs(cards):
@@ -3685,10 +3753,11 @@ SSM_NAMES = {label: {k: f"{k} ({arch}, {label})" for k in FAMILY_KERNELS}
 # tokens (multiples of the chunk of 256) and 64 new tokens, f32 cache
 SERVE11_SLOTS, SERVE11_REQUESTS = 4, 8
 # the depth 11c and 12c serve at: cut (from full depth, PRs 25-26) for the
-# script's time limit as phase 13 joined it; zamba2 keeps one application
-# of its shared block, whisper 4 encoder and 4 decoder layers
-SERVE_LAYERS = {"mamba2-2.7b": 8, "zamba2-1.2b": 6, "qwen2-vl-2b": 8,
-                "whisper-large-v3": 4}
+# script's time limit as phase 13 joined it, and by half again as phase 14
+# did; zamba2 keeps one application of its shared block, whisper 2
+# encoder and 2 decoder layers
+SERVE_LAYERS = {"mamba2-2.7b": 4, "zamba2-1.2b": 6, "qwen2-vl-2b": 4,
+                "whisper-large-v3": 2}
 SERVE11_PROMPTS, SERVE11_GEN = (1024, 1536, 2048), 64
 SERVE11_LONE = 2           # requests re-run alone at batch 1 per model
 
@@ -4112,10 +4181,11 @@ def run_vlm_encdec_only(dev):
 
 # (label, arch, layers kept) of 13a and 13b: full width, the port's
 # seeded init in f32, served through the Scheduler. deepseek-v2 keeps its
-# dense first layer (``cut_layers``): 1 dense + 2 MoE layers of 160
-# experts (~38.3 GB); llama4-scout 4 layers of 16 experts (~43.5 GB)
-MOE_SERVE_RUNS = (("13a", "deepseek-v2-236b", 3),
-                  ("13b", "llama4-scout-17b-a16e", 4))
+# dense first layer (``cut_layers``): 1 dense + 1 MoE layer of 160
+# experts; llama4-scout 2 layers of 16 experts (3 and 4 layers until
+# phase 14 joined the script's time limit)
+MOE_SERVE_RUNS = (("13a", "deepseek-v2-236b", 2),
+                  ("13b", "llama4-scout-17b-a16e", 2))
 MOE_SERVE_SLOTS, MOE_SERVE_PROMPT, MOE_SERVE_GEN = 8, 1024, 64
 # 13c (2 gloo ranks on one card) and 13d (4 NCCL ranks, four cards only):
 # deepseek-v2 as 13a, each rank its share of the 8 rows and its block of
@@ -4296,7 +4366,7 @@ def run_13_ep(card, label, n, engine):
     t0 = time.time()
     with scratch_dir() as tmp:
         mesh.spawn(launch.rank_jobs, n, ([(argv, tmp, False, "serve",
-                                          False)], n),
+                                          False, None)], n),
                    timeout_s=DIST_TIMEOUT_S)
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
                  for r in range(n)]
@@ -4484,6 +4554,381 @@ def run_moe_serve_only(dev, card):
     return out
 
 
+# --------------------------------------------------------------------- #
+# Phase 3i and phase 14: production precision (bf16 parameters, compute
+# and optimizer state)
+# --------------------------------------------------------------------- #
+
+def bf16_inplace_step(g, m, u, v, lr, b1, u_out=None):
+    """Kernel 1 at production precision, in place as the optimizer calls
+    it, on copies of ``m`` and ``u`` (``v`` None: the SGD kernel): a bf16
+    gradient and state, u' rounded into ``u`` or, for a sync step, into
+    the f32 ``u_out``; the delta into a new f32 tensor. Returns (m', u',
+    delta) and a closure repeating the call on the same copies."""
+    from repro_torch.kernels import fused_adam as FA
+
+    mk, uk = m.clone(), u.clone()
+    uo = None if u_out is None else u_out.clone()
+    if v is None:
+        def call():
+            return FA.fused_local_step_sgd_(g, mk, uk, lr, b1, u_out=uo)
+    else:
+        def call():
+            return FA.fused_local_step_(g, mk, uk, v, lr, b1, u_out=uo)
+    dk = call()
+    return (mk, uk if uo is None else uo, dk), call
+
+
+def bf16_plain_step(g, m, u, v, lr, b1, u_out=None):
+    """The plain version of :func:`bf16_inplace_step` on copies."""
+    from repro_torch.kernels import fused_adam as FA
+
+    mp, up = m.clone(), u.clone()
+    uo = None if u_out is None else u_out.clone()
+    if v is None:
+        d = FA.fused_local_step_sgd_plain_(g, mp, up, lr, b1, u_out=uo)
+    else:
+        d = FA.fused_local_step_plain_(g, mp, up, v, lr, b1, u_out=uo)
+    return mp, up if uo is None else uo, d
+
+
+def check_bf16_local_step(lo, rnd, tally, name, v_needed, lr, b1):
+    """Kernel 1 (``v_needed``) or the SGD kernel on one frame at bf16
+    operands against its plain version, by row slabs: m' and u' (bf16,
+    and the f32 u' of a sync step) bit for bit, the delta within
+    DELTA_ULPS (the SGD delta bit for bit). Tallies the local step's
+    form (bf16 u') under ``name``."""
+    bf = torch.bfloat16
+    g, m, u = rnd().to(bf), rnd().to(bf), rnd(1e-3).to(bf)
+    v = rnd(1e-2).square().to(bf) if v_needed else None
+    R, cols = g.shape
+    tol = DELTA_ULPS if v_needed else 0
+    slabs, err = row_slabs(R, cols), 0.0
+    for u_out in (None, torch.zeros(R, cols, device=g.device)):
+        fk, call = bf16_inplace_step(g, m, u, v, lr, b1, u_out)
+        for sl in slabs:
+            fp = bf16_plain_step(g[sl], m[sl], u[sl],
+                                 None if v is None else v[sl], lr, b1,
+                                 None if u_out is None else u_out[sl])
+            torch.cuda.synchronize()
+            assert torch.equal(fk[0][sl], fp[0]), (lo.shape, "bf16 m'")
+            assert torch.equal(fk[1][sl], fp[1]), (lo.shape, "u'",
+                                                   u_out is None)
+            assert ulps(fk[2][sl], fp[2]) <= tol, (lo.shape, "bf16 delta")
+            err = max([err] + [float((a[sl].float() - b.float()).abs().max())
+                               for a, b in zip(fk, fp)])
+            del fp
+        if u_out is not None:
+            break
+
+        def plain():
+            for sl in slabs:
+                bf16_plain_step(g[sl], m[sl], u[sl],
+                                None if v is None else v[sl], lr, b1)
+
+        ne = R * cols
+        # reads g, m, u (, v) at 2 B; writes m, u at 2 B and d at 4 B
+        tally.add(name, call, plain, (16.0 if v_needed else 14.0) * ne,
+                  (7.0 if v_needed else 6.0) * ne, err)
+        del fk, call
+
+
+def check_precision_kernels(dev, tally):
+    """Phase 3i: the kernels that read or write optimizer state, at bf16
+    operands: kernel 1 (fused_local_step) and the two-pass compress
+    (abs_rowsum, ef_quantize; bf16 err in, bf16 err_out) at every
+    gpt2-FULL frame of 4 stacked workers, worker and server side; the
+    SGD kernel and the single-pass ef_compress at the BERT-Base FULL
+    frames. Each against its plain version: bf16 outputs (m', u',
+    err_out) and packed bytes bit for bit, the f32 u' of a sync step bit
+    for bit, the delta within DELTA_ULPS, sums within ROWSUM_ULPS;
+    tallied under PRECISION (call and batched times against the byte
+    bound at bf16). decompress reads no state: its output is f32."""
+    from repro_torch.core import compressor as C
+    from repro_torch.kernels import onebit as OB
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    lr, b1 = np.float32(1.5e-4), 0.9
+    for arch in ("gpt2", "bert-base"):
+        for lo in full_plan(arch).layouts:
+            rows, cols = C.view_rows_cols(lo)
+            R = N_WORKERS * rows
+            cnt = torch.as_tensor(np.tile(C.view_row_counts(lo), N_WORKERS),
+                                  device=dev)
+            mask = torch.arange(cols, device=dev)[None, :] < cnt[:, None]
+
+            def rnd(scale=1.0):
+                return (torch.randn(R, cols, device=dev, generator=gen)
+                        * scale * mask)
+
+            if arch == "gpt2":
+                check_bf16_local_step(lo, rnd, tally,
+                                      PRECISION["fused_local_step"], True,
+                                      lr, b1)
+                check_compress_frames(
+                    dev, gen, tally, PRECISION, lo, cols,
+                    [f[:3] + (False,) for f in flat_frames(lo)],
+                    err_dtype=torch.bfloat16)
+            else:
+                check_bf16_local_step(lo, rnd, tally,
+                                      PRECISION["fused_local_step_sgd"],
+                                      False, lr, b1)
+                if len(lo.view_shape) == 3:
+                    z, e = rnd(), rnd(0.3).to(torch.bfloat16)
+                    err = check_ef_compress_frame(z, e, cnt)
+                    n = R * cols
+                    tally.add(PRECISION["ef_compress"],
+                              lambda: OB.ef_compress(z, e, cnt),
+                              lambda: OB.ef_compress_plain(z, e, cnt),
+                              8.125 * n + 8.0 * R, 3.0 * n, err)
+                    del z, e
+            torch.cuda.empty_cache()
+            print(f"  {arch} leaf {lo.shape}: frame ({R}, {cols}) at bf16 "
+                  f"ok", flush=True)
+
+
+def production(store_anchor=True):
+    """The reference's production precision (``launch.train.production``:
+    bf16 params, compute and state), with or without the anchor, as a
+    ``configure`` of ``launch.make_trainer``."""
+    from repro_torch.launch import train as launch
+
+    return functools.partial(launch.production, store_anchor=store_anchor)
+
+
+def state_report(params, state):
+    """Bytes of the optimizer state a stacked parameter element, and the
+    stacked elements (every tensor of the state, scalar slots included)."""
+    from repro_torch.core.leafwise import flatten_tree
+
+    elems = sum(x.numel() for x in flatten_tree(params)[1])
+    tensors = [t for xs in (*state.slots.values(), state.u, state.err_w,
+                            state.err_s, state.anchor)
+               for t in xs if t is not None]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    return {"stacked_elements": elems, "state_bytes": nbytes,
+            "state_bytes_per_element": nbytes / elems,
+            "param_bytes_per_element": sum(
+                x.element_size() for x in flatten_tree(params)[1][:1])}
+
+
+def run_14c(dev):
+    """14c: phi4-mini-3.8b at full width (4.45e9 parameters: d 3072, 32
+    layers, vocab 200064, untied head), ``--mode single`` at batch
+    PHI4_BATCH x SEQ, production precision without the anchor, 4a's
+    8-step schedule; full depth if it fits the card, else the deepest of
+    PHI4_DEPTHS that does (each failed depth printed)."""
+    tried = []
+    for layers in PHI4_DEPTHS:
+        # what a failed depth held is garbage once its exception is gone
+        gc.collect()
+        torch.cuda.empty_cache()
+        try:
+            r = run_main_path(dev, "14c", "phi4-mini-3.8b", [], PHI4_BATCH,
+                              SEQ, "lm", workers=1, n_layers=layers,
+                              configure=production(False))
+        except torch.cuda.OutOfMemoryError as e:
+            tried.append(layers)
+            print(f"  14c at {layers} layers does not fit the card: "
+                  f"{str(e).splitlines()[0]}", flush=True)
+            continue
+        r["layers"], r["depths_that_did_not_fit"] = layers, tried
+        return r
+    raise AssertionError(f"14c: phi4-mini-3.8b fits at none of "
+                         f"{PHI4_DEPTHS} layers")
+
+
+def unequal_share(xs, ys):
+    """The share of elements of the tensors ``xs`` unequal to ``ys``'s."""
+    n = sum(x.numel() for x in xs)
+    return sum(int((x != y).sum()) for x, y in zip(xs, ys)) / max(n, 1)
+
+
+def nudged(xs):
+    """Each tensor one ulp up (its dtype's)."""
+    out = []
+    for x in xs:
+        if x.dtype == torch.bfloat16:
+            out.append((x.view(torch.int16) + 1).view(torch.bfloat16))
+        else:
+            out.append(torch.nextafter(x, torch.full_like(x, np.inf)))
+    return out
+
+
+def check_small_precision(dev):
+    """Phase 14d: gpt2-smoke at production precision (bf16 params,
+    compute and state), card against CPU. (1) One optimizer step from the
+    same bf16 params, gradients (the parameter dtype, as the trainer
+    gives them) and state on both devices: at step 0 from ``opt.init``
+    (a sync and a variance round), and at steps 5 (local) and 6 (sync)
+    after CPU steps, whose state carries five syncs' error feedback,
+    ``u`` and the anchor; with and without the anchor. The local step
+    (kernel 1) bit for bit; a sync step's params and state at most
+    SYNC_UNEQUAL unequal (its scales are f32 sums in the kernel's order,
+    within ROWSUM_ULPS of torch's). (2) The 8-step trainer from the same start on both
+    devices: bf16 products on the card (cuBLAS) and on the CPU round in
+    other orders, so the bar is phase 5's qint one: the loss gap and the
+    largest param gap each at most three times the card's own spread
+    from params one bf16 ulp up."""
+    from repro_torch.configs.base import get
+    from repro_torch.core import api
+    from repro_torch.core.comm import SimComm
+    from repro_torch.core.leafwise import flatten_tree, unflatten_tree
+    from repro_torch.launch import train as launch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    args = smoke_args("gpt2", [])
+    cfg = get("gpt2").smoke
+    tmpl = T.model_template(cfg)
+    shapes = L.param_shapes(tmpl)
+    paths, leaves = flatten_tree(shapes)
+    cpu, bf = torch.device("cpu"), torch.bfloat16
+    out = {}
+    for label, prec in (("anchor", production()),
+                        ("no_anchor", production(False))):
+        rng = np.random.default_rng(7)
+
+        def draw(sc):
+            return [torch.from_numpy((rng.standard_normal(
+                (N_WORKERS,) + tuple(sh)) * sc).astype(np.float32)).to(bf)
+                for sh in leaves]
+
+        def to(xs, d):   # copies: the optimizer steps params in place
+            return unflatten_tree(paths, [x.to(d, copy=True) for x in xs])
+
+        _, opt_cfg = prec(cfg, launch.build_opt_cfg(args))
+        params, grads = draw(0.02), [draw(1.0) for _ in range(7)]
+        opts = {d: api.build_optimizer(opt_cfg, shapes,
+                                       specs=L.param_specs(tmpl),
+                                       dp_mask=L.dp_mask(tmpl),
+                                       n_workers=N_WORKERS)
+                for d in (dev, cpu)}
+        state = opts[cpu].init(to(params, cpu))
+        unequal = {}
+        for t in range(7):
+            if t in (0, 5, 6):
+                res = []
+                for d in (dev, cpu):
+                    p, st, met = opts[d].step(SimComm(N_WORKERS),
+                                              to(params, d), to(grads[t], d),
+                                              state_to(state, d))
+                    res.append([x.cpu() for x in flatten_tree(p)[1]] + [
+                        x.cpu() for name in ("u", "err_w", "err_s", "anchor")
+                        for x in getattr(st, name) if x is not None] + [
+                        x.cpu() for name in ("m", "v") for x in st.slots[name]])
+                assert all(x.dtype == bf for x in res[1][len(leaves):]), t
+                share = unequal_share(*res)
+                unequal[t] = share
+                print(f"  production precision ({label}): optimizer step "
+                      f"{t} ({'local' if t == 5 else 'sync'}) card vs cpu: "
+                      f"{share:.2e} of params and state elements unequal",
+                      flush=True)
+                # a local step is kernel 1 alone: bit for bit; a sync's
+                # scales are f32 sums in the kernel's order on the card
+                assert share <= (0.0 if t == 5 else SYNC_UNEQUAL), (label, t)
+            p, state, _ = opts[cpu].step(SimComm(N_WORKERS), to(params, cpu),
+                                         to(grads[t], cpu), state)
+            params = flatten_tree(p)[1]
+        out[label] = {"step_unequal_share": unequal}
+
+    (lk, pk), (ln, pn), (lc, pc) = (
+        smoke_run(args, dev, "lm", configure=production()),
+        smoke_run(args, dev, "lm", nudge=True, configure=production()),
+        smoke_run(args, cpu, "lm", configure=production()))
+    gap = max(abs(a - b) for a, b in zip(lk, lc))
+    own = max(abs(a - b) for a, b in zip(lk, ln))
+    pgap = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(pk, pc))
+    pown = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(pk, pn))
+    print(f"  gpt2-smoke at production precision: losses card "
+          f"{[round(x, 5) for x in lk]}")
+    print(f"  max loss gap card-cpu {gap:.2e} against the card's own spread"
+          f" from params one bf16 ulp up {own:.2e}; max param gap "
+          f"{pgap:.2e} against {pown:.2e}", flush=True)
+    assert np.isfinite(lk).all() and 0 < own and gap <= 3 * own, (gap, own)
+    assert pgap <= 3 * pown, (pgap, pown)
+    out.update({"max_loss_gap": gap, "own_spread": own,
+                "max_param_gap": pgap, "own_param_spread": pown})
+    return out
+
+
+def run_14ab(dev, card, ref=None):
+    """14a: run 4a (gpt2 FULL, 4 simulated workers, zero_one_adam, tensor
+    scales, its data and schedule) with bf16 params, compute and state;
+    14b: the same without the anchor (``store_anchor=False``). 14a's
+    launch counts must equal 4a's (``ref``, when given), 14b's losses
+    stay within PRECISION_LOSS_BAR of 14a's at every step, and its peak
+    memory is below 14a's (one bf16 copy of the stacked params less)."""
+    out = {}
+    for label, prec in (("14a", production()), ("14b", production(False))):
+        print(f"phase {label}: gpt2 FULL, {N_WORKERS} simulated workers, "
+              f"production precision{' without the anchor' * (label == '14b')}"
+              f"; {card}", flush=True)
+        out[label] = run_main_path(dev, label, "gpt2", [], BATCH, SEQ, "lm",
+                                   configure=prec)
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = out["14a"], out["14b"]
+    if ref is not None:
+        assert a["launches"] == ref["launches"], (a["launches"],
+                                                  ref["launches"])
+    gaps = [abs(float(np.mean(x["losses"])) - float(np.mean(y["losses"])))
+            for x, y in zip(a["steps"], b["steps"])]
+    print(f"  14b against 14a: loss gaps {[round(g, 5) for g in gaps]} "
+          f"(bar {PRECISION_LOSS_BAR}); peak {b['peak_memory_gb']:.2f} GB "
+          f"against {a['peak_memory_gb']:.2f} GB", flush=True)
+    assert max(gaps) <= PRECISION_LOSS_BAR, gaps
+    assert b["peak_memory_gb"] < a["peak_memory_gb"], (
+        b["peak_memory_gb"], a["peak_memory_gb"])
+    out["14b_loss_gaps"] = gaps
+    return out
+
+
+def run_phase14(dev, card, ref=None):
+    """Phase 14: production precision: :func:`run_14ab` (against 4a's
+    launches ``ref``), :func:`run_14c`, :func:`check_small_precision`
+    (14d); every run through :func:`run_main_path` (audited, launches
+    against ``expected_launches``) with its state bytes a stacked
+    element and its peak memory a 1e9 stacked elements, printed beside
+    the card."""
+    out = run_14ab(dev, card, ref)
+    print(f"phase 14c: phi4-mini-3.8b FULL width, single mode, production "
+          f"precision without the anchor; {card}", flush=True)
+    out["14c"] = run_14c(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("phase 14d: gpt2-smoke at production precision, card vs CPU",
+          flush=True)
+    out["14d"] = check_small_precision(dev)
+    for label in ("14a", "14b", "14c"):
+        r = out[label]
+        print(f"  {label}: {card}; peak {r['peak_memory_gb']:.2f} GB = "
+              f"{r['peak_gb_per_1e9_elements']:.2f} GB a 1e9 stacked "
+              f"elements; state {r['state']['state_bytes_per_element']:.2f} "
+              f"B an element", flush=True)
+    return out
+
+
+def run_3i_alone(dev):
+    """Phase 3i with a tally of its own, printed (``--only precision``)."""
+    tally = Tally()
+    check_precision_kernels(dev, tally)
+    rows = tally_rows(tally, PRECISION)
+    print("3i " + json.dumps(rows), flush=True)
+    return rows
+
+
+def precision_parts(dev, card):
+    """``--only precision`` and its parts."""
+    return {"precision": lambda: {
+                "3i": run_3i_alone(dev), **run_phase14(dev, card)},
+            "14ab": lambda: run_14ab(dev, card),
+            "14c": lambda: run_14c(dev),
+            "14d": lambda: check_small_precision(dev)}
+
+
 def tally_rows(tally, names):
     """Each kernel's row of ``tally`` under ``names``, with its bound and
     the share of it the call and batched times reach."""
@@ -4522,7 +4967,8 @@ def parse_args(argv=None):
              "'ssm' for 3g, phase 5's state-space checks and phase 11, or "
              "'11ab', '11c'; 'vlm_encdec' for 3h, phase 5's vlm and "
              "encoder-decoder checks and phase 12, or '12ab', '12c'; "
-             "'moe_serve' for phase 5's MoE serving checks and phase 13), "
+             "'moe_serve' for phase 5's MoE serving checks and phase 13; "
+             "'precision' for 3i and phase 14, or '14ab', '14c', '14d'), "
              "print their summary and the card line, and no kernels or "
              "result line")
     return ap.parse_args(argv)
@@ -4536,7 +4982,8 @@ def run_only(dev, names, card, t_start):
     state-space checks and 11a-11c; or ``11ab``, ``11c``) and 12
     (``vlm_encdec``: 3h, phase 5's vlm and encoder-decoder checks and
     12a-12c; or ``12ab``, ``12c``) and 13 (``moe_serve``: phase 5's MoE
-    serving checks and 13a-13d), in that order."""
+    serving checks and 13a-13d) and 14 (``precision``: 3i and 14a-14d;
+    or ``14ab``, ``14c``, ``14d``), in that order."""
     parts = {"4n": lambda: run_elastic_phase(
         dev, run_main_path(dev, *RUNS[0])), **small_parts(dev),
         **family_parts(dev),
@@ -4557,7 +5004,8 @@ def run_only(dev, names, card, t_start):
         "12ab": lambda: run_vlm_encdec_training(dev),
         "12c": lambda: run_12c(dev),
         **moe_serve_parts(dev),
-        "moe_serve": lambda: run_moe_serve_only(dev, card)}
+        "moe_serve": lambda: run_moe_serve_only(dev, card),
+        **precision_parts(dev, card)}
     unknown = sorted(set(names) - set(parts))
     if unknown:
         sys.exit(f"chip_smoke: unknown parts {unknown}; choose from "
@@ -4640,6 +5088,9 @@ def main(argv=None):
           "whisper-large-v3 FULL width); frame_precheck on both FULL "
           "configs", flush=True)
     precheck_vlm_encdec = check_vlm_encdec_kernels(dev, tally)
+    print("phase 3i: production precision, the state-reading kernels at "
+          "bf16 operands (gpt2 FULL and bert-base FULL frames)", flush=True)
+    check_precision_kernels(dev, tally)
     lap("3")
 
     runs = {}
@@ -4717,6 +5168,11 @@ def main(argv=None):
     moe_serve = run_phase13(dev, card)
     lap("13")
 
+    print("phase 14: production precision (bf16 params, compute and "
+          "optimizer state)", flush=True)
+    precision = run_phase14(dev, card, runs["gpt2"])
+    lap("14")
+
     def bound(r):
         t_bytes = r["bytes"] / PEAK_BYTES_PER_S * 1e3
         t_ops = r["ops"] / PEAK_F32_PER_S * 1e3
@@ -4738,6 +5194,8 @@ def main(argv=None):
             for part in moe_serve_parts(dev):
                 by_run[f"5_{part}_{side}"] = (
                     small[part][f"{side}_launches"].get(name, 0))
+        for label in ("14a", "14b", "14c"):
+            by_run[label] = precision[label]["launches"].get(name, 0)
         for label, *_ in FAMILY_RUNS:
             by_run[label] = families[label]["launches"].get(name, 0)
         for label, *_ in SSM_RUNS:
@@ -4812,6 +5270,10 @@ def main(argv=None):
                                + frames_3e_text(label),
                         **tally_rows(tally, {name: names[name]})[name]}
                 for label, names in FAMILY_NAMES.items()}
+        if name in PRECISION:
+            kernels[-1]["production_precision"] = {
+                "per": ("bf16 state operands; " + PER[name]),
+                **tally_rows(tally, {name: PRECISION[name]})[name]}
         if name == "fused_local_step":
             rb = tally.rows[BERT_LAMB]
             kernels[-1]["bert_lamb"] = {
@@ -4835,7 +5297,7 @@ def main(argv=None):
                "3e_precheck": precheck, "families": families, "moe": moe,
                "3g_precheck": precheck_ssm, "ssm": ssm,
                "3h_precheck": precheck_vlm_encdec, "vlm_encdec": vlm_encdec,
-               "moe_serve": moe_serve,
+               "moe_serve": moe_serve, "precision": precision,
                "small_inputs": small,
                "data_parallel": dist_phase, "serve": serve,
                "audit": audit, "phase_wall_s": walls,

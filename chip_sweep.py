@@ -105,10 +105,11 @@ def sweep_ef_compress(dev, gen):
         pp, sp, _ = OB.ef_compress_plain(z, e, cnt)
 
         def run(geometry):
-            build.launch("ef_compress", "ef_compress_f32", dev,
+            build.launch("ef_compress", "ef_compress", dev,
                          z.data_ptr(), e.data_ptr(), cnt.data_ptr(),
                          packed.data_ptr(), scales.data_ptr(),
-                         err_out.data_ptr(), rows, cols, *geometry)
+                         err_out.data_ptr(), rows, cols, *geometry,
+                         OB.ERR_TYPES[e.dtype])
 
         geometries = {"host": OB.ef_compress_geometry(cols)}
         for n in range(OB.EF_MAX_CLUSTER, 0, -1):
@@ -146,7 +147,7 @@ def decompress_frames(dev, gen):
         divisor = OB.divisor(cols // 8)
 
         def entry():
-            build.launch("decompress", "decompress_f32", dev,
+            build.launch("decompress", "decompress", dev,
                          packed.data_ptr(), s.data_ptr(), out.data_ptr(), R,
                          cols, *divisor)
 
@@ -206,10 +207,10 @@ def sweep_abs_rowsum(dev, gen):
         c4 = -(-cols // 4)
 
         def run(warps, slice4):
-            build.launch("abs_rowsum", "abs_rowsum_f32", dev, z.data_ptr(),
+            build.launch("abs_rowsum", "abs_rowsum", dev, z.data_ptr(),
                          e.data_ptr(), cnt.data_ptr(), out.data_ptr(),
                          denom.data_ptr(), scales.data_ptr(), R, cols, warps,
-                         slice4, gr)
+                         slice4, gr, OB.ERR_TYPES[e.dtype])
 
         row = {"kernel": "abs_rowsum", "frames": label, "frame": [R, cols],
                "host": list(OB.abs_rowsum_geometry(cols)),

@@ -17,14 +17,16 @@ Rules, each an invariant the communication audit relies on:
     (``view_shape`` / ``slice_shape`` / ``chunk_shape`` /
     ``ef_worker_shape``) outside the core modules that own the layout
     contract: hand-rolled view reshapes bypass the pad-exact helpers.
+``statekind-registry``
+    ``StateKind(...)`` constructed outside ``core/compressed.py`` (the
+    registry, ``ComposedOptimizer.state_kinds``). Generic code derives
+    state shapes and placements from these tags; an ad-hoc tag would
+    silently mis-place state.
 ``float64-literal``
     ``torch.float64``, ``torch.double`` or a ``.double()`` call: the step
     stays f64-free (the audit checks the recorded side; this catches it
     at the source). The exact-rounding emulation of the kernels' plain
     versions is f64 by design, each line waived.
-
-The reference's ``statekind-registry`` rule has no port yet: the port has
-no ``StateKind`` registry (ROADMAP, the state-kinds item).
 
 A finding is waived by an inline ``# audit-ok: <rule>`` comment on the
 offending line. Run as ``python -m repro_torch.analysis.lints [paths...]``
@@ -56,6 +58,7 @@ _ALLOWED = {
     "comm-view-reshape": ("core/compressor.py", "core/onebit_allreduce.py",
                           "core/bucketing.py", "core/codecs.py",
                           "kernels/dispatch.py", "elastic/reshard.py"),
+    "statekind-registry": ("core/compressed.py",),
     "float64-literal": (),
 }
 
@@ -130,6 +133,11 @@ def _lint_source(path: str, src: str) -> List[LintFinding]:
                         add("comm-view-reshape", node.lineno,
                             f".reshape(...{attr}...) - use the LeafLayout "
                             f"view helpers in core.compressor")
+            if isinstance(node.func, ast.Name) \
+                    and node.func.id == "StateKind":
+                add("statekind-registry", node.lineno,
+                    "StateKind(...) constructed outside the registry "
+                    "(core/compressed.py)")
             if (isinstance(node.func, ast.Attribute)
                     and node.func.attr == "double" and not node.args):
                 add("float64-literal", node.lineno,

@@ -109,15 +109,42 @@ def leaf_paths(tree) -> list:
     return flatten(tree)[0]
 
 
+def _dtype_name(dtype) -> str:
+    """numpy's name of a leaf's dtype (a torch dtype, a numpy dtype, or
+    the manifest's string): ``float32``, ``bfloat16``, ..."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).rsplit(".", 1)[-1]
+    if isinstance(dtype, str) and dtype == "bfloat16":
+        return dtype      # numpy knows the name only beside ml_dtypes
+    return np.dtype(dtype).name
+
+
 def _to_numpy(leaf) -> np.ndarray:
+    """A leaf as the array the file holds: a bf16 tensor as its raw
+    2-byte records (``|V2``), what numpy writes for the reference's
+    ``ml_dtypes`` bfloat16 arrays."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.dtype("V2"))
+        return t.numpy()
     return np.asarray(leaf)
+
+
+def _from_file(a: np.ndarray, name: str):
+    """An array read from the file as the leaf of dtype ``name``: a
+    bf16 leaf (numpy has no bfloat16 of its own) as a torch tensor, bit
+    for bit; any other as a numpy array of that dtype."""
+    if name == "bfloat16":
+        bits = np.array(a, copy=True).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return np.asarray(a, dtype=np.dtype(name))
 
 
 def save(path: str, tree: Any, step: int = 0, meta: Dict | None = None):
     paths, leaves, treedef = flatten(tree)
     arrays = {f"leaf_{i}": _to_numpy(l) for i, l in enumerate(leaves)}
+    names = [_dtype_name(l.dtype) for l in leaves]
     ordered = [arrays[f"leaf_{i}"] for i in range(len(leaves))]
     payload = {
         "version": FORMAT_VERSION,
@@ -127,7 +154,7 @@ def save(path: str, tree: Any, step: int = 0, meta: Dict | None = None):
         "n_leaves": len(leaves),
         "leaf_paths": paths,
         "leaf_shapes": [list(a.shape) for a in ordered],
-        "leaf_dtypes": [str(a.dtype) for a in ordered],
+        "leaf_dtypes": names,
     }
     d = os.path.dirname(os.path.abspath(path))
     os.makedirs(d, exist_ok=True)
@@ -149,14 +176,9 @@ def read_manifest(path: str) -> Dict:
         return json.loads(str(z["__manifest__"]))
 
 
-def _np_dtype(dtype) -> np.dtype:
-    if isinstance(dtype, torch.dtype):
-        return torch.empty((), dtype=dtype).numpy().dtype
-    return np.dtype(dtype)
-
-
 def restore(path: str, like: Any) -> Tuple[Any, int, Dict]:
-    """Restore into the structure of ``like`` (numpy leaves).
+    """Restore into the structure of ``like`` (numpy leaves; a bf16 leaf
+    as a CPU tensor).
 
     The manifest is validated against ``like`` before anything is
     materialized: leaf count, per-leaf tree paths (version >= 2), per-leaf
@@ -200,7 +222,7 @@ def restore(path: str, like: Any) -> Tuple[Any, int, Dict]:
             stored = tuple(z[f"leaf_{i}"].shape)
             shape = tuple(shapes[i]) if shapes is not None else stored
             ref_shape = tuple(ref.shape)
-            ref_dtype = _np_dtype(ref.dtype)
+            ref_dtype = _dtype_name(ref.dtype)
             if shape != ref_shape:
                 if (meta_n and shape and ref_shape
                         and shape[0] == meta_n and ref_shape[0] != meta_n):
@@ -220,14 +242,14 @@ def restore(path: str, like: Any) -> Tuple[Any, int, Dict]:
                 raise ValueError(
                     f"leaf {i} ({name!r}): stored array shape {stored} != "
                     f"manifest shape {shape} — corrupt checkpoint")
-            if dtypes is not None and np.dtype(dtypes[i]) != ref_dtype:
+            if dtypes is not None and _dtype_name(dtypes[i]) != ref_dtype:
                 raise ValueError(
                     f"leaf {i} ({name!r}): checkpoint dtype {dtypes[i]} != "
-                    f"expected {ref_dtype.name} — restoring "
+                    f"expected {ref_dtype} — restoring "
                     f"would silently cast optimizer state; rebuild the "
                     f"target tree with the checkpoint's dtypes (e.g. the "
                     f"state_dtype the run was saved under) or re-save")
-            out.append(np.asarray(z[f"leaf_{i}"], dtype=ref_dtype))
+            out.append(_from_file(z[f"leaf_{i}"], ref_dtype))
     return unflatten(like, out), manifest["step"], manifest["meta"]
 
 

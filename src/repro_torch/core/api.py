@@ -47,7 +47,14 @@ class OptimizerConfig:
     codec_arg: Optional[float] = None       # argument of a parameterized
                                             # codec (topk: density, default
                                             # 0.01)
+    store_anchor: bool = True               # True: keep x_{t'}, bitwise
+                                            # consensus at syncs; False:
+                                            # recover the anchor from u
+                                            # (one params copy less)
     comm_dtype: Any = torch.bfloat16
+    state_dtype: Any = torch.float32        # m, v, u and the EF state
+                                            # (bf16 in production; scalar
+                                            # slots stay f32)
     hierarchy: Optional[Hierarchy] = None   # two-level (intra-pod x
                                             # inter-pod) exchange
     bucket_mb: Optional[float] = None       # fuse the per-leaf exchange
@@ -79,7 +86,8 @@ def _shared_kwargs(cfg: OptimizerConfig) -> Dict[str, Any]:
     return dict(lr=cfg.lr, weight_decay=cfg.weight_decay,
                 scale_mode=cfg.scale_mode, quantize=cfg.quantize,
                 codec=cfg.codec, codec_arg=cfg.codec_arg,
-                comm_dtype=cfg.comm_dtype, hierarchy=cfg.hierarchy,
+                store_anchor=cfg.store_anchor, comm_dtype=cfg.comm_dtype,
+                state_dtype=cfg.state_dtype, hierarchy=cfg.hierarchy,
                 bucket_mb=cfg.bucket_mb, pack_order=cfg.pack_order)
 
 

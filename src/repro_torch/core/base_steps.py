@@ -71,8 +71,9 @@ class AdamBase:
         return self.precond_raw(buf, slots)
 
     def precond_(self, buf, slots):
-        """:meth:`precond` written into ``buf`` itself, the same bits."""
-        return buf.div_(FA.sqrt(slots["v"] + self.eps))
+        """:meth:`precond` written into ``buf`` itself, the same bits, with
+        one temporary of its size (the denominator, rooted in place)."""
+        return buf.div_(FA.sqrt_(slots["v"] + self.eps))
 
     def update_variance(self, v, g):
         """``beta2 * v + ((1 - beta2) * g) * g``, each product and the sum
@@ -99,8 +100,7 @@ class AdamBase:
 
 # The reference's refusal of ``store_anchor=False`` for a base with
 # ``needs_anchor`` in the accumulate style (``{base}``: the base's class
-# name). The port always keeps the anchor; the option waits in ROADMAP
-# queue 1 and raises with this text once it is ported.
+# name), raised by ``core.compressed.CompressedDP``.
 NEEDS_ANCHOR_TEXT = (
     "{base} refreshes slots at syncs and therefore requires "
     "store_anchor=True in the accumulate style (the anchor recovery path "

@@ -12,8 +12,9 @@ styles:
 * ``"accumulate"`` (paper Algorithm 1): local linearized half-steps
   accumulate ``u``; on T_u steps ``u`` goes through the Algorithm-2
   exchange and parameters re-anchor at the stored anchor,
-  ``x = anchor - precond(u_bar)`` (the reference's ``store_anchor=True``);
-  on T_v steps the variance is refreshed from a full-precision gradient
+  ``x = anchor - precond(u_bar)`` (``store_anchor=True``), or without an
+  anchor take the correction ``x = x_half + precond(u - u_bar)``; on
+  T_v steps the variance is refreshed from a full-precision gradient
   mean, for bases that carry one (a base without a variance, momentum
   SGD, has no ``"v"`` slot and no T_v round). LAMB's trust ratio is a
   carried per-leaf slot here, refreshed at each sync.
@@ -32,6 +33,16 @@ Every exchange runs once per *exchange unit*, in issue order
 (``ComposedOptimizer.units``): a DP leaf, or with ``bucket_mb`` a bucket
 of :mod:`repro_torch.core.bucketing`, whose EF state and anchor then live
 in the bucket's layout (``u``, ``m`` and ``v`` stay per leaf).
+
+**Precision.** ``state_dtype`` is the dtype of every state tensor (``m``,
+``v``, ``u``, the EF state; bf16 in production) except the per-leaf
+scalar slots (LAMB's trust), which stay f32; the anchor keeps the
+parameters' dtype. The arithmetic is f32 as in the reference: each leaf
+(or exchange unit) is upcast, stepped and rounded back to its stored
+dtype once, round-to-nearest-even, where the reference rounds it at the
+end of its step. A sync step's exchange reads the f32 ``u'`` of the
+local step, so a low-precision ``u`` gets an f32 buffer per leaf of the
+unit being exchanged, never one for the whole model.
 """
 from __future__ import annotations
 
@@ -48,12 +59,14 @@ from repro_torch.core import compressor as C
 from repro_torch.core import leafwise
 from repro_torch.core import onebit_allreduce as AR
 from repro_torch.core import schedules as S
-from repro_torch.core.base_steps import bcast
+from repro_torch.core.base_steps import NEEDS_ANCHOR_TEXT, bcast
 from repro_torch.core.comm import Comm, Hierarchy
 from repro_torch.kernels import dispatch as K
 from repro_torch.kernels.fused_adam import fma, rsqrt
 
 STYLES = ("accumulate", "gradient", "mean")
+# dtypes a state tensor may have (the kernels take exactly these)
+STATE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 @dataclasses.dataclass
@@ -89,6 +102,31 @@ class CompressedDPState:
             anchor=[c(x) for x in self.anchor])
 
 
+@dataclasses.dataclass(frozen=True)
+class StateKind:
+    """Tag of one optimizer-state leaf, the reference's registry
+    (``src/repro/core/compressed.py::StateKind``), for deriving sharding
+    specs and abstract shapes generically.
+
+    tags: ``scalar`` (a replicated scalar), ``view`` (the comm view of a
+    DP leaf, the natural shape of a non-DP one), ``chunk`` (a server
+    chunk, DP only), ``natural`` (param-shaped, DP only: anchors),
+    ``leaf_scalar`` (a per-worker scalar, DP only: trust ratios). ``leaf``
+    indexes the flat param leaf. With ``bucket_mb`` the EF state and the
+    anchors live per bucket: ``bucket_view`` / ``bucket_chunk`` mirror
+    ``view`` / ``chunk`` with ``leaf`` indexing ``bucket_plan.buckets``."""
+
+    tag: str
+    leaf: Optional[int] = None
+
+    @property
+    def bucketed(self) -> bool:
+        return self.tag in ("bucket_view", "bucket_chunk")
+
+
+_SCALAR = StateKind("scalar")
+
+
 class _ExchangeUnit(NamedTuple):
     """One unit of the per-unit issue loop: a bucket, or a DP leaf when
     bucketing is off. ``state_idx`` indexes the EF/anchor lists (the flat
@@ -118,7 +156,10 @@ class CompressedDP:
                                         # Codec instance
     codec_arg: Optional[float] = None   # argument of a named codec (topk:
                                         # density)
+    store_anchor: bool = True           # keep x_{t'} (bitwise consensus at
+                                        # syncs); False recovers it from u
     comm_dtype: Any = torch.bfloat16
+    state_dtype: Any = torch.float32    # m, v, u and the EF state
     hierarchy: Optional[Hierarchy] = None   # two-level exchange (pods)
     bucket_mb: Optional[float] = None   # MiB of f32 elements per fused
                                         # bucket (core.bucketing); None:
@@ -147,6 +188,14 @@ class CompressedDP:
         codec = CODECS.resolve_with_quantize(self.codec, self.quantize)
         object.__setattr__(self, "codec",
                            CODECS.make_codec(codec, self.codec_arg))
+        if self.state_dtype not in STATE_DTYPES:
+            raise ValueError(
+                f"state_dtype={self.state_dtype}; the port keeps its "
+                f"optimizer state in one of {STATE_DTYPES}")
+        if (self.style == "accumulate" and self.base.needs_anchor
+                and not self.store_anchor):
+            raise ValueError(NEEDS_ANCHOR_TEXT.format(
+                base=type(self.base).__name__))
         if self.style == "accumulate" and self.weight_decay:
             raise ValueError(
                 "weight_decay is not supported in the accumulate style: a "
@@ -201,7 +250,7 @@ class ComposedOptimizer:
                                 and self.base.has_variance)
         self._has_u = cfg.style == "accumulate"
         self._has_ef = cfg.style in ("accumulate", "gradient")
-        self._has_anchor = self._has_u
+        self._has_anchor = self._has_u and cfg.store_anchor
 
     # ------------------------------------------------------------------ #
     def init(self, params) -> CompressedDPState:
@@ -212,6 +261,7 @@ class ComposedOptimizer:
         xs = self.plan.flat(params)
         stack = xs[0].shape[0]
         los, dps = self.layouts, self.dp
+        sd = self.cfg.state_dtype
 
         def slot(kind, init, x, lo, dp):
             if kind == "scalar":
@@ -219,7 +269,7 @@ class ComposedOptimizer:
                                    device=x.device) if dp else None)
             return torch.full(x.shape[:1] + (lo.view_shape if dp
                                              else x.shape[1:]),
-                              init, dtype=torch.float32, device=x.device)
+                              init, dtype=sd, device=x.device)
 
         slots = {name: [slot(kind, init, x, lo, dp)
                         for x, lo, dp in zip(xs, los, dps)]
@@ -237,7 +287,7 @@ class ComposedOptimizer:
             anchor = [self._gather_bucket(b, [xs[i] for i in b.members])
                       .detach().clone() if self._has_anchor else None
                       for b in self.bucket_plan.buckets]
-        efs = [AR.init_ef_state(lo, stack, dev)
+        efs = [AR.init_ef_state(lo, stack, dev, sd)
                if self._has_ef and lo is not None
                else AR.EFState(None, None) for lo in ef_los]
         return CompressedDPState(
@@ -247,11 +297,53 @@ class ComposedOptimizer:
             var_pstate=(self.cfg.var_policy.init()
                         if self._use_var_policy else ()),
             slots=slots,
-            u=[torch.zeros((stack,) + lo.view_shape, device=x.device)
+            u=[torch.zeros((stack,) + lo.view_shape, dtype=sd,
+                           device=x.device)
                if self._has_u and dp else None
                for x, lo, dp in zip(xs, los, dps)],
             err_w=[ef.err_worker for ef in efs],
             err_s=[ef.err_server for ef in efs], anchor=anchor)
+
+    def state_kinds(self) -> CompressedDPState:
+        """The state's structure with a :class:`StateKind` for each
+        tensor leaf (the same ``None`` placements as :meth:`init`), tag
+        for tag the reference's ``state_kinds``; its host scalars (step,
+        gamma, the policy states) are ``scalar``."""
+        cfg, dps = self.cfg, self.dp
+        slots = {}
+        for name, (kind, _) in self.base.slot_specs().items():
+            if kind == "scalar":
+                slots[name] = [StateKind("leaf_scalar", i) if dp else None
+                               for i, dp in enumerate(dps)]
+            else:
+                slots[name] = [StateKind("view", i) for i in range(len(dps))]
+        bp = self.bucket_plan
+        if bp is None:
+            err_w = [StateKind("view", i) if (dp and self._has_ef) else None
+                     for i, dp in enumerate(dps)]
+            err_s = [StateKind("chunk", i) if (dp and self._has_ef) else None
+                     for i, dp in enumerate(dps)]
+            anchor = [StateKind("natural", i)
+                      if (dp and self._has_anchor) else None
+                      for i, dp in enumerate(dps)]
+        else:
+            nb = range(len(bp.buckets))
+            err_w = [StateKind("bucket_view", bi) if self._has_ef else None
+                     for bi in nb]
+            err_s = [StateKind("bucket_chunk", bi) if self._has_ef else None
+                     for bi in nb]
+            anchor = [StateKind("bucket_view", bi)
+                      if self._has_anchor else None for bi in nb]
+        return CompressedDPState(
+            step=_SCALAR, gamma_acc=_SCALAR,
+            sync_pstate=tuple(_SCALAR for _ in (
+                cfg.sync_policy.init() if self._use_sync_policy else ())),
+            var_pstate=tuple(_SCALAR for _ in (
+                cfg.var_policy.init() if self._use_var_policy else ())),
+            slots=slots,
+            u=[StateKind("view", i) if (dp and self._has_u) else None
+               for i, dp in enumerate(dps)],
+            err_w=err_w, err_s=err_s, anchor=anchor)
 
     def _gather_bucket(self, bucket, leaves_nat):
         """Natural member leaves -> bucket buffer (via their comm views)."""
@@ -314,25 +406,28 @@ class ComposedOptimizer:
         reference's ``mh = b1*m + (1-b1)*g`` (one FMA, as XLA contracts
         it), ``x -= precond(lr*mh)`` with the variance from before the
         step (LAMB: ``lr * trust * upd`` with the trust of this step),
-        and the variance refreshed every step."""
+        and the variance refreshed every step; in f32 over the upcast
+        slots, each written back rounded to its dtype."""
         base = self.base
         b1 = float(np.float32(base.beta1))
         omb1 = float(np.float32(1.0 - base.beta1))
         m = state.slots["m"][i]
-        mh = fma(m, b1, g * omb1)
+        mh = fma(_f32(m), b1, g * omb1)
         x32 = x.to(torch.float32)
+        s32 = ({"v": _f32(state.slots["v"][i])} if base.has_variance
+               else {})
         if base.has_trust:
-            upd = base.precond_raw(mh, {"v": state.slots["v"][i]})
+            upd = base.precond_raw(mh, s32)
             lr_trust = float(lr) * base.trust_ratio(x32, upd)
             delta = bcast(lr_trust, upd) * upd
         elif base.has_variance:
-            delta = base.precond_(mh * float(lr), {"v": state.slots["v"][i]})
+            delta = base.precond_(mh * float(lr), s32)
         else:
             delta = mh * float(lr)
         _sub_into(x, x32, delta)
         m.copy_(mh)
         if base.has_variance:
-            base.update_variance_(state.slots["v"][i], g)
+            _update_variance_(base, state.slots["v"][i], g)
 
     def _step_accumulate(self, comm, params, grads, state, donate_grads):
         cfg, base = self.cfg, self.base
@@ -353,80 +448,115 @@ class ComposedOptimizer:
         # its reciprocal); made once per step
         gamma_t = torch.tensor(gamma_total, device=xs[0].device)
         slots = state.slots
+        use_anchor = cfg.store_anchor
 
         def grad_view(i):
             return C.to_view(gs[i].to(torch.float32), self.layouts[i])
 
-        # --- the local half-step of every leaf, in place (kernel 1 on DP
-        # leaves: m and u updated, the delta over the gradient's view
-        # unless the T_v round below still needs the gradient; LAMB
-        # scales its delta by the leaf's frozen trust after it, as the
-        # reference). On sync steps the delta is not needed: the
-        # re-anchor replaces x_{t+1/2}. Leaves outside data parallelism
-        # take their plain local base step.
-        for i, (x, lo) in enumerate(zip(xs, self.layouts)):
+        def local_step(i, u_out=None):
+            """Kernel 1 on DP leaf i, in place: m and u (or ``u_out``, an
+            f32 buffer for a sync's exchange) updated from the gradient
+            in its own dtype, the delta (f32) over the gradient's view
+            where that is f32 and dead (the T_v round below still needs
+            it), else new. LAMB scales it by the leaf's frozen trust, as
+            the reference."""
+            lo = self.layouts[i]
+            g = C.to_view(gs[i], lo)
+            delta = K.fused_local_step_view_(
+                g, slots["m"][i], state.u[i],
+                slots["v"][i] if base.has_variance else None, lr,
+                base.beta1, getattr(base, "eps", 0.0), lo, kind=base.kind,
+                into_grad=donate_grads and not do_var, u_out=u_out)
+            if base.has_trust:
+                delta.mul_(bcast(slots["trust"][i], delta))
+            return delta
+
+        # leaves outside data parallelism take their plain local base step
+        for i, x in enumerate(xs):
             if not self.dp[i]:
                 self._local_base_step(i, x, gs[i].to(torch.float32), state,
                                       lr)
-                continue
-            delta = K.fused_local_step_view_(
-                grad_view(i), slots["m"][i], state.u[i],
-                slots["v"][i] if base.has_variance else None, lr,
-                base.beta1, getattr(base, "eps", 0.0), lo, kind=base.kind,
-                into_grad=donate_grads and not do_var)
-            if not do_sync:
-                if base.has_trust:
-                    delta.mul_(bcast(slots["trust"][i], delta))
-                _sub_into(x, x, C.from_view(delta, lo))
-            del delta
 
-        # --- T_u: one Algorithm-2 exchange per unit, then each member's
-        # slot refresh (LAMB's trust) and re-anchor x = anchor -
-        # precond(ubar), momentum ubar / gamma, u = 0; EF state and
+        # --- a local step: the half-step x -= delta of every DP leaf
+        for i in range(len(xs)) if not do_sync else ():
+            if self.dp[i]:
+                delta = local_step(i)
+                _sub_into(xs[i], xs[i], C.from_view(delta, self.layouts[i]))
+                del delta
+
+        # --- T_u, one exchange unit at a time: its members' local steps
+        # (u' in f32 for the exchange: in place when u is f32, else a
+        # buffer for this unit alone), one Algorithm-2 exchange, then
+        # each member's slot refresh (LAMB's trust), momentum ubar /
+        # gamma, u = 0 and either the re-anchor x = anchor -
+        # precond(ubar) or, without an anchor, the half-step followed by
+        # the correction x = x_half + precond(u' - ubar); EF state and
         # anchor written back before the next unit
         sync_names = tuple(base.sync_slot_names)
         for unit in self.units if do_sync else ():
             si = unit.state_idx
-            ubars, ef = self._onebit_unit(
-                comm, unit, [state.u[i] for i in unit.members],
-                state.err_w[si], state.err_s[si])
+            u32 = []
+            for i in unit.members:
+                uo = (None if state.u[i].dtype == torch.float32
+                      else torch.empty(state.u[i].shape, dtype=torch.float32,
+                                       device=state.u[i].device))
+                delta = local_step(i, uo)
+                if not use_anchor:
+                    _sub_into(xs[i], xs[i],
+                              C.from_view(delta, self.layouts[i]))
+                del delta
+                u32.append(state.u[i] if uo is None else uo)
+            ubars, ef = self._onebit_unit(comm, unit, u32, state.err_w[si],
+                                          state.err_s[si])
             state.err_w[si].copy_(ef.err_worker)
             state.err_s[si].copy_(ef.err_server)
             del ef
-            if unit.bucket is None:
-                ancs = [state.anchor[si]]
+            if not use_anchor:
+                ancs = [None] * len(unit.members)
             else:
-                ancs = [C.from_view(a, self.layouts[i]) for a, i in zip(
-                    self._unit_scatter(unit, state.anchor[si]),
-                    unit.members)]
-            for i, ubar, anc in zip(unit.members, ubars, ancs):
+                u32 = [None] * len(u32)     # u' is dead once exchanged
+                ancs = ([state.anchor[si]] if unit.bucket is None else
+                        [C.from_view(a, self.layouts[i]) for a, i in zip(
+                            self._unit_scatter(unit, state.anchor[si]),
+                            unit.members)])
+            for i, ubar, anc, uh in zip(unit.members, ubars, ancs, u32):
                 lo = self.layouts[i]
-                sl = {name: slots[name][i] for name in slots}
+                # the slots the refresh and the preconditioner read (not
+                # m, which the sync replaces), upcast
+                sl = {name: _f32(slots[name][i]) for name in slots
+                      if name != "m"}
                 sl.update(base.refresh_sync_slots(sl, anc, ubar, gamma_t,
                                                   lo))
                 for name in sync_names:
                     slots[name][i].copy_(sl[name])
                 torch.div(ubar, gamma_t, out=slots["m"][i])
-                # ubar is dead after the momentum: precondition it in place
-                # (a copy first where the exchange handed back a broadcast
-                # view, as an exact codec's gather does)
-                ubar = ubar.contiguous()
-                _sub_into(xs[i], anc, C.from_view(base.precond_(ubar, sl),
-                                                  lo))
+                if use_anchor:
+                    # ubar is dead after the momentum: precondition it in
+                    # place (a copy first where the exchange handed back a
+                    # broadcast view, as an exact codec's gather does)
+                    ubar = ubar.contiguous()
+                    _sub_into(xs[i], anc, C.from_view(
+                        base.precond_(ubar, sl), lo))
+                else:
+                    # u' is dead after: the correction takes its buffer
+                    corr = base.precond_(uh.sub_(ubar), sl)
+                    torch.add(xs[i], C.from_view(corr, lo), out=xs[i])
+                    del corr
                 state.u[i].zero_()
             # drop the unit's temporaries (the loop's names too) before
             # the next unit's exchange
-            del ubars, ancs, ubar, anc, sl
-            state.anchor[si].copy_(
-                xs[si] if unit.bucket is None else self._gather_bucket(
-                    unit.bucket, [xs[i] for i in unit.members]))
+            del ubars, ancs, ubar, anc, sl, u32, uh
+            if use_anchor:
+                state.anchor[si].copy_(
+                    xs[si] if unit.bucket is None else self._gather_bucket(
+                        unit.bucket, [xs[i] for i in unit.members]))
 
         # --- T_v: the full-precision variance refresh, per unit too
         for unit in self.units if do_var else ():
             gbars = self._fullprec_unit(comm, unit,
                                         [grad_view(i) for i in unit.members])
             for i, gbar in zip(unit.members, gbars):
-                base.update_variance_(slots["v"][i], gbar)
+                _update_variance_(base, slots["v"][i], gbar)
             del gbars, gbar
 
         state.step = t + 1
@@ -486,11 +616,11 @@ class ComposedOptimizer:
                 return C.from_view(a, lo) if dp else a
 
             m = state.slots["m"][i]
-            nm = fma(m, b1, g * omb1)
+            nm = fma(_f32(m), b1, g * omb1)
             x32 = x.to(torch.float32)
             nv = None
             if base.has_variance:
-                v = state.slots["v"][i]
+                v = _f32(state.slots["v"][i])
                 if do_var or not dp:
                     nv = fma(v, b2, (g * omb2) * g)
             if base.has_trust:
@@ -508,7 +638,7 @@ class ComposedOptimizer:
                 step = nat(nm)
                 nx = (x32 - fma(x32, lr_wd, step * float(lr)) if lr_wd
                       else fma(step, -float(lr), x32))
-            _store(x, nx)
+            x.copy_(nx)         # rounded once to the parameter dtype
             m.copy_(nm)
             if nv is not None:
                 state.slots["v"][i].copy_(nv)
@@ -540,19 +670,26 @@ class ComposedOptimizer:
         return params, state, metrics
 
 
-def _store(x: torch.Tensor, value: torch.Tensor) -> None:
-    """Write an f32 result into the parameter ``x`` in place, rounded to
-    its dtype."""
-    x.copy_(value if value.dtype == x.dtype else value.to(x.dtype))
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """A state tensor at f32: itself, or an upcast copy (exact)."""
+    return t if t.dtype == torch.float32 else t.to(torch.float32)
+
+
+def _update_variance_(base, v: torch.Tensor, g: torch.Tensor) -> None:
+    """The base's variance refresh of ``v`` in place: in f32 over an
+    upcast copy where ``v`` is of lower precision, rounded back once."""
+    if v.dtype == torch.float32:
+        base.update_variance_(v, g)
+    else:
+        v.copy_(base.update_variance_(v.to(torch.float32), g))
 
 
 def _sub_into(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> None:
     """``x = a - b`` in f32 written into the parameter ``x`` (``a`` may be
-    ``x`` itself): without a temporary when ``x`` is f32."""
-    if x.dtype == torch.float32:
-        torch.sub(a, b, out=x)
-    else:
-        _store(x, a.to(torch.float32) - b)
+    ``x`` itself), rounded once to its dtype, in one pass: torch computes
+    a mixed-dtype op in the promoted f32 and rounds the result to nearest
+    even as it writes it."""
+    torch.sub(a, b, out=x)
 
 
 def comm_accounting(opt: ComposedOptimizer) -> Dict[str, float]:

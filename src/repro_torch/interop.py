@@ -40,6 +40,17 @@ from repro_torch.models.layers import ep_axes
 
 
 def _tensor(a, device):
+    """A copy of ``a`` as a tensor on ``device``, in its own dtype: a
+    numpy bfloat16 (the ``ml_dtypes`` type the reference's arrays carry,
+    or the raw 2-byte records an npz file holds) becomes torch's, bit for
+    bit; a tensor is copied."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().clone().to(device)
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16" or (a.dtype.kind == "V"
+                                      and a.dtype.itemsize == 2):
+        bits = torch.from_numpy(np.array(a.view(np.uint16), copy=True))
+        return bits.view(torch.bfloat16).to(device)
     return torch.as_tensor(np.array(a, copy=True), device=device)
 
 
@@ -77,7 +88,8 @@ def state_from_reference(state, opt: ComposedOptimizer, device="cpu",
     worker dim (sim mode, as ``Trainer.sim_init`` returns it); else none
     (single mode), and the port's stack of one is added. Scalars and
     policy states must be identical on all workers (a ``ValueError``
-    otherwise); a leaf the style keeps as ``None`` stays ``None``."""
+    otherwise); a leaf the style keeps as ``None`` stays ``None``. Every
+    leaf keeps its dtype (bf16 under ``state_dtype=bf16``)."""
     def first(x, name):
         a = np.asarray(x).reshape(-1)
         if not (a == a[0]).all():
@@ -92,7 +104,7 @@ def state_from_reference(state, opt: ComposedOptimizer, device="cpu",
     def leaves(xs):
         out = []
         for x in xs:
-            t = None if x is None else _tensor(x, device).to(torch.float32)
+            t = None if x is None else _tensor(x, device)
             out.append(t if t is None or stacked else t[None])
         return out
 

@@ -4,8 +4,8 @@ Each source in ``csrc/`` compiles, at first use, into its own shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds). All stale sources compile at once, one ``nvcc`` process each.
 Libraries land in ``kernels/build/`` (git-ignored) under a name that
-hashes the source and the flags, so an edited source never loads an old
-binary.
+hashes the source, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source never loads an old binary.
 
 Wrappers call :func:`launch`, which passes raw device pointers and the
 current PyTorch stream, raises on a non-zero ``cudaGetLastError()`` and
@@ -37,14 +37,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I64, _F32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
 # C entry point -> (source, argtypes); every entry point returns int
 _ENTRY_POINTS = {
-    "fused_local_step_f32": ("fused_adam",
-                             [_P] * 5 + [_I64] + [_F32] * 4 + [_P]),
-    "fused_local_step_sgd_f32": ("fused_adam",
-                                 [_P] * 4 + [_I64] + [_F32] * 3 + [_P]),
-    "abs_rowsum_f32": ("onebit", [_P] * 6 + [_I64] * 5 + [_P]),
-    "ef_quantize_f32": ("onebit", [_P] * 6 + [_I64] * 6 + [_P]),
-    "ef_compress_f32": ("onebit", [_P] * 6 + [_I64] * 5 + [_P]),
-    "decompress_f32": ("onebit", [_P] * 3 + [_I64] * 4 + [_P]),
+    "fused_local_step": ("fused_adam",
+                         [_P] * 6 + [_I64] + [_F32] * 4 + [_I64, _P]),
+    "fused_local_step_sgd": ("fused_adam",
+                             [_P] * 5 + [_I64] + [_F32] * 3 + [_I64, _P]),
+    "abs_rowsum": ("onebit", [_P] * 6 + [_I64] * 6 + [_P]),
+    "ef_quantize": ("onebit", [_P] * 6 + [_I64] * 7 + [_P]),
+    "ef_compress": ("onebit", [_P] * 6 + [_I64] * 6 + [_P]),
+    "decompress": ("onebit", [_P] * 3 + [_I64] * 4 + [_P]),
 }
 
 # kernel name -> number of launches; chip_smoke.py clears it before the
@@ -67,6 +67,8 @@ def nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):    # the shared headers
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -4,7 +4,12 @@
 //
 // All four work on a 2-D (rows, cols) f32 frame of a comm view, with
 // cols a multiple of 8. counts[r] is the number of true (unpadded)
-// elements of row r; the mask is rebuilt as `col < counts[r]`.
+// elements of row r; the mask is rebuilt as `col < counts[r]`. The error
+// feedback err (and err_out, in err's dtype) is f32 or bf16, the
+// optimizer's state_dtype, named by the entry points' `types` code: a
+// bf16 err is widened on load (exact), added to z in f32, and err_out is
+// rounded once to nearest even, as the reference's kernels compute
+// `z.astype(f32) + err.astype(f32)` and store `.astype(errout.dtype)`.
 //
 // abs_rowsum   replaces src/repro/kernels/onebit.py::abs_rowsum and the
 //              reference's combine of its row sums into scales
@@ -23,11 +28,11 @@
 //              out = (bit ? s : -s), s = scales[r]
 //
 // Bound: bytes, for every kernel. abs_rowsum reads 8 bytes per true
-// element (and writes 4 per row and per group); ef_quantize reads 8 and
-// writes 4.125 bytes per element; ef_compress the same as ef_quantize
-// plus 4 bytes of scale per row; decompress reads 0.125 and writes 4
-// bytes per element. The arithmetic is an add, a compare and a subtract
-// per element.
+// element (6 with a bf16 err; and writes 4 per row and per group);
+// ef_quantize reads 8 and writes 4.125 bytes per element (6 and 2.125
+// with a bf16 err); ef_compress the same as ef_quantize plus 4 bytes of
+// scale per row; decompress reads 0.125 and writes 4 bytes per element.
+// The arithmetic is an add, a compare and a subtract per element.
 //
 // Design:
 // * abs_rowsum gives each row 1, 2, 4 or 8 warps, a number chosen from
@@ -114,6 +119,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bf16x4.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -222,6 +229,13 @@ __device__ __forceinline__ float4 load4_upto(const float* p, int n) {
   return make_float4(p[0], n > 1 ? p[1] : 0.f, n > 2 ? p[2] : 0.f,
                      n > 3 ? p[3] : 0.f);
 }
+template <bool VEC>
+__device__ __forceinline__ float4 load4_upto(const bf16x4::bf16* p, int n) {
+  using bf16x4::to_f32;
+  if (VEC) return bf16x4::load4<true>(p);
+  return make_float4(to_f32(p[0]), n > 1 ? to_f32(p[1]) : 0.f,
+                     n > 2 ? to_f32(p[2]) : 0.f, n > 3 ? to_f32(p[3]) : 0.f);
+}
 
 // Pass 1. A block holds gpb groups of gr rows (gpb * gr <= 8 / wpr),
 // each row wpr warps (warp k of a row sums float4 columns [k * slice4,
@@ -229,10 +243,10 @@ __device__ __forceinline__ float4 load4_upto(const float* p, int n) {
 // sums in order and writes the group's scale. (Groups of more rows than a
 // block holds come here as single rows, gr = 1, without scales; the
 // second kernel below adds them up.)
-template <bool VEC>
+template <bool VEC, typename E>
 __global__ void __launch_bounds__(kThreads)
 abs_rowsum_kernel(const float* __restrict__ z,
-                  const float* __restrict__ err,
+                  const E* __restrict__ err,
                   const int* __restrict__ counts, float* __restrict__ out,
                   const float* __restrict__ denoms,
                   float* __restrict__ scales, int64_t rows, int cols,
@@ -250,7 +264,7 @@ abs_rowsum_kernel(const float* __restrict__ z,
     const int lo = part * slice4;
     const int hi = min((cnt + 3) / 4, lo + slice4);   // float4s to read
     const float* zr = z + r * cols;
-    const float* er = err + r * cols;
+    const E* er = err + r * cols;
     for (int j0 = lo; j0 < hi; j0 += 32 * kRowUnroll) {
       float4 a[kRowUnroll], b[kRowUnroll];
 #pragma unroll
@@ -347,14 +361,14 @@ __device__ __forceinline__ uint32_t mulshift(uint32_t b, uint32_t mul,
 // Chunks of kQuantChunk float4s, one warp each. Row of float4 f:
 // mulshift(f, row_mul, row_shift) == f / c4; group of row r:
 // mulshift(r, grp_mul, grp_shift) == r / gr.
-template <bool VEC>
+template <bool VEC, typename E>
 __global__ void __launch_bounds__(kThreads)
 ef_quantize_kernel(const float* __restrict__ z,
-                   const float* __restrict__ err,
+                   const E* __restrict__ err,
                    const float* __restrict__ scales,
                    const int* __restrict__ counts,
                    uint8_t* __restrict__ packed,
-                   float* __restrict__ err_out, uint32_t n4, uint32_t c4,
+                   E* __restrict__ err_out, uint32_t n4, uint32_t c4,
                    uint32_t row_mul, uint32_t row_shift, uint32_t grp_mul,
                    uint32_t grp_shift) {
   const uint32_t lane = threadIdx.x & 31;
@@ -368,7 +382,7 @@ ef_quantize_kernel(const float* __restrict__ z,
       const uint32_t f = base + 32 * k + lane;
       if (f < n4) {
         a[k] = load4<VEC>(z + 4 * (size_t)f);
-        b[k] = load4<VEC>(err + 4 * (size_t)f);
+        b[k] = bf16x4::load4<VEC>(err + 4 * (size_t)f);
       }
     }
 #pragma unroll
@@ -384,7 +398,7 @@ ef_quantize_kernel(const float* __restrict__ z,
         const float s = scales[mulshift(r, grp_mul, grp_shift)];
         float4 eo;
         nib = quantize4(add4(a[k], b[k]), s, c, cnt, &eo);
-        store4<VEC>(err_out + 4 * (size_t)f, eo);
+        bf16x4::store4<VEC, true>(err_out + 4 * (size_t)f, eo);
       }
       const unsigned low = __shfl_xor_sync(0xffffffffu, nib, 1);
       if (f < n4 && !(lane & 1)) packed[f >> 1] = (uint8_t)((nib << 4) | low);
@@ -395,14 +409,14 @@ ef_quantize_kernel(const float* __restrict__ z,
 // One cluster of gridDim.x blocks per row (grid-strided over rows along
 // y); block `rank` owns columns [rank * slice, min(cols, (rank+1) * slice))
 // and keeps the first `kept` of them in shared memory.
-template <bool VEC>
+template <bool VEC, typename E>
 __global__ void __launch_bounds__(kThreads)
 ef_compress_kernel(const float* __restrict__ z,
-                   const float* __restrict__ err,
+                   const E* __restrict__ err,
                    const int* __restrict__ counts,
                    uint8_t* __restrict__ packed,
                    float* __restrict__ scales,
-                   float* __restrict__ err_out, int64_t rows, int cols,
+                   E* __restrict__ err_out, int64_t rows, int cols,
                    int slice, int kept) {
   extern __shared__ float4 zw_kept[];
   __shared__ float warp_sums[kThreads / 32];
@@ -420,7 +434,7 @@ ef_compress_kernel(const float* __restrict__ z,
     const int cnt = (int)row_count(counts, r, cols);
     const int64_t off = r * cols + c_lo;
     const float* zr = z + off;
-    const float* er = err + off;
+    const E* er = err + off;
     float acc = 0.f;
     for (int j0 = 0; j0 < units; j0 += kThreads * kUnroll) {
       float4 a[kUnroll], b[kUnroll];
@@ -429,7 +443,7 @@ ef_compress_kernel(const float* __restrict__ z,
         const int j = j0 + u * kThreads + t;
         if (j < units) {
           a[u] = load4<VEC>(zr + 4 * j);
-          b[u] = load4<VEC>(er + 4 * j);
+          b[u] = bf16x4::load4<VEC>(er + 4 * j);
         }
       }
 #pragma unroll
@@ -457,7 +471,7 @@ ef_compress_kernel(const float* __restrict__ z,
     __syncthreads();
     const float s = row_scale;
     uint8_t* pr = packed + r * (cols / 8) + c_lo / 8;
-    float* eo_r = err_out + off;
+    E* eo_r = err_out + off;
     // units is even and j0 a multiple of 256, so lanes 2i and 2i+1 hold
     // the two halves of one packed byte, or neither
     for (int j0 = 0; j0 < units; j0 += kThreads) {
@@ -467,10 +481,10 @@ ef_compress_kernel(const float* __restrict__ z,
         const float4 zw = j < kept_units
                               ? zw_kept[j]
                               : add4(load4<VEC>(zr + 4 * j),
-                                     load4<VEC>(er + 4 * j));
+                                     bf16x4::load4<VEC>(er + 4 * j));
         float4 eo;
         nib = quantize4(zw, s, c_lo + 4 * j, cnt, &eo);
-        store4<VEC>(eo_r + 4 * j, eo);
+        bf16x4::store4<VEC, true>(eo_r + 4 * j, eo);
       }
       const unsigned low = __shfl_xor_sync(0xffffffffu, nib, 1);
       if (j < units && !(t & 1)) pr[j >> 1] = (uint8_t)((nib << 4) | low);
@@ -520,20 +534,13 @@ decompress_kernel(const uint8_t* __restrict__ packed,
   }
 }
 
-}  // namespace
+// The entry points' bodies, templated on err's dtype E (float or bf16).
 
-// Each entry point returns cudaGetLastError() after its launch (0 = ok).
-
-// wpr and slice4 come from kernels/onebit.py::abs_rowsum_geometry; with
-// gr > 0 the scales of rows / gr groups of gr rows follow (denoms and
-// scales hold one per group): from the same kernel where a group fits in
-// a block, else from a second kernel on the same stream.
-extern "C" int abs_rowsum_f32(const void* z, const void* err,
-                              const void* counts, void* out,
-                              const void* denoms, void* scales,
-                              long long rows, long long cols, long long wpr,
-                              long long slice4, long long gr,
-                              void* stream) {
+template <typename E>
+int abs_rowsum_impl(const void* z, const void* err, const void* counts,
+                    void* out, const void* denoms, void* scales,
+                    long long rows, long long cols, long long wpr,
+                    long long slice4, long long gr, void* stream) {
   if (rows <= 0 || cols <= 0) return 0;
   if (cols >= (1LL << 30) || !(wpr == 1 || wpr == 2 || wpr == 4 ||
                                wpr == 8) ||
@@ -548,14 +555,14 @@ extern "C" int abs_rowsum_f32(const void* z, const void* err,
   const int64_t gpb = rpb / g1;
   const unsigned blocks = (unsigned)((rows + gpb * g1 - 1) / (gpb * g1));
   const float* zp = static_cast<const float*>(z);
-  const float* ep = static_cast<const float*>(err);
+  const E* ep = static_cast<const E*>(err);
   const int* cp = static_cast<const int*>(counts);
   float* op = static_cast<float*>(out);
   const float* dp = static_cast<const float*>(denoms);
   float* sp = static_cast<float*>(scales);
-  auto kernel = cols % 4 == 0 && aligned16(z) && aligned16(err)
-                    ? abs_rowsum_kernel<true>
-                    : abs_rowsum_kernel<false>;
+  auto kernel = cols % 4 == 0 && aligned16(z) && bf16x4::aligned4<E>(err)
+                    ? abs_rowsum_kernel<true, E>
+                    : abs_rowsum_kernel<false, E>;
   kernel<<<blocks, kThreads, 0, st>>>(zp, ep, cp, op, dp,
                                       in_block ? sp : nullptr, rows,
                                       (int)cols, (int)wpr, (int)slice4,
@@ -575,14 +582,12 @@ extern "C" int abs_rowsum_f32(const void* z, const void* err,
   return (int)cudaGetLastError();
 }
 
-// The divisors come from kernels/onebit.py::ef_quantize_divisors; one
-// warp per chunk of kQuantChunk float4s.
-extern "C" int ef_quantize_f32(const void* z, const void* err,
-                               const void* scales, const void* counts,
-                               void* packed, void* err_out, long long rows,
-                               long long cols, long long row_mul,
-                               long long row_shift, long long grp_mul,
-                               long long grp_shift, void* stream) {
+template <typename E>
+int ef_quantize_impl(const void* z, const void* err, const void* scales,
+                     const void* counts, void* packed, void* err_out,
+                     long long rows, long long cols, long long row_mul,
+                     long long row_shift, long long grp_mul,
+                     long long grp_shift, void* stream) {
   if (rows <= 0 || cols <= 0) return 0;
   const long long n4 = rows * (cols / 4);
   if (cols % 8 || n4 >= (1LL << 31) || row_mul <= 0 ||
@@ -594,25 +599,24 @@ extern "C" int ef_quantize_f32(const void* z, const void* err,
   const long long chunks = (n4 + kQuantChunk - 1) / kQuantChunk;
   const unsigned grid = (unsigned)((chunks + kWarps - 1) / kWarps);
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  auto kernel = aligned16(z) && aligned16(err) && aligned16(err_out)
-                    ? ef_quantize_kernel<true>
-                    : ef_quantize_kernel<false>;
+  auto kernel = aligned16(z) && bf16x4::aligned4<E>(err) &&
+                        bf16x4::aligned4<E>(err_out)
+                    ? ef_quantize_kernel<true, E>
+                    : ef_quantize_kernel<false, E>;
   kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const float*>(z), static_cast<const float*>(err),
+      static_cast<const float*>(z), static_cast<const E*>(err),
       static_cast<const float*>(scales), static_cast<const int*>(counts),
-      static_cast<uint8_t*>(packed), static_cast<float*>(err_out),
+      static_cast<uint8_t*>(packed), static_cast<E*>(err_out),
       (uint32_t)n4, (uint32_t)(cols / 4), (uint32_t)row_mul,
       (uint32_t)row_shift, (uint32_t)grp_mul, (uint32_t)grp_shift);
   return (int)cudaGetLastError();
 }
 
-// cluster, slice and kept come from kernels/onebit.py::ef_compress_geometry.
-extern "C" int ef_compress_f32(const void* z, const void* err,
-                               const void* counts, void* packed,
-                               void* scales, void* err_out, long long rows,
-                               long long cols, long long cluster,
-                               long long slice, long long kept,
-                               void* stream) {
+template <typename E>
+int ef_compress_impl(const void* z, const void* err, const void* counts,
+                     void* packed, void* scales, void* err_out,
+                     long long rows, long long cols, long long cluster,
+                     long long slice, long long kept, void* stream) {
   if (rows <= 0 || cols <= 0) return 0;
   // (cols < 2^28 keeps every column index of the kernel in 32 bits)
   if (cols % 8 || cols >= (1LL << 28) || cluster < 1 || cluster > 8 ||
@@ -634,39 +638,103 @@ extern "C" int ef_compress_f32(const void* z, const void* err,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const bool vec = aligned16(z) && aligned16(err) && aligned16(err_out);
+  const bool vec = aligned16(z) && bf16x4::aligned4<E>(err) &&
+                   bf16x4::aligned4<E>(err_out);
   // beyond the default 48 KB of shared memory (static included) a kernel
   // must be allowed more: once, and again only for a larger size
   static size_t smem_set[2] = {47 * 1024, 47 * 1024};
   if (cfg.dynamicSmemBytes > smem_set[vec]) {
     const cudaError_t rc = cudaFuncSetAttribute(
-        vec ? ef_compress_kernel<true> : ef_compress_kernel<false>,
+        vec ? ef_compress_kernel<true, E> : ef_compress_kernel<false, E>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)cfg.dynamicSmemBytes);
     if (rc != cudaSuccess) return (int)rc;
     smem_set[vec] = cfg.dynamicSmemBytes;
   }
   const float* zp = static_cast<const float*>(z);
-  const float* ep = static_cast<const float*>(err);
+  const E* ep = static_cast<const E*>(err);
   const int* cp = static_cast<const int*>(counts);
   uint8_t* pp = static_cast<uint8_t*>(packed);
   float* sp = static_cast<float*>(scales);
-  float* op = static_cast<float*>(err_out);
+  E* op = static_cast<E*>(err_out);
   const int64_t r64 = rows;
   const int c32 = (int)cols, s32 = (int)slice, k32 = (int)kept;
   const cudaError_t rc =
-      vec ? cudaLaunchKernelEx(&cfg, ef_compress_kernel<true>, zp, ep, cp,
-                               pp, sp, op, r64, c32, s32, k32)
-          : cudaLaunchKernelEx(&cfg, ef_compress_kernel<false>, zp, ep, cp,
-                               pp, sp, op, r64, c32, s32, k32);
+      vec ? cudaLaunchKernelEx(&cfg, ef_compress_kernel<true, E>, zp, ep,
+                               cp, pp, sp, op, r64, c32, s32, k32)
+          : cudaLaunchKernelEx(&cfg, ef_compress_kernel<false, E>, zp, ep,
+                               cp, pp, sp, op, r64, c32, s32, k32);
   if (rc != cudaSuccess) return (int)rc;
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+// Each entry point returns cudaGetLastError() after its launch (0 = ok).
+// `types` is err's (and err_out's) dtype: 0 f32, 1 bf16.
+
+// wpr and slice4 come from kernels/onebit.py::abs_rowsum_geometry; with
+// gr > 0 the scales of rows / gr groups of gr rows follow (denoms and
+// scales hold one per group): from the same kernel where a group fits in
+// a block, else from a second kernel on the same stream.
+extern "C" int abs_rowsum(const void* z, const void* err, const void* counts,
+                          void* out, const void* denoms, void* scales,
+                          long long rows, long long cols, long long wpr,
+                          long long slice4, long long gr, long long types,
+                          void* stream) {
+  switch (types) {
+    case 0: return abs_rowsum_impl<float>(z, err, counts, out, denoms, scales,
+                                          rows, cols, wpr, slice4, gr, stream);
+    case 1: return abs_rowsum_impl<bf16x4::bf16>(z, err, counts, out, denoms,
+                                                 scales, rows, cols, wpr,
+                                                 slice4, gr, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The divisors come from kernels/onebit.py::ef_quantize_divisors; one
+// warp per chunk of kQuantChunk float4s.
+extern "C" int ef_quantize(const void* z, const void* err, const void* scales,
+                           const void* counts, void* packed, void* err_out,
+                           long long rows, long long cols, long long row_mul,
+                           long long row_shift, long long grp_mul,
+                           long long grp_shift, long long types,
+                           void* stream) {
+  switch (types) {
+    case 0: return ef_quantize_impl<float>(z, err, scales, counts, packed,
+                                           err_out, rows, cols, row_mul,
+                                           row_shift, grp_mul, grp_shift,
+                                           stream);
+    case 1: return ef_quantize_impl<bf16x4::bf16>(z, err, scales, counts,
+                                                  packed, err_out, rows, cols,
+                                                  row_mul, row_shift, grp_mul,
+                                                  grp_shift, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// cluster, slice and kept come from kernels/onebit.py::ef_compress_geometry.
+extern "C" int ef_compress(const void* z, const void* err, const void* counts,
+                           void* packed, void* scales, void* err_out,
+                           long long rows, long long cols, long long cluster,
+                           long long slice, long long kept, long long types,
+                           void* stream) {
+  switch (types) {
+    case 0: return ef_compress_impl<float>(z, err, counts, packed, scales,
+                                           err_out, rows, cols, cluster, slice,
+                                           kept, stream);
+    case 1: return ef_compress_impl<bf16x4::bf16>(z, err, counts, packed,
+                                                  scales, err_out, rows, cols,
+                                                  cluster, slice, kept,
+                                                  stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 // mul and shift come from kernels/onebit.py::divisor.
-extern "C" int decompress_f32(const void* packed, const void* scales,
-                              void* out, long long rows, long long cols,
-                              long long mul, long long shift, void* stream) {
+extern "C" int decompress(const void* packed, const void* scales, void* out,
+                          long long rows, long long cols, long long mul,
+                          long long shift, void* stream) {
   if (rows <= 0 || cols <= 0) return 0;
   const long long nbytes = rows * (cols / 8);
   if (cols % 8 || nbytes >= (1LL << 31) || mul <= 0 || mul >= (1LL << 32) ||

@@ -292,28 +292,35 @@ def decompress_view(packed, scales, layout: C.LeafLayout):
 
 
 def fused_local_step_view_(g, m, u, v, lr, beta1, eps, layout: C.LeafLayout,
-                           kind: str = "adam", into_grad: bool = False):
+                           kind: str = "adam", into_grad: bool = False,
+                           u_out=None):
     """Fused local half-step over stacked comm views, keyed on the base
     kind: "adam" and "lamb" share the variance kernel (``v`` needed; the
     caller scales a LAMB delta by its trust afterwards, as the
     reference does), "sgd" the kernel without (``v`` ignored). Updates
-    ``m`` and ``u`` (contiguous view-shaped state) in place and returns
-    the delta in view shape: written over the gradient's frame with
-    ``into_grad`` (the gradient is dead after it), else a new tensor."""
-    for name, t in (("m", m), ("u", u)):
-        if not t.is_contiguous():
+    ``m`` and ``u`` (contiguous view-shaped state, f32 or bf16) in place,
+    or writes u' into ``u_out`` (an f32 buffer of the view's shape), and
+    returns the f32 delta in view shape: written over the gradient's
+    frame with ``into_grad`` where the gradient is f32 (it is dead after
+    the step), else a new tensor. The gradient may be bf16 (the
+    parameter dtype); each dtype routes to its kernel instance, and any
+    other dtype raises."""
+    for name, t in (("m", m), ("u", u), ("u_out", u_out)):
+        if t is not None and not t.is_contiguous():
             raise ValueError(f"fused local step: {name} must be contiguous "
                              f"to be updated in place")
     rows, cols = C.view_rows_cols(layout)
     rows *= g.shape[0]
     gf = _frame(g, rows, cols)
-    d = gf if into_grad else None
+    d = gf if into_grad and gf.dtype == torch.float32 else None
+    uof = None if u_out is None else _frame(u_out, rows, cols)
     if kind == "sgd":
         mf, uf = (_frame(a, rows, cols) for a in (m, u))
-        d = fused_adam.fused_local_step_sgd_(gf, mf, uf, lr, beta1, d)
+        d = fused_adam.fused_local_step_sgd_(gf, mf, uf, lr, beta1, d, uof)
     elif kind in ("adam", "lamb"):
         mf, uf, vf = (_frame(a, rows, cols) for a in (m, u, v))
-        d = fused_adam.fused_local_step_(gf, mf, uf, vf, lr, beta1, eps, d)
+        d = fused_adam.fused_local_step_(gf, mf, uf, vf, lr, beta1, eps, d,
+                                         uof)
     else:
         raise ValueError(f"unknown base kind {kind!r} for the fused local "
                          f"step")

@@ -30,6 +30,15 @@ passes it where the gradient is dead after the step), so that a step
 holds no second copy of the state. :func:`fused_local_step` and
 :func:`fused_local_step_sgd` are the out-of-place forms over copies, and
 the plain versions keep the same contracts.
+
+Operands come in the production precision too: the gradient in the
+parameter dtype and the state (m, u, v) in ``state_dtype``, f32 or bf16
+each. The math stays f32, as the reference feeds its kernel f32 upcasts;
+m' and u' round once (to nearest even) to the state dtype, where the
+reference rounds them at the end of its step, except that a sync step
+takes u' unrounded into an f32 ``u_out`` (its exchange reads the f32
+u'); ``d`` is f32 (``x_half = (x - d)`` rounds to the parameter dtype
+once, outside). Any other dtype raises, on every device.
 """
 from __future__ import annotations
 
@@ -112,6 +121,13 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).float()  # audit-ok: float64-literal (a correctly rounded root)
 
 
+def sqrt_(x: torch.Tensor) -> torch.Tensor:
+    """:func:`sqrt` into ``x`` itself (a temporary): the same bits."""
+    if x.is_cuda:
+        return x.sqrt_()
+    return x.copy_(sqrt(x))
+
+
 def rsqrt(x: torch.Tensor) -> torch.Tensor:
     """``1/sqrt(x)`` in f32, as XLA lowers the reference's ``buf /
     sqrt(v + eps)`` (a multiply by ``rsqrt``). XLA's CPU ``rsqrt`` is an
@@ -130,40 +146,82 @@ def _scalars(lr, beta1, eps):
             float(np.float32(1.0 - beta1)), float(np.float32(eps)))
 
 
-def fused_local_step_plain_(g, m, u, v, lr, beta1, eps=1e-8, d=None):
+# dtypes of the operands: the gradient (the parameter dtype) and the state
+OPERAND_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _f32(t):
+    return t if t.dtype == torch.float32 else t.to(torch.float32)
+
+
+def _check(kernel, g, m, u, v, d, u_out):
+    """Raise unless the operands fit the kernel: ``g`` f32 or bf16; ``m``,
+    ``u`` (and ``v``) contiguous in one state dtype, f32 or bf16;
+    ``u_out`` f32 or the state dtype; ``d`` f32. Returns the C entry's
+    ``types`` bits (1: bf16 g, 2: bf16 state, 4: bf16 u')."""
+    dev, shape = g.device, g.shape
+    if g.dtype not in OPERAND_DTYPES:
+        raise TypeError(f"{kernel}: g has dtype {g.dtype}, expected one of "
+                        f"{OPERAND_DTYPES}")
+    build.check_operand(kernel, "g", g, g.dtype, shape, dev)
+    sd = m.dtype
+    if sd not in OPERAND_DTYPES:
+        raise TypeError(f"{kernel}: m has dtype {sd}, expected one of "
+                        f"{OPERAND_DTYPES}")
+    ops = (("m", m, sd), ("u", u, sd)) + (
+        (("v", v, sd),) if v is not None else ())
+    if d is not None:
+        ops += (("d", d, torch.float32),)
+    if u_out is not None:
+        if u_out.dtype not in (torch.float32, sd):
+            raise TypeError(f"{kernel}: u_out has dtype {u_out.dtype}, "
+                            f"expected torch.float32 or the state's {sd}")
+        ops += (("u_out", u_out, u_out.dtype),)
+    for name, t, dt in ops:
+        build.check_operand(kernel, name, t, dt, shape, dev)
+    uo = u if u_out is None else u_out
+    return (int(g.dtype == torch.bfloat16) | 2 * (sd == torch.bfloat16)
+            | 4 * (uo.dtype == torch.bfloat16))
+
+
+def fused_local_step_plain_(g, m, u, v, lr, beta1, eps=1e-8, d=None,
+                            u_out=None):
     """Plain PyTorch version of the kernel (the CPU path), with its
-    in-place contract: ``m`` and ``u`` are updated in place and the
-    delta is written into ``d`` (a new tensor when None; may be ``g``).
-    Returns ``d``."""
+    in-place contract: ``m`` and ``u`` (or ``u_out``) are updated in place
+    and the delta is written into ``d`` (a new f32 tensor when None; may
+    be an f32 ``g``). Returns ``d``. Every operand is upcast, the math is
+    f32, and each output rounds once to its own dtype (``copy_``: round
+    to nearest even)."""
     lr32, b1, omb1, eps32 = _scalars(lr, beta1, eps)
-    mh = fma_f32(m, b1, g * omb1)
-    delta = (mh * lr32) / sqrt(v + eps32)
-    u.copy_(fma_f32(mh, lr32, u))
+    mh = fma_f32(_f32(m), b1, _f32(g) * omb1)
+    delta = (mh * lr32) / sqrt(_f32(v) + eps32)
+    (u if u_out is None else u_out).copy_(fma_f32(mh, lr32, _f32(u)))
     m.copy_(mh)
     if d is None:
         return delta
     return d.copy_(delta)
 
 
-def fused_local_step_(g, m, u, v, lr, beta1, eps=1e-8, d=None):
-    """One fused local step over (R, C) f32 frames, in place: ``m`` <- m',
-    ``u`` <- u', and the delta into ``d`` (a new tensor when None; ``g``
-    itself where the gradient is dead after the step). Returns ``d``.
+def fused_local_step_(g, m, u, v, lr, beta1, eps=1e-8, d=None, u_out=None):
+    """One fused local step over (R, C) frames, in place: ``m`` <- m',
+    ``u`` <- u' (or u' into ``u_out``: an f32 buffer where the caller
+    needs u' unrounded), and the f32 delta into ``d`` (a new tensor when
+    None; an f32 ``g`` itself where the gradient is dead after the
+    step). Returns ``d``. The gradient is f32 or bf16 and the state (m,
+    u, v) f32 or bf16 (see :func:`_check`).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    dev, shape = g.device, g.shape
-    ops = (("g", g), ("m", m), ("u", u), ("v", v))
-    for name, t in ops + ((("d", d),) if d is not None else ()):
-        build.check_operand(KERNEL, name, t, torch.float32, shape, dev)
+    types = _check(KERNEL, g, m, u, v, d, u_out)
     if not build.on_card(KERNEL, g):
-        return fused_local_step_plain_(g, m, u, v, lr, beta1, eps, d)
+        return fused_local_step_plain_(g, m, u, v, lr, beta1, eps, d, u_out)
     if d is None:
-        d = torch.empty_like(g)
+        d = torch.empty(g.shape, dtype=torch.float32, device=g.device)
+    uo = u if u_out is None else u_out
     if g.numel():
         lr32, b1, omb1, eps32 = _scalars(lr, beta1, eps)
-        build.launch(KERNEL, "fused_local_step_f32", dev, g.data_ptr(),
-                     m.data_ptr(), u.data_ptr(), v.data_ptr(), d.data_ptr(),
-                     g.numel(), lr32, b1, omb1, eps32)
+        build.launch(KERNEL, "fused_local_step", g.device, g.data_ptr(),
+                     m.data_ptr(), u.data_ptr(), uo.data_ptr(), v.data_ptr(),
+                     d.data_ptr(), g.numel(), lr32, b1, omb1, eps32, types)
     return d
 
 
@@ -182,37 +240,35 @@ def fused_local_step(g, m, u, v, lr, beta1, eps=1e-8):
     return m, u, d
 
 
-def fused_local_step_sgd_plain_(g, m, u, lr, beta1, d=None):
+def fused_local_step_sgd_plain_(g, m, u, lr, beta1, d=None, u_out=None):
     """Plain PyTorch version of the SGD kernel (the CPU path), in place as
     :func:`fused_local_step_plain_`."""
     lr32, b1, omb1, _ = _scalars(lr, beta1, 0.0)
-    mh = fma_f32(m, b1, g * omb1)
+    mh = fma_f32(_f32(m), b1, _f32(g) * omb1)
     delta = mh * lr32
-    u.copy_(fma_f32(mh, lr32, u))
+    (u if u_out is None else u_out).copy_(fma_f32(mh, lr32, _f32(u)))
     m.copy_(mh)
     if d is None:
         return delta
     return d.copy_(delta)
 
 
-def fused_local_step_sgd_(g, m, u, lr, beta1, d=None):
-    """One fused momentum-SGD local step over (R, C) f32 frames, in place
-    as :func:`fused_local_step_`. Returns ``d``.
+def fused_local_step_sgd_(g, m, u, lr, beta1, d=None, u_out=None):
+    """One fused momentum-SGD local step over (R, C) frames, in place as
+    :func:`fused_local_step_`, with its operand dtypes. Returns ``d``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    dev, shape = g.device, g.shape
-    ops = (("g", g), ("m", m), ("u", u))
-    for name, t in ops + ((("d", d),) if d is not None else ()):
-        build.check_operand(KERNEL_SGD, name, t, torch.float32, shape, dev)
+    types = _check(KERNEL_SGD, g, m, u, None, d, u_out)
     if not build.on_card(KERNEL_SGD, g):
-        return fused_local_step_sgd_plain_(g, m, u, lr, beta1, d)
+        return fused_local_step_sgd_plain_(g, m, u, lr, beta1, d, u_out)
     if d is None:
-        d = torch.empty_like(g)
+        d = torch.empty(g.shape, dtype=torch.float32, device=g.device)
+    uo = u if u_out is None else u_out
     if g.numel():
         lr32, b1, omb1, _ = _scalars(lr, beta1, 0.0)
-        build.launch(KERNEL_SGD, "fused_local_step_sgd_f32", dev,
-                     g.data_ptr(), m.data_ptr(), u.data_ptr(), d.data_ptr(),
-                     g.numel(), lr32, b1, omb1)
+        build.launch(KERNEL_SGD, "fused_local_step_sgd", g.device,
+                     g.data_ptr(), m.data_ptr(), u.data_ptr(), uo.data_ptr(),
+                     d.data_ptr(), g.numel(), lr32, b1, omb1, types)
     return d
 
 

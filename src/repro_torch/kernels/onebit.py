@@ -3,7 +3,12 @@ kernels, plain versions, wrappers.
 
 Frames are 2-D (rows, cols) f32 with cols a multiple of 8; ``counts`` is
 the int32 per-row count of true elements (padding is a row tail or a
-whole row, see ``core.compressor.view_row_counts``).
+whole row, see ``core.compressor.view_row_counts``). The error feedback
+``err`` is f32 or bf16 (the optimizer's ``state_dtype``); ``z + err`` is
+an f32 sum and the residual ``err_out`` comes back in ``err``'s dtype,
+rounded once to nearest even, as the reference's kernels store it. Each
+dtype has its own kernel instance, chosen by the C entry's ``types``
+code (:data:`ERR_TYPES`); any other dtype raises.
 
 * :func:`abs_rowsum_scales` — pass 1, masked per-row L1 sums of
   ``z + err`` and, in the same call, the scale of each group of
@@ -132,9 +137,14 @@ def ef_quantize_slabs(rows: int, cols: int, group_rows: int,
 
 # --- plain versions ----------------------------------------------------
 
+# the C entries' ``types`` code of each dtype of err (and err_out)
+ERR_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+ERR_DTYPES = tuple(ERR_TYPES)
+
+
 def abs_rowsum_plain(z, err, counts):
     rows, cols = z.shape
-    zw = z + err
+    zw = z + err.to(torch.float32)
     return torch.where(_mask(counts, rows, cols), zw.abs(),
                        torch.zeros((), dtype=zw.dtype,
                                    device=zw.device)).sum(1)
@@ -155,13 +165,13 @@ def abs_rowsum_scales_plain(z, err, counts, group_rows, denoms):
 
 def ef_quantize_plain(z, err, scales, counts, group_rows=1):
     rows, cols = z.shape
-    zw = z + err
+    zw = z + err.to(torch.float32)
     bits = zw >= 0
     s = scales.reshape(-1, 1).expand(-1, group_rows).reshape(rows, 1)
     zhat = torch.where(bits, s, -s)
     err_out = torch.where(_mask(counts, rows, cols), zw - zhat,
                           torch.zeros((), dtype=zw.dtype, device=zw.device))
-    return pack_signs(zw), err_out
+    return pack_signs(zw), err_out.to(err.dtype)
 
 
 def ef_compress_plain(z, err, counts):
@@ -185,7 +195,10 @@ def _check_zerr(kernel, z, err, counts):
     rows, cols = z.shape
     dev = z.device
     build.check_operand(kernel, "z", z, torch.float32, (rows, cols), dev)
-    build.check_operand(kernel, "err", err, torch.float32, (rows, cols), dev)
+    if err.dtype not in ERR_DTYPES:
+        raise TypeError(f"{kernel}: err has dtype {err.dtype}, expected one "
+                        f"of {ERR_DTYPES}")
+    build.check_operand(kernel, "err", err, err.dtype, (rows, cols), dev)
     build.check_operand(kernel, "counts", counts, torch.int32, (rows,), dev)
     return rows, cols, dev
 
@@ -199,11 +212,12 @@ def _groups(kernel, rows, group_rows):
 
 def _launch_abs_rowsum(z, err, counts, out, denoms, scales, group_rows):
     rows, cols = z.shape
-    build.launch("abs_rowsum", "abs_rowsum_f32", z.device, z.data_ptr(),
+    build.launch("abs_rowsum", "abs_rowsum", z.device, z.data_ptr(),
                  err.data_ptr(), counts.data_ptr(), out.data_ptr(),
                  denoms.data_ptr() if group_rows else None,
                  scales.data_ptr() if group_rows else None, rows, cols,
-                 *abs_rowsum_geometry(cols), group_rows)
+                 *abs_rowsum_geometry(cols), group_rows,
+                 ERR_TYPES[err.dtype])
 
 
 def abs_rowsum(z, err, counts):
@@ -238,8 +252,8 @@ def abs_rowsum_scales(z, err, counts, group_rows, denoms):
 
 
 def ef_quantize(z, err, scales, counts, group_rows=1):
-    """(packed u8 (rows, cols//8), err_out f32 (rows, cols)) against the
-    scale ``scales[r // group_rows]`` of row r."""
+    """(packed u8 (rows, cols//8), err_out (rows, cols) in err's dtype)
+    against the scale ``scales[r // group_rows]`` of row r."""
     rows, cols, dev = _check_zerr("ef_quantize", z, err, counts)
     if cols % 8:
         raise ValueError(f"ef_quantize: cols={cols} is not a multiple of 8")
@@ -250,7 +264,7 @@ def ef_quantize(z, err, scales, counts, group_rows=1):
         return ef_quantize_plain(z, err, scales, counts, group_rows)
     slabs = ef_quantize_slabs(rows, cols, group_rows)
     packed = torch.empty((rows, cols // 8), dtype=torch.uint8, device=dev)
-    err_out = torch.empty_like(z)
+    err_out = torch.empty_like(err)
     _launch_ef_quantize(z, err, scales, counts, packed, err_out, group_rows,
                         slabs)
     return packed, err_out
@@ -263,20 +277,21 @@ def _launch_ef_quantize(z, err, scales, counts, packed, err_out, group_rows,
     launch over the frame."""
     cols = z.shape[1]
     divs = ef_quantize_divisors(cols, group_rows)
+    types, esize = ERR_TYPES[err.dtype], err.element_size()
     for r0, n in slabs:
-        off = r0 * cols * 4
-        build.launch("ef_quantize", "ef_quantize_f32", z.device,
-                     z.data_ptr() + off, err.data_ptr() + off,
+        off, eoff = r0 * cols * 4, r0 * cols * esize
+        build.launch("ef_quantize", "ef_quantize", z.device,
+                     z.data_ptr() + off, err.data_ptr() + eoff,
                      scales.data_ptr() + r0 // group_rows * 4,
                      counts.data_ptr() + r0 * 4,
                      packed.data_ptr() + r0 * (cols // 8),
-                     err_out.data_ptr() + off, n, cols, *divs)
+                     err_out.data_ptr() + eoff, n, cols, *divs, types)
 
 
 def ef_compress(z, err, counts):
-    """(packed u8 (rows, cols//8), scales f32 (rows,), err_out f32 (rows,
-    cols)) with ``scales[r] = sum_{c<counts[r]} |z+err| / max(counts[r], 1)``.
-    """
+    """(packed u8 (rows, cols//8), scales f32 (rows,), err_out (rows, cols)
+    in err's dtype) with ``scales[r] = sum_{c<counts[r]} |z+err| /
+    max(counts[r], 1)``."""
     rows, cols, dev = _check_zerr("ef_compress", z, err, counts)
     if cols % 8:
         raise ValueError(f"ef_compress: cols={cols} is not a multiple of 8")
@@ -284,12 +299,12 @@ def ef_compress(z, err, counts):
         return ef_compress_plain(z, err, counts)
     packed = torch.empty((rows, cols // 8), dtype=torch.uint8, device=dev)
     scales = torch.empty(rows, dtype=torch.float32, device=dev)
-    err_out = torch.empty_like(z)
+    err_out = torch.empty_like(err)
     if z.numel():
-        build.launch("ef_compress", "ef_compress_f32", dev, z.data_ptr(),
+        build.launch("ef_compress", "ef_compress", dev, z.data_ptr(),
                      err.data_ptr(), counts.data_ptr(), packed.data_ptr(),
                      scales.data_ptr(), err_out.data_ptr(), rows, cols,
-                     *ef_compress_geometry(cols))
+                     *ef_compress_geometry(cols), ERR_TYPES[err.dtype])
     return packed, scales, err_out
 
 
@@ -311,7 +326,7 @@ def decompress(packed, scales):
                          f"kernel takes fewer than 2**31")
     out = torch.empty((rows, cb * 8), dtype=torch.float32, device=dev)
     if packed.numel():
-        build.launch("decompress", "decompress_f32", dev, packed.data_ptr(),
+        build.launch("decompress", "decompress", dev, packed.data_ptr(),
                      scales.data_ptr(), out.data_ptr(), rows, cb * 8,
                      *divisor(cb))
     return out

@@ -16,6 +16,13 @@ optimizer state as a checkpoint both packages read (sim and single mode).
 ``--resize STEP:M`` (sim mode, repeatable) resizes the fleet to M workers
 before STEP through ``repro_torch.elastic.FleetSim``.
 
+Precision, as in the reference, has no flag: a caller of
+:func:`make_trainer`, :func:`rank_main` or :func:`rank_jobs` passes
+``configure``, a function from the (model config, optimizer config)
+pair to the pair to train with; :func:`production` is the reference's
+production precision (bf16 parameters, compute and state, its
+``launch/dryrun.py::default_opt_cfg``).
+
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2 --smoke \\
       --steps 8 --batch 8 --seq 32 --mode sim --workers 4 \\
@@ -57,6 +64,7 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import tempfile
@@ -80,6 +88,19 @@ from repro_torch.launch import mesh
 from repro_torch.models.config import cut_layers
 from repro_torch.train.step import (DIST_SAVE, Trainer, TrainerConfig,
                                     step_record)
+
+
+def production(model_cfg, opt_cfg, store_anchor=True):
+    """(model config, optimizer config) at the reference's production
+    precision: bf16 parameters, compute and optimizer state, with or
+    without the anchor. A ``configure`` of :func:`make_trainer` (bind
+    ``store_anchor`` with ``functools.partial``: it pickles, as
+    :func:`rank_jobs`' jobs must)."""
+    bf16 = torch.bfloat16
+    return (dataclasses.replace(model_cfg, param_dtype=bf16,
+                                compute_dtype=bf16),
+            dataclasses.replace(opt_cfg, state_dtype=bf16,
+                                store_anchor=store_anchor))
 
 
 def build_opt_cfg(args) -> OptimizerConfig:
@@ -173,11 +194,13 @@ def parse_args(argv=None):
     return args
 
 
-def make_trainer(args, device=None, comm=None) -> Trainer:
+def make_trainer(args, device=None, comm=None, configure=None) -> Trainer:
     """The trainer of ``args.mode`` on ``device`` (default
     ``args.device``); in dist mode the process group must be up.
     ``comm``: the comm to run on instead of the mode's own (e.g. the
-    mode's comm wrapped in ``analysis.RecordingComm``)."""
+    mode's comm wrapped in ``analysis.RecordingComm``); ``configure``:
+    (model config, optimizer config) -> the pair to train with (e.g.
+    :func:`production`), or None."""
     spec = get(args.arch)
     cfg = spec.smoke if args.smoke else spec.config
     if args.layers is not None:
@@ -189,7 +212,10 @@ def make_trainer(args, device=None, comm=None) -> Trainer:
     if comm is None:
         comm = (SimComm(args.workers) if args.mode == "sim" else
                 NullComm() if args.mode == "single" else mesh.worker_comm())
-    return Trainer(cfg, build_opt_cfg(args), comm=comm,
+    opt_cfg = build_opt_cfg(args)
+    if configure is not None:
+        cfg, opt_cfg = configure(cfg, opt_cfg)
+    return Trainer(cfg, opt_cfg, comm=comm,
                    trainer_cfg=TrainerConfig(args.micro_batches),
                    device=args.device if device is None else device)
 
@@ -306,7 +332,8 @@ def _to_cpu(tree):
 
 def rank_main(rank: int, argv, world_size: int, init_method: str,
               out_dir: str = None, with_state: bool = False,
-              kind: str = "lm", audit: bool = False) -> None:
+              kind: str = "lm", audit: bool = False,
+              configure=None) -> None:
     """Entry of one spawned rank of ``--mode dist``: join the group, train
     on the synthetic stream of ``kind`` (see :func:`train`), and with
     ``out_dir`` save this rank's results there as ``rank{rank}.pt``: the
@@ -314,7 +341,8 @@ def rank_main(rank: int, argv, world_size: int, init_method: str,
     with ``with_state``), the kernel launches of the run and the peak
     device memory. With ``audit`` the rank's comm records its collectives
     (``analysis.RecordingComm``) and the file also holds the rank's audit
-    report (``audit``) and its recorded collectives (``recorded``)."""
+    report (``audit``) and its recorded collectives (``recorded``).
+    ``configure``: as :func:`make_trainer`'s."""
     args = parse_args(argv)
     dev = mesh.init_workers(args.backend, args.device, rank=rank,
                             world_size=world_size, local_rank=rank,
@@ -323,7 +351,8 @@ def rank_main(rank: int, argv, world_size: int, init_method: str,
         from repro_torch import analysis
 
         tr = make_trainer(args, device=dev, comm=(
-            analysis.RecordingComm(mesh.worker_comm()) if audit else None))
+            analysis.RecordingComm(mesh.worker_comm()) if audit else None),
+            configure=configure)
         trace = analysis.watch(tr) if audit else None
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
@@ -354,14 +383,14 @@ def rank_main(rank: int, argv, world_size: int, init_method: str,
 
 def rank_jobs(rank: int, jobs, world_size: int) -> None:
     """Entry of one spawned rank that runs ``jobs`` one after another,
-    each ``(argv, out_dir, with_state, kind, audit)`` through
+    each ``(argv, out_dir, with_state, kind, audit, configure)`` through
     :func:`rank_main` with a rendezvous of its own in ``out_dir`` (the
     process group is made and destroyed per job): the jobs share the
     process's start-up (the torch import, the first group's setup). A job
     of kind ``"serve"`` is expert-parallel serving, ``argv`` the serve
-    CLI's flags (``launch.serve.serve_rank``; ``with_state`` and
-    ``audit`` unused)."""
-    for argv, out_dir, with_state, kind, audit in jobs:
+    CLI's flags (``launch.serve.serve_rank``; ``with_state``, ``audit``
+    and ``configure`` unused)."""
+    for argv, out_dir, with_state, kind, audit, configure in jobs:
         init = mesh.file_rendezvous(out_dir)
         if kind == "serve":
             from repro_torch.launch.serve import serve_rank
@@ -369,7 +398,7 @@ def rank_jobs(rank: int, jobs, world_size: int) -> None:
             serve_rank(rank, argv, world_size, init, out_dir)
         else:
             rank_main(rank, argv, world_size, init, out_dir, with_state,
-                      kind, audit)
+                      kind, audit, configure)
 
 
 def _parse_resizes(specs):

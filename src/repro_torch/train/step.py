@@ -110,7 +110,10 @@ def accumulate_grads(loss_fn: Callable, params, batch: Dict[str, torch.Tensor],
     (loss, aux)``; ``params`` is a tree of leaves without a worker dim.
     Returns (loss, gradient tree), both detached; a leaf the loss does
     not reach (whisper's cross ``bk``/``bv``) gets zeros, as under
-    ``jax.grad``."""
+    ``jax.grad``. The gradients are f32 sums over several splits; of one
+    split they keep the parameters' dtype (bf16 in production), whose
+    values are exactly the reference's f32 cast of them, at half the
+    memory."""
     mb = micro_batches
     paths, xs = flatten_tree(params)
     leaves = [x.detach().requires_grad_(True) for x in xs]
@@ -118,8 +121,7 @@ def accumulate_grads(loss_fn: Callable, params, batch: Dict[str, torch.Tensor],
     if mb <= 1:
         loss, _ = loss_fn(tree, batch)
         gs = torch.autograd.grad(loss, leaves, materialize_grads=True)
-        return loss.detach(), unflatten_tree(
-            paths, [g.to(torch.float32) for g in gs])
+        return loss.detach(), unflatten_tree(paths, list(gs))
     for k, v in batch.items():
         if v.shape[0] % mb:
             raise ValueError(
@@ -265,8 +267,10 @@ class Trainer:
     def grads(self, params, batch) -> Tuple[torch.Tensor, Dict]:
         """Per-worker loss and gradients of the stacked workers: worker i
         takes rows [i*B/n, (i+1)*B/n) of the global batch. Returns
-        (losses (stack,), stacked grads tree). The MoE layers' mean aux
-        loss and dropped fraction are kept in ``self.moe_metrics``."""
+        (losses (stack,), stacked grads tree): each leaf in the dtype
+        :func:`accumulate_grads` gives it (expert leaves f32, for their
+        sums over the workers). The MoE layers' mean aux loss and dropped
+        fraction are kept in ``self.moe_metrics``."""
         n = self.n_workers
         paths, xs = flatten_tree(params)
         B = batch["tokens"].shape[0]
@@ -296,16 +300,21 @@ class Trainer:
                 self.trainer_cfg.micro_batches)
             del mine
             gs = flatten_tree(gs)[1]
+            for j in self.ep_leaf_axes:
+                gs[j] = gs[j].to(torch.float32)
             if merged:
                 for j in self.ep_leaf_axes:
                     g, gs[j] = gs[j], None
                     ep_sum[j] = g if w == 0 else ep_sum[j].add_(g)
             if len(widx) == 1:
                 # a stack of one: the gradients themselves, no copy
-                gbuf = [g.to(x.dtype)[None] for g, x in zip(gs, xs)]
+                gbuf = [g[None] for g in gs]
             else:
                 if not gbuf:
-                    gbuf = [torch.empty_like(x) for x in xs]
+                    gbuf = [torch.empty(x.shape, device=x.device,
+                                        dtype=torch.float32
+                                        if g is None else g.dtype)
+                            for g, x in zip(gs, xs)]
                 for buf, g in zip(gbuf, gs):
                     if g is not None:
                         buf[w].copy_(g)

@@ -477,7 +477,7 @@ def rank_runs(tmp_path_factory):
     try:
         mesh.spawn(TLAUNCH.rank_jobs, N, ([
             (ARGV + extra + ["--mode", "dist"], str(dirs[k]), False, "lm",
-             True) for k, extra in RANK_RUNS.items()], N),
+             True, None) for k, extra in RANK_RUNS.items()], N),
             timeout_s=SPAWN_TIMEOUT_S * len(RANK_RUNS))
     finally:
         mp.undo()

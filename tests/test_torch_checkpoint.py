@@ -34,6 +34,7 @@
   without EF state, anchor or ``u``) bit for bit.
 """
 import dataclasses
+import functools
 import json
 import os
 
@@ -90,14 +91,27 @@ def _cfgs(name="zero_one_adam", inner=None, bucket_mb=None):
     return ref, port
 
 
+@functools.lru_cache(maxsize=None)
+def _ref_trainer(case, single=False):
+    """The reference's gpt2-smoke trainer of ``case``, made once: the
+    manifest and continue cases share it and its jitted step."""
+    return RefTrainer(ref_get("gpt2").smoke, _cfgs(**CASES[case])[0],
+                      n_workers=1 if single else N)
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_step(case):
+    return _ref_trainer(case).sim_step_fn()
+
+
+def _port_trainer(case, single=False):
+    return TSTEP.Trainer(port_get("gpt2").smoke, _cfgs(**CASES[case])[1],
+                         comm=NullComm() if single else SimComm(N),
+                         device="cpu")
+
+
 def _trainers(case, single=False):
-    ref_cfg, port_cfg = _cfgs(**CASES[case])
-    n = 1 if single else N
-    rt = RefTrainer(ref_get("gpt2").smoke, ref_cfg, n_workers=n)
-    pt = TSTEP.Trainer(port_get("gpt2").smoke, port_cfg,
-                       comm=NullComm() if single else SimComm(N),
-                       device="cpu")
-    return rt, pt
+    return _ref_trainer(case, single), _port_trainer(case, single)
 
 
 def _batches():
@@ -130,7 +144,8 @@ MANIFEST_CASES = [(case, single) for case in CASES for single in (False, True)
 def test_manifest_equals_reference(case, single, tmp_path):
     rt, pt = _trainers(case, single)
     key = jax.random.PRNGKey(0)
-    rp, rs = rt.single_init(key) if single else rt.sim_init(key)
+    # jitted: one compile, not an eager dispatch of every init op
+    rp, rs = jax.jit(rt.single_init if single else rt.sim_init)(key)
     ref_path, port_path = tmp_path / "ref.npz", tmp_path / "port.npz"
     meta = {"arch": "gpt2-smoke", "n_workers": 1 if single else N}
     ref_io.save(str(ref_path), {"params": rp, "state": rs}, step=3,
@@ -304,7 +319,7 @@ def test_checkpoints_cross_packages_and_continue(case, tmp_path):
     file."""
     rt, pt = _trainers(case)
     batches = _batches()
-    ref_step = rt.sim_step_fn()
+    ref_step = _ref_step(case)
     params, state = pt.init(0)
     # a copy: the port's step updates params in place, and jax may alias
     # a numpy buffer on the CPU
@@ -395,12 +410,12 @@ def test_resume_is_the_uninterrupted_run(case, tmp_path, capsys):
 def test_state_dtypes_and_scalar_shapes():
     """Sim-mode scalars are arrays over the workers, single-mode ones 0-d,
     with the reference's dtypes (int32 counters, float32 gamma, bool)."""
-    _, pt = _trainers("per_leaf")
+    pt = _port_trainer("per_leaf")
     st = pt.checkpoint_like()["state"]
     assert st.step.shape == (N,) and st.step.dtype == np.int32
     assert st.gamma_acc.dtype == np.float32
     assert [x.dtype for x in st.var_pstate] == [np.int32, np.int32, np.bool_]
-    _, ps = _trainers("per_leaf", single=True)
+    ps = _port_trainer("per_leaf", single=True)
     st1 = ps.checkpoint_tree(*ps.init(0))["state"]
     assert st1.step.shape == () and st1.slots["m"][0].shape == (1, 2, 128)
     assert dataclasses.is_dataclass(st1)
@@ -429,7 +444,7 @@ def check_cross_packages(arch, tmp_path):
     rcfg, pcfg = _cfgs()
     rt = RefTrainer(ref_get(arch).smoke, rcfg, n_workers=4)
     key = jax.random.PRNGKey(1)
-    rp, rs = rt.sim_init(key)
+    rp, rs = jax.jit(rt.sim_init)(key)     # one compile, not eager ops
     step = rt.sim_step_fn()
     for b in _batches()[:2]:
         rp, rs, _ = step(rp, rs, _ref_batch(b))

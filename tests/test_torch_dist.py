@@ -297,7 +297,7 @@ def shared_ranks(tmp_path_factory):
     """Every job of JOBS in one spawn of N gloo ranks (each job its own
     process group and rendezvous): name -> each rank's saved results."""
     dirs = {name: tmp_path_factory.mktemp(name) for name in JOBS}
-    jobs = [(argv, str(dirs[name]), True, "lm", audit)
+    jobs = [(argv, str(dirs[name]), True, "lm", audit, None)
             for name, (argv, audit) in JOBS.items()]
     mesh.spawn(TLAUNCH.rank_jobs, N, (jobs, N),
                timeout_s=SPAWN_TIMEOUT_S * len(jobs) / 4)

@@ -200,7 +200,7 @@ def test_cuda_decompress_unaligned_operands(packed_off, out_off):
     packed = pbuf[packed_off:packed_off + rows * cb].view(rows, cb)
     s = _scales(rows, gen, dev)
     obuf = torch.full((rows * cols + 4,), 7.0, device=dev)
-    build.launch("decompress", "decompress_f32", dev, packed.data_ptr(),
+    build.launch("decompress", "decompress", dev, packed.data_ptr(),
                  s.data_ptr(), obuf.data_ptr() + 4 * out_off, rows, cols,
                  *onebit.divisor(cb))
     torch.cuda.synchronize()
@@ -1593,3 +1593,192 @@ def test_cuda_routing_groups_match_cpu(arch):
     assert float((a - b).abs().max()) <= 1e-4
     assert torch.equal(a[..., :cfg.vocab].argmax(-1),
                        b[..., :cfg.vocab].argmax(-1))
+
+
+# --- production precision: bf16 operands of the state-reading kernels ---
+
+BF16_EDGES = [(64, 4104, 0), (37, 99, 0), (8, 50432, 0), (70000, 8, 0),
+              (64, 24, 1), (9, 4096, 3)]
+
+
+def _bf16_frame(rows, cols, seed, dev, offset=0):
+    """z (f32) and a bf16 err whose storage starts ``offset`` elements in
+    (an unaligned operand for offset % 4), with _frame's row counts."""
+    z, e, cnt = _frame(rows, cols, seed, dev)
+    if rows % 4:
+        cnt = torch.full((rows,), cols, dtype=torch.int32, device=dev)
+        cnt[::3] = cols // 2 + 1
+    buf = torch.empty(rows * cols + offset, dtype=torch.bfloat16, device=dev)
+    eb = buf[offset:].view(rows, cols)
+    eb.copy_(e)
+    return z, eb, cnt
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,cols,offset", BF16_EDGES)
+def test_cuda_bf16_error_feedback_matches_plain(rows, cols, offset):
+    """abs_rowsum, ef_quantize and ef_compress with a bf16 err (the
+    optimizer's state_dtype) at edge shapes (ragged and whole pad rows,
+    > 65,535 rows, a 99-column row, unaligned err): err_out comes back
+    bf16, bit for bit the plain version's given the same scales, packed
+    bytes bit for bit, sums within 64 ulp."""
+    dev = _card()
+    z, e, cnt = _bf16_frame(rows, cols, 17, dev, offset)
+    rk = onebit.abs_rowsum(z, e, cnt)
+    rp = onebit.abs_rowsum_plain(z, e, cnt)
+    assert _ulps(rk, rp) <= 64
+    if cols % 8:
+        return
+    s = (rp / cnt.clamp_min(1)).contiguous()
+    pk, ek = onebit.ef_quantize(z, e, s, cnt)
+    pp, ep = onebit.ef_quantize_plain(z, e, s, cnt)
+    assert ek.dtype == ep.dtype == torch.bfloat16
+    assert torch.equal(pk, pp) and torch.equal(ek.view(torch.int16),
+                                               ep.view(torch.int16))
+    pk, sk, ek = onebit.ef_compress(z, e, cnt)
+    pp, sp, _ = onebit.ef_compress_plain(z, e, cnt)
+    assert torch.equal(pk, pp) and _ulps(sk, sp) <= 64
+    assert ek.dtype == torch.bfloat16
+    assert torch.equal(ek, onebit.ef_quantize_plain(z, e, sk, cnt)[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("u_f32", [False, True], ids=["u_state", "u_f32"])
+@pytest.mark.parametrize("kind", ["adam", "sgd"])
+@pytest.mark.parametrize("rows,cols", [(64, 4104), (37, 99)])
+def test_cuda_local_step_dtypes_match_plain(kind, u_f32, sdt, gdt, rows,
+                                            cols):
+    """Kernel 1 and the SGD kernel at every operand dtype the optimizer
+    passes: the gradient f32 or bf16, the state (m, u, v) f32 or bf16,
+    u' into the state or into an f32 buffer (a sync step's), aligned and
+    unaligned lengths: m' and u' bit for bit the plain version's (one
+    rounding to nearest even), the delta (f32) within 2 ulp (SGD: bit
+    for bit)."""
+    dev = _card()
+    z, e, _ = _frame(rows, cols, 19, dev)
+    g, m, u = z.to(gdt), e.to(sdt), (z * 1e-3).to(sdt)
+    v = (e.abs() * 1e-3).to(sdt)
+    uo = torch.zeros(rows, cols, device=dev) if u_f32 else None
+    lr = np.float32(1e-3)
+    outs = []
+    for adam, sgd in ((fused_adam.fused_local_step_,
+                       fused_adam.fused_local_step_sgd_),
+                      (fused_adam.fused_local_step_plain_,
+                       fused_adam.fused_local_step_sgd_plain_)):
+        mm, uu = m.clone(), u.clone()
+        o = None if uo is None else uo.clone()
+        if kind == "adam":
+            d = adam(g, mm, uu, v, lr, 0.9, u_out=o)
+        else:
+            d = sgd(g, mm, uu, lr, 0.9, u_out=o)
+        outs.append((mm, uu if o is None else o, d))
+    torch.cuda.synchronize()
+    (mk, uk, dk), (mp, up, dp) = outs
+    assert mk.dtype == sdt and uk.dtype == (torch.float32 if u_f32 else sdt)
+    assert torch.equal(mk, mp) and torch.equal(uk, up)
+    assert _ulps(dk, dp) <= (2 if kind == "adam" else 0)
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_refuse_other_dtypes():
+    """A state or error operand of any dtype but f32 and bf16 raises on
+    the card, naming it; nothing falls back to the plain version."""
+    dev = _card()
+    z = torch.zeros(8, 16, device=dev)
+    cnt = torch.full((8,), 16, dtype=torch.int32, device=dev)
+    h = z.to(torch.float16)
+    build.launch_counts.clear()
+    with pytest.raises(TypeError, match="float16"):
+        onebit.abs_rowsum(z, h, cnt)
+    with pytest.raises(TypeError, match="float16"):
+        onebit.ef_quantize(z, h, torch.ones(8, device=dev), cnt)
+    with pytest.raises(TypeError, match="float16"):
+        onebit.ef_compress(z, h, cnt)
+    with pytest.raises(TypeError, match="float16"):
+        fused_adam.fused_local_step_(z, h, h.clone(), h.clone(), 1e-3, 0.9)
+    with pytest.raises(TypeError, match="float16"):
+        fused_adam.fused_local_step_sgd_(h, z, z.clone(), 1e-3, 0.9)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fused_adam.fused_local_step_(z, z.clone(), z.clone(), z.clone(),
+                                     1e-3, 0.9, d=z.to(torch.bfloat16))
+    assert not build.launch_counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("store_anchor", [True, False])
+@pytest.mark.parametrize("name", ["zero_one_adam", "zero_one_sgd",
+                                  "one_bit_adam"])
+def test_cuda_production_precision_step_matches_cpu(name, store_anchor):
+    """The optimizer at bf16 params, gradients and state on gpt2-smoke
+    shapes: a sync step with a variance round, a local step and a sync
+    step after CPU steps, each from equal inputs on the card and on the
+    CPU: a local step's params and state bit for bit (kernel 1 alone:
+    step 5 of the accumulate style), a step with an exchange at most
+    1e-4 of elements unequal (its scales are f32 sums in the kernel's
+    order; measured 1e-5 to 2e-5); every state leaf in the dtype the
+    reference keeps it (bf16, scalar slots f32)."""
+    from repro_torch.core import api
+    from repro_torch.core import schedules as S
+
+    dev = _card()
+    cfg = get("gpt2").smoke
+    tmpl = T.model_template(cfg)
+    shapes = L.param_shapes(tmpl)
+    paths, leaves = flatten_tree(shapes)
+    bf = torch.bfloat16
+    rng = np.random.default_rng(3)
+
+    def draw(sc):
+        return [torch.from_numpy((rng.standard_normal((4,) + tuple(sh))
+                                  * sc).astype(np.float32)).to(bf)
+                for sh in leaves]
+
+    def to(xs, d):
+        return unflatten_tree(paths, [x.to(d, copy=True) for x in xs])
+
+    ocfg = api.OptimizerConfig(
+        name=name, lr=S.ConstantLr(1e-3), onebit_warmup=1,
+        var_policy=S.AdaptiveFreezePolicy(kappa=1),
+        sync_policy=S.LrProportionalSyncPolicy(2, 2), state_dtype=bf,
+        store_anchor=store_anchor)
+    opt = api.build_optimizer(ocfg, shapes, specs=L.param_specs(tmpl),
+                              dp_mask=L.dp_mask(tmpl), n_workers=4)
+    params, grads = draw(0.02), [draw(1.0) for _ in range(7)]
+    state = opt.init(to(params, "cpu"))
+    for t in range(7):
+        if t in (0, 5, 6):
+            res = []
+            for d in (dev, torch.device("cpu")):
+                st = _state_to(state, d)
+                p, st, _ = opt.step(SimComm(4), to(params, d),
+                                    to(grads[t], d), st)
+                res.append([x.cpu() for x in flatten_tree(p)[1]]
+                           + [x.cpu() for x in _state_tensors(st)])
+            n = sum(a.numel() for a in res[0])
+            unequal = sum(int((a != b).sum()) for a, b in zip(*res))
+            local = t == 5 and name != "one_bit_adam"   # no exchange
+            assert unequal <= (0 if local else 1e-4 * n), (t, unequal, n)
+        p, state, _ = opt.step(SimComm(4), to(params, "cpu"),
+                               to(grads[t], "cpu"), state)
+        params = flatten_tree(p)[1]
+    for name_, xs in state.slots.items():
+        for x in xs:
+            assert x.dtype == (torch.float32 if name_ == "trust" else bf)
+
+
+def _state_tensors(st):
+    return [x for xs in (*st.slots.values(), st.u, st.err_w, st.err_s,
+                         st.anchor) for x in xs if x is not None]
+
+
+def _state_to(st, d):
+    """A copy of the optimizer state ``st`` on device ``d``."""
+    import dataclasses
+
+    def mv(xs):
+        return [None if x is None else x.to(d, copy=True) for x in xs]
+    return dataclasses.replace(
+        st, slots={k: mv(v) for k, v in st.slots.items()}, u=mv(st.u),
+        err_w=mv(st.err_w), err_s=mv(st.err_s), anchor=mv(st.anchor))

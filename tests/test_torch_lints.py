@@ -127,10 +127,32 @@ def test_float64_literal_waiver_and_lookalikes(tmp_path):
 
 
 def test_statekind_rule_is_not_ported(tmp_path):
-    """The port has no StateKind registry yet (ROADMAP): the rule is not
-    part of the port's lints."""
-    assert "statekind-registry" not in L._ALLOWED
-    assert _lint_snippet(tmp_path, "k = StateKind('m')\n") == []
+    """The rule this test once found missing is ported with the port's
+    StateKind registry: ``core/compressed.py`` is its one allowed file,
+    and a bare ``StateKind(...)`` anywhere else is a finding."""
+    assert L._ALLOWED["statekind-registry"] == ("core/compressed.py",)
+    (f,) = _lint_snippet(tmp_path, "k = StateKind('m')\n")
+    assert f.rule == "statekind-registry"
+
+
+def test_statekind_registry_rule(tmp_path):
+    """The reference's fixture (``tests/test_lints.py``), on the port's
+    module path; the waiver and the registry's own file pass."""
+    findings = _lint_snippet(tmp_path, """
+        from repro_torch.core.compressed import StateKind
+
+        def bad():
+            return StateKind(tag="dp", leaf=0)
+    """)
+    assert [f.rule for f in findings] == ["statekind-registry"]
+    assert _lint_snippet(tmp_path, """
+        k = StateKind("view", 0)  # audit-ok: statekind-registry
+    """) == []
+    core = tmp_path / "core"
+    core.mkdir()
+    f = core / "compressed.py"
+    f.write_text("k = StateKind('view', 0)\n")
+    assert run_lints([str(f)]) == []
 
 
 def test_syntax_error_is_a_finding(tmp_path):

@@ -519,7 +519,7 @@ def ep_ranks(tmp_path_factory):
     dirs = {a: tmp_path_factory.mktemp(a.split("-")[0]) for a in ARCHS}
     try:
         mesh.spawn(TTRAIN.rank_jobs, EP_N,
-                   ([(_ep_argv(a), str(d), False, "serve", False)
+                   ([(_ep_argv(a), str(d), False, "serve", False, None)
                      for a, d in dirs.items()], EP_N), timeout_s=240.0)
     finally:
         mp.undo()

@@ -25,6 +25,8 @@ Tolerances, with their reasons:
   reference refuses it, word for word.
 """
 
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -91,20 +93,25 @@ def _share_close(got, want, scale_floor=0.0):
 # the trainers against the reference
 # --------------------------------------------------------------------- #
 
+@functools.lru_cache(maxsize=None)
+def _ref_start(arch, n, name):
+    """The reference's trainer of ``arch``-smoke at ``n`` workers under
+    ``name``, its draw (key 0) and its jitted step, made once a
+    configuration: the trainer case and the reshard share them."""
+    rt = RefTrainer(ref_get(arch).smoke, _opt_cfgs(name)[0], n_workers=n)
+    key = jax.random.PRNGKey(0)
+    if n == 1:
+        return rt, rt.single_init(key), rt.single_step_fn()
+    return rt, rt.sim_init(key), rt.sim_step_fn()
+
+
 def check_trainer_against_reference(arch, n, name):
     """8 steps from the reference's draw (one worker: single mode; else
     sim mode, experts split over the workers) on its batches, under the
     module docstring's bars (``tests/test_torch_moe.py`` runs ``adam``
     through it)."""
-    rcfg, pcfg = _opt_cfgs(name)
-    rt = RefTrainer(ref_get(arch).smoke, rcfg, n_workers=n)
-    key = jax.random.PRNGKey(0)
-    if n == 1:
-        rp, rs = rt.single_init(key)
-        ref_step = rt.single_step_fn()
-    else:
-        rp, rs = rt.sim_init(key)
-        ref_step = rt.sim_step_fn()
+    _, pcfg = _opt_cfgs(name)
+    rt, (rp, rs), ref_step = _ref_start(arch, n, name)
     pt = TSTEP.Trainer(port_get(arch).smoke, pcfg,
                        comm=SimComm(n) if n > 1 else NullComm(),
                        device="cpu")
@@ -149,13 +156,12 @@ def test_reshard_of_a_moe_trainer_matches_reference():
     """m = n: the identity, bit for bit, as the reference's; 4 -> 2
     changes each worker's share of experts, which both packages refuse
     with the same words; ep_merge / ep_split against the reference's."""
-    cfg_r, cfg_p = _opt_cfgs("zero_one_adam")
+    _, cfg_p = _opt_cfgs("zero_one_adam")
     arch = "llama4-scout-17b-a16e"
-    rts = {n: RefTrainer(ref_get(arch).smoke, cfg_r, n_workers=n)
-           for n in (2, 4)}
+    rts = {n: _ref_start(arch, n, "zero_one_adam")[0] for n in (2, 4)}
     pts = {n: TSTEP.Trainer(port_get(arch).smoke, cfg_p, comm=SimComm(n),
                             device="cpu") for n in (2, 4)}
-    rp, rs = rts[4].sim_init(jax.random.PRNGKey(0))
+    rp, rs = _ref_start(arch, 4, "zero_one_adam")[1]
     tp = interop.params_from_reference(jax.device_get(rp))
     ts = interop.state_from_reference(jax.device_get(rs), pts[4].opt)
     want = RE.reshard_trainer(rts[4], rts[4], rp, rs)

@@ -105,14 +105,24 @@ def _param_diff(ref_params, port_params):
                         flatten_tree(port_params)[1])])
 
 
+@functools.lru_cache(maxsize=None)
+def _ref_trainer(arch, n):
+    """The reference's trainer of ``arch``-smoke at ``n`` workers, made
+    once: the trainer, checkpoint and FleetSim cases share it."""
+    return RefTrainer(ref_get(arch).smoke, _opt_cfgs()[0], n_workers=n)
+
+
+def _port_trainer(arch, n):
+    return TSTEP.Trainer(port_get(arch).smoke, _opt_cfgs()[1],
+                         comm=SimComm(n) if n > 1 else NullComm(),
+                         device="cpu")
+
+
 def _start(arch, n, key=0):
-    rcfg, pcfg = _opt_cfgs()
-    rt = RefTrainer(ref_get(arch).smoke, rcfg, n_workers=n)
+    rt = _ref_trainer(arch, n)
     k = jax.random.PRNGKey(key)
     rp, rs = rt.single_init(k) if n == 1 else rt.sim_init(k)
-    pt = TSTEP.Trainer(port_get(arch).smoke, pcfg,
-                       comm=SimComm(n) if n > 1 else NullComm(),
-                       device="cpu")
+    pt = _port_trainer(arch, n)
     tp = interop.params_from_reference(jax.device_get(rp))
     ts = interop.state_from_reference(jax.device_get(rs), pt.opt,
                                       stacked=n > 1)
@@ -180,7 +190,7 @@ def test_checkpoints_cross_packages(arch, tmp_path):
     port, then saved by the port and restored by the reference: every
     leaf bit for bit (the 15 or 47 parameter leaves and their optimizer
     state, whisper's zero cross biases among them)."""
-    pt = _start(arch, 4)[3]
+    pt = _port_trainer(arch, 4)
     rt, (rp, rs), *_ = _ref_run(arch, 4)
     ref_path = str(tmp_path / "ref.npz")
     ref_io.save(ref_path, {"params": rp, "state": rs}, step=2)
@@ -229,8 +239,7 @@ def test_fleet_resize_matches_reference(monkeypatch):
     ref = RefFleetSim(rc, ref_cfg, 4, seed=3).run(
         6, global_batch=B, seq=S,
         events=[RefResizeEvent(*e) for e in events])
-    rp0, _ = RefTrainer(rc, ref_cfg, n_workers=4).sim_init(
-        jax.random.PRNGKey(3))
+    rp0, _ = _ref_trainer(arch, 4).sim_init(jax.random.PRNGKey(3))
     start = interop.params_from_reference(jax.device_get(rp0))
 
     def init(self, seed):
