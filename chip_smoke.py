@@ -10,18 +10,19 @@
     python3 chip_smoke.py --only vlm_encdec
     python3 chip_smoke.py --only moe_serve    (13d on four cards only)
     python3 chip_smoke.py --only precision
+    python3 chip_smoke.py --only examples
 
 Needs one card; on a machine with up to four, phase 6b puts one rank on
 each, and on four phase 6c runs its 2 pods x 2 ranks over NCCL and phase
 6d trains bert-large FULL in four ranks. ``--only`` runs, after the
-build, just the named checks of phases 4n, 5, 6, 7, 8, 9, 10, 13 and 14 (the
+build, just the named checks of phases 4n, 5, 6, 7, 8, 9, 10, 13, 14 and 15 (the
 second line: the four-card paths, on four cards; the third: phase 7;
 the fourth: phase 8; the fifth: 3e, phase 5's rotary-family checks and
 phase 9, 9d on four cards only; the sixth: 3f and phase 10; the
 seventh: 3g, phase 5's state-space checks and phase 11; the eighth: 3h,
 phase 5's vlm and encoder-decoder checks and phase 12; the ninth: phase
-5's MoE serving checks and phase 13; the tenth: 3i and phase 14) and
-prints no kernels or result line.
+5's MoE serving checks and phase 13; the tenth: 3i and phase 14; the
+eleventh: phase 15) and prints no kernels or result line.
 
 1. Prints the card (nvidia-smi name and power limit) and torch/CUDA.
 2. Builds the port's CUDA kernels from src/repro_torch/kernels/csrc with
@@ -91,7 +92,10 @@ prints no kernels or result line.
    BERT-Base FULL frames, 4 workers stacked: bf16 outputs and packed
    bytes bit for bit the plain versions', sums within 64 ulp, the Adam
    delta within 2 ulp; call and batched times against the byte bound
-   at bf16, reported under each kernel's "production_precision".
+   at bf16, reported under each kernel's "production_precision"; then
+   the same five kernels again at fp16 state (the paper's: m, u, v and
+   the error feedback in fp16, the gradient bf16), reported under
+   "production_precision_fp16".
 4. Drives the main paths, each through the trainer and CLI config a
    user would call, 4 simulated data-parallel workers, 8 steps (0/1
    Adam and 0/1-SGD: syncs at 0-4 and 6; variance at 0, 1, 3 where the
@@ -403,8 +407,23 @@ prints no kernels or result line.
       and 6, with and without the anchor): the local step bit for bit,
       the sync steps at most SYNC_UNEQUAL of elements unequal; the
       8-step trainers within three times the card's own spread from
-      params one bf16 ulp up.
-15. Prints the kernels line (kernels 2-4 with their 7e and phase-5
+      params one bf16 ulp up; the one-step check again at fp16 state
+      (with the anchor);
+   e. run (a) with fp16 optimizer state (``state_dtype=torch.float16``,
+      the paper's; bf16 params and compute): its losses, its state bytes
+      a stacked element, its peak, the share of v at exactly zero (fp16
+      underflows squared gradients, as in the reference), its launch
+      counts (a)'s;
+   f. gpt2 FULL served at the reference's serving precision (bf16
+      params and compute, a bf16 cache) through the Scheduler, 8 slots,
+      8 prompts of 512, 64 new tokens each: every request alone at batch
+      1 (teacher-forced), its greedy tokens the batched run's except at
+      a top-2 gap under BF16_LOGIT_ULPS bf16 ulps of the logits' scale;
+      tick times and peak beside 7a's.
+15. The port's three examples (``repro_torch.examples``: quickstart,
+   compare_optimizers, serve_decode), each through its ``main`` on the
+   card at REPRO_EXAMPLE_STEPS=4 (quickstart at fp16 state too).
+16. Prints the kernels line (kernels 2-4 with their 7e and phase-5
    publish launches), the card line and the result line.
 
 Any failure raises; there is no CPU fallback. Exits non-zero without a
@@ -531,6 +550,8 @@ GPT2_DIGESTS = ("gpt2", "gpt2_bucketed", "gpt2_one_leaf")
 PRECISION = {k: f"{k} (bf16 state)" for k in (
     "fused_local_step", "abs_rowsum", "ef_quantize", "ef_compress",
     "fused_local_step_sgd")}
+# the same kernels at fp16 state (the paper's), after the bf16 rows
+PRECISION_FP16 = {k: f"{k} (fp16 state)" for k in PRECISION}
 # 14b's losses against 14a's, at every step: the anchor-free re-anchor
 # differs from the stored one by f32 and bf16 roundings, which the
 # bf16 params carry on (the reference's own two gpt2-smoke runs differ by
@@ -654,6 +675,7 @@ class Tally:
                          "max_abs_err": 0.0, "launches_per_round": 0}
                      for k in [*KERNELS, BERT_DECOMPRESS, BERT_LAMB,
                                *HIER.values(), *PRECISION.values(),
+                               *PRECISION_FP16.values(),
                                *(n for names in {**FAMILY_NAMES,
                                                  **MOE_NAMES,
                                                  **SSM_NAMES,
@@ -2727,25 +2749,34 @@ def top2_gap(logits) -> float:
     return float(v[0] - v[1])
 
 
-def check_lone(run, logs, n=LONE_REQUESTS, exact=False):
+def check_lone(run, logs, n=LONE_REQUESTS, exact=False,
+               cache_dtype=torch.float32, ulps_of_scale=None):
     """7a's check: the first ``n`` requests each alone at batch 1
-    through ``Server.prefill_fn``/``decode_fn``, teacher-forced with the
-    batched run's tokens: every greedy token equal, except where the lone
-    logits' top-2 gap is under SERVE_LOGIT_TOL (counted; ``exact``: none
-    may differ), and every decode's logits within SERVE_LOGIT_TOL of the
-    batched ones; the smallest top-2 gap of the lone logits is kept.
-    Times the lone prefills and decodes."""
+    through ``Server.prefill_fn``/``decode_fn`` (a ``cache_dtype``
+    cache), teacher-forced with the batched run's tokens: every greedy
+    token equal, except where the lone logits' top-2 gap is under the
+    tolerance (counted; ``exact``: none may differ), and every decode's
+    logits within it of the batched ones; the smallest top-2 gap of the
+    lone logits is kept. The tolerance is SERVE_LOGIT_TOL, or with
+    ``ulps_of_scale`` that many bf16 ulps of the lone logits' largest
+    magnitude (at bf16 compute). Times the lone prefills and decodes."""
     from repro_torch.models import transformer as T
     from repro_torch.serve import Server
 
     cfg, dev, params = run.cfg, run.device, run.scheduler.params
     srv = Server(cfg, batch=1, max_seq=run.args.max_seq,
-                 cache_dtype=torch.float32, device=dev)
+                 cache_dtype=cache_dtype, device=dev)
+
+    def tol(lone):
+        if ulps_of_scale is None:
+            return SERVE_LOGIT_TOL
+        return ulps_of_scale * 2.0 ** -7 * float(lone.abs().max())
+
     prefill, decode = srv.prefill_fn(), srv.decode_fn()
     V = cfg.vocab
     near_ties, worst, pre_ms, dec_ms, least = 0, 0.0, [], [], float("inf")
     for r in run.requests[:n]:
-        cache = T.init_cache(cfg, 1, run.args.max_seq, torch.float32, dev)
+        cache = T.init_cache(cfg, 1, run.args.max_seq, cache_dtype, dev)
         tokens = torch.tensor([r.prompt], device=dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2761,21 +2792,24 @@ def check_lone(run, logs, n=LONE_REQUESTS, exact=False):
             torch.cuda.synchronize()
             dec_ms.append((time.perf_counter() - t0) * 1e3)
         for i, lone in enumerate(outs):
+            lone = lone.float()
             least = min(least, top2_gap(lone))
             if i:
-                worst = max(worst, float(
-                    (lone - logs[(r.rid, i)]).abs().max()))
+                gap = float((lone - logs[(r.rid, i)].float()).abs().max())
+                assert gap <= tol(lone), (r.rid, i, gap, tol(lone))
+                worst = max(worst, gap)
             if int(lone.argmax()) != r.output[i]:
                 gap = top2_gap(lone)
-                assert gap < SERVE_LOGIT_TOL, (r.rid, i, gap)
+                assert gap < tol(lone), (r.rid, i, gap)
                 near_ties += 1
+    what = (SERVE_LOGIT_TOL if ulps_of_scale is None
+            else f"{ulps_of_scale} bf16 ulps of the logits' scale")
     print(f"  lone check, {n} requests at batch 1: batched "
           f"logits within {worst:.2e} of the lone ones; {near_ties} "
-          f"token(s) differ, each at a top-2 gap < {SERVE_LOGIT_TOL}; "
+          f"token(s) differ, each at a top-2 gap < {what}; "
           f"smallest top-2 gap {least:.3e}; lone prefill "
           f"{statistics.median(pre_ms):.3f} ms a request, decode "
           f"{statistics.median(dec_ms):.3f} ms a token", flush=True)
-    assert worst <= SERVE_LOGIT_TOL, worst
     assert not (exact and near_ties), near_ties
     return {"max_logit_gap": worst, "near_tie_tokens": near_ties,
             "min_top2_gap": least,
@@ -4559,12 +4593,13 @@ def run_moe_serve_only(dev, card):
 # and optimizer state)
 # --------------------------------------------------------------------- #
 
-def bf16_inplace_step(g, m, u, v, lr, b1, u_out=None):
+def lowp_inplace_step(g, m, u, v, lr, b1, u_out=None):
     """Kernel 1 at production precision, in place as the optimizer calls
     it, on copies of ``m`` and ``u`` (``v`` None: the SGD kernel): a bf16
-    gradient and state, u' rounded into ``u`` or, for a sync step, into
-    the f32 ``u_out``; the delta into a new f32 tensor. Returns (m', u',
-    delta) and a closure repeating the call on the same copies."""
+    gradient and a 16-bit state, u' rounded into ``u`` or, for a sync
+    step, into the f32 ``u_out``; the delta into a new f32 tensor.
+    Returns (m', u', delta) and a closure repeating the call on the same
+    copies."""
     from repro_torch.kernels import fused_adam as FA
 
     mk, uk = m.clone(), u.clone()
@@ -4579,8 +4614,8 @@ def bf16_inplace_step(g, m, u, v, lr, b1, u_out=None):
     return (mk, uk if uo is None else uo, dk), call
 
 
-def bf16_plain_step(g, m, u, v, lr, b1, u_out=None):
-    """The plain version of :func:`bf16_inplace_step` on copies."""
+def lowp_plain_step(g, m, u, v, lr, b1, u_out=None):
+    """The plain version of :func:`lowp_inplace_step` on copies."""
     from repro_torch.kernels import fused_adam as FA
 
     mp, up = m.clone(), u.clone()
@@ -4592,29 +4627,32 @@ def bf16_plain_step(g, m, u, v, lr, b1, u_out=None):
     return mp, up if uo is None else uo, d
 
 
-def check_bf16_local_step(lo, rnd, tally, name, v_needed, lr, b1):
-    """Kernel 1 (``v_needed``) or the SGD kernel on one frame at bf16
-    operands against its plain version, by row slabs: m' and u' (bf16,
-    and the f32 u' of a sync step) bit for bit, the delta within
-    DELTA_ULPS (the SGD delta bit for bit). Tallies the local step's
-    form (bf16 u') under ``name``."""
+def check_lowp_local_step(lo, rnd, tally, name, v_needed, lr, b1,
+                          state=torch.bfloat16):
+    """Kernel 1 (``v_needed``) or the SGD kernel on one frame at a bf16
+    gradient and ``state`` (bf16 or fp16) m, u and v against its plain
+    version, by row slabs: m' and u' (the state's dtype, and the f32 u'
+    of a sync step) bit for bit, the delta within DELTA_ULPS (the SGD
+    delta bit for bit). Tallies the local step's form (u' in the state's
+    dtype) under ``name``."""
     bf = torch.bfloat16
-    g, m, u = rnd().to(bf), rnd().to(bf), rnd(1e-3).to(bf)
-    v = rnd(1e-2).square().to(bf) if v_needed else None
+    g, m, u = rnd().to(bf), rnd().to(state), rnd(1e-3).to(state)
+    v = rnd(1e-2).square().to(state) if v_needed else None
     R, cols = g.shape
     tol = DELTA_ULPS if v_needed else 0
     slabs, err = row_slabs(R, cols), 0.0
     for u_out in (None, torch.zeros(R, cols, device=g.device)):
-        fk, call = bf16_inplace_step(g, m, u, v, lr, b1, u_out)
+        fk, call = lowp_inplace_step(g, m, u, v, lr, b1, u_out)
         for sl in slabs:
-            fp = bf16_plain_step(g[sl], m[sl], u[sl],
+            fp = lowp_plain_step(g[sl], m[sl], u[sl],
                                  None if v is None else v[sl], lr, b1,
                                  None if u_out is None else u_out[sl])
             torch.cuda.synchronize()
-            assert torch.equal(fk[0][sl], fp[0]), (lo.shape, "bf16 m'")
-            assert torch.equal(fk[1][sl], fp[1]), (lo.shape, "u'",
+            assert torch.equal(fk[0][sl], fp[0]), (lo.shape, state, "m'")
+            assert torch.equal(fk[1][sl], fp[1]), (lo.shape, state, "u'",
                                                    u_out is None)
-            assert ulps(fk[2][sl], fp[2]) <= tol, (lo.shape, "bf16 delta")
+            assert ulps(fk[2][sl], fp[2]) <= tol, (lo.shape, state,
+                                                   "delta")
             err = max([err] + [float((a[sl].float() - b.float()).abs().max())
                                for a, b in zip(fk, fp)])
             del fp
@@ -4623,7 +4661,7 @@ def check_bf16_local_step(lo, rnd, tally, name, v_needed, lr, b1):
 
         def plain():
             for sl in slabs:
-                bf16_plain_step(g[sl], m[sl], u[sl],
+                lowp_plain_step(g[sl], m[sl], u[sl],
                                 None if v is None else v[sl], lr, b1)
 
         ne = R * cols
@@ -4633,17 +4671,26 @@ def check_bf16_local_step(lo, rnd, tally, name, v_needed, lr, b1):
         del fk, call
 
 
-def check_precision_kernels(dev, tally):
+def check_precision_kernels(dev, tally, states=None):
     """Phase 3i: the kernels that read or write optimizer state, at bf16
-    operands: kernel 1 (fused_local_step) and the two-pass compress
-    (abs_rowsum, ef_quantize; bf16 err in, bf16 err_out) at every
-    gpt2-FULL frame of 4 stacked workers, worker and server side; the
-    SGD kernel and the single-pass ef_compress at the BERT-Base FULL
-    frames. Each against its plain version: bf16 outputs (m', u',
-    err_out) and packed bytes bit for bit, the f32 u' of a sync step bit
-    for bit, the delta within DELTA_ULPS, sums within ROWSUM_ULPS;
-    tallied under PRECISION (call and batched times against the byte
-    bound at bf16). decompress reads no state: its output is f32."""
+    and then at fp16 state: kernel 1 (fused_local_step; a bf16 gradient)
+    and the two-pass compress (abs_rowsum, ef_quantize; err in and
+    err_out in the state's dtype) at every gpt2-FULL frame of 4 stacked
+    workers, worker and server side; the SGD kernel and the single-pass
+    ef_compress at the BERT-Base FULL frames. Each against its plain
+    version: 16-bit outputs (m', u', err_out) and packed bytes bit for
+    bit, the f32 u' of a sync step bit for bit, the delta within
+    DELTA_ULPS, sums within ROWSUM_ULPS; tallied under PRECISION and
+    PRECISION_FP16 (call and batched times against the byte bound at
+    16-bit state). ``states``: (dtype, names) pairs, both by default.
+    decompress reads no state: its output is f32."""
+    for state, names in states or ((torch.bfloat16, PRECISION),
+                                   (torch.float16, PRECISION_FP16)):
+        check_state_kernels(dev, tally, state, names)
+
+
+def check_state_kernels(dev, tally, state, names):
+    """:func:`check_precision_kernels` at one state dtype."""
     from repro_torch.core import compressor as C
     from repro_torch.kernels import onebit as OB
 
@@ -4662,43 +4709,48 @@ def check_precision_kernels(dev, tally):
                         * scale * mask)
 
             if arch == "gpt2":
-                check_bf16_local_step(lo, rnd, tally,
-                                      PRECISION["fused_local_step"], True,
-                                      lr, b1)
+                check_lowp_local_step(lo, rnd, tally,
+                                      names["fused_local_step"], True,
+                                      lr, b1, state)
                 check_compress_frames(
-                    dev, gen, tally, PRECISION, lo, cols,
+                    dev, gen, tally, names, lo, cols,
                     [f[:3] + (False,) for f in flat_frames(lo)],
-                    err_dtype=torch.bfloat16)
+                    err_dtype=state)
             else:
-                check_bf16_local_step(lo, rnd, tally,
-                                      PRECISION["fused_local_step_sgd"],
-                                      False, lr, b1)
+                check_lowp_local_step(lo, rnd, tally,
+                                      names["fused_local_step_sgd"],
+                                      False, lr, b1, state)
                 if len(lo.view_shape) == 3:
-                    z, e = rnd(), rnd(0.3).to(torch.bfloat16)
+                    z, e = rnd(), rnd(0.3).to(state)
                     err = check_ef_compress_frame(z, e, cnt)
                     n = R * cols
-                    tally.add(PRECISION["ef_compress"],
+                    tally.add(names["ef_compress"],
                               lambda: OB.ef_compress(z, e, cnt),
                               lambda: OB.ef_compress_plain(z, e, cnt),
                               8.125 * n + 8.0 * R, 3.0 * n, err)
                     del z, e
             torch.cuda.empty_cache()
-            print(f"  {arch} leaf {lo.shape}: frame ({R}, {cols}) at bf16 "
-                  f"ok", flush=True)
+            print(f"  {arch} leaf {lo.shape}: frame ({R}, {cols}) at "
+                  f"{str(state).removeprefix('torch.')} state ok",
+                  flush=True)
 
 
-def production(store_anchor=True):
+def production(store_anchor=True, state_dtype=torch.bfloat16):
     """The reference's production precision (``launch.train.production``:
-    bf16 params, compute and state), with or without the anchor, as a
-    ``configure`` of ``launch.make_trainer``."""
+    bf16 params, compute and state), with or without the anchor, the
+    state in ``state_dtype`` (fp16: the paper's), as a ``configure`` of
+    ``launch.make_trainer``."""
     from repro_torch.launch import train as launch
 
-    return functools.partial(launch.production, store_anchor=store_anchor)
+    return functools.partial(launch.production, store_anchor=store_anchor,
+                             state_dtype=state_dtype)
 
 
 def state_report(params, state):
     """Bytes of the optimizer state a stacked parameter element, and the
-    stacked elements (every tensor of the state, scalar slots included)."""
+    stacked elements (every tensor of the state, scalar slots included);
+    where the base keeps a variance, the lowest, highest and overall
+    share of its elements at exactly zero over the leaves."""
     from repro_torch.core.leafwise import flatten_tree
 
     elems = sum(x.numel() for x in flatten_tree(params)[1])
@@ -4706,10 +4758,18 @@ def state_report(params, state):
                             state.err_s, state.anchor)
                for t in xs if t is not None]
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
-    return {"stacked_elements": elems, "state_bytes": nbytes,
-            "state_bytes_per_element": nbytes / elems,
-            "param_bytes_per_element": sum(
-                x.element_size() for x in flatten_tree(params)[1][:1])}
+    out = {"stacked_elements": elems, "state_bytes": nbytes,
+           "state_bytes_per_element": nbytes / elems,
+           "param_bytes_per_element": sum(
+               x.element_size() for x in flatten_tree(params)[1][:1])}
+    vs = [v for v in state.slots.get("v", ()) if v is not None]
+    if vs:
+        zeros = [int((v == 0).sum()) for v in vs]
+        shares = [z / v.numel() for z, v in zip(zeros, vs)]
+        out["v_zero_share"] = {
+            "min_leaf": min(shares), "max_leaf": max(shares),
+            "all": sum(zeros) / sum(v.numel() for v in vs)}
+    return out
 
 
 def run_14c(dev):
@@ -4765,7 +4825,8 @@ def check_small_precision(dev):
     ``u`` and the anchor; with and without the anchor. The local step
     (kernel 1) bit for bit; a sync step's params and state at most
     SYNC_UNEQUAL unequal (its scales are f32 sums in the kernel's order,
-    within ROWSUM_ULPS of torch's). (2) The 8-step trainer from the same start on both
+    within ROWSUM_ULPS of torch's); (1) again at fp16 state with the
+    anchor. (2) The 8-step trainer from the same start on both
     devices: bf16 products on the card (cuBLAS) and on the CPU round in
     other orders, so the bar is phase 5's qint one: the loss gap and the
     largest param gap each at most three times the card's own spread
@@ -4786,7 +4847,9 @@ def check_small_precision(dev):
     cpu, bf = torch.device("cpu"), torch.bfloat16
     out = {}
     for label, prec in (("anchor", production()),
-                        ("no_anchor", production(False))):
+                        ("no_anchor", production(False)),
+                        ("fp16_state", production(
+                            state_dtype=torch.float16))):
         rng = np.random.default_rng(7)
 
         def draw(sc):
@@ -4817,7 +4880,9 @@ def check_small_precision(dev):
                         x.cpu() for name in ("u", "err_w", "err_s", "anchor")
                         for x in getattr(st, name) if x is not None] + [
                         x.cpu() for name in ("m", "v") for x in st.slots[name]])
-                assert all(x.dtype == bf for x in res[1][len(leaves):]), t
+                # the state in its dtype, the anchor in the params'
+                assert {x.dtype for x in res[1][len(leaves):]} == {
+                    bf, opt_cfg.state_dtype}, t
                 share = unequal_share(*res)
                 unequal[t] = share
                 print(f"  production precision ({label}): optimizer step "
@@ -4886,13 +4951,93 @@ def run_14ab(dev, card, ref=None):
     return out
 
 
+def run_14e(dev, card, ref):
+    """14e: run 14a (``ref``: its result) with fp16 optimizer state, the
+    paper's: its launch counts 14a's, its losses beside 14a's, its state
+    bytes a stacked element, its peak and the share of v at exactly zero
+    (squared gradients under fp16's smallest subnormal round to 0, in the
+    reference as in the port)."""
+    print(f"phase 14e: gpt2 FULL, {N_WORKERS} simulated workers, bf16 "
+          f"params and compute, fp16 optimizer state; {card}", flush=True)
+    r = run_main_path(dev, "14e", "gpt2", [], BATCH, SEQ, "lm",
+                      configure=production(state_dtype=torch.float16))
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert r["launches"] == ref["launches"], (r["launches"],
+                                              ref["launches"])
+    losses = [float(np.mean(x["losses"])) for x in r["steps"]]
+    gaps = [abs(a - float(np.mean(b["losses"])))
+            for a, b in zip(losses, ref["steps"])]
+    z = r["state"]["v_zero_share"]
+    print(f"  14e losses {[round(x, 5) for x in losses]}; against 14a "
+          f"{[round(g, 5) for g in gaps]}; v at zero {z['all']:.4f} of its "
+          f"elements ({z['min_leaf']:.4f}-{z['max_leaf']:.4f} a leaf)",
+          flush=True)
+    r["losses"], r["loss_gaps_to_14a"] = losses, gaps
+    return r
+
+
+# 14f: gpt2 FULL served at bf16 params, compute and cache: the batched
+# logits of a row may round otherwise than the lone row's (other GEMM
+# shapes), so a greedy token may differ only where the lone logits'
+# top-2 gap is under this many bf16 ulps of their largest magnitude
+BF16_LOGIT_ULPS = 4
+SERVE_14F = ["--arch", "gpt2", "--slots", "8", "--max-seq", "1024",
+             "--requests", "8", "--prompt-len", "512", "--gen", "64"]
+
+
+def run_14f(dev, card):
+    """14f: gpt2 FULL served at the reference's serving precision (bf16
+    params and compute, a bf16 cache: ``repro.serve.Server``'s defaults)
+    through the Scheduler over 8 slots, with ``launch.serve``'s prompts
+    and loop; then each request alone at batch 1 at the same precision,
+    teacher-forced with the batched tokens (:func:`check_lone`): every
+    greedy token equal except at a top-2 gap under BF16_LOGIT_ULPS bf16
+    ulps of the lone logits' largest magnitude (counted). Tick times and
+    peak as 7a's."""
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Request, Scheduler, Server
+
+    bf = torch.bfloat16
+    print(f"phase 14f: {' '.join(SERVE_14F)}, bf16 params, compute and "
+          f"cache; {card}", flush=True)
+    args = launch.parse_args(SERVE_14F)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(launch.config_of(args), param_dtype=bf,
+                              compute_dtype=bf)
+    params = L.init_params(T.model_template(cfg), args.seed, device=dev,
+                           dtype=bf)
+    srv = Server(cfg, batch=args.slots, max_seq=args.max_seq,
+                 cache_dtype=bf, device=dev)
+    sch = Scheduler(srv, params)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=args.gen)
+            for i, p in enumerate(launch.prompts_of(args, cfg))]
+    for r in reqs:
+        sch.submit(r)
+    run = launch.ServeRun(args=args, cfg=cfg, device=dev, params=params,
+                          server=srv, scheduler=sch, requests=reqs)
+    logs = record_logits(run, {r.rid for r in reqs})
+    res = serve_drive(run)
+    assert all(r.done and len(r.output) == r.max_new_tokens for r in reqs)
+    res["lone"] = check_lone(run, logs, n=len(reqs), cache_dtype=bf,
+                             ulps_of_scale=BF16_LOGIT_ULPS)
+    del run, sch, srv, params, logs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def run_phase14(dev, card, ref=None):
     """Phase 14: production precision: :func:`run_14ab` (against 4a's
     launches ``ref``), :func:`run_14c`, :func:`check_small_precision`
-    (14d); every run through :func:`run_main_path` (audited, launches
-    against ``expected_launches``) with its state bytes a stacked
-    element and its peak memory a 1e9 stacked elements, printed beside
-    the card."""
+    (14d), :func:`run_14e` (fp16 state), :func:`run_14f` (bf16
+    serving); every training run through :func:`run_main_path`
+    (audited, launches against ``expected_launches``) with its state
+    bytes a stacked element and its peak memory a 1e9 stacked elements,
+    printed beside the card."""
     out = run_14ab(dev, card, ref)
     print(f"phase 14c: phi4-mini-3.8b FULL width, single mode, production "
           f"precision without the anchor; {card}", flush=True)
@@ -4902,7 +5047,9 @@ def run_phase14(dev, card, ref=None):
     print("phase 14d: gpt2-smoke at production precision, card vs CPU",
           flush=True)
     out["14d"] = check_small_precision(dev)
-    for label in ("14a", "14b", "14c"):
+    out["14e"] = run_14e(dev, card, out["14a"])
+    out["14f"] = run_14f(dev, card)
+    for label in ("14a", "14b", "14c", "14e"):
         r = out[label]
         print(f"  {label}: {card}; peak {r['peak_memory_gb']:.2f} GB = "
               f"{r['peak_gb_per_1e9_elements']:.2f} GB a 1e9 stacked "
@@ -4911,22 +5058,93 @@ def run_phase14(dev, card, ref=None):
     return out
 
 
-def run_3i_alone(dev):
-    """Phase 3i with a tally of its own, printed (``--only precision``)."""
+EXAMPLE_STEPS = 4      # phase 15: REPRO_EXAMPLE_STEPS of each example
+
+
+def run_examples(dev):
+    """Phase 15: the port's three examples through their ``main`` on the
+    card at REPRO_EXAMPLE_STEPS=EXAMPLE_STEPS (quickstart at f32 and at
+    fp16 state): finite losses, every request served (the example
+    asserts it), each example's kernel launches and wall seconds."""
+    from repro_torch.examples import (compare_optimizers, quickstart,
+                                      serve_decode)
+    from repro_torch.kernels import build
+
+    old = os.environ.get("REPRO_EXAMPLE_STEPS")
+    os.environ["REPRO_EXAMPLE_STEPS"] = str(EXAMPLE_STEPS)
+    runs = {"quickstart": lambda: quickstart.main(str(dev)),
+            "quickstart_fp16": lambda: quickstart.main(
+                str(dev), state_dtype=torch.float16),
+            "compare_optimizers": lambda: compare_optimizers.main(str(dev)),
+            "serve_decode": lambda: serve_decode.main(str(dev))}
+    out = {}
+    try:
+        for name, run in runs.items():
+            print(f"phase 15 ({name}): python -m repro_torch.examples."
+                  f"{name.removesuffix('_fp16')}"
+                  f"{' --state-dtype float16' * name.endswith('_fp16')} "
+                  f"at REPRO_EXAMPLE_STEPS={EXAMPLE_STEPS}", flush=True)
+            build.launch_counts.clear()
+            t0 = time.time()
+            res = run()
+            torch.cuda.synchronize()
+            row = {"seconds": time.time() - t0,
+                   "launches": dict(build.launch_counts)}
+            if name.startswith("quickstart"):
+                row["losses"] = res["losses"]
+                assert np.isfinite(res["losses"]).all(), res["losses"]
+            elif name == "compare_optimizers":
+                row["losses"] = {k: v["losses"] for k, v in res.items()}
+                assert all(np.isfinite(v["losses"]).all()
+                           for v in res.values())
+            else:
+                row["stats"] = dict(res["stats"])
+                row["outputs"] = [r.output for r in res["requests"]]
+            print(f"  {name}: {row['seconds']:.1f} s; launches "
+                  f"{json.dumps(row['launches'])}", flush=True)
+            out[name] = row
+            del res
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_EXAMPLE_STEPS", None)
+        else:
+            os.environ["REPRO_EXAMPLE_STEPS"] = old
+    # the fused local step runs on every 0/1 Adam step of quickstart
+    assert out["quickstart"]["launches"].get("fused_local_step"), out
+    return out
+
+
+def run_3i_alone(dev, fp16_only=False):
+    """Phase 3i with a tally of its own, printed (``--only precision``;
+    ``3i_fp16``: its fp16 rows alone)."""
     tally = Tally()
-    check_precision_kernels(dev, tally)
-    rows = tally_rows(tally, PRECISION)
+    check_precision_kernels(dev, tally, ((torch.float16, PRECISION_FP16),)
+                            if fp16_only else None)
+    rows = {"fp16_state": tally_rows(tally, PRECISION_FP16)}
+    if not fp16_only:
+        rows["bf16_state"] = tally_rows(tally, PRECISION)
     print("3i " + json.dumps(rows), flush=True)
     return rows
 
 
 def precision_parts(dev, card):
     """``--only precision`` and its parts."""
+    def run_14abe():
+        out = run_14ab(dev, card)
+        out["14e"] = run_14e(dev, card, out["14a"])
+        return out
+
     return {"precision": lambda: {
                 "3i": run_3i_alone(dev), **run_phase14(dev, card)},
+            "3i_fp16": lambda: run_3i_alone(dev, fp16_only=True),
             "14ab": lambda: run_14ab(dev, card),
             "14c": lambda: run_14c(dev),
-            "14d": lambda: check_small_precision(dev)}
+            "14d": lambda: check_small_precision(dev),
+            "14abe": run_14abe,
+            "14f": lambda: run_14f(dev, card),
+            "examples": lambda: run_examples(dev)}
 
 
 def tally_rows(tally, names):
@@ -4968,7 +5186,8 @@ def parse_args(argv=None):
              "'11ab', '11c'; 'vlm_encdec' for 3h, phase 5's vlm and "
              "encoder-decoder checks and phase 12, or '12ab', '12c'; "
              "'moe_serve' for phase 5's MoE serving checks and phase 13; "
-             "'precision' for 3i and phase 14, or '14ab', '14c', '14d'), "
+             "'precision' for 3i and phase 14, or '3i_fp16', '14ab', "
+             "'14c', '14d', '14abe', '14f'; 'examples' for phase 15), "
              "print their summary and the card line, and no kernels or "
              "result line")
     return ap.parse_args(argv)
@@ -4982,8 +5201,9 @@ def run_only(dev, names, card, t_start):
     state-space checks and 11a-11c; or ``11ab``, ``11c``) and 12
     (``vlm_encdec``: 3h, phase 5's vlm and encoder-decoder checks and
     12a-12c; or ``12ab``, ``12c``) and 13 (``moe_serve``: phase 5's MoE
-    serving checks and 13a-13d) and 14 (``precision``: 3i and 14a-14d;
-    or ``14ab``, ``14c``, ``14d``), in that order."""
+    serving checks and 13a-13d) and 14 (``precision``: 3i and 14a-14f;
+    or ``3i_fp16``, ``14ab``, ``14c``, ``14d``, ``14abe``, ``14f``) and
+    15 (``examples``), in that order."""
     parts = {"4n": lambda: run_elastic_phase(
         dev, run_main_path(dev, *RUNS[0])), **small_parts(dev),
         **family_parts(dev),
@@ -5089,7 +5309,8 @@ def main(argv=None):
           "configs", flush=True)
     precheck_vlm_encdec = check_vlm_encdec_kernels(dev, tally)
     print("phase 3i: production precision, the state-reading kernels at "
-          "bf16 operands (gpt2 FULL and bert-base FULL frames)", flush=True)
+          "bf16 and fp16 state (gpt2 FULL and bert-base FULL frames)",
+          flush=True)
     check_precision_kernels(dev, tally)
     lap("3")
 
@@ -5169,9 +5390,13 @@ def main(argv=None):
     lap("13")
 
     print("phase 14: production precision (bf16 params, compute and "
-          "optimizer state)", flush=True)
+          "optimizer state; fp16 state; bf16 serving)", flush=True)
     precision = run_phase14(dev, card, runs["gpt2"])
     lap("14")
+
+    print("phase 15: the port's examples on the card", flush=True)
+    examples = run_examples(dev)
+    lap("15")
 
     def bound(r):
         t_bytes = r["bytes"] / PEAK_BYTES_PER_S * 1e3
@@ -5194,7 +5419,7 @@ def main(argv=None):
             for part in moe_serve_parts(dev):
                 by_run[f"5_{part}_{side}"] = (
                     small[part][f"{side}_launches"].get(name, 0))
-        for label in ("14a", "14b", "14c"):
+        for label in ("14a", "14b", "14c", "14e"):
             by_run[label] = precision[label]["launches"].get(name, 0)
         for label, *_ in FAMILY_RUNS:
             by_run[label] = families[label]["launches"].get(name, 0)
@@ -5274,6 +5499,10 @@ def main(argv=None):
             kernels[-1]["production_precision"] = {
                 "per": ("bf16 state operands; " + PER[name]),
                 **tally_rows(tally, {name: PRECISION[name]})[name]}
+            kernels[-1]["production_precision_fp16"] = {
+                "per": ("fp16 state operands (a bf16 gradient); "
+                        + PER[name]),
+                **tally_rows(tally, {name: PRECISION_FP16[name]})[name]}
         if name == "fused_local_step":
             rb = tally.rows[BERT_LAMB]
             kernels[-1]["bert_lamb"] = {
@@ -5298,6 +5527,7 @@ def main(argv=None):
                "3g_precheck": precheck_ssm, "ssm": ssm,
                "3h_precheck": precheck_vlm_encdec, "vlm_encdec": vlm_encdec,
                "moe_serve": moe_serve, "precision": precision,
+               "examples": examples,
                "small_inputs": small,
                "data_parallel": dist_phase, "serve": serve,
                "audit": audit, "phase_wall_s": walls,

@@ -35,8 +35,9 @@ of :mod:`repro_torch.core.bucketing`, whose EF state and anchor then live
 in the bucket's layout (``u``, ``m`` and ``v`` stay per leaf).
 
 **Precision.** ``state_dtype`` is the dtype of every state tensor (``m``,
-``v``, ``u``, the EF state; bf16 in production) except the per-leaf
-scalar slots (LAMB's trust), which stay f32; the anchor keeps the
+``v``, ``u``, the EF state: f32, bf16 as the reference's production runs
+keep it, or fp16 as the paper does) except the per-leaf scalar slots
+(LAMB's trust), which stay f32; the anchor keeps the
 parameters' dtype. The arithmetic is f32 as in the reference: each leaf
 (or exchange unit) is upcast, stepped and rounded back to its stored
 dtype once, round-to-nearest-even, where the reference rounds it at the
@@ -62,11 +63,9 @@ from repro_torch.core import schedules as S
 from repro_torch.core.base_steps import NEEDS_ANCHOR_TEXT, bcast
 from repro_torch.core.comm import Comm, Hierarchy
 from repro_torch.kernels import dispatch as K
-from repro_torch.kernels.fused_adam import fma, rsqrt
+from repro_torch.kernels.fused_adam import STATE_DTYPES, fma, rsqrt
 
 STYLES = ("accumulate", "gradient", "mean")
-# dtypes a state tensor may have (the kernels take exactly these)
-STATE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 @dataclasses.dataclass

@@ -89,7 +89,7 @@ def state_from_reference(state, opt: ComposedOptimizer, device="cpu",
     (single mode), and the port's stack of one is added. Scalars and
     policy states must be identical on all workers (a ``ValueError``
     otherwise); a leaf the style keeps as ``None`` stays ``None``. Every
-    leaf keeps its dtype (bf16 under ``state_dtype=bf16``)."""
+    leaf keeps its dtype (bf16 or fp16 under those ``state_dtype``s)."""
     def first(x, name):
         a = np.asarray(x).reshape(-1)
         if not (a == a[0]).all():

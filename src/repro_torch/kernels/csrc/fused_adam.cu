@@ -14,10 +14,11 @@
 //   d  = lr * m
 //
 // Operand dtypes: the gradient g in f32 or bf16 (the parameter dtype),
-// the state m, u, v all in one dtype, f32 or bf16 (state_dtype), u' into
-// uo, f32 or the state dtype, and d always f32. Every operand is widened
-// to f32 on load (exact), the arithmetic is f32, and each output is
-// rounded once, to nearest even, to its own dtype: m' and a bf16 u' are
+// the state m, u, v all in one dtype, f32, bf16 or fp16 (state_dtype),
+// u' into uo, f32 or the state dtype, and d always f32. Every operand is
+// widened to f32 on load (exact), the arithmetic is f32, and each output
+// is rounded once, to nearest even, to its own dtype (lowp4.cuh: the
+// bits of PyTorch's CPU conversion): m' and a 16-bit u' are
 // what the reference rounds at the end of its step, while a sync step's
 // exchange reads an f32 u' (uo then an f32 buffer of the caller's) and d
 // stays f32 for x_half = x - d.
@@ -29,14 +30,14 @@
 // (v, only read, is the one operand that aliases nothing).
 //
 // Bound: bytes. The Adam step reads g, m, u, v and writes m, u, d: 28
-// bytes per element in f32, 16 with bf16 g and state and a bf16 u' (18
-// with an f32 u'); the SGD step reads three and writes three, 24 bytes
-// in f32, 14 at bf16. Both do a handful of flops per element, far below
+// bytes per element in f32, 16 with bf16 g and a 16-bit state and u'
+// (18 with an f32 u'); the SGD step reads three and writes three, 24
+// bytes in f32, 14 with 16-bit operands. Both do a handful of flops per element, far below
 // the card's ridge point; nothing is reused, so there is nothing to tile.
 //
 // Design: one grid-stride loop over the flat element range. Each thread
 // moves four elements per operand per iteration (16 bytes of f32, 8 of
-// bf16) when every pointer is aligned to four of its elements and the
+// a 16-bit dtype) when every pointer is aligned to four of its elements and the
 // length is a multiple of 4, else one element. The grid is capped at a
 // few waves of blocks so the loop, not the launch, covers the widest
 // frames (up to 155M elements when four workers stack). One template
@@ -52,13 +53,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bf16x4.cuh"
+#include "lowp4.cuh"
 
 namespace {
 
-using bf16x4::bf16;
-using bf16x4::load4;
-using bf16x4::store4;
+using lowp4::bf16;
+using lowp4::f16;
+using lowp4::load4;
+using lowp4::store4;
 
 struct Scalars {
   float lr, b1, omb1, eps;
@@ -104,8 +106,8 @@ template <bool kSgd, typename G, typename S, typename U>
 __global__ void local_step_scalar(const G* g, S* m, const S* u, U* uo,
                                   const S* __restrict__ v, float* d,
                                   int64_t n, Scalars s) {
-  using bf16x4::from_f32;
-  using bf16x4::to_f32;
+  using lowp4::from_f32;
+  using lowp4::to_f32;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
@@ -131,7 +133,7 @@ int blocks_for(int64_t work) {
 template <bool kSgd, typename G, typename S, typename U>
 int launch(const void* g, void* m, const void* u, void* uo, const void* v,
            void* d, long long n, const Scalars& s, cudaStream_t st) {
-  using bf16x4::aligned4;
+  using lowp4::aligned4;
   const bool vec = (n % 4 == 0) && aligned4<G>(g) && aligned4<S>(m) &&
                    aligned4<S>(u) && aligned4<U>(uo) && aligned4<S>(v) &&
                    aligned4<float>(d);
@@ -152,8 +154,9 @@ int launch(const void* g, void* m, const void* u, void* uo, const void* v,
   return (int)cudaGetLastError();
 }
 
-// The operand dtypes as bits of `types`: 1 a bf16 gradient, 2 a bf16
-// state (m, u, v), 4 a bf16 u' (only with a bf16 state; else uo is f32).
+// The operand dtypes as bits of `types`: 1 a bf16 gradient (else f32), 2
+// a bf16 state (m, u, v), 8 an fp16 state (neither: f32), 4 u' in the
+// state's 16-bit dtype (else uo is f32).
 template <bool kSgd>
 int launch_typed(const void* g, void* m, const void* u, void* uo,
                  const void* v, void* d, long long n, const Scalars& s,
@@ -167,6 +170,10 @@ int launch_typed(const void* g, void* m, const void* u, void* uo,
     case 3: return launch<kSgd, bf16, bf16, float>(g, m, u, uo, v, d, n, s, st);
     case 6: return launch<kSgd, float, bf16, bf16>(g, m, u, uo, v, d, n, s, st);
     case 7: return launch<kSgd, bf16, bf16, bf16>(g, m, u, uo, v, d, n, s, st);
+    case 8: return launch<kSgd, float, f16, float>(g, m, u, uo, v, d, n, s, st);
+    case 9: return launch<kSgd, bf16, f16, float>(g, m, u, uo, v, d, n, s, st);
+    case 12: return launch<kSgd, float, f16, f16>(g, m, u, uo, v, d, n, s, st);
+    case 13: return launch<kSgd, bf16, f16, f16>(g, m, u, uo, v, d, n, s, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

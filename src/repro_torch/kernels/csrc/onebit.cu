@@ -5,11 +5,12 @@
 // All four work on a 2-D (rows, cols) f32 frame of a comm view, with
 // cols a multiple of 8. counts[r] is the number of true (unpadded)
 // elements of row r; the mask is rebuilt as `col < counts[r]`. The error
-// feedback err (and err_out, in err's dtype) is f32 or bf16, the
+// feedback err (and err_out, in err's dtype) is f32, bf16 or fp16, the
 // optimizer's state_dtype, named by the entry points' `types` code: a
-// bf16 err is widened on load (exact), added to z in f32, and err_out is
-// rounded once to nearest even, as the reference's kernels compute
-// `z.astype(f32) + err.astype(f32)` and store `.astype(errout.dtype)`.
+// 16-bit err is widened on load (exact), added to z in f32, and err_out
+// is rounded once to nearest even (lowp4.cuh), as the reference's kernels
+// compute `z.astype(f32) + err.astype(f32)` and store
+// `.astype(errout.dtype)`.
 //
 // abs_rowsum   replaces src/repro/kernels/onebit.py::abs_rowsum and the
 //              reference's combine of its row sums into scales
@@ -28,9 +29,9 @@
 //              out = (bit ? s : -s), s = scales[r]
 //
 // Bound: bytes, for every kernel. abs_rowsum reads 8 bytes per true
-// element (6 with a bf16 err; and writes 4 per row and per group);
+// element (6 with a 16-bit err; and writes 4 per row and per group);
 // ef_quantize reads 8 and writes 4.125 bytes per element (6 and 2.125
-// with a bf16 err); ef_compress the same as ef_quantize plus 4 bytes of
+// with a 16-bit err); ef_compress the same as ef_quantize plus 4 bytes of
 // scale per row; decompress reads 0.125 and writes 4 bytes per element.
 // The arithmetic is an add, a compare and a subtract per element.
 //
@@ -120,7 +121,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bf16x4.cuh"
+#include "lowp4.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -229,10 +230,10 @@ __device__ __forceinline__ float4 load4_upto(const float* p, int n) {
   return make_float4(p[0], n > 1 ? p[1] : 0.f, n > 2 ? p[2] : 0.f,
                      n > 3 ? p[3] : 0.f);
 }
-template <bool VEC>
-__device__ __forceinline__ float4 load4_upto(const bf16x4::bf16* p, int n) {
-  using bf16x4::to_f32;
-  if (VEC) return bf16x4::load4<true>(p);
+template <bool VEC, typename T>
+__device__ __forceinline__ float4 load4_upto(const T* p, int n) {
+  using lowp4::to_f32;
+  if (VEC) return lowp4::load4<true>(p);
   return make_float4(to_f32(p[0]), n > 1 ? to_f32(p[1]) : 0.f,
                      n > 2 ? to_f32(p[2]) : 0.f, n > 3 ? to_f32(p[3]) : 0.f);
 }
@@ -382,7 +383,7 @@ ef_quantize_kernel(const float* __restrict__ z,
       const uint32_t f = base + 32 * k + lane;
       if (f < n4) {
         a[k] = load4<VEC>(z + 4 * (size_t)f);
-        b[k] = bf16x4::load4<VEC>(err + 4 * (size_t)f);
+        b[k] = lowp4::load4<VEC>(err + 4 * (size_t)f);
       }
     }
 #pragma unroll
@@ -398,7 +399,7 @@ ef_quantize_kernel(const float* __restrict__ z,
         const float s = scales[mulshift(r, grp_mul, grp_shift)];
         float4 eo;
         nib = quantize4(add4(a[k], b[k]), s, c, cnt, &eo);
-        bf16x4::store4<VEC, true>(err_out + 4 * (size_t)f, eo);
+        lowp4::store4<VEC, true>(err_out + 4 * (size_t)f, eo);
       }
       const unsigned low = __shfl_xor_sync(0xffffffffu, nib, 1);
       if (f < n4 && !(lane & 1)) packed[f >> 1] = (uint8_t)((nib << 4) | low);
@@ -443,7 +444,7 @@ ef_compress_kernel(const float* __restrict__ z,
         const int j = j0 + u * kThreads + t;
         if (j < units) {
           a[u] = load4<VEC>(zr + 4 * j);
-          b[u] = bf16x4::load4<VEC>(er + 4 * j);
+          b[u] = lowp4::load4<VEC>(er + 4 * j);
         }
       }
 #pragma unroll
@@ -481,10 +482,10 @@ ef_compress_kernel(const float* __restrict__ z,
         const float4 zw = j < kept_units
                               ? zw_kept[j]
                               : add4(load4<VEC>(zr + 4 * j),
-                                     bf16x4::load4<VEC>(er + 4 * j));
+                                     lowp4::load4<VEC>(er + 4 * j));
         float4 eo;
         nib = quantize4(zw, s, c_lo + 4 * j, cnt, &eo);
-        bf16x4::store4<VEC, true>(eo_r + 4 * j, eo);
+        lowp4::store4<VEC, true>(eo_r + 4 * j, eo);
       }
       const unsigned low = __shfl_xor_sync(0xffffffffu, nib, 1);
       if (j < units && !(t & 1)) pr[j >> 1] = (uint8_t)((nib << 4) | low);
@@ -534,7 +535,8 @@ decompress_kernel(const uint8_t* __restrict__ packed,
   }
 }
 
-// The entry points' bodies, templated on err's dtype E (float or bf16).
+// The entry points' bodies, templated on err's dtype E (float, bf16 or
+// fp16).
 
 template <typename E>
 int abs_rowsum_impl(const void* z, const void* err, const void* counts,
@@ -560,7 +562,7 @@ int abs_rowsum_impl(const void* z, const void* err, const void* counts,
   float* op = static_cast<float*>(out);
   const float* dp = static_cast<const float*>(denoms);
   float* sp = static_cast<float*>(scales);
-  auto kernel = cols % 4 == 0 && aligned16(z) && bf16x4::aligned4<E>(err)
+  auto kernel = cols % 4 == 0 && aligned16(z) && lowp4::aligned4<E>(err)
                     ? abs_rowsum_kernel<true, E>
                     : abs_rowsum_kernel<false, E>;
   kernel<<<blocks, kThreads, 0, st>>>(zp, ep, cp, op, dp,
@@ -599,8 +601,8 @@ int ef_quantize_impl(const void* z, const void* err, const void* scales,
   const long long chunks = (n4 + kQuantChunk - 1) / kQuantChunk;
   const unsigned grid = (unsigned)((chunks + kWarps - 1) / kWarps);
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  auto kernel = aligned16(z) && bf16x4::aligned4<E>(err) &&
-                        bf16x4::aligned4<E>(err_out)
+  auto kernel = aligned16(z) && lowp4::aligned4<E>(err) &&
+                        lowp4::aligned4<E>(err_out)
                     ? ef_quantize_kernel<true, E>
                     : ef_quantize_kernel<false, E>;
   kernel<<<grid, kThreads, 0, st>>>(
@@ -638,8 +640,8 @@ int ef_compress_impl(const void* z, const void* err, const void* counts,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const bool vec = aligned16(z) && bf16x4::aligned4<E>(err) &&
-                   bf16x4::aligned4<E>(err_out);
+  const bool vec = aligned16(z) && lowp4::aligned4<E>(err) &&
+                   lowp4::aligned4<E>(err_out);
   // beyond the default 48 KB of shared memory (static included) a kernel
   // must be allowed more: once, and again only for a larger size
   static size_t smem_set[2] = {47 * 1024, 47 * 1024};
@@ -671,7 +673,7 @@ int ef_compress_impl(const void* z, const void* err, const void* counts,
 }  // namespace
 
 // Each entry point returns cudaGetLastError() after its launch (0 = ok).
-// `types` is err's (and err_out's) dtype: 0 f32, 1 bf16.
+// `types` is err's (and err_out's) dtype: 0 f32, 1 bf16, 2 fp16.
 
 // wpr and slice4 come from kernels/onebit.py::abs_rowsum_geometry; with
 // gr > 0 the scales of rows / gr groups of gr rows follow (denoms and
@@ -685,9 +687,12 @@ extern "C" int abs_rowsum(const void* z, const void* err, const void* counts,
   switch (types) {
     case 0: return abs_rowsum_impl<float>(z, err, counts, out, denoms, scales,
                                           rows, cols, wpr, slice4, gr, stream);
-    case 1: return abs_rowsum_impl<bf16x4::bf16>(z, err, counts, out, denoms,
+    case 1: return abs_rowsum_impl<lowp4::bf16>(z, err, counts, out, denoms,
                                                  scales, rows, cols, wpr,
                                                  slice4, gr, stream);
+    case 2: return abs_rowsum_impl<lowp4::f16>(z, err, counts, out, denoms,
+                                               scales, rows, cols, wpr,
+                                               slice4, gr, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -705,10 +710,14 @@ extern "C" int ef_quantize(const void* z, const void* err, const void* scales,
                                            err_out, rows, cols, row_mul,
                                            row_shift, grp_mul, grp_shift,
                                            stream);
-    case 1: return ef_quantize_impl<bf16x4::bf16>(z, err, scales, counts,
+    case 1: return ef_quantize_impl<lowp4::bf16>(z, err, scales, counts,
                                                   packed, err_out, rows, cols,
                                                   row_mul, row_shift, grp_mul,
                                                   grp_shift, stream);
+    case 2: return ef_quantize_impl<lowp4::f16>(z, err, scales, counts,
+                                                packed, err_out, rows, cols,
+                                                row_mul, row_shift, grp_mul,
+                                                grp_shift, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -723,10 +732,13 @@ extern "C" int ef_compress(const void* z, const void* err, const void* counts,
     case 0: return ef_compress_impl<float>(z, err, counts, packed, scales,
                                            err_out, rows, cols, cluster, slice,
                                            kept, stream);
-    case 1: return ef_compress_impl<bf16x4::bf16>(z, err, counts, packed,
+    case 1: return ef_compress_impl<lowp4::bf16>(z, err, counts, packed,
                                                   scales, err_out, rows, cols,
                                                   cluster, slice, kept,
                                                   stream);
+    case 2: return ef_compress_impl<lowp4::f16>(z, err, counts, packed,
+                                                scales, err_out, rows, cols,
+                                                cluster, slice, kept, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

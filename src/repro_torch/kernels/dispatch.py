@@ -298,11 +298,11 @@ def fused_local_step_view_(g, m, u, v, lr, beta1, eps, layout: C.LeafLayout,
     kind: "adam" and "lamb" share the variance kernel (``v`` needed; the
     caller scales a LAMB delta by its trust afterwards, as the
     reference does), "sgd" the kernel without (``v`` ignored). Updates
-    ``m`` and ``u`` (contiguous view-shaped state, f32 or bf16) in place,
-    or writes u' into ``u_out`` (an f32 buffer of the view's shape), and
-    returns the f32 delta in view shape: written over the gradient's
-    frame with ``into_grad`` where the gradient is f32 (it is dead after
-    the step), else a new tensor. The gradient may be bf16 (the
+    ``m`` and ``u`` (contiguous view-shaped state, f32, bf16 or fp16) in
+    place, or writes u' into ``u_out`` (an f32 buffer of the view's
+    shape), and returns the f32 delta in view shape: written over the
+    gradient's frame with ``into_grad`` where the gradient is f32 (it is
+    dead after the step), else a new tensor. The gradient may be bf16 (the
     parameter dtype); each dtype routes to its kernel instance, and any
     other dtype raises."""
     for name, t in (("m", m), ("u", u), ("u_out", u_out)):

@@ -32,9 +32,10 @@ holds no second copy of the state. :func:`fused_local_step` and
 the plain versions keep the same contracts.
 
 Operands come in the production precision too: the gradient in the
-parameter dtype and the state (m, u, v) in ``state_dtype``, f32 or bf16
-each. The math stays f32, as the reference feeds its kernel f32 upcasts;
-m' and u' round once (to nearest even) to the state dtype, where the
+parameter dtype (f32 or bf16) and the state (m, u, v) in ``state_dtype``
+(f32, bf16, or fp16 as the paper keeps it). The math stays f32, as the
+reference feeds its kernel f32 upcasts; m' and u' round once (to nearest
+even, the bits of torch's CPU conversion) to the state dtype, where the
 reference rounds them at the end of its step, except that a sync step
 takes u' unrounded into an f32 ``u_out`` (its exchange reads the f32
 u'); ``d`` is f32 (``x_half = (x - d)`` rounds to the parameter dtype
@@ -147,7 +148,8 @@ def _scalars(lr, beta1, eps):
 
 
 # dtypes of the operands: the gradient (the parameter dtype) and the state
-OPERAND_DTYPES = (torch.float32, torch.bfloat16)
+GRAD_DTYPES = (torch.float32, torch.bfloat16)
+STATE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _f32(t):
@@ -156,18 +158,19 @@ def _f32(t):
 
 def _check(kernel, g, m, u, v, d, u_out):
     """Raise unless the operands fit the kernel: ``g`` f32 or bf16; ``m``,
-    ``u`` (and ``v``) contiguous in one state dtype, f32 or bf16;
+    ``u`` (and ``v``) contiguous in one state dtype, f32, bf16 or fp16;
     ``u_out`` f32 or the state dtype; ``d`` f32. Returns the C entry's
-    ``types`` bits (1: bf16 g, 2: bf16 state, 4: bf16 u')."""
+    ``types`` bits (1: bf16 g; 2: bf16 state, 8: fp16 state; 4: u' in
+    the state's 16-bit dtype)."""
     dev, shape = g.device, g.shape
-    if g.dtype not in OPERAND_DTYPES:
+    if g.dtype not in GRAD_DTYPES:
         raise TypeError(f"{kernel}: g has dtype {g.dtype}, expected one of "
-                        f"{OPERAND_DTYPES}")
+                        f"{GRAD_DTYPES}")
     build.check_operand(kernel, "g", g, g.dtype, shape, dev)
     sd = m.dtype
-    if sd not in OPERAND_DTYPES:
+    if sd not in STATE_DTYPES:
         raise TypeError(f"{kernel}: m has dtype {sd}, expected one of "
-                        f"{OPERAND_DTYPES}")
+                        f"{STATE_DTYPES}")
     ops = (("m", m, sd), ("u", u, sd)) + (
         (("v", v, sd),) if v is not None else ())
     if d is not None:
@@ -181,7 +184,7 @@ def _check(kernel, g, m, u, v, d, u_out):
         build.check_operand(kernel, name, t, dt, shape, dev)
     uo = u if u_out is None else u_out
     return (int(g.dtype == torch.bfloat16) | 2 * (sd == torch.bfloat16)
-            | 4 * (uo.dtype == torch.bfloat16))
+            | 8 * (sd == torch.float16) | 4 * (uo.dtype != torch.float32))
 
 
 def fused_local_step_plain_(g, m, u, v, lr, beta1, eps=1e-8, d=None,
@@ -208,7 +211,7 @@ def fused_local_step_(g, m, u, v, lr, beta1, eps=1e-8, d=None, u_out=None):
     needs u' unrounded), and the f32 delta into ``d`` (a new tensor when
     None; an f32 ``g`` itself where the gradient is dead after the
     step). Returns ``d``. The gradient is f32 or bf16 and the state (m,
-    u, v) f32 or bf16 (see :func:`_check`).
+    u, v) f32, bf16 or fp16 (see :func:`_check`).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     types = _check(KERNEL, g, m, u, v, d, u_out)

@@ -4,11 +4,11 @@ kernels, plain versions, wrappers.
 Frames are 2-D (rows, cols) f32 with cols a multiple of 8; ``counts`` is
 the int32 per-row count of true elements (padding is a row tail or a
 whole row, see ``core.compressor.view_row_counts``). The error feedback
-``err`` is f32 or bf16 (the optimizer's ``state_dtype``); ``z + err`` is
-an f32 sum and the residual ``err_out`` comes back in ``err``'s dtype,
-rounded once to nearest even, as the reference's kernels store it. Each
-dtype has its own kernel instance, chosen by the C entry's ``types``
-code (:data:`ERR_TYPES`); any other dtype raises.
+``err`` is f32, bf16 or fp16 (the optimizer's ``state_dtype``); ``z +
+err`` is an f32 sum and the residual ``err_out`` comes back in ``err``'s
+dtype, rounded once to nearest even, as the reference's kernels store
+it. Each dtype has its own kernel instance, chosen by the C entry's
+``types`` code (:data:`ERR_TYPES`); any other dtype raises.
 
 * :func:`abs_rowsum_scales` — pass 1, masked per-row L1 sums of
   ``z + err`` and, in the same call, the scale of each group of
@@ -138,7 +138,7 @@ def ef_quantize_slabs(rows: int, cols: int, group_rows: int,
 # --- plain versions ----------------------------------------------------
 
 # the C entries' ``types`` code of each dtype of err (and err_out)
-ERR_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+ERR_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 ERR_DTYPES = tuple(ERR_TYPES)
 
 

@@ -90,16 +90,19 @@ from repro_torch.train.step import (DIST_SAVE, Trainer, TrainerConfig,
                                     step_record)
 
 
-def production(model_cfg, opt_cfg, store_anchor=True):
+def production(model_cfg, opt_cfg, store_anchor=True,
+               state_dtype=torch.bfloat16):
     """(model config, optimizer config) at the reference's production
     precision: bf16 parameters, compute and optimizer state, with or
-    without the anchor. A ``configure`` of :func:`make_trainer` (bind
-    ``store_anchor`` with ``functools.partial``: it pickles, as
-    :func:`rank_jobs`' jobs must)."""
+    without the anchor; ``state_dtype=torch.float16`` keeps the state in
+    fp16, as the paper does. A ``configure`` of :func:`make_trainer`
+    (bind ``store_anchor`` and ``state_dtype`` with
+    ``functools.partial``: it pickles, as :func:`rank_jobs`' jobs
+    must)."""
     bf16 = torch.bfloat16
     return (dataclasses.replace(model_cfg, param_dtype=bf16,
                                 compute_dtype=bf16),
-            dataclasses.replace(opt_cfg, state_dtype=bf16,
+            dataclasses.replace(opt_cfg, state_dtype=state_dtype,
                                 store_anchor=store_anchor))
 
 

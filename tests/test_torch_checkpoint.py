@@ -143,14 +143,18 @@ MANIFEST_CASES = [(case, single) for case in CASES for single in (False, True)
                               for c, s in MANIFEST_CASES])
 def test_manifest_equals_reference(case, single, tmp_path):
     rt, pt = _trainers(case, single)
-    key = jax.random.PRNGKey(0)
-    # jitted: one compile, not an eager dispatch of every init op
-    rp, rs = jax.jit(rt.single_init if single else rt.sim_init)(key)
+    params, state = pt.init(0)
+    # the reference's state initialized as its single_init / sim_init
+    # initializes it, from the port's params (the eager init ops of one
+    # case are the next case's, compiled once)
+    rp = jax.tree.map(lambda x: jnp.asarray(np.array(x.numpy())), params)
+    rs = (rt.opt.init(rt._squeeze(rp)) if single else jax.vmap(
+        lambda i: rt.opt.init(jax.tree.map(lambda x: x[i], rp)))(
+            jnp.arange(N)))
     ref_path, port_path = tmp_path / "ref.npz", tmp_path / "port.npz"
     meta = {"arch": "gpt2-smoke", "n_workers": 1 if single else N}
     ref_io.save(str(ref_path), {"params": rp, "state": rs}, step=3,
                 meta=meta)
-    params, state = pt.init(0)
     pt.save(str(port_path), params, state, step=3, meta=meta)
     want, got = _manifest(ref_path), _manifest(port_path)
     assert list(got) == list(want)
@@ -162,8 +166,8 @@ def test_manifest_equals_reference(case, single, tmp_path):
               "['state'].slots['m'][5]", "['state'].err_w[14]"):
         if case != "adam":
             assert p in got["leaf_paths"]
-    # the reference's init is the port's for the same draw: the state
-    # leaves (params come from two generators) hold the same values
+    # the reference's init is the port's for the same params: the state
+    # leaves hold the same values
     with np.load(ref_path) as a, np.load(port_path) as b:
         for i, path in enumerate(want["leaf_paths"]):
             if path.startswith("['state']") and "anchor" not in path:

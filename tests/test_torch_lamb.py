@@ -26,6 +26,7 @@ Tolerances, with their reasons:
   within 0.05, the slice's bars (measured worst loss gaps 9.5e-7
   gpt2-smoke, 4.8e-7 bert-smoke; params within 2.3e-4).
 """
+import functools
 import warnings
 
 import jax
@@ -425,22 +426,38 @@ def _port_batch(b):
             else torch.from_numpy(np.array(v)).long() for k, v in b.items()}
 
 
+def _lamb_cfgs():
+    """The reference's and the port's zero_one_lamb of the trainer cases
+    below."""
+    return (RefOptimizerConfig(
+                name="zero_one_lamb", lr=RS.ConstantLr(1e-3),
+                var_policy=RS.AdaptiveFreezePolicy(kappa=1),
+                sync_policy=RS.LrProportionalSyncPolicy(2, 2)),
+            TA.OptimizerConfig(
+                name="zero_one_lamb", lr=TS.ConstantLr(1e-3),
+                var_policy=TS.AdaptiveFreezePolicy(kappa=1),
+                sync_policy=TS.LrProportionalSyncPolicy(2, 2)))
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_start(arch, n):
+    """The reference's zero_one_lamb trainer of ``arch``-smoke at ``n``
+    workers (1: single mode), its draw (key 0) and its jitted step, made
+    once a configuration: the trainer and interop cases share them."""
+    rt = RefTrainer(ref_get(arch).smoke, _lamb_cfgs()[0], n_workers=n)
+    key = jax.random.PRNGKey(0)
+    if n == 1:
+        return rt, rt.single_init(key), rt.single_step_fn()
+    return rt, rt.sim_init(key), rt.sim_step_fn()
+
+
 @pytest.mark.parametrize("arch,kind", [("gpt2", "lm"), ("bert-base", "mlm")])
 def test_smoke_zero_one_lamb_trainer_matches_reference(arch, kind):
     """The gpt2-smoke (next-token) and bert-smoke (MLM) trainers under
     zero_one_lamb, 4 workers, from the reference's draw on its batches:
     the slice's bars (module docstring)."""
-    ref_cfg = RefOptimizerConfig(
-        name="zero_one_lamb", lr=RS.ConstantLr(1e-3),
-        var_policy=RS.AdaptiveFreezePolicy(kappa=1),
-        sync_policy=RS.LrProportionalSyncPolicy(2, 2))
-    port_cfg = TA.OptimizerConfig(
-        name="zero_one_lamb", lr=TS.ConstantLr(1e-3),
-        var_policy=TS.AdaptiveFreezePolicy(kappa=1),
-        sync_policy=TS.LrProportionalSyncPolicy(2, 2))
-    rt = RefTrainer(ref_get(arch).smoke, ref_cfg, n_workers=N)
-    rp, rs = rt.sim_init(jax.random.PRNGKey(0))
-    ref_step = rt.sim_step_fn()
+    port_cfg = _lamb_cfgs()[1]
+    _, (rp, rs), ref_step = _ref_start(arch, N)
     pt = TSTEP.Trainer(port_get(arch).smoke, port_cfg, comm=SimComm(N),
                        device="cpu")
     tp = interop.params_from_reference(jax.device_get(rp))
@@ -470,23 +487,12 @@ def test_interop_carries_the_trust_slot(single):
     back: the trust slot (one scalar per worker and leaf in sim mode, a
     () array in single mode; the port's (stack,)) and every other leaf
     unchanged; the port's init equals the reference's, carried over."""
-    name = "zero_one_lamb"
-    ref_cfg = RefOptimizerConfig(
-        name=name, lr=RS.ConstantLr(1e-3),
-        var_policy=RS.AdaptiveFreezePolicy(kappa=1),
-        sync_policy=RS.LrProportionalSyncPolicy(2, 2))
-    port_cfg = TA.OptimizerConfig(
-        name=name, lr=TS.ConstantLr(1e-3),
-        var_policy=TS.AdaptiveFreezePolicy(kappa=1),
-        sync_policy=TS.LrProportionalSyncPolicy(2, 2))
+    port_cfg = _lamb_cfgs()[1]
     n = 1 if single else N
-    rt = RefTrainer(ref_get("gpt2").smoke, ref_cfg, n_workers=n)
     pt = TSTEP.Trainer(port_get("gpt2").smoke, port_cfg,
                        comm=NullComm() if single else SimComm(N),
                        device="cpu")
-    key = jax.random.PRNGKey(0)
-    rp, rs = rt.single_init(key) if single else rt.sim_init(key)
-    step = rt.single_step_fn() if single else rt.sim_step_fn()
+    _, (rp, rs), step = _ref_start("gpt2", n)
     data = RefSyntheticLM(RefDataConfig(vocab=512, seq_len=32,
                                         global_batch=8, seed=0))
     init = interop.state_from_reference(jax.device_get(rs), pt.opt,

@@ -58,6 +58,33 @@ would fail the share; and the port with sync step 6's update left out
 fails both bars (measured 22.4-26.4% of params within 2 ulps, and a
 step-7 loss gap of 0.088-0.26), asserted in every case. The step kinds
 equal the reference's at every step.
+
+fp16 state (``state_dtype=float16``, the paper's; the cases marked
+``fp16_state``) to the same bars where they hold, and where they do not,
+to bars measured here with their cause: fp16's significand has 3 bits
+more than bf16's, so an f32 gap of a few ulps (the scales' sums in
+another order) crosses an fp16 rounding boundary eight times as often.
+* the optimizer alone: ``u``, ``v`` and ``m`` held exactly where bf16
+  holds them; the server EF, which bf16 holds exactly at f32 params, is
+  0.14-0.34% unequal (1 fp16 ulp), so every EF leaf takes the EF bars
+  with EF_UNEQUAL_FP16 (eight times EF_UNEQUAL) of elements unequal
+  (measured 0.08-1.87%, one_bit_adam's server EF the most); the
+  gradient style's f32 params follow its m: 0.14% of them off the 1e-5
+  band, all within EF_REL of the leaf's largest magnitude;
+* trainers at bf16 params and compute (gpt2-smoke, lr 1e-3, with and
+  without the anchor): fp16 v underflows (squared gradients under its
+  smallest subnormal, 5.96e-8), so 52-100% of each leaf's v is exactly
+  0 in both packages, and there the step is lr*m'/sqrt(eps): the
+  trajectory carries last-bit differences further than at bf16 state.
+  The reference's own jnp and Pallas paths, the same forward and
+  backward, differ at step 7 by 6.1e-3 / 4.1e-3 in loss and leave
+  75.8% / 60.4% of params within 2 ulps of each other; the port against
+  the reference: losses within 1.04e-2 / 6.9e-3 (bar 2e-2), 51.8% /
+  48.8% of params within 2 ulps (bar 40%), 95.4% / 94.2% of params moved
+  past 2 ulps; without sync step 6's update 20.1% / 20.0% within 2 ulps
+  and a step-7 loss gap of 0.162 / 0.168, failing both bars. Each
+  leaf's share of v at exactly zero within V_ZERO_PP of the
+  reference's (measured 0.20 / 0.39 percentage points).
 """
 import copy
 import dataclasses
@@ -111,7 +138,8 @@ RR = importlib.import_module("repro.elastic.reshard")
 torch.set_num_threads(1)
 
 N, STEPS, B, S = 4, 8, 8, 32
-BF = torch.bfloat16
+BF, FP16 = torch.bfloat16, torch.float16
+JNP_OF = {BF: jnp.bfloat16, FP16: jnp.float16}
 SHAPES = {"w": (6, 16), "b": (5,), "deep": {"k": (3, 8, 8)},
           "s": (13, 40), "t": (6, 4, 24)}
 REF_SPECS = {"w": None, "b": None, "deep": {"k": None},
@@ -121,6 +149,10 @@ PORT_SPECS = {"w": None, "b": None, "deep": {"k": None},
 EXPECT_SYNC = [True, True, True, True, True, False, True, False]
 EXPECT_VAR = [True, True, False, True, False, False, False, False]
 EF_UNEQUAL = 3.1e-3     # share of EF elements that may differ
+# at fp16 state (module docstring): an f32 gap of a few ulps crosses an
+# fp16 rounding boundary eight times as often as a bf16 one (2^-11
+# against 2^-8 a significand)
+EF_UNEQUAL_FP16 = 8 * EF_UNEQUAL
 EF_REL = 1e-2           # of the leaf's largest magnitude
 BF16_PARAMS_UNEQUAL = 1.5e-2   # anchor-free bf16 params (docstring)
 BF16_PARAMS_REL = 5e-2
@@ -177,57 +209,85 @@ OPT_CASES = {
     "one_bit_adam": ("one_bit_adam", False, {}, False),
     "one_bit_lamb": ("one_bit_lamb", False, {}, False),
 }
+# the cases run again at fp16 state, the paper's
+FP16_OPT_CASES = ("zero_one_adam", "zero_one_adam-ref_pallas",
+                  "zero_one_adam-no_anchor", "zero_one_adam-bf16_params",
+                  "zero_one_sgd", "zero_one_lamb", "one_bit_adam")
 
 
-def _opt_pair(name, ref_pallas, over, jparams, n=N):
-    """The reference's and the port's optimizer of ``name`` at bf16
-    state, bound to ``n`` workers."""
+def _opt_pair(name, ref_pallas, over, jparams, n=N, state=BF):
+    """The reference's and the port's optimizer of ``name`` at ``state``
+    (bf16 or fp16) state, bound to ``n`` workers."""
     common = dict(name=name, onebit_warmup=2, **over)
     ref_cfg = RefOptimizerConfig(
         lr=RS.ConstantLr(1e-2), var_policy=RS.AdaptiveFreezePolicy(kappa=1),
         sync_policy=RS.LrProportionalSyncPolicy(2, 2),
-        state_dtype=jnp.bfloat16, use_pallas=ref_pallas, **common)
+        state_dtype=JNP_OF[state], use_pallas=ref_pallas, **common)
     port_cfg = TA.OptimizerConfig(
         lr=TS.ConstantLr(1e-2), var_policy=TS.AdaptiveFreezePolicy(kappa=1),
-        sync_policy=TS.LrProportionalSyncPolicy(2, 2), state_dtype=BF,
+        sync_policy=TS.LrProportionalSyncPolicy(2, 2), state_dtype=state,
         **common)
     return (ref_build(ref_cfg, jparams, specs=REF_SPECS, n_workers=n),
             TA.build_optimizer(port_cfg, SHAPES, specs=PORT_SPECS,
                                n_workers=n))
 
 
-def _run_optimizers(name, ref_pallas, over, bf16_params):
-    """8 steps of both optimizers from the same numpy draw: (the
-    reference's params and state, the port's, the port's optimizer, the
-    reference's optimizer, the reference's params before the steps)."""
+def _draw():
+    """The numpy params and the STEPS gradient draws of the optimizer
+    cases."""
     rng = np.random.default_rng(0)
     params = _map(lambda s: rng.standard_normal(s).astype(np.float32),
                   SHAPES)
     grads = [_map(lambda s: rng.standard_normal((N,) + s).astype(
         np.float32), SHAPES) for _ in range(STEPS)]
-    jdt, tdt = ((jnp.bfloat16, BF) if bf16_params
-                else (jnp.float32, torch.float32))
+    return params, grads
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_run(name, ref_pallas, over_items, bf16_params, state):
+    """The reference's side of :func:`_run_optimizers`, run once a
+    configuration (the cases that share one share its compiled step):
+    (its final params and state, each step's flags, its optimizer, its
+    params before the steps)."""
+    params, grads = _draw()
+    jdt = jnp.bfloat16 if bf16_params else jnp.float32
     jparams = _map(lambda a: jnp.asarray(a, jdt), params)
-    ref_opt, port_opt = _opt_pair(name, ref_pallas, over, jparams)
+    ref_opt, _ = _opt_pair(name, ref_pallas, dict(over_items), jparams,
+                           state=state)
     comm = sim_comm("w")
     rx = _map(lambda a: jnp.broadcast_to(a, (N,) + a.shape) + 0, jparams)
     rs = jax.vmap(lambda _: ref_opt.init(jparams))(jnp.arange(N))
     ref_step = jax.jit(lambda xs, gs, st: jax.vmap(
         lambda x, g, s: ref_opt.step(comm, x, g, s), axis_name="w")(
             xs, gs, st))
+    flags = []
+    for t in range(STEPS):
+        rx, rs, rm = ref_step(rx, _map(lambda a: jnp.asarray(a, jdt),
+                                       grads[t]), rs)
+        flags.append((bool(rm["synced"][0]), bool(rm["var_round"][0])))
+    return (jax.device_get(rx), jax.device_get(rs), flags, ref_opt,
+            jparams)
+
+
+def _run_optimizers(name, ref_pallas, over, bf16_params, state=BF):
+    """8 steps of both optimizers from the same numpy draw, at ``state``
+    state: (the reference's params and state, the port's, the port's
+    optimizer, the reference's optimizer, the reference's params before
+    the steps)."""
+    rx, rs, flags, ref_opt, jparams = _ref_run(
+        name, ref_pallas, tuple(sorted(over.items())), bf16_params, state)
+    params, grads = _draw()
+    tdt = BF if bf16_params else torch.float32
+    _, port_opt = _opt_pair(name, ref_pallas, over, jparams, state=state)
     tx = _map(lambda a: torch.from_numpy(
         np.broadcast_to(a, (N,) + a.shape).copy()).to(tdt), params)
     ts = port_opt.init(tx)
     for t in range(STEPS):
-        rx, rs, rm = ref_step(rx, _map(lambda a: jnp.asarray(a, jdt),
-                                       grads[t]), rs)
         tx, ts, tm = port_opt.step(
             SimComm(N), tx, _map(lambda a: torch.from_numpy(a).to(tdt),
                                  grads[t]), ts)
-        assert tm["synced"] == bool(rm["synced"][0]), t
-        assert tm["var_round"] == bool(rm["var_round"][0]), t
-    return (jax.device_get(rx), jax.device_get(rs), tx, ts, port_opt,
-            ref_opt, jparams)
+        assert (tm["synced"], tm["var_round"]) == flags[t], t
+    return rx, rs, tx, ts, port_opt, ref_opt, jparams
 
 
 def _ulps(a, b):
@@ -239,10 +299,10 @@ def _pairs(ref_list, port_list):
     return [(r, p) for r, p in zip(ref_list, port_list) if r is not None]
 
 
-def _check_ef(pairs, what):
+def _check_ef(pairs, what, bar=EF_UNEQUAL):
     n = sum(np.asarray(r).size for r, _ in pairs)
     unequal = sum(int((_f32(r) != _f32(p)).sum()) for r, p in pairs)
-    assert unequal <= EF_UNEQUAL * n, (what, unequal, n)
+    assert unequal <= bar * n, (what, unequal, n)
     for r, p in pairs:
         r32, p32 = _f32(r), _f32(p)
         scale = float(np.abs(r32).max()) if r32.size else 0.0
@@ -250,12 +310,18 @@ def _check_ef(pairs, what):
     return unequal / max(n, 1)
 
 
-@pytest.mark.parametrize("case", list(OPT_CASES))
+@pytest.mark.parametrize("case", list(OPT_CASES) + [
+    f"{c}-fp16_state" for c in FP16_OPT_CASES])
 def test_optimizer_at_bf16_state_matches_reference(case):
-    name, ref_pallas, over, bf16_params = OPT_CASES[case]
-    rx, rs, tx, ts, opt, _, _ = _run_optimizers(name, ref_pallas, over,
-                                                bf16_params)
+    """Each OPT_CASES case at bf16 state, and those of FP16_OPT_CASES at
+    fp16 state (``-fp16_state``), to the same bars."""
+    base, fp16 = case.removesuffix("-fp16_state"), case.endswith(
+        "-fp16_state")
+    name, ref_pallas, over, bf16_params = OPT_CASES[base]
+    rx, rs, tx, ts, opt, _, _ = _run_optimizers(
+        name, ref_pallas, over, bf16_params, FP16 if fp16 else BF)
     style = opt.cfg.style
+    ef_bar = EF_UNEQUAL_FP16 if fp16 else EF_UNEQUAL
     # every state leaf in the reference's dtype
     for field in ("u", "err_w", "err_s", "anchor"):
         for r, p in zip(getattr(rs, field), getattr(ts, field)):
@@ -267,7 +333,7 @@ def test_optimizer_at_bf16_state_matches_reference(case):
     if style != "gradient" and not bf16_params:
         exact.append("m")
     if style == "accumulate" and not (over.get("bucket_mb")
-                                      or bf16_params):
+                                      or bf16_params or fp16):
         exact.append("err_s")
     fracs = {}
     for field in ("u", "err_w", "err_s"):
@@ -276,7 +342,7 @@ def test_optimizer_at_bf16_state_matches_reference(case):
             for r, p in pairs:
                 assert np.array_equal(_f32(r), _f32(p)), field
         elif pairs:
-            fracs[field] = _check_ef(pairs, field)
+            fracs[field] = _check_ef(pairs, field, ef_bar)
     for slot in rs.slots:
         pairs = _pairs(rs.slots[slot], ts.slots[slot])
         if slot == "trust":     # f32 norms summed in another order
@@ -286,7 +352,7 @@ def test_optimizer_at_bf16_state_matches_reference(case):
             for r, p in pairs:
                 assert np.array_equal(_f32(r), _f32(p)), slot
         else:
-            fracs[slot] = _check_ef(pairs, slot)
+            fracs[slot] = _check_ef(pairs, slot, ef_bar)
     rp, tp = _leaves(rx), _leaves(tx)
     if bf16_params and opt.cfg.store_anchor:
         for r, p in zip(rp, tp):
@@ -299,6 +365,16 @@ def test_optimizer_at_bf16_state_matches_reference(case):
             r32, p32 = _f32(r), _f32(p)
             assert np.abs(r32 - p32).max() <= BF16_PARAMS_REL * np.abs(
                 r32).max()
+    elif fp16 and style == "gradient":
+        # the params follow m, which carries the 1-bit mean (the EF bars)
+        off = [np.abs(_f32(p) - _f32(r)) > 1e-5 + 1e-5 * np.abs(_f32(r))
+               for r, p in zip(rp, tp)]
+        share = sum(int(o.sum()) for o in off) / sum(o.size for o in off)
+        print(case, "f32 params off 1e-5", share)
+        assert share <= EF_UNEQUAL_FP16
+        for r, p in zip(rp, tp):
+            r32 = _f32(r)
+            assert np.abs(r32 - _f32(p)).max() <= EF_REL * np.abs(r32).max()
     else:
         for r, p in zip(rp, tp):
             np.testing.assert_allclose(_f32(p), _f32(r), rtol=1e-5,
@@ -309,6 +385,63 @@ def test_optimizer_at_bf16_state_matches_reference(case):
 def _unequal_share(xs, ys):
     return 1 - np.mean(np.concatenate(
         [(_f32(x) == _f32(y)).ravel() for x, y in zip(xs, ys)]))
+
+
+def _probe_values():
+    """f32 values of every kind an fp16 narrowing meets: 2^20 of random
+    sign and log-uniform magnitude in [1e-9, 3e5] (subnormal, zero and
+    inf results among them), the edges of fp16's range, +-0, +-inf and
+    NaNs (torch's, negative, signalling, with payloads)."""
+    rng = np.random.default_rng(20)
+    mag = np.exp(rng.uniform(np.log(1e-9), np.log(3e5), 1 << 20))
+    x = (mag * rng.choice([-1.0, 1.0], mag.size)).astype(np.float32)
+    edges = np.array([3e-8, 2.9e-8, 2.98e-8, 5.96e-8, 6.1e-5, 65504.0,
+                      65519.0, 65520.0, 1e9, 0.0, -0.0, np.inf, -np.inf],
+                     np.float32)
+    nans = np.array([0x7fc00000, 0xffc00000, 0x7f800001, 0xff800001,
+                     0x7fffffff, 0x7fa00000], np.uint32).view(np.float32)
+    return np.concatenate([x, edges, -edges, nans])
+
+
+def _kernel_narrow_f16(x):
+    """``csrc/lowp4.cuh``'s ``narrow<f16>`` in numpy: a NaN keeps its
+    sign, turns quiet and keeps the top 10 bits of its payload; any
+    other value rounds to nearest even (``__float2half_rn``; numpy's
+    ``float16`` conversion rounds the same way)."""
+    u = x.view(np.uint32)
+    nan = (u & 0x7fffffff) > 0x7f800000
+    rounded = x.astype(np.float16).view(np.uint16)
+    quiet = (((u >> 16) & 0x8000) | 0x7e00 | ((u >> 13) & 0x3ff)).astype(
+        np.uint16)
+    return np.where(nan, quiet, rounded)
+
+
+def test_fp16_narrowing_is_torch_cpu_half():
+    """The fp16 state's rounding: the plain versions narrow f32 results
+    with ``copy_`` / ``.to`` into the state's dtype, which gives the bits
+    of torch's CPU ``.half()`` and of the reference's XLA
+    ``astype(float16)`` on every value above (NaN included: 0x7e00 and
+    0xfe00 for torch's), and the kernels' rule (``lowp4.cuh``) gives
+    those bits too, payload NaNs included."""
+    x = _probe_values()
+    t = torch.from_numpy(x)
+    half = t.half().view(torch.int16).numpy().view(np.uint16)
+    into = torch.empty(t.shape, dtype=FP16).copy_(t)
+    assert np.array_equal(into.view(torch.int16).numpy().view(np.uint16),
+                          half)
+    assert np.array_equal(t.to(FP16).view(torch.int16).numpy().view(
+        np.uint16), half)
+    ref = np.asarray(jnp.asarray(x).astype(jnp.float16)).view(np.uint16)
+    finite_or_torch_nan = ~np.isnan(x) | (x.view(np.uint32) & 0x7fffff
+                                          == 0x400000)
+    assert np.array_equal(ref[finite_or_torch_nan],
+                          half[finite_or_torch_nan])
+    assert np.array_equal(_kernel_narrow_f16(x), half)
+    h = half[: 1 << 20]
+    print("subnormal", float(((h & 0x7c00) == 0).mean()), "zero",
+          float(((h & 0x7fff) == 0).mean()), "inf",
+          float(((h & 0x7fff) == 0x7c00).mean()))
+    assert ((h & 0x7c00) == 0).any() and ((h & 0x7fff) == 0x7c00).any()
 
 
 def _local_step_with_xla_delta_(g, m, u, v, lr, beta1, eps=1e-8, d=None,
@@ -363,16 +496,16 @@ def test_lamb_refuses_no_anchor_with_the_reference_text():
 
 # --- trainers -------------------------------------------------------------
 
-def _prec_cfgs(arch, anchor=True, lr=1e-3, name="zero_one_adam"):
+def _prec_cfgs(arch, anchor=True, lr=1e-3, name="zero_one_adam", state=BF):
     ref = RefOptimizerConfig(
         name=name, lr=RS.ConstantLr(lr),
         var_policy=RS.AdaptiveFreezePolicy(kappa=1),
         sync_policy=RS.LrProportionalSyncPolicy(2, 2),
-        state_dtype=jnp.bfloat16, store_anchor=anchor)
+        state_dtype=JNP_OF[state], store_anchor=anchor)
     port = TA.OptimizerConfig(
         name=name, lr=TS.ConstantLr(lr),
         var_policy=TS.AdaptiveFreezePolicy(kappa=1),
-        sync_policy=TS.LrProportionalSyncPolicy(2, 2), state_dtype=BF,
+        sync_policy=TS.LrProportionalSyncPolicy(2, 2), state_dtype=state,
         store_anchor=anchor)
     rm = dataclasses.replace(ref_get(arch).smoke, param_dtype=jnp.bfloat16,
                              compute_dtype=jnp.bfloat16)
@@ -414,17 +547,28 @@ def test_forward_at_bf16_matches_reference(arch, kind):
     assert abs(float(rl) - float(pl)) <= 5e-4
 
 
-# (arch, anchor, lr, data kind) -> bars (loss gap a step, share of params
-# within ULP_BAR bf16 ulps of the reference's)
-TRAINERS = {"gpt2": (("gpt2", True, 1e-3, "lm"), (1e-2, 0.55)),
-            "gpt2-no_anchor": (("gpt2", False, 1e-3, "lm"), (1e-2, 0.55)),
-            "bert": (("bert-base", True, 3e-4, "mlm"), (5e-3, 0.8))}
+# (arch, anchor, lr, data kind, state dtype) -> bars (loss gap a step,
+# share of params within ULP_BAR bf16 ulps of the reference's)
+TRAINERS = {"gpt2": (("gpt2", True, 1e-3, "lm", BF), (1e-2, 0.55)),
+            "gpt2-no_anchor": (("gpt2", False, 1e-3, "lm", BF),
+                               (1e-2, 0.55)),
+            "bert": (("bert-base", True, 3e-4, "mlm", BF), (5e-3, 0.8)),
+            # fp16 state (module docstring): v underflows, and where it is
+            # 0 the step is lr*m'/sqrt(eps), sqrt(eps) = 1e-4, so a
+            # last-bit difference of m' moves the params the further
+            "gpt2-fp16_state": (("gpt2", True, 1e-3, "lm", FP16),
+                                (2e-2, 0.4)),
+            "gpt2-fp16_state-no_anchor": (("gpt2", False, 1e-3, "lm", FP16),
+                                          (2e-2, 0.4))}
 ULP_BAR = 2
 # the share of the reference's params that move more than ULP_BAR ulps
 # over the 8 steps
 MOVED = 0.8
 # the sync step the trainer cases leave out to show the bars' power
 FAULT_STEP = 6
+# fp16 state: each leaf's share of v at exactly zero, within half a
+# percentage point of the reference's
+V_ZERO_PP = 5e-3
 
 
 def _ordered(a):
@@ -456,8 +600,8 @@ def trainer_runs():
     def run(key):
         if key in cache:
             return cache[key]
-        (arch, anchor, lr, kind), _ = TRAINERS[key]
-        (rm, rcfg), (pm, pcfg) = _prec_cfgs(arch, anchor, lr)
+        (arch, anchor, lr, kind, state), _ = TRAINERS[key]
+        (rm, rcfg), (pm, pcfg) = _prec_cfgs(arch, anchor, lr, state=state)
         rt = RefTrainer(rm, rcfg, n_workers=N)
         rp, rs = rt.sim_init(jax.random.PRNGKey(0))
         r0 = jax.tree.leaves(jax.device_get(rp))
@@ -520,6 +664,14 @@ def test_trainer_at_production_precision_matches_reference(trainer_runs,
         str(g.dtype).replace("torch.", "") if isinstance(g, torch.Tensor)
         else str(np.asarray(g).dtype) for g in got]
     assert {x.dtype for x in flatten_tree(tp)[1]} == {BF}
+    if TRAINERS[key][0][4] == FP16:
+        # fp16 v underflows (squared gradients under its smallest
+        # subnormal, 5.96e-8) in the reference: the port as often, leaf
+        # for leaf
+        zeros = [(float((_f32(r) == 0).mean()), float((p == 0).float().mean()))
+                 for r, p in zip(rs.slots["v"], ts.slots["v"])]
+        print(key, "share of v at zero (reference, port) a leaf", zeros)
+        assert max(abs(r - p) for r, p in zeros) <= V_ZERO_PP
 
 
 # --- interop, checkpoints, reshard, audit ------------------------------------
@@ -541,26 +693,30 @@ def _bits(x):
     return str(a.dtype), a.shape, a.tobytes()
 
 
-def test_interop_keeps_bf16_state_both_ways(trainer_runs):
-    """The reference's trained bf16 state into the port and back, bit for
-    bit and dtype for dtype."""
-    *_, rs, pt, _, _, _ = trainer_runs("gpt2")
+@pytest.mark.parametrize("key", ["gpt2", "gpt2-fp16_state"])
+def test_interop_keeps_bf16_state_both_ways(trainer_runs, key):
+    """The reference's trained bf16 (fp16) state into the port and back,
+    bit for bit and dtype for dtype."""
+    *_, rs, pt, _, _, _ = trainer_runs(key)
     got = interop.state_from_reference(rs, pt.opt)
-    assert got.slots["m"][0].dtype == BF
+    assert got.slots["m"][0].dtype == TRAINERS[key][0][4]
     back = _ref_state_from_port(got)
     for a, b in zip(jax.tree.leaves(rs), jax.tree.leaves(back)):
         assert _bits(a) == _bits(b)
 
 
-def test_npz_checkpoints_of_bf16_state_both_ways(trainer_runs, tmp_path):
-    """The port's production-precision checkpoint: its manifest and
-    arrays those the reference writes for the same tree (bf16 leaves as
-    numpy's raw 2-byte records, dtype ``bfloat16``); the port restores
+@pytest.mark.parametrize("key", ["gpt2", "gpt2-fp16_state"])
+def test_npz_checkpoints_of_bf16_state_both_ways(trainer_runs, tmp_path,
+                                                 key):
+    """The port's production-precision checkpoint: its manifest (the
+    leaf dtypes among it) and arrays those the reference writes for the
+    same tree (bf16 leaves as numpy's raw 2-byte records, dtype
+    ``bfloat16``; fp16 leaves numpy's own ``float16``); the port restores
     the reference's file and its own bit for bit; a restore into an f32
     state refuses with the reference's text. (The reference's own
     ``restore`` cannot read any bf16 leaf back: numpy casts no raw
     2-byte record to ml_dtypes' bfloat16.)"""
-    *_, pt, tp, ts, _ = trainer_runs("gpt2")
+    *_, pt, tp, ts, _ = trainer_runs(key)
     mine, theirs = tmp_path / "port.npz", tmp_path / "ref.npz"
     pt.save(str(mine), tp, ts, step=8)
     tree = pt.checkpoint_tree(tp, ts)
@@ -580,25 +736,31 @@ def test_npz_checkpoints_of_bf16_state_both_ways(trainer_runs, tmp_path):
         for a, b in zip(port_io.flatten(tree)[1], port_io.flatten(
                 pt.checkpoint_tree(params, state))[1]):
             assert _bits(a) == _bits(b)
-    (rm, rcfg), (pm, pcfg) = _prec_cfgs("gpt2")
+    state = TRAINERS[key][0][4]
+    (rm, rcfg), (pm, pcfg) = _prec_cfgs("gpt2", state=state)
     f32 = TSTEP.Trainer(pm, dataclasses.replace(pcfg,
                                                 state_dtype=torch.float32),
                         comm=SimComm(N), device="cpu")
-    with pytest.raises(ValueError, match="checkpoint dtype bfloat16 != "
+    name = str(state).removeprefix("torch.")
+    with pytest.raises(ValueError, match=f"checkpoint dtype {name} != "
                                          "expected float32 — restoring"):
         f32.restore(str(mine))
 
 
-@pytest.mark.parametrize("over", [{}, {"bucket_mb": 0.001}],
-                         ids=["per_leaf", "bucketed"])
-def test_reshard_of_bf16_state_matches_reference(over):
-    """4 -> 3 workers (worker 2 dead) on the bf16 state after the 8 steps
-    of ``zero_one_adam`` at bf16 params (EF state per leaf and per
-    bucket, ``u``, the bf16 anchors), bit for bit and dtype for dtype
+@pytest.mark.parametrize("over,state", [
+    pytest.param({}, BF, id="per_leaf"),
+    pytest.param({"bucket_mb": 0.001}, BF, id="bucketed"),
+    pytest.param({}, FP16, id="per_leaf-fp16_state"),
+    pytest.param({"bucket_mb": 0.001}, FP16, id="bucketed-fp16_state")])
+def test_reshard_of_bf16_state_matches_reference(over, state):
+    """4 -> 3 workers (worker 2 dead) on the bf16 (fp16) state after the
+    8 steps of ``zero_one_adam`` at bf16 params (EF state per leaf and
+    per bucket, ``u``, the bf16 anchors), bit for bit and dtype for dtype
     the reference's reshard of the same state."""
     _, rs, _, ts, opt, ref_opt, jparams = _run_optimizers(
-        "zero_one_adam", False, over, True)
-    ref3, port3 = _opt_pair("zero_one_adam", False, over, jparams, n=3)
+        "zero_one_adam", False, over, True, state)
+    ref3, port3 = _opt_pair("zero_one_adam", False, over, jparams, n=3,
+                            state=state)
     want = RR.reshard(_ref_state_from_port(ts), ref_opt, ref3,
                       survivors=(0, 1, 3))
     got = E.reshard(ts, opt, port3, survivors=(0, 1, 3))
@@ -607,15 +769,18 @@ def test_reshard_of_bf16_state_matches_reference(over):
     assert paths == [jax.tree_util.keystr(k) for k, _ in flat]
     for path, (_, a), b in zip(paths, flat, leaves):
         assert _bits(a) == _bits(b), path
-    assert got.slots["m"][0].dtype == BF and got.anchor[0] is not None
+    assert got.slots["m"][0].dtype == state and got.anchor[0] is not None
 
 
-@pytest.mark.parametrize("anchor", [True, False])
+@pytest.mark.parametrize("anchor,state", [
+    pytest.param(True, BF, id="True"), pytest.param(False, BF, id="False"),
+    pytest.param(True, FP16, id="True-fp16_state")])
 def test_audit_of_a_production_precision_run_is_clean(trainer_runs,
-                                                      anchor):
-    """gpt2-smoke at production precision on a recording comm, 8 steps,
-    audited clean; its state leaves in the reference's trainer's dtypes
-    (``jax.eval_shape`` of its ``sim_init``)."""
+                                                      anchor, state):
+    """gpt2-smoke at production precision (with fp16 state too) on a
+    recording comm, 8 steps, audited clean; its state leaves in the
+    reference's trainer's dtypes (``jax.eval_shape`` of its
+    ``sim_init``)."""
     args = TLAUNCH.parse_args([
         "--arch", "gpt2", "--smoke", "--mode", "sim", "--workers", str(N),
         "--steps", str(STEPS), "--batch", str(B), "--seq", str(S),
@@ -623,12 +788,14 @@ def test_audit_of_a_production_precision_run_is_clean(trainer_runs,
         "--device", "cpu", "--log-every", str(STEPS)])
     tr = TLAUNCH.make_trainer(
         args, comm=analysis.RecordingComm(SimComm(N)),
-        configure=functools.partial(TLAUNCH.production, store_anchor=anchor))
+        configure=functools.partial(TLAUNCH.production, store_anchor=anchor,
+                                    state_dtype=state))
     trace = analysis.watch(tr)
     res = TLAUNCH.train(args, tr)
     rep = analysis.audit_trainer(tr, trace=trace)
     assert rep.ok, [v.to_dict() for v in rep.violations[:3]]
-    rt = trainer_runs("gpt2" if anchor else "gpt2-no_anchor")[-1]
+    rt = trainer_runs(("gpt2" if anchor else "gpt2-no_anchor")
+                      + ("-fp16_state" if state == FP16 else ""))[-1]
     _, rs = jax.eval_shape(lambda: rt.sim_init(jax.random.PRNGKey(0)))
     got = port_io.flatten(interop.state_to_reference(res["state"]))[1]
     assert [str(w.dtype) for w in jax.tree.leaves(rs)] == [

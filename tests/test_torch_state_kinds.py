@@ -176,6 +176,8 @@ def test_state_dtypes_equal_reference(name, bucket, anchor, sd,
 
 
 def test_unsupported_state_dtype_raises():
+    """f32, bf16 and fp16 are the state dtypes the kernels take (fp16
+    since the port took the paper's state precision); another raises."""
     with pytest.raises(ValueError, match="state_dtype"):
-        TA.build_optimizer(TA.OptimizerConfig(state_dtype=torch.float16),
+        TA.build_optimizer(TA.OptimizerConfig(state_dtype=torch.float64),
                            SHAPES, n_workers=N)
