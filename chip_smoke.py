@@ -227,8 +227,21 @@ eleventh: phase 15) and prints no kernels or result line.
    collectives must pass the audit and equal, collective for collective,
    those its simulated worker recorded in the run it is held to (itself
    audited), and so must its bytes per round. Every step is timed as phase
-   4's are (``launch.train``), and each rank's exchange collectives by
-   CUDA events around them (``DistComm.exchange_ms``).
+   4's are (``launch.train``), and each rank's exchange collectives as
+   ``DistComm.exchange_ms`` times them (NCCL: CUDA events on the
+   collective stream; gloo: the host clock from issue to completion).
+   Every rank issues each exchange unit from the last micro-batch's
+   backward (``TrainerConfig.peel_last_microbatch``, the default), and
+   three runs have a sequential twin (``peel_last_microbatch=False``) in
+   the same spawn, right after them: 6a, 6b, and 6a at gpt2 FULL's full
+   depth (12 layers) with ``--bucket-mb 25`` and the units packed and
+   issued in reverse flat order (``pack_order="reverse_backward"``),
+   which has no in-process run. Each pair must be bit for bit (losses,
+   params), record the same collectives in the same order, pass both
+   audits, launch as many kernels, and peak within 1 GB of each other;
+   its step times by kind, exchange ms and peaks are printed, and for
+   step 6 of the early run each unit's first-collective time against the
+   end of the backward (CUDA events, ``probe_issue``).
 7. Serves gpt2 FULL (params from the port's init, f32 cache) through
    ``repro_torch.launch.serve``'s own setup and loop (``build``,
    ``serve``), each run with its ticks timed (host clock; a tick ends in
@@ -724,11 +737,12 @@ def bucket_layouts(inner=None):
     return [b.layout for b in bp.buckets if len(b.members) > 1]
 
 
-def n_units(arch="gpt2", bucket_mb=BUCKET_MB):
+def n_units(arch="gpt2", bucket_mb=BUCKET_MB, pack_order="flat"):
     """Exchange units of ``arch`` FULL at ``bucket_mb`` (4 workers)."""
     from repro_torch.core import bucketing as BK
 
-    return len(BK.make_bucket_plan(full_plan(arch), bucket_mb).buckets)
+    return len(BK.make_bucket_plan(full_plan(arch), bucket_mb,
+                                   pack_order=pack_order).buckets)
 
 
 def flat_frames(lo, n=N_WORKERS):
@@ -2298,53 +2312,143 @@ def cut_depth(n_layers):
         launch.get = get
 
 
+_PROBE = {}     # a spawned rank's issue-time probe (probe_issue)
+
+
+def probe_issue(step):
+    """Phase 6, in a spawned rank: note, on the device's clock, when each
+    exchange unit of the next run's ``step`` has issued its first
+    collective (a CUDA event on the unit thread's stream right after the
+    issue, so it fires once the unit's local step and compress are done)
+    and when the backward ended (an event on the trainer's stream as
+    ``Trainer.grads`` returns). The wrappers go in once a process.
+    Returns a function that gives, after the run, the backward's end and
+    each unit's issue in ms from the step's start, in issue order."""
+    from repro_torch.core.compressed import ComposedOptimizer
+    from repro_torch.train.step import Trainer
+
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def at_step():
+        return _PROBE["count"] == _PROBE["step"]
+
+    def wrap_step(orig):
+        def stepped(self, *a, **k):
+            _PROBE["count"] += 1
+            if at_step():
+                _PROBE["start"] = event()
+            return orig(self, *a, **k)
+        return stepped
+
+    def wrap_grads(orig):
+        def grads(self, *a, **k):
+            out = orig(self, *a, **k)
+            if at_step():
+                _PROBE["backward_end"] = event()
+            return out
+        return grads
+
+    def wrap_exchange(orig):
+        def phases(self, comm, unit, *a):
+            gen = orig(self, comm, unit, *a)
+            try:
+                left = next(gen)
+            except StopIteration as stop:
+                return stop.value
+            if at_step():
+                _PROBE["units"].append(event())
+            while True:
+                yield left
+                try:
+                    left = next(gen)
+                except StopIteration as stop:
+                    return stop.value
+        return phases
+
+    if not _PROBE:
+        Trainer.step = wrap_step(Trainer.step)
+        Trainer.grads = wrap_grads(Trainer.grads)
+        for name in ("_onebit_phases", "_fullprec_phases"):
+            setattr(ComposedOptimizer, name,
+                    wrap_exchange(getattr(ComposedOptimizer, name)))
+    _PROBE.update(step=step, count=-1, units=[])
+
+    def read():
+        t0 = _PROBE["start"]
+        return {"step": step,
+                "backward_end_ms": t0.elapsed_time(_PROBE["backward_end"]),
+                "units": [t0.elapsed_time(ev) for ev in _PROBE["units"]]}
+    return read
+
+
 def rank_jobs(rank, jobs, n):
     """Phase 6: one spawned rank that runs ``jobs`` one after another,
-    each ``(argv, out_dir, kind, audit, n_layers)`` through
-    ``launch.rank_main``
-    with its own rendezvous in ``out_dir`` (the process group is made
-    and destroyed per job), and writes each job's wall seconds in this
-    rank to ``wall{rank}.json`` there. The jobs share the process's
-    start-up: the torch import, the CUDA context and the audit's first
-    meta-tensor op (~6 s each on the card's host)."""
+    each ``(argv, out_dir, kind, audit, n_layers, opts)`` through
+    ``launch.rank_main`` (``opts``: its ``configure`` and
+    ``trainer_cfg``, and with ``probe`` a step whose units' issue times
+    :func:`probe_issue` notes, written to ``issue{rank}.json``) with its
+    own rendezvous in ``out_dir`` (the process group is made and
+    destroyed per job), and writes each job's wall seconds in this rank
+    to ``wall{rank}.json`` there. The jobs share the process's start-up:
+    the torch import, the CUDA context and the audit's first meta-tensor
+    op (~6 s each on the card's host)."""
     from repro_torch.launch import mesh
     from repro_torch.launch import train as launch
 
-    for argv, out_dir, kind, audit, n_layers in jobs:
+    for argv, out_dir, kind, audit, n_layers, opts in jobs:
         t0 = time.time()
+        read = None
+        if opts.get("probe") is not None:
+            read = probe_issue(opts["probe"])
+        elif _PROBE:
+            _PROBE["step"] = None   # an earlier job's probe: off
         with cut_depth(n_layers):
             launch.rank_main(rank, argv, n, mesh.file_rendezvous(out_dir),
-                             out_dir, False, kind, audit)
+                             out_dir, False, kind, audit,
+                             opts.get("configure"), opts.get("trainer_cfg"))
         with open(os.path.join(out_dir, f"wall{rank}.json"), "w") as f:
             json.dump(time.time() - t0, f)
+        if read is not None:
+            with open(os.path.join(out_dir, f"issue{rank}.json"), "w") as f:
+                json.dump(read(), f)
         gc.collect()
         torch.cuda.empty_cache()
 
 
-def run_ranks(argvs, n, kind="lm", audit=True, n_layers=None):
+def run_ranks(argvs, n, kind="lm", audit=True, n_layers=None, opts=None):
     """Phase 6: ``--mode dist`` runs of ``argvs`` in ``n`` spawned ranks,
     which run them one after another (:func:`rank_jobs`) on the
     synthetic stream of ``kind`` (the model cut to ``n_layers`` where
-    given). Yields, per argv in order, every
-    rank's results (params on the CPU; with ``audit`` its audit report
-    and recorded collectives) and the run's wall time (its slowest
-    rank's); each run's files are deleted once yielded."""
+    given; ``opts``: each run's options, see :func:`rank_jobs`). Yields,
+    per argv in order, every rank's results (params on the CPU; with
+    ``audit`` its audit report and recorded collectives; with a probe,
+    ``issue``) and the run's wall time (its slowest rank's); each run's
+    files are deleted once yielded."""
     from repro_torch.launch import mesh
 
+    opts = opts or [{}] * len(argvs)
     with scratch_dir() as tmp:
         dirs = [os.path.join(tmp, f"run{i}") for i in range(len(argvs))]
         for d in dirs:
             os.makedirs(d)
-        mesh.spawn(rank_jobs, n, ([(argv, d, kind, audit, n_layers)
-                                   for argv, d in zip(argvs, dirs)], n),
+        mesh.spawn(rank_jobs, n, ([(argv, d, kind, audit, n_layers, o)
+                                   for argv, d, o in zip(argvs, dirs, opts)],
+                                  n),
                    timeout_s=DIST_TIMEOUT_S * len(argvs))
         for d in dirs:
-            walls = []
+            walls, ranks = [], []
             for r in range(n):
                 with open(os.path.join(d, f"wall{r}.json")) as f:
                     walls.append(json.load(f))
-            yield ([torch.load(os.path.join(d, f"rank{r}.pt"))
-                    for r in range(n)], max(walls))
+                ranks.append(torch.load(os.path.join(d, f"rank{r}.pt")))
+                issue = os.path.join(d, f"issue{r}.json")
+                if os.path.exists(issue):
+                    with open(issue) as f:
+                        ranks[-1]["issue"] = json.load(f)
+            yield ranks, max(walls)
             shutil.rmtree(d)
 
 
@@ -2361,17 +2465,26 @@ class DistRun:
     transport: str
     expect: dict      # launch counts of the reference and of every rank
     bitwise: bool = False
+    # the ranks' launch.train options: configure, trainer_cfg, and with
+    # probe the step whose units' issue times are noted (probe_issue)
+    opts: dict = dataclasses.field(default_factory=dict)
+    twin: str = None  # the key of the early run this sequential one
+                      # twins; it is held to that run, not to ref_argv
 
 
 def run_dist(runs):
     """Phase 6: each of ``runs`` (all of one rank count) run in this
     process as its reference, then all their ranks in one spawn
     (:func:`run_ranks`), each held to its reference by
-    :func:`compare_ranks` (bit for bit where ``bitwise``). Returns each
-    run's summary by key."""
+    :func:`compare_ranks` (bit for bit where ``bitwise``); a sequential
+    twin (``twin``) has no reference run and is held to its early run by
+    :func:`compare_twins`. Returns each run's summary by key."""
     refs = []
     for run in runs:
         print(run.header, flush=True)
+        if run.ref_argv is None:
+            refs.append(None)
+            continue
         ref = run_in_process(run.ref_argv)
         assert ref["launches"] == run.expect, (run.label, ref["launches"],
                                                run.expect)
@@ -2383,21 +2496,107 @@ def run_dist(runs):
                   f"{t['fwd_bwd_ms']:.1f}, optimizer "
                   f"{t['optimizer_ms']:.1f}; exchange in-process)")
         refs.append(ref)
-    out = {}
-    ranks_of = run_ranks([run.argv for run in runs], runs[0].n)
+    out, held = {}, {}
+    twinned = {run.twin for run in runs if run.twin}
+    ranks_of = run_ranks([run.argv for run in runs], runs[0].n,
+                         opts=[run.opts for run in runs])
     for run, ref, (ranks, wall) in zip(runs, refs, ranks_of):
         print(f"phase {run.label}: {run.n} rank(s) over {run.transport}",
               flush=True)
-        out[run.key] = {
-            "transport": run.transport, "ranks_wall_s": wall,
-            "reference": {"peak_memory_gb": ref["peak_memory_gb"],
-                          "launches": ref["launches"],
-                          "times": ref["times"]},
-            "ranks": compare_ranks(run.label, run.transport, ref, ranks,
-                                   run.bitwise, step_kinds(run.argv))}
+        if run.twin:
+            out[run.key] = {
+                "transport": run.transport, "ranks_wall_s": wall,
+                "twins": compare_twins(run.label, held.pop(run.twin), ranks,
+                                       run.transport, run.expect,
+                                       step_kinds(run.argv))}
+            continue
+        if ref is None:
+            # an early run held only to its sequential twin below
+            out[run.key] = {"transport": run.transport,
+                            "ranks_wall_s": wall}
+            for r, res in enumerate(ranks):
+                assert res["launches"] == run.expect, (run.label, r)
+                assert res["audit"]["ok"], (run.label, r)
+        else:
+            out[run.key] = {
+                "transport": run.transport, "ranks_wall_s": wall,
+                "reference": {"peak_memory_gb": ref["peak_memory_gb"],
+                              "launches": ref["launches"],
+                              "times": ref["times"]},
+                "ranks": compare_ranks(run.label, run.transport, ref, ranks,
+                                       run.bitwise, step_kinds(run.argv))}
+        if run.key in twinned:
+            held[run.key] = ranks
         del ranks
         gc.collect()
     return out
+
+
+def compare_twins(label, early, seq, transport, expect, kinds=STEP_KINDS):
+    """Phase 6: each rank of an early-issue run (the default,
+    ``peel_last_microbatch``) against the same rank of its sequential
+    twin: losses and params bit for bit (else the first step and leaf
+    that differ), the same collectives recorded in the same order, both
+    audits clean, the launch counts ``expect``; each run's step times by
+    kind, exchange ms and peak memory, whose difference must stay within
+    1 GB; and, where the early run was probed, each unit's issue time
+    against the end of the backward in that step (ms; positive: issued
+    before the backward ended, so its exchange could overlap it)."""
+    from repro_torch.core.leafwise import flatten_tree
+
+    rows = []
+    for r, (a, b) in enumerate(zip(early, seq)):
+        la = [rec["losses"][0] for rec in a["records"]]
+        lb = [rec["losses"][0] for rec in b["records"]]
+        first_step = next((t for t, (x, y) in enumerate(zip(la, lb))
+                           if x != y), None)
+        paths, xs = flatten_tree(a["params"])
+        ys = flatten_tree(b["params"])[1]
+        first_leaf = next(("/".join(map(str, p)) for p, x, y in zip(
+            paths, xs, ys) if not torch.equal(x, y)), None)
+        row = {"rank": r, "device": a["device"], "backend": a["backend"],
+               "bitwise": first_step is None and first_leaf is None,
+               "first_unequal_loss_step": first_step,
+               "first_unequal_leaf": first_leaf,
+               "sequence_equal": a["recorded"] == b["recorded"],
+               "audits_ok": a["audit"]["ok"] and b["audit"]["ok"],
+               "peak_memory_gb": {"early": a["peak_memory_bytes"] / 1e9,
+                                  "sequential":
+                                      b["peak_memory_bytes"] / 1e9},
+               "times": {"early": times_by_kind(a["records"], kinds),
+                         "sequential": times_by_kind(b["records"], kinds)},
+               "launches": a["launches"]}
+        if "issue" in a:
+            iss = a["issue"]
+            end = iss["backward_end_ms"]
+            row["issue"] = {"step": iss["step"], "backward_end_ms": end,
+                            "units_before_backward_end_ms": [
+                                round(end - t, 3) for t in iss["units"]]}
+        peaks = row["peak_memory_gb"]
+        print(f"  {label} rank {r} on {a['device']} ({a['backend']}): "
+              f"early vs sequential bitwise {row['bitwise']} (first "
+              f"unequal: loss step {first_step}, leaf {first_leaf}); "
+              f"collectives the same sequence {row['sequence_equal']}; "
+              f"audits clean {row['audits_ok']}; peak "
+              f"{peaks['early']:.2f} / {peaks['sequential']:.2f} GB",
+              flush=True)
+        for which in ("early", "sequential"):
+            print(f"   {which}:", flush=True)
+            print_rank_times(row["times"][which], transport)
+        if "issue" in row:
+            iss = row["issue"]
+            print(f"    step {iss['step']}: backward ends at "
+                  f"{iss['backward_end_ms']:.1f} ms; each unit's first "
+                  f"collective issued this many ms before it (issue "
+                  f"order): {json.dumps(iss['units_before_backward_end_ms'])}",
+                  flush=True)
+        assert row["bitwise"], (label, r, row)
+        assert row["sequence_equal"] and row["audits_ok"], (label, r)
+        assert a["launches"] == b["launches"] == expect, (
+            label, r, a["launches"], b["launches"], expect)
+        assert abs(peaks["early"] - peaks["sequential"]) <= 1.0, (label, r)
+        rows.append(row)
+    return rows
 
 
 def print_rank_times(times, transport):
@@ -2509,6 +2708,8 @@ def dist_runs(cards):
     bucketed = expected_launches("gpt2", layouts, n_units())
     local_only = expected_launches("gpt2_qint8", layouts)
     runs = {}
+    gloo = f"gloo via host memory, {N_WORKERS} ranks on one card"
+    on_card = ["--mode", "dist", "--backend", "gloo", "--device", "cuda:0"]
     for key, launches, extra in (
             ("6a", expect, []), ("6a_onebit", onebit, ONEBIT),
             ("6a_bucketed", bucketed, BUCKETED), ("6a_lamb", expect, LAMB),
@@ -2521,10 +2722,29 @@ def dist_runs(cards):
             f"12 layers, {N_WORKERS} ranks on cuda:0 over gloo, batch "
             f"{BATCH}, seq {SEQ}, micro-batches 2, vs sim", flags + ["--mode", "sim", "--workers",
                                 str(N_WORKERS), "--device", "cuda:0"],
-            flags + ["--mode", "dist", "--backend", "gloo", "--device",
-                     "cuda:0"], N_WORKERS,
-            f"gloo via host memory, {N_WORKERS} ranks on one card",
-            launches, bitwise=True)
+            flags + on_card, N_WORKERS, gloo, launches, bitwise=True,
+            opts={"probe": PROFILED_STEP} if key == "6a" else {})
+        if key == "6a":
+            runs["6a_sequential"] = sequential_twin(runs["6a"])
+    # early issue at gpt2 FULL's full depth, the units packed and issued
+    # in the order the backward makes their gradients final (a configure
+    # of launch.train: no CLI flag, as in the reference), against its
+    # sequential twin (no in-process run: the pair is held to itself)
+    from repro_torch.launch import train as launch
+
+    reverse = functools.partial(launch.optimizer_fields,
+                                pack_order="reverse_backward")
+    flags = gpt2_argv(BATCH, ["--micro-batches", "2", *BUCKETED]) + on_card
+    runs["6a_full"] = DistRun(
+        "6a_full", "6a full depth bucketed reverse_backward",
+        f"phase 6a full depth: gpt2 FULL (12 layers), {N_WORKERS} ranks on "
+        f"cuda:0 over gloo, batch {BATCH}, seq {SEQ}, micro-batches 2, "
+        f"--bucket-mb {BUCKET_MB}, pack_order reverse_backward, early issue"
+        f" vs sequential", None, flags, N_WORKERS, gloo,
+        expected_launches("gpt2", layouts,
+                          n_units(pack_order="reverse_backward")),
+        opts={"configure": reverse, "probe": PROFILED_STEP})
+    runs["6a_full_sequential"] = sequential_twin(runs["6a_full"])
     batch = BATCH // N_WORKERS * cards
     ref_mode = (["--mode", "single", "--layers", str(DIST_LAYERS)]
                 if cards == 1 else ["--mode", "sim", "--workers", str(cards)])
@@ -2542,7 +2762,10 @@ def dist_runs(cards):
             gpt2_argv(batch, ref_mode + extra),
             gpt2_argv(batch, ["--mode", "dist", "--backend", "nccl",
                               "--device", "cuda", *one, *extra]), cards,
-            f"NCCL, {cards} card(s)", launches)
+            f"NCCL, {cards} card(s)", launches,
+            opts={"probe": PROFILED_STEP} if key == "6b" else {})
+        if key == "6b":
+            runs["6b_sequential"] = sequential_twin(runs["6b"])
     # 6c: run 4d in processes, 2 pods x 2 ranks over process subgroups:
     # NCCL with one rank per card where there are four cards, else four
     # ranks on cuda:0 over gloo (asked for) with micro-batches 2
@@ -2566,17 +2789,42 @@ def dist_runs(cards):
     return runs
 
 
+# the ranks' step without early issue (launch.train's trainer_cfg; no
+# CLI flag, as in the reference)
+SEQUENTIAL = {"peel_last_microbatch": False}
+
+
+def sequential_twin(run):
+    """The run ``run`` with ``peel_last_microbatch=False``, held to it by
+    :func:`compare_twins`; it follows ``run`` in the same spawn."""
+    return dataclasses.replace(
+        run, key=f"{run.key}_sequential", label=f"{run.label} sequential",
+        header=f"phase {run.label} sequential: as {run.label}, each unit "
+        f"issued after the backward, one after another (held to "
+        f"{run.label})", ref_argv=None,
+        opts={**run.opts, "trainer_cfg": SEQUENTIAL, "probe": None},
+        twin=run.key)
+
+
 def dist_parts():
     """Phase 6's checks by name (see the module docstring), each a
     callable returning its summary; a run of 6a-6c alone spawns its own
-    ranks."""
+    ranks (a run with a sequential twin, both)."""
     cards = min(torch.cuda.device_count(), N_WORKERS)
     parts = {"probe": lambda: {
         "nccl": probe_exchange("nccl", "cuda", cards,
                                INNER if cards == N_WORKERS else None),
         "gloo cuda:0": probe_exchange("gloo", "cuda:0", N_WORKERS, INNER)}}
-    for key, run in dist_runs(cards).items():
-        parts[key] = lambda run=run: run_dist([run])[run.key]
+    runs = dist_runs(cards)
+    twins = {run.twin: run for run in runs.values() if run.twin}
+    for key, run in runs.items():
+        if run.twin:
+            continue        # runs with the run it twins
+        if key in twins:
+            # the run and its sequential twin, in one spawn
+            parts[key] = lambda pair=(run, twins[key]): run_dist(list(pair))
+        else:
+            parts[key] = lambda run=run: run_dist([run])[run.key]
     parts["6d"] = run_6d
     parts["6d_lamb"] = lambda: run_6d(LAMB)
     return parts

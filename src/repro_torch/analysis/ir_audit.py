@@ -177,7 +177,8 @@ class RecordingComm(Comm):
     """A comm that logs every collective it passes on to ``comm`` (op,
     level, dtype, one worker's operand shape, elements, bytes, position
     and step) and returns ``comm``'s own result, so that a run's outputs
-    stay bit for bit. :meth:`split` returns recording ``(outer, inner)``
+    stay bit for bit; an asynchronous collective is recorded alike, when
+    it is issued. :meth:`split` returns recording ``(outer, inner)``
     comms tagged ``"outer"``/``"inner"``, made once per pod size (the
     trainer and the exchange both split), logging into the same book;
     they record by level even where the wrapped split hands back the
@@ -202,6 +203,9 @@ class RecordingComm(Comm):
     def exchange_ms(self):
         return self.comm.exchange_ms()
 
+    def spans_processes(self) -> bool:
+        return self.comm.spans_processes()
+
     def _rec(self, op, x):
         self.book.add(op, self.level, x, self.comm.size())
 
@@ -220,6 +224,16 @@ class RecordingComm(Comm):
     def all_to_all(self, x):
         self._rec("all_to_all", x)
         return self.comm.all_to_all(x)
+
+    def all_gather_async(self, x):
+        """Recorded as :meth:`all_gather`, when it is issued."""
+        self._rec("all_gather", x)
+        return self.comm.all_gather_async(x)
+
+    def all_to_all_async(self, x):
+        """Recorded as :meth:`all_to_all`, when it is issued."""
+        self._rec("all_to_all", x)
+        return self.comm.all_to_all_async(x)
 
     def ep_all_to_all(self, x):
         """The expert-parallel exchange of one worker's buffer, recorded

@@ -34,7 +34,7 @@ either way.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -256,6 +256,15 @@ def bucket_accounting(plan: BucketPlan) -> dict:
         "true_elems": sum(b.true_elems for b in plan.buckets),
         "padded_elems": sum(b.layout.padded for b in plan.buckets),
     }
+
+
+def member_units(units) -> Dict[int, int]:
+    """Flat leaf index -> the position of its exchange unit in issue
+    order, for ``units`` given as each unit's members (a bucket's, or a
+    DP leaf's own): the map a per-unit scheduler counts gradients down
+    on, a unit being ready once all its members are. (With a bucket plan
+    in its own order, the position is ``BucketPlan.leaf_bucket``.)"""
+    return {i: k for k, members in enumerate(units) for i in members}
 
 
 def exchange_units(plan, bucket_plan: Optional[BucketPlan] = None,

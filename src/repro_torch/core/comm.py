@@ -24,6 +24,13 @@ splits a comm into an outer and an inner comm (:meth:`Comm.split`). The
 flat worker index is outer-major, ``w = k * n_inner + j``: the inner comm
 of worker ``w`` is its pod, the contiguous block of workers with the same
 ``k``, and its outer comm the workers with the same ``j``.
+
+Every exchange collective has an asynchronous form
+(:meth:`Comm.all_to_all_async`, :meth:`Comm.all_gather_async`) that
+returns a :class:`Handle` at once; its :meth:`Handle.wait` gives the
+result. The optimizer's per-unit exchange issues its phases through
+them (``core.onebit_allreduce``), so that a unit's collectives run while
+later units are still being computed. In process they complete at once.
 """
 from __future__ import annotations
 
@@ -64,6 +71,23 @@ def norm_hierarchy(h: Optional[Hierarchy], n_workers: int):
     return h
 
 
+class Handle:
+    """An issued collective: :meth:`wait` returns its result, (stack,
+    ...), and orders the caller's later work after it (on a card, the
+    current stream at the call waits for it; the host does not). Wait
+    once, before the result or the operand is touched again."""
+
+    __slots__ = ("_value", "_wait")
+
+    def __init__(self, value=None, wait=None):
+        self._value, self._wait = value, wait
+
+    def wait(self) -> torch.Tensor:
+        if self._wait is not None:
+            self._value, self._wait = self._wait(), None
+        return self._value
+
+
 class Comm:
     """Collectives over a leading dim of stacked workers (protocol)."""
 
@@ -90,6 +114,16 @@ class Comm:
         every worker, in sender order (split dim 1, concat dim 1)."""
         raise NotImplementedError
 
+    def all_gather_async(self, x: torch.Tensor) -> Handle:
+        """:meth:`all_gather`, issued: its :class:`Handle` (here complete
+        at once)."""
+        return Handle(self.all_gather(x))
+
+    def all_to_all_async(self, x: torch.Tensor) -> Handle:
+        """:meth:`all_to_all`, issued: its :class:`Handle` (here complete
+        at once)."""
+        return Handle(self.all_to_all(x))
+
     def ep_all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         """The expert-parallel exchange of ONE worker's buffer (n, ...):
         block j goes to worker j, and block i of the result came from
@@ -112,6 +146,11 @@ class Comm:
         """Time the exchange collectives took since the last call, in ms;
         None where they run in process and move nothing."""
         return None
+
+    def spans_processes(self) -> bool:
+        """Whether the collectives go to other processes (a worker per
+        process), rather than run on the stack in this one."""
+        return False
 
     def ep_ms(self):
         """Time the expert-parallel exchanges took since the last call, in
@@ -235,6 +274,19 @@ class NullComm(SimComm):
         return NullComm(), NullComm()
 
 
+def _covered(spans) -> float:
+    """The length of the union of the intervals ``spans``."""
+    total, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
 class DistComm(Comm):
     """One worker per process over a ``torch.distributed`` process group
     (the default group, or ``group`` of a :meth:`split`): a stack of one,
@@ -243,12 +295,23 @@ class DistComm(Comm):
     bit for bit what :class:`SimComm` gives the simulated worker of the
     same index.
 
-    Each exchange collective on CUDA tensors is bracketed by two CUDA
-    events on the current stream (no synchronize); :meth:`exchange_ms`
-    reads them. On the CPU, where gloo runs the collective before it
-    returns, the host clock times it. The comms of a split keep their
+    Every exchange collective is issued asynchronously
+    (``async_op=True``; the synchronous forms wait for it at once) and
+    timed where it runs, never by the wait, without a synchronize;
+    :meth:`exchange_ms` reads the times. The comms of a split keep their
     events in the world comm's list, so that its :meth:`exchange_ms` is
-    every level's time, and each keeps its own sum besides."""
+    every level's time, and each keeps its own sum besides. Under NCCL the
+    collective is issued from the world comm's own collective stream,
+    which first waits for the caller's stream, records the start event,
+    waits for the collective (a stream wait: the host goes on) and
+    records the end event, so that the pair brackets the collective
+    itself; the caller's stream waits for the end event in
+    :meth:`Handle.wait`. One collective stream serializes a rank's
+    exchange collectives, of every level, in issue order. Under gloo (CPU
+    tensors, or CUDA tensors that gloo stages through the host) the host
+    clock times each from its issue to the completion callback of the
+    work's future; several may be in flight at once, and
+    :meth:`exchange_ms` counts the time any was."""
 
     def __init__(self, group=None, _root=None):
         if not dist.is_initialized():
@@ -260,15 +323,22 @@ class DistComm(Comm):
         self._root = self if _root is None else _root
         self._pending = []    # (event pair, owning comm), on the root only
         self._ms = 0.0
-        self._ep_pending = []     # the same, of the EP exchanges
+        self._spans = []      # (issue, completion) of each collective
+                              # timed on the host clock
+        self._ep_pending = []     # event pairs of the EP exchanges
         self._ep_ms = 0.0
         self._levels = {}
+        self._nccl = dist.get_backend(group) == "nccl"
+        self._streams = {}    # device -> the collective stream (root)
 
     def size(self) -> int:
         return self.n
 
     def index(self) -> np.ndarray:
         return np.array([self.rank])
+
+    def spans_processes(self) -> bool:
+        return True
 
     def _check(self, x):
         if x.shape[0] != 1:
@@ -280,55 +350,89 @@ class DistComm(Comm):
         if self._root is not self:
             self._root._ms += ms
 
-    def _call(self, collective, out, x):
+    def _call(self, collective, out, x, **kw):
         """The collective itself; a dtype the backend refuses raises,
         naming the backend, the collective and the dtype (a payload is
         never reinterpreted as another dtype)."""
         try:
-            collective(out, x, group=self.group)
+            return collective(out, x, group=self.group, **kw)
         except RuntimeError as e:
             raise RuntimeError(
                 f"{dist.get_backend(self.group)} refused "
                 f"{collective.__name__} of a {x.dtype} tensor on "
                 f"{x.device}: {e}") from e
 
-    def _run(self, collective, out, x, ep=False):
-        """Run and time one collective: an exchange collective, or with
-        ``ep`` an expert-parallel one (kept in the root's own sum)."""
-        root = self._root
+    def _run_ep(self, x):
+        """Run and time one expert-parallel all_to_all of ``x`` (kept in
+        the root's own sum): CUDA events on the current stream around it,
+        or the host clock on the CPU, where gloo runs it before it
+        returns."""
+        root, out = self._root, torch.empty_like(x)
         if x.is_cuda:
             stream = torch.cuda.current_stream(x.device)
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record(stream)
-            self._call(collective, out, x)
+            self._call(dist.all_to_all_single, out, x)
             ev[1].record(stream)
-            if ep:
-                root._ep_pending.append(ev)
-            else:
-                root._pending.append((ev, self))
+            root._ep_pending.append(ev)
         else:
             t0 = time.perf_counter()
-            self._call(collective, out, x)
-            ms = 1e3 * (time.perf_counter() - t0)
-            if ep:
-                root._ep_ms += ms
-            else:
-                self._add(ms)
-        return out[None]
+            self._call(dist.all_to_all_single, out, x)
+            root._ep_ms += 1e3 * (time.perf_counter() - t0)
+        return out
+
+    def _start(self, collective, out, x) -> Handle:
+        """Issue one exchange collective with ``async_op=True`` and time
+        it (see the class docstring); its handle keeps ``x`` and ``out``
+        alive until it is waited."""
+        root = self._root
+        if x.is_cuda and self._nccl:
+            caller = torch.cuda.current_stream(x.device)
+            cs = root._streams.get(x.device)
+            if cs is None:
+                cs = root._streams[x.device] = torch.cuda.Stream(x.device)
+            cs.wait_stream(caller)
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            with torch.cuda.stream(cs):
+                ev[0].record(cs)
+                self._call(collective, out, x, async_op=True).wait()
+                ev[1].record(cs)
+            root._pending.append((ev, self))
+
+            def wait(keep=(x, out)):
+                torch.cuda.current_stream(x.device).wait_event(ev[1])
+                return out[None]
+        else:
+            t0 = time.perf_counter()
+            work = self._call(collective, out, x, async_op=True)
+            done = work.get_future().then(lambda _: time.perf_counter())
+
+            def wait(keep=(x, out)):
+                work.wait()
+                span = (t0, done.wait())
+                self._spans.append(span)
+                if root is not self:
+                    root._spans.append(span)
+                return out[None]
+        return Handle(wait=wait)
 
     def exchange_ms(self) -> float:
         """Summed time of this comm's exchange collectives since the last
         call (the world comm's: of every level): each CUDA one from the
         start to the end event around it on the device's clock (waits for
-        the last end event), each CPU one on the host's."""
+        the last end event), each CPU one on the host's; of the
+        asynchronous ones timed on the host, which may be in flight
+        together, the time during which at least one was."""
         root = self._root
         if root._pending:
             root._pending[-1][0][1].synchronize()
             for (a, b), owner in root._pending:
                 owner._add(a.elapsed_time(b))
             root._pending = []
-        ms, self._ms = self._ms, 0.0
+        ms, self._ms = self._ms + 1e3 * _covered(self._spans), 0.0
+        self._spans = []
         return ms
 
     def ep_ms(self) -> float:
@@ -381,20 +485,33 @@ class DistComm(Comm):
         return self.psum(x) / self.n
 
     def all_gather(self, x):
-        self._check(x)
-        x0 = x[0].contiguous()
-        out = x0.new_empty((self.n * x0.shape[0],) + tuple(x0.shape[1:]))
-        # all_gather_into_tensor: the name both torch 2.11 and 2.13 have
-        # (2.13 would rather it were all_gather_single)
-        return self._run(dist.all_gather_into_tensor, out, x0)
+        return self.all_gather_async(x).wait()
 
     def all_to_all(self, x):
+        return self.all_to_all_async(x).wait()
+
+    def all_gather_async(self, x):
+        x0, out = self._ag_operands(x)
+        # all_gather_into_tensor: the name both torch 2.11 and 2.13 have
+        # (2.13 would rather it were all_gather_single)
+        return self._start(dist.all_gather_into_tensor, out, x0)
+
+    def all_to_all_async(self, x):
+        x0 = self._a2a_operand(x)
+        return self._start(dist.all_to_all_single, torch.empty_like(x0), x0)
+
+    def _a2a_operand(self, x):
         self._check(x)
         if x.shape[1] != self.n:
             raise ValueError(f"all_to_all needs {self.n} blocks on dim 1, "
                              f"got {x.shape[1]}")
+        return x[0].contiguous()
+
+    def _ag_operands(self, x):
+        self._check(x)
         x0 = x[0].contiguous()
-        return self._run(dist.all_to_all_single, torch.empty_like(x0), x0)
+        return x0, x0.new_empty((self.n * x0.shape[0],)
+                                + tuple(x0.shape[1:]))
 
     def ep_all_to_all(self, x):
         if x.shape[0] != self.n:
@@ -402,6 +519,4 @@ class DistComm(Comm):
                              f"0, got {x.shape[0]}")
         if self.n == 1:
             return x
-        x = x.contiguous()
-        return self._run(dist.all_to_all_single, torch.empty_like(x), x,
-                         ep=True)[0]
+        return self._run_ep(x.contiguous())

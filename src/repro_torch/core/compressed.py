@@ -32,7 +32,13 @@ host, so the sync and variance branches are plain Python ``if``s.
 Every exchange runs once per *exchange unit*, in issue order
 (``ComposedOptimizer.units``): a DP leaf, or with ``bucket_mb`` a bucket
 of :mod:`repro_torch.core.bucketing`, whose EF state and anchor then live
-in the bucket's layout (``u``, ``m`` and ``v`` stay per leaf).
+in the bucket's layout (``u``, ``m`` and ``v`` stay per leaf). A step is
+run unit by unit by a :class:`StepScheduler`: one unit after another
+(:meth:`ComposedOptimizer.step`), or, from
+:meth:`ComposedOptimizer.begin_step` with ``early``, each unit as soon as
+its members' gradients are final, on a thread of its own, with the
+phases of two units interleaved (the reference's per-unit ``lax.cond``
+issue under ``peel_last_microbatch``), bit for bit the same step.
 
 **Precision.** ``state_dtype`` is the dtype of every state tensor (``m``,
 ``v``, ``u``, the EF state: f32, bf16 as the reference's production runs
@@ -48,6 +54,7 @@ unit being exchanged, never one for the whole model.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import warnings
 from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
@@ -244,6 +251,9 @@ class ComposedOptimizer:
                 idx = idx[::-1]
             self.units = tuple(_ExchangeUnit(i, (i,), self.layouts[i], None)
                                for i in idx)
+        # DP leaf -> the position of its unit in issue order
+        self.unit_of = BK.member_units([u.members for u in self.units])
+        self._side_streams = {}
         self._use_sync_policy = cfg.style == "accumulate"
         self._use_var_policy = (cfg.style in ("accumulate", "gradient")
                                 and self.base.has_variance)
@@ -365,22 +375,43 @@ class ComposedOptimizer:
         return BK.scatter_views(unit.bucket, buf,
                                 [self.layouts[i] for i in unit.members])
 
-    def _fullprec_unit(self, comm, unit, bufs):
+    def _fullprec_phases(self, comm, unit, bufs):
         """Full-precision mean of one unit's member view buffers (the T_v
-        and mean rounds). Elementwise, so fusing members into a bucket
-        leaves every element's value as it is."""
-        o = AR.fullprec_allreduce_view(
+        and mean rounds), as a generator of its phases
+        (``onebit_allreduce.fullprec_phases``). Elementwise, so fusing
+        members into a bucket leaves every element's value as it is."""
+        o = yield from AR.fullprec_phases(
             comm, self._unit_gather(unit, bufs), self.cfg.comm_dtype,
             self.hierarchy, unit.layout)
         return self._unit_scatter(unit, o)
 
-    def _onebit_unit(self, comm, unit, bufs, err_w, err_s):
-        """Algorithm 2 over one unit's member view buffers: (the members'
-        mean estimates, the unit's new EFState)."""
-        o, ef = AR.onebit_allreduce_view(
+    def _onebit_phases(self, comm, unit, bufs, err_w, err_s):
+        """Algorithm 2 over one unit's member view buffers, as a generator
+        of its phases: returns (the members' mean estimates, the unit's
+        new EFState)."""
+        o, ef = yield from AR.onebit_phases(
             comm, self._unit_gather(unit, bufs), AR.EFState(err_w, err_s),
             unit.layout, self.ar_cfg)
         return self._unit_scatter(unit, o), ef
+
+    def side_stream(self, device: torch.device):
+        """The CUDA stream this optimizer's early-issued units run on, one
+        per card, made on first use."""
+        if device not in self._side_streams:
+            self._side_streams[device] = torch.cuda.Stream(device)
+        return self._side_streams[device]
+
+    def begin_step(self, comm: Comm, params, state: CompressedDPState,
+                   donate_grads: bool = False,
+                   early: bool = False) -> "StepScheduler":
+        """Start one step of every stacked worker before its gradients
+        exist: the step's host decisions (``lr``, the T_u and T_v rounds,
+        ``gamma``) are fixed from the policies now. Hand each leaf's final
+        gradient to :meth:`StepScheduler.grad_ready` (with ``early``, as
+        soon as it is final: its unit's local step and exchange then start
+        on a thread of their own, overlapping the rest of the backward),
+        then call :meth:`StepScheduler.finish`."""
+        return StepScheduler(self, comm, params, state, donate_grads, early)
 
     def step(self, comm: Comm, params, grads, state: CompressedDPState,
              donate_grads: bool = False):
@@ -393,11 +424,10 @@ class ComposedOptimizer:
         :func:`repro_torch.core.leafwise.clone_tree`). With
         ``donate_grads`` the gradients' buffers may hold the local step's
         deltas afterwards (the trainer's gradients are dead after the
-        step); else they stay as they were."""
-        if self.cfg.style == "accumulate":
-            return self._step_accumulate(comm, params, grads, state,
-                                         donate_grads)
-        return self._step_sync(comm, params, grads, state)
+        step); else they stay as they were. The units run one after
+        another, each exchange phase waited as soon as it is issued."""
+        return self.begin_step(comm, params, state,
+                               donate_grads).finish(grads)
 
     def _local_base_step(self, i, x, g, state, lr):
         """The plain local base step of a leaf outside data parallelism
@@ -428,245 +458,447 @@ class ComposedOptimizer:
         if base.has_variance:
             _update_variance_(base, state.slots["v"][i], g)
 
-    def _step_accumulate(self, comm, params, grads, state, donate_grads):
-        cfg, base = self.cfg, self.base
+
+class _Aborted(Exception):
+    """The step was abandoned before this unit's gradients came."""
+
+
+def _advance(phases):
+    """Resume a unit's job: the phases it has still to issue after the
+    one it just issued, or None once it has ended."""
+    try:
+        return next(phases)
+    except StopIteration:
+        return None
+
+
+#: seconds an abandoned step waits for its unit thread to stop
+ABORT_JOIN_S = 30.0
+
+
+class StepScheduler:
+    """One step of a :class:`ComposedOptimizer`, unit by unit: the
+    reference's per-unit issue (``unit_sync_cond``, ``unit_var_cond``,
+    ``unit_grad_cond``), where each exchange unit's work depends only on
+    its members' gradients.
+
+    A step is a list of *jobs*, one per exchange unit and round, in the
+    order the units are issued (``opt.units``): in the accumulate style
+    the T_u job of every unit (its members' local steps, the Algorithm-2
+    exchange, the re-anchor or correction), or on a local-only step the
+    local half-steps, then on a T_v step the variance refresh of every
+    unit; in the gradient and mean styles the exchange of the unit's
+    gradients and the base step on their mean. A job is a generator of
+    its collective phases (``onebit_allreduce.onebit_phases``) and starts
+    once each member's gradient has come (:meth:`grad_ready`; a unit is
+    ready when all its members are, ``bucketing.member_units``) and the
+    job before it has issued its last collective, so that every rank
+    issues the same collectives in the same order, the sequential
+    step's.
+
+    Without ``early`` (:meth:`ComposedOptimizer.step`) the jobs run one
+    after another in :meth:`finish`, each phase waited when issued. With
+    ``early`` they run on a thread of their own as their gradients come,
+    two in flight: job k+1's local step and compress run while job k's
+    last collective is in flight, and job k's last computation while job
+    k+1's first collective is; at most two units' exchange temporaries
+    are alive at once. On a card that thread runs on the optimizer's
+    side stream (:meth:`ComposedOptimizer.side_stream`), which waits for
+    each gradient's event (recorded where it was handed over) before it
+    reads it; :meth:`finish` joins the thread and orders the caller's
+    stream after the side stream. A gradient handed over during the
+    backward is never written into (kernel 1's delta takes a buffer of
+    its own): the backward may still hold it. Every value is bit for bit
+    the sequential step's: the same kernels and ops on the same operands,
+    only in another order across units, which share no tensor."""
+
+    def __init__(self, opt: ComposedOptimizer, comm: Comm, params,
+                 state: CompressedDPState, donate_grads: bool, early: bool):
+        cfg, base = opt.cfg, opt.base
+        self.opt, self.comm, self.params, self.state = opt, comm, params, state
+        self.donate_grads = donate_grads
         t = state.step
-        lr = np.float32(cfg.lr(t))
-        do_sync, sync_ps, interval = cfg.sync_policy.step(state.sync_pstate,
-                                                          t)
-        if base.has_variance:
-            do_var, var_ps = cfg.var_policy.step(state.var_pstate, t,
-                                                 interval)
+        self.lr = lr = np.float32(cfg.lr(t))
+        self.xs = xs = opt.plan.flat(params)
+        self.gs: List[Optional[torch.Tensor]] = [None] * len(xs)
+        self.donated = [False] * len(xs)
+        self.events = [None] * len(xs)
+        if cfg.style == "accumulate":
+            self.do_sync, self.sync_ps, self.interval = cfg.sync_policy.step(
+                state.sync_pstate, t)
+            if base.has_variance:
+                self.do_var, self.var_ps = cfg.var_policy.step(
+                    state.var_pstate, t, self.interval)
+            else:
+                self.do_var, self.var_ps = False, state.var_pstate
+            self.gamma_total = np.float32(state.gamma_acc + lr)
+            # a device tensor, so ubar / gamma is a true f32 divide on
+            # every device (CUDA turns a divide by a host scalar into a
+            # multiply by its reciprocal); made once per step
+            self.gamma_t = torch.tensor(self.gamma_total, device=xs[0].device)
+            # (unit, job) pairs: the jobs are StepScheduler's functions,
+            # not bound methods, which would make a reference cycle that
+            # holds the step's gradients until the cyclic collector runs
+            units = range(len(opt.units))
+            job = (StepScheduler._sync_job if self.do_sync
+                   else StepScheduler._local_job)
+            self.jobs = [(k, job) for k in units] + (
+                [(k, StepScheduler._var_job) for k in units]
+                if self.do_var else [])
         else:
-            do_var, var_ps = False, state.var_pstate
-        gamma_total = np.float32(state.gamma_acc + lr)
+            if cfg.style == "gradient":
+                if opt._use_var_policy:
+                    self.do_var, self.var_ps = cfg.var_policy.step(
+                        state.var_pstate, t, 1)
+                else:
+                    self.do_var, self.var_ps = False, state.var_pstate
+            else:   # mean: the uncompressed baseline, no EF state at all
+                self.do_var, self.var_ps = base.has_variance, state.var_pstate
+            # a full-precision round (the mean style, and the gradient
+            # style's first stage, which keeps its EF state), else 1-bit
+            self.full = cfg.style == "mean" or self.do_var
+            self._sync_constants()
+            self.jobs = [(k, StepScheduler._grad_job)
+                         for k in range(len(opt.units))]
+        self.missing = [len(u.members) for u in opt.units]
+        self._cond = threading.Condition()
+        self._error: Optional[BaseException] = None
+        self._aborted = False
+        self._thread = self._stream = None
+        if early:
+            dev = xs[0].device
+            if dev.type == "cuda":
+                self._stream = opt.side_stream(dev)
+                # gamma and every state tensor were written on this stream
+                self._stream.wait_stream(torch.cuda.current_stream(dev))
+            self._thread = threading.Thread(target=self._run, daemon=True,
+                                            name="unit-exchange")
+            self._thread.start()
 
-        xs, gs = self.plan.flat(params), self.plan.flat(grads)
-        # a device tensor, so ubar / gamma is a true f32 divide on every
-        # device (CUDA turns a divide by a host scalar into a multiply by
-        # its reciprocal); made once per step
-        gamma_t = torch.tensor(gamma_total, device=xs[0].device)
-        slots = state.slots
-        use_anchor = cfg.store_anchor
+    # -- the gradients ---------------------------------------------------
+    def grad_ready(self, i: int, g: torch.Tensor,
+                   donate: bool = False) -> None:
+        """Leaf ``i``'s final gradient, stacked (stack, *shape), in the
+        dtype the sequential step would get it. With ``donate`` the step
+        may write into it (the backward is over). Raises the unit
+        thread's error where it has failed, so that a hook fails the
+        backward."""
+        if self._error is not None:
+            raise self._error
+        ev = None
+        if self._stream is not None and g.is_cuda:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(g.device))
+        with self._cond:
+            self.gs[i], self.donated[i], self.events[i] = g, donate, ev
+            if self.opt.dp[i]:
+                k = self.opt.unit_of[i]
+                self.missing[k] -= 1
+                if not self.missing[k]:
+                    self._cond.notify_all()
 
-        def grad_view(i):
-            return C.to_view(gs[i].to(torch.float32), self.layouts[i])
+    def finish(self, grads=None):
+        """Hand over every gradient of ``grads`` not handed yet (leaves
+        the loss does not reach get no hook call: their units are issued
+        now, in their place in the order), run or join the units' jobs,
+        take the plain local base step of the leaves outside data
+        parallelism, and write the step counters and policies. Returns
+        (params, state, metrics) as :meth:`ComposedOptimizer.step`."""
+        if grads is not None:
+            for i, g in enumerate(self.opt.plan.flat(grads)):
+                if self.gs[i] is None:
+                    self.grad_ready(i, g, self.donate_grads)
+        if self._thread is None:
+            self._drive(window=1)
+        else:
+            self._thread.join()
+            if self._error is not None:
+                raise self._error
+            if self._stream is not None:
+                torch.cuda.current_stream(self._stream.device).wait_stream(
+                    self._stream)
+        opt, state, lr = self.opt, self.state, self.lr
+        for i, dp in enumerate(opt.dp):
+            if not dp:
+                g = self.gs[i].to(torch.float32)
+                if opt.cfg.style == "accumulate":
+                    opt._local_base_step(i, self.xs[i], g, state, lr)
+                else:
+                    self._base_step(i, g)
+        # the gradients are dead: let them go with the caller's
+        self.gs = self.events = None
+        state.step += 1
+        state.var_pstate = self.var_ps
+        if opt.cfg.style == "accumulate":
+            state.gamma_acc = (np.float32(0.0) if self.do_sync
+                               else self.gamma_total)
+            state.sync_pstate = self.sync_ps
+            metrics = {"lr": lr, "synced": self.do_sync,
+                       "var_round": self.do_var, "interval": self.interval}
+        else:
+            metrics = {"lr": lr, "synced": True,
+                       "var_round": bool(self.do_var), "interval": 1}
+        return self.params, state, metrics
 
-        def local_step(i, u_out=None):
-            """Kernel 1 on DP leaf i, in place: m and u (or ``u_out``, an
-            f32 buffer for a sync's exchange) updated from the gradient
-            in its own dtype, the delta (f32) over the gradient's view
-            where that is f32 and dead (the T_v round below still needs
-            it), else new. LAMB scales it by the leaf's frozen trust, as
-            the reference."""
-            lo = self.layouts[i]
-            g = C.to_view(gs[i], lo)
-            delta = K.fused_local_step_view_(
-                g, slots["m"][i], state.u[i],
-                slots["v"][i] if base.has_variance else None, lr,
-                base.beta1, getattr(base, "eps", 0.0), lo, kind=base.kind,
-                into_grad=donate_grads and not do_var, u_out=u_out)
-            if base.has_trust:
-                delta.mul_(bcast(slots["trust"][i], delta))
-            return delta
+    def abort(self) -> None:
+        """Abandon the step (its backward raised): stop the unit thread
+        at its next wait for gradients."""
+        if self._thread is not None:
+            with self._cond:
+                self._aborted = True
+                self._cond.notify_all()
+            self._thread.join(ABORT_JOIN_S)
 
-        # leaves outside data parallelism take their plain local base step
-        for i, x in enumerate(xs):
-            if not self.dp[i]:
-                self._local_base_step(i, x, gs[i].to(torch.float32), state,
-                                      lr)
+    # -- running the jobs ------------------------------------------------
+    def _run(self):
+        try:
+            if self._stream is None:
+                self._drive(window=2)
+            else:
+                with torch.cuda.device(self._stream.device), \
+                        torch.cuda.stream(self._stream):
+                    self._drive(window=2)
+        except _Aborted:
+            pass
+        except BaseException as e:     # re-raised by the step's caller
+            self._error = e
 
-        # --- a local step: the half-step x -= delta of every DP leaf
-        for i in range(len(xs)) if not do_sync else ():
-            if self.dp[i]:
-                delta = local_step(i)
-                _sub_into(xs[i], xs[i], C.from_view(delta, self.layouts[i]))
-                del delta
+    def _ready(self, k: int) -> bool:
+        return not self.missing[k]
 
-        # --- T_u, one exchange unit at a time: its members' local steps
-        # (u' in f32 for the exchange: in place when u is f32, else a
-        # buffer for this unit alone), one Algorithm-2 exchange, then
-        # each member's slot refresh (LAMB's trust), momentum ubar /
-        # gamma, u = 0 and either the re-anchor x = anchor -
-        # precond(ubar) or, without an anchor, the half-step followed by
-        # the correction x = x_half + precond(u' - ubar); EF state and
-        # anchor written back before the next unit
+    def _await(self, k: int) -> None:
+        """Block until unit ``k``'s members have their gradients; on a
+        card, order the current stream after each of them."""
+        with self._cond:
+            while self.missing[k] and not self._aborted:
+                self._cond.wait()
+            if self._aborted:
+                raise _Aborted
+        if self._stream is not None:
+            stream = torch.cuda.current_stream(self._stream.device)
+            for i in self.opt.units[k].members:
+                if self.events[i] is not None:
+                    stream.wait_event(self.events[i])
+
+    def _drive(self, window: int):
+        """Run the jobs in order, with at most ``window`` (1 or 2) in
+        flight; a job issues its first collective only after the job
+        before it has issued its last."""
+        flight = None       # the job before, its collectives all issued
+        for k, job in self.jobs:
+            if flight is not None and not self._ready(k):
+                AR.run_phases(flight)
+                flight = None
+            self._await(k)
+            phases = job(self, k)
+            left = _advance(phases)
+            if flight is not None:
+                AR.run_phases(flight)
+                flight = None
+            while left:
+                left = _advance(phases)
+            if left is None:
+                continue
+            if window == 1:
+                AR.run_phases(phases)
+            else:
+                flight = phases
+        if flight is not None:
+            AR.run_phases(flight)
+
+    # -- the accumulate style --------------------------------------------
+    def _grad_view(self, i):
+        return C.to_view(self.gs[i].to(torch.float32), self.opt.layouts[i])
+
+    def _local_step(self, i, u_out=None):
+        """Kernel 1 on DP leaf i, in place: m and u (or ``u_out``, an f32
+        buffer for a sync's exchange) updated from the gradient in its
+        own dtype, the delta (f32) over the gradient's view where that is
+        f32, dead (the T_v round below still needs it) and donated, else
+        new. LAMB scales it by the leaf's frozen trust, as the
+        reference."""
+        opt, base, state = self.opt, self.opt.base, self.state
+        slots, lo = state.slots, opt.layouts[i]
+        g = C.to_view(self.gs[i], lo)
+        delta = K.fused_local_step_view_(
+            g, slots["m"][i], state.u[i],
+            slots["v"][i] if base.has_variance else None, self.lr,
+            base.beta1, getattr(base, "eps", 0.0), lo, kind=base.kind,
+            into_grad=self.donated[i] and not self.do_var, u_out=u_out)
+        if base.has_trust:
+            delta.mul_(bcast(slots["trust"][i], delta))
+        return delta
+
+    def _local_job(self, k):
+        """A local step: the half-step x -= delta of the unit's members."""
+        opt, xs = self.opt, self.xs
+        for i in opt.units[k].members:
+            delta = self._local_step(i)
+            _sub_into(xs[i], xs[i], C.from_view(delta, opt.layouts[i]))
+            del delta
+        yield from ()
+
+    def _sync_job(self, k):
+        """T_u of one exchange unit: its members' local steps (u' in f32
+        for the exchange: in place when u is f32, else a buffer for this
+        unit alone), one Algorithm-2 exchange, then each member's slot
+        refresh (LAMB's trust), momentum ubar / gamma, u = 0 and either
+        the re-anchor x = anchor - precond(ubar) or, without an anchor,
+        the half-step followed by the correction x = x_half + precond(u'
+        - ubar); EF state and anchor written back."""
+        opt, base, state, xs = self.opt, self.opt.base, self.state, self.xs
+        unit, slots, gamma_t = opt.units[k], state.slots, self.gamma_t
+        use_anchor = opt.cfg.store_anchor
+        si = unit.state_idx
+        u32 = []
+        for i in unit.members:
+            uo = (None if state.u[i].dtype == torch.float32
+                  else torch.empty(state.u[i].shape, dtype=torch.float32,
+                                   device=state.u[i].device))
+            delta = self._local_step(i, uo)
+            if not use_anchor:
+                _sub_into(xs[i], xs[i], C.from_view(delta, opt.layouts[i]))
+            del delta
+            u32.append(state.u[i] if uo is None else uo)
+        ubars, ef = yield from opt._onebit_phases(
+            self.comm, unit, u32, state.err_w[si], state.err_s[si])
+        state.err_w[si].copy_(ef.err_worker)
+        state.err_s[si].copy_(ef.err_server)
+        del ef
+        if not use_anchor:
+            ancs = [None] * len(unit.members)
+        else:
+            u32 = [None] * len(u32)     # u' is dead once exchanged
+            ancs = ([state.anchor[si]] if unit.bucket is None else
+                    [C.from_view(a, opt.layouts[i]) for a, i in zip(
+                        opt._unit_scatter(unit, state.anchor[si]),
+                        unit.members)])
         sync_names = tuple(base.sync_slot_names)
-        for unit in self.units if do_sync else ():
-            si = unit.state_idx
-            u32 = []
-            for i in unit.members:
-                uo = (None if state.u[i].dtype == torch.float32
-                      else torch.empty(state.u[i].shape, dtype=torch.float32,
-                                       device=state.u[i].device))
-                delta = local_step(i, uo)
-                if not use_anchor:
-                    _sub_into(xs[i], xs[i],
-                              C.from_view(delta, self.layouts[i]))
-                del delta
-                u32.append(state.u[i] if uo is None else uo)
-            ubars, ef = self._onebit_unit(comm, unit, u32, state.err_w[si],
-                                          state.err_s[si])
+        for i, ubar, anc, uh in zip(unit.members, ubars, ancs, u32):
+            lo = opt.layouts[i]
+            # the slots the refresh and the preconditioner read (not m,
+            # which the sync replaces), upcast
+            sl = {name: _f32(slots[name][i]) for name in slots
+                  if name != "m"}
+            sl.update(base.refresh_sync_slots(sl, anc, ubar, gamma_t, lo))
+            for name in sync_names:
+                slots[name][i].copy_(sl[name])
+            torch.div(ubar, gamma_t, out=slots["m"][i])
+            if use_anchor:
+                # ubar is dead after the momentum: precondition it in
+                # place (a copy first where the exchange handed back a
+                # broadcast view, as an exact codec's gather does)
+                ubar = ubar.contiguous()
+                _sub_into(xs[i], anc, C.from_view(base.precond_(ubar, sl),
+                                                  lo))
+            else:
+                # u' is dead after: the correction takes its buffer
+                corr = base.precond_(uh.sub_(ubar), sl)
+                torch.add(xs[i], C.from_view(corr, lo), out=xs[i])
+                del corr
+            state.u[i].zero_()
+        del ubars, ancs, ubar, anc, sl, u32, uh
+        if use_anchor:
+            state.anchor[si].copy_(
+                xs[si] if unit.bucket is None else opt._gather_bucket(
+                    unit.bucket, [xs[i] for i in unit.members]))
+
+    def _var_job(self, k):
+        """T_v of one exchange unit: the full-precision variance refresh
+        from the mean of its members' gradients."""
+        opt = self.opt
+        unit = opt.units[k]
+        gbars = yield from opt._fullprec_phases(
+            self.comm, unit, [self._grad_view(i) for i in unit.members])
+        for i, gbar in zip(unit.members, gbars):
+            _update_variance_(opt.base, self.state.slots["v"][i], gbar)
+
+    # -- the gradient and mean styles ------------------------------------
+    def _sync_constants(self):
+        """The base step as XLA compiles the reference's (measured on jax
+        0.9.0's CPU backend): m' = fma(b1, m, (1-b1)*g) and v' = fma(b2,
+        v, ((1-b2)*g)*g); the divide by sqrt(v + eps) becomes a multiply
+        by rsqrt(v + eps) with the variance from before this step's
+        update; the parameter update is one more FMA: x' = fma(-(lr*m'),
+        r, x) (momentum SGD: fma(m', -lr, x)), or with decay x' = x -
+        fma(x, lr*wd, (lr*m')*r). LAMB's update u = m'*r (with decay
+        fma(x, wd, m'*r)) is scaled by lr*trust, its trust recomputed
+        every step from the current params: x' = fma(u, -(lr*trust),
+        x). Host scalars are the f32 values the reference folds."""
+        cfg, base = self.opt.cfg, self.opt.base
+
+        def f32(a):
+            return float(np.float32(a))
+
+        self.wd = f32(cfg.weight_decay)
+        self.lr_wd = f32(self.lr * np.float32(cfg.weight_decay))
+        self.b1, self.omb1 = f32(base.beta1), f32(1.0 - base.beta1)
+        if base.has_variance:
+            self.b2, self.omb2, self.eps = (
+                f32(base.beta2), f32(1.0 - base.beta2), f32(base.eps))
+
+    def _base_step(self, i, g):
+        """The gradient and mean styles' base step of leaf ``i`` on its
+        mean gradient ``g`` (view-shaped for a DP leaf), in place: the
+        reference's plain arithmetic, never the fused local step (which
+        would write a ``u'`` these styles do not have); its multiply-adds
+        are single-rounding, as XLA contracts them. A leaf outside data
+        parallelism steps on its own gradient and refreshes its variance
+        every step."""
+        opt, base, state = self.opt, self.opt.base, self.state
+        x, lo, dp = self.xs[i], opt.layouts[i], opt.dp[i]
+        lr = self.lr
+
+        def nat(a):
+            return C.from_view(a, lo) if dp else a
+
+        m = state.slots["m"][i]
+        nm = fma(_f32(m), self.b1, g * self.omb1)
+        x32 = x.to(torch.float32)
+        nv = None
+        if base.has_variance:
+            v = _f32(state.slots["v"][i])
+            if self.do_var or not dp:
+                nv = fma(v, self.b2, (g * self.omb2) * g)
+        if base.has_trust:
+            upd = nat(nm * rsqrt(v + self.eps))
+            if self.wd:
+                upd = fma(x32, self.wd, upd)
+            lr_trust = base.trust_ratio(x32, upd) * float(lr)
+            nx = fma(upd, bcast(-lr_trust, upd), x32)
+        elif base.has_variance:
+            step = nat(nm * float(lr))
+            r = nat(rsqrt(v + self.eps))
+            nx = (x32 - fma(x32, self.lr_wd, step * r) if self.lr_wd
+                  else fma(-step, r, x32))
+        else:
+            step = nat(nm)
+            nx = (x32 - fma(x32, self.lr_wd, step * float(lr))
+                  if self.lr_wd else fma(step, -float(lr), x32))
+        x.copy_(nx)         # rounded once to the parameter dtype
+        m.copy_(nm)
+        if nv is not None:
+            state.slots["v"][i].copy_(nv)
+
+    def _grad_job(self, k):
+        """One exchange unit of the gradient and mean styles: the exchange
+        of its members' gradients (full precision, or Algorithm 2 with the
+        unit's EF state), then each member's base step on its mean."""
+        opt, state = self.opt, self.state
+        unit = opt.units[k]
+        si = unit.state_idx
+        bufs = [self._grad_view(i) for i in unit.members]
+        if self.full:
+            outs = yield from opt._fullprec_phases(self.comm, unit, bufs)
+        else:
+            outs, ef = yield from opt._onebit_phases(
+                self.comm, unit, bufs, state.err_w[si], state.err_s[si])
             state.err_w[si].copy_(ef.err_worker)
             state.err_s[si].copy_(ef.err_server)
             del ef
-            if not use_anchor:
-                ancs = [None] * len(unit.members)
-            else:
-                u32 = [None] * len(u32)     # u' is dead once exchanged
-                ancs = ([state.anchor[si]] if unit.bucket is None else
-                        [C.from_view(a, self.layouts[i]) for a, i in zip(
-                            self._unit_scatter(unit, state.anchor[si]),
-                            unit.members)])
-            for i, ubar, anc, uh in zip(unit.members, ubars, ancs, u32):
-                lo = self.layouts[i]
-                # the slots the refresh and the preconditioner read (not
-                # m, which the sync replaces), upcast
-                sl = {name: _f32(slots[name][i]) for name in slots
-                      if name != "m"}
-                sl.update(base.refresh_sync_slots(sl, anc, ubar, gamma_t,
-                                                  lo))
-                for name in sync_names:
-                    slots[name][i].copy_(sl[name])
-                torch.div(ubar, gamma_t, out=slots["m"][i])
-                if use_anchor:
-                    # ubar is dead after the momentum: precondition it in
-                    # place (a copy first where the exchange handed back a
-                    # broadcast view, as an exact codec's gather does)
-                    ubar = ubar.contiguous()
-                    _sub_into(xs[i], anc, C.from_view(
-                        base.precond_(ubar, sl), lo))
-                else:
-                    # u' is dead after: the correction takes its buffer
-                    corr = base.precond_(uh.sub_(ubar), sl)
-                    torch.add(xs[i], C.from_view(corr, lo), out=xs[i])
-                    del corr
-                state.u[i].zero_()
-            # drop the unit's temporaries (the loop's names too) before
-            # the next unit's exchange
-            del ubars, ancs, ubar, anc, sl, u32, uh
-            if use_anchor:
-                state.anchor[si].copy_(
-                    xs[si] if unit.bucket is None else self._gather_bucket(
-                        unit.bucket, [xs[i] for i in unit.members]))
-
-        # --- T_v: the full-precision variance refresh, per unit too
-        for unit in self.units if do_var else ():
-            gbars = self._fullprec_unit(comm, unit,
-                                        [grad_view(i) for i in unit.members])
-            for i, gbar in zip(unit.members, gbars):
-                _update_variance_(base, slots["v"][i], gbar)
-            del gbars, gbar
-
-        state.step = t + 1
-        state.gamma_acc = np.float32(0.0) if do_sync else gamma_total
-        state.sync_pstate, state.var_pstate = sync_ps, var_ps
-        metrics = {"lr": lr, "synced": do_sync, "var_round": do_var,
-                   "interval": interval}
-        return params, state, metrics
-
-    def _step_sync(self, comm, params, grads, state):
-        """The gradient and mean styles: exchange the gradient itself,
-        then take the base's step on the mean, unit by unit, in place.
-        The step is the reference's plain arithmetic, never the fused
-        local step (which would write a ``u'`` these styles do not have);
-        its multiply-adds are single-rounding, as XLA contracts them.
-        Leaves outside data parallelism step on their own gradient and
-        refresh their variance every step."""
-        cfg, base = self.cfg, self.base
-        t = state.step
-        lr = np.float32(cfg.lr(t))
-        xs, gs = self.plan.flat(params), self.plan.flat(grads)
-        if cfg.style == "gradient":
-            if self._use_var_policy:
-                do_var, var_ps = cfg.var_policy.step(state.var_pstate, t, 1)
-            else:
-                do_var, var_ps = False, state.var_pstate
-        else:   # mean: the uncompressed baseline, no EF state at all
-            do_var, var_ps = base.has_variance, state.var_pstate
-        # a full-precision round (the mean style, and the gradient
-        # style's first stage, which keeps its EF state), else 1-bit
-        full = cfg.style == "mean" or do_var
-
-        # The base step as XLA compiles the reference's (measured on
-        # jax 0.9.0's CPU backend): m' = fma(b1, m, (1-b1)*g) and
-        # v' = fma(b2, v, ((1-b2)*g)*g); the divide by sqrt(v + eps)
-        # becomes a multiply by rsqrt(v + eps) with the variance from
-        # before this step's update; the parameter update is one more
-        # FMA: x' = fma(-(lr*m'), r, x) (momentum SGD: fma(m', -lr, x)),
-        # or with decay x' = x - fma(x, lr*wd, (lr*m')*r). LAMB's update
-        # u = m'*r (with decay fma(x, wd, m'*r)) is scaled by lr*trust,
-        # its trust recomputed every step from the current params:
-        # x' = fma(u, -(lr*trust), x).
-        def f32(a):   # a host scalar as the f32 the reference folds
-            return float(np.float32(a))
-
-        wd = f32(cfg.weight_decay)
-        lr_wd = f32(lr * np.float32(cfg.weight_decay))
-        b1, omb1 = f32(base.beta1), f32(1.0 - base.beta1)
-        if base.has_variance:
-            b2, omb2, eps = (f32(base.beta2), f32(1.0 - base.beta2),
-                             f32(base.eps))
-
-        def base_step(i, g):
-            x, lo, dp = xs[i], self.layouts[i], self.dp[i]
-
-            def nat(a):
-                return C.from_view(a, lo) if dp else a
-
-            m = state.slots["m"][i]
-            nm = fma(_f32(m), b1, g * omb1)
-            x32 = x.to(torch.float32)
-            nv = None
-            if base.has_variance:
-                v = _f32(state.slots["v"][i])
-                if do_var or not dp:
-                    nv = fma(v, b2, (g * omb2) * g)
-            if base.has_trust:
-                upd = nat(nm * rsqrt(v + eps))
-                if wd:
-                    upd = fma(x32, wd, upd)
-                lr_trust = base.trust_ratio(x32, upd) * float(lr)
-                nx = fma(upd, bcast(-lr_trust, upd), x32)
-            elif base.has_variance:
-                step = nat(nm * float(lr))
-                r = nat(rsqrt(v + eps))
-                nx = (x32 - fma(x32, lr_wd, step * r) if lr_wd
-                      else fma(-step, r, x32))
-            else:
-                step = nat(nm)
-                nx = (x32 - fma(x32, lr_wd, step * float(lr)) if lr_wd
-                      else fma(step, -float(lr), x32))
-            x.copy_(nx)         # rounded once to the parameter dtype
-            m.copy_(nm)
-            if nv is not None:
-                state.slots["v"][i].copy_(nv)
-
-        for unit in self.units:
-            si = unit.state_idx
-            bufs = [C.to_view(gs[i].to(torch.float32), self.layouts[i])
-                    for i in unit.members]
-            if full:
-                outs = self._fullprec_unit(comm, unit, bufs)
-            else:
-                outs, ef = self._onebit_unit(comm, unit, bufs,
-                                             state.err_w[si], state.err_s[si])
-                state.err_w[si].copy_(ef.err_worker)
-                state.err_s[si].copy_(ef.err_server)
-                del ef
-            del bufs
-            for i, o in zip(unit.members, outs):
-                base_step(i, o)
-            del outs, o
-        for i, dp in enumerate(self.dp):
-            if not dp:
-                base_step(i, gs[i].to(torch.float32))
-
-        state.step = t + 1
-        state.var_pstate = var_ps
-        metrics = {"lr": lr, "synced": True, "var_round": bool(do_var),
-                   "interval": 1}
-        return params, state, metrics
+        del bufs
+        for i, o in zip(unit.members, outs):
+            self._base_step(i, o)
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,17 @@ wire dtype, bf16), the exchange above across pods on the slice each
 worker owns, and an all_gather inside the pod.
 
 Tensors carry the stack of workers on dim 0 (see ``core.comm``).
+
+Each exchange is written once, as a generator of its collective phases
+(:func:`onebit_phases`, :func:`fullprec_phases`): it issues a phase's
+collectives through the comm's asynchronous forms, yields the number of
+phases it has still to issue, and, resumed, waits for them and computes
+on. :func:`run_phases` drives one to its end, each phase waited as soon
+as it is issued (:func:`onebit_allreduce_view`,
+:func:`fullprec_allreduce_view`); the optimizer's per-unit scheduler
+interleaves the phases of two units instead
+(``core.compressed.StepScheduler``). Either way every tensor op and
+kernel call is the same, with the same arguments.
 """
 from __future__ import annotations
 
@@ -64,6 +75,20 @@ class OneBitConfig:
                            CODECS.make_codec(self.codec, self.codec_arg))
 
 
+def run_phases(phases):
+    """Drive a generator of collective phases to its end, waiting for
+    each phase as soon as it is issued; its return value."""
+    while True:
+        try:
+            next(phases)
+        except StopIteration as stop:
+            return stop.value
+
+
+def _wait(handles):
+    return {name: h.wait() for name, h in handles.items()}
+
+
 def onebit_allreduce_view(comm: Comm, z_view: torch.Tensor, ef: EFState,
                           layout: C.LeafLayout, cfg: OneBitConfig):
     """Algorithm 2 over one leaf's stacked comm views (stack, *view_shape).
@@ -71,33 +96,47 @@ def onebit_allreduce_view(comm: Comm, z_view: torch.Tensor, ef: EFState,
     Returns ``(mean estimate of z over workers, new EFState)``; every
     worker receives the same estimate. Exact codecs leave ``ef`` as is.
     With ``cfg.hierarchy`` the two-level schedule runs
-    (:func:`_hier_allreduce_view`); the flat code below is its bitwise
-    ``n_inner == 1`` case."""
+    (:func:`_hier_phases`); the flat code is its bitwise ``n_inner == 1``
+    case."""
+    return run_phases(onebit_phases(comm, z_view, ef, layout, cfg))
+
+
+def onebit_phases(comm: Comm, z_view: torch.Tensor, ef: EFState,
+                  layout: C.LeafLayout, cfg: OneBitConfig):
+    """:func:`onebit_allreduce_view` as a generator of its phases (the
+    payloads' all_to_all, the server payloads' all_gather); returns its
+    result."""
     if cfg.hierarchy is not None:
         if layout.n_inner != cfg.hierarchy.inner:
             raise ValueError(f"layout has n_inner={layout.n_inner}, the "
                              f"hierarchy {cfg.hierarchy}")
-        return _hier_allreduce_view(comm, z_view, ef, layout, cfg)
+        return (yield from _hier_phases(comm, z_view, ef, layout, cfg))
     codec, mode = cfg.codec, cfg.scale_mode
     payload, err_w = codec.encode_worker(
         z_view, ef.err_worker if codec.needs_ef else None, layout, mode)
-    recv = {name: comm.all_to_all(p) for name, p in payload.items()}
+    sent = {name: comm.all_to_all_async(p) for name, p in payload.items()}
+    del payload
+    yield 1
+    recv = _wait(sent)
 
     widx = comm.index()
     avg = codec.decode_mean(recv, layout)
+    del recv
     payload_s, err_s = codec.encode_server(
         avg, ef.err_server if codec.needs_ef else None, layout, mode, widx)
-
-    gathered = {name: comm.all_gather(p) for name, p in payload_s.items()}
-    out = codec.decode(gathered, layout)
+    del avg
+    sent = {name: comm.all_gather_async(p) for name, p in payload_s.items()}
+    del payload_s
+    yield 0
+    out = codec.decode(_wait(sent), layout)
     if codec.needs_ef:
         ef = EFState(err_worker=err_w.to(ef.err_worker.dtype),
                      err_server=err_s.to(ef.err_server.dtype))
     return out.to(torch.float32), ef
 
 
-def _hier_allreduce_view(comm: Comm, z_view: torch.Tensor, ef: EFState,
-                         layout: C.LeafLayout, cfg: OneBitConfig):
+def _hier_phases(comm: Comm, z_view: torch.Tensor, ef: EFState,
+                 layout: C.LeafLayout, cfg: OneBitConfig):
     """Two-level Algorithm 2; worker ``w = k * n_inner + j`` (pod k):
 
       1. intra-pod reduce-scatter at ``comm_dtype``: all_to_all over the
@@ -109,15 +148,19 @@ def _hier_allreduce_view(comm: Comm, z_view: torch.Tensor, ef: EFState,
       3. intra-pod all_gather of the decoded slice at ``comm_dtype``.
 
     With ``n_inner == 1`` steps 1 and 3 are skipped and step 2 is the
-    flat path, bit for bit."""
+    flat path, bit for bit. A generator of its phases (four, or two),
+    as :func:`onebit_phases`."""
     codec, mode = cfg.codec, cfg.scale_mode
     ni, no = layout.n_inner, layout.n_outer
+    pods = 2 if ni > 1 else 0     # the intra-pod phases
     stack = z_view.shape[0]
     outer, inner = comm.split(ni)
     zr = z_view.reshape((stack, ni, no) + layout.chunk_shape)
     if ni > 1:
-        recv = inner.all_to_all(zr.to(cfg.comm_dtype))
-        own = recv.to(torch.float32).mean(dim=1)
+        sent = inner.all_to_all_async(zr.to(cfg.comm_dtype))
+        yield 3
+        own = sent.wait().to(torch.float32).mean(dim=1)
+        del sent
         j = inner.index()
     else:
         own = zr[:, 0]
@@ -126,18 +169,29 @@ def _hier_allreduce_view(comm: Comm, z_view: torch.Tensor, ef: EFState,
     payload, err_w = codec.encode_worker(
         own, ef.err_worker if codec.needs_ef else None, layout, mode,
         inner_index=j)
-    recv = {name: outer.all_to_all(p) for name, p in payload.items()}
+    del own
+    sent = {name: outer.all_to_all_async(p) for name, p in payload.items()}
+    del payload
+    yield 1 + pods // 2
+    recv = _wait(sent)
     widx = j * no + outer.index()
     avg = codec.decode_mean(recv, layout)
+    del recv
     payload_s, err_s = codec.encode_server(
         avg, ef.err_server if codec.needs_ef else None, layout, mode, widx)
-    gathered = {name: outer.all_gather(p) for name, p in payload_s.items()}
-    out_slice = codec.decode(gathered, layout)
+    del avg
+    sent = {name: outer.all_gather_async(p) for name, p in payload_s.items()}
+    del payload_s
+    yield pods // 2
+    out_slice = codec.decode(_wait(sent), layout)
     if codec.needs_ef:
         ef = EFState(err_worker=err_w.to(ef.err_worker.dtype),
                      err_server=err_s.to(ef.err_server.dtype))
     if ni > 1:
-        out = inner.all_gather(out_slice.to(cfg.comm_dtype))
+        sent = inner.all_gather_async(out_slice.to(cfg.comm_dtype))
+        del out_slice
+        yield 0
+        out = sent.wait()
     else:
         out = out_slice
     return out.reshape(z_view.shape).to(torch.float32), ef
@@ -155,17 +209,39 @@ def fullprec_allreduce_view(comm: Comm, z_view: torch.Tensor,
     in four collectives: the intra-pod reduce-scatter, the inter-pod
     scatter-mean and all_gather of the owned slice, the intra-pod
     all_gather."""
+    return run_phases(fullprec_phases(comm, z_view, comm_dtype, hierarchy,
+                                      layout))
+
+
+def fullprec_phases(comm: Comm, z_view: torch.Tensor,
+                    comm_dtype=torch.bfloat16,
+                    hierarchy: Optional[Hierarchy] = None,
+                    layout: Optional[C.LeafLayout] = None):
+    """:func:`fullprec_allreduce_view` as a generator of its phases (two,
+    or four with the hierarchy), as :func:`onebit_phases`."""
     if hierarchy is not None and layout is not None and layout.n_inner > 1:
         ni, no = layout.n_inner, layout.n_outer
         outer, inner = comm.split(ni)
         zr = z_view.to(comm_dtype).reshape(
             (z_view.shape[0], ni, no) + layout.chunk_shape)
-        recv = inner.all_to_all(zr)
-        own = recv.to(torch.float32).mean(dim=1).to(comm_dtype)
-        recv2 = outer.all_to_all(own)
-        avg = recv2.to(torch.float32).mean(dim=1).to(comm_dtype)
-        out = inner.all_gather(outer.all_gather(avg[:, None]))
-        return out.reshape(z_view.shape).to(z_view.dtype)
-    recv = comm.all_to_all(z_view.to(comm_dtype))
-    avg = recv.to(torch.float32).mean(dim=1).to(comm_dtype)
-    return comm.all_gather(avg[:, None]).to(z_view.dtype)
+        sent = inner.all_to_all_async(zr)
+        del zr
+        yield 3
+        own = sent.wait().to(torch.float32).mean(dim=1).to(comm_dtype)
+        sent = outer.all_to_all_async(own)
+        del own
+        yield 2
+        avg = sent.wait().to(torch.float32).mean(dim=1).to(comm_dtype)
+        sent = outer.all_gather_async(avg[:, None])
+        del avg
+        yield 1
+        sent = inner.all_gather_async(sent.wait())
+        yield 0
+        return sent.wait().reshape(z_view.shape).to(z_view.dtype)
+    sent = comm.all_to_all_async(z_view.to(comm_dtype))
+    yield 1
+    avg = sent.wait().to(torch.float32).mean(dim=1).to(comm_dtype)
+    sent = comm.all_gather_async(avg[:, None])
+    del avg
+    yield 0
+    return sent.wait().to(z_view.dtype)

@@ -106,6 +106,15 @@ def production(model_cfg, opt_cfg, store_anchor=True,
                                 store_anchor=store_anchor))
 
 
+def optimizer_fields(model_cfg, opt_cfg, **fields):
+    """(model config, optimizer config with ``fields`` replaced): a
+    ``configure`` of :func:`make_trainer` for optimizer settings the CLI
+    has no flag for, as the reference's has none, e.g.
+    ``functools.partial(optimizer_fields, pack_order="reverse_backward")``
+    (it pickles, as :func:`rank_jobs`' jobs must)."""
+    return model_cfg, dataclasses.replace(opt_cfg, **fields)
+
+
 def build_opt_cfg(args) -> OptimizerConfig:
     lr = S.LinearWarmupExpDecay(peak_lr=args.lr, warmup_steps=args.lr_warmup,
                                 decay=0.99,
@@ -197,13 +206,18 @@ def parse_args(argv=None):
     return args
 
 
-def make_trainer(args, device=None, comm=None, configure=None) -> Trainer:
+def make_trainer(args, device=None, comm=None, configure=None,
+                 trainer_cfg=None) -> Trainer:
     """The trainer of ``args.mode`` on ``device`` (default
     ``args.device``); in dist mode the process group must be up.
     ``comm``: the comm to run on instead of the mode's own (e.g. the
     mode's comm wrapped in ``analysis.RecordingComm``); ``configure``:
     (model config, optimizer config) -> the pair to train with (e.g.
-    :func:`production`), or None."""
+    :func:`production`), or None; ``trainer_cfg``: fields of
+    :class:`TrainerConfig` over the CLI's (a dict, e.g.
+    ``{"peel_last_microbatch": False}`` for the sequential step in
+    ``--mode dist``; the CLI has no flag for it, as the reference's), or
+    None."""
     spec = get(args.arch)
     cfg = spec.smoke if args.smoke else spec.config
     if args.layers is not None:
@@ -219,7 +233,8 @@ def make_trainer(args, device=None, comm=None, configure=None) -> Trainer:
     if configure is not None:
         cfg, opt_cfg = configure(cfg, opt_cfg)
     return Trainer(cfg, opt_cfg, comm=comm,
-                   trainer_cfg=TrainerConfig(args.micro_batches),
+                   trainer_cfg=TrainerConfig(args.micro_batches,
+                                             **(trainer_cfg or {})),
                    device=args.device if device is None else device)
 
 
@@ -336,7 +351,7 @@ def _to_cpu(tree):
 def rank_main(rank: int, argv, world_size: int, init_method: str,
               out_dir: str = None, with_state: bool = False,
               kind: str = "lm", audit: bool = False,
-              configure=None) -> None:
+              configure=None, trainer_cfg=None) -> None:
     """Entry of one spawned rank of ``--mode dist``: join the group, train
     on the synthetic stream of ``kind`` (see :func:`train`), and with
     ``out_dir`` save this rank's results there as ``rank{rank}.pt``: the
@@ -345,7 +360,7 @@ def rank_main(rank: int, argv, world_size: int, init_method: str,
     device memory. With ``audit`` the rank's comm records its collectives
     (``analysis.RecordingComm``) and the file also holds the rank's audit
     report (``audit``) and its recorded collectives (``recorded``).
-    ``configure``: as :func:`make_trainer`'s."""
+    ``configure`` and ``trainer_cfg``: as :func:`make_trainer`'s."""
     args = parse_args(argv)
     dev = mesh.init_workers(args.backend, args.device, rank=rank,
                             world_size=world_size, local_rank=rank,
@@ -355,7 +370,7 @@ def rank_main(rank: int, argv, world_size: int, init_method: str,
 
         tr = make_trainer(args, device=dev, comm=(
             analysis.RecordingComm(mesh.worker_comm()) if audit else None),
-            configure=configure)
+            configure=configure, trainer_cfg=trainer_cfg)
         trace = analysis.watch(tr) if audit else None
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
@@ -377,7 +392,8 @@ def rank_main(rank: int, argv, world_size: int, init_method: str,
             st = res["state"]
             out["state"] = {"slots": _to_cpu(st.slots), "u": _to_cpu(st.u),
                             "err_w": _to_cpu(st.err_w),
-                            "err_s": _to_cpu(st.err_s)}
+                            "err_s": _to_cpu(st.err_s),
+                            "anchor": _to_cpu(st.anchor)}
         del res
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
@@ -386,14 +402,17 @@ def rank_main(rank: int, argv, world_size: int, init_method: str,
 
 def rank_jobs(rank: int, jobs, world_size: int) -> None:
     """Entry of one spawned rank that runs ``jobs`` one after another,
-    each ``(argv, out_dir, with_state, kind, audit, configure)`` through
-    :func:`rank_main` with a rendezvous of its own in ``out_dir`` (the
-    process group is made and destroyed per job): the jobs share the
-    process's start-up (the torch import, the first group's setup). A job
-    of kind ``"serve"`` is expert-parallel serving, ``argv`` the serve
-    CLI's flags (``launch.serve.serve_rank``; ``with_state``, ``audit``
-    and ``configure`` unused)."""
-    for argv, out_dir, with_state, kind, audit, configure in jobs:
+    each ``(argv, out_dir, with_state, kind, audit, configure)`` or the
+    same with ``trainer_cfg`` seventh, through :func:`rank_main` with a
+    rendezvous of its own in ``out_dir`` (the process group is made and
+    destroyed per job): the jobs share the process's start-up (the torch
+    import, the first group's setup). A job of kind ``"serve"`` is
+    expert-parallel serving, ``argv`` the serve CLI's flags
+    (``launch.serve.serve_rank``; ``with_state``, ``audit``,
+    ``configure`` and ``trainer_cfg`` unused)."""
+    for job in jobs:
+        argv, out_dir, with_state, kind, audit, configure = job[:6]
+        trainer_cfg = job[6] if len(job) > 6 else None
         init = mesh.file_rendezvous(out_dir)
         if kind == "serve":
             from repro_torch.launch.serve import serve_rank
@@ -401,7 +420,7 @@ def rank_jobs(rank: int, jobs, world_size: int) -> None:
             serve_rank(rank, argv, world_size, init, out_dir)
         else:
             rank_main(rank, argv, world_size, init, out_dir, with_state,
-                      kind, audit, configure)
+                      kind, audit, configure, trainer_cfg)
 
 
 def _parse_resizes(specs):

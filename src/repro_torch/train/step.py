@@ -89,11 +89,22 @@ DIST_SAVE = (
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
     """``micro_batches``: splits of each worker's share of the batch whose
-    gradients are summed in order, then divided by their number. (The
-    reference's ``peel_last_microbatch`` reorders no arithmetic; it exists
-    for XLA's scheduler, and the eager loop here has nothing to peel.)"""
+    gradients are summed in order, then divided by their number.
+
+    ``peel_last_microbatch`` (the reference's name and default): in a
+    process of a larger fleet (``--mode dist``), the last micro-batch's
+    backward hands each leaf's final gradient to the optimizer's per-unit
+    scheduler as soon as it is formed (a hook on the leaf), and each
+    exchange unit's local step and exchange start then, on a thread of
+    their own with asynchronous collectives, while the rest of the
+    backward and the following units run
+    (``core.compressed.StepScheduler``). ``False`` runs the sequential
+    step: the whole backward, then the units one after another. Both are
+    bit for bit the same step, as in the reference; sim and single mode
+    always run the sequential one (their collectives are in process)."""
 
     micro_batches: int = 1
+    peel_last_microbatch: bool = True
 
     def __post_init__(self):
         if self.micro_batches < 1:
@@ -102,7 +113,7 @@ class TrainerConfig:
 
 
 def accumulate_grads(loss_fn: Callable, params, batch: Dict[str, torch.Tensor],
-                     micro_batches: int):
+                     micro_batches: int, on_grad: Callable = None):
     """Mean loss and gradients over ``micro_batches`` equal splits of
     ``batch`` (leading dim), as the reference's ``accumulate_grads``: for
     more than one split, zeros + g_1 + ... + g_mb in split order, then one
@@ -113,37 +124,71 @@ def accumulate_grads(loss_fn: Callable, params, batch: Dict[str, torch.Tensor],
     ``jax.grad``. The gradients are f32 sums over several splits; of one
     split they keep the parameters' dtype (bf16 in production), whose
     values are exactly the reference's f32 cast of them, at half the
-    memory."""
+    memory.
+
+    With ``on_grad``, the last split's backward calls ``on_grad(i, g)``
+    with flat leaf ``i``'s final gradient (the same tensor the tree
+    returns) as soon as it is formed, for each leaf the loss reaches,
+    from a hook on the leaf (the autograd engine's thread; an exception
+    there fails the backward)."""
     mb = micro_batches
     paths, xs = flatten_tree(params)
     leaves = [x.detach().requires_grad_(True) for x in xs]
     tree = unflatten_tree(paths, leaves)
-    if mb <= 1:
-        loss, _ = loss_fn(tree, batch)
-        gs = torch.autograd.grad(loss, leaves, materialize_grads=True)
-        return loss.detach(), unflatten_tree(paths, list(gs))
-    for k, v in batch.items():
-        if v.shape[0] % mb:
-            raise ValueError(
-                f"per-worker batch leaf {k!r} has {v.shape[0]} rows, which "
-                f"is not divisible by micro_batches={mb}; choose a global "
-                f"batch size divisible by n_workers * micro_batches")
-    per = next(iter(batch.values())).shape[0] // mb
-    dev = xs[0].device
-    gsum = [torch.zeros(x.shape, dtype=torch.float32, device=dev)
-            for x in xs]
-    lsum = torch.zeros((), dtype=torch.float32, device=dev)
+    if mb > 1:
+        for k, v in batch.items():
+            if v.shape[0] % mb:
+                raise ValueError(
+                    f"per-worker batch leaf {k!r} has {v.shape[0]} rows, "
+                    f"which is not divisible by micro_batches={mb}; choose "
+                    f"a global batch size divisible by n_workers * "
+                    f"micro_batches")
+        per = next(iter(batch.values())).shape[0] // mb
+        dev = xs[0].device
+        gsum = [torch.zeros(x.shape, dtype=torch.float32, device=dev)
+                for x in xs]
+        lsum = torch.zeros((), dtype=torch.float32, device=dev)
+        # a device tensor: CUDA turns a divide by a host scalar into a
+        # multiply by its reciprocal, which is not the reference's divide
+        d = torch.tensor(float(mb), dtype=torch.float32, device=dev)
+    else:
+        per, gsum = None, None
+    final = [None] * len(xs)
+
+    def form(i, g):
+        """Leaf i's final gradient from the last split's ``g``."""
+        if gsum is None:
+            final[i] = g
+        else:
+            final[i] = gsum[i].add_(g).div_(d)
+        return final[i]
+
+    def hook(i):
+        def h(g):
+            on_grad(i, form(i, g))
+        return h
+
     for j in range(mb):
-        loss, _ = loss_fn(tree, {k: v[j * per:(j + 1) * per]
-                                 for k, v in batch.items()})
-        gs = torch.autograd.grad(loss, leaves, materialize_grads=True)
-        for acc, g in zip(gsum, gs):
-            acc.add_(g)
-        lsum = lsum + loss.detach()
-    # a device tensor: CUDA turns a divide by a host scalar into a
-    # multiply by its reciprocal, which is not the reference's divide
-    d = torch.tensor(float(mb), dtype=torch.float32, device=dev)
-    return lsum / d, unflatten_tree(paths, [acc.div_(d) for acc in gsum])
+        b = batch if mb == 1 else {k: v[j * per:(j + 1) * per]
+                                   for k, v in batch.items()}
+        loss, _ = loss_fn(tree, b)
+        handles = ([x.register_hook(hook(i)) for i, x in enumerate(leaves)]
+                   if on_grad is not None and j == mb - 1 else [])
+        try:
+            gs = torch.autograd.grad(loss, leaves, materialize_grads=True)
+        finally:
+            for h in handles:
+                h.remove()
+        if j < mb - 1:
+            for acc, g in zip(gsum, gs):
+                acc.add_(g)
+        if gsum is not None:
+            lsum = lsum + loss.detach()
+    gs = [final[i] if final[i] is not None else form(i, g)
+          for i, g in enumerate(gs)]
+    if gsum is None:
+        return loss.detach(), unflatten_tree(paths, gs)
+    return lsum / d, unflatten_tree(paths, gs)
 
 
 def step_record(step: int, met) -> Dict:
@@ -264,13 +309,21 @@ class Trainer:
         params = unflatten_tree(paths, leaves)
         return params, self.opt.init(params)
 
-    def grads(self, params, batch) -> Tuple[torch.Tensor, Dict]:
+    def grads(self, params, batch, on_grad=None) -> Tuple[torch.Tensor, Dict]:
         """Per-worker loss and gradients of the stacked workers: worker i
         takes rows [i*B/n, (i+1)*B/n) of the global batch. Returns
         (losses (stack,), stacked grads tree): each leaf in the dtype
         :func:`accumulate_grads` gives it (expert leaves f32, for their
         sums over the workers). The MoE layers' mean aux loss and dropped
-        fraction are kept in ``self.moe_metrics``."""
+        fraction are kept in ``self.moe_metrics``. ``on_grad(i, g)``
+        (a stack of one): called from the last micro-batch's backward
+        with each DP leaf's final stacked gradient as it is formed (see
+        :func:`accumulate_grads`)."""
+        dp = self.opt.dp
+
+        def on_dp_grad(i, g):
+            if dp[i]:
+                on_grad(i, g[None])
         n = self.n_workers
         paths, xs = flatten_tree(params)
         B = batch["tokens"].shape[0]
@@ -297,7 +350,8 @@ class Trainer:
                 lambda p, b_: T.lm_loss(p, self.model_cfg, b_, comm=ep_comm,
                                         moe_stats=stats),
                 unflatten_tree(paths, mine), b,
-                self.trainer_cfg.micro_batches)
+                self.trainer_cfg.micro_batches,
+                None if on_grad is None else on_dp_grad)
             del mine
             gs = flatten_tree(gs)[1]
             for j in self.ep_leaf_axes:
@@ -357,22 +411,38 @@ class Trainer:
         mode; see :meth:`mean_loss` for a process of a larger fleet).
         The device is synchronized before the step and after each of its
         parts, whose times the metrics give in ms: ``fwd_bwd_ms``,
-        ``optimizer_ms`` and ``exchange_ms`` (the part of the optimizer
-        spent in the comm's collectives, None in process); with pods of
-        more than one worker also ``exchange_ms_intra`` and
-        ``exchange_ms_inter``, its intra-pod and inter-pod parts. A MoE
-        model adds ``aux`` (the workers' mean aux loss, summed over the
-        layers), ``dropped_frac`` (the mean share of dropped token
-        assignments) and, in processes, ``ep_a2a_ms`` (the time of the
-        expert-parallel exchanges, within ``fwd_bwd_ms``)."""
+        ``optimizer_ms`` and ``exchange_ms`` (the summed time of the
+        comm's exchange collectives themselves, not of the waits for
+        them, None in process); with pods of more than one worker also
+        ``exchange_ms_intra`` and ``exchange_ms_inter``, its intra-pod and
+        inter-pod parts. Under early issue (:meth:`early_issue`) the
+        units' work overlaps the backward and each other: the work done
+        before the backward ended falls in ``fwd_bwd_ms``, the rest in
+        ``optimizer_ms``, and ``exchange_ms`` may exceed what the step
+        lost to it. A MoE model adds ``aux`` (the workers' mean aux loss,
+        summed over the layers), ``dropped_frac`` (the mean share of
+        dropped token assignments) and, in processes, ``ep_a2a_ms`` (the
+        time of the expert-parallel exchanges, within ``fwd_bwd_ms``)."""
         self._sync()
         t0 = time.perf_counter()
-        losses, grads = self.grads(params, batch)
-        self._sync()
-        t1 = time.perf_counter()
-        params, state, met = self.opt.step(self.comm, params, grads, state,
-                                           donate_grads=True)
-        del grads
+        early = self.early_issue()
+        sched = self.opt.begin_step(self.comm, params, state,
+                                    donate_grads=True, early=early)
+        try:
+            # with experts split over the processes, the backward's token
+            # exchanges share the group with the units': the units then
+            # start only once the backward is over, so that every rank
+            # issues them all in one order
+            losses, grads = self.grads(
+                params, batch,
+                sched.grad_ready if early and self.ep_degree == 1 else None)
+            self._sync()
+            t1 = time.perf_counter()
+            params, state, met = sched.finish(grads)
+        except BaseException:
+            sched.abort()
+            raise
+        del grads, sched
         self._sync()
         t2 = time.perf_counter()
         met["losses"] = losses
@@ -389,6 +459,14 @@ class Trainer:
             met["exchange_ms_intra"] = inner.exchange_ms()
             met["exchange_ms_inter"] = outer.exchange_ms()
         return params, state, met
+
+    def early_issue(self) -> bool:
+        """Whether a step issues each unit's exchange from the backward:
+        ``peel_last_microbatch`` with a worker per process (``--mode
+        dist``, a world of one included); the sequential step
+        otherwise."""
+        return (self.trainer_cfg.peel_last_microbatch
+                and self.comm.spans_processes())
 
     # ------------------------------------------------------------------ #
     # checkpoints

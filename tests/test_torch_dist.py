@@ -45,6 +45,7 @@ Tolerances, with their reasons:
   bit for bit its simulated worker, as gpt2's.
 """
 import ast
+import functools
 import pathlib
 
 import jax
@@ -278,18 +279,41 @@ def test_refused_dtype_raises_naming_it(tmp_path, monkeypatch):
 MOE_ARCHS = ["llama4-scout-17b-a16e", "deepseek-v2-236b"]
 MOE_ARGV = ARGV[2:]      # ARGV without its arch
 AUDITED = ["--mode", "dist", "--workers", str(N)]
-# name -> (argv of the dist run, audited): the gpt2-smoke cases and
-# micro-batches as _spawn_ranks runs them; the MoE, SSM and
-# encoder-decoder runs recording and auditing their collectives
-JOBS = {**{case: (ARGV + extra + ["--mode", "dist"], False)
-           for case, extra in CASES.items()},
-        "micro_batches": (ARGV + ["--micro-batches", "2", "--mode", "dist"],
-                          False),
-        **{f"moe_{arch}": (["--arch", arch] + MOE_ARGV + AUDITED, True)
-           for arch in MOE_ARCHS},
-        "ssm": (["--arch", "mamba2-2.7b"] + MOE_ARGV + AUDITED, True),
-        "encdec": (["--arch", "whisper-large-v3"] + MOE_ARGV + AUDITED,
-                   True)}
+# the units packed and issued in reverse flat order (no CLI flag, as in
+# the reference), the order the backward makes the gradients final in
+REVERSE = functools.partial(TLAUNCH.optimizer_fields,
+                            pack_order="reverse_backward")
+# the runs held to their sequential twin (peel_last_microbatch=False):
+# name -> (argv of the dist run, configure)
+TWINS = {"tensor": (ARGV + ["--mode", "dist"], None),
+         "micro_batches": (ARGV + ["--micro-batches", "2", "--mode",
+                                   "dist"], None),
+         "hier": (ARGV + CASES["hier"] + ["--mode", "dist"], None),
+         "bucketed_reverse": (ARGV + CASES["bucketed"] + ["--mode", "dist"],
+                              REVERSE),
+         "one_bit": (ARGV + CASES["one_bit"] + ["--mode", "dist"], None),
+         "adam": (ARGV + CASES["adam"] + ["--mode", "dist"], None),
+         "lamb": (ARGV + CASES["lamb"] + ["--mode", "dist"], None),
+         "encdec": (["--arch", "whisper-large-v3"] + MOE_ARGV + AUDITED,
+                    None)}
+SEQUENTIAL = {"peel_last_microbatch": False}
+# name -> (argv of the dist run, audited, configure, trainer_cfg): the
+# gpt2-smoke cases and micro-batches as _spawn_ranks runs them (issuing
+# each unit early, the default); the MoE, SSM and encoder-decoder runs,
+# and every run with a twin, recording and auditing their collectives;
+# the sequential twins
+JOBS = {**{case: (ARGV + extra + ["--mode", "dist"], case in TWINS, None,
+                  None) for case, extra in CASES.items()},
+        "micro_batches": (TWINS["micro_batches"][0], True, None, None),
+        "bucketed_reverse": (TWINS["bucketed_reverse"][0], True, REVERSE,
+                             None),
+        **{f"moe_{arch}": (["--arch", arch] + MOE_ARGV + AUDITED, True,
+                           None, None) for arch in MOE_ARCHS},
+        "ssm": (["--arch", "mamba2-2.7b"] + MOE_ARGV + AUDITED, True, None,
+                None),
+        "encdec": (TWINS["encdec"][0], True, None, None),
+        **{f"{name}_sequential": (argv, True, configure, SEQUENTIAL)
+           for name, (argv, configure) in TWINS.items()}}
 
 
 @pytest.fixture(scope="module")
@@ -297,8 +321,9 @@ def shared_ranks(tmp_path_factory):
     """Every job of JOBS in one spawn of N gloo ranks (each job its own
     process group and rendezvous): name -> each rank's saved results."""
     dirs = {name: tmp_path_factory.mktemp(name) for name in JOBS}
-    jobs = [(argv, str(dirs[name]), True, "lm", audit, None)
-            for name, (argv, audit) in JOBS.items()]
+    jobs = [(argv, str(dirs[name]), True, "lm", audit, configure,
+             trainer_cfg)
+            for name, (argv, audit, configure, trainer_cfg) in JOBS.items()]
     mesh.spawn(TLAUNCH.rank_jobs, N, (jobs, N),
                timeout_s=SPAWN_TIMEOUT_S * len(jobs) / 4)
     return {name: [torch.load(d / f"rank{r}.pt") for r in range(N)]
@@ -338,6 +363,38 @@ def test_dist_matches_reference(case_runs):
         argv + ["--mode", "sim"]))
     _assert_near_reference(ranks, ref_losses, ref_params, **bars)
     assert [rec["sync"] for rec in ranks[0]["records"]] == syncs
+
+
+# --- early issue against the sequential step ----------------------------
+
+def _state_tensors(state):
+    """Every tensor (or None) of a rank's saved optimizer state: the
+    slots, u, both EF errors and the anchors."""
+    out = [x for v in state["slots"].values() for x in v]
+    for k in ("u", "err_w", "err_s", "anchor"):
+        out += state[k]
+    return out
+
+
+@pytest.mark.parametrize("name", list(TWINS))
+def test_early_issue_is_bitwise_its_sequential_twin(name, shared_ranks):
+    """Every rank issuing each unit's exchange from the backward (the
+    default) against the same run with ``peel_last_microbatch=False``:
+    losses, params and the whole optimizer state bit for bit, the same
+    collectives recorded in the same order (op, level, dtype, shape,
+    bytes, position, step), both audits clean."""
+    early, seq = shared_ranks[name], shared_ranks[f"{name}_sequential"]
+    for r, (a, b) in enumerate(zip(early, seq)):
+        assert [(x["losses"], x["sync"], x["var"]) for x in a["records"]] == [
+            (x["losses"], x["sync"], x["var"]) for x in b["records"]], r
+        for x, y in zip(flatten_tree(a["params"])[1],
+                        flatten_tree(b["params"])[1], strict=True):
+            assert torch.equal(x, y), r
+        for x, y in zip(_state_tensors(a["state"]),
+                        _state_tensors(b["state"]), strict=True):
+            assert (x is None and y is None) or torch.equal(x, y), r
+        assert a["recorded"] == b["recorded"], r
+        assert a["audit"]["ok"] and b["audit"]["ok"], r
 
 
 # --- (d) micro-batches, (e) single mode ----------------------------------

@@ -64,6 +64,13 @@ gradient): m' and u' bit for bit the plain version's, the delta to 2 ulp.
 Mixture of experts: llama4-smoke in 4 gloo ranks on one card with the
 real expert exchange against 4 simulated workers run against the merged
 experts, within 1e-5 (losses) and 1e-4 (params).
+
+Early issue (``TrainerConfig.peel_last_microbatch``): gpt2-smoke in a
+world of one over NCCL, each unit's exchange issued from the backward
+with asynchronous collectives on the side stream, bit for bit the
+sequential step (losses, params, state, the recorded collectives), at
+micro-batches 1 and 2; a unit's asynchronous collective that raises
+fails the step.
 """
 import numpy as np
 import pytest
@@ -264,6 +271,84 @@ def test_nccl_world_of_one_matches_null_comm(tmp_path):
         assert comm.exchange_ms() > 0 and comm.exchange_ms() == 0
     finally:
         torch.distributed.destroy_process_group()
+
+
+def _nccl_world_of_one_run(tmp_path, peel, extra=()):
+    """gpt2-smoke for 8 steps of the audit's schedule in a world of one
+    over NCCL, its comm recording: the step records, final params, state
+    and recorded collectives, with ``peel_last_microbatch=peel``."""
+    from repro_torch.analysis import RecordingComm
+    from repro_torch.launch import audit as LA
+    from repro_torch.launch import train as TLAUNCH
+
+    tmp_path.mkdir(exist_ok=True)
+    dev = mesh.init_workers("nccl", "cuda", rank=0, world_size=1,
+                            local_rank=0, local_world=1,
+                            init_method=mesh.file_rendezvous(tmp_path))
+    try:
+        args = TLAUNCH.parse_args(
+            ["--arch", "gpt2", "--smoke", "--mode", "dist", "--steps", "8",
+             "--batch", "8", "--seq", "32", "--log-every", "8",
+             "--device", "cuda", *LA.SCHEDULE, *extra])
+        tr = TLAUNCH.make_trainer(
+            args, device=dev, comm=RecordingComm(DistComm()),
+            trainer_cfg={"peel_last_microbatch": peel})
+        assert tr.early_issue() == peel
+        res = TLAUNCH.train(args, tr)
+        return res, list(tr.comm.log)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("micro_batches", [1, 2])
+def test_nccl_early_issue_is_the_sequential_step(tmp_path, micro_batches):
+    """A world of one over NCCL, each unit issued from the backward on
+    the side stream with asynchronous collectives, against
+    ``peel_last_microbatch=False``: losses, params and the optimizer
+    state bit for bit, the same collectives in the same order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: NCCL runs only there")
+    extra = ["--micro-batches", str(micro_batches)]
+    early, log_e = _nccl_world_of_one_run(tmp_path / "early", True, extra)
+    seq, log_s = _nccl_world_of_one_run(tmp_path / "seq", False, extra)
+    assert [r["losses"] for r in early["records"]] == [
+        r["losses"] for r in seq["records"]]
+    assert all(r["exchange_ms"] > 0 for r in early["records"] if r["sync"])
+    for x, y in zip(flatten_tree(early["params"])[1],
+                    flatten_tree(seq["params"])[1], strict=True):
+        assert torch.equal(x, y)
+    a, b = early["state"], seq["state"]
+    for k in ("u", "err_w", "err_s", "anchor"):
+        for x, y in zip(getattr(a, k), getattr(b, k), strict=True):
+            assert (x is None and y is None) or torch.equal(x, y), k
+    for k in a.slots:
+        for x, y in zip(a.slots[k], b.slots[k], strict=True):
+            assert torch.equal(x, y), k
+    assert log_e == log_s
+
+
+@pytest.mark.gpu
+def test_nccl_failing_async_collective_fails_the_step(tmp_path,
+                                                      monkeypatch):
+    """A unit's asynchronous all_to_all that raises on the unit thread
+    fails the step with that error; nothing runs the sequential step in
+    its place."""
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: NCCL runs only there")
+    real = dist.all_to_all_single
+
+    def failing(*a, **k):
+        if k.get("async_op"):
+            raise RuntimeError("the collective failed")
+        return real(*a, **k)
+
+    failing.__name__ = "all_to_all_single"
+    monkeypatch.setattr(dist, "all_to_all_single", failing)
+    with pytest.raises(RuntimeError, match="the collective failed"):
+        _nccl_world_of_one_run(tmp_path, True)
 
 
 # (shape, spec, n, n_inner): the last of 4 slices all pad; a folded
